@@ -1,0 +1,42 @@
+"""sdf3d_tpu_torch: the PyTorch and CUDA port of sdf3d_tpu.
+
+The forward render of analytic SDF scenes (sphere, plane, union) with soft
+shadows and Blinn-Phong shading: a plain PyTorch reference path
+(``render``), and a CUDA kernel written for the H100
+(``ops.render_kernel_forward``, ``render_batch(engine="kernel")``), built per
+scene structure at first use.  The package imports torch and numpy, never
+JAX and never ``sdf3d_tpu``; ``convert.from_jax`` and ``sdf.load_setup``
+carry scenes and settings over from the JAX package.
+"""
+
+from sdf3d_tpu_torch import sdf
+from sdf3d_tpu_torch.camera import Camera, camera_rays, focal_z, generate_rays, pixel_grid
+from sdf3d_tpu_torch.config import (
+    REFERENCE_CONFIG,
+    AOConfig,
+    MarchConfig,
+    RenderConfig,
+    ShadowConfig,
+    fast_config,
+)
+from sdf3d_tpu_torch.lighting import (
+    Material,
+    PointLight,
+    material,
+    point_light,
+    reference_light,
+    reference_material,
+)
+from sdf3d_tpu_torch.march import (
+    ambient_occlusion,
+    estimate_normals,
+    hit_mask,
+    normal_central,
+    normal_tetrahedron,
+    soft_shadow,
+    sphere_trace,
+)
+from sdf3d_tpu_torch.render import render, render_batch, render_rays, shade_pixels
+from sdf3d_tpu_torch.scenes import reference_scene, sphere_scene
+
+__version__ = "0.1.0"

@@ -1,0 +1,211 @@
+// Per-pixel body of the fused forward render: ray generation -> primary
+// march -> normals -> soft shadow -> AO -> Blinn-Phong/Lambert shading.
+//
+// It computes what sdf3d_tpu/ops/render_kernel.py::_render_tile_kernel
+// computes, one pixel per call, with real per-ray loops and breaks in place
+// of that kernel's f32 lane masks and whole-tile exits.  The scene and the
+// static settings come from the generated header (struct Scene, struct Cfg;
+// ops/scene_program.py::cuda_scene_source).
+//
+// The code is __host__ __device__: nvcc builds it into the kernel of
+// render_kernel.cu, and a C++ compiler builds the same text for the CPU
+// (with __CUDACC__ undefined the qualifiers below expand to nothing), which
+// lets the generated source be checked without a card.
+//
+// Parity notes: 1/sqrtf is used where the JAX kernel calls lax.rsqrt (no
+// approximate rsqrtf), powf for jnp.power, and no fast-math intrinsics.
+// The compiler may contract a*b+c into an FMA, so bits differ from the
+// plain PyTorch version by rounding; tests compare with pixel budgets.
+#pragma once
+
+#include <math.h>
+
+#ifndef __CUDACC__
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
+
+#define SDF3D_HD __host__ __device__ __forceinline__
+
+namespace sdf3d {
+
+// Uniform vector layout (ops/render_kernel.py, same slots as the JAX kernel).
+constexpr int U_CAM = 0;       // camera position (3)
+constexpr int U_C2W = 3;       // camera-to-world rotation, row-major (9)
+constexpr int U_FZ = 12;       // focal z (1)
+constexpr int U_LIGHT = 13;    // light position (3)
+constexpr int U_AMB = 16;      // light ambient intensity (1)
+constexpr int U_MAT_AMB = 17;  // material ambient rgb (3)
+constexpr int U_MAT_DIF = 20;  // material diffuse rgb (3)
+constexpr int U_MAT_REF = 23;  // material specular rgb (3)
+constexpr int U_SHN = 26;      // shininess (1)
+constexpr int U_K = 27;        // shadow sharpness k (1)
+constexpr int U_ROW0 = 28;     // absolute row of output row 0 (1)
+constexpr int N_UNIFORMS = 30;  // slot 29 (row stride) is unused: rows are contiguous
+
+struct Pixel {
+  float r, g, b, t, shadow, ao;
+};
+
+SDF3D_HD float rsqrt_exact(float x) { return 1.0f / sqrtf(x); }
+
+// Point-form evaluator along a ray, for ray_sdf == false.
+template <class Scene>
+struct PointRay {
+  float ox, oy, oz, dx, dy, dz;
+  const float* p;
+  SDF3D_HD void setup(float ox_, float oy_, float oz_, float dx_, float dy_, float dz_, const float* p_) {
+    ox = ox_; oy = oy_; oz = oz_; dx = dx_; dy = dy_; dz = dz_; p = p_;
+  }
+  SDF3D_HD float eval(float t) const {
+    return Scene::sdf((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz)), p);
+  }
+};
+
+// Primary sphere trace: add the step, then test (the returned t overshoots
+// by the last step; a ray that never stops ends after march_steps steps).
+template <class Cfg, class Ev>
+SDF3D_HD float march_primary(const Ev& ev) {
+  float t = 0.0f;
+  for (int i = 0; i < Cfg::march_steps; ++i) {
+    const float s = ev.eval(t);
+    t = t + s;
+    if (t > Cfg::max_distance || s < Cfg::epsilon) break;
+  }
+  return t;
+}
+
+// Soft shadow in the squared domain: sh2 = min(sh2, k²·d²/denom²), one sqrt
+// at the end.  prev starts at +inf, so the first intersection term is 0.
+template <class Cfg, class Ev>
+SDF3D_HD float march_shadow(const Ev& ev, float k) {
+  const float k2 = k * k;
+  float dist = 0.0f, prev = INFINITY, sh2 = 1.0f;
+  for (int i = 0; i < Cfg::shadow_steps; ++i) {
+    const float s = ev.eval(dist);
+    const float s2 = s * s;
+    const float inter = s2 / (2.0f * (prev == 0.0f ? 1e-30f : prev));
+    const float d2 = s2 - (inter * inter);
+    const float denom = dist - inter;
+    const bool valid = (denom > 0.0f) && (d2 >= 0.0f);
+    const float att2 = valid ? ((k2 * fmaxf(d2, 0.0f)) / (denom * denom)) : 1e30f;
+    sh2 = fminf(sh2, att2);
+    dist = dist + s;
+    prev = s;
+    if (dist > Cfg::max_distance || sh2 < Cfg::epsilon2) break;
+  }
+  return sqrtf(fminf(fmaxf(sh2, 0.0f), 1.0f));
+}
+
+template <class Cfg, class Scene>
+SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, int H, int W) {
+  // ---- ray generation (NDC over the logical extent) ----
+  const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
+  const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
+  const float rows = u[U_ROW0] + static_cast<float>(row);
+  const float cols = static_cast<float>(col);
+  const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
+  const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
+  const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));
+
+  float vx = qx * ar, vy = qy, vz = u[U_FZ];
+  const float inv = rsqrt_exact(((vx * vx) + (vy * vy)) + (vz * vz));
+  vx = vx * inv; vy = vy * inv; vz = vz * inv;
+  const float* m = u + U_C2W;
+  float dx = ((m[0] * vx) + (m[1] * vy)) + (m[2] * vz);
+  float dy = ((m[3] * vx) + (m[4] * vy)) + (m[5] * vz);
+  float dz = ((m[6] * vx) + (m[7] * vy)) + (m[8] * vz);
+  const float inv2 = rsqrt_exact(((dx * dx) + (dy * dy)) + (dz * dz));
+  dx = dx * inv2; dy = dy * inv2; dz = dz * inv2;
+  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
+
+  // ---- primary march ----
+  float t;
+  if constexpr (Cfg::ray_sdf) {
+    typename Scene::Ray ray;
+    ray.setup(ox, oy, oz, dx, dy, dz, p);
+    t = march_primary<Cfg>(ray);
+  } else {
+    PointRay<Scene> ray;
+    ray.setup(ox, oy, oz, dx, dy, dz, p);
+    t = march_primary<Cfg>(ray);
+  }
+  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
+
+  // ---- normals (always the point form) ----
+  const float e = Cfg::epsilon;
+  float nx, ny, nz;
+  if constexpr (Cfg::normals == 0) {
+    nx = Scene::sdf(hx + e, hy, hz, p) - Scene::sdf(hx - e, hy, hz, p);
+    ny = Scene::sdf(hx, hy + e, hz, p) - Scene::sdf(hx, hy - e, hz, p);
+    nz = Scene::sdf(hx, hy, hz + e, p) - Scene::sdf(hx, hy, hz - e, p);
+  } else {
+    const float s0 = Scene::sdf(hx + e, hy - e, hz - e, p);
+    const float s1 = Scene::sdf(hx - e, hy - e, hz + e, p);
+    const float s2 = Scene::sdf(hx - e, hy + e, hz - e, p);
+    const float s3 = Scene::sdf(hx + e, hy + e, hz + e, p);
+    nx = ((s0 - s1) - s2) + s3;
+    ny = (((-s0) - s1) + s2) + s3;
+    nz = (((-s0) + s1) - s2) + s3;
+  }
+  const float ninv = rsqrt_exact(fmaxf(((nx * nx) + (ny * ny)) + (nz * nz), 1e-24f));
+  nx = nx * ninv; ny = ny * ninv; nz = nz * ninv;
+
+  // ---- incident light direction ----
+  float ix = u[U_LIGHT] - hx, iy = u[U_LIGHT + 1] - hy, iz = u[U_LIGHT + 2] - hz;
+  const float iinv = rsqrt_exact(fmaxf(((ix * ix) + (iy * iy)) + (iz * iz), 1e-24f));
+  ix = ix * iinv; iy = iy * iinv; iz = iz * iinv;
+  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
+
+  // ---- soft shadow, marched only where N.I > 0 (elsewhere it reads 1) ----
+  float shadow = 1.0f;
+  if constexpr (Cfg::shadow_enabled) {
+    if (ndoti > 0.0f) {
+      const float off = 2.0f * e;
+      const float sox = hx + (off * nx), soy = hy + (off * ny), soz = hz + (off * nz);
+      if constexpr (Cfg::ray_sdf) {
+        typename Scene::Ray ray;
+        ray.setup(sox, soy, soz, ix, iy, iz, p);
+        shadow = march_shadow<Cfg>(ray, u[U_K]);
+      } else {
+        PointRay<Scene> ray;
+        ray.setup(sox, soy, soz, ix, iy, iz, p);
+        shadow = march_shadow<Cfg>(ray, u[U_K]);
+      }
+    }
+  }
+
+  // ---- ambient occlusion ----
+  float ao = 1.0f;
+  if constexpr (Cfg::ao_enabled) ao = Scene::ao(hx, hy, hz, nx, ny, nz, p);
+
+  // ---- shading ----
+  float wx = ox - hx, wy = oy - hy, wz = oz - hz;
+  const float winv = rsqrt_exact(fmaxf(((wx * wx) + (wy * wy)) + (wz * wz), 1e-24f));
+  wx = wx * winv; wy = wy * winv; wz = wz * winv;
+  float hwx = ix + wx, hwy = iy + wy, hwz = iz + wz;
+  const float hwinv = rsqrt_exact(fmaxf(((hwx * hwx) + (hwy * hwy)) + (hwz * hwz), 1e-24f));
+  hwx = hwx * hwinv; hwy = hwy * hwinv; hwz = hwz * hwinv;
+
+  const float ndoth = fmaxf(((nx * hwx) + (ny * hwy)) + (nz * hwz), 0.0f);
+  const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
+  const float amb = Cfg::ao_enabled ? u[U_AMB] * ao : u[U_AMB];
+  float r = (amb * u[U_MAT_AMB]) + (dif * u[U_MAT_DIF]);
+  float g = (amb * u[U_MAT_AMB + 1]) + (dif * u[U_MAT_DIF + 1]);
+  float b = (amb * u[U_MAT_AMB + 2]) + (dif * u[U_MAT_DIF + 2]);
+  if constexpr (Cfg::blinn_phong) {
+    const float spec = powf(ndoth, u[U_SHN]);
+    r = r + (spec * u[U_MAT_REF]);
+    g = g + (spec * u[U_MAT_REF + 1]);
+    b = b + (spec * u[U_MAT_REF + 2]);
+  }
+  if constexpr (Cfg::background) {
+    if (t > Cfg::max_distance) {
+      r = Cfg::bg_r; g = Cfg::bg_g; b = Cfg::bg_b;
+    }
+  }
+  return Pixel{r, g, b, t, shadow, ao};
+}
+
+}  // namespace sdf3d

@@ -1,0 +1,413 @@
+"""Scene compiler (the port of ``sdf3d_tpu/ops/scene_program.py``).
+
+One tree walk over the scene emits its distance function in two backends
+from the same emitter code, so parameter offsets cannot drift between them:
+
+- **torch**: :func:`compile_scene` returns ``soa(px, py, pz, getp)`` over
+  component planes, and :func:`compile_scene_ray` returns
+  ``setup(o, d, getp) -> eval(t)`` — the evaluators of the plain PyTorch
+  version of the render kernel and of the CPU tests;
+- **CUDA**: :func:`cuda_scene_source` runs the same emitters on symbolic C
+  expressions and writes the header that the render kernel
+  (``csrc/render_kernel.cu``) is compiled with: a point-form
+  ``Scene::sdf(px, py, pz, p)``, a ray form ``Scene::Ray`` whose ``setup``
+  hoists the per-ray constants out of the march loop and whose ``eval(t)``
+  is the per-step work, the AO taps, and the static settings as
+  ``constexpr`` (``struct Cfg``).
+
+Parameters are read through ``getp(i)``: an element of the flat parameter
+vector in torch, ``p[i]`` (a register copy of a run-time device array) in
+CUDA, so a parameter change never rebuilds the kernel.  Offsets follow the
+JAX ``tree_flatten`` order: ``Union(a, b)`` consumes ``a``'s parameters,
+then ``b``'s.
+
+Emitters keep the JAX emitters' algebra and operation order: plane
+``a·t + b``; sphere in completed-square form ``A·sqrt((t+B)² + C) − r`` with
+``C`` clamped ≥ 0 at setup.  Every binary operation is parenthesised in the
+C text, so the compiler keeps the same association (it may still contract
+``a*b + c`` into one FMA).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Callable
+
+import numpy as np
+import torch
+
+from sdf3d_tpu_torch.sdf import csg, primitives
+from sdf3d_tpu_torch.sdf.node import SDFNode
+
+GetP = Callable[[int], object]
+
+
+def leaves(node: SDFNode):
+    """Every numeric leaf of the scene, in ``tree_flatten`` order (fields in
+    declaration order, depth first)."""
+    for name in node.fields:
+        v = getattr(node, name)
+        if isinstance(v, SDFNode):
+            yield from leaves(v)
+        else:
+            yield v
+
+
+def scene_param_vector(scene: SDFNode, device=None) -> torch.Tensor:
+    """All leaves flattened into one (P,) float32 vector (detached), in the
+    order the emitters consume them."""
+    parts = [l.detach().reshape(-1).to(torch.float32) for l in leaves(scene)]
+    if not parts:
+        return torch.zeros(0, dtype=torch.float32, device=device)
+    vec = torch.cat(parts)
+    return vec.to(device) if device is not None else vec
+
+
+def count_params(node: SDFNode) -> int:
+    """Number of scalar parameters in a subtree."""
+    return sum(int(l.numel()) for l in leaves(node))
+
+
+def walk_nodes(node: SDFNode):
+    yield node
+    for name in node.fields:
+        v = getattr(node, name)
+        if isinstance(v, SDFNode):
+            yield from walk_nodes(v)
+
+
+# ---------------------------------------------------------------------------
+# Backends: the math the emitters call besides + - * /.
+# ---------------------------------------------------------------------------
+
+
+class _TorchOps:
+    """Numeric backend: tensors (planes or 0-d parameters)."""
+
+    @staticmethod
+    def sqrt(x):
+        return torch.sqrt(x)
+
+    @staticmethod
+    def maximum(a, b):
+        if not isinstance(b, torch.Tensor):
+            return torch.clamp(a, min=b)
+        return torch.maximum(a, b)
+
+    minimum = staticmethod(torch.minimum)
+
+    @staticmethod
+    def hoist(x):
+        return x
+
+
+def c_float(x) -> str:
+    """A float32 C literal for ``x`` (its float32 rounding, exactly)."""
+    v = float(np.float32(x))
+    if math.isinf(v):
+        return "INFINITY" if v > 0 else "(-INFINITY)"
+    return repr(v) + "f"
+
+
+class CExpr:
+    """A float expression in C, built by Python arithmetic; every binary
+    operation is parenthesised so the association is the Python one."""
+
+    __slots__ = ("s",)
+
+    def __init__(self, s: str):
+        self.s = s
+
+    def _bin(self, op, other, reflected=False):
+        a, b = (_c(other), self.s) if reflected else (self.s, _c(other))
+        return CExpr(f"({a} {op} {b})")
+
+    def __add__(self, o):
+        return self._bin("+", o)
+
+    def __radd__(self, o):
+        return self._bin("+", o, True)
+
+    def __sub__(self, o):
+        return self._bin("-", o)
+
+    def __rsub__(self, o):
+        return self._bin("-", o, True)
+
+    def __mul__(self, o):
+        return self._bin("*", o)
+
+    def __rmul__(self, o):
+        return self._bin("*", o, True)
+
+    def __truediv__(self, o):
+        return self._bin("/", o)
+
+    def __rtruediv__(self, o):
+        return self._bin("/", o, True)
+
+
+def _c(x) -> str:
+    return x.s if isinstance(x, CExpr) else c_float(x)
+
+
+class _COps:
+    """Symbolic backend: C expressions; ``hoist`` turns a per-ray setup
+    value into a field of ``Scene::Ray`` assigned in ``setup``."""
+
+    def __init__(self):
+        self.fields: list[str] = []
+        self.setup: list[str] = []
+
+    @staticmethod
+    def sqrt(x):
+        return CExpr(f"sqrtf({_c(x)})")
+
+    @staticmethod
+    def maximum(a, b):
+        return CExpr(f"fmaxf({_c(a)}, {_c(b)})")
+
+    @staticmethod
+    def minimum(a, b):
+        return CExpr(f"fminf({_c(a)}, {_c(b)})")
+
+    def hoist(self, x):
+        name = f"h{len(self.fields)}"
+        self.fields.append(name)
+        self.setup.append(f"{name} = {_c(x)};")
+        return CExpr(name)
+
+
+# ---------------------------------------------------------------------------
+# Point-form emitters: (node, px, py, pz, getp, off, m) -> distance.
+# ---------------------------------------------------------------------------
+
+
+def _len3(x, y, z, m):
+    return m.sqrt(x * x + y * y + z * z)
+
+
+def _sphere(n, px, py, pz, getp, off, m):
+    cx, cy, cz, r = (getp(off + i) for i in range(4))
+    return _len3(px - cx, py - cy, pz - cz, m) - r
+
+
+def _plane(n, px, py, pz, getp, off, m):
+    nx, ny, nz, d = (getp(off + i) for i in range(4))
+    return px * nx + py * ny + pz * nz - d
+
+
+def _union(n, px, py, pz, getp, off, m):
+    da = _emit(n.a, px, py, pz, getp, off, m)
+    db = _emit(n.b, px, py, pz, getp, off + count_params(n.a), m)
+    return m.minimum(da, db)
+
+
+_HANDLERS = {
+    primitives.Sphere: _sphere,
+    primitives.Plane: _plane,
+    csg.Union: _union,
+}
+
+
+def _no_emitter(node):
+    return NotImplementedError(
+        f"no render-kernel emitter for scene node {type(node).__name__}; the port "
+        "supports Sphere, Plane and Union so far (sdf3d_tpu_torch/ops/scene_program.py)"
+    )
+
+
+def _emit(node, px, py, pz, getp: GetP, off: int, m):
+    h = _HANDLERS.get(type(node))
+    if h is None:
+        raise _no_emitter(node)
+    return h(node, px, py, pz, getp, off, m)
+
+
+def check_scene(scene: SDFNode) -> None:
+    """Raise ``NotImplementedError`` naming the first node without an
+    emitter (before anything is built or launched)."""
+    for node in walk_nodes(scene):
+        if type(node) not in _HANDLERS:
+            raise _no_emitter(node)
+
+
+def compile_scene(scene: SDFNode):
+    """``soa(px, py, pz, getp) -> distance`` over tensors (point form)."""
+    check_scene(scene)
+
+    def soa(px, py, pz, getp: GetP):
+        return _emit(scene, px, py, pz, getp, 0, _TorchOps)
+
+    return soa
+
+
+# ---------------------------------------------------------------------------
+# Ray-form emitters: (node, o, d, getp, off, m) -> eval(t), per-ray
+# constants hoisted out of the march loop.
+# ---------------------------------------------------------------------------
+
+
+def _quad_coeffs(ax, ay, az, bx, by, bz):
+    """Coefficients of |a + t·b|² = qa·t² + 2·qb·t + qc."""
+    qa = bx * bx + by * by + bz * bz
+    qb = ax * bx + ay * by + az * bz
+    qc = ax * ax + ay * ay + az * az
+    return qa, qb, qc
+
+
+def _ray_sphere(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    cx, cy, cz, r = (getp(off + i) for i in range(4))
+    qa, qb, qc = _quad_coeffs(ox - cx, oy - cy, oz - cz, dx, dy, dz)
+    inv_qa = m.hoist(1.0 / m.maximum(qa, 1e-24))
+    A = m.hoist(m.sqrt(qa))
+    B = m.hoist(qb * inv_qa)
+    C = m.hoist(m.maximum(qc * inv_qa - B * B, 0.0))
+    r = m.hoist(r)
+
+    def ev(t):
+        u = t + B
+        return A * m.sqrt(u * u + C) - r
+
+    return ev
+
+
+def _ray_plane(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    nx, ny, nz, d = (getp(off + i) for i in range(4))
+    a = m.hoist(dx * nx + dy * ny + dz * nz)
+    b = m.hoist(ox * nx + oy * ny + oz * nz - d)
+    return lambda t: a * t + b
+
+
+def _ray_union(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+    eb = _ray_emit(n.b, ox, oy, oz, dx, dy, dz, getp, off + count_params(n.a), m)
+    return lambda t: m.minimum(ea(t), eb(t))
+
+
+_RAY_HANDLERS = {
+    primitives.Sphere: _ray_sphere,
+    primitives.Plane: _ray_plane,
+    csg.Union: _ray_union,
+}
+
+
+def _ray_emit(node, ox, oy, oz, dx, dy, dz, getp: GetP, off: int, m):
+    h = _RAY_HANDLERS.get(type(node))
+    if h is None:
+        raise _no_emitter(node)
+    return h(node, ox, oy, oz, dx, dy, dz, getp, off, m)
+
+
+def compile_scene_ray(scene: SDFNode):
+    """``setup(o, d, getp) -> eval(t)`` over tensors (ray form); ``o`` and
+    ``d`` are (x, y, z) tuples of planes or scalars."""
+    check_scene(scene)
+
+    def setup(o, d, getp: GetP):
+        return _ray_emit(scene, o[0], o[1], o[2], d[0], d[1], d[2], getp, 0, _TorchOps)
+
+    return setup
+
+
+# ---------------------------------------------------------------------------
+# CUDA source generation.
+# ---------------------------------------------------------------------------
+
+
+def describe(node: SDFNode) -> str:
+    """The scene's structure, e.g. ``Union(Plane, Sphere)``."""
+    kids = [describe(getattr(node, f)) for f in node.fields if isinstance(getattr(node, f), SDFNode)]
+    return f"{type(node).__name__}({', '.join(kids)})" if kids else type(node).__name__
+
+
+def _ao_source(cfg) -> str:
+    """Unrolled AO taps with the JAX package's constants: tap ``i`` samples
+    at ``h = step·i`` with weight ``falloff^(i-1)`` (both rounded to
+    float32, as JAX's weak-typed Python scalars are)."""
+    if not cfg.ao.enabled:
+        return "    return 1.0f;"
+    lines = ["    float occ = 0.0f;"]
+    weight = 1.0
+    for tap in range(1, cfg.ao.samples + 1):
+        h = c_float(cfg.ao.step * tap)
+        lines.append(
+            f"    occ = (occ + ({c_float(weight)} * ({h} - "
+            f"sdf((hx + ({h} * nx)), (hy + ({h} * ny)), (hz + ({h} * nz)), p))));"
+        )
+        weight *= cfg.ao.falloff
+    lines.append(f"    return fminf(fmaxf((1.0f - ({c_float(cfg.ao.strength)} * occ)), 0.0f), 1.0f);")
+    return "\n".join(lines)
+
+
+def cuda_scene_source(scene: SDFNode, cfg, kc) -> str:
+    """The generated header ``sdf3d_scene.cuh`` for ``scene`` under the
+    static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig)."""
+    check_scene(scene)
+    P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
+    point = _emit(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps)
+
+    ray = _COps()
+    ev = _ray_emit(scene, *(CExpr(v) for v in ("ox", "oy", "oz", "dx", "dy", "dz")), P, 0, ray)
+    body = _c(ev(CExpr("t")))
+    if re.search(r"p\[|\b[od][xyz]\b", body):
+        raise AssertionError(f"ray-form eval reads a setup value that was not hoisted: {body}")
+
+    mc = cfg.march
+    bg = cfg.background or (0.0, 0.0, 0.0)
+    normals = {"central": 0, "tetrahedron": 1}[cfg.normals]
+    b = lambda v: "true" if v else "false"  # noqa: E731
+    fields = "\n".join(f"    float {f};" for f in ray.fields)
+    setup = "\n".join(f"      {s}" for s in ray.setup)
+    return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
+// Scene: {describe(scene)}, {count_params(scene)} parameters.
+#pragma once
+
+struct Cfg {{
+  static constexpr int block_w = {int(kc.block_w)};
+  static constexpr int block_h = {int(kc.block_h)};
+  static constexpr bool ray_sdf = {b(kc.ray_sdf)};
+  static constexpr int ndc_h = {int(cfg.ndc_height or 0)};
+  static constexpr int ndc_w = {int(cfg.ndc_width or 0)};
+  static constexpr int march_steps = {int(mc.max_steps)};
+  static constexpr float max_distance = {c_float(mc.max_distance)};
+  static constexpr float epsilon = {c_float(mc.epsilon)};
+  static constexpr bool shadow_enabled = {b(cfg.shadow.enabled)};
+  static constexpr int shadow_steps = {int(cfg.shadow.max_steps)};
+  static constexpr float epsilon2 = {c_float(mc.epsilon * mc.epsilon)};
+  static constexpr bool ao_enabled = {b(cfg.ao.enabled)};
+  static constexpr int normals = {normals};  // 0 central, 1 tetrahedron
+  static constexpr bool blinn_phong = {b(cfg.shading == "blinn_phong")};
+  static constexpr bool background = {b(cfg.background is not None)};
+  static constexpr float bg_r = {c_float(bg[0])};
+  static constexpr float bg_g = {c_float(bg[1])};
+  static constexpr float bg_b = {c_float(bg[2])};
+}};
+
+struct Scene {{
+  static constexpr int n_params = {count_params(scene)};
+
+  // Point form: distance at (px, py, pz).
+  static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
+    return {_c(point)};
+  }}
+
+  // Ray form: distance at o + t*d, per-ray constants hoisted in setup().
+  struct Ray {{
+{fields}
+
+    SDF3D_HD void setup(float ox, float oy, float oz, float dx, float dy, float dz, const float* p) {{
+{setup}
+    }}
+    SDF3D_HD float eval(float t) const {{
+      return {body};
+    }}
+  }};
+
+  // Ambient occlusion factor at hit point h with normal n.
+  static SDF3D_HD float ao(float hx, float hy, float hz, float nx, float ny, float nz, const float* p) {{
+{_ao_source(cfg)}
+  }}
+}};
+"""

@@ -1,0 +1,102 @@
+"""Base machinery for SDF scene graphs (the port of ``sdf3d_tpu/sdf/node.py``).
+
+A scene is a tree of ``nn.Module`` nodes.  Each node class names its fields
+in ``fields`` (the JAX dataclass field order); a field is either a child node
+(a submodule) or a float32 ``nn.Parameter``.  The flat parameter vector walks
+the fields in that order (``ops/scene_program.py::scene_param_vector``), which
+is the JAX package's ``tree_flatten`` order — not ``nn.Module.parameters()``,
+which lists a node's own parameters before its children's.
+
+``distance(p)`` takes points of shape ``(..., 3)`` and returns ``(...,)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def as_f32(x, device=None) -> torch.Tensor:
+    """Coerce Python scalars, lists, numpy arrays or tensors to a float32
+    tensor (detached; on ``device`` when given)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dtype=torch.float32, device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def tensors_to(obj, device):
+    """A copy of a dataclass of tensors with every field on ``device``."""
+    return type(obj)(*(as_f32(getattr(obj, f.name), device) for f in dataclasses.fields(obj)))
+
+
+def vlength(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis (GLSL ``length``)."""
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def vnormalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit vector over the last axis, safe at zero (GLSL ``normalize``)."""
+    return v / torch.clamp(vlength(v), min=eps)[..., None]
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis (GLSL ``dot``)."""
+    return torch.sum(a * b, dim=-1)
+
+
+def mat_vec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply a (3,3) (or (4,4)) matrix to vectors ``v`` of shape (..., N).
+
+    An elementwise broadcast multiply and sum, not ``torch.matmul``: a matrix
+    product may run in reduced precision (TF32 on the card), which costs
+    about three decimal digits on every ray direction (``docs/parity.md``).
+    """
+    return torch.sum(M * v[..., None, :], dim=-1)
+
+
+class SDFNode(nn.Module):
+    """Base of every scene node.
+
+    Subclasses set ``fields``; the constructor takes them positionally or
+    by name.  Child nodes become submodules, everything else a float32
+    ``nn.Parameter``.  ``a | b`` is the hard union.
+    """
+
+    fields: tuple[str, ...] = ()
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        if len(args) > len(self.fields):
+            raise TypeError(f"{type(self).__name__} takes fields {self.fields}")
+        values = dict(zip(self.fields, args))
+        for name, value in kwargs.items():
+            if name not in self.fields or name in values:
+                raise TypeError(f"{type(self).__name__}: unexpected or repeated field {name!r}")
+            values[name] = value
+        missing = [f for f in self.fields if f not in values]
+        if missing:
+            raise TypeError(f"{type(self).__name__}: missing fields {missing}")
+        for name in self.fields:
+            value = values[name]
+            if isinstance(value, SDFNode):
+                setattr(self, name, value)
+            else:
+                setattr(self, name, nn.Parameter(as_f32(value)))
+
+    def distance(self, p: torch.Tensor) -> torch.Tensor:
+        """Signed distance from points ``p`` of shape ``(..., 3)``."""
+        raise NotImplementedError
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        return self.distance(p)
+
+    def __or__(self, other: "SDFNode") -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.csg import Union
+
+        return Union(self, other)
+
+    def extra_repr(self) -> str:
+        return ", ".join(self.fields)

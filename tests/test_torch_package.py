@@ -1,0 +1,158 @@
+"""The port's package boundary: no JAX at import, objects carried over from the
+JAX package bit for bit, and loud failures where the port has no support yet."""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sdf3d_tpu as s
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu.ops.render_kernel import pack_uniforms as jax_pack_uniforms
+from sdf3d_tpu.ops.scene_program import scene_param_vector as jax_scene_param_vector
+from sdf3d_tpu_torch import convert
+from sdf3d_tpu_torch.ops import KernelConfig, cuda_scene_source, pack_uniforms, render_kernel_forward
+from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.sdf import SDFNode, load_setup, save_setup
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+RNG = np.random.default_rng(20261016)
+
+
+def _random_jax_setup():
+    """A three-leaf scene, an orbit camera and a non-default config, with
+    parameters drawn from a fixed numpy seed."""
+    r = RNG.uniform(-1.0, 1.0, 12).astype(np.float32)
+    scene = s.sdf.union(
+        s.sdf.plane(normal=r[0:3], offset=r[3]),
+        s.sdf.sphere(center=r[4:7], radius=abs(r[7]) + 0.1),
+        s.sdf.sphere(center=r[8:11], radius=abs(r[11]) + 0.1),
+    )
+    cam = s.Camera.orbit(azimuth_deg=float(r[0]) * 90.0, elevation_deg=15.0, radius=2.5, fov_deg=47.0)
+    light = s.point_light(position=r[1:4] * 5.0, ambient=0.15)
+    mat = s.material(diffuse=np.abs(r[4:7]), shininess=9.0)
+    cfg = dataclasses.replace(
+        s.REFERENCE_CONFIG, width=64, height=48, normals="tetrahedron", background=(0.1, 0.2, 0.3),
+        ao=dataclasses.replace(s.REFERENCE_CONFIG.ao, enabled=True, samples=3),
+    )
+    return scene, cam, light, mat, cfg
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import pkgutil, sys, sdf3d_tpu_torch\n"
+        "for m in pkgutil.walk_packages(sdf3d_tpu_torch.__path__, 'sdf3d_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'sdf3d_tpu.')) or k == 'sdf3d_tpu')\n"
+        "print(len(list(pkgutil.walk_packages(sdf3d_tpu_torch.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("route", ["from_jax", "load_setup"])
+def test_objects_carried_over_bit_exact(route, tmp_path):
+    scene, cam, light, mat, cfg = _random_jax_setup()
+    if route == "from_jax":
+        t_scene, t_cam, t_light, t_mat, t_cfg = (convert.from_jax(o) for o in (scene, cam, light, mat, cfg))
+    else:
+        path = tmp_path / "setup.json"
+        s.sdf.save_setup(path, scene, cam, light, mat, cfg)
+        setup = load_setup(path)
+        t_scene, t_cam, t_light, t_mat, t_cfg = (setup[k] for k in ("scene", "camera", "light", "material", "config"))
+
+    assert type(t_scene).__name__ == "Union"
+    np.testing.assert_array_equal(scene_param_vector(t_scene).numpy(), np.asarray(jax_scene_param_vector(scene)))
+    assert dataclasses.asdict(t_cfg) == dataclasses.asdict(cfg)
+    for j, t in ((cam, t_cam), (light, t_light), (mat, t_mat)):
+        for f in dataclasses.fields(j):
+            np.testing.assert_array_equal(getattr(t, f.name).numpy(), np.asarray(getattr(j, f.name)))
+    ju = np.asarray(jax_pack_uniforms(cam, light, mat, cfg.ray_mode))
+    tu = pack_uniforms(t_cam, t_light, t_mat, t_cfg.ray_mode).numpy()
+    np.testing.assert_array_max_ulp(tu, ju, maxulp=1)
+
+
+def test_port_setup_loads_in_jax_bit_exact(tmp_path):
+    scene, cam, light, mat, cfg = _random_jax_setup()
+    path = tmp_path / "port.json"
+    save_setup(path, *(convert.from_jax(o) for o in (scene, cam, light, mat, cfg)))
+    back = s.sdf.load_setup(path)
+    np.testing.assert_array_equal(
+        np.asarray(jax_scene_param_vector(back["scene"])), np.asarray(jax_scene_param_vector(scene))
+    )
+    np.testing.assert_array_equal(np.asarray(back["camera"].c2w), np.asarray(cam.c2w))
+    assert back["config"] == cfg
+
+
+def test_reference_scene_param_vector():
+    np.testing.assert_array_equal(
+        scene_param_vector(tt.reference_scene()).numpy(),
+        np.asarray([0, 1, 0, 0, 0, 0.4, 0, 0.2], np.float32),
+    )
+    np.testing.assert_array_equal(
+        scene_param_vector(tt.reference_scene()).numpy(), np.asarray(jax_scene_param_vector(s.reference_scene()))
+    )
+
+
+def test_unknown_jax_class_raises():
+    with pytest.raises(TypeError, match="Box"):
+        convert.from_jax(s.sdf.box())
+
+
+class Box(SDFNode):
+    """A node the render kernel has no emitter for."""
+
+    fields = ("center", "half_extents")
+
+
+CFG = dataclasses.replace(tt.REFERENCE_CONFIG, width=32, height=24)
+VIEW = (tt.Camera.reference(), tt.reference_light(), tt.reference_material())
+
+
+def test_kernel_path_raises_for_unsupported_node():
+    scene = tt.sdf.union(tt.sdf.ground_plane(), Box(center=(0, 0, 0), half_extents=(1, 1, 1)))
+    with pytest.raises(NotImplementedError, match="Box"):
+        cuda_scene_source(scene, CFG, KernelConfig())
+    with pytest.raises(NotImplementedError, match="Box"):
+        render_kernel_forward(scene, *VIEW, CFG)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        dataclasses.replace(CFG, march=dataclasses.replace(CFG.march, relaxation=1.6)),
+        dataclasses.replace(CFG, normals="autodiff"),
+    ],
+    ids=["relaxed", "autodiff"],
+)
+def test_kernel_path_raises_for_later_settings(cfg):
+    with pytest.raises(NotImplementedError):
+        render_kernel_forward(tt.reference_scene(), *VIEW, cfg)
+
+
+def test_no_quiet_move_to_cpu():
+    """The main path defaults to the card; without one it fails, it does not
+    render on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the cuda-marked tests cover this path")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tt.render_batch(tt.reference_scene(), [VIEW[0]], VIEW[1], VIEW[2], CFG)
+    with pytest.raises((RuntimeError, AssertionError)):
+        render_kernel_forward(tt.reference_scene(), *VIEW, CFG, device="cuda")
+
+
+def test_forward_records_no_graph():
+    scene = tt.reference_scene()
+    assert all(p.requires_grad for p in scene.parameters())
+    rgb, t, sh, ao = render_kernel_forward(scene, *VIEW, CFG)
+    assert not any(x.requires_grad for x in (rgb, t, sh, ao))
+    assert not tt.render(scene, *VIEW, CFG).requires_grad

@@ -1,0 +1,148 @@
+"""The scene compiler: torch evaluators against the JAX package's compiled scene
+programs, and the generated CUDA source compiled by a C++ compiler for the
+CPU and held to the render kernel's plain PyTorch version."""
+
+import ctypes
+import dataclasses
+import pathlib
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sdf3d_tpu as s
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu.ops.scene_program import compile_scene as jax_compile_scene
+from sdf3d_tpu.ops.scene_program import compile_scene_ray as jax_compile_scene_ray
+from sdf3d_tpu.ops.scene_program import scene_param_vector as jax_scene_param_vector
+from sdf3d_tpu_torch import convert
+from sdf3d_tpu_torch.ops import (
+    KernelConfig,
+    compile_scene,
+    compile_scene_ray,
+    cuda_scene_source,
+    pack_uniforms,
+    render_kernel_forward_plain,
+    scene_param_vector,
+)
+from sdf3d_tpu_torch.ops._build import CSRC, SCENE_HEADER
+from sdf3d_tpu_torch.utils.parity import check_planes
+
+torch.set_num_threads(1)
+
+RNG = np.random.default_rng(7)
+
+
+def _nested_jax_scene():
+    """Union(Union(Plane, Sphere), Sphere) with random parameters: offsets
+    past the first subtree."""
+    r = RNG.uniform(-1.0, 1.0, 12).astype(np.float32)
+    n = r[0:3] / np.linalg.norm(r[0:3])
+    return s.sdf.union(
+        s.sdf.plane(normal=n, offset=r[3] * 0.3),
+        s.sdf.sphere(center=r[4:7], radius=abs(r[7]) * 0.5 + 0.1),
+        s.sdf.sphere(center=r[8:11], radius=abs(r[11]) * 0.5 + 0.1),
+    )
+
+
+SCENES = {"reference": s.reference_scene, "sphere": s.sphere_scene, "nested": _nested_jax_scene}
+
+
+def _both(scene_name):
+    js = SCENES[scene_name]()
+    ts = convert.from_jax(js)
+    jvec = jax_scene_param_vector(js)
+    tvec = scene_param_vector(ts)
+    return js, ts, (lambda i: jvec[i]), (lambda i: tvec[i])
+
+
+@pytest.mark.parametrize("scene_name", sorted(SCENES))
+def test_point_form_matches_jax(scene_name):
+    js, ts, jgetp, tgetp = _both(scene_name)
+    pts = RNG.uniform(-2.0, 2.0, (16, 128, 3)).astype(np.float32)
+    d_jax = jax_compile_scene(js)(*(jnp.asarray(pts[..., i]) for i in range(3)), jgetp)
+    d_t = compile_scene(ts)(*(torch.from_numpy(pts[..., i].copy()) for i in range(3)), tgetp)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_jax), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("scene_name", sorted(SCENES))
+def test_ray_form_matches_jax(scene_name):
+    js, ts, jgetp, tgetp = _both(scene_name)
+    o = RNG.uniform(-2.0, 2.0, (3, 16, 128)).astype(np.float32)
+    d = RNG.normal(size=(3, 16, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    t = RNG.uniform(0.0, 4.0, (16, 128)).astype(np.float32)
+    ev_j = jax_compile_scene_ray(js)(tuple(jnp.asarray(x) for x in o), tuple(jnp.asarray(x) for x in d), jgetp)
+    ev_t = compile_scene_ray(ts)(tuple(torch.from_numpy(x.copy()) for x in o),
+                                 tuple(torch.from_numpy(x.copy()) for x in d), tgetp)
+    np.testing.assert_allclose(ev_t(torch.from_numpy(t)).numpy(), np.asarray(ev_j(jnp.asarray(t))), atol=1e-5, rtol=0)
+    # The ray form is the point form along the ray, up to rounding.
+    p = o + t[None] * d
+    pt = compile_scene(ts)(*(torch.from_numpy(x.copy()) for x in p), tgetp)
+    np.testing.assert_allclose(ev_t(torch.from_numpy(t)).numpy(), pt.numpy(), atol=1e-5, rtol=0)
+
+
+def test_generated_source_reads_parameters_at_run_time():
+    """Parameter values never enter the source: two scenes of one structure
+    give the same text; another structure or setting gives another."""
+    cfg, kc = tt.REFERENCE_CONFIG, KernelConfig()
+    a = cuda_scene_source(tt.reference_scene(), cfg, kc)
+    other = tt.sdf.union(tt.sdf.plane((0.0, 0.8, 0.6), 0.1), tt.sdf.sphere((0.3, 0.5, -0.2), 0.33))
+    assert cuda_scene_source(other, cfg, kc) == a
+    assert "n_params = 8" in a and "p[7]" in a
+    assert cuda_scene_source(tt.sphere_scene(), cfg, kc) != a
+    assert cuda_scene_source(tt.reference_scene(), cfg, KernelConfig(ray_sdf=False)) != a
+    assert cuda_scene_source(tt.reference_scene(), dataclasses.replace(cfg, width=64, height=48), kc) == a
+
+
+def _build_host_library(header: str, out_dir: pathlib.Path) -> ctypes.CDLL:
+    """Compile csrc/render_kernel.cu with the generated header as C++ for
+    the CPU (no __CUDACC__: the qualifiers expand to nothing)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    (out_dir / SCENE_HEADER).write_text(header)
+    lib = out_dir / "librender_host.so"
+    cmd = [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter",
+           "-I", str(CSRC), "-I", str(out_dir), str(CSRC / "render_kernel.cu"), "-o", str(lib)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(lib))
+
+
+HOST_CASES = {
+    "reference": (tt.reference_scene, {}, KernelConfig()),
+    "point_form": (tt.reference_scene, {}, KernelConfig(ray_sdf=False)),
+    "tetra_ao_bg_lambert": (
+        tt.reference_scene,
+        dict(normals="tetrahedron", shading="lambert", background=(0.2, 0.3, 0.4),
+             ao=dataclasses.replace(tt.REFERENCE_CONFIG.ao, enabled=True)),
+        KernelConfig(),
+    ),
+    "nested": (lambda: convert.from_jax(_nested_jax_scene()), {}, KernelConfig()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_CASES))
+def test_generated_source_on_cpu_matches_plain(case, tmp_path):
+    scene_fn, overrides, kc = HOST_CASES[case]
+    scene = scene_fn()
+    H, W = 48, 64
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H, **overrides)
+    lib = _build_host_library(cuda_scene_source(scene, cfg, kc), tmp_path)
+    fn = lib.sdf3d_render_fwd_host
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+    cam = tt.Camera.orbit(azimuth_deg=25.0, elevation_deg=10.0)
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, tt.reference_light(), tt.reference_material(), cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    out = [np.empty((3, H, W), np.float32)] + [np.empty((H, W), np.float32) for _ in range(3)]
+    assert fn(uni.numpy().ctypes.data, prm.numpy().ctypes.data, *(o.ctypes.data for o in out), H, W) == 0
+
+    ref = render_kernel_forward_plain(scene, prm, uni, cfg, kc)
+    check_planes(out, ref, cfg.march.max_distance)
