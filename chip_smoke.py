@@ -20,7 +20,29 @@ sources in this checkout.  Phases, one line each:
 6. times at 1080p with CUDA events (3 warm-up frames, 20 timed; plain,
    kernel, kernel, plain).
 
-Then one JSON line describing the kernel, and last the JSON result line.
+Then the training path, ``fit_scene`` on the reference scene at 1920×1080
+(the JAX CLI's fit demo: a perturbed sphere, the plane frozen, Adam):
+
+7. build: the fit step (K3) and render backward (K5) libraries, with the
+   ``ptxas`` registers and spills of all three kernels;
+8. fit step vs its plain version at 256×192 (two cameras, ``wrt_uniforms``
+   and ``frozen_slots`` both ways) and at a ragged 250×190;
+9. render backward vs its plain version at 256×192 (same planes, a seeded
+   cotangent);
+10. main path: ``fit_scene`` for 20 Adam steps launches the fit step once a
+    step and nothing else; ``fit_scene(loss="multiscale")`` for 5 steps
+    launches the forward and backward kernels once a step each; step 0 of
+    the fit step against its plain version at 1080p;
+11. CLI: ``python -m sdf3d_tpu_torch.cli fit`` at 1080p writes a metrics file;
+12. times at 1080p (fit step, render backward, each beside its plain
+    version; ``fit_scene`` ms/step and fwd_bwd rays/s).
+
+Gradient comparisons use the bars of ``utils/parity.py::check_grads`` with
+the cotangent (or residual) zero on grazing rays (``conditioned``): 1e-5 of
+the gradient mass where both sides differentiate the same primal planes,
+1e-3 where the plain version marches its own.
+
+Then one JSON line describing the kernels, and last the JSON result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX and exits non-zero without a CUDA device.
 """
@@ -28,8 +50,11 @@ It imports nothing of JAX and exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -209,6 +234,7 @@ def main() -> int:
         kernel_rays_per_s=W * H / (kernel_ms / 1e3), wrapper_ms=w1, plain_ms=plain_ms, plain_ms_runs=[p1, p2],
         plain_rays_per_s=W * H / (plain_ms / 1e3), build_seconds=libs.build_seconds)
 
+    fit_kernels = fit_phases(torch, tt, card, dev)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
@@ -218,11 +244,242 @@ def main() -> int:
         "max_abs_err": parity["rgb"]["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+    }] + fit_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes per kernel from an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = next((k for k in ("render_fwd", "fit_step", "render_bwd") if k in m.group(1)), m.group(1))
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+class PlainCalls:
+    """Counts calls of the kernels' plain versions while active (wrapping
+    every module-level reference to them in the package)."""
+
+    NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain")
+
+    def __enter__(self):
+        self.calls, self._saved = {n: 0 for n in self.NAMES}, []
+        for mod in [m for k, m in sys.modules.items() if k.startswith("sdf3d_tpu_torch")]:
+            for n in self.NAMES:
+                fn = getattr(mod, n, None)
+                if fn is not None:
+                    self._saved.append((mod, n, fn))
+                    setattr(mod, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kwargs):
+            self.calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self._saved:
+            setattr(mod, n, fn)
+        return False
+
+
+def fit_phases(torch, tt, card: str, dev) -> list:
+    """Phases 7-12: the training path.  Returns the fit step's and the
+    render backward's entries of the kernels line."""
+    from sdf3d_tpu_torch import cli
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_kernel_backward,
+        render_kernel_backward_launch,
+        render_kernel_backward_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_launch,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import check_grads, conditioned, gradient_mass
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    frozen = (0, 1, 2, 3)  # the plane of the fit demo
+    trainable = (False, False, True, True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+
+    def scene0():
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def k3_vs_plain(sc, cam, c, wrt_uniforms, frozen_slots, label, target=None, same_tol=1e-5):
+        """The fit step against (1) the plain reverse pass on the kernel's own
+        primal planes (K1's: the same arithmetic), at the K5 bar, and (2) the
+        plain version, which marches its own primal: a ray that ends a step
+        apart moves its pixel's term, so the bar is looser.  With no target,
+        the kernel render plus seeded noise, none on grazing rays; a given
+        target keeps its grazing rays, hence ``same_tol``."""
+        prm, uni = inputs(sc, cam, c)
+        rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+        if target is None:
+            keep = conditioned(sc, prm, uni, t, c)
+            noise = torch.rand((3, c.height, c.width), generator=gen, device=dev) * 0.2 - 0.1
+            target = (rgb + noise * keep).contiguous()
+        got = fit_step_kernel_launch(sc, prm, uni, target, c, KernelConfig(), wrt_uniforms, frozen_slots)
+        want = fit_step_kernel_plain(sc, prm, uni, target, c, KernelConfig(), wrt_uniforms, frozen_slots)
+        g_p, g_u = render_kernel_backward_plain(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+        g_p[list(frozen_slots)] = 0.0
+        same = torch.cat([g_p, g_u if wrt_uniforms else torch.zeros_like(g_u)])
+        torch.cuda.synchronize()
+        mass = gradient_mass(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+        loss_rel = abs(float(got[0]) / float(want[0]) - 1.0)
+        check(loss_rel <= 1e-5, f"{label}: loss off by {loss_rel:.3g} relative")
+        check(all(float(got[1][k]) == 0.0 for k in frozen_slots), f"{label}: a frozen slot's gradient is not 0")
+        check(wrt_uniforms or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
+        g = torch.cat(got[1:])
+        return {"loss_rel_err": loss_rel,
+                "same_planes": check_grads(g, same, mass, rtol=1e-4, mass_tol=same_tol, label=f"{label} (same planes)"),
+                "own_march": check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=1e-3, label=label)}
+
+    # ---- 7. build: the fit step and backward libraries ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    sc = scene0()
+    prm, uni = inputs(sc, tt.Camera.reference(device=dev), cfg)
+    small = dataclasses.replace(cfg, width=256, height=192)
+    target = torch.zeros((3, 192, 256), device=dev)
+    fit_step_kernel_launch(sc, prm, uni, target, small, KernelConfig(), False, frozen)
+    render_kernel_backward_launch(sc, prm, uni, target, target[0], target[1], target[2], small)
+    torch.cuda.synchronize()
+    ptxas = {}
+    for wrt, fr in ((False, frozen), (True, ())):
+        key = libs.key(cuda_scene_source(sc, cfg, KernelConfig(), wrt, fr))
+        ptxas[f"wrt_uniforms={wrt} frozen={list(fr)}"] = ptxas_summary(libs.log(key))
+    log("build_fit", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        libraries=libs.loaded, ptxas=ptxas)
+    for kernels in ptxas.values():
+        check(set(kernels) >= {"render_fwd", "fit_step", "render_bwd"}, f"ptxas reported {sorted(kernels)}")
+
+    # ---- 8. fit step vs plain at 256x192, and ragged 250x190 ----
+    cams = (("reference", tt.Camera.reference(device=dev)),
+            ("orbit30_15", tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)))
+    for (cam_name, cam), wrt, fr in itertools.product(cams, (False, True), ((), frozen)):
+        st = k3_vs_plain(sc, cam, small, wrt, fr, f"fit step {cam_name} wrt_uniforms={wrt} frozen={fr}")
+        log("fit_step_256x192", camera=cam_name, wrt_uniforms=wrt, frozen=list(fr), **st)
+    ragged = dataclasses.replace(cfg, width=250, height=190)
+    for cam_name, cam in cams:
+        st = k3_vs_plain(sc, cam, ragged, True, frozen, f"fit step 250x190 {cam_name}")
+        log("fit_step_250x190", camera=cam_name, **st)
+
+    # ---- 9. render backward vs plain at 256x192, and ragged 250x190 ----
+    for c, (cam_name, cam) in ((small, cams[0]), (small, cams[1]), (ragged, cams[1])):
+        prm, uni = inputs(sc, cam, c)
+        _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+        keep = conditioned(sc, prm, uni, t, c)
+        g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev) * keep).contiguous()
+        got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c)
+        want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c)
+        torch.cuda.synchronize()
+        st = check_grads(torch.cat(got), torch.cat(want), gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c),
+                         rtol=1e-4, mass_tol=1e-5, label=f"render backward {c.width}x{c.height} {cam_name}")
+        log(f"render_bwd_{c.width}x{c.height}", camera=cam_name, **st)
+
+    # ---- 10. main path: fit_scene at 1920x1080 ----
+    cam = tt.Camera.reference(device=dev)
+    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+    with PlainCalls() as plain:
+        render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
+        t0 = time.perf_counter()
+        l2 = fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=20, learning_rate=1e-2, log_every=1),
+                       trainable=trainable, device=dev)
+        l2_seconds = time.perf_counter() - t0
+        l2_counts = (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches)
+        render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
+        t0 = time.perf_counter()
+        ms = fit_scene(target, scene0(), cam, light, mat, cfg,
+                       FitConfig(steps=5, learning_rate=1e-2, log_every=1, loss="multiscale"),
+                       trainable=trainable, device=dev)
+        ms_counts = (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches)
+        ms_seconds = time.perf_counter() - t0
+    check(l2_counts == (20, 0, 0), f"fit_scene launched (fit step, forward, backward) = {l2_counts}, expected (20, 0, 0)")
+    check(ms_counts == (0, 5, 5), f"multiscale fit launched (fit step, forward, backward) = {ms_counts}, expected (0, 5, 5)")
+    check(sum(plain.calls.values()) == 0, f"the main path called plain versions: {plain.calls}")
+    for name, res in (("l2", l2), ("multiscale", ms)):
+        check(all(math.isfinite(v) for v in res.losses), f"{name} fit: non-finite loss")
+        check(res.losses[-1] < res.losses[0], f"{name} fit: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
+    # Step 0 of the fit step against its plain version at 1080p (the real
+    # target, grazing rays included).
+    fit_st = k3_vs_plain(scene0(), cam, cfg, False, frozen, "fit step 1080p step 0",
+                         target.permute(2, 0, 1).contiguous(), same_tol=1e-4)
+    log("fit_main_path", steps=20, l2_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), l2_counts)),
+        multiscale_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), ms_counts)), plain_calls=plain.calls,
+        l2_losses=l2.losses, multiscale_losses=ms.losses, radius=l2.scene.b.radius.item(),
+        l2_seconds=l2_seconds, multiscale_seconds=ms_seconds, step0=fit_st)
+
+    # ---- 11. CLI ----
+    fit_step_kernel.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "fit.jsonl")
+        check(cli.main(["fit", "--width", str(W), "--height", str(H), "--steps", "10", "--metrics", metrics]) == 0,
+              "cli fit failed")
+        with open(metrics) as f:
+            lines = [json.loads(ln) for ln in f]
+    check(len(lines) >= 2 and all(math.isfinite(ln["loss"]) for ln in lines), f"bad metrics {lines}")
+    check(fit_step_kernel.launches == 10, f"cli fit launched the fit step {fit_step_kernel.launches} times")
+    log("cli_fit", metrics_lines=len(lines), losses=[ln["loss"] for ln in lines], launches=fit_step_kernel.launches)
+
+    # ---- 12. times at 1080p (plain, kernel, kernel, plain) ----
+    sc = scene0()
+    prm, uni = inputs(sc, cam, cfg)
+    tgt = target.permute(2, 0, 1).contiguous()
+    _, t, sh, ao = render_kernel_launch(sc, prm, uni, cfg)
+    g_rgb = torch.randn((3, H, W), generator=gen, device=dev)
+    bwd = lambda: render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, cfg)  # noqa: E731
+    bwd_plain = lambda: render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, cfg)  # noqa: E731
+    fit_k = lambda: fit_step_kernel_launch(sc, prm, uni, tgt, cfg, KernelConfig(), False, frozen)  # noqa: E731
+    fit_p = lambda: fit_step_kernel_plain(sc, prm, uni, tgt, cfg, KernelConfig(), False, frozen)  # noqa: E731
+    runs = {}
+    for name, kern, plain_fn in (("fit_step", fit_k, fit_p), ("render_bwd", bwd, bwd_plain)):
+        p1, k1, k2, p2 = time_ms(torch, plain_fn), time_ms(torch, kern), time_ms(torch, kern), time_ms(torch, plain_fn)
+        runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+    bwd_st = check_grads(torch.cat(bwd()), torch.cat(bwd_plain()), gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, cfg),
+                         rtol=1e-4, mass_tol=1e-3, label="render backward 1080p")
+    fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=5, log_every=5), trainable=trainable, device=dev)
+    res = fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=50, log_every=50),
+                    trainable=trainable, device=dev)
+    fit_ms = W * H / res.rays_per_second * 1e3
+    log("times_fit_1080p", card=card, fit_scene_ms_per_step=fit_ms, fwd_bwd_rays_per_s=res.rays_per_second,
+        render_bwd_1080p=bwd_st, **runs)
+    return [
+        {"name": "fit_step", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/fit_kernel.cu",
+         "replaces": "sdf3d_tpu/ops/fit_kernel.py:93", "launches": l2_counts[0],
+         "max_abs_err": fit_st["own_march"]["max_abs_err"], "ms": runs["fit_step"]["ms"],
+         "plain_ms": runs["fit_step"]["plain_ms"]},
+        {"name": "render_bwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/render_bwd_kernel.cu",
+         "replaces": "sdf3d_tpu/ops/render_bwd_kernel.py:194", "launches": ms_counts[2],
+         "max_abs_err": bwd_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
+         "plain_ms": runs["render_bwd"]["plain_ms"]},
+    ]
 
 
 if __name__ == "__main__":

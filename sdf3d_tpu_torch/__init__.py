@@ -4,9 +4,12 @@ The forward render of analytic SDF scenes (sphere, plane, union) with soft
 shadows and Blinn-Phong shading: a plain PyTorch reference path
 (``render``), and a CUDA kernel written for the H100
 (``ops.render_kernel_forward``, ``render_batch(engine="kernel")``), built per
-scene structure at first use.  The package imports torch and numpy, never
-JAX and never ``sdf3d_tpu``; ``convert.from_jax`` and ``sdf.load_setup``
-carry scenes and settings over from the JAX package.
+scene structure at first use.  Inverse rendering on one card: ``fit_scene``
+on the fused fit-step kernel, and a differentiable kernel render
+(``ops.render_kernel_diff``: forward kernel, backward kernel).  The package
+imports torch and numpy, never JAX and never ``sdf3d_tpu``;
+``convert.from_jax`` and ``sdf.load_setup`` carry scenes and settings over
+from the JAX package.
 """
 
 from sdf3d_tpu_torch import sdf
@@ -19,6 +22,7 @@ from sdf3d_tpu_torch.config import (
     ShadowConfig,
     fast_config,
 )
+from sdf3d_tpu_torch.fit import FitConfig, FitResult, fit_scene, pixel_loss
 from sdf3d_tpu_torch.lighting import (
     Material,
     PointLight,

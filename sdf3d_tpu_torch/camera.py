@@ -91,8 +91,10 @@ def pixel_grid(width: int, height: int, device=None):
 def focal_z(fov_deg: torch.Tensor, ray_mode: str) -> torch.Tensor:
     """The (negative) z of the unnormalised camera-frame ray, in float32:
     ``-2/tan(fov·π/360)`` for ``"reference"`` (the shader's factor 2 halves
-    the effective FOV), ``-1/tan(fov/2)`` for ``"pinhole"``."""
-    half_angle = as_f32(fov_deg) * (math.pi / 360.0)
+    the effective FOV), ``-1/tan(fov/2)`` for ``"pinhole"``.  A tensor
+    ``fov_deg`` keeps its autograd graph."""
+    fov = fov_deg.to(torch.float32) if isinstance(fov_deg, torch.Tensor) else as_f32(fov_deg)
+    half_angle = fov * (math.pi / 360.0)
     scale = {"reference": 2.0, "pinhole": 1.0}[ray_mode]
     return -scale / torch.tan(half_angle)
 

@@ -1,11 +1,16 @@
 """Carry objects of the JAX package over to the port.
 
 ``from_jax(obj)`` turns a JAX scene node, ``Camera``, ``PointLight``,
-``Material`` or a ``RenderConfig`` family config into the port's object of
-the same class name.  It walks dataclass fields and reads every array leaf
-with ``np.asarray(leaf, np.float32)``, so it never imports JAX and works on
-JAX arrays and numpy leaves alike.  The registry is closed: a class the port
-does not have raises ``TypeError``.
+``Material``, a ``RenderConfig`` family config or a ``FitConfig`` into the
+port's object of the same class name.  It walks dataclass fields and reads
+every array leaf with ``np.asarray(leaf, np.float32)``, so it never imports
+JAX and works on JAX arrays and numpy leaves alike.  The registry is closed:
+a class the port does not have raises ``TypeError``.
+
+A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and drops the
+TPU-only ``pallas_interpret`` and ``pallas_tile``; its sharding fields
+(``shard_*``, ``replan_every``, ``allreduce``) are dropped at their
+defaults and raise ``NotImplementedError`` otherwise (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -23,7 +28,28 @@ def from_jax(obj):
     return _convert(obj, io.registry())
 
 
+_TPU_ONLY = ("pallas_interpret", "pallas_tile")
+
+
+def _fit_config(v):
+    from sdf3d_tpu_torch.fit import FitConfig
+
+    ported = {f.name for f in dataclasses.fields(FitConfig)}
+    defaults = type(v)()
+    fields = {}
+    for f in dataclasses.fields(v):
+        value = getattr(v, f.name)
+        if f.name in ported:
+            fields[f.name] = {"pallas": "kernel"}.get(value, value) if f.name == "engine" else value
+        elif f.name not in _TPU_ONLY and value != getattr(defaults, f.name):
+            raise NotImplementedError(f"FitConfig.{f.name}={value!r} belongs to sharded fits, not ported yet "
+                                      "(ROADMAP item 15)")
+    return FitConfig(**fields)
+
+
 def _convert(v, classes: dict):
+    if dataclasses.is_dataclass(v) and not isinstance(v, type) and type(v).__name__ == "FitConfig":
+        return _fit_config(v)
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         name = type(v).__name__
         if name not in classes:

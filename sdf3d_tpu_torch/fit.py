@@ -1,0 +1,280 @@
+"""Inverse rendering: fit scene parameters to a target image (the port of
+``sdf3d_tpu/fit.py``, one card).
+
+Each step renders, takes the pixel loss and its gradient, and updates the
+scene with a ``torch.optim`` optimizer.  ``engine="kernel"`` (the only one
+ported) takes one of two routes, as the JAX package's ``engine="pallas"``
+does:
+
+- the fused fit step (``ops/fit_kernel.py``, one kernel launch per step)
+  when :func:`~sdf3d_tpu_torch.ops.fit_kernel.fused_l2_eligible` holds (the
+  plain L2 loss);
+- otherwise the differentiable kernel render (``ops/render_autograd.py``:
+  forward kernel, backward kernel) and :func:`pixel_loss` under autograd
+  (the multiscale loss).
+
+On a CPU device both run the kernels' plain PyTorch versions.  Steps run in
+chunks; the losses stay on the device and are read once per chunk.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from sdf3d_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fused_l2_eligible
+from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, pack_uniforms
+from sdf3d_tpu_torch.ops.scene_program import describe, leaves, scene_param_vector
+from sdf3d_tpu_torch.sdf.node import SDFNode
+from sdf3d_tpu_torch.utils.logging import MetricsLogger
+
+
+def _avg_pool2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool over the leading (H, W) axes of an (H, W, C) image
+    (an odd last row or column is dropped)."""
+    h, w, c = img.shape
+    h2, w2 = h - h % 2, w - w % 2
+    return img[:h2, :w2].reshape(h2 // 2, 2, w2 // 2, 2, c).mean(dim=(1, 3))
+
+
+def pixel_loss(img: torch.Tensor, target: torch.Tensor, kind: str, levels: int = 3) -> torch.Tensor:
+    """Sum-of-squares pixel loss, optionally over an average-pool pyramid
+    whose level ``l`` is scaled by ``4**l`` (each level weighs the same per
+    original pixel)."""
+    loss = torch.sum((img - target) ** 2)
+    if kind == "l2":
+        return loss
+    if kind != "multiscale":
+        raise ValueError(f"unknown loss {kind!r}")
+    a, b = img, target
+    for level in range(1, levels + 1):
+        if min(a.shape[0], a.shape[1]) < 2:
+            break
+        a, b = _avg_pool2(a), _avg_pool2(b)
+        loss = loss + (4.0**level) * torch.sum((a - b) ** 2)
+    return loss
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Fit settings, with the JAX package's field names (``convert.from_jax``
+    carries a JAX ``FitConfig`` over)."""
+
+    steps: int = 200
+    learning_rate: float = 1e-2
+    optimizer: str = "adam"  # adam | sgd
+    log_every: int = 10
+    checkpoint_every: int = 0  # 0 disables
+    checkpoint_dir: str | None = None
+    #: "kernel": the CUDA kernels (their plain versions on a CPU device).
+    #: "xla" (the JAX package's implicit-VJP ray renderer, ``diff.py``) is
+    #: not ported yet and raises ``NotImplementedError``.
+    engine: str = "kernel"
+    #: "l2", or "multiscale": L2 summed over an average-pool pyramid.
+    loss: str = "l2"
+    pyramid_levels: int = 3
+    #: Steps per chunk (losses are read once per chunk); 0 = ``log_every``.
+    #: Chunks also end at checkpoint boundaries.
+    chunk_steps: int = 0
+    #: The soft-silhouette coverage term; only 0 is ported (ROADMAP item 12).
+    silhouette_weight: float = 0.0
+    silhouette_beta: float | None = None
+
+
+@dataclasses.dataclass
+class FitResult:
+    scene: SDFNode
+    losses: list
+    steps_run: int
+    rays_per_second: float
+
+
+def _frozen_param_slots(scene0: SDFNode, trainable) -> tuple:
+    """Flat parameter-vector slots of the frozen leaves.  ``trainable`` has
+    one bool per leaf of ``scene0`` (``scene_program.leaves`` order, the
+    JAX package's ``tree_leaves`` order).  ``()`` when everything is
+    trainable, or when everything is frozen (as in the JAX package)."""
+    if trainable is None:
+        return ()
+    leaf_list = list(leaves(scene0))
+    if len(trainable) != len(leaf_list):
+        raise ValueError(f"trainable has {len(trainable)} entries for {len(leaf_list)} scene leaves")
+    idx, off = [], 0
+    for tr, leaf in zip(trainable, leaf_list):
+        n = max(1, int(np.prod(leaf.shape)))
+        if not bool(tr):
+            idx.extend(range(off, off + n))
+        off += n
+    if len(idx) == off:
+        return ()
+    return tuple(idx)
+
+
+def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.learning_rate)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.learning_rate)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, target_coverage) -> None:
+    """Raise for what the port's fit does not do yet (before any work)."""
+    if mesh is not None:
+        raise NotImplementedError("sharded fits (mesh) are not ported yet (ROADMAP item 15)")
+    if fit_config.engine == "xla":
+        raise NotImplementedError("engine='xla' (diff.py's render_rays_diff) is not ported yet (ROADMAP item 5)")
+    if fit_config.engine != "kernel":
+        raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
+    if fit_config.silhouette_weight > 0.0 or target_coverage is not None:
+        raise NotImplementedError("the silhouette coverage term is not ported yet (ROADMAP item 12)")
+    if render_config.shadow.enabled and render_config.shadow.grad != "detach":
+        raise NotImplementedError(
+            f"shadow.grad == {render_config.shadow.grad!r} is not ported yet (ROADMAP item 12)")
+    if fit_config.loss not in ("l2", "multiscale"):
+        raise ValueError(f"unknown loss {fit_config.loss!r}")
+
+
+def fit_scene(
+    target,
+    scene0: SDFNode,
+    camera,
+    light,
+    mat,
+    render_config: RenderConfig,
+    fit_config: FitConfig = FitConfig(),
+    mesh=None,
+    logger: MetricsLogger | None = None,
+    trainable=None,
+    target_coverage=None,
+    device="cuda",
+) -> FitResult:
+    """Fit ``scene0``'s parameters so its render matches ``target`` (H, W, 3).
+
+    Runs on ``device`` (default the card; without one it fails rather than
+    move to the CPU).  ``scene0`` is not modified: the fitted scene is
+    ``FitResult.scene``.  ``trainable``: one bool per scene leaf; frozen
+    leaves keep their values (their gradient slots read exactly 0 in the
+    fused step).  With ``fit_config.checkpoint_dir`` a checkpoint written by
+    the same fit setup is resumed before the first step (another setup's is
+    ignored with a warning and overwritten), and snapshots are written
+    every ``checkpoint_every`` steps.  ``mesh`` and ``target_coverage``
+    belong to parts not ported yet and raise ``NotImplementedError``.
+    """
+    _check_supported(fit_config, render_config, mesh, target_coverage)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit_scene: no CUDA device; pass device='cpu' to run the kernels' plain versions")
+    scene = copy.deepcopy(scene0).to(device)
+    leaf_list = list(leaves(scene))
+    flags = [True] * len(leaf_list) if trainable is None else [bool(x) for x in trainable]
+    frozen = _frozen_param_slots(scene0, trainable)
+    if not any(flags):
+        raise ValueError("trainable freezes every scene parameter")
+    for leaf, tr in zip(leaf_list, flags):
+        leaf.requires_grad_(tr)
+    camera, light, mat = camera.to(device), light.to(device), mat.to(device)
+    if not isinstance(target, torch.Tensor):
+        target = torch.from_numpy(np.array(target, np.float32))
+    target = target.detach().to(device, torch.float32)
+    opt = _make_optimizer(fit_config, [leaf for leaf, tr in zip(leaf_list, flags) if tr])
+
+    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.silhouette_weight):
+        uni = pack_uniforms(camera, light, mat, render_config.ray_mode, device)
+        uni[_U_K] = float(render_config.shadow.k)
+        target_planar = target.permute(2, 0, 1).contiguous()
+        sizes = [int(leaf.numel()) for leaf in leaf_list]
+
+        def step_loss():
+            loss, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), uni, target_planar, render_config,
+                                             wrt_uniforms=False, frozen_slots=frozen)
+            for leaf, g, tr in zip(leaf_list, torch.split(g_prm, sizes), flags):
+                if tr:
+                    leaf.grad = g.view_as(leaf)
+            return loss
+    else:
+        def step_loss():
+            img = render_kernel_diff(render_config, KernelConfig(), scene, camera, light, mat)
+            loss = pixel_loss(img, target, fit_config.loss, fit_config.pyramid_levels)
+            loss.backward()
+            return loss.detach()
+
+    # The fingerprint ties a checkpoint to the fit setup; the step count,
+    # cadences and paths may change across resumes.
+    fingerprint = repr((
+        fit_config.learning_rate, fit_config.optimizer, fit_config.engine, fit_config.loss,
+        fit_config.pyramid_levels, fit_config.silhouette_weight, fit_config.silhouette_beta,
+        render_config, describe(scene0), frozen,
+    ))
+    start_step, losses = 0, []
+    if fit_config.checkpoint_dir:
+        state, manifest = load_checkpoint(fit_config.checkpoint_dir, map_location=device)
+        if state is not None:
+            if manifest.get("fingerprint") == fingerprint:
+                scene.load_state_dict(state["scene"])
+                opt.load_state_dict(state["optimizer"])
+                start_step = int(manifest["step"])
+                losses = list(manifest.get("losses", []))
+            else:
+                warnings.warn(
+                    f"checkpoint at {fit_config.checkpoint_dir} was written by a different fit configuration; "
+                    "starting fresh (it will be overwritten)",
+                    stacklevel=2,
+                )
+
+    n_pixels = render_config.width * render_config.height
+    ckpt_every = fit_config.checkpoint_every if fit_config.checkpoint_dir else 0
+    chunk_cap = fit_config.chunk_steps or max(fit_config.log_every, 1)
+    step, steps_run = start_step, 0
+    t0 = time.perf_counter()
+    while step < fit_config.steps:
+        end = min(fit_config.steps, step + chunk_cap)
+        if ckpt_every:
+            end = min(end, ((step // ckpt_every) + 1) * ckpt_every)
+        chunk = []
+        for _ in range(step, end):
+            opt.zero_grad(set_to_none=True)
+            chunk.append(step_loss())
+            opt.step()
+        chunk_losses = torch.stack(chunk).tolist()  # one host sync per chunk
+        steps_run += end - step
+        for i, loss_val in enumerate(chunk_losses):
+            gstep = step + i
+            if gstep % fit_config.log_every == 0 or gstep == fit_config.steps - 1:
+                losses.append(loss_val)
+                if logger is not None:
+                    logger.log(step=gstep, loss=loss_val)
+        step = end
+        if ckpt_every and step % ckpt_every == 0:
+            save_checkpoint(
+                fit_config.checkpoint_dir, {"scene": scene.state_dict(), "optimizer": opt.state_dict()}, step,
+                meta={"losses": [float(x) for x in losses], "fingerprint": fingerprint},
+            )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.perf_counter() - t0
+    for leaf in leaf_list:
+        leaf.requires_grad_(True)
+    return FitResult(scene=scene, losses=losses, steps_run=steps_run,
+                     rays_per_second=n_pixels * steps_run / max(elapsed, 1e-9))
+
+
+def fit_scene_multiview(*args, **kwargs):
+    """Fit against several views jointly: the multiview fit-kernel variant
+    is not ported yet (ROADMAP item 12)."""
+    raise NotImplementedError("fit_scene_multiview is not ported yet (ROADMAP item 12)")
+
+
+def fit_view(*args, **kwargs):
+    """Fit camera, light and material with the scene fixed: the fit kernel's
+    uniform gradients exist (``fit_step_kernel(wrt_uniforms=True)``), the
+    entry point is not ported yet (ROADMAP item 12)."""
+    raise NotImplementedError("fit_view is not ported yet (ROADMAP item 12)")

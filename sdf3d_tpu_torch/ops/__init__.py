@@ -1,5 +1,8 @@
 """Kernels of the port and their scene compiler."""
 
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_plain, fused_l2_eligible, l2_loss_and_grads
+from sdf3d_tpu_torch.ops.render_autograd import RenderKernelFunction, render_kernel_diff
+from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain, shade_planes
 from sdf3d_tpu_torch.ops.render_kernel import (
     N_UNIFORMS,
     KernelConfig,
@@ -19,10 +22,19 @@ from sdf3d_tpu_torch.ops.scene_program import (
 __all__ = [
     "N_UNIFORMS",
     "KernelConfig",
+    "RenderKernelFunction",
     "pack_uniforms",
+    "fit_step_kernel",
+    "fit_step_kernel_plain",
+    "fused_l2_eligible",
+    "l2_loss_and_grads",
+    "render_kernel_backward",
+    "render_kernel_backward_plain",
+    "render_kernel_diff",
     "render_kernel_forward",
     "render_kernel_forward_plain",
     "render_kernel_launch",
+    "shade_planes",
     "compile_scene",
     "compile_scene_ray",
     "count_params",

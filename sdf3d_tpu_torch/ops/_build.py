@@ -1,12 +1,16 @@
-"""Build and load the CUDA render kernel: nvcc into a shared library with a
-plain C interface, loaded with ctypes.
+"""Build and load the CUDA kernels: nvcc into a shared library with a plain C
+interface, loaded with ctypes.
 
-Each library is compiled from ``csrc/render_kernel.cu`` with one generated
-header (``sdf3d_scene.cuh``, ops/scene_program.py) and cached by a hash of
-every source text and flag, under ``build/sdf3d_tpu_torch/<hash>/`` beside
-the package.  A new scene structure or static setting builds a new library;
-parameter values never do.  nvcc is looked up in ``$CUDA_HOME/bin``, then
-``/usr/local/cuda/bin``, then ``PATH``.
+Each library holds the three kernels of one generated header
+(``sdf3d_scene.cuh``, ops/scene_program.py): the forward render
+(``csrc/render_kernel.cu``, ``sdf3d_render_fwd``), the fused fit step
+(``csrc/fit_kernel.cu``, ``sdf3d_fit_step``) and the render backward
+(``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``).  The three sources
+compile in parallel (one nvcc each), then link into one library, cached by a
+hash of the header, every file under ``csrc/`` and the flags, under
+``build/sdf3d_tpu_torch/<hash>/`` beside the package.  A new scene structure
+or static setting builds a new library; parameter values never do.  nvcc is
+looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then ``PATH``.
 """
 
 from __future__ import annotations
@@ -24,11 +28,20 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "sdf3d_tpu_torch"
 SCENE_HEADER = "sdf3d_scene.cuh"
 LIB_NAME = "libsdf3d_render.so"
+SOURCES = ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+#: C entry points and their argument types (pointers, then H, W, stream).
+ENTRY_POINTS = {
+    "sdf3d_render_fwd": [_PTR] * 6 + [_INT, _INT, _PTR],
+    "sdf3d_fit_step": [_PTR] * 6 + [_INT, _INT, _PTR],
+    "sdf3d_render_bwd": [_PTR] * 9 + [_INT, _INT, _PTR],
+}
 
 
 def find_nvcc() -> str:
@@ -43,10 +56,10 @@ def find_nvcc() -> str:
 
 
 class KernelLibraries:
-    """Builds, caches and loads one render library per generated header.
+    """Builds, caches and loads one kernel library per generated header.
 
-    ``builds`` counts nvcc runs in this process and ``build_seconds`` their
-    wall time; ``loaded`` counts the libraries loaded (built here or found
+    ``builds`` counts the libraries built in this process (three parallel
+    nvcc compiles and a link each) and ``build_seconds`` their wall time; ``loaded`` counts the libraries loaded (built here or found
     in the build directory).  ``log(key)`` returns a build's compiler output
     (with ``-Xptxas -v``: registers, spills and shared memory per kernel).
     """
@@ -64,9 +77,10 @@ class KernelLibraries:
         return len(self._loaded)
 
     def key(self, scene_header: str) -> str:
-        """The build key: a hash of every source text and flag."""
+        """The build key: a hash of the header, every file under ``csrc/``
+        (names and texts) and the flags."""
         if self._csrc is None:
-            self._csrc = tuple((CSRC / n).read_text() for n in ("render_kernel.cuh", "render_kernel.cu"))
+            self._csrc = tuple(f"{f.name}\0{f.read_text()}" for f in sorted(CSRC.iterdir()) if f.is_file())
         h = hashlib.sha256()
         for part in (scene_header, *self._csrc, " ".join(NVCC_FLAGS)):
             h.update(part.encode())
@@ -94,30 +108,46 @@ class KernelLibraries:
             if not path.exists():
                 self._compile(path.parent, scene_header)
             lib = ctypes.CDLL(str(path))
-            ptr = ctypes.c_void_p
-            lib.sdf3d_render_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr]
-            lib.sdf3d_render_fwd.restype = ctypes.c_int
+            for name, argtypes in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             self._loaded[key] = lib
         return lib
 
     def _compile(self, out_dir: pathlib.Path, scene_header: str) -> None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / SCENE_HEADER).write_text(scene_header)
-        # Compile to a temporary name and rename, so a concurrent process
-        # never loads a half-written library.
+        nvcc = find_nvcc()
+        t0 = time.perf_counter()
+        # One nvcc per source, all started together, then one link.
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = out_dir / (src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir), "-c", "-o", str(obj), str(CSRC / src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        # Link to a temporary name and rename, so a concurrent process never
+        # loads a half-written library.
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir),
-               "-o", tmp, str(CSRC / "render_kernel.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if not failed:
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
         seconds = time.perf_counter() - t0
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {out_dir / SCENE_HEADER}:\n{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc failed building {out_dir / SCENE_HEADER}:\n" + "\n".join(failed))
         os.replace(tmp, out_dir / LIB_NAME)
         self.builds += 1
         self.build_seconds += seconds

@@ -50,6 +50,14 @@ struct Pixel {
 
 SDF3D_HD float rsqrt_exact(float x) { return 1.0f / sqrtf(x); }
 
+// Derivatives of min, max and clip = min(max(x, lo), hi) with respect to
+// x, by lax's rule: the adjoint splits 0.5/0.5 at an exact tie (the union
+// of a plane and a sphere meets ties on its seam).  The reverse passes
+// (generated Scene::sdf_bwd, shade_vjp.cuh) use them.
+SDF3D_HD float min_adj(float x, float y) { return x < y ? 1.0f : (x == y ? 0.5f : 0.0f); }
+SDF3D_HD float max_adj(float x, float y) { return x > y ? 1.0f : (x == y ? 0.5f : 0.0f); }
+SDF3D_HD float clip_adj(float x, float lo, float hi) { return max_adj(x, lo) * min_adj(fmaxf(x, lo), hi); }
+
 // Point-form evaluator along a ray, for ray_sdf == false.
 template <class Scene>
 struct PointRay {

@@ -1,0 +1,255 @@
+// Hand-written VJP of the shading expression for one pixel: the reverse
+// pass shared by the fused fit step (fit_kernel.cu, K3) and the render
+// backward (render_bwd_kernel.cu, K5).
+//
+// It computes, for one pixel, what jax.vjp of
+// sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile computes: the shading
+// re-traced from the forward's stored planes (t, shadow, ao) as a function
+// of the scene parameters p and the uniforms u, with
+// - t re-attached by the implicit-function theorem: the adjoint of t flows
+//   into the distance at o + t*d, scaled by -1/(grad_p f . d) where that
+//   denominator is usable (t <= max_distance, |denom| >= 1e-4), else 0;
+// - shadow a detached factor (uniform 27, k, gets 0);
+// - AO flowing through its recomputed taps, with the forward's plane as
+//   its value;
+// - rows and columns constants (uniforms 28 and 29 get 0);
+// - min/max/clip splitting the adjoint at exact ties and pow's exponent
+//   derivative guarded at a zero base, as lax's rules do.
+// A miss is still shaded and carries adjoint through its normals and light
+// terms, unless Cfg::background composites it out.
+//
+// Like render_kernel.cuh the code is __host__ __device__, so a C++ compiler
+// builds it for the CPU tests.  Every intermediate stays in registers.
+#pragma once
+
+#include "render_kernel.cuh"
+
+namespace sdf3d {
+
+constexpr float DENOM_FLOOR = 1e-4f;  // sdf3d_tpu/diff.py::_DENOM_FLOOR
+
+// v * rsqrt(q), q = v.v (floored at 1e-24 when `floored`), with the values
+// its reverse reads.
+struct Unit3 {
+  float x, y, z, s, q, r, ux, uy, uz;
+};
+
+SDF3D_HD Unit3 unit3(float x, float y, float z, bool floored) {
+  Unit3 n;
+  n.x = x; n.y = y; n.z = z;
+  n.s = ((x * x) + (y * y)) + (z * z);
+  n.q = floored ? fmaxf(n.s, 1e-24f) : n.s;
+  n.r = rsqrt_exact(n.q);
+  n.ux = x * n.r; n.uy = y * n.r; n.uz = z * n.r;
+  return n;
+}
+
+// Adds to (gx, gy, gz) the adjoint of v given the adjoint of v * r
+// (lax.rsqrt: dr/dq = -0.5 * r / q).
+SDF3D_HD void unit3_bwd(const Unit3& n, bool floored, float gux, float guy, float guz,
+                        float& gx, float& gy, float& gz) {
+  const float gr = ((gux * n.x) + (guy * n.y)) + (guz * n.z);
+  float gs = gr * ((-0.5f * n.r) / n.q);
+  if (floored) gs = gs * max_adj(n.s, 1e-24f);
+  gx += (gux * n.r) + (2.0f * (gs * n.x));
+  gy += (guy * n.r) + (2.0f * (gs * n.y));
+  gz += (guz * n.r) + (2.0f * (gs * n.z));
+}
+
+// Scene::sdf_bwd with the position adjoint added to (gx, gy, gz).
+template <class Scene>
+SDF3D_HD void sdf_bwd_add(float px, float py, float pz, const float* p, float g, float* dP,
+                          float& gx, float& gy, float& gz) {
+  float qx, qy, qz;
+  Scene::sdf_bwd(px, py, pz, p, g, dP, qx, qy, qz);
+  gx += qx; gy += qy; gz += qz;
+}
+
+// One pixel's VJP: adds the adjoint of its (r, g, b) = (gr, gg, gb) to
+// dP[0..P) and, when WRT_U, to dU[0..30).  t0, shadow and ao_in are the
+// forward kernel's values for this pixel.
+template <class Cfg, class Scene, bool WRT_U>
+SDF3D_HD void shade_vjp(const float* u, const float* p, int row, int col, int H, int W,
+                        float t0, float shadow, float ao_in, float gr, float gg, float gb,
+                        float* dP, float* dU) {
+  if constexpr (Cfg::background) {
+    if (t0 > Cfg::max_distance) return;  // where(miss, bg, .) passes no adjoint
+  }
+
+  // ---- primal re-trace: ray generation (render_pixel's arithmetic) ----
+  const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
+  const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
+  const float rows = u[U_ROW0] + static_cast<float>(row);
+  const float cols = static_cast<float>(col);
+  const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
+  const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
+  const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));
+  const Unit3 cv = unit3(qx * ar, qy, u[U_FZ], false);
+  const float* m = u + U_C2W;
+  const Unit3 d = unit3(((m[0] * cv.ux) + (m[1] * cv.uy)) + (m[2] * cv.uz),
+                        ((m[3] * cv.ux) + (m[4] * cv.uy)) + (m[5] * cv.uz),
+                        ((m[6] * cv.ux) + (m[7] * cv.uy)) + (m[8] * cv.uz), false);
+  const float dx = d.ux, dy = d.uy, dz = d.uz;
+  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
+
+  // ---- implicit-function t: its value is t0, so h = o + t0*d ----
+  const float hx = ox + (t0 * dx), hy = oy + (t0 * dy), hz = oz + (t0 * dz);
+  float fx, fy, fz;
+  Scene::sdf_grad_p(hx, hy, hz, p, fx, fy, fz);
+  const float denom = ((fx * dx) + (fy * dy)) + (fz * dz);
+  const bool usable = (t0 <= Cfg::max_distance) && (fabsf(denom) >= DENOM_FLOOR);
+  const float inv_denom = usable ? 1.0f / denom : 0.0f;
+
+  // ---- normals, light, view and half vectors ----
+  const float e = Cfg::epsilon;
+  float nrx, nry, nrz;
+  if constexpr (Cfg::normals == 0) {
+    nrx = Scene::sdf(hx + e, hy, hz, p) - Scene::sdf(hx - e, hy, hz, p);
+    nry = Scene::sdf(hx, hy + e, hz, p) - Scene::sdf(hx, hy - e, hz, p);
+    nrz = Scene::sdf(hx, hy, hz + e, p) - Scene::sdf(hx, hy, hz - e, p);
+  } else {
+    const float s0 = Scene::sdf(hx + e, hy - e, hz - e, p);
+    const float s1 = Scene::sdf(hx - e, hy - e, hz + e, p);
+    const float s2 = Scene::sdf(hx - e, hy + e, hz - e, p);
+    const float s3 = Scene::sdf(hx + e, hy + e, hz + e, p);
+    nrx = ((s0 - s1) - s2) + s3;
+    nry = (((-s0) - s1) + s2) + s3;
+    nrz = (((-s0) + s1) - s2) + s3;
+  }
+  const Unit3 n = unit3(nrx, nry, nrz, true);
+  const Unit3 li = unit3(u[U_LIGHT] - hx, u[U_LIGHT + 1] - hy, u[U_LIGHT + 2] - hz, true);
+  const Unit3 w = unit3(ox - hx, oy - hy, oz - hz, true);
+  const Unit3 hw = unit3(li.ux + w.ux, li.uy + w.uy, li.uz + w.uz, true);
+  const float ndoth_arg = ((n.ux * hw.ux) + (n.uy * hw.uy)) + (n.uz * hw.uz);
+  const float ndoth = fmaxf(ndoth_arg, 0.0f);
+  const float ndoti = ((n.ux * li.ux) + (n.uy * li.uy)) + (n.uz * li.uz);
+  const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
+
+  // ---- reverse: channels -> ambient, diffuse, specular ----
+  const float g_amb = ((gr * u[U_MAT_AMB]) + (gg * u[U_MAT_AMB + 1])) + (gb * u[U_MAT_AMB + 2]);
+  const float g_dif = ((gr * u[U_MAT_DIF]) + (gg * u[U_MAT_DIF + 1])) + (gb * u[U_MAT_DIF + 2]);
+  float g_ndoth = 0.0f;
+  if constexpr (Cfg::blinn_phong) {
+    const float shn = u[U_SHN];
+    const float spec = powf(ndoth, shn);
+    const float g_spec = ((gr * u[U_MAT_REF]) + (gg * u[U_MAT_REF + 1])) + (gb * u[U_MAT_REF + 2]);
+    g_ndoth = shn == 0.0f ? 0.0f : g_spec * (shn * powf(ndoth, shn - 1.0f));
+    if constexpr (WRT_U) {
+      dU[U_MAT_REF] += gr * spec;
+      dU[U_MAT_REF + 1] += gg * spec;
+      dU[U_MAT_REF + 2] += gb * spec;
+      // lax: d pow(x, s)/ds = log(x) * x^s, with log(1) in place of log(0).
+      dU[U_SHN] += ndoth == 0.0f ? 0.0f : g_spec * (logf(ndoth) * spec);
+    }
+  }
+  if constexpr (WRT_U) {
+    const float amb = Cfg::ao_enabled ? u[U_AMB] * ao_in : u[U_AMB];
+    dU[U_MAT_AMB] += gr * amb;
+    dU[U_MAT_AMB + 1] += gg * amb;
+    dU[U_MAT_AMB + 2] += gb * amb;
+    dU[U_MAT_DIF] += gr * dif;
+    dU[U_MAT_DIF + 1] += gg * dif;
+    dU[U_MAT_DIF + 2] += gb * dif;
+    dU[U_AMB] += Cfg::ao_enabled ? g_amb * ao_in : g_amb;
+  }
+
+  // ---- reverse: N.I, N.H and the unit vectors ----
+  float gnx = 0.0f, gny = 0.0f, gnz = 0.0f;  // adjoint of the unit normal
+  float gix = 0.0f, giy = 0.0f, giz = 0.0f;  // adjoint of the unit light vector
+  const float g_ndoti = (g_dif * shadow) * clip_adj(ndoti, 0.0f, 1.0f);
+  gnx += g_ndoti * li.ux; gny += g_ndoti * li.uy; gnz += g_ndoti * li.uz;
+  gix += g_ndoti * n.ux; giy += g_ndoti * n.uy; giz += g_ndoti * n.uz;
+  const float g_arg = g_ndoth * max_adj(ndoth_arg, 0.0f);
+  gnx += g_arg * hw.ux; gny += g_arg * hw.uy; gnz += g_arg * hw.uz;
+  float ghwx = 0.0f, ghwy = 0.0f, ghwz = 0.0f;
+  unit3_bwd(hw, true, g_arg * n.ux, g_arg * n.uy, g_arg * n.uz, ghwx, ghwy, ghwz);
+  gix += ghwx; giy += ghwy; giz += ghwz;
+  float gwx = 0.0f, gwy = 0.0f, gwz = 0.0f;
+  unit3_bwd(w, true, ghwx, ghwy, ghwz, gwx, gwy, gwz);
+  float gox = gwx, goy = gwy, goz = gwz;     // w = o - h
+  float ghx = -gwx, ghy = -gwy, ghz = -gwz;  // adjoint of the hit point
+  if constexpr (Cfg::ao_enabled) {
+    Scene::ao_bwd(hx, hy, hz, n.ux, n.uy, n.uz, p, g_amb * u[U_AMB], dP, ghx, ghy, ghz, gnx, gny, gnz);
+  }
+  float glx = 0.0f, gly = 0.0f, glz = 0.0f;
+  unit3_bwd(li, true, gix, giy, giz, glx, gly, glz);
+  if constexpr (WRT_U) {
+    dU[U_LIGHT] += glx;
+    dU[U_LIGHT + 1] += gly;
+    dU[U_LIGHT + 2] += glz;
+  }
+  ghx -= glx; ghy -= gly; ghz -= glz;
+
+  // ---- reverse: the normal taps ----
+  float gmx = 0.0f, gmy = 0.0f, gmz = 0.0f;  // adjoint of the raw normal
+  unit3_bwd(n, true, gnx, gny, gnz, gmx, gmy, gmz);
+  if constexpr (Cfg::normals == 0) {
+    sdf_bwd_add<Scene>(hx + e, hy, hz, p, gmx, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx - e, hy, hz, p, -gmx, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx, hy + e, hz, p, gmy, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx, hy - e, hz, p, -gmy, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx, hy, hz + e, p, gmz, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx, hy, hz - e, p, -gmz, dP, ghx, ghy, ghz);
+  } else {
+    sdf_bwd_add<Scene>(hx + e, hy - e, hz - e, p, (gmx - gmy) - gmz, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx - e, hy - e, hz + e, p, ((-gmx) - gmy) + gmz, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx - e, hy + e, hz - e, p, ((-gmx) + gmy) - gmz, dP, ghx, ghy, ghz);
+    sdf_bwd_add<Scene>(hx + e, hy + e, hz + e, p, (gmx + gmy) + gmz, dP, ghx, ghy, ghz);
+  }
+
+  // ---- reverse: h = o + t*d, t = t0 - (f(o + t0*d) - sg(f)) * inv_denom ----
+  gox += ghx; goy += ghy; goz += ghz;
+  const float g_t = ((ghx * dx) + (ghy * dy)) + (ghz * dz);
+  float gdx = t0 * ghx, gdy = t0 * ghy, gdz = t0 * ghz;
+  float gfx = 0.0f, gfy = 0.0f, gfz = 0.0f;
+  sdf_bwd_add<Scene>(hx, hy, hz, p, -(g_t * inv_denom), dP, gfx, gfy, gfz);
+  if constexpr (WRT_U) {
+    gox += gfx; goy += gfy; goz += gfz;
+    gdx += t0 * gfx; gdy += t0 * gfy; gdz += t0 * gfz;
+    dU[U_CAM] += gox;
+    dU[U_CAM + 1] += goy;
+    dU[U_CAM + 2] += goz;
+    // ---- reverse: ray generation (d = unit(M cv), cv = unit(qx*ar, qy, fz)) ----
+    float gdrx = 0.0f, gdry = 0.0f, gdrz = 0.0f;
+    unit3_bwd(d, false, gdx, gdy, gdz, gdrx, gdry, gdrz);
+    dU[U_C2W] += gdrx * cv.ux; dU[U_C2W + 1] += gdrx * cv.uy; dU[U_C2W + 2] += gdrx * cv.uz;
+    dU[U_C2W + 3] += gdry * cv.ux; dU[U_C2W + 4] += gdry * cv.uy; dU[U_C2W + 5] += gdry * cv.uz;
+    dU[U_C2W + 6] += gdrz * cv.ux; dU[U_C2W + 7] += gdrz * cv.uy; dU[U_C2W + 8] += gdrz * cv.uz;
+    const float gcx = ((m[0] * gdrx) + (m[3] * gdry)) + (m[6] * gdrz);
+    const float gcy = ((m[1] * gdrx) + (m[4] * gdry)) + (m[7] * gdrz);
+    const float gcz = ((m[2] * gdrx) + (m[5] * gdry)) + (m[8] * gdrz);
+    float gvx = 0.0f, gvy = 0.0f, gvz = 0.0f;
+    unit3_bwd(cv, false, gcx, gcy, gcz, gvx, gvy, gvz);
+    dU[U_FZ] += gvz;
+  }
+}
+
+#ifdef __CUDACC__
+// Sums v[0..N) over the block in a fixed order (warp shuffles, then the
+// warps in order through shared memory) and writes the N sums to out.
+// Every thread of the block must call it.
+template <int N, int NT>
+__device__ __forceinline__ void block_sum_store(const float (&v)[N], float* __restrict__ out) {
+  static_assert(NT % 32 == 0, "the block must hold whole warps");
+  constexpr int NWARP = NT / 32;
+  __shared__ float part[NWARP][N];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float s = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) part[warp][k] = s;
+  }
+  __syncthreads();
+  for (int k = tid; k < N; k += NT) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NWARP; ++i) s += part[i][k];
+    out[k] = s;
+  }
+}
+#endif
+
+}  // namespace sdf3d

@@ -1,0 +1,244 @@
+"""The render backward (the port of ``sdf3d_tpu/ops/render_bwd_kernel.py``).
+
+The gradient of a loss of the rendered image with respect to the scene
+parameters and the 30 uniforms, from the forward's ``t``/``shadow``/``ao``
+planes and the planar RGB cotangent ``g_rgb`` (3, H, W).  It differentiates
+the shading re-traced from those planes (:func:`shade_planes`, the port of
+``_shade_tile``): ``t`` re-attached by the implicit-function theorem, the
+shadow a detached factor, AO flowing through its recomputed taps.  Two
+implementations of the same function:
+
+- the CUDA kernel (``csrc/render_bwd_kernel.cu`` with the hand-written
+  reverse pass of ``csrc/shade_vjp.cuh``), launched by
+  :func:`render_kernel_backward` for tensors on the card;
+- :func:`render_kernel_backward_plain`, autograd through
+  :func:`shade_planes`, which the wrapper runs for tensors on the CPU and
+  which the tests and ``chip_smoke.py`` hold the kernel against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.ops.render_kernel import (
+    _U_AMB,
+    _U_C2W,
+    _U_CAM,
+    _U_FZ,
+    _U_LIGHT,
+    _U_MAT_AMB,
+    _U_MAT_DIF,
+    _U_MAT_REF,
+    _U_ROW0,
+    _U_SHN,
+    N_UNIFORMS,
+    KernelConfig,
+    check_plane,
+    check_supported,
+    kernel_library,
+)
+from sdf3d_tpu_torch.ops.scene_program import compile_scene, count_params
+from sdf3d_tpu_torch.sdf.node import SDFNode
+
+#: Smallest usable |grad f . d| for the implicit-function ``t`` (``sdf3d_tpu/diff.py``).
+DENOM_FLOOR = 1e-4
+
+
+def _rsqrt(x):
+    return 1.0 / torch.sqrt(x)
+
+
+def _floor(x, lo):
+    # max with a tensor bound: the adjoint splits at a tie, as lax.max's.
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+
+
+def _clip01(x):
+    # jnp.clip's adjoint: min(max(x, 0), 1); torch.clamp would pass the
+    # whole adjoint at a bound.
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return torch.minimum(_floor(x, 0.0), one)
+
+
+def ray_planes(uni: torch.Tensor, H: int, W: int, cfg: RenderConfig):
+    """The camera origin (three 0-d tensors) and the unit ray direction
+    planes (three (H, W) planes) of the uniforms ``uni``, with the render
+    kernel's arithmetic; differentiable in ``uni`` (rows and columns are
+    constants)."""
+    f32 = torch.float32
+    dev = uni.device
+    u = [uni[k] for k in range(N_UNIFORMS)]
+    nh, nw = cfg.ndc_height or H, cfg.ndc_width or W
+    rows = uni[_U_ROW0].detach() + torch.arange(H, dtype=f32, device=dev)[:, None].expand(H, W)
+    cols = torch.arange(W, dtype=f32, device=dev)[None, :].expand(H, W)
+    qx = (2.0 * (cols + 0.5) / nw) - 1.0
+    qy = 1.0 - (2.0 * (rows + 0.5) / nh)
+    vx, vy = qx * float(np.float32(nw / nh)), qy
+    vz = u[_U_FZ].expand(H, W)
+    inv = _rsqrt(vx * vx + vy * vy + vz * vz)
+    vx, vy, vz = vx * inv, vy * inv, vz * inv
+    m = u[_U_C2W:_U_C2W + 9]
+    dx = m[0] * vx + m[1] * vy + m[2] * vz
+    dy = m[3] * vx + m[4] * vy + m[5] * vz
+    dz = m[6] * vx + m[7] * vy + m[8] * vz
+    inv2 = _rsqrt(dx * dx + dy * dy + dz * dz)
+    return (u[_U_CAM], u[_U_CAM + 1], u[_U_CAM + 2]), (dx * inv2, dy * inv2, dz * inv2)
+
+
+def implicit_denominator(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
+                         cfg: RenderConfig) -> torch.Tensor:
+    """``∇ₚf(o + t0·d)·d`` per pixel (H, W), detached: the denominator of
+    the implicit-function gradient of ``t``.  Where it is small (grazing
+    rays at a silhouette) that gradient is large and ill-conditioned."""
+    soa = compile_scene(scene)
+    prm_c = prm.detach()
+    o, d = ray_planes(uni.detach(), *t0.shape, cfg)
+    with torch.enable_grad():
+        q = [(oc + t0 * dc).requires_grad_(True) for oc, dc in zip(o, d)]
+        gq = torch.autograd.grad(soa(*q, lambda i: prm_c[i]).sum(), q)
+    return gq[0] * d[0] + gq[1] * d[1] + gq[2] * d[2]
+
+
+def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
+                 scene: SDFNode, cfg: RenderConfig) -> torch.Tensor:
+    """The shading re-traced from the forward's planes, planar RGB (3, H, W),
+    differentiable in ``prm`` (P,) and ``uni`` (30,).  ``t0``, ``shadow``
+    and ``ao`` (H, W) are constants; ``t`` is re-attached by the
+    implicit-function theorem (``t0 − (f − sg(f)) / sg(∇f·d)``, masked where
+    ``t0 > max_distance`` or ``|∇f·d| < 1e-4``).  Stage for stage the port
+    of ``sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile``."""
+    check_supported(scene, cfg)
+    H, W = t0.shape
+    mc = cfg.march
+    u = [uni[k] for k in range(N_UNIFORMS)]
+    soa = compile_scene(scene)
+
+    def sdf(px, py, pz):
+        return soa(px, py, pz, lambda i: prm[i])
+
+    (ox, oy, oz), (dx, dy, dz) = ray_planes(uni, H, W, cfg)
+
+    # ---- implicit-function re-attachment of the stored hit distance ----
+    denom = implicit_denominator(scene, prm, uni, t0, cfg)
+    usable = (t0 <= mc.max_distance) & (denom.abs() >= DENOM_FLOOR)
+    inv_denom = torch.where(usable, 1.0 / torch.where(usable, denom, torch.ones_like(denom)), torch.zeros_like(denom))
+    f_here = sdf(ox + t0 * dx, oy + t0 * dy, oz + t0 * dz)
+    t_att = t0 - (f_here - f_here.detach()) * inv_denom
+    hx, hy, hz = ox + t_att * dx, oy + t_att * dy, oz + t_att * dz
+
+    # ---- normals ----
+    e = float(np.float32(mc.epsilon))
+    if cfg.normals == "central":
+        nx = sdf(hx + e, hy, hz) - sdf(hx - e, hy, hz)
+        ny = sdf(hx, hy + e, hz) - sdf(hx, hy - e, hz)
+        nz = sdf(hx, hy, hz + e) - sdf(hx, hy, hz - e)
+    else:
+        s0 = sdf(hx + e, hy - e, hz - e)
+        s1 = sdf(hx - e, hy - e, hz + e)
+        s2 = sdf(hx - e, hy + e, hz - e)
+        s3 = sdf(hx + e, hy + e, hz + e)
+        nx = s0 - s1 - s2 + s3
+        ny = -s0 - s1 + s2 + s3
+        nz = -s0 + s1 - s2 + s3
+    ninv = _rsqrt(_floor(nx * nx + ny * ny + nz * nz, 1e-24))
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+
+    # ---- incident light, shadow (detached), AO (flows, the plane is its value) ----
+    ix, iy, iz = u[_U_LIGHT] - hx, u[_U_LIGHT + 1] - hy, u[_U_LIGHT + 2] - hz
+    iinv = _rsqrt(_floor(ix * ix + iy * iy + iz * iz, 1e-24))
+    ix, iy, iz = ix * iinv, iy * iinv, iz * iinv
+    if cfg.ao.enabled:
+        occ = torch.zeros_like(t0)
+        weight = 1.0
+        for tap in range(1, cfg.ao.samples + 1):
+            hh = cfg.ao.step * tap
+            occ = occ + weight * (hh - sdf(hx + hh * nx, hy + hh * ny, hz + hh * nz))
+            weight *= cfg.ao.falloff
+        ao_ad = _clip01(1.0 - cfg.ao.strength * occ)
+        ao = ao_ad - ao_ad.detach() + ao
+
+    # ---- shading ----
+    wx, wy, wz = ox - hx, oy - hy, oz - hz
+    winv = _rsqrt(_floor(wx * wx + wy * wy + wz * wz, 1e-24))
+    wx, wy, wz = wx * winv, wy * winv, wz * winv
+    hwx, hwy, hwz = ix + wx, iy + wy, iz + wz
+    hwinv = _rsqrt(_floor(hwx * hwx + hwy * hwy + hwz * hwz, 1e-24))
+    hwx, hwy, hwz = hwx * hwinv, hwy * hwinv, hwz * hwinv
+    ndoth = _floor(nx * hwx + ny * hwy + nz * hwz, 0.0)
+    dif = _clip01(nx * ix + ny * iy + nz * iz) * shadow
+    amb = u[_U_AMB] * ao if cfg.ao.enabled else u[_U_AMB]
+    spec = torch.pow(ndoth, u[_U_SHN])
+    chans = []
+    for c in range(3):
+        v = amb * u[_U_MAT_AMB + c] + dif * u[_U_MAT_DIF + c]
+        if cfg.shading == "blinn_phong":
+            v = v + spec * u[_U_MAT_REF + c]
+        if cfg.background is not None:
+            v = torch.where(t0 > mc.max_distance, float(cfg.background[c]), v)
+        chans.append(v.expand(H, W))
+    return torch.stack(chans)
+
+
+def render_kernel_backward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                                 t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig):
+    """Plain PyTorch version of the render backward: ``(g_prm (P,), g_uni
+    (30,))``, the VJP of :func:`shade_planes` with the cotangent ``g_rgb``
+    (3, H, W)."""
+    prm_ = prm.detach().requires_grad_(True)
+    uni_ = uni.detach().requires_grad_(True)
+    with torch.enable_grad():
+        rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg)
+        g_prm, g_uni = torch.autograd.grad(rgb, (prm_, uni_), grad_outputs=g_rgb)
+    return g_prm, g_uni
+
+
+def render_kernel_backward_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                                  t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                                  kc: KernelConfig = KernelConfig()):
+    """Launch the CUDA render backward on ``prm``'s card and return
+    ``(g_prm, g_uni)``.  Raises for inputs it does not take and on any
+    launch error; never falls back."""
+    lib = kernel_library(scene, prm, uni, cfg, kc)
+    dev = prm.device
+    H, W = cfg.height, cfg.width
+    check_plane("g_rgb", g_rgb, (3, H, W), dev)
+    for name, x in (("t", t), ("shadow", shadow), ("ao", ao)):
+        check_plane(name, x, (H, W), dev)
+    P = count_params(scene)
+    G = P + N_UNIFORMS
+    n_blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    partials = torch.empty((n_blocks, G), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sdf3d_render_bwd(uni.data_ptr(), prm.data_ptr(), g_rgb[0].data_ptr(), g_rgb[1].data_ptr(),
+                                   g_rgb[2].data_ptr(), t.data_ptr(), shadow.data_ptr(), ao.data_ptr(),
+                                   partials.data_ptr(), H, W, stream)
+    if err != 0:
+        raise RuntimeError(f"sdf3d_render_bwd launch failed: CUDA error {err}")
+    render_kernel_backward.launches += 1
+    total = partials.sum(0)
+    return total[:P], total[P:]
+
+
+def render_kernel_backward(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                           t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                           kc: KernelConfig = KernelConfig()):
+    """Render backward: ``(g_prm (P,), g_uni (30,))`` from the planar
+    cotangent ``g_rgb`` (3, H, W) and the forward's planes.  On the card it
+    launches the CUDA kernel; on the CPU it runs the kernel's plain PyTorch
+    version.  ``render_kernel_backward.launches`` counts kernel launches."""
+    if cfg.shadow.enabled and cfg.shadow.grad != "detach":
+        raise NotImplementedError(
+            f"shadow.grad == {cfg.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12); "
+            "the render backward treats the shadow as a detached factor")
+    if prm.device.type == "cpu":
+        return render_kernel_backward_plain(scene, prm, uni, g_rgb, t, shadow, ao, cfg)
+    if prm.device.type == "cuda":
+        return render_kernel_backward_launch(scene, prm, uni, g_rgb, t, shadow, ao, cfg, kc)
+    raise ValueError(f"render_kernel_backward runs on 'cuda' or 'cpu', not {prm.device}")
+
+
+#: Kernel launches in this process (the smoke resets and reads it).
+render_kernel_backward.launches = 0

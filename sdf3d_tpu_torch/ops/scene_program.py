@@ -13,7 +13,10 @@ from the same emitter code, so parameter offsets cannot drift between them:
   ``Scene::sdf(px, py, pz, p)``, a ray form ``Scene::Ray`` whose ``setup``
   hoists the per-ray constants out of the march loop and whose ``eval(t)``
   is the per-step work, the AO taps, and the static settings as
-  ``constexpr`` (``struct Cfg``).
+  ``constexpr`` (``struct Cfg``); for the backward kernels the reverse mode
+  of the point form (``Scene::sdf_bwd``, ``sdf_grad_p``, ``ao_bwd``), which
+  the same emitters produce on a tape of symbolic values, and the fit
+  kernel's static settings (``struct Fit``).
 
 Parameters are read through ``getp(i)``: an element of the flat parameter
 vector in torch, ``p[i]`` (a register copy of a run-time device array) in
@@ -54,13 +57,17 @@ def leaves(node: SDFNode):
             yield v
 
 
-def scene_param_vector(scene: SDFNode, device=None) -> torch.Tensor:
-    """All leaves flattened into one (P,) float32 vector (detached), in the
-    order the emitters consume them."""
-    parts = [l.detach().reshape(-1).to(torch.float32) for l in leaves(scene)]
+def scene_param_vector(scene: SDFNode, device=None, detach: bool = True) -> torch.Tensor:
+    """All leaves flattened into one (P,) float32 vector, in the order the
+    emitters consume them.  ``detach=False`` keeps the autograd graph, so a
+    gradient of the vector reaches the scene's ``nn.Parameter``s (the
+    counterpart of ``jax.vjp(scene_param_vector)``)."""
+    parts = [l.reshape(-1).to(torch.float32) for l in leaves(scene)]
     if not parts:
         return torch.zeros(0, dtype=torch.float32, device=device)
     vec = torch.cat(parts)
+    if detach:
+        vec = vec.detach()
     return vec.to(device) if device is not None else vec
 
 
@@ -244,6 +251,168 @@ def compile_scene(scene: SDFNode):
 
 
 # ---------------------------------------------------------------------------
+# Reverse mode of the point form, for the CUDA backward kernels.  The same
+# point-form emitters run on a tape of symbolic values; each recorded
+# operation has an adjoint rule, so the reverse pass of a node is derived
+# from its forward emitter and parameter offsets cannot drift.  Adjoint
+# rules follow lax's derivatives (min/max split the adjoint 0.5/0.5 at an
+# exact tie; sqrt's derivative is 0.5/sqrt(x)), which the JAX package's
+# jax.vjp of the same emitters applies.
+# ---------------------------------------------------------------------------
+
+
+class _Var:
+    """A value of straight-line code recorded on a :class:`_Tape`."""
+
+    __slots__ = ("tape", "i")
+
+    def __init__(self, tape: "_Tape", i: int):
+        self.tape, self.i = tape, i
+
+    def __add__(self, o):
+        return self.tape.op("+", self, o)
+
+    def __radd__(self, o):
+        return self.tape.op("+", o, self)
+
+    def __sub__(self, o):
+        return self.tape.op("-", self, o)
+
+    def __rsub__(self, o):
+        return self.tape.op("-", o, self)
+
+    def __mul__(self, o):
+        return self.tape.op("*", self, o)
+
+    def __rmul__(self, o):
+        return self.tape.op("*", o, self)
+
+    def __truediv__(self, o):
+        return self.tape.op("/", self, o)
+
+    def __rtruediv__(self, o):
+        return self.tape.op("/", o, self)
+
+
+class _Tape:
+    """Symbolic backend that records operations in order: ``nodes[i]`` is
+    ``("leaf", c_name)`` or ``(op, a, b)`` with operands a node index or a
+    float constant."""
+
+    def __init__(self):
+        self.nodes: list[tuple] = []
+        self.named: dict[str, _Var] = {}
+
+    def leaf(self, name: str) -> _Var:
+        if name not in self.named:
+            self.nodes.append(("leaf", name))
+            self.named[name] = _Var(self, len(self.nodes) - 1)
+        return self.named[name]
+
+    def op(self, op: str, a, b=None) -> _Var:
+        def ref(x):
+            return x.i if isinstance(x, _Var) else float(x)
+
+        self.nodes.append((op, ref(a), None if b is None else ref(b)))
+        return _Var(self, len(self.nodes) - 1)
+
+    def sqrt(self, x):
+        return self.op("sqrt", x)
+
+    def minimum(self, a, b):
+        return self.op("min", a, b)
+
+    def maximum(self, a, b):
+        return self.op("max", a, b)
+
+
+# Forward values each adjoint rule reads: operands, or the result itself.
+_NEEDS = {"+": "", "-": "", "*": "ab", "/": "ab", "sqrt": "r", "min": "ab", "max": "ab"}
+
+
+def _adjoints(op: str, g: str, a: str, b: str, r: str):
+    """C terms of the adjoints of the operands ``a``, ``b`` of ``r = op(a, b)``
+    given the adjoint ``g`` of ``r`` (lax's derivative rules)."""
+    if op == "+":
+        return g, g
+    if op == "-":
+        return g, f"(-{g})"
+    if op == "*":
+        return f"({g} * {b})", f"({g} * {a})"
+    if op == "/":
+        return f"({g} / {b})", f"(-(({g} * {a}) / ({b} * {b})))"
+    if op == "sqrt":
+        return f"({g} * (0.5f / {r}))", None
+    return f"({g} * sdf3d::{op}_adj({a}, {b}))", f"({g} * sdf3d::{op}_adj({b}, {a}))"
+
+
+def _reverse_source(scene: SDFNode, with_params: bool) -> str:
+    """C statements for the reverse pass of the point form at (px, py, pz)
+    with the output adjoint ``g``: ``dp[k] += g·∂f/∂p_k`` when
+    ``with_params``, and ``(dpx, dpy, dpz) = g·∇ₚf``."""
+    tape = _Tape()
+    root = _emit(scene, tape.leaf("px"), tape.leaf("py"), tape.leaf("pz"),
+                 lambda i: tape.leaf(f"p[{i}]"), 0, tape).i
+    nodes = tape.nodes
+    wanted = {"px", "py", "pz"}
+
+    def is_var(x):
+        return isinstance(x, int)
+
+    def val(x):
+        return f"v{x}" if is_var(x) else c_float(x)
+
+    # Nodes whose adjoint matters: those that depend on a wanted leaf.
+    reach = []
+    for op, *args in nodes:
+        if op == "leaf":
+            reach.append(args[0] in wanted or (with_params and args[0].startswith("p[")))
+        else:
+            reach.append(any(is_var(x) and reach[x] for x in args))
+
+    rev, needed = [], set()
+    for i in range(len(nodes) - 1, -1, -1):
+        op, a, b = nodes[i] if nodes[i][0] != "leaf" else (None, None, None)
+        if op is None or not reach[i]:
+            continue
+        needed.update(x for flag, x in zip("ab", (a, b)) if flag in _NEEDS[op] and is_var(x))
+        if "r" in _NEEDS[op]:
+            needed.add(i)
+        terms = _adjoints(op, f"a{i}", val(a), None if b is None else val(b), f"v{i}")
+        for x, t in zip((a, b), terms):
+            if is_var(x) and reach[x]:
+                rev.append(f"a{x} += {t};")
+
+    # Forward values: the needed ones and everything they are computed from.
+    for i in range(len(nodes) - 1, -1, -1):
+        if i in needed and nodes[i][0] != "leaf":
+            needed.update(x for x in nodes[i][1:] if is_var(x))
+    fwd = []
+    for i, (op, *args) in enumerate(nodes):
+        if i not in needed:
+            continue
+        if op == "leaf":
+            expr = args[0]
+        elif op == "sqrt":
+            expr = f"sqrtf({val(args[0])})"
+        elif op in ("min", "max"):
+            expr = f"f{op}f({val(args[0])}, {val(args[1])})"
+        else:
+            expr = f"({val(args[0])} {op} {val(args[1])})"
+        fwd.append(f"const float v{i} = {expr};")
+
+    decl = [f"float a{i} = {'g' if i == root else '0.0f'};" for i in range(len(nodes)) if reach[i]]
+    out = []
+    for name, var in tape.named.items():
+        a = f"a{var.i}" if reach[var.i] else "0.0f"
+        if name in wanted:
+            out.append(f"d{name} = {a};")
+        elif with_params and reach[var.i]:
+            out.append(f"dp[{name[2:-1]}] += {a};")
+    return "\n".join("    " + s for s in fwd + decl + rev + out)
+
+
+# ---------------------------------------------------------------------------
 # Ray-form emitters: (node, o, d, getp, off, m) -> eval(t), per-ray
 # constants hoisted out of the march loop.
 # ---------------------------------------------------------------------------
@@ -341,9 +510,34 @@ def _ao_source(cfg) -> str:
     return "\n".join(lines)
 
 
-def cuda_scene_source(scene: SDFNode, cfg, kc) -> str:
+def _ao_bwd_source(cfg) -> str:
+    """The reverse of :func:`_ao_source`'s taps, with the same constants:
+    the adjoint ``g`` of the clipped factor goes through the clip and each
+    tap's distance to ``dp``, the hit point and the normal."""
+    lines = ["    float occ = 0.0f;"]
+    taps = []
+    weight = 1.0
+    for tap in range(1, cfg.ao.samples + 1):
+        h = c_float(cfg.ao.step * tap)
+        pt = f"(hx + ({h} * nx)), (hy + ({h} * ny)), (hz + ({h} * nz))"
+        lines.append(f"    occ = (occ + ({c_float(weight)} * ({h} - sdf({pt}, p))));")
+        taps.append(f"    sdf_bwd({pt}, p, (-({c_float(weight)} * g_occ)), dp, qx, qy, qz);\n"
+                    f"    ghx += qx; ghy += qy; ghz += qz;\n"
+                    f"    gnx += ({h} * qx); gny += ({h} * qy); gnz += ({h} * qz);")
+        weight *= cfg.ao.falloff
+    strength = c_float(cfg.ao.strength)
+    lines.append(f"    const float g_occ = ((g * sdf3d::clip_adj((1.0f - ({strength} * occ)), 0.0f, 1.0f)) * (-{strength}));")
+    lines.append("    float qx, qy, qz;")
+    return "\n".join(lines + taps)
+
+
+def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen_slots: tuple = ()) -> str:
     """The generated header ``sdf3d_scene.cuh`` for ``scene`` under the
-    static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig)."""
+    static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig).
+
+    ``wrt_uniforms`` and ``frozen_slots`` are the fit kernel's static
+    settings (``struct Fit``): whether it computes the uniform gradients,
+    and the parameter slots whose gradient it leaves at exactly 0."""
     check_scene(scene)
     P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
     point = _emit(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps)
@@ -360,6 +554,20 @@ def cuda_scene_source(scene: SDFNode, cfg, kc) -> str:
     b = lambda v: "true" if v else "false"  # noqa: E731
     fields = "\n".join(f"    float {f};" for f in ray.fields)
     setup = "\n".join(f"      {s}" for s in ray.setup)
+    ao_bwd = ""
+    if cfg.ao.enabled:
+        ao_bwd = f"""
+  // Reverse of ao(): the adjoint g of the AO factor into dp, g_h and g_n.
+  static SDF3D_HD void ao_bwd(float hx, float hy, float hz, float nx, float ny, float nz, const float* p,
+                              float g, float* dp, float& ghx, float& ghy, float& ghz,
+                              float& gnx, float& gny, float& gnz) {{
+{_ao_bwd_source(cfg)}
+  }}
+"""
+    n_params = count_params(scene)
+    if any(not 0 <= k < n_params for k in frozen_slots):
+        raise ValueError(f"frozen_slots {frozen_slots} out of range for {n_params} parameters")
+    frozen = "".join(f"\n    dp[{k}] = 0.0f;" for k in sorted(set(frozen_slots)))
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
@@ -408,6 +616,28 @@ struct Scene {{
   // Ambient occlusion factor at hit point h with normal n.
   static SDF3D_HD float ao(float hx, float hy, float hz, float nx, float ny, float nz, const float* p) {{
 {_ao_source(cfg)}
+  }}
+
+  // Reverse mode of the point form at (px, py, pz) with output adjoint g:
+  // dp[k] += g * df/dp_k, and (dpx, dpy, dpz) = g * grad_p f.
+  static SDF3D_HD void sdf_bwd(float px, float py, float pz, const float* p, float g, float* dp,
+                               float& dpx, float& dpy, float& dpz) {{
+{_reverse_source(scene, with_params=True)}
+  }}
+
+  // grad_p f at (px, py, pz) (the implicit-function denominator).
+  static SDF3D_HD void sdf_grad_p(float px, float py, float pz, const float* p,
+                                  float& dpx, float& dpy, float& dpz) {{
+    const float g = 1.0f;
+{_reverse_source(scene, with_params=False)}
+  }}
+{ao_bwd}}};
+
+// Static settings of the fit kernel.
+struct Fit {{
+  static constexpr bool wrt_uniforms = {b(wrt_uniforms)};
+  // Frozen parameter slots read exactly 0.
+  static SDF3D_HD void zero_frozen(float* dp) {{{frozen}
   }}
 }};
 """

@@ -1,4 +1,6 @@
-"""The pixel budget that holds two renders of one frame to each other.
+"""The bars that hold two implementations to each other: the pixel budget
+for renders (:func:`check_planes`) and the per-component bar for gradients
+(:func:`check_grads`, with :func:`gradient_mass` and :func:`conditioned`).
 
 Two correct implementations of the march can differ by rounding (operation
 order, fused multiply-add, library ``sqrt``/``pow``), and a ray that passes a
@@ -65,6 +67,72 @@ def check_pixel_budget(a, b, name: str = "image", channel_axis: int | None = Non
         raise AssertionError(
             f"{name}: {st['over_atol']} of {st['pixels']} pixels off by > {atol}{' (relative)' if relative else ''} "
             f"(budget {edge_frac:.2%}), max abs err {st['max_abs_err']:.3g} (hard limit {hard})"
+        )
+    return st
+
+
+#: Pixels with |∇f·d| below this are left out of the gradient comparisons
+#: (:func:`conditioned`).
+COND_FLOOR = 1e-2
+
+
+def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR):
+    """Pixels (H, W bool) whose gradient two implementations can be held to
+    at the gradient bars: misses, and hits with ``|∇f·d| ≥ floor``.
+
+    On a ray that grazes a silhouette the implicit-function term of ``t``
+    scales with ``1/(∇f·d)`` and its error with ``1/(∇f·d)²``: a one-ulp
+    difference in a ray direction (JAX's CPU ``rsqrt`` is not ``1/sqrt``;
+    nvcc contracts FMA) moves the hit point, and at ``|∇f·d| = 3.6e-4`` it
+    moved one pixel's term by 0.17% (ROADMAP Queue 3).  The comparisons give
+    such pixels a zero cotangent (or residual)."""
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import implicit_denominator
+
+    den = implicit_denominator(scene, prm, uni, t, cfg)
+    return (den.abs() >= floor) | (t > cfg.march.max_distance)
+
+
+def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg):
+    """Per component of the render backward's ``(g_prm, g_uni)``, the sum
+    over pixels of the magnitude of each pixel's term, ``(P + 30,)``.
+
+    A float32 sum's rounding error scales with this mass, not with the sum:
+    the plane-normal gradient, for one, sums terms of ±(distance to the
+    hit) that cancel.  It runs the plain backward with the parameters and
+    uniforms expanded to one copy per pixel, which gives each pixel's term."""
+    import torch
+
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+
+    H, W = t.shape
+
+    def planes(v):
+        return v[:, None, None].expand(-1, H, W).contiguous()
+
+    mp, mu = render_kernel_backward_plain(scene, planes(prm), planes(uni), g_rgb, t, shadow, ao, cfg)
+    return torch.cat([mp.abs().sum((1, 2)), mu.abs().sum((1, 2))])
+
+
+def check_grads(got, want, mass, rtol: float = 1e-4, mass_tol: float = 1e-5, max_tol: float | None = None,
+                label: str = "gradient") -> dict:
+    """Hold two gradient vectors to each other, component by component:
+    ``|got − want| ≤ rtol·|want| + mass_tol·mass`` (``mass`` from
+    :func:`gradient_mass`), and with ``max_tol`` also
+    ``≤ rtol·|want| + max_tol·max|want|``.  Returns the largest absolute
+    error and the smallest ``mass_tol`` and ``max_tol`` that would pass."""
+    got, want, mass = _np(got).ravel(), _np(want).ravel(), _np(mass).ravel()
+    over = np.maximum(np.abs(got - want) - rtol * np.abs(want), 0.0)
+    peak = float(np.abs(want).max()) if want.size else 0.0
+    st = {
+        "max_abs_err": float(np.abs(got - want).max()) if got.size else 0.0,
+        "err_over_mass": float((over / np.maximum(mass, 1e-30)).max()) if got.size else 0.0,
+        "err_over_max": float(over.max() / max(peak, 1e-30)) if got.size else 0.0,
+    }
+    over_max = max_tol is not None and st["err_over_max"] > max_tol
+    if not np.isfinite(got).all() or st["err_over_mass"] > mass_tol or over_max:
+        raise AssertionError(
+            f"{label}: error {st} over the bar (rtol {rtol}, {mass_tol}·mass, {max_tol}·max|g|)\n"
+            f"got  {got.tolist()}\nwant {want.tolist()}"
         )
     return st
 

@@ -1,4 +1,5 @@
-"""The CUDA render kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (forward render, fit step, render backward) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -12,7 +13,14 @@ import pytest
 import torch
 
 import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import _build
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
+from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+    render_kernel_backward,
+    render_kernel_backward_launch,
+    render_kernel_backward_plain,
+)
 from sdf3d_tpu_torch.ops.render_kernel import (
     KernelConfig,
     pack_uniforms,
@@ -21,7 +29,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_launch,
 )
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
-from sdf3d_tpu_torch.utils.parity import check_planes
+from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -87,3 +95,78 @@ def test_launch_rejects_bad_inputs(dev):
         render_kernel_launch(scene, prm[:7], uni, BASE)
     with pytest.raises(ValueError):
         render_kernel_launch(scene, prm, uni.cpu(), BASE)
+
+
+FROZEN = (0, 1, 2, 3)
+
+
+def _fit_scene0(dev):
+    return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25)).to(dev)
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+def test_fit_step_matches_plain(dev, wrt_uniforms, frozen, size):
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    keep = conditioned(scene, prm, uni, t, cfg)
+    target = (rgb + (torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1) * keep).contiguous()
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    p_loss, p_prm, p_uni = fit_step_kernel_plain(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    # The plain reverse pass on the kernel's own primal planes (K1's).
+    s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    s_prm[list(frozen)] = 0.0
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    got = torch.cat([g_prm, g_uni])
+    check_grads(got, torch.cat([s_prm, s_uni if wrt_uniforms else torch.zeros_like(s_uni)]), mass,
+                rtol=1e-4, mass_tol=1e-5)
+    # The plain version marches its own primal: a ray that ends a step apart
+    # moves its pixel's term (ROADMAP Queue 3).
+    check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=1e-3)
+    assert all(float(g_prm[k]) == 0.0 for k in frozen)
+    assert wrt_uniforms or float(g_uni.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("normals", ["central", "tetrahedron"])
+def test_render_backward_matches_plain(dev, normals):
+    cfg = dataclasses.replace(BASE, width=250, height=190, normals=normals,
+                              ao=dataclasses.replace(BASE.ao, enabled=normals == "tetrahedron"))
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev) * conditioned(scene, prm, uni, t, cfg))
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb.contiguous(), t, sh, ao, cfg)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    torch.cuda.synchronize()
+    check_grads(torch.cat(got), torch.cat(want), gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg),
+                rtol=1e-4, mass_tol=1e-5)
+
+
+def test_fit_parameter_change_does_not_rebuild(dev):
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), BASE, dev)
+    target = torch.zeros((3, BASE.height, BASE.width), device=dev)
+    fit_step_kernel_launch(scene, prm, uni, target, BASE, KernelConfig(), False, FROZEN)
+    loaded, launches = _build.LIBRARIES.loaded, fit_step_kernel.launches
+    fit_step_kernel_launch(scene, prm * 1.01, uni, target, BASE, KernelConfig(), False, FROZEN)
+    assert _build.LIBRARIES.loaded == loaded
+    assert fit_step_kernel.launches == launches + 1
+
+
+@pytest.mark.parametrize("loss,counts", [("l2", (3, 0, 0)), ("multiscale", (0, 3, 3))])
+def test_fit_scene_launch_counters(dev, loss, counts):
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, BASE, device=dev)[0]
+    render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
+    res = fit_scene(target, _fit_scene0(dev), cam, light, mat, BASE, FitConfig(steps=3, log_every=1, loss=loss),
+                    trainable=(False, False, True, True), device=dev)
+    assert (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches) == counts
+    assert res.losses[-1] < res.losses[0]

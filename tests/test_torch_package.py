@@ -15,7 +15,9 @@ import sdf3d_tpu as s
 import sdf3d_tpu_torch as tt
 from sdf3d_tpu.ops.render_kernel import pack_uniforms as jax_pack_uniforms
 from sdf3d_tpu.ops.scene_program import scene_param_vector as jax_scene_param_vector
+from sdf3d_tpu.fit import FitConfig as JaxFitConfig
 from sdf3d_tpu_torch import convert
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_scene_multiview, fit_view
 from sdf3d_tpu_torch.ops import KernelConfig, cuda_scene_source, pack_uniforms, render_kernel_forward
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
 from sdf3d_tpu_torch.sdf import SDFNode, load_setup, save_setup
@@ -50,7 +52,8 @@ def test_import_leaves_jax_out():
         "import pkgutil, sys, sdf3d_tpu_torch\n"
         "for m in pkgutil.walk_packages(sdf3d_tpu_torch.__path__, 'sdf3d_tpu_torch.'):\n"
         "    __import__(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'sdf3d_tpu.')) or k == 'sdf3d_tpu')\n"
+        "import sdf3d_tpu_torch.fit, sdf3d_tpu_torch.cli\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'optax', 'sdf3d_tpu') or k.startswith(('jax.', 'optax.', 'sdf3d_tpu.')))\n"
         "print(len(list(pkgutil.walk_packages(sdf3d_tpu_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -156,3 +159,46 @@ def test_forward_records_no_graph():
     rgb, t, sh, ao = render_kernel_forward(scene, *VIEW, CFG)
     assert not any(x.requires_grad for x in (rgb, t, sh, ao))
     assert not tt.render(scene, *VIEW, CFG).requires_grad
+
+
+def test_fit_config_from_jax():
+    got = convert.from_jax(JaxFitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="pallas",
+                                        pallas_interpret=True, pallas_tile=(8, 128), loss="multiscale"))
+    assert got == FitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="kernel", loss="multiscale")
+    with pytest.raises(NotImplementedError, match="shard_layout"):
+        convert.from_jax(JaxFitConfig(shard_layout="tiles"))
+
+
+FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(fit_config=FitConfig(engine="xla")),
+        dict(fit_config=FitConfig(silhouette_weight=0.5)),
+        dict(target_coverage=np.ones((24, 32), np.float32)),
+        dict(mesh=object()),
+        dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
+    ],
+    ids=["xla", "silhouette", "coverage", "mesh", "shadow_ad"],
+)
+def test_fit_options_that_wait_raise(kwargs):
+    args = list(FIT_ARGS)
+    if "render_config" in kwargs:
+        args[-1] = kwargs.pop("render_config")
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        fit_scene(*args, **kwargs, device="cpu")
+
+
+@pytest.mark.parametrize("fn", [fit_view, fit_scene_multiview])
+def test_fit_entry_points_that_wait_raise(fn):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        fn(*FIT_ARGS)
+
+
+def test_fit_has_no_quiet_move_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the cuda-marked tests cover this path")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_scene(*FIT_ARGS, FitConfig(steps=1))

@@ -1,0 +1,99 @@
+"""The render backward's plain PyTorch version against the JAX package's Pallas
+backward kernel (``render_kernel_backward``, run in interpret mode on the CPU),
+both fed the same t/shadow/ao planes (JAX's interpret-mode forward kernel) and
+the same cotangent."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sdf3d_tpu as s
+from sdf3d_tpu.ops import PallasRenderConfig
+from sdf3d_tpu.ops.render_bwd_kernel import render_kernel_backward as jax_render_kernel_backward
+from sdf3d_tpu.ops.render_kernel import pack_uniforms as jax_pack_uniforms
+from sdf3d_tpu.ops.render_kernel import render_kernel_forward as jax_render_kernel_forward
+from sdf3d_tpu.ops.scene_program import scene_param_vector as jax_scene_param_vector
+from sdf3d_tpu_torch import convert
+from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain
+from sdf3d_tpu_torch.ops.render_kernel import pack_uniforms
+from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.utils.parity import check_grads, conditioned, gradient_mass
+
+torch.set_num_threads(1)
+
+W, H = 128, 96
+BASE = dataclasses.replace(s.REFERENCE_CONFIG, width=W, height=H)
+CAMERAS = {
+    "reference": s.Camera.reference,
+    "orbit": lambda: s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0),
+}
+# (ray form, normals, AO, camera): every option on both cameras.
+CASES = [
+    (True, "central", False, "reference"),
+    (True, "central", False, "orbit"),
+    (False, "central", True, "reference"),
+    (True, "tetrahedron", False, "orbit"),
+    (False, "tetrahedron", True, "orbit"),
+    (True, "tetrahedron", True, "reference"),
+]
+
+
+def _id(case):
+    ray_sdf, normals, ao, cam = case
+    return f"{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}-{cam}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
+def test_plain_backward_matches_jax_kernel(case):
+    ray_sdf, normals, ao, cam_name = case
+    jcfg = dataclasses.replace(BASE, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
+    jscene, jcam, jlight, jmat = s.reference_scene(), CAMERAS[cam_name](), s.reference_light(), s.reference_material()
+    pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True, ray_sdf=ray_sdf)
+    _, t, shadow, ao_plane = (np.asarray(x) for x in jax_render_kernel_forward(
+        jscene, jcam, jlight, jmat, jcfg, pc, planar=True))
+
+    scene, cam, light, mat, cfg = (convert.from_jax(o) for o in (jscene, jcam, jlight, jmat, jcfg))
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, light, mat, cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    planes = [torch.from_numpy(x.copy()) for x in (t, shadow, ao_plane)]
+    # A seeded cotangent, zero where a grazing ray makes the gradient
+    # ill-conditioned (utils/parity.py::conditioned).
+    keep = conditioned(scene, prm, uni, planes[0], cfg).numpy()
+    g_rgb = np.random.default_rng(1).normal(size=(3, H, W)).astype(np.float32) * keep
+
+    leaves, treedef = jax.tree_util.tree_flatten(jscene)
+    juni = jax_pack_uniforms(jcam, jlight, jmat, jcfg.ray_mode).at[27].set(jcfg.shadow.k)
+    want = jax_render_kernel_backward(
+        treedef, tuple(jnp.shape(l) for l in leaves), jax_scene_param_vector(jscene), juni,
+        jnp.asarray(g_rgb), *(jnp.asarray(x) for x in (t, shadow, ao_plane)), jcfg, pc)
+    got = render_kernel_backward_plain(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+
+    mass = gradient_mass(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    check_grads(torch.cat(got), np.concatenate([np.asarray(w) for w in want]), mass, rtol=1e-4, mass_tol=1e-5)
+    # Slot 27 (shadow k, a detached factor) and the row slots read exactly 0.
+    assert float(got[1][27:].abs().max()) == 0.0
+    # The wrapper on CPU tensors is the same plain version.
+    again = render_kernel_backward(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_background_misses_carry_no_gradient():
+    """With a background colour a miss composites to it: its cotangent
+    reaches nothing."""
+    cfg = dataclasses.replace(convert.from_jax(BASE), background=(0.1, 0.2, 0.3))
+    scene, cam = convert.from_jax(s.reference_scene()), convert.from_jax(CAMERAS["reference"]())
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, convert.from_jax(s.reference_light()), convert.from_jax(s.reference_material()))
+    uni[27] = cfg.shadow.k
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward_plain
+
+    _, t, shadow, ao = render_kernel_forward_plain(scene, prm, uni, cfg)
+    miss = (t > cfg.march.max_distance).float()
+    assert 0 < float(miss.mean()) < 1
+    g_p, g_u = render_kernel_backward_plain(scene, prm, uni, miss.expand(3, H, W).contiguous(), t, shadow, ao, cfg)
+    assert float(g_p.abs().max()) == 0.0 and float(g_u.abs().max()) == 0.0

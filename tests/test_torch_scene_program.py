@@ -29,7 +29,9 @@ from sdf3d_tpu_torch.ops import (
     scene_param_vector,
 )
 from sdf3d_tpu_torch.ops._build import CSRC, SCENE_HEADER
-from sdf3d_tpu_torch.utils.parity import check_planes
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_plain
+from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
 
 torch.set_num_threads(1)
 
@@ -98,16 +100,16 @@ def test_generated_source_reads_parameters_at_run_time():
     assert cuda_scene_source(tt.reference_scene(), dataclasses.replace(cfg, width=64, height=48), kc) == a
 
 
-def _build_host_library(header: str, out_dir: pathlib.Path) -> ctypes.CDLL:
-    """Compile csrc/render_kernel.cu with the generated header as C++ for
+def _build_host_library(header: str, out_dir: pathlib.Path, source: str = "render_kernel.cu") -> ctypes.CDLL:
+    """Compile a kernel source of csrc/ with the generated header as C++ for
     the CPU (no __CUDACC__: the qualifiers expand to nothing)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
     (out_dir / SCENE_HEADER).write_text(header)
-    lib = out_dir / "librender_host.so"
+    lib = out_dir / f"lib{source.split('.')[0]}_host.so"
     cmd = [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter",
-           "-I", str(CSRC), "-I", str(out_dir), str(CSRC / "render_kernel.cu"), "-o", str(lib)]
+           "-I", str(CSRC), "-I", str(out_dir), str(CSRC / source), "-o", str(lib)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(lib))
@@ -146,3 +148,81 @@ def test_generated_source_on_cpu_matches_plain(case, tmp_path):
 
     ref = render_kernel_forward_plain(scene, prm, uni, cfg, kc)
     check_planes(out, ref, cfg.march.max_distance)
+
+
+GRAD_CASES = {
+    "reference": (tt.reference_scene, {}),
+    "tetra_ao_bg_lambert": (
+        tt.reference_scene,
+        dict(normals="tetrahedron", shading="lambert", background=(0.2, 0.3, 0.4),
+             ao=dataclasses.replace(tt.REFERENCE_CONFIG.ao, enabled=True)),
+    ),
+    "three_leaves_ao": (
+        lambda: tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.0, 0.4, 0.0), 0.2),
+                             tt.sdf.sphere((0.35, 0.15, 0.1), 0.15)),
+        dict(ao=dataclasses.replace(tt.REFERENCE_CONFIG.ao, enabled=True)),
+    ),
+}
+
+
+def _grad_setup(case):
+    scene_fn, overrides = GRAD_CASES[case]
+    scene = scene_fn()
+    H, W = 48, 64
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H, **overrides)
+    cam = tt.Camera.orbit(azimuth_deg=25.0, elevation_deg=10.0)
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, tt.reference_light(), tt.reference_material(), cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    return scene, cfg, prm, uni, render_kernel_forward_plain(scene, prm, uni, cfg)
+
+
+def _ptr(x):
+    return x.numpy().ctypes.data
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_generated_render_bwd_on_cpu_matches_plain(case, tmp_path):
+    """The hand-written reverse pass (csrc/shade_vjp.cuh, render_bwd_kernel.cu)
+    built with g++, against autograd through the plain version."""
+    scene, cfg, prm, uni, (_, t, sh, ao) = _grad_setup(case)
+    lib = _build_host_library(cuda_scene_source(scene, cfg, KernelConfig()), tmp_path, "render_bwd_kernel.cu")
+    fn = lib.sdf3d_render_bwd_host
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    keep = conditioned(scene, prm, uni, t, cfg)
+    g_rgb = torch.from_numpy(np.random.default_rng(3).normal(size=(3,) + t.shape).astype(np.float32)) * keep
+    out = torch.empty(prm.numel() + 30)
+    assert fn(_ptr(uni), _ptr(prm), *(_ptr(g) for g in g_rgb), _ptr(t), _ptr(sh), _ptr(ao), _ptr(out),
+              *t.shape) == 0
+    want = torch.cat(render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg))
+    assert float(want[:prm.numel()].abs().min()) > 0.0
+    check_grads(out, want, gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg), rtol=1e-4, mass_tol=1e-5)
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, ()), (True, (0, 1, 2, 3))], ids=["scene", "uniforms-frozen"])
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_generated_fit_step_on_cpu_matches_plain(case, wrt_uniforms, frozen, tmp_path):
+    """The fused fit step (fit_kernel.cu: primal, residual, reverse pass)
+    built with g++, against the plain version."""
+    scene, cfg, prm, uni, (rgb, t, sh, ao) = _grad_setup(case)
+    header = cuda_scene_source(scene, cfg, KernelConfig(), wrt_uniforms, frozen)
+    lib = _build_host_library(header, tmp_path, "fit_kernel.cu")
+    fn = lib.sdf3d_fit_step_host
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    keep = conditioned(scene, prm, uni, t, cfg)
+    noise = torch.from_numpy(np.random.default_rng(4).uniform(-0.1, 0.1, rgb.shape).astype(np.float32))
+    target = (rgb + noise * keep).contiguous()
+    P = prm.numel()
+    out = torch.empty(P + 31)
+    assert fn(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), _ptr(out), *t.shape) == 0
+
+    loss, g_prm, g_uni = fit_step_kernel_plain(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    assert float(out[-1]) == pytest.approx(float(loss), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    check_grads(out[:-1], torch.cat([g_prm, g_uni]), mass, rtol=1e-4, mass_tol=1e-4, max_tol=1e-3)
+    assert all(float(out[k]) == 0.0 for k in frozen)
+    assert float(out[P - 1].abs()) > 0.0
+    if not wrt_uniforms:
+        assert float(out[P:-1].abs().max()) == 0.0
