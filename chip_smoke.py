@@ -42,6 +42,29 @@ the cotangent (or residual) zero on grazing rays (``conditioned``): 1e-5 of
 the gradient mass where both sides differentiate the same primal planes,
 1e-3 where the plain version marches its own.
 
+Then the NeuralSDF family on the neural kernel (K6), at the widths of the
+JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
+128 and 256, depth 3, 64-step march, 32-step shadow) and the demo of
+``examples/neural_sdf.py``:
+
+13. build: the library of ``ground_plane() | neural_sdf(hidden=64)`` (the
+    first frame's time, ``ptxas`` registers and spills); other weights reuse
+    it, a bare NeuralSDF and hidden 256 build their own; the other
+    libraries of phases 14 and 16 build together;
+14. K6 vs its plain version at 256×192: two cameras, both scene shapes,
+    hidden 64 and 256, the 64/32 and the reference 100/100 steps,
+    tetrahedron normals with AO and a background, all four planes within
+    ``utils/parity.py::NEURAL_BAR``;
+15. main path: ``distill`` (seed 0, hidden 64, 400 steps, batch 4096) onto
+    the example's two spheres (a hard union), then
+    ``render_batch(engine="kernel")`` of ``ground_plane() | model`` over 12
+    orbit cameras at 1080p (12 K6 launches, no K1), frame 0 against the plain
+    version, and ``render_kernel_diff`` at 256×192 (one K6 launch, finite
+    gradients for every weight tensor and the plane);
+16. times (plain, kernel, kernel, plain) at hidden 64, 128 and 256, at 720p
+    and 1080p with 64/32 steps, and hidden 64 at 1080p with 100/100; one
+    frame of the banded reference path (``render_banded``) at each width.
+
 Then one JSON line describing the kernels, and last the JSON result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX and exits non-zero without a CUDA device.
@@ -235,6 +258,7 @@ def main() -> int:
         plain_rays_per_s=W * H / (plain_ms / 1e3), build_seconds=libs.build_seconds)
 
     fit_kernels = fit_phases(torch, tt, card, dev)
+    neural_kernel = neural_phases(torch, tt, card, dev)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
@@ -244,7 +268,7 @@ def main() -> int:
         "max_abs_err": parity["rgb"]["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + fit_kernels}), flush=True)
+    }] + fit_kernels + [neural_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -480,6 +504,186 @@ def fit_phases(torch, tt, card: str, dev) -> list:
          "max_abs_err": bwd_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
          "plain_ms": runs["render_bwd"]["plain_ms"]},
     ]
+
+
+def neural_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 13-16: the NeuralSDF family on the neural kernel.  Returns its
+    entry of the kernels line."""
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.neural_kernel import (
+        NeuralRenderConfig,
+        neural_structure,
+        render_neural_forward,
+        render_neural_forward_plain,
+        render_neural_launch,
+    )
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_forward
+    from sdf3d_tpu_torch.ops.scene_program import cuda_neural_source, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, check_planes, pixel_budget
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    nc = NeuralRenderConfig()
+    ref = tt.REFERENCE_CONFIG
+
+    def config(w, h, steps=64, shadow_steps=32, **kw):
+        return dataclasses.replace(ref, width=w, height=h, march=dataclasses.replace(ref.march, max_steps=steps),
+                                   shadow=dataclasses.replace(ref.shadow, max_steps=shadow_steps), **kw)
+
+    def scene(hidden, bare=False, seed=0):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        m = tt.sdf.neural_sdf(gen, hidden=hidden, depth=3, radius=0.3)
+        return m if bare else tt.sdf.ground_plane().to(dev) | m
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def compare(sc, cam, c, label):
+        prm, uni = inputs(sc, cam, c)
+        got = render_neural_launch(sc, prm, uni, c, nc)
+        want = render_neural_forward_plain(sc, prm, uni, c)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in got), f"{label}: non-finite kernel output")
+        st = check_planes(got, want, c.march.max_distance, label, **NEURAL_BAR)
+        # Pixels off by more than the analytic kernels' 1e-4, for the record.
+        fine = {n: pixel_budget(g, w, 0 if n == "rgb" else None)["over_atol"]
+                for n, g, w in zip(("rgb", "t", "shadow", "ao"), got, want) if n != "t"}
+        return {n: {k: v[k] for k in ("over_atol", "max_abs_err")} for n, v in st.items()} | {"over_1e-4": fine}
+
+    def ptxas(c, sc):
+        log_text = _build.LIBRARIES.log(_build.LIBRARIES.key(cuda_neural_source(sc, c, nc), "neural"))
+        return [ln.split(":", 1)[-1].strip() for ln in log_text.splitlines()
+                if re.search(r"Used \d+ registers|spill stores", ln)]
+
+    crossover = config(W, H)
+    small = config(256, 192)
+    cams = (("reference", tt.Camera.reference(device=dev)),
+            ("orbit30_15", tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)))
+    u64, b64, u128, u256 = scene(64), scene(64, bare=True), scene(128), scene(256)
+    steps100 = config(256, 192, 100, 100)
+    options = config(256, 192, normals="tetrahedron", ao=dataclasses.replace(ref.ao, enabled=True),
+                     background=(0.05, 0.05, 0.1))
+
+    # ---- 13. build ----
+    libs = _build.LIBRARIES
+    builds0, seconds0, loaded0 = libs.builds, libs.build_seconds, libs.loaded
+    t0 = time.perf_counter()
+    render_neural_forward(u64, cams[0][1], light, mat, crossover, nc, device=dev)
+    torch.cuda.synchronize()
+    first_frame_s = time.perf_counter() - t0
+    render_neural_forward(scene(64, seed=1), cams[0][1], light, mat, crossover, nc, device=dev)
+    check(libs.loaded == loaded0 + 1, "a frame with other weights built another library")
+    render_neural_forward(b64, cams[0][1], light, mat, small, nc, device=dev)
+    check(libs.loaded == loaded0 + 2, "a bare NeuralSDF did not build its own library")
+    t0 = time.perf_counter()
+    libs.load_many([(neural_structure(sc, c, nc), (lambda sc=sc, c=c: cuda_neural_source(sc, c, nc)), "neural")
+                    for sc, c in ((u256, small), (u128, small), (u64, steps100), (u64, options))])
+    parallel_s = time.perf_counter() - t0
+    check(libs.loaded == loaded0 + 6, f"expected six neural libraries, got {libs.loaded - loaded0}")
+    check(libs.builds - builds0 <= 6, f"{libs.builds - builds0} neural builds")
+    log("neural_build", first_frame_seconds=first_frame_s, builds=libs.builds - builds0,
+        build_seconds=libs.build_seconds - seconds0, parallel_build_wall_seconds=parallel_s,
+        libraries=libs.loaded - loaded0,
+        ptxas={"hidden64_union": ptxas(small, u64), "hidden64_bare": ptxas(small, b64),
+               "hidden128_union": ptxas(small, u128), "hidden256_union": ptxas(small, u256)})
+
+    # ---- 14. kernel vs plain at 256x192 ----
+    cases = [(f"hidden64 union {n}", u64, cam, small) for n, cam in cams] + [
+        ("hidden64 bare orbit30_15", b64, cams[1][1], small),
+        ("hidden256 union orbit30_15", u256, cams[1][1], small),
+        ("hidden256 union reference", u256, cams[0][1], small),
+        ("hidden64 union 100/100 orbit30_15", u64, cams[1][1], steps100),
+        ("hidden64 union tetrahedron+ao+background orbit30_15", u64, cams[1][1], options),
+    ]
+    for label, sc, cam, c in cases:
+        log("neural_parity_256x192", case=label, **compare(sc, cam, c, label))
+
+    # ---- 15. main path: distill, then a 12-frame turntable at 1080p ----
+    target = tt.sdf.union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18), tt.sdf.sphere((0.15, 0.48, 0.0), 0.14)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model, losses = tt.sdf.distill(tt.sdf.neural_sdf(gen, hidden=64, depth=3, radius=0.3), target, 1, steps=400,
+                                   batch=4096, lo=(-0.6, -0.2, -0.6), hi=(0.6, 1.0, 0.6))
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    pts = torch.rand((512, 3), generator=gen, device=dev) * 0.8 - 0.4 + torch.tensor([0.0, 0.4, 0.0], device=dev)
+    with torch.no_grad():
+        field_err = float((model.distance(pts) - target.distance(pts)).abs().mean())
+    check(len(losses) == 400 and all(math.isfinite(x) for x in losses), "distill: bad losses")
+    check(losses[-1] < 0.2 * losses[0], f"distill: the loss fell from {losses[0]} to {losses[-1]} only")
+    check(field_err < 0.02, f"distill: mean field error {field_err} near the target")
+    neural = tt.sdf.ground_plane().to(dev) | model
+    orbit = [tt.Camera.orbit(azimuth_deg=360.0 * k / 12, elevation_deg=18.0, device=dev) for k in range(12)]
+    render_neural_forward.launches = render_kernel_forward.launches = 0
+    t0 = time.perf_counter()
+    frames = tt.render_batch(neural, orbit, light, mat, crossover, engine="kernel")
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    counts = (render_neural_forward.launches, render_kernel_forward.launches)
+    check(counts == (12, 0), f"render_batch launched (neural, render) = {counts}, expected (12, 0)")
+    check(tuple(frames.shape) == (12, H, W, 3) and bool(torch.isfinite(frames).all()), "bad turntable frames")
+    prm0, uni0 = inputs(neural, orbit[0], crossover)
+    k0 = render_neural_launch(neural, prm0, uni0, crossover, nc)
+    torch.testing.assert_close(k0[0].permute(1, 2, 0), frames[0], rtol=0, atol=0)
+    p0 = render_neural_forward_plain(neural, prm0, uni0, crossover)
+    parity = check_planes(k0, p0, crossover.march.max_distance, "neural 1080p frame 0", **NEURAL_BAR)
+    fine = pixel_budget(k0[0], p0[0], 0)
+    row, col = project(orbit[0], (0.0, 0.44, 0.0), W, H)
+    check(float(k0[1][row, col]) < 3.0, f"blob centre pixel t={float(k0[1][row, col])} is not a hit")
+    centre = frames[0, row, col]
+    check(bool((centre - torch.tensor([0.0, 0.02, 0.08], device=dev) > 1e-3).any()), "the blob is not lit")
+
+    diff_scene = tt.sdf.ground_plane().to(dev) | model
+    cam0 = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=18.0, device=dev)
+    render_neural_forward.launches = render_kernel_forward.launches = 0
+    img = render_kernel_diff(small, KernelConfig(), diff_scene, cam0, light, mat)
+    (img * img).sum().backward()
+    diff_counts = (render_neural_forward.launches, render_kernel_forward.launches)
+    check(diff_counts == (1, 0), f"render_kernel_diff launched (neural, render) = {diff_counts}")
+    grads = [diff_scene.a.normal.grad, diff_scene.a.offset.grad, *[w.grad for w in diff_scene.b.weights],
+             *[b.grad for b in diff_scene.b.biases], diff_scene.b.beta.grad]
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads), "non-finite or missing gradients")
+    check(all(float(w.grad.abs().max()) > 0 for w in diff_scene.b.weights) and
+          float(diff_scene.a.normal.grad.abs().max()) > 0, "a weight tensor or the plane got no gradient")
+    log("neural_main_path", distill_seconds=distill_s, distill_loss_first=losses[0], distill_loss_last=losses[-1],
+        field_err=field_err, frames=list(frames.shape), launches=counts[0], render_launches=counts[1],
+        render_batch_seconds=batch_s, blob_centre_px=[row, col], blob_centre_rgb=centre.tolist(),
+        parity_1080p={n: {k: st[k] for k in ("over_atol", "max_abs_err")} for n, st in parity.items()},
+        rgb_over_1e4_1080p=fine["over_atol"], diff_launches=diff_counts[0],
+        grad_abs_max={"plane_normal": float(grads[0].abs().max()),
+                      "weights": [float(w.grad.abs().max()) for w in diff_scene.b.weights]})
+
+    # ---- 16. times (plain, kernel, kernel, plain) ----
+    def timed(sc, c, frames_k, frames_p, warmup):
+        prm, uni = inputs(sc, tt.Camera.reference(device=dev), c)
+        kern = lambda: render_neural_launch(sc, prm, uni, c, nc)  # noqa: E731
+        plain = lambda: render_neural_forward_plain(sc, prm, uni, c)  # noqa: E731
+        p1 = time_ms(torch, plain, warmup, frames_p)
+        k1, k2 = time_ms(torch, kern, warmup, frames_k), time_ms(torch, kern, warmup, frames_k)
+        p2 = time_ms(torch, plain, warmup, frames_p)
+        return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "frames": frames_k, "plain_frames": frames_p, "warmup": warmup}
+
+    runs = {}
+    for hidden, sc, (fk, fp, warm) in ((64, u64, (10, 2, 1)), (128, u128, (4, 1, 1)), (256, u256, (1, 1, 0))):
+        for w, h in ((1280, 720), (W, H)):
+            runs[f"hidden{hidden}_{w}x{h}"] = timed(sc, config(w, h), fk, fp, warm)
+    runs[f"hidden64_{W}x{H}_100_100"] = timed(u64, config(W, H, 100, 100), 5, 1, 1)
+    # The banded reference path (render_banded, one frame each): the engine the
+    # JAX package serves neural scenes with on the TPU.
+    for hidden, sc in ((64, u64), (128, u128), (256, u256)):
+        cam, c = tt.Camera.reference(device=dev), config(W, H)
+        runs[f"hidden{hidden}_{W}x{H}"]["banded_ms"] = time_ms(
+            torch, lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
+    log("neural_times", card=card, **runs)
+    return {"name": "neural_fwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/neural_kernel.cu",
+            "replaces": "sdf3d_tpu/ops/neural_kernel.py:104", "launches": counts[0],
+            "max_abs_err": parity["rgb"]["max_abs_err"], "ms": runs[f"hidden64_{W}x{H}"]["ms"],
+            "plain_ms": runs[f"hidden64_{W}x{H}"]["plain_ms"]}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,11 @@ shadows and Blinn-Phong shading: a plain PyTorch reference path
 (``ops.render_kernel_forward``, ``render_batch(engine="kernel")``), built per
 scene structure at first use.  Inverse rendering on one card: ``fit_scene``
 on the fused fit-step kernel, and a differentiable kernel render
-(``ops.render_kernel_diff``: forward kernel, backward kernel).  The package
-imports torch and numpy, never JAX and never ``sdf3d_tpu``;
+(``ops.render_kernel_diff``: forward kernel, backward kernel).  The neural
+SDF family (``sdf.NeuralSDF``, ``sdf.neural_sdf``, ``sdf.distill``) renders
+on its own CUDA kernel (``ops.render_neural_forward``, ``ops.render_neural``,
+``render_batch(engine="kernel")``), or banded (``render_banded``).  The
+package imports torch and numpy, never JAX and never ``sdf3d_tpu``;
 ``convert.from_jax`` and ``sdf.load_setup`` carry scenes and settings over
 from the JAX package.
 """
@@ -40,7 +43,15 @@ from sdf3d_tpu_torch.march import (
     soft_shadow,
     sphere_trace,
 )
-from sdf3d_tpu_torch.render import render, render_batch, render_rays, shade_pixels
+from sdf3d_tpu_torch.render import (
+    render,
+    render_aux_banded,
+    render_banded,
+    render_batch,
+    render_rays,
+    render_rays_banded,
+    shade_pixels,
+)
 from sdf3d_tpu_torch.scenes import reference_scene, sphere_scene
 
 __version__ = "0.1.0"

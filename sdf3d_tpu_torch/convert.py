@@ -1,8 +1,8 @@
 """Carry objects of the JAX package over to the port.
 
 ``from_jax(obj)`` turns a JAX scene node, ``Camera``, ``PointLight``,
-``Material``, a ``RenderConfig`` family config or a ``FitConfig`` into the
-port's object of the same class name.  It walks dataclass fields and reads
+``Material``, a ``RenderConfig`` family config, a ``FitConfig`` or a
+``NeuralRenderConfig`` into the port's object of the same class name.  It walks dataclass fields and reads
 every array leaf with ``np.asarray(leaf, np.float32)``, so it never imports
 JAX and works on JAX arrays and numpy leaves alike.  The registry is closed:
 a class the port does not have raises ``TypeError``.
@@ -10,7 +10,9 @@ a class the port does not have raises ``TypeError``.
 A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and drops the
 TPU-only ``pallas_interpret`` and ``pallas_tile``; its sharding fields
 (``shard_*``, ``replan_every``, ``allreduce``) are dropped at their
-defaults and raise ``NotImplementedError`` otherwise (ROADMAP item 15).
+defaults and raise ``NotImplementedError`` otherwise (ROADMAP item 15).  A
+``NeuralRenderConfig`` keeps ``block_rays`` and drops the TPU-only
+``check_every`` and ``interpret``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ def _fit_config(v):
 def _convert(v, classes: dict):
     if dataclasses.is_dataclass(v) and not isinstance(v, type) and type(v).__name__ == "FitConfig":
         return _fit_config(v)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type) and type(v).__name__ == "NeuralRenderConfig":
+        from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig
+
+        return NeuralRenderConfig(block_rays=v.block_rays)
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         name = type(v).__name__
         if name not in classes:

@@ -32,7 +32,7 @@ from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fused_l2_eligible
 from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
 from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, pack_uniforms
-from sdf3d_tpu_torch.ops.scene_program import describe, leaves, scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import describe, has_neural, leaves, scene_param_vector
 from sdf3d_tpu_torch.sdf.node import SDFNode
 from sdf3d_tpu_torch.utils.logging import MetricsLogger
 
@@ -126,8 +126,10 @@ def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
-def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, target_coverage) -> None:
+def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, target_coverage, scene0) -> None:
     """Raise for what the port's fit does not do yet (before any work)."""
+    if has_neural(scene0):
+        raise NotImplementedError("fitting a NeuralSDF scene waits for diff.py's implicit VJP (ROADMAP item 5)")
     if mesh is not None:
         raise NotImplementedError("sharded fits (mesh) are not ported yet (ROADMAP item 15)")
     if fit_config.engine == "xla":
@@ -169,7 +171,7 @@ def fit_scene(
     every ``checkpoint_every`` steps.  ``mesh`` and ``target_coverage``
     belong to parts not ported yet and raise ``NotImplementedError``.
     """
-    _check_supported(fit_config, render_config, mesh, target_coverage)
+    _check_supported(fit_config, render_config, mesh, target_coverage, scene0)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_scene: no CUDA device; pass device='cpu' to run the kernels' plain versions")

@@ -1,34 +1,41 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C
 interface, loaded with ctypes.
 
-Each library holds the three kernels of one generated header
-(``sdf3d_scene.cuh``, ops/scene_program.py): the forward render
-(``csrc/render_kernel.cu``, ``sdf3d_render_fwd``), the fused fit step
-(``csrc/fit_kernel.cu``, ``sdf3d_fit_step``) and the render backward
-(``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``).  The three sources
-compile in parallel (one nvcc each), then link into one library, cached by a
-hash of the header, every file under ``csrc/`` and the flags, under
-``build/sdf3d_tpu_torch/<hash>/`` beside the package.  A new scene structure
-or static setting builds a new library; parameter values never do.  nvcc is
-looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then ``PATH``.
+A library is built from one generated header (``sdf3d_scene.cuh``,
+ops/scene_program.py) and the sources of its kind:
+
+- ``"render"``: the three kernels of an analytic scene, the forward render
+  (``csrc/render_kernel.cu``, ``sdf3d_render_fwd``), the fused fit step
+  (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``) and the render backward
+  (``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``);
+- ``"neural"``: the neural-scene forward render alone
+  (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``).
+
+The sources compile in parallel (one nvcc each), then link into one library,
+cached by a hash of the kind, the header, every file under ``csrc/`` and the
+flags, under ``build/sdf3d_tpu_torch/<hash>/`` beside the package.  A new
+scene structure or static setting builds a new library; parameter values
+never do.  nvcc is looked up in ``$CUDA_HOME/bin``, then
+``/usr/local/cuda/bin``, then ``PATH``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "sdf3d_tpu_torch"
 SCENE_HEADER = "sdf3d_scene.cuh"
-LIB_NAME = "libsdf3d_render.so"
-SOURCES = ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -36,11 +43,28 @@ NVCC_FLAGS = (
 )
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-#: C entry points and their argument types (pointers, then H, W, stream).
-ENTRY_POINTS = {
-    "sdf3d_render_fwd": [_PTR] * 6 + [_INT, _INT, _PTR],
-    "sdf3d_fit_step": [_PTR] * 6 + [_INT, _INT, _PTR],
-    "sdf3d_render_bwd": [_PTR] * 9 + [_INT, _INT, _PTR],
+
+
+@dataclasses.dataclass(frozen=True)
+class LibraryKind:
+    """What a library of one kind is built from and exports: its file name,
+    its sources under ``csrc/`` and its C entry points with their argument
+    types (pointers, then H, W, stream)."""
+
+    lib_name: str
+    sources: tuple
+    entry_points: tuple  # ((name, argtypes), ...)
+
+
+KINDS = {
+    "render": LibraryKind("libsdf3d_render.so", ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu"), (
+        ("sdf3d_render_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
+        ("sdf3d_fit_step", [_PTR] * 6 + [_INT, _INT, _PTR]),
+        ("sdf3d_render_bwd", [_PTR] * 9 + [_INT, _INT, _PTR]),
+    )),
+    "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
+        ("sdf3d_neural_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
+    )),
 }
 
 
@@ -56,12 +80,15 @@ def find_nvcc() -> str:
 
 
 class KernelLibraries:
-    """Builds, caches and loads one kernel library per generated header.
+    """Builds, caches and loads one kernel library per generated header and
+    kind.
 
-    ``builds`` counts the libraries built in this process (three parallel
-    nvcc compiles and a link each) and ``build_seconds`` their wall time; ``loaded`` counts the libraries loaded (built here or found
-    in the build directory).  ``log(key)`` returns a build's compiler output
-    (with ``-Xptxas -v``: registers, spills and shared memory per kernel).
+    ``builds`` counts the libraries built in this process (parallel nvcc
+    compiles and a link each) and ``build_seconds`` their wall time;
+    ``loaded`` counts the libraries loaded (built here or found in the build
+    directory).  ``log(key)`` returns a build's compiler output (with
+    ``-Xptxas -v``: registers, spills and shared memory per kernel).
+    ``load_many`` builds several libraries at once, one thread each.
     """
 
     def __init__(self, build_dir: pathlib.Path = BUILD_DIR):
@@ -71,18 +98,19 @@ class KernelLibraries:
         self._loaded: dict[str, ctypes.CDLL] = {}
         self._by_structure: dict = {}
         self._csrc: tuple[str, ...] | None = None
+        self._lock = threading.Lock()
 
     @property
     def loaded(self) -> int:
         return len(self._loaded)
 
-    def key(self, scene_header: str) -> str:
-        """The build key: a hash of the header, every file under ``csrc/``
-        (names and texts) and the flags."""
+    def key(self, scene_header: str, kind: str = "render") -> str:
+        """The build key: a hash of the kind, the header, every file under
+        ``csrc/`` (names and texts) and the flags."""
         if self._csrc is None:
             self._csrc = tuple(f"{f.name}\0{f.read_text()}" for f in sorted(CSRC.iterdir()) if f.is_file())
         h = hashlib.sha256()
-        for part in (scene_header, *self._csrc, " ".join(NVCC_FLAGS)):
+        for part in (kind, scene_header, *self._csrc, " ".join(NVCC_FLAGS)):
             h.update(part.encode())
             h.update(b"\0")
         return h.hexdigest()[:20]
@@ -91,38 +119,48 @@ class KernelLibraries:
         path = self.build_dir / key / "build.log"
         return path.read_text() if path.exists() else ""
 
-    def load_for(self, structure, make_header) -> ctypes.CDLL:
-        """``load(make_header())``, memoised on the hashable ``structure``
-        the header is a function of, so a frame of a known structure neither
-        regenerates nor re-hashes its source."""
-        lib = self._by_structure.get(structure)
+    def load_for(self, structure, make_header, kind: str = "render") -> ctypes.CDLL:
+        """``load(make_header(), kind)``, memoised on the hashable
+        ``structure`` the header is a function of, so a frame of a known
+        structure neither regenerates nor re-hashes its source."""
+        lib = self._by_structure.get((kind, structure))
         if lib is None:
-            lib = self._by_structure[structure] = self.load(make_header())
+            lib = self.load(make_header(), kind)
+            self._by_structure[(kind, structure)] = lib
         return lib
 
-    def load(self, scene_header: str) -> ctypes.CDLL:
-        key = self.key(scene_header)
+    def load_many(self, jobs) -> list:
+        """``load_for(*job)`` for every job ``(structure, make_header,
+        kind)``, the builds running at the same time."""
+        with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+            futures = [pool.submit(self.load_for, *job) for job in jobs]
+            return [f.result() for f in futures]
+
+    def load(self, scene_header: str, kind: str = "render") -> ctypes.CDLL:
+        spec = KINDS[kind]
+        key = self.key(scene_header, kind)
         lib = self._loaded.get(key)
         if lib is None:
-            path = self.build_dir / key / LIB_NAME
+            path = self.build_dir / key / spec.lib_name
             if not path.exists():
-                self._compile(path.parent, scene_header)
+                self._compile(path.parent, scene_header, spec)
             lib = ctypes.CDLL(str(path))
-            for name, argtypes in ENTRY_POINTS.items():
+            for name, argtypes in spec.entry_points:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            self._loaded[key] = lib
+            with self._lock:
+                self._loaded[key] = lib
         return lib
 
-    def _compile(self, out_dir: pathlib.Path, scene_header: str) -> None:
+    def _compile(self, out_dir: pathlib.Path, scene_header: str, spec: LibraryKind) -> None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / SCENE_HEADER).write_text(scene_header)
         nvcc = find_nvcc()
         t0 = time.perf_counter()
         # One nvcc per source, all started together, then one link.
         objs, procs = [], []
-        for src in SOURCES:
+        for src in spec.sources:
             obj = out_dir / (src + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir), "-c", "-o", str(obj), str(CSRC / src)]
             objs.append(obj)
@@ -148,9 +186,10 @@ class KernelLibraries:
         if failed:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed building {out_dir / SCENE_HEADER}:\n" + "\n".join(failed))
-        os.replace(tmp, out_dir / LIB_NAME)
-        self.builds += 1
-        self.build_seconds += seconds
+        os.replace(tmp, out_dir / spec.lib_name)
+        with self._lock:
+            self.builds += 1
+            self.build_seconds += seconds
 
 
 #: The process's library cache.

@@ -58,17 +58,20 @@ SDF3D_HD float min_adj(float x, float y) { return x < y ? 1.0f : (x == y ? 0.5f 
 SDF3D_HD float max_adj(float x, float y) { return x > y ? 1.0f : (x == y ? 0.5f : 0.0f); }
 SDF3D_HD float clip_adj(float x, float lo, float hi) { return max_adj(x, lo) * min_adj(fmaxf(x, lo), hi); }
 
-// Point-form evaluator along a ray, for ray_sdf == false.
+// The scene's point form as a distance functor f(x, y, z).
 template <class Scene>
-struct PointRay {
-  float ox, oy, oz, dx, dy, dz;
+struct ScenePoint {
   const float* p;
-  SDF3D_HD void setup(float ox_, float oy_, float oz_, float dx_, float dy_, float dz_, const float* p_) {
-    ox = ox_; oy = oy_; oz = oz_; dx = dx_; dy = dy_; dz = dz_; p = p_;
-  }
-  SDF3D_HD float eval(float t) const {
-    return Scene::sdf((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz)), p);
-  }
+  SDF3D_HD float operator()(float x, float y, float z) const { return Scene::sdf(x, y, z, p); }
+};
+
+// Point-form evaluator along a ray: f(o + t*d) for a distance functor f
+// (the render kernel's ray_sdf == false, and the neural kernel).
+template <class F>
+struct PointRay {
+  F f;
+  float ox, oy, oz, dx, dy, dz;
+  SDF3D_HD float eval(float t) const { return f((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz))); }
 };
 
 // Primary sphere trace: add the step, then test (the returned t overshoots
@@ -106,9 +109,9 @@ SDF3D_HD float march_shadow(const Ev& ev, float k) {
   return sqrtf(fminf(fmaxf(sh2, 0.0f), 1.0f));
 }
 
-template <class Cfg, class Scene>
-SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, int H, int W) {
-  // ---- ray generation (NDC over the logical extent) ----
+// Unit ray direction of pixel (row, col) (NDC over the logical extent).
+template <class Cfg>
+SDF3D_HD void ray_direction(const float* u, int row, int col, int H, int W, float& dx, float& dy, float& dz) {
   const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
   const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
   const float rows = u[U_ROW0] + static_cast<float>(row);
@@ -121,74 +124,48 @@ SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, in
   const float inv = rsqrt_exact(((vx * vx) + (vy * vy)) + (vz * vz));
   vx = vx * inv; vy = vy * inv; vz = vz * inv;
   const float* m = u + U_C2W;
-  float dx = ((m[0] * vx) + (m[1] * vy)) + (m[2] * vz);
-  float dy = ((m[3] * vx) + (m[4] * vy)) + (m[5] * vz);
-  float dz = ((m[6] * vx) + (m[7] * vy)) + (m[8] * vz);
+  dx = ((m[0] * vx) + (m[1] * vy)) + (m[2] * vz);
+  dy = ((m[3] * vx) + (m[4] * vy)) + (m[5] * vz);
+  dz = ((m[6] * vx) + (m[7] * vy)) + (m[8] * vz);
   const float inv2 = rsqrt_exact(((dx * dx) + (dy * dy)) + (dz * dz));
   dx = dx * inv2; dy = dy * inv2; dz = dz * inv2;
-  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
+}
 
-  // ---- primary march ----
-  float t;
-  if constexpr (Cfg::ray_sdf) {
-    typename Scene::Ray ray;
-    ray.setup(ox, oy, oz, dx, dy, dz, p);
-    t = march_primary<Cfg>(ray);
-  } else {
-    PointRay<Scene> ray;
-    ray.setup(ox, oy, oz, dx, dy, dz, p);
-    t = march_primary<Cfg>(ray);
-  }
-  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
-
-  // ---- normals (always the point form) ----
+// Unit normal at h from the distance functor f: central differences (6
+// taps) or the tetrahedron (4 taps), step Cfg::epsilon.
+template <class Cfg, class F>
+SDF3D_HD void estimate_normal(const F& f, float hx, float hy, float hz, float& nx, float& ny, float& nz) {
   const float e = Cfg::epsilon;
-  float nx, ny, nz;
   if constexpr (Cfg::normals == 0) {
-    nx = Scene::sdf(hx + e, hy, hz, p) - Scene::sdf(hx - e, hy, hz, p);
-    ny = Scene::sdf(hx, hy + e, hz, p) - Scene::sdf(hx, hy - e, hz, p);
-    nz = Scene::sdf(hx, hy, hz + e, p) - Scene::sdf(hx, hy, hz - e, p);
+    nx = f(hx + e, hy, hz) - f(hx - e, hy, hz);
+    ny = f(hx, hy + e, hz) - f(hx, hy - e, hz);
+    nz = f(hx, hy, hz + e) - f(hx, hy, hz - e);
   } else {
-    const float s0 = Scene::sdf(hx + e, hy - e, hz - e, p);
-    const float s1 = Scene::sdf(hx - e, hy - e, hz + e, p);
-    const float s2 = Scene::sdf(hx - e, hy + e, hz - e, p);
-    const float s3 = Scene::sdf(hx + e, hy + e, hz + e, p);
+    const float s0 = f(hx + e, hy - e, hz - e);
+    const float s1 = f(hx - e, hy - e, hz + e);
+    const float s2 = f(hx - e, hy + e, hz - e);
+    const float s3 = f(hx + e, hy + e, hz + e);
     nx = ((s0 - s1) - s2) + s3;
     ny = (((-s0) - s1) + s2) + s3;
     nz = (((-s0) + s1) - s2) + s3;
   }
   const float ninv = rsqrt_exact(fmaxf(((nx * nx) + (ny * ny)) + (nz * nz), 1e-24f));
   nx = nx * ninv; ny = ny * ninv; nz = nz * ninv;
+}
 
-  // ---- incident light direction ----
-  float ix = u[U_LIGHT] - hx, iy = u[U_LIGHT + 1] - hy, iz = u[U_LIGHT + 2] - hz;
+// Unit direction from h to the light.
+SDF3D_HD void light_direction(const float* u, float hx, float hy, float hz, float& ix, float& iy, float& iz) {
+  ix = u[U_LIGHT] - hx; iy = u[U_LIGHT + 1] - hy; iz = u[U_LIGHT + 2] - hz;
   const float iinv = rsqrt_exact(fmaxf(((ix * ix) + (iy * iy)) + (iz * iz), 1e-24f));
   ix = ix * iinv; iy = iy * iinv; iz = iz * iinv;
-  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
+}
 
-  // ---- soft shadow, marched only where N.I > 0 (elsewhere it reads 1) ----
-  float shadow = 1.0f;
-  if constexpr (Cfg::shadow_enabled) {
-    if (ndoti > 0.0f) {
-      const float off = 2.0f * e;
-      const float sox = hx + (off * nx), soy = hy + (off * ny), soz = hz + (off * nz);
-      if constexpr (Cfg::ray_sdf) {
-        typename Scene::Ray ray;
-        ray.setup(sox, soy, soz, ix, iy, iz, p);
-        shadow = march_shadow<Cfg>(ray, u[U_K]);
-      } else {
-        PointRay<Scene> ray;
-        ray.setup(sox, soy, soz, ix, iy, iz, p);
-        shadow = march_shadow<Cfg>(ray, u[U_K]);
-      }
-    }
-  }
-
-  // ---- ambient occlusion ----
-  float ao = 1.0f;
-  if constexpr (Cfg::ao_enabled) ao = Scene::ao(hx, hy, hz, nx, ny, nz, p);
-
-  // ---- shading ----
+// Blinn-Phong / Lambert shading of hit h (normal n, light direction i) seen
+// from the camera at o, with the shadow and AO factors, and the background
+// composite of misses (t > max_distance).
+template <class Cfg>
+SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t, float hx, float hy, float hz,
+                           float nx, float ny, float nz, float ix, float iy, float iz, float shadow, float ao) {
   float wx = ox - hx, wy = oy - hy, wz = oz - hz;
   const float winv = rsqrt_exact(fmaxf(((wx * wx) + (wy * wy)) + (wz * wz), 1e-24f));
   wx = wx * winv; wy = wy * winv; wz = wz * winv;
@@ -196,6 +173,7 @@ SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, in
   const float hwinv = rsqrt_exact(fmaxf(((hwx * hwx) + (hwy * hwy)) + (hwz * hwz), 1e-24f));
   hwx = hwx * hwinv; hwy = hwy * hwinv; hwz = hwz * hwinv;
 
+  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
   const float ndoth = fmaxf(((nx * hwx) + (ny * hwy)) + (nz * hwz), 0.0f);
   const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
   const float amb = Cfg::ao_enabled ? u[U_AMB] * ao : u[U_AMB];
@@ -214,6 +192,52 @@ SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, in
     }
   }
   return Pixel{r, g, b, t, shadow, ao};
+}
+
+template <class Cfg, class Scene>
+SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, int H, int W) {
+  float dx, dy, dz;
+  ray_direction<Cfg>(u, row, col, H, W, dx, dy, dz);
+  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
+  const ScenePoint<Scene> f{p};
+
+  // ---- primary march ----
+  float t;
+  if constexpr (Cfg::ray_sdf) {
+    typename Scene::Ray ray;
+    ray.setup(ox, oy, oz, dx, dy, dz, p);
+    t = march_primary<Cfg>(ray);
+  } else {
+    t = march_primary<Cfg>(PointRay<ScenePoint<Scene>>{f, ox, oy, oz, dx, dy, dz});
+  }
+  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
+
+  // ---- normals (always the point form), light direction ----
+  float nx, ny, nz, ix, iy, iz;
+  estimate_normal<Cfg>(f, hx, hy, hz, nx, ny, nz);
+  light_direction(u, hx, hy, hz, ix, iy, iz);
+  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
+
+  // ---- soft shadow, marched only where N.I > 0 (elsewhere it reads 1) ----
+  float shadow = 1.0f;
+  if constexpr (Cfg::shadow_enabled) {
+    if (ndoti > 0.0f) {
+      const float off = 2.0f * Cfg::epsilon;
+      const float sox = hx + (off * nx), soy = hy + (off * ny), soz = hz + (off * nz);
+      if constexpr (Cfg::ray_sdf) {
+        typename Scene::Ray ray;
+        ray.setup(sox, soy, soz, ix, iy, iz, p);
+        shadow = march_shadow<Cfg>(ray, u[U_K]);
+      } else {
+        shadow = march_shadow<Cfg>(PointRay<ScenePoint<Scene>>{f, sox, soy, soz, ix, iy, iz}, u[U_K]);
+      }
+    }
+  }
+
+  // ---- ambient occlusion, shading ----
+  float ao = 1.0f;
+  if constexpr (Cfg::ao_enabled) ao = Scene::ao(hx, hy, hz, nx, ny, nz, p);
+  return shade_pixel<Cfg>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, shadow, ao);
 }
 
 }  // namespace sdf3d

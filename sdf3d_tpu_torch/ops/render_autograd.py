@@ -8,8 +8,11 @@ backward runs the render backward (K5) on them, so no march is repeated.
 :func:`render_kernel_diff` wraps it for scenes, cameras, lights and
 materials: any PyTorch loss of its (H, W, 3) image gets gradients for the
 scene's ``nn.Parameter``s and for every camera, light and material tensor
-that requires grad.  On CPU tensors both directions run the kernels' plain
-PyTorch versions.
+that requires grad.  A neural scene goes to ``ops/neural_kernel.py::
+render_neural`` (the neural kernel forward, the planar shade re-trace as
+backward), so one differentiable API serves every family the port has, as
+``render_pallas`` does in the JAX package.  On CPU tensors both directions
+run the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural
 from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_K,
@@ -25,7 +29,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_forward_plain,
     render_kernel_launch,
 )
-from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import is_neural_shape, scene_param_vector
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
 
@@ -53,7 +57,11 @@ class RenderKernelFunction(torch.autograd.Function):
 
 def render_kernel_diff(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode, camera, light, mat) -> torch.Tensor:
     """Differentiable kernel render, RGB (H, W, 3) on the device of the
-    scene's parameters (camera, light and material must be there too)."""
+    scene's parameters (camera, light and material must be there too).  A
+    scene ``split_neural`` accepts renders through ``render_neural`` (``kc``
+    is the analytic kernels' setting and does not apply)."""
+    if is_neural_shape(scene):
+        return render_neural(cfg, NeuralRenderConfig(), scene, camera, light, mat)
     if cfg.shadow.enabled and cfg.shadow.grad != "detach":
         raise NotImplementedError(
             f"shadow.grad == {cfg.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")

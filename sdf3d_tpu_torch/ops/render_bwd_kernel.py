@@ -24,22 +24,19 @@ import torch
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_AMB,
-    _U_C2W,
-    _U_CAM,
-    _U_FZ,
     _U_LIGHT,
     _U_MAT_AMB,
     _U_MAT_DIF,
     _U_MAT_REF,
-    _U_ROW0,
     _U_SHN,
     N_UNIFORMS,
     KernelConfig,
     check_plane,
-    check_supported,
+    check_settings,
     kernel_library,
+    ray_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import compile_scene, count_params
+from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
 #: Smallest usable |grad f . d| for the implicit-function ``t`` (``sdf3d_tpu/diff.py``).
@@ -62,66 +59,57 @@ def _clip01(x):
     return torch.minimum(_floor(x, 0.0), one)
 
 
-def ray_planes(uni: torch.Tensor, H: int, W: int, cfg: RenderConfig):
-    """The camera origin (three 0-d tensors) and the unit ray direction
-    planes (three (H, W) planes) of the uniforms ``uni``, with the render
-    kernel's arithmetic; differentiable in ``uni`` (rows and columns are
-    constants)."""
-    f32 = torch.float32
-    dev = uni.device
-    u = [uni[k] for k in range(N_UNIFORMS)]
-    nh, nw = cfg.ndc_height or H, cfg.ndc_width or W
-    rows = uni[_U_ROW0].detach() + torch.arange(H, dtype=f32, device=dev)[:, None].expand(H, W)
-    cols = torch.arange(W, dtype=f32, device=dev)[None, :].expand(H, W)
-    qx = (2.0 * (cols + 0.5) / nw) - 1.0
-    qy = 1.0 - (2.0 * (rows + 0.5) / nh)
-    vx, vy = qx * float(np.float32(nw / nh)), qy
-    vz = u[_U_FZ].expand(H, W)
-    inv = _rsqrt(vx * vx + vy * vy + vz * vz)
-    vx, vy, vz = vx * inv, vy * inv, vz * inv
-    m = u[_U_C2W:_U_C2W + 9]
-    dx = m[0] * vx + m[1] * vy + m[2] * vz
-    dy = m[3] * vx + m[4] * vy + m[5] * vz
-    dz = m[6] * vx + m[7] * vy + m[8] * vz
-    inv2 = _rsqrt(dx * dx + dy * dy + dz * dz)
-    return (u[_U_CAM], u[_U_CAM + 1], u[_U_CAM + 2]), (dx * inv2, dy * inv2, dz * inv2)
+def planar_distance(sdf):
+    """The distance ``(px, py, pz, prm) -> planes`` of ``sdf``: a scene every
+    node of which has an emitter (its point form, values read from the flat
+    parameter vector ``prm``), or such a callable already (the neural
+    scenes' ``ops/neural_kernel.py::neural_distance``).  ``prm`` may carry
+    trailing pixel dimensions (one parameter set per pixel)."""
+    if not isinstance(sdf, SDFNode):
+        return sdf
+    check_scene(sdf)
+    soa = compile_scene(sdf)
+    return lambda px, py, pz, prm: soa(px, py, pz, lambda i: prm[i])
 
 
-def implicit_denominator(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
+def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
                          cfg: RenderConfig) -> torch.Tensor:
-    """``∇ₚf(o + t0·d)·d`` per pixel (H, W), detached: the denominator of
-    the implicit-function gradient of ``t``.  Where it is small (grazing
-    rays at a silhouette) that gradient is large and ill-conditioned."""
-    soa = compile_scene(scene)
+    """``∇ₚf(o + t0·d)·d`` per pixel (H, W), detached, for a scene or
+    distance ``sdf`` (:func:`planar_distance`): the denominator of the
+    implicit-function gradient of ``t``.  Where it is small (grazing rays at
+    a silhouette) that gradient is large and ill-conditioned."""
+    dist = planar_distance(sdf)
     prm_c = prm.detach()
     o, d = ray_planes(uni.detach(), *t0.shape, cfg)
     with torch.enable_grad():
         q = [(oc + t0 * dc).requires_grad_(True) for oc, dc in zip(o, d)]
-        gq = torch.autograd.grad(soa(*q, lambda i: prm_c[i]).sum(), q)
+        gq = torch.autograd.grad(dist(*q, prm_c).sum(), q)
     return gq[0] * d[0] + gq[1] * d[1] + gq[2] * d[2]
 
 
 def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
-                 scene: SDFNode, cfg: RenderConfig) -> torch.Tensor:
+                 scene, cfg: RenderConfig) -> torch.Tensor:
     """The shading re-traced from the forward's planes, planar RGB (3, H, W),
-    differentiable in ``prm`` (P,) and ``uni`` (30,).  ``t0``, ``shadow``
-    and ``ao`` (H, W) are constants; ``t`` is re-attached by the
-    implicit-function theorem (``t0 − (f − sg(f)) / sg(∇f·d)``, masked where
-    ``t0 > max_distance`` or ``|∇f·d| < 1e-4``).  Stage for stage the port
-    of ``sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile``."""
-    check_supported(scene, cfg)
+    differentiable in ``prm`` (P,) and ``uni`` (30,), for a scene or distance
+    ``scene`` (:func:`planar_distance`).  ``t0``, ``shadow`` and ``ao`` (H, W)
+    are constants; ``t`` is re-attached by the implicit-function theorem
+    (``t0 − (f − sg(f)) / sg(∇f·d)``, masked where ``t0 > max_distance`` or
+    ``|∇f·d| < 1e-4``).  Stage for stage the port of
+    ``sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile`` (and, for a neural
+    scene, of ``render_pallas.py::_planar_shade``'s generic branch)."""
+    check_settings(cfg)
+    dist = planar_distance(scene)
     H, W = t0.shape
     mc = cfg.march
     u = [uni[k] for k in range(N_UNIFORMS)]
-    soa = compile_scene(scene)
 
     def sdf(px, py, pz):
-        return soa(px, py, pz, lambda i: prm[i])
+        return dist(px, py, pz, prm)
 
     (ox, oy, oz), (dx, dy, dz) = ray_planes(uni, H, W, cfg)
 
     # ---- implicit-function re-attachment of the stored hit distance ----
-    denom = implicit_denominator(scene, prm, uni, t0, cfg)
+    denom = implicit_denominator(dist, prm, uni, t0, cfg)
     usable = (t0 <= mc.max_distance) & (denom.abs() >= DENOM_FLOOR)
     inv_denom = torch.where(usable, 1.0 / torch.where(usable, denom, torch.ones_like(denom)), torch.zeros_like(denom))
     f_here = sdf(ox + t0 * dx, oy + t0 * dy, oz + t0 * dz)
@@ -181,11 +169,12 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     return torch.stack(chans)
 
 
-def render_kernel_backward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+def render_kernel_backward_plain(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
                                  t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig):
     """Plain PyTorch version of the render backward: ``(g_prm (P,), g_uni
     (30,))``, the VJP of :func:`shade_planes` with the cotangent ``g_rgb``
-    (3, H, W)."""
+    (3, H, W), for a scene or distance ``scene`` (:func:`planar_distance`;
+    the neural render's backward passes ``neural_distance``)."""
     prm_ = prm.detach().requires_grad_(True)
     uni_ = uni.detach().requires_grad_(True)
     with torch.enable_grad():

@@ -33,6 +33,7 @@ C text, so the compiler keeps the same association (it may still contract
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Callable
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from sdf3d_tpu_torch.sdf import csg, primitives
+from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
 GetP = Callable[[int], object]
@@ -48,12 +50,15 @@ GetP = Callable[[int], object]
 
 def leaves(node: SDFNode):
     """Every numeric leaf of the scene, in ``tree_flatten`` order (fields in
-    declaration order, depth first)."""
+    declaration order, depth first; a tuple field's items in order; static
+    fields are no leaves)."""
     for name in node.fields:
         v = getattr(node, name)
         if isinstance(v, SDFNode):
             yield from leaves(v)
-        else:
+        elif name in node.tuples:
+            yield from v
+        elif name not in node.static:
             yield v
 
 
@@ -219,9 +224,17 @@ _HANDLERS = {
 
 
 def _no_emitter(node):
+    if isinstance(node, NeuralSDF):
+        return NotImplementedError(
+            "NeuralSDF has no emitter of the analytic kernels (render, fit step, render backward): the neural "
+            "kernel (ops/neural_kernel.py: render_neural_forward, render_neural, render_batch(engine='kernel')) "
+            "serves a bare NeuralSDF or Union(analytic, NeuralSDF); other compositions with a NeuralSDF render "
+            "with render, render_banded or render_batch(engine='torch')"
+        )
     return NotImplementedError(
-        f"no render-kernel emitter for scene node {type(node).__name__}; the port "
-        "supports Sphere, Plane and Union so far (sdf3d_tpu_torch/ops/scene_program.py)"
+        f"no render-kernel emitter for scene node {type(node).__name__}; the port supports Sphere, "
+        "Plane, Union and NeuralSDF so far: the other analytic nodes are ROADMAP item 13, VoxelGrid "
+        "item 14 (sdf3d_tpu_torch/ops/scene_program.py)"
     )
 
 
@@ -491,20 +504,19 @@ def describe(node: SDFNode) -> str:
     return f"{type(node).__name__}({', '.join(kids)})" if kids else type(node).__name__
 
 
-def _ao_source(cfg) -> str:
+def _ao_source(cfg, sdf_call: str = "sdf({}, p)") -> str:
     """Unrolled AO taps with the JAX package's constants: tap ``i`` samples
     at ``h = step·i`` with weight ``falloff^(i-1)`` (both rounded to
-    float32, as JAX's weak-typed Python scalars are)."""
+    float32, as JAX's weak-typed Python scalars are).  ``sdf_call`` is the
+    distance call with ``{}`` for the point's three coordinates."""
     if not cfg.ao.enabled:
         return "    return 1.0f;"
     lines = ["    float occ = 0.0f;"]
     weight = 1.0
     for tap in range(1, cfg.ao.samples + 1):
         h = c_float(cfg.ao.step * tap)
-        lines.append(
-            f"    occ = (occ + ({c_float(weight)} * ({h} - "
-            f"sdf((hx + ({h} * nx)), (hy + ({h} * ny)), (hz + ({h} * nz)), p))));"
-        )
+        pt = sdf_call.format(f"(hx + ({h} * nx)), (hy + ({h} * ny)), (hz + ({h} * nz))")
+        lines.append(f"    occ = (occ + ({c_float(weight)} * ({h} - {pt})));")
         weight *= cfg.ao.falloff
     lines.append(f"    return fminf(fmaxf((1.0f - ({c_float(cfg.ao.strength)} * occ)), 0.0f), 1.0f);")
     return "\n".join(lines)
@@ -531,6 +543,39 @@ def _ao_bwd_source(cfg) -> str:
     return "\n".join(lines + taps)
 
 
+def _c_bool(v) -> str:
+    return "true" if v else "false"
+
+
+def _cfg_struct(cfg, **launch) -> str:
+    """``struct Cfg``: the kernel's launch settings ``launch`` (ints and
+    bools) and the static render settings of ``cfg``, as ``constexpr``."""
+    mc = cfg.march
+    bg = cfg.background or (0.0, 0.0, 0.0)
+    normals = {"central": 0, "tetrahedron": 1}[cfg.normals]
+    b = _c_bool
+    head = "".join(
+        f"  static constexpr {'bool' if isinstance(v, bool) else 'int'} {k} = {b(v) if isinstance(v, bool) else v};\n"
+        for k, v in launch.items())
+    return f"""struct Cfg {{
+{head}  static constexpr int ndc_h = {int(cfg.ndc_height or 0)};
+  static constexpr int ndc_w = {int(cfg.ndc_width or 0)};
+  static constexpr int march_steps = {int(mc.max_steps)};
+  static constexpr float max_distance = {c_float(mc.max_distance)};
+  static constexpr float epsilon = {c_float(mc.epsilon)};
+  static constexpr bool shadow_enabled = {b(cfg.shadow.enabled)};
+  static constexpr int shadow_steps = {int(cfg.shadow.max_steps)};
+  static constexpr float epsilon2 = {c_float(mc.epsilon * mc.epsilon)};
+  static constexpr bool ao_enabled = {b(cfg.ao.enabled)};
+  static constexpr int normals = {normals};  // 0 central, 1 tetrahedron
+  static constexpr bool blinn_phong = {b(cfg.shading == "blinn_phong")};
+  static constexpr bool background = {b(cfg.background is not None)};
+  static constexpr float bg_r = {c_float(bg[0])};
+  static constexpr float bg_g = {c_float(bg[1])};
+  static constexpr float bg_b = {c_float(bg[2])};
+}};"""
+
+
 def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen_slots: tuple = ()) -> str:
     """The generated header ``sdf3d_scene.cuh`` for ``scene`` under the
     static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig).
@@ -548,10 +593,7 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
     if re.search(r"p\[|\b[od][xyz]\b", body):
         raise AssertionError(f"ray-form eval reads a setup value that was not hoisted: {body}")
 
-    mc = cfg.march
-    bg = cfg.background or (0.0, 0.0, 0.0)
-    normals = {"central": 0, "tetrahedron": 1}[cfg.normals]
-    b = lambda v: "true" if v else "false"  # noqa: E731
+    b = _c_bool
     fields = "\n".join(f"    float {f};" for f in ray.fields)
     setup = "\n".join(f"      {s}" for s in ray.setup)
     ao_bwd = ""
@@ -572,26 +614,7 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
 
-struct Cfg {{
-  static constexpr int block_w = {int(kc.block_w)};
-  static constexpr int block_h = {int(kc.block_h)};
-  static constexpr bool ray_sdf = {b(kc.ray_sdf)};
-  static constexpr int ndc_h = {int(cfg.ndc_height or 0)};
-  static constexpr int ndc_w = {int(cfg.ndc_width or 0)};
-  static constexpr int march_steps = {int(mc.max_steps)};
-  static constexpr float max_distance = {c_float(mc.max_distance)};
-  static constexpr float epsilon = {c_float(mc.epsilon)};
-  static constexpr bool shadow_enabled = {b(cfg.shadow.enabled)};
-  static constexpr int shadow_steps = {int(cfg.shadow.max_steps)};
-  static constexpr float epsilon2 = {c_float(mc.epsilon * mc.epsilon)};
-  static constexpr bool ao_enabled = {b(cfg.ao.enabled)};
-  static constexpr int normals = {normals};  // 0 central, 1 tetrahedron
-  static constexpr bool blinn_phong = {b(cfg.shading == "blinn_phong")};
-  static constexpr bool background = {b(cfg.background is not None)};
-  static constexpr float bg_r = {c_float(bg[0])};
-  static constexpr float bg_g = {c_float(bg[1])};
-  static constexpr float bg_b = {c_float(bg[2])};
-}};
+{_cfg_struct(cfg, block_w=int(kc.block_w), block_h=int(kc.block_h), ray_sdf=kc.ray_sdf)}
 
 struct Scene {{
   static constexpr int n_params = {count_params(scene)};
@@ -638,6 +661,188 @@ struct Fit {{
   static constexpr bool wrt_uniforms = {b(wrt_uniforms)};
   // Frozen parameter slots read exactly 0.
   static SDF3D_HD void zero_frozen(float* dp) {{{frozen}
+  }}
+}};
+"""
+
+
+# ---------------------------------------------------------------------------
+# Neural scenes: the header of the neural kernel (csrc/neural_kernel.cu).
+# ---------------------------------------------------------------------------
+
+#: Shared memory one CUDA block may use on Hopper (227 KB, dynamic).
+SMEM_BYTES = 232448
+
+
+def _neural_parts(scene: SDFNode):
+    """``(analytic_subtree | None, NeuralSDF)`` for a bare NeuralSDF or
+    ``Union(analytic, NeuralSDF)`` in either order; None for other shapes."""
+    if isinstance(scene, NeuralSDF):
+        return None, scene
+    if isinstance(scene, csg.Union):
+        a_n, b_n = isinstance(scene.a, NeuralSDF), isinstance(scene.b, NeuralSDF)
+        if a_n and not b_n:
+            return scene.b, scene.a
+        if b_n and not a_n:
+            return scene.a, scene.b
+    return None
+
+
+def split_neural(scene: SDFNode):
+    """Decompose ``scene`` into ``(analytic_subtree | None, NeuralSDF)``:
+    a bare NeuralSDF, or ``Union(analytic, NeuralSDF)`` in either order.
+    Raises ``ValueError`` for other shapes."""
+    parts = _neural_parts(scene)
+    if parts is None:
+        raise ValueError(
+            "neural kernel supports a bare NeuralSDF or Union(analytic, NeuralSDF); "
+            f"got {type(scene).__name__} (use the banded engine for other compositions)"
+        )
+    return parts
+
+
+def is_neural_shape(scene: SDFNode) -> bool:
+    """True for the scene shapes :func:`split_neural` accepts: the scenes
+    the kernel entry points send to the neural kernel."""
+    return _neural_parts(scene) is not None
+
+
+def has_neural(scene: SDFNode) -> bool:
+    """True when a NeuralSDF is anywhere in the scene."""
+    return any(isinstance(n, NeuralSDF) for n in walk_nodes(scene))
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralLayout:
+    """Where the neural kernel finds everything in the scene's one flat
+    parameter vector (``scene_param_vector``, ``tree_flatten`` order).
+
+    The analytic subtree's parameters start at ``analytic_offset``; the
+    MLP's block (W_0 … W_{L-1}, b_0 … b_{L-1}, β, contiguous) at ``offset``,
+    ``size`` floats long.  ``w_offsets``/``b_offsets``/``beta_offset`` are
+    relative to ``offset``; W_i is row-major (fan_in, fan_out)."""
+
+    analytic: SDFNode | None
+    analytic_offset: int
+    n_analytic: int
+    offset: int
+    size: int
+    hidden: int
+    layers: int
+    w_offsets: tuple
+    b_offsets: tuple
+    beta_offset: int
+
+
+def neural_layout(scene: SDFNode) -> NeuralLayout:
+    """The layout of a scene :func:`split_neural` accepts, after checking the
+    shapes the kernel takes: W_0 (3, H), W_i (H, H), W_{L-1} (H, 1), biases
+    to match, one β; and an analytic subtree every node of which has an
+    emitter."""
+    analytic, neural = split_neural(scene)
+    if analytic is not None:
+        check_scene(analytic)
+    n_analytic = count_params(analytic) if analytic is not None else 0
+    neural_first = isinstance(scene, csg.Union) and scene.a is neural
+    offset = 0 if analytic is None or neural_first else n_analytic
+    ws, bs = list(neural.weights), list(neural.biases)
+    L = len(ws)
+    H = int(ws[0].shape[1]) if ws and ws[0].dim() == 2 else 0
+    want = [(3, H)] + [(H, H)] * (L - 2) + [(H, 1)]
+    got = [tuple(w.shape) for w in ws]
+    if L < 2 or H < 1 or got != want or [tuple(b.shape) for b in bs] != [(w[1],) for w in want] \
+            or neural.beta.numel() != 1:
+        raise ValueError(f"the neural kernel takes weights {want} with matching biases and one beta; got {got}")
+    w_offsets, k = [], 0
+    for w in ws:
+        w_offsets.append(k)
+        k += w.numel()
+    b_offsets = []
+    for b in bs:
+        b_offsets.append(k)
+        k += b.numel()
+    return NeuralLayout(
+        analytic=analytic, analytic_offset=count_params(neural) if neural_first else 0, n_analytic=n_analytic,
+        offset=offset, size=k + 1, hidden=H, layers=L, w_offsets=tuple(w_offsets), b_offsets=tuple(b_offsets),
+        beta_offset=k,
+    )
+
+
+#: Widest activation vector the neural kernel keeps in registers; a wider
+#: depth-3 MLP recomputes its first layer per chunk of CHUNK outputs.
+REGISTER_WIDTH = 128
+CHUNK = 64
+
+
+def _mlp_source(lay: NeuralLayout) -> str:
+    """The body of ``Mlp::eval``: the layer helpers of neural_kernel.cuh with
+    this MLP's offsets; the last hidden layer is fused with the output, so
+    no second activation vector is kept."""
+    H, L, w, b = lay.hidden, lay.layers, lay.w_offsets, lay.b_offsets
+    if L == 2:
+        return f"    return sdf3d::mlp_single<{H}>(w, {w[0]}, {b[0]}, {w[1]}, {b[1]}, beta, px, py, pz);"
+    if L == 3 and H > REGISTER_WIDTH and H % CHUNK == 0:
+        return (f"    return sdf3d::mlp_chunked<{H}, {CHUNK}>(w, {w[0]}, {b[0]}, {w[1]}, {b[1]}, {w[2]}, {b[2]}, "
+                "beta, px, py, pz);")
+    lines = [f"    float h[{H}];", f"    sdf3d::mlp_first<{H}>(w, {w[0]}, {b[0]}, beta, px, py, pz, h);"]
+    lines += [f"    sdf3d::mlp_hidden<{H}>(w, {w[i]}, {b[i]}, beta, h);" for i in range(1, L - 2)]
+    lines.append(f"    return sdf3d::mlp_last<{H}>(w, {w[L - 2]}, {b[L - 2]}, {w[L - 1]}, {b[L - 1]}, beta, h);")
+    return "\n".join(lines)
+
+
+def cuda_neural_source(scene: SDFNode, cfg, nc) -> str:
+    """The generated header ``sdf3d_scene.cuh`` of the neural kernel for a
+    scene :func:`split_neural` accepts, under ``cfg`` (RenderConfig) and
+    ``nc`` (NeuralRenderConfig): the analytic subtree's point form, the MLP's
+    sizes and parameter offsets as ``constexpr`` (its values stay run-time
+    device memory), the AO taps and the static settings."""
+    lay = neural_layout(scene)
+    if lay.analytic is not None:
+        P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
+        point = _c(_emit(lay.analytic, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps))
+        what = describe(lay.analytic)
+    else:
+        point, what = "0.0f", "none"
+    smem = lay.size * 4 <= SMEM_BYTES
+    return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_neural_source.
+// Scene: {describe(scene)}, {count_params(scene)} parameters; MLP 3 -> {lay.hidden} x {lay.layers - 1} -> 1.
+#pragma once
+
+{_cfg_struct(cfg, block_rays=int(nc.block_rays))}
+
+struct Scene {{
+  static constexpr int n_params = {count_params(scene)};
+  static constexpr bool has_analytic = {_c_bool(lay.analytic is not None)};
+  static constexpr int analytic_offset = {lay.analytic_offset};
+  static constexpr int n_analytic = {lay.n_analytic};
+
+  // Point form of the analytic subtree ({what}); p holds its n_analytic parameters.
+  static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
+    return {point};
+  }}
+
+  // Ambient occlusion factor at hit point h with normal n, distance f(x, y, z).
+  template <class F>
+  static SDF3D_HD float ao(const F& f, float hx, float hy, float hz, float nx, float ny, float nz) {{
+{_ao_source(cfg, "f({})")}
+  }}
+}};
+
+// The MLP: its block of the parameter vector starts at `offset` and holds
+// `size` floats: W_i at w_offsets, b_i at b_offsets, beta at `beta`.
+struct Mlp {{
+  static constexpr int hidden = {lay.hidden};
+  static constexpr int layers = {lay.layers};
+  static constexpr int offset = {lay.offset};
+  static constexpr int size = {lay.size};
+  static constexpr int beta = {lay.beta_offset};
+  // W offsets {list(lay.w_offsets)}, b offsets {list(lay.b_offsets)}.
+  static constexpr bool smem = {_c_bool(smem)};  // the block fits a CUDA block's shared memory
+  static constexpr bool aligned = {_c_bool(lay.offset % 4 == 0)};  // 16-byte aligned in a 16-byte aligned vector
+
+  template <class Wt>
+  static SDF3D_HD_NOINLINE float eval(const Wt& w, float beta, float px, float py, float pz) {{
+{_mlp_source(lay)}
   }}
 }};
 """

@@ -3,10 +3,13 @@
 ``render`` is the port's own reference path, the counterpart of the JAX
 package's XLA engine: camera → sphere trace → normals → soft shadow (+AO) →
 shade, as whole-image PyTorch code on the device of its inputs.
-``render_batch`` renders several cameras with either that path
-(``engine="torch"``) or the CUDA render kernel (``engine="kernel"``, one
-launch per frame).  The port is forward only: nothing here records an
-autograd graph.
+``render_banded``, ``render_rays_banded`` and ``render_aux_banded`` run it
+over bands of rows, each band marching until its own rays stop (the JAX
+package's engine for neural scenes).  ``render_batch`` renders several
+cameras with either ``render`` (``engine="torch"``) or a CUDA kernel
+(``engine="kernel"``, one launch per frame: the neural kernel for a neural
+scene, the render kernel for an analytic one).  Nothing here records an
+autograd graph (``ops.render_kernel_diff`` is the differentiable render).
 """
 
 from __future__ import annotations
@@ -31,20 +34,28 @@ def shade_pixels(
     light: PointLight,
     mat: Material,
     config: RenderConfig,
+    shadow_override: torch.Tensor | None = None,
+    ao_override: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Shade rays given their marched distances; RGB ``(..., 3)``.  The hit
     point ``origin + d·ray`` is shaded even for misses unless
-    ``config.background`` composites them out."""
+    ``config.background`` composites them out.  ``shadow_override`` /
+    ``ao_override`` substitute factors already computed for the secondary
+    marches (``render_aux_banded``)."""
     sdf_fn = scene.distance
     p = origins + distances[..., None] * directions
     n = estimate_normals(sdf_fn, p, config.normals, config.march.epsilon)
-    if config.shadow.enabled:
-        shadow_origin = p + n * (2.0 * config.march.epsilon)
-        incident = vnormalize(light.position - p)
-        shadow = soft_shadow(sdf_fn, shadow_origin, incident, config.shadow, config.march)
+    if shadow_override is not None:
+        shadow = shadow_override
+    elif config.shadow.enabled:
+        shadow = soft_shadow(sdf_fn, p + n * (2.0 * config.march.epsilon), vnormalize(light.position - p),
+                             config.shadow, config.march)
     else:
         shadow = torch.ones_like(distances)
-    ao = ambient_occlusion(sdf_fn, p, n, config.ao) if config.ao.enabled else None
+    if ao_override is not None:
+        ao = ao_override if config.ao.enabled else None
+    else:
+        ao = ambient_occlusion(sdf_fn, p, n, config.ao) if config.ao.enabled else None
 
     if config.shading == "blinn_phong":
         rgb = blinn_phong(p, n, origins, light, mat, shadow, ao)
@@ -86,6 +97,83 @@ def render(
     return render_rays(scene, origins, directions, light, mat, config)
 
 
+def _bands(x: torch.Tensor, band_rows: int) -> torch.Tensor:
+    """(H, W, ...) → (n_bands, band_rows, W, ...), the last band padded by
+    repeating the last row (JAX's ``jnp.pad(mode="edge")``)."""
+    H = x.shape[0]
+    Hp = -(-H // band_rows) * band_rows
+    if Hp != H:
+        x = torch.cat([x, x[-1:].expand(Hp - H, *x.shape[1:])])
+    return x.reshape(Hp // band_rows, band_rows, *x.shape[1:])
+
+
+@torch.no_grad()
+def render_rays_banded(
+    scene: SDFNode,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    light: PointLight,
+    mat: Material,
+    config: RenderConfig,
+    band_rows: int = 48,
+    inner=None,
+) -> torch.Tensor:
+    """:func:`render_rays` over bands of ``band_rows`` rows of a ray bundle
+    (H, W, 3) × 2 → RGB (H, W, 3): each band's marches stop when its own rays
+    have, not the image's.  Per-ray values are those of the unbanded render.
+    ``inner`` defaults to :func:`render_rays`."""
+    fn = inner or render_rays
+    H = origins.shape[0]
+    band_rows = min(band_rows, H)
+    ob, db = _bands(origins, band_rows), _bands(directions, band_rows)
+    out = torch.stack([fn(scene, o, d, light, mat, config) for o, d in zip(ob, db)])
+    return out.reshape(-1, *out.shape[2:])[:H]
+
+
+@torch.no_grad()
+def render_banded(
+    scene: SDFNode,
+    camera: Camera,
+    light: PointLight,
+    mat: Material,
+    config: RenderConfig,
+    band_rows: int = 48,
+) -> torch.Tensor:
+    """A full image ``(H, W, 3)`` by :func:`render_rays_banded`."""
+    origins, directions = camera_rays(camera, config.width, config.height, config.ray_mode)
+    return render_rays_banded(scene, origins, directions, light, mat, config, band_rows)
+
+
+@torch.no_grad()
+def render_aux_banded(
+    scene: SDFNode,
+    camera: Camera,
+    light: PointLight,
+    mat: Material,
+    config: RenderConfig,
+    band_rows: int = 48,
+):
+    """Banded render returning ``(rgb (H,W,3), t, shadow, ao)``: the planes
+    of the render kernels' outputs, from the reference path's marches
+    (shadow and AO ones where disabled)."""
+    H, W = config.height, config.width
+    origins, directions = camera_rays(camera, W, H, config.ray_mode)
+    outs = []
+    for o, d in zip(_bands(origins, band_rows), _bands(directions, band_rows)):
+        t = sphere_trace(scene.distance, o, d, config.march)
+        p = o + t[..., None] * d
+        n = estimate_normals(scene.distance, p, config.normals, config.march.epsilon)
+        if config.shadow.enabled:
+            sh = soft_shadow(scene.distance, p + n * (2.0 * config.march.epsilon), vnormalize(light.position - p),
+                             config.shadow, config.march)
+        else:
+            sh = torch.ones_like(t)
+        ao = ambient_occlusion(scene.distance, p, n, config.ao) if config.ao.enabled else torch.ones_like(t)
+        rgb = shade_pixels(scene, o, d, t, light, mat, config, shadow_override=sh, ao_override=ao)
+        outs.append((rgb, t, sh, ao))
+    return tuple(torch.cat(planes)[:H] for planes in zip(*outs))
+
+
 @torch.no_grad()
 def render_batch(
     scene: SDFNode,
@@ -96,22 +184,34 @@ def render_batch(
     engine: str = "kernel",
     kc=None,
     device="cuda",
+    nc=None,
 ) -> torch.Tensor:
     """Render a sequence of cameras on ``device``: ``(N, H, W, 3)``.
 
-    ``engine="kernel"`` launches the CUDA render kernel once per frame (on a
-    CPU device its plain PyTorch version runs instead); ``engine="torch"``
-    runs :func:`render`.  The default device is the card, and there is no
-    quiet move to the CPU: without CUDA the call fails.
+    ``engine="kernel"`` launches a CUDA kernel once per frame (on a CPU
+    device its plain PyTorch version runs instead): the neural kernel
+    (settings ``nc``) for a scene ``ops.neural_kernel.split_neural``
+    accepts, else the render kernel (settings ``kc``), which raises
+    ``NotImplementedError`` for a node without an emitter.  ``engine="torch"`` runs :func:`render`.  The
+    default device is the card, and there is no quiet move to the CPU:
+    without CUDA the call fails.
     """
     device = torch.device(device)
     if engine == "kernel":
+        from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural_forward
         from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, render_kernel_forward
+        from sdf3d_tpu_torch.ops.scene_program import is_neural_shape
 
-        kc = kc or KernelConfig()
+        if is_neural_shape(scene):
+            nc = nc or NeuralRenderConfig()
 
-        def one(cam):
-            return render_kernel_forward(scene, cam, light, mat, config, kc, device=device)[0]
+            def one(cam):
+                return render_neural_forward(scene, cam, light, mat, config, nc, device=device)[0]
+        else:
+            kc = kc or KernelConfig()
+
+            def one(cam):
+                return render_kernel_forward(scene, cam, light, mat, config, kc, device=device)[0]
     elif engine == "torch":
         scene_d = copy.deepcopy(scene).to(device)
         light_d, mat_d = light.to(device), mat.to(device)

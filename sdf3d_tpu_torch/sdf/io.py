@@ -17,6 +17,7 @@ import pathlib
 
 import numpy as np
 import torch
+from torch import nn
 
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
@@ -31,9 +32,10 @@ def registry() -> dict:
     from sdf3d_tpu_torch.config import AOConfig, MarchConfig, RenderConfig, ShadowConfig
     from sdf3d_tpu_torch.lighting import Material, PointLight
     from sdf3d_tpu_torch.sdf.csg import Union
+    from sdf3d_tpu_torch.sdf.neural import NeuralSDF
     from sdf3d_tpu_torch.sdf.primitives import Plane, Sphere
 
-    classes = (Sphere, Plane, Union, Camera, PointLight, Material,
+    classes = (Sphere, Plane, Union, NeuralSDF, Camera, PointLight, Material,
                RenderConfig, MarchConfig, ShadowConfig, AOConfig)
     return {cls.__name__: cls for cls in classes}
 
@@ -58,8 +60,9 @@ def _encode(v):
             "__type__": type(v).__name__,
             "fields": {name: _encode(getattr(v, name)) for name in _field_names(v)},
         }
-    if isinstance(v, (tuple, list)):
-        return {"__seq__": "tuple" if isinstance(v, tuple) else "list", "items": [_encode(x) for x in v]}
+    if isinstance(v, (tuple, list, nn.ParameterList)):
+        # A node's tuple field (an nn.ParameterList) is a tuple in the format.
+        return {"__seq__": "list" if isinstance(v, list) else "tuple", "items": [_encode(x) for x in v]}
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
     raise TypeError(f"cannot serialize {type(v).__name__}: {v!r}")

@@ -1,11 +1,14 @@
 """Base machinery for SDF scene graphs (the port of ``sdf3d_tpu/sdf/node.py``).
 
 A scene is a tree of ``nn.Module`` nodes.  Each node class names its fields
-in ``fields`` (the JAX dataclass field order); a field is either a child node
-(a submodule) or a float32 ``nn.Parameter``.  The flat parameter vector walks
-the fields in that order (``ops/scene_program.py::scene_param_vector``), which
-is the JAX package's ``tree_flatten`` order — not ``nn.Module.parameters()``,
-which lists a node's own parameters before its children's.
+in ``fields`` (the JAX dataclass field order); a field is a child node (a
+submodule), a float32 ``nn.Parameter``, one of the class's ``tuples``
+fields, a tuple of parameters (an ``nn.ParameterList``, e.g. an MLP's
+weights), or one of its ``static`` fields, a plain Python value that is no
+parameter (the JAX package's ``pytree_node=False``).  The flat parameter vector walks the fields
+in that order (``ops/scene_program.py::scene_param_vector``), which is the JAX
+package's ``tree_flatten`` order — not ``nn.Module.parameters()``, which lists
+a node's own parameters before its children's.
 
 ``distance(p)`` takes points of shape ``(..., 3)`` and returns ``(...,)``.
 """
@@ -60,12 +63,17 @@ def mat_vec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 class SDFNode(nn.Module):
     """Base of every scene node.
 
-    Subclasses set ``fields``; the constructor takes them positionally or
-    by name.  Child nodes become submodules, everything else a float32
-    ``nn.Parameter``.  ``a | b`` is the hard union.
+    Subclasses set ``fields``, and ``tuples``, ``static`` and ``defaults``
+    where they have such fields or defaults; the constructor takes the
+    fields positionally or by name.  Child nodes become submodules, static
+    fields plain attributes, tuple fields an ``nn.ParameterList``, everything
+    else a float32 ``nn.Parameter``.  ``a | b`` is the hard union.
     """
 
     fields: tuple[str, ...] = ()
+    tuples: tuple[str, ...] = ()
+    static: tuple[str, ...] = ()
+    defaults: dict = {}
 
     def __init__(self, *args, **kwargs):
         super().__init__()
@@ -76,13 +84,16 @@ class SDFNode(nn.Module):
             if name not in self.fields or name in values:
                 raise TypeError(f"{type(self).__name__}: unexpected or repeated field {name!r}")
             values[name] = value
+        values = {**self.defaults, **values}
         missing = [f for f in self.fields if f not in values]
         if missing:
             raise TypeError(f"{type(self).__name__}: missing fields {missing}")
         for name in self.fields:
             value = values[name]
-            if isinstance(value, SDFNode):
+            if isinstance(value, SDFNode) or name in self.static:
                 setattr(self, name, value)
+            elif name in self.tuples:
+                setattr(self, name, nn.ParameterList([nn.Parameter(as_f32(v)) for v in value]))
             else:
                 setattr(self, name, nn.Parameter(as_f32(value)))
 

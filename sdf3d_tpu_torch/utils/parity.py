@@ -19,6 +19,24 @@ grazing rays ``t`` reaches tens of units, where float32 spacing is several
 march by more than 1e-4.  The JAX package's own Pallas kernel and XLA path
 differ by more than 1e-4 in 56 of 12288 ``t`` values at 128×96 for that
 reason.
+
+Neural scenes are held to :data:`NEURAL_BAR` (``check_planes(...,
+**NEURAL_BAR)``), the JAX package's own bar for its neural kernel against its
+XLA render (``tests/test_neural.py:177-178``): at most 0.5% of the pixels off
+by more than 1e-3, no hard limit.  The neural kernel sums each MLP layer in
+one thread's chain of fused multiply-adds and divides by β through its
+reciprocal, the plain version sums in a matrix product and divides, so every
+distance differs by rounding, and the neural kernel's soft
+shadow turns that into jumps on some rays.  A shadow ray that recedes
+straight from the surface nearest it doubles its distance each step (exactly,
+for a sphere), and there ``d2 = s² − inter² = s²·(1 − (s/2·prev)²)`` cancels to
+nothing: the last bits of ``s`` decide whether ``d2`` is a small positive
+number, which darkens the pixel (``k·√d2/denom``), or negative, which leaves
+it lit.  Traced in float32 on the CPU, one ray evaluated alone: at one pixel
+``s/prev = 1.999988`` at step 10 gave ``d2 = 3.7e-5`` and a shadow of 0.446;
+the whole-image plain version gave 0.404 there and the g++ build of the
+kernel 0.350.  On the H100 at 1080p that moved 903 of 2073600 shadow
+pixels by more than 1e-3, by up to 1.0, on a distilled scene.
 """
 
 from __future__ import annotations
@@ -28,6 +46,8 @@ import numpy as np
 ATOL = 1e-4
 EDGE_FRAC = 5e-4
 HARD = 0.05
+#: The bar of neural-scene image comparisons (module docstring).
+NEURAL_BAR = dict(atol=1e-3, edge_frac=5e-3, hard=None)
 
 
 def _np(x) -> np.ndarray:
@@ -60,10 +80,11 @@ def pixel_budget(a, b, channel_axis: int | None = None, atol: float = ATOL, rela
 
 
 def check_pixel_budget(a, b, name: str = "image", channel_axis: int | None = None, atol: float = ATOL,
-                       edge_frac: float = EDGE_FRAC, hard: float = HARD, relative: bool = False) -> dict:
-    """:func:`pixel_budget`, raising ``AssertionError`` when it is exceeded."""
+                       edge_frac: float = EDGE_FRAC, hard: float | None = HARD, relative: bool = False) -> dict:
+    """:func:`pixel_budget`, raising ``AssertionError`` when it is exceeded
+    or a value is not finite (``hard=None``: no hard limit)."""
     st = pixel_budget(a, b, channel_axis, atol, relative)
-    if st["frac_over_atol"] > edge_frac or st["max_abs_err"] >= hard:
+    if st["frac_over_atol"] > edge_frac or st["nonfinite"] or (hard is not None and st["max_abs_err"] >= hard):
         raise AssertionError(
             f"{name}: {st['over_atol']} of {st['pixels']} pixels off by > {atol}{' (relative)' if relative else ''} "
             f"(budget {edge_frac:.2%}), max abs err {st['max_abs_err']:.3g} (hard limit {hard})"
@@ -79,6 +100,9 @@ COND_FLOOR = 1e-2
 def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR):
     """Pixels (H, W bool) whose gradient two implementations can be held to
     at the gradient bars: misses, and hits with ``|∇f·d| ≥ floor``.
+    ``scene`` is a scene of the analytic kernels or a distance callable
+    (``render_bwd_kernel.planar_distance``; ``neural_distance`` for a neural
+    scene), its values read from the flat parameter vector ``prm``.
 
     On a ray that grazes a silhouette the implicit-function term of ``t``
     scales with ``1/(∇f·d)`` and its error with ``1/(∇f·d)²``: a one-ulp
@@ -99,7 +123,8 @@ def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg):
     A float32 sum's rounding error scales with this mass, not with the sum:
     the plane-normal gradient, for one, sums terms of ±(distance to the
     hit) that cancel.  It runs the plain backward with the parameters and
-    uniforms expanded to one copy per pixel, which gives each pixel's term."""
+    uniforms expanded to one copy per pixel, which gives each pixel's term.
+    ``scene`` is a scene or a distance callable, as for :func:`conditioned`."""
     import torch
 
     from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
@@ -137,16 +162,17 @@ def check_grads(got, want, mass, rtol: float = 1e-4, mass_tol: float = 1e-5, max
     return st
 
 
-def check_planes(got, want, max_distance: float, label: str = "") -> dict:
+def check_planes(got, want, max_distance: float, label: str = "", **bar) -> dict:
     """Hold the four output planes of the render kernel, ``(rgb (3,H,W), t,
     shadow, ao)``, of two implementations to each other; returns the
-    statistics per plane."""
+    statistics per plane.  ``bar`` overrides the budget's ``atol``,
+    ``edge_frac`` and ``hard`` (:data:`NEURAL_BAR` for neural scenes)."""
     names = ("rgb", "t", "shadow", "ao")
     stats = {}
     for name, g, w in zip(names, got, want):
         if name == "t":
             g, w = (_np(x).clip(max=max_distance) for x in (g, w))
         stats[name] = check_pixel_budget(
-            g, w, f"{label} {name}".strip(), channel_axis=0 if name == "rgb" else None, relative=name == "t"
+            g, w, f"{label} {name}".strip(), channel_axis=0 if name == "rgb" else None, relative=name == "t", **bar
         )
     return stats

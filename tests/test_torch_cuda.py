@@ -1,5 +1,5 @@
-"""The CUDA kernels (forward render, fit step, render backward) against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels (forward render, fit step, render backward, neural render)
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -16,6 +16,7 @@ import sdf3d_tpu_torch as tt
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import _build
 from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
+from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward, render_neural_forward_plain, render_neural_launch
 from sdf3d_tpu_torch.ops.render_bwd_kernel import (
     render_kernel_backward,
     render_kernel_backward_launch,
@@ -29,9 +30,10 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_launch,
 )
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
-from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
+from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, check_grads, check_planes, conditioned, gradient_mass
 
 torch.set_num_threads(1)
+torch.backends.cuda.matmul.allow_tf32 = False
 pytestmark = pytest.mark.cuda
 
 BASE = dataclasses.replace(tt.REFERENCE_CONFIG, width=256, height=192)
@@ -170,3 +172,34 @@ def test_fit_scene_launch_counters(dev, loss, counts):
                     trainable=(False, False, True, True), device=dev)
     assert (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches) == counts
     assert res.losses[-1] < res.losses[0]
+
+
+NEURAL = dataclasses.replace(BASE, march=dataclasses.replace(BASE.march, max_steps=64),
+                             shadow=dataclasses.replace(BASE.shadow, max_steps=32))
+
+
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("shape", ["union", "bare"])
+def test_neural_kernel_matches_plain(dev, shape, hidden):
+    """Hidden 64 keeps the MLP in shared memory, 256 reads it from global
+    memory; the neural bar of utils/parity.py."""
+    m = tt.sdf.neural_sdf(hidden, hidden=hidden, depth=3, radius=0.3)
+    scene = (m if shape == "bare" else tt.sdf.ground_plane() | m).to(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), NEURAL, dev)
+    got = render_neural_launch(scene, prm, uni, NEURAL)
+    want = render_neural_forward_plain(scene, prm, uni, NEURAL)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    check_planes(got, want, NEURAL.march.max_distance, f"{shape} hidden {hidden}", **NEURAL_BAR)
+
+
+def test_neural_weights_do_not_rebuild(dev):
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    a = render_neural_forward(tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=16), cam, light, mat, NEURAL,
+                              device=dev)[0]
+    loaded, launches = _build.LIBRARIES.loaded, render_neural_forward.launches
+    b = render_neural_forward(tt.sdf.ground_plane() | tt.sdf.neural_sdf(1, hidden=16), cam, light, mat, NEURAL,
+                              device=dev)[0]
+    assert _build.LIBRARIES.loaded == loaded
+    assert render_neural_forward.launches == launches + 1
+    assert bool((a != b).any())
