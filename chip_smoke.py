@@ -65,19 +65,55 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
     and 1080p with 64/32 steps, and hidden 64 at 1080p with 100/100; one
     frame of the banded reference path (``render_banded``) at each width.
 
+Then the sharded path (``parallel/``) on its tile-queue kernels, K2
+(``sdf3d_render_tiles``) and K4 (``sdf3d_fit_step_tiles``), on the fit demo:
+
+17. build: the libraries of phases 18-21 together, with the ``ptxas``
+    registers and spills of K2 and K4 (the kernel functions of K1 and K3,
+    which they share);
+18. K2 vs its plain version per rank of a 4-rank round-robin and a balanced
+    plan, at 256×192 (tile 8×128) and a ragged 248×184 (tile 8×8, dummy
+    tiles); the ranks' stacks reassembled against K1's whole image, and the
+    pixels that differ in any bit;
+19. K4 on the same plans: against the plain reverse pass on K2's planes
+    (1e-5 of the gradient mass) and against its plain version, which marches
+    its own primal (1e-3); the sum over the work-lists against K3 on the
+    whole image (1e-4); a work-list of dummy tiles gives exactly 0;
+20. main path at 1920×1080: ``fit_scene(mesh=make_mesh())`` at world size 1
+    (NCCL), 20 Adam steps, in the layouts ``tiles`` (round robin), ``tiles``
+    (balanced, re-planned every 5 steps) and ``interleaved``, against the
+    unsharded ``fit_scene``; two processes on the one card over gloo in the
+    ``tiles`` layout against world size 1, one checkpoint writer;
+    ``render_sharded_kernel(layout="tiles")`` (one K2 launch) against K1;
+21. times at 1080p with CUDA events (plain, kernel, kernel, plain): K2 over
+    the 135-tile plan beside K1, K4 beside K3, and ``fit_scene(mesh)`` ms/step
+    beside the unsharded fit.
+
+Every kernel's bound is the larger of its bytes over the card's memory rate
+and its operations over the FP32 and special-function rates, counted from
+this run's data (:func:`march_counts`: the marches' steps at 1080p) and the
+generated code (:func:`scene_costs`).
+
 Then one JSON line describing the kernels, and last the JSON result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX and exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --time-kernels ROOT
+
+times K1 and K3 at 1080p for the checkout at ``ROOT`` (run it for two checkouts
+in turns, in one call, to compare them on one card).
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import itertools
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -113,6 +149,128 @@ def project(cam, point, width, height):
     qx = v[0] / -v[2] * fz / (width / height)
     qy = v[1] / -v[2] * fz
     return int(round((1.0 - qy) / 2.0 * height - 0.5)), int(round((qx + 1.0) / 2.0 * width - 0.5))
+
+
+# The card's peaks (the H100 SXM at its 700 W limit): 67 TFLOP/s of FP32
+# outside the tensor cores, an FMA counting two operations, and 3.35 TB/s of
+# device memory (NVIDIA's data sheet); the special-function units (sqrt and
+# reciprocal steps, exp, log) give 16 results per clock per SM (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0) on 132 SMs
+# at the 1.98 GHz boost clock.
+FP32_PEAK = 67e12
+SFU_PEAK = 132 * 16 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+# Operations of one step of the kernels' loops around the distance
+# evaluation (render_kernel.cuh): the primary march adds the step and makes
+# two compares; a soft-shadow step (march_shadow) makes 19 FP32 operations,
+# two of them divisions.  The neural kernel's shadow step (neural_kernel.cuh)
+# makes 15, with a division and a square root.
+PRIMARY_STEP = (3, 0)
+SHADOW_STEP = (19, 2)
+NEURAL_SHADOW_STEP = (15, 2)
+
+
+def expr_ops(expr: str) -> tuple:
+    """``(FP32 operations, special-function operations)`` of one C
+    expression of a generated header, each distinct subexpression once (the
+    compiler evaluates a repeated one once): arithmetic, compares, selects
+    and min/max count one, a division or ``sqrtf`` one of each."""
+    py = re.sub(r"(?<![\w.])(\d+\.?\d*(?:e[-+]?\d+)?)f\b", r"\1", expr.replace("sdf3d::", ""))
+    seen, fp, sfu = set(), 0, 0
+    for node in ast.walk(ast.parse(py, mode="eval")):
+        if not isinstance(node, (ast.BinOp, ast.Call, ast.Compare, ast.IfExp)):
+            continue
+        key = ast.dump(node)
+        if key in seen:
+            continue
+        seen.add(key)
+        fp += 1
+        if (isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div)) or (
+                isinstance(node, ast.Call) and getattr(node.func, "id", "") == "sqrtf"):
+            sfu += 1
+    return fp, sfu
+
+
+def body_ops(header: str, signature: str) -> tuple:
+    """The operations of the body of the function ``signature`` of a
+    generated header: the sum over its statements' expressions."""
+    i = header.index(signature)
+    j = k = header.index("{", i)
+    depth = 0
+    while True:
+        depth += {"{": 1, "}": -1}.get(header[k], 0)
+        if depth == 0:
+            break
+        k += 1
+    fp = sfu = 0
+    for stmt in header[j + 1:k].split(";"):
+        m = re.search(r"(?:return|[+\-*]?=)\s*(.+)$", stmt.strip(), re.S)
+        if m and m.group(1).strip():
+            a, b = expr_ops(m.group(1).strip())
+            fp, sfu = fp + a, sfu + b
+    return fp, sfu
+
+
+def scene_costs(header: str) -> dict:
+    """Operations per call of the generated scene code: the ray form's
+    evaluation and setup, the point form, its reverse (``sdf_bwd``) and its
+    gradient (``sdf_grad_p``)."""
+    return {k: body_ops(header, sig) for k, sig in (
+        ("ray", "float eval(float t)"), ("setup", "void setup("), ("point", "float sdf(float px"),
+        ("bwd", "void sdf_bwd("), ("grad", "void sdf_grad_p("))}
+
+
+def bound(fp: float, sfu: float, nbytes: float) -> tuple:
+    """``(bound_ms, bound_by)``: the least time of the work on the card,
+    the larger of its bytes over the memory rate and its operations over
+    the FP32 and special-function rates."""
+    ops_s = max(fp / FP32_PEAK, sfu / SFU_PEAK)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def march_counts(torch, scene, cam, cfg, prm, uni, plain) -> dict:
+    """Distance evaluations of the kernels' marches on this run's data: the
+    primary march's steps summed over the image from ``march_step_map``, the
+    shadow march's from the plain version's counter (``plain(..., steps=)``,
+    the kernel's loop), and the rays that march a shadow."""
+    from sdf3d_tpu_torch.camera import camera_rays
+    from sdf3d_tpu_torch.march import march_step_map
+
+    with torch.no_grad():
+        o, d = camera_rays(cam, cfg.width, cfg.height, cfg.ray_mode)
+        primary = float(march_step_map(scene.distance, o, d, cfg.march)[1].sum())
+        steps = {}
+        plain(scene, prm, uni, cfg, steps=steps)
+    return {"pixels": cfg.width * cfg.height, "primary": primary, "shadow": float(steps["shadow"].sum()),
+            "shadow_rays": float((steps["shadow"] > 0).sum()), "plain_primary": float(steps["primary"].sum())}
+
+
+def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: bool = False) -> tuple:
+    """``(FP32, special-function)`` operations of the analytic kernels on
+    ``counts``' data: the primal's marches (each step an evaluation of the
+    ray form and the loop's operations, a setup per marched ray) and normal
+    taps (the point form); the reverse pass's implicit-function gradient,
+    re-evaluated taps and reverse taps.  Ray generation and shading are left
+    out, so this is a floor."""
+    taps = 6 if cfg.normals == "central" else 4
+    n = counts["pixels"]
+    fp = sfu = 0.0
+    if primal:
+        terms = [(counts["primary"], costs["ray"], PRIMARY_STEP), (counts["shadow"], costs["ray"], SHADOW_STEP),
+                 (n + counts["shadow_rays"], costs["setup"], (0, 0)), (n * taps, costs["point"], (0, 0))]
+        for calls, (f, s_), (lf, ls) in terms:
+            fp, sfu = fp + calls * (f + lf), sfu + calls * (s_ + ls)
+    if reverse:
+        for calls, (f, s_) in ((n, costs["grad"]), (n * taps, costs["point"]), (n * (taps + 1), costs["bwd"])):
+            fp, sfu = fp + calls * f, sfu + calls * s_
+    return fp, sfu
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def time_ms(torch, fn, warmup=3, frames=20) -> float:
@@ -257,8 +415,15 @@ def main() -> int:
         kernel_rays_per_s=W * H / (kernel_ms / 1e3), wrapper_ms=w1, plain_ms=plain_ms, plain_ms_runs=[p1, p2],
         plain_rays_per_s=W * H / (plain_ms / 1e3), build_seconds=libs.build_seconds)
 
+    # K1's bound on this cell: its marches and taps on the reference scene.
+    counts = march_counts(torch, scene, tt.Camera.reference(), cfg, prm, uni, render_kernel_forward_plain)
+    fp, sfu = analytic_work(scene_costs(cuda_scene_source(scene, cfg, KernelConfig())), counts, cfg)
+    bound_ms, bound_by = bound(fp, sfu, 24 * W * H)
+    log("bound_render_fwd", counts=counts, fp32_ops=fp, sfu_ops=sfu, bound_ms=bound_ms, bound_by=bound_by)
+
     fit_kernels = fit_phases(torch, tt, card, dev)
     neural_kernel = neural_phases(torch, tt, card, dev)
+    tiles_kernels = tiles_phases(torch, tt, card, dev, {"render_fwd": kernel_ms})
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
@@ -268,7 +433,10 @@ def main() -> int:
         "max_abs_err": parity["rgb"]["max_abs_err"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + fit_kernels + [neural_kernel]}), flush=True)
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }] + fit_kernels + [neural_kernel] + tiles_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -296,7 +464,8 @@ class PlainCalls:
     """Counts calls of the kernels' plain versions while active (wrapping
     every module-level reference to them in the package)."""
 
-    NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain")
+    NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain",
+             "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain")
 
     def __enter__(self):
         self.calls, self._saved = {n: 0 for n in self.NAMES}, []
@@ -336,6 +505,7 @@ def fit_phases(torch, tt, card: str, dev) -> list:
         KernelConfig,
         pack_uniforms,
         render_kernel_forward,
+        render_kernel_forward_plain,
         render_kernel_launch,
     )
     from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
@@ -492,17 +662,25 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     res = fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=50, log_every=50),
                     trainable=trainable, device=dev)
     fit_ms = W * H / res.rays_per_second * 1e3
+    # Bounds on this cell (step 0 of the fit demo): K3's primal and reverse
+    # pass, K5's reverse pass; one partial row of P + 31 (P + 30) per block.
+    counts = march_counts(torch, sc, cam, cfg, prm, uni, render_kernel_forward_plain)
+    costs = scene_costs(cuda_scene_source(sc, cfg, KernelConfig(), False, frozen))
+    blocks = -(-W // 32) * -(-H // 8)
+    g = prm.numel() + 31
+    k3 = bound(*analytic_work(costs, counts, cfg, primal=True, reverse=True), 12 * W * H + 4 * blocks * g)
+    k5 = bound(*analytic_work(costs, counts, cfg, primal=False, reverse=True), 24 * W * H + 4 * blocks * (g - 1))
     log("times_fit_1080p", card=card, fit_scene_ms_per_step=fit_ms, fwd_bwd_rays_per_s=res.rays_per_second,
-        render_bwd_1080p=bwd_st, **runs)
+        render_bwd_1080p=bwd_st, counts=counts, costs=costs, bound_fit_step=k3, bound_render_bwd=k5, **runs)
     return [
         {"name": "fit_step", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/fit_kernel.cu",
          "replaces": "sdf3d_tpu/ops/fit_kernel.py:93", "launches": l2_counts[0],
          "max_abs_err": fit_st["own_march"]["max_abs_err"], "ms": runs["fit_step"]["ms"],
-         "plain_ms": runs["fit_step"]["plain_ms"]},
+         "plain_ms": runs["fit_step"]["plain_ms"], "bound_ms": k3[0], "bound_by": k3[1], "library_ms": None},
         {"name": "render_bwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/render_bwd_kernel.cu",
          "replaces": "sdf3d_tpu/ops/render_bwd_kernel.py:194", "launches": ms_counts[2],
          "max_abs_err": bwd_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
-         "plain_ms": runs["render_bwd"]["plain_ms"]},
+         "plain_ms": runs["render_bwd"]["plain_ms"], "bound_ms": k5[0], "bound_by": k5[1], "library_ms": None},
     ]
 
 
@@ -679,12 +857,414 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
         cam, c = tt.Camera.reference(device=dev), config(W, H)
         runs[f"hidden{hidden}_{W}x{H}"]["banded_ms"] = time_ms(
             torch, lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
-    log("neural_times", card=card, **runs)
+    # K6's bound on the timed cell (hidden 64, 1080p, 64/32 steps): per
+    # evaluation the MLP's multiply-adds (two operations each) and biases,
+    # a softplus per hidden unit (about six operations, exp and log1p on the
+    # special-function units) and the plane; the marches' steps and six
+    # normal taps from this run's data.
+    cam0, c = tt.Camera.reference(device=dev), config(W, H)
+    prm, uni = inputs(u64, cam0, c)
+    work = march_counts(torch, u64, cam0, c, prm, uni, render_neural_forward_plain)
+    mlp = u64.b
+    hidden_units = sum(w.shape[1] for w in mlp.weights[:-1])  # weights (in, out)
+    per_eval = (sum(2 * w.numel() + w.shape[1] for w in mlp.weights) + 6 * hidden_units + 8, 2 * hidden_units)
+    evals = work["primary"] + work["shadow"] + 6 * work["pixels"]
+    fp = evals * per_eval[0] + work["shadow"] * NEURAL_SHADOW_STEP[0] + work["primary"] * PRIMARY_STEP[0]
+    sfu = evals * per_eval[1] + work["shadow"] * NEURAL_SHADOW_STEP[1]
+    k6 = bound(fp, sfu, 24 * W * H + 4 * prm.numel())
+    log("neural_times", card=card, counts=work, ops_per_eval=per_eval, bound=k6, **runs)
     return {"name": "neural_fwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/neural_kernel.cu",
             "replaces": "sdf3d_tpu/ops/neural_kernel.py:104", "launches": counts[0],
             "max_abs_err": parity["rgb"]["max_abs_err"], "ms": runs[f"hidden64_{W}x{H}"]["ms"],
-            "plain_ms": runs[f"hidden64_{W}x{H}"]["plain_ms"]}
+            "plain_ms": runs[f"hidden64_{W}x{H}"]["plain_ms"], "bound_ms": k6[0], "bound_by": k6[1],
+            "library_ms": None}
+
+
+TWO_RANKS = r"""
+import json, os, sys, time
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import dataclasses
+import torch
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_tiles
+from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward
+from sdf3d_tpu_torch.parallel import launch, make_mesh
+import torch.distributed as dist
+
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)  # two ranks, one card: gloo
+mesh = make_mesh()
+dev = mesh.device
+W, H = 1920, 1080
+cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+cam, light, mat = tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev)
+target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+
+def scene0():
+    return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+trainable = (False, False, True, True)
+fit_step_kernel_tiles.launches = 0
+res = fit_scene(target, scene0(), cam, light, mat, cfg,
+                FitConfig(steps=20, learning_rate=1e-2, log_every=1, shard_layout="tiles", checkpoint_every=10,
+                          checkpoint_dir=os.path.join(outdir, f"ckpt_r{rank}")), mesh=mesh, trainable=trainable)
+launches = fit_step_kernel_tiles.launches
+timed = fit_scene(target, scene0(), cam, light, mat, cfg,
+                  FitConfig(steps=50, log_every=50, shard_layout="tiles"), mesh=mesh, trainable=trainable)
+out = {"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(), "device": str(dev),
+       "losses": res.losses, "radius": res.scene.b.radius.item(), "launches": launches,
+       "ms_per_step": W * H / timed.rays_per_second * 1e3}
+with open(os.path.join(outdir, f"out_r{rank}.json"), "w") as f:
+    json.dump(out, f)
+launch.shutdown()
+"""
+
+
+def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
+    """Phases 17-21: the sharded path on the tile-queue kernels (K2, K4).
+    Returns their entries of the kernels line."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        fit_step_kernel,
+        fit_step_kernel_launch,
+        fit_step_kernel_tiles,
+        fit_step_kernel_tiles_launch,
+        fit_step_kernel_tiles_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+        render_kernel_tiles_forward_plain,
+        render_kernel_tiles_launch,
+        tile_pixel_planes,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel import launch, make_mesh, render_sharded_kernel
+    from sdf3d_tpu_torch.parallel.shard_render import row_layout
+    from sdf3d_tpu_torch.parallel.tile_queue import estimate_tile_work, gather_target_tiles, plan_tiles, pool_work_to_tiles
+    from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    frozen = (0, 1, 2, 3)
+    trainable = (False, False, True, True)
+    kc = KernelConfig()  # the (24, 640) tile: 135 tiles at 1080p
+    small = {"256x192": (dataclasses.replace(full, width=256, height=192), KernelConfig(tile_h=8, tile_w=128)),
+             "248x184": (dataclasses.replace(full, width=248, height=184),
+                         KernelConfig(block_w=8, block_h=8, tile_h=8, tile_w=8))}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                fit_step_kernel_tiles)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def scene0():
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def inputs(sc, c, camera=cam):
+        uni = pack_uniforms(camera, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def reassemble(stacks, plan):
+        index = torch.from_numpy(plan.gather_index.astype(np.int64)).to(dev)
+        out = []
+        for k in range(4):
+            x = torch.cat([st[k] for st in stacks], dim=-2)
+            lead = tuple(x.shape[:-2])
+            x = x.reshape(lead + (plan.n * plan.tiles_per_device, plan.tile_h, plan.tile_w))
+            out.append(x[..., index, :, :].transpose(-3, -2).reshape(lead + (plan.height, plan.width)))
+        return out
+
+    ref_scene = tt.reference_scene().to(dev)
+
+    # ---- 17. build: the libraries of phases 18-21, together ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    slab_cfg = row_layout(full, make_mesh(dev), True, kc.tile_h)[0]  # the interleaved rank's config
+    jobs = [library_job(ref_scene, c, k, wrt, fr) for c, k in list(small.values()) + [(full, kc)]
+            for wrt, fr in ((True, ()), (False, frozen))] + [library_job(ref_scene, slab_cfg, kc, False, frozen)]
+    t0 = time.perf_counter()
+    libs.load_many(jobs)
+    build_wall = time.perf_counter() - t0
+    header = cuda_scene_source(scene0(), full, kc, False, frozen)
+    ptxas = ptxas_summary(libs.log(libs.key(header)))
+    # K2 and K4 are entry points of K1's and K3's kernel functions.
+    check({"render_fwd", "fit_step"} <= set(ptxas), f"ptxas reported {sorted(ptxas)}")
+    log("tiles_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=libs.loaded, ptxas=ptxas)
+
+    # ---- 18. K2 vs its plain version, 4-rank plans, reassembled vs K1 ----
+    plans, k2_errs = {}, []
+    for name, (c, k) in small.items():
+        prm, uni = inputs(ref_scene, c, orbit)
+        work = pool_work_to_tiles(estimate_tile_work(ref_scene, orbit, c, light), c.height, c.width, k.tile_h, k.tile_w)
+        whole = render_kernel_launch(ref_scene, prm, uni, c, k)
+        for policy in ("round_robin", "balanced"):
+            plan = plan_tiles(c.height, c.width, k.tile_h, k.tile_w, 4, policy, work)
+            plans[(name, policy)] = plan
+            stacks, ranks = [], []
+            for r in range(4):
+                trow, tcol = plan.tables(r, dev)
+                got = render_kernel_tiles_launch(ref_scene, prm, uni, trow, tcol, c, k)
+                want = render_kernel_tiles_forward_plain(ref_scene, prm, uni, trow, tcol, c, k)
+                torch.cuda.synchronize()
+                st = check_planes(got, want, c.march.max_distance, f"K2 {name} {policy} rank {r}")
+                ranks.append({n: {q: v[q] for q in ("over_atol", "max_abs_err")} for n, v in st.items()})
+                k2_errs.append(st["rgb"]["max_abs_err"])
+                stacks.append(got)
+            image = reassemble(stacks, plan)
+            st = check_planes(image, whole, c.march.max_distance, f"K2 {name} {policy} reassembled")
+            differ = torch.zeros((c.height, c.width), dtype=torch.bool, device=dev)
+            for a, b in zip(image, whole):
+                differ |= (a != b).reshape(-1, c.height, c.width).any(0)
+            differ = int(differ.sum())
+            log("tiles_fwd_parity", case=name, policy=policy, tiles_per_rank=plan.tiles_per_device,
+                dummies=int((plan.rows == c.height).sum()), ranks=ranks, pixels_differing_bits_vs_k1=differ,
+                vs_k1={n: {q: v[q] for q in ("over_atol", "max_abs_err")} for n, v in st.items()})
+
+    # ---- 19. K4 vs plain on the same plans; the sum vs K3 ----
+    for name, (c, k) in small.items():
+        sc = scene0()
+        prm, uni = inputs(sc, c, orbit)
+        wrt, fr = (False, frozen) if name == "256x192" else (True, ())
+        rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c, k)
+        keep = conditioned(sc, prm, uni, t, c)
+        target = (rgb + (torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1) * keep).contiguous()
+        mass = gradient_mass(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+        w_loss, w_prm, w_uni = fit_step_kernel_launch(sc, prm, uni, target, c, k, wrt, fr)
+        for policy in ("round_robin", "balanced"):
+            plan = plans[(name, policy)]
+            stacks = gather_target_tiles(target, plan)
+            total, ranks = None, []
+            for r in range(4):
+                trow, tcol = plan.tables(r, dev)
+                stack = stacks[r].contiguous()
+                got = fit_step_kernel_tiles_launch(sc, prm, uni, stack, trow, tcol, c, k, wrt, fr)
+                want = fit_step_kernel_tiles_plain(sc, prm, uni, stack, trow, tcol, c, k, wrt, fr)
+                pixels = tile_pixel_planes(trow, tcol, k.tile_h, k.tile_w)
+                k_rgb, k_t, k_sh, k_ao = render_kernel_tiles_launch(sc, prm, uni, trow, tcol, c, k)
+                inside = ((pixels[0] < c.height) & (pixels[1] < c.width)).to(torch.float32)
+                s_prm, s_uni = render_kernel_backward_plain(sc, prm, uni, 2.0 * (k_rgb - stack) * inside, k_t, k_sh,
+                                                            k_ao, c, pixels)
+                s_prm[list(fr)] = 0.0
+                torch.cuda.synchronize()
+                loss_rel = abs(float(got[0]) / float(want[0]) - 1.0)
+                check(loss_rel <= 1e-5, f"K4 {name} {policy} rank {r}: loss off by {loss_rel:.3g}")
+                g = torch.cat(got[1:])
+                same = torch.cat([s_prm, s_uni if wrt else torch.zeros_like(s_uni)])
+                ranks.append({"loss_rel_err": loss_rel,
+                              "same_planes": check_grads(g, same, mass, rtol=1e-4, mass_tol=1e-5,
+                                                         label=f"K4 {name} {policy} rank {r} (same planes)"),
+                              "own_march": check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=1e-3,
+                                                       label=f"K4 {name} {policy} rank {r}")})
+                check(all(float(got[1][q]) == 0.0 for q in fr), "a frozen slot's gradient is not 0")
+                total = got if total is None else tuple(a + b for a, b in zip(total, got))
+            loss_rel = abs(float(total[0]) / float(w_loss) - 1.0)
+            check(loss_rel <= 1e-5, f"K4 {name} {policy}: the plan's loss is off K3's by {loss_rel:.3g}")
+            vs_k3 = check_grads(torch.cat(total[1:]), torch.cat([w_prm, w_uni]), mass, rtol=1e-4, mass_tol=1e-4,
+                                label=f"K4 {name} {policy} sum vs K3")
+            log("tiles_fit_parity", case=name, policy=policy, wrt_uniforms=wrt, frozen=list(fr), ranks=ranks,
+                sum_vs_k3={"loss_rel_err": loss_rel, **vs_k3})
+        dummy = (torch.full((3,), c.height, dtype=torch.int32, device=dev), torch.zeros(3, dtype=torch.int32, device=dev))
+        ones = torch.ones((3, 3 * k.tile_h, k.tile_w), device=dev)
+        d_loss, d_prm, d_uni = fit_step_kernel_tiles_launch(sc, prm, uni, ones, *dummy, c, k, True, ())
+        check(float(d_loss) == 0.0 and not bool(d_prm.any()) and not bool(d_uni.any()), "dummy tiles added non-zeros")
+
+    # ---- 20. main path at 1080p: fit_scene(mesh) at world size 1 (NCCL) ----
+    target = render_kernel_forward(ref_scene, cam, light, mat, full, device=dev)[0]
+    launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size == 1 and mesh.device == dev, f"mesh {mesh}")
+    common = dict(steps=20, learning_rate=1e-2, log_every=1)
+    ref = fit_scene(target, scene0(), cam, light, mat, full, FitConfig(**common), trainable=trainable, device=dev)
+    runs, main_counts = {}, {}
+    with PlainCalls() as plain:
+        for name, extra, want in (("tiles", dict(shard_layout="tiles"), (0, 20)),
+                                  ("tiles_balanced", dict(shard_layout="tiles", shard_policy="balanced",
+                                                          replan_every=5), (0, 20)),
+                                  ("interleaved", dict(shard_layout="interleaved"), (20, 0))):
+            reset()
+            t0 = time.perf_counter()
+            res = fit_scene(target, scene0(), cam, light, mat, full, FitConfig(**common, **extra), mesh=mesh,
+                            trainable=trainable)
+            seconds = time.perf_counter() - t0
+            got = launches()
+            check((got["fit_step_kernel"], got["fit_step_kernel_tiles"]) == want and
+                  got["render_kernel_forward"] == got["render_kernel_backward"] == got["render_kernel_tiles_forward"] == 0,
+                  f"fit_scene(mesh, {name}) launched {got}")
+            rel = max(abs(a / b - 1.0) for a, b in zip(res.losses, ref.losses))
+            check(rel <= 1e-5, f"fit_scene(mesh, {name}): losses off the unsharded fit's by {rel:.3g}")
+            check(res.losses[-1] < res.losses[0], f"{name}: the loss did not fall")
+            runs[name] = {"launches": got, "loss_rel_err": rel, "losses": res.losses,
+                          "radius": res.scene.b.radius.item(), "seconds": seconds}
+            main_counts[name] = got
+        reset()
+        img = render_sharded_kernel(ref_scene, cam, light, mat, full, mesh, kc, layout="tiles", planar=True)
+        torch.cuda.synchronize()
+        render_counts = launches()
+    check(sum(plain.calls.values()) == 0, f"the main path called plain versions: {plain.calls}")
+    check(render_counts["render_kernel_tiles_forward"] == 1 and sum(render_counts.values()) == 1,
+          f"render_sharded_kernel(tiles) launched {render_counts}")
+    prm, uni = inputs(ref_scene, full)
+    render_st = check_planes((img,), render_kernel_launch(ref_scene, prm, uni, full, kc)[:1], full.march.max_distance,
+                             "render_sharded_kernel(tiles) vs K1")
+
+    # Two ranks on the one card over gloo, in the tiles layout.
+    with tempfile.TemporaryDirectory() as outdir:
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen([sys.executable, "-c", TWO_RANKS, str(port), str(r), outdir, REPO], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=400)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for p, out in zip(procs, outs):
+            check(p.returncode == 0, f"a rank failed:\n{out[-4000:]}")
+        ranks = [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(2)]
+        one_writer = (os.path.exists(os.path.join(outdir, "ckpt_r0", "state.pt")),
+                      os.path.exists(os.path.join(outdir, "ckpt_r1")))
+    check(one_writer == (True, False), f"checkpoint writers (rank 0, rank 1) = {one_writer}")
+    check(all(r["backend"] == "gloo" and r["size"] == 2 and r["launches"] == 20 for r in ranks), f"ranks {ranks}")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "the two ranks' losses differ")
+    two_rel = max(abs(a / b - 1.0) for a, b in zip(ranks[0]["losses"], runs["tiles"]["losses"]))
+    check(two_rel <= 1e-5, f"two ranks: losses off world size 1's by {two_rel:.3g}")
+    log("tiles_main_path", card=card, world_size_1=runs, unsharded_losses=ref.losses,
+        unsharded_radius=ref.scene.b.radius.item(), render_tiles_launches=render_counts,
+        render_vs_k1={q: render_st["rgb"][q] for q in ("over_atol", "max_abs_err")},
+        two_ranks_one_card={"loss_rel_err_vs_world_size_1": two_rel, "losses": ranks[0]["losses"],
+                            "launches_per_rank": [r["launches"] for r in ranks], "backend": ranks[0]["backend"],
+                            "checkpoint_writers": one_writer})
+
+    # ---- 21. times at 1080p (plain, kernel, kernel, plain) ----
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    prm, uni = inputs(ref_scene, full)
+    k2 = lambda: render_kernel_tiles_launch(ref_scene, prm, uni, trow, tcol, full, kc)  # noqa: E731
+    k2_plain = lambda: render_kernel_tiles_forward_plain(ref_scene, prm, uni, trow, tcol, full, kc)  # noqa: E731
+    k1 = lambda: render_kernel_launch(ref_scene, prm, uni, full, kc)  # noqa: E731
+    k2_st = check_planes(k2(), k2_plain(), full.march.max_distance, "K2 1080p")
+    sc = scene0()
+    f_prm, f_uni = inputs(sc, full)
+    stack = gather_target_tiles(target.permute(2, 0, 1).contiguous(), plan)[0].contiguous()
+    tgt = target.permute(2, 0, 1).contiguous()
+    k4 = lambda: fit_step_kernel_tiles_launch(sc, f_prm, f_uni, stack, trow, tcol, full, kc, False, frozen)  # noqa: E731
+    k4_plain = lambda: fit_step_kernel_tiles_plain(sc, f_prm, f_uni, stack, trow, tcol, full, kc, False, frozen)  # noqa: E731
+    k3 = lambda: fit_step_kernel_launch(sc, f_prm, f_uni, tgt, full, kc, False, frozen)  # noqa: E731
+    _, t3, sh3, ao3 = render_kernel_launch(sc, f_prm, f_uni, full, kc)
+    f_mass = gradient_mass(sc, f_prm, f_uni, 2.0 * (render_kernel_launch(sc, f_prm, f_uni, full, kc)[0] - tgt),
+                           t3, sh3, ao3, full)
+    got4, want4, got3 = k4(), k4_plain(), k3()
+    k4_st = {"own_march": check_grads(torch.cat(got4[1:]), torch.cat(want4[1:]), f_mass, rtol=1e-4, mass_tol=1e-3,
+                                      label="K4 1080p vs plain"),
+             "vs_k3": check_grads(torch.cat(got4[1:]), torch.cat(got3[1:]), f_mass, rtol=1e-4, mass_tol=1e-4,
+                                  label="K4 1080p vs K3"),
+             "loss_rel_err_vs_k3": abs(float(got4[0]) / float(got3[0]) - 1.0)}
+    check(k4_st["loss_rel_err_vs_k3"] <= 1e-5, f"K4 1080p loss off K3's by {k4_st['loss_rel_err_vs_k3']:.3g}")
+    timing = {}
+    for name, kern, plain_fn, beside in (("render_tiles", k2, k2_plain, k1), ("fit_step_tiles", k4, k4_plain, k3)):
+        p1 = time_ms(torch, plain_fn, 1, 3)
+        a1, b1 = time_ms(torch, kern), time_ms(torch, beside)
+        a2, b2 = time_ms(torch, kern), time_ms(torch, beside)
+        p2 = time_ms(torch, plain_fn, 1, 3)
+        timing[name] = {"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "whole_image_kernel_ms_runs": [b1, b2],
+                        "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+    fit_ms = {}
+    for name, kwargs in (("unsharded", dict(device=dev)), ("mesh_tiles", dict(mesh=mesh)), ("mesh_tiles_2", dict(mesh=mesh)),
+                         ("unsharded_2", dict(device=dev))):
+        layout = dict(shard_layout="tiles") if "mesh" in name else {}
+        res = fit_scene(target, scene0(), cam, light, mat, full, FitConfig(steps=50, log_every=50, **layout),
+                        trainable=trainable, **kwargs)
+        fit_ms[name] = W * H / res.rays_per_second * 1e3
+    launch.shutdown()
+
+    # Bounds: K2 does K1's work on the same pixels, K4 K3's.
+    counts = march_counts(torch, ref_scene, cam, full, prm, uni, render_kernel_forward_plain)
+    k2_bound = bound(*analytic_work(scene_costs(cuda_scene_source(ref_scene, full, kc)), counts, full),
+                     24 * W * H + 8 * plan.tiles_per_device)
+    f_counts = march_counts(torch, sc, cam, full, f_prm, f_uni, render_kernel_forward_plain)
+    blocks = plan.tiles_per_device * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
+    k4_bound = bound(*analytic_work(scene_costs(cuda_scene_source(sc, full, kc, False, frozen)), f_counts, full,
+                                    primal=True, reverse=True),
+                     12 * W * H + 8 * plan.tiles_per_device + 4 * blocks * (f_prm.numel() + 31))
+    log("tiles_times_1080p", card=card, tiles=plan.tiles_per_device, k2_vs_plain=k2_st["rgb"], k4=k4_st,
+        fit_scene_ms_per_step=fit_ms, render_fwd_ms_phase6=times["render_fwd"],
+        two_ranks_one_card_ms_per_step={"note": "a correctness run of two ranks sharing one card over gloo, "
+                                                "not a scaling figure",
+                                        "ms": [r["ms_per_step"] for r in ranks]},
+        bound_render_tiles=k2_bound, bound_fit_step_tiles=k4_bound, **timing)
+    return [
+        {"name": "render_tiles", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/render_kernel.cu",
+         "replaces": "sdf3d_tpu/ops/render_kernel.py:639", "launches": render_counts["render_kernel_tiles_forward"],
+         "max_abs_err": k2_st["rgb"]["max_abs_err"], "ms": timing["render_tiles"]["ms"],
+         "plain_ms": timing["render_tiles"]["plain_ms"], "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "fit_step_tiles", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/fit_kernel.cu",
+         "replaces": "sdf3d_tpu/ops/fit_kernel.py:398", "launches": main_counts["tiles"]["fit_step_kernel_tiles"],
+         "max_abs_err": k4_st["own_march"]["max_abs_err"], "ms": timing["fit_step_tiles"]["ms"],
+         "plain_ms": timing["fit_step_tiles"]["plain_ms"], "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": None},
+    ]
+
+
+def time_kernels(root: str) -> int:
+    """``--time-kernels ROOT``: K1 and K3 on the reference scene and the fit
+    demo at 1080p, three runs of 50 launches each by CUDA events, for the
+    package of the checkout at ``ROOT`` (run it for two checkouts in turns,
+    in one call, to compare them on one card).  Prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import sdf3d_tpu_torch as tt
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_launch
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+
+    check(tt.__file__.startswith(root), f"imported {tt.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    cam = tt.Camera.reference(device=dev)
+    uni = pack_uniforms(cam, tt.reference_light(device=dev), tt.reference_material(device=dev), cfg.ray_mode, dev)
+    uni[27] = float(cfg.shadow.k)
+    ref = tt.reference_scene().to(dev)
+    sc0 = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25)).to(dev)
+    prm, prm0 = scene_param_vector(ref, dev), scene_param_vector(sc0, dev)
+    target = render_kernel_launch(ref, prm, uni, cfg)[0].contiguous()
+    k1 = lambda: render_kernel_launch(ref, prm, uni, cfg)  # noqa: E731
+    k3 = lambda: fit_step_kernel_launch(sc0, prm0, uni, target, cfg, KernelConfig(), False, (0, 1, 2, 3))  # noqa: E731
+    print(json.dumps({"root": root, "card": card_name_and_power(),
+                      "render_fwd_ms": [time_ms(torch, k1, 5, 50) for _ in range(3)],
+                      "fit_step_ms": [time_ms(torch, k3, 5, 50) for _ in range(3)]}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-kernels"]:
+        sys.exit(time_kernels(sys.argv[2]))
     sys.exit(main())

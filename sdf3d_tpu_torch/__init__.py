@@ -9,7 +9,10 @@ on the fused fit-step kernel, and a differentiable kernel render
 (``ops.render_kernel_diff``: forward kernel, backward kernel).  The neural
 SDF family (``sdf.NeuralSDF``, ``sdf.neural_sdf``, ``sdf.distill``) renders
 on its own CUDA kernel (``ops.render_neural_forward``, ``ops.render_neural``,
-``render_batch(engine="kernel")``), or banded (``render_banded``).  The
+``render_batch(engine="kernel")``), or banded (``render_banded``).
+``parallel`` shards renders and fits over the ranks of a
+``torch.distributed`` process group (``fit_scene(mesh=parallel.make_mesh())``),
+in row layouts or a tile queue with its own kernels.  The
 package imports torch and numpy, never JAX and never ``sdf3d_tpu``;
 ``convert.from_jax`` and ``sdf.load_setup`` carry scenes and settings over
 from the JAX package.

@@ -113,3 +113,19 @@ def camera_rays(camera: Camera, width: int, height: int, ray_mode: str = "refere
     qx, qy = pixel_grid(width, height, camera.position.device)
     directions = generate_rays(camera, qx, qy, width / height, ray_mode)
     return camera.position.expand(directions.shape), directions
+
+
+def camera_rays_for_rows(camera: Camera, width: int, height: int, rows, ray_mode: str = "reference"):
+    """Ray bundle ``(origins, directions)``, each (R, W, 3), for the absolute
+    image rows ``rows`` (any order: an interleaved rank passes its permuted
+    rows).  Row ``k`` equals row ``rows[k]`` of :func:`camera_rays`: the NDC
+    mapping uses the full image's extent.  A rank of a sharded fit builds
+    only its own rows with it (``parallel/launch.py``)."""
+    dev = camera.position.device
+    rows = torch.as_tensor(rows, dtype=torch.float32, device=dev)
+    xs = (2.0 * (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width) - 1.0
+    ys = 1.0 - (2.0 * (rows + 0.5) / height)
+    r = rows.shape[0]
+    qx, qy = xs[None, :].expand(r, width), ys[:, None].expand(r, width)
+    directions = generate_rays(camera, qx, qy, width / height, ray_mode)
+    return camera.position.expand(directions.shape), directions

@@ -7,6 +7,10 @@ Each file is written to a temporary name and moved into place with
 ``os.replace``, so a crash mid-write never corrupts the previous snapshot.
 The format is the port's own: the JAX package (flax msgpack) cannot read it,
 nor this module the JAX package's.
+
+In a sharded run only rank 0 writes (``parallel.launch.is_primary``): the fit
+state is replicated, so its copy is complete, and ranks racing
+``os.replace`` on one directory would corrupt it.  Every rank may read.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import pathlib
 import tempfile
 
 import torch
+
+from sdf3d_tpu_torch.parallel import launch
 
 
 def _atomic_write(path: pathlib.Path, name: str, data: bytes) -> None:
@@ -34,7 +40,10 @@ def _atomic_write(path: pathlib.Path, name: str, data: bytes) -> None:
 
 def save_checkpoint(path: str | os.PathLike, state: dict, step: int, meta: dict | None = None) -> None:
     """Atomically write ``state`` (a dict of tensors and ``state_dict``s) and
-    a manifest with ``step`` and ``meta`` to the directory ``path``."""
+    a manifest with ``step`` and ``meta`` to the directory ``path``; a no-op
+    on every rank but rank 0 of a sharded run."""
+    if not launch.is_primary():
+        return
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     buf = io.BytesIO()

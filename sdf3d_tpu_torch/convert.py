@@ -9,8 +9,9 @@ a class the port does not have raises ``TypeError``.
 
 A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and drops the
 TPU-only ``pallas_interpret`` and ``pallas_tile``; its sharding fields
-(``shard_*``, ``replan_every``, ``allreduce``) are dropped at their
-defaults and raise ``NotImplementedError`` otherwise (ROADMAP item 15).  A
+(``shard_*``, ``replan_every``, ``allreduce``) carry over, and the ring
+all-reduce values of ``allreduce`` raise ``NotImplementedError`` (the
+kernels K7/K8, ROADMAP item 15b).  A
 ``NeuralRenderConfig`` keeps ``block_rays`` and drops the TPU-only
 ``check_every`` and ``interpret``.
 """
@@ -35,17 +36,19 @@ _TPU_ONLY = ("pallas_interpret", "pallas_tile")
 
 def _fit_config(v):
     from sdf3d_tpu_torch.fit import FitConfig
+    from sdf3d_tpu_torch.parallel.collectives import check_allreduce
 
     ported = {f.name for f in dataclasses.fields(FitConfig)}
     defaults = type(v)()
     fields = {}
     for f in dataclasses.fields(v):
         value = getattr(v, f.name)
+        if f.name == "allreduce":
+            check_allreduce(value)
         if f.name in ported:
             fields[f.name] = {"pallas": "kernel"}.get(value, value) if f.name == "engine" else value
         elif f.name not in _TPU_ONLY and value != getattr(defaults, f.name):
-            raise NotImplementedError(f"FitConfig.{f.name}={value!r} belongs to sharded fits, not ported yet "
-                                      "(ROADMAP item 15)")
+            raise NotImplementedError(f"FitConfig.{f.name}={value!r} has no counterpart in the port")
     return FitConfig(**fields)
 
 

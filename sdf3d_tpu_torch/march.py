@@ -56,6 +56,26 @@ def sphere_trace(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor,
     return dist
 
 
+def march_step_map(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor, cfg: MarchConfig):
+    """Per-ray ``(distance, steps)`` of the unrelaxed primary march: the
+    masked loop of :func:`sphere_trace` with a count of the steps each ray
+    took (float32).  The work model of the tile-queue's balanced plans
+    (``parallel/tile_queue.estimate_tile_work``) and of the kernels' bounds:
+    a ray costs one distance evaluation a step."""
+    _require_plain_march(cfg)
+    dist = torch.zeros(_batch(origins, directions), dtype=origins.dtype, device=origins.device)
+    steps = torch.zeros_like(dist)
+    active = torch.ones_like(dist, dtype=torch.bool)
+    for _ in range(cfg.max_steps):
+        if cfg.early_exit and not bool(active.any()):
+            break
+        s = sdf_fn(origins + dist[..., None] * directions)
+        steps = steps + active.to(steps.dtype)
+        dist = torch.where(active, dist + s, dist)
+        active = active & ~((dist > cfg.max_distance) | (s < cfg.epsilon))
+    return dist, steps
+
+
 def hit_mask(distance: torch.Tensor, cfg: MarchConfig) -> torch.Tensor:
     """True where the march converged on a surface."""
     return distance <= cfg.max_distance

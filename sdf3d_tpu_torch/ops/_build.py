@@ -4,10 +4,12 @@ interface, loaded with ctypes.
 A library is built from one generated header (``sdf3d_scene.cuh``,
 ops/scene_program.py) and the sources of its kind:
 
-- ``"render"``: the three kernels of an analytic scene, the forward render
-  (``csrc/render_kernel.cu``, ``sdf3d_render_fwd``), the fused fit step
-  (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``) and the render backward
-  (``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``);
+- ``"render"``: the kernels of an analytic scene, the forward render and
+  its tile-queue form (``csrc/render_kernel.cu``, ``sdf3d_render_fwd``,
+  ``sdf3d_render_tiles``), the fused fit step and its tile-queue form
+  (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``, ``sdf3d_fit_step_tiles``)
+  and the render backward (``csrc/render_bwd_kernel.cu``,
+  ``sdf3d_render_bwd``);
 - ``"neural"``: the neural-scene forward render alone
   (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``).
 
@@ -17,6 +19,14 @@ flags, under ``build/sdf3d_tpu_torch/<hash>/`` beside the package.  A new
 scene structure or static setting builds a new library; parameter values
 never do.  nvcc is looked up in ``$CUDA_HOME/bin``, then
 ``/usr/local/cuda/bin``, then ``PATH``.
+
+A build runs in a private temporary directory beside the final one and is
+renamed into place when the library is linked, so processes that build the
+same key at once (the ranks of a sharded run) never write into one
+directory: the first rename wins, a later one finds the directory there and
+discards its own copy.  ``KernelLibraries(host=True)`` builds the host
+forms of the same sources with the C++ compiler (entry points with the
+suffix ``_host``, no stream argument), the route of the CPU tests.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: The C++ compiler's flags for the host forms (``KernelLibraries(host=True)``).
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter")
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
@@ -59,7 +71,9 @@ class LibraryKind:
 KINDS = {
     "render": LibraryKind("libsdf3d_render.so", ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu"), (
         ("sdf3d_render_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
+        ("sdf3d_render_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_fit_step", [_PTR] * 6 + [_INT, _INT, _PTR]),
+        ("sdf3d_fit_step_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_render_bwd", [_PTR] * 9 + [_INT, _INT, _PTR]),
     )),
     "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
@@ -79,20 +93,30 @@ def find_nvcc() -> str:
     return found
 
 
+def find_cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
+    return found
+
+
 class KernelLibraries:
     """Builds, caches and loads one kernel library per generated header and
     kind.
 
-    ``builds`` counts the libraries built in this process (parallel nvcc
+    ``builds`` counts the libraries built in this process (parallel
     compiles and a link each) and ``build_seconds`` their wall time;
     ``loaded`` counts the libraries loaded (built here or found in the build
     directory).  ``log(key)`` returns a build's compiler output (with
     ``-Xptxas -v``: registers, spills and shared memory per kernel).
     ``load_many`` builds several libraries at once, one thread each.
+    ``host=True``: the host forms, built by the C++ compiler (module
+    docstring).
     """
 
-    def __init__(self, build_dir: pathlib.Path = BUILD_DIR):
+    def __init__(self, build_dir: pathlib.Path = BUILD_DIR, host: bool = False):
         self.build_dir = pathlib.Path(build_dir)
+        self.host = host
         self.builds = 0
         self.build_seconds = 0.0
         self._loaded: dict[str, ctypes.CDLL] = {}
@@ -104,13 +128,17 @@ class KernelLibraries:
     def loaded(self) -> int:
         return len(self._loaded)
 
+    @property
+    def flags(self) -> tuple:
+        return HOST_FLAGS if self.host else NVCC_FLAGS
+
     def key(self, scene_header: str, kind: str = "render") -> str:
         """The build key: a hash of the kind, the header, every file under
         ``csrc/`` (names and texts) and the flags."""
         if self._csrc is None:
             self._csrc = tuple(f"{f.name}\0{f.read_text()}" for f in sorted(CSRC.iterdir()) if f.is_file())
         h = hashlib.sha256()
-        for part in (kind, scene_header, *self._csrc, " ".join(NVCC_FLAGS)):
+        for part in (kind, scene_header, *self._csrc, " ".join(self.flags)):
             h.update(part.encode())
             h.update(b"\0")
         return h.hexdigest()[:20]
@@ -146,47 +174,66 @@ class KernelLibraries:
                 self._compile(path.parent, scene_header, spec)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in spec.entry_points:
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
+                fn = getattr(lib, name + "_host" if self.host else name)
+                fn.argtypes = argtypes[:-1] if self.host else argtypes
                 fn.restype = ctypes.c_int
             with self._lock:
                 self._loaded[key] = lib
         return lib
 
-    def _compile(self, out_dir: pathlib.Path, scene_header: str, spec: LibraryKind) -> None:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / SCENE_HEADER).write_text(scene_header)
+    def _commands(self, tmp: pathlib.Path, spec: LibraryKind):
+        """The compile commands (one per source) and the link command of a
+        build in ``tmp``."""
+        objs = [tmp / (src + ".o") for src in spec.sources]
+        out = tmp / spec.lib_name
+        if self.host:
+            cxx = find_cxx()
+            compiles = [[cxx, *HOST_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
+                        for src, obj in zip(spec.sources, objs)]
+            return compiles, [cxx, "-shared", "-o", str(out), *map(str, objs)]
         nvcc = find_nvcc()
-        t0 = time.perf_counter()
-        # One nvcc per source, all started together, then one link.
-        objs, procs = [], []
-        for src in spec.sources:
-            obj = out_dir / (src + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(out_dir), "-c", "-o", str(obj), str(CSRC / src)]
-            objs.append(obj)
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log, failed = [], []
-        for cmd, proc in procs:
-            out, _ = proc.communicate()
-            log.append(" ".join(cmd) + "\n" + out)
-            if proc.returncode != 0:
-                failed.append(out)
-        # Link to a temporary name and rename, so a concurrent process never
-        # loads a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        if not failed:
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *map(str, objs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                failed.append(proc.stderr)
-        seconds = time.perf_counter() - t0
-        (out_dir / "build.log").write_text("\n".join(log))
-        if failed:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {out_dir / SCENE_HEADER}:\n" + "\n".join(failed))
-        os.replace(tmp, out_dir / spec.lib_name)
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
+                    for src, obj in zip(spec.sources, objs)]
+        return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out), *map(str, objs)]
+
+    def _compile(self, out_dir: pathlib.Path, scene_header: str, spec: LibraryKind) -> None:
+        """Build into a private temporary directory, then rename it to
+        ``out_dir`` (module docstring)."""
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix=out_dir.name + ".", dir=self.build_dir))
+        try:
+            (tmp / SCENE_HEADER).write_text(scene_header)
+            compiles, link = self._commands(tmp, spec)
+            t0 = time.perf_counter()
+            # One compiler per source, all started together, then one link.
+            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                     for cmd in compiles]
+            log, failed = [], []
+            for cmd, proc in procs:
+                out, _ = proc.communicate()
+                log.append(" ".join(cmd) + "\n" + out)
+                if proc.returncode != 0:
+                    failed.append(out)
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(proc.stderr)
+            seconds = time.perf_counter() - t0
+            (tmp / "build.log").write_text("\n".join(log))
+            if failed:
+                raise RuntimeError(f"the build of {out_dir / SCENE_HEADER} failed:\n" + "\n".join(failed))
+            try:
+                os.rename(tmp, out_dir)
+            except OSError:
+                # Another process published this key first; keep its copy.
+                # A directory without the library (left by an interrupted
+                # build) is replaced.
+                if not (out_dir / spec.lib_name).exists():
+                    shutil.rmtree(out_dir, ignore_errors=True)
+                    os.rename(tmp, out_dir)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         with self._lock:
             self.builds += 1
             self.build_seconds += seconds

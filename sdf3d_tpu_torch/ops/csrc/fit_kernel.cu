@@ -1,8 +1,9 @@
-// Fused L2 fit step for Hopper (sm_90a): the loss sum(rgb - target)^2 and
+// Fused L2 fit steps for Hopper (sm_90a): the loss sum(rgb - target)^2 and
 // its gradient with respect to the scene parameters (and, with
-// Fit::wrt_uniforms, the 30 uniforms) in one launch.
+// Fit::wrt_uniforms, the 30 uniforms) in one launch.  K3 runs over an image
+// (or a row slab of one), K4 over a work-list of tiles.
 //
-// Replaces sdf3d_tpu/ops/fit_kernel.py::_fit_tile_kernel (the Pallas
+// K3 replaces sdf3d_tpu/ops/fit_kernel.py::_fit_tile_kernel (the Pallas
 // kernel launched by fit_step_kernel) in its plain-L2 form.  One thread per
 // pixel, Cfg::block_w x Cfg::block_h blocks as in the render kernel:
 // render_pixel (the render kernel's primal: march, normals, shadow, AO,
@@ -13,9 +14,20 @@
 // as the JAX package sums its per-tile partials outside its kernel.  No
 // atomics: the result is deterministic.  Threads outside the image take
 // part in the block sum with zeros (the padding mask of the Pallas kernel).
-// Frozen parameter slots (Fit::zero_frozen) read exactly 0.
+// Frozen parameter slots (Fit::zero_frozen) read exactly 0.  Launch row r
+// is the absolute image row abs_row(r) (render_kernel.cuh), so a rank of a
+// sharded fit runs its contiguous or interleaved rows.
 //
-// What bounds it: the render kernel's marches (FP32/SFU issue and warp
+// K4 (sdf3d_fit_step_tiles) replaces the same Pallas body with
+// tile_queue=True (fit_step_kernel_tiles), the per-device fit program of
+// the tile-queue layout; one kernel function serves K3 and K4 (below).
+// The grid is K2's, (TW/block_w, TH/block_h, T);
+// block z reads its tile's origin (trow[z], tcol[z]) and the target stack
+// (3, T·TH, TW) at row z·TH + r.  The mask is taken in absolute pixels,
+// row < H and col < W of the full image, so the dummy tiles of a plan
+// (row0 == H) add exact zeros.  One partial row per block, as K3.
+//
+// What bounds them: the render kernel's marches (FP32/SFU issue and warp
 // divergence), plus the reverse pass, which is straight-line code with
 // about ten distance evaluations per pixel and P + 31 values in registers.
 // Memory traffic is the target (12 B per pixel) and one partial row per
@@ -27,15 +39,14 @@ namespace {
 constexpr int kP = Scene::n_params;
 constexpr int kG = kP + sdf3d::N_UNIFORMS + 1;  // dP, dU, loss
 
-// One pixel: adds its loss and gradient to acc[kG] (acc untouched when the
-// pixel is outside the image).
-SDF3D_HD void fit_pixel(const float* u, const float* p, const float* tr, const float* tg,
-                        const float* tb, int row, int col, int H, int W, float* acc) {
-  const sdf3d::Pixel px = sdf3d::render_pixel<Cfg, Scene>(u, p, row, col, H, W);
-  const size_t i = static_cast<size_t>(row) * W + col;
+// One pixel at absolute (rows, cols) of an H x W image, its target at
+// position i of the target planes: adds its loss and gradient to acc[kG].
+SDF3D_HD void fit_pixel(const float* u, const float* p, const float* tr, const float* tg, const float* tb,
+                        size_t i, float rows, float cols, int H, int W, float* acc) {
+  const sdf3d::Pixel px = sdf3d::render_pixel<Cfg, Scene>(u, p, rows, cols, H, W);
   const float rr = px.r - tr[i], rg = px.g - tg[i], rb = px.b - tb[i];
   acc[kG - 1] += ((rr * rr) + (rg * rg)) + (rb * rb);
-  sdf3d::shade_vjp<Cfg, Scene, Fit::wrt_uniforms>(u, p, row, col, H, W, px.t, px.shadow, px.ao,
+  sdf3d::shade_vjp<Cfg, Scene, Fit::wrt_uniforms>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
                                                   2.0f * rr, 2.0f * rg, 2.0f * rb, acc, acc + kP);
 }
 }  // namespace
@@ -43,26 +54,48 @@ SDF3D_HD void fit_pixel(const float* u, const float* p, const float* tr, const f
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(Cfg::block_w * Cfg::block_h)
-sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ prm,
-                      const float* __restrict__ tr, const float* __restrict__ tg,
-                      const float* __restrict__ tb, float* __restrict__ partials, int H, int W) {
-  const int col = blockIdx.x * Cfg::block_w + threadIdx.x;
-  const int row = blockIdx.y * Cfg::block_h + threadIdx.y;
-  float u[sdf3d::N_UNIFORMS];
+namespace {
+// Uniforms and parameters into registers, the accumulator to zero.
+__device__ __forceinline__ void load_inputs(const float* __restrict__ uni, const float* __restrict__ prm,
+                                            float (&u)[sdf3d::N_UNIFORMS], float (&p)[kP > 0 ? kP : 1],
+                                            float (&acc)[kG]) {
 #pragma unroll
   for (int k = 0; k < sdf3d::N_UNIFORMS; ++k) u[k] = __ldg(uni + k);
-  float p[kP > 0 ? kP : 1];
 #pragma unroll
   for (int k = 0; k < kP; ++k) p[k] = __ldg(prm + k);
-
-  float acc[kG];
 #pragma unroll
   for (int k = 0; k < kG; ++k) acc[k] = 0.0f;
-  if (row < H && col < W) fit_pixel(u, p, tr, tg, tb, row, col, H, W, acc);
+}
+}  // namespace
+
+// K3 and K4 are one kernel: trow == nullptr launches K3 (pixel (y, x) of
+// the grid, absolute row abs_row(y)), else K4 (pixel (trow[z] + y,
+// tcol[z] + x) of tile z, masked in absolute pixels).  Both meet in one
+// call of fit_pixel, so a pixel's terms, and a block's partial row over the
+// same pixels, have the same bits whichever layout launched them.
+__global__ void __launch_bounds__(Cfg::block_w * Cfg::block_h)
+sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ prm,
+                      const int* __restrict__ trow, const int* __restrict__ tcol,
+                      const float* __restrict__ tr, const float* __restrict__ tg,
+                      const float* __restrict__ tb, float* __restrict__ partials, int H, int W) {
+  const int x = blockIdx.x * Cfg::block_w + threadIdx.x;
+  const int y = blockIdx.y * Cfg::block_h + threadIdx.y;
+  const int z = blockIdx.z;
+  const bool tiles = trow != nullptr;
+  const int row = tiles ? __ldg(trow + z) + y : y;
+  const int col = tiles ? __ldg(tcol + z) + x : x;
+  const bool inside = row < H && col < W && (!tiles || (y < Cfg::tile_h && x < Cfg::tile_w));
+  float u[sdf3d::N_UNIFORMS], p[kP > 0 ? kP : 1], acc[kG];
+  load_inputs(uni, prm, u, p, acc);
+  if (inside) {
+    const size_t i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x
+                           : static_cast<size_t>(y) * W + x;
+    fit_pixel(u, p, tr, tg, tb, i, tiles ? static_cast<float>(row) : sdf3d::abs_row<Cfg>(u, y),
+              static_cast<float>(col), H, W, acc);
+  }
   Fit::zero_frozen(acc);
-  sdf3d::block_sum_store<kG, Cfg::block_w * Cfg::block_h>(
-      acc, partials + static_cast<size_t>(blockIdx.y * gridDim.x + blockIdx.x) * kG);
+  const size_t block = (static_cast<size_t>(z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  sdf3d::block_sum_store<kG, Cfg::block_w * Cfg::block_h>(acc, partials + block * kG);
 }
 
 // partials: (n_blocks, P + 31), n_blocks = ceil(W/block_w) * ceil(H/block_h).
@@ -73,18 +106,52 @@ extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* t
   const dim3 block(Cfg::block_w, Cfg::block_h);
   const dim3 grid((W + Cfg::block_w - 1) / Cfg::block_w, (H + Cfg::block_h - 1) / Cfg::block_h);
   sdf3d_fit_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      uni, prm, tr, tg, tb, partials, H, W);
+      uni, prm, nullptr, nullptr, tr, tg, tb, partials, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
-#else  // A C++ compiler: the same per-pixel body, summed over the image.
+// K4 over T tiles (int32 origin tables) of an H x W image; target planes of
+// T·TH x TW.  partials: (T · ceil(TH/block_h) · ceil(TW/block_w), P + 31).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+extern "C" int sdf3d_fit_step_tiles(const float* uni, const float* prm, const int* trow, const int* tcol,
+                                    const float* tr, const float* tg, const float* tb, float* partials, int T,
+                                    int H, int W, void* stream) {
+  if (T <= 0) return 0;
+  const dim3 block(Cfg::block_w, Cfg::block_h);
+  const dim3 grid((Cfg::tile_w + Cfg::block_w - 1) / Cfg::block_w, (Cfg::tile_h + Cfg::block_h - 1) / Cfg::block_h,
+                  T);
+  sdf3d_fit_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      uni, prm, trow, tcol, tr, tg, tb, partials, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#else  // A C++ compiler: the same per-pixel body, summed over the image or the work-list.
 
 // out: the (P + 31) totals.
 extern "C" int sdf3d_fit_step_host(const float* uni, const float* prm, const float* tr, const float* tg,
                                    const float* tb, float* out, int H, int W) {
   for (int k = 0; k < kG; ++k) out[k] = 0.0f;
   for (int row = 0; row < H; ++row)
-    for (int col = 0; col < W; ++col) fit_pixel(uni, prm, tr, tg, tb, row, col, H, W, out);
+    for (int col = 0; col < W; ++col)
+      fit_pixel(uni, prm, tr, tg, tb, static_cast<size_t>(row) * W + col, sdf3d::abs_row<Cfg>(uni, row),
+                static_cast<float>(col), H, W, out);
+  Fit::zero_frozen(out);
+  return 0;
+}
+
+// out: the (P + 31) totals over the T tiles.
+extern "C" int sdf3d_fit_step_tiles_host(const float* uni, const float* prm, const int* trow, const int* tcol,
+                                         const float* tr, const float* tg, const float* tb, float* out, int T,
+                                         int H, int W) {
+  for (int k = 0; k < kG; ++k) out[k] = 0.0f;
+  for (int z = 0; z < T; ++z)
+    for (int r = 0; r < Cfg::tile_h; ++r)
+      for (int c = 0; c < Cfg::tile_w; ++c) {
+        const int row = trow[z] + r, col = tcol[z] + c;
+        if (row < H && col < W)
+          fit_pixel(uni, prm, tr, tg, tb, (static_cast<size_t>(z) * Cfg::tile_h + r) * Cfg::tile_w + c,
+                    static_cast<float>(row), static_cast<float>(col), H, W, out);
+      }
   Fit::zero_frozen(out);
   return 0;
 }

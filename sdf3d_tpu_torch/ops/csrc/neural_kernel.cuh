@@ -273,7 +273,7 @@ SDF3D_HD float march_shadow_neural(const Ev& ev, float k) {
 template <class Cfg, class Scene, class Mlp, class Wt>
 SDF3D_HD Pixel render_neural_pixel(const float* u, const float* pa, const Wt& w, int row, int col, int H, int W) {
   float dx, dy, dz;
-  ray_direction<Cfg>(u, row, col, H, W, dx, dy, dz);
+  ray_direction<Cfg>(u, u[U_ROW0] + static_cast<float>(row), static_cast<float>(col), H, W, dx, dy, dz);
   const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
   const NeuralPoint<Scene, Mlp, Wt> f{pa, w, w[Mlp::beta]};
 

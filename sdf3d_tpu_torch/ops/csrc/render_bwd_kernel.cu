@@ -24,8 +24,8 @@ SDF3D_HD void bwd_pixel(const float* u, const float* p, const float* gr, const f
                         const float* t, const float* sh, const float* ao, int row, int col, int H, int W,
                         float* acc) {
   const size_t i = static_cast<size_t>(row) * W + col;
-  sdf3d::shade_vjp<Cfg, Scene, true>(u, p, row, col, H, W, t[i], sh[i], ao[i], gr[i], gg[i], gb[i],
-                                     acc, acc + kP);
+  sdf3d::shade_vjp<Cfg, Scene, true>(u, p, sdf3d::abs_row<Cfg>(u, row), static_cast<float>(col), H, W, t[i],
+                                     sh[i], ao[i], gr[i], gg[i], gb[i], acc, acc + kP);
 }
 }  // namespace
 

@@ -42,7 +42,8 @@ constexpr int U_MAT_REF = 23;  // material specular rgb (3)
 constexpr int U_SHN = 26;      // shininess (1)
 constexpr int U_K = 27;        // shadow sharpness k (1)
 constexpr int U_ROW0 = 28;     // absolute row of output row 0 (1)
-constexpr int N_UNIFORMS = 30;  // slot 29 (row stride) is unused: rows are contiguous
+constexpr int U_ROWSTRIDE = 29;  // absolute rows between successive tile rows (1; 0 reads Cfg::tile_h)
+constexpr int N_UNIFORMS = 30;
 
 struct Pixel {
   float r, g, b, t, shadow, ao;
@@ -109,13 +110,23 @@ SDF3D_HD float march_shadow(const Ev& ev, float k) {
   return sqrtf(fminf(fmaxf(sh2, 0.0f), 1.0f));
 }
 
-// Unit ray direction of pixel (row, col) (NDC over the logical extent).
+// Absolute image row of launch row `row` (JAX's _tile_pixel_planes):
+// row0 + (row / TH)·rowstride + row % TH, TH = Cfg::tile_h.  A stride of 0
+// reads TH, which gives row0 + row: contiguous rows, the unsharded launch.
+// The interleaved layout sets it to n·TH.  Every term is an integer below
+// 2^24, so the float arithmetic is exact.
 template <class Cfg>
-SDF3D_HD void ray_direction(const float* u, int row, int col, int H, int W, float& dx, float& dy, float& dz) {
+SDF3D_HD float abs_row(const float* u, int row) {
+  const float stride = u[U_ROWSTRIDE] > 0.0f ? u[U_ROWSTRIDE] : static_cast<float>(Cfg::tile_h);
+  return (u[U_ROW0] + (static_cast<float>(row / Cfg::tile_h) * stride)) + static_cast<float>(row % Cfg::tile_h);
+}
+
+// Unit ray direction of the pixel at absolute (rows, cols) (NDC over the
+// logical extent, Cfg::ndc_h x ndc_w, else H x W).
+template <class Cfg>
+SDF3D_HD void ray_direction(const float* u, float rows, float cols, int H, int W, float& dx, float& dy, float& dz) {
   const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
   const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
-  const float rows = u[U_ROW0] + static_cast<float>(row);
-  const float cols = static_cast<float>(col);
   const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
   const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
   const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));
@@ -194,10 +205,11 @@ SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t
   return Pixel{r, g, b, t, shadow, ao};
 }
 
+// One pixel at absolute (rows, cols) of an H x W image.
 template <class Cfg, class Scene>
-SDF3D_HD Pixel render_pixel(const float* u, const float* p, int row, int col, int H, int W) {
+SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
   float dx, dy, dz;
-  ray_direction<Cfg>(u, row, col, H, W, dx, dy, dz);
+  ray_direction<Cfg>(u, rows, cols, H, W, dx, dy, dz);
   const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
   const ScenePoint<Scene> f{p};
 

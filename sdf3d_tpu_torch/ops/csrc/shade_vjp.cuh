@@ -12,7 +12,8 @@
 // - shadow a detached factor (uniform 27, k, gets 0);
 // - AO flowing through its recomputed taps, with the forward's plane as
 //   its value;
-// - rows and columns constants (uniforms 28 and 29 get 0);
+// - rows and columns constants (uniforms 28 and 29 get 0): the pixel's
+//   absolute (rows, cols) come in as values;
 // - min/max/clip splitting the adjoint at exact ties and pow's exponent
 //   derivative guarded at a zero base, as lax's rules do.
 // A miss is still shaded and carries adjoint through its normals and light
@@ -66,10 +67,11 @@ SDF3D_HD void sdf_bwd_add(float px, float py, float pz, const float* p, float g,
 }
 
 // One pixel's VJP: adds the adjoint of its (r, g, b) = (gr, gg, gb) to
-// dP[0..P) and, when WRT_U, to dU[0..30).  t0, shadow and ao_in are the
+// dP[0..P) and, when WRT_U, to dU[0..30).  (rows, cols) is the pixel's
+// absolute position in the H x W image; t0, shadow and ao_in are the
 // forward kernel's values for this pixel.
 template <class Cfg, class Scene, bool WRT_U>
-SDF3D_HD void shade_vjp(const float* u, const float* p, int row, int col, int H, int W,
+SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, int H, int W,
                         float t0, float shadow, float ao_in, float gr, float gg, float gb,
                         float* dP, float* dU) {
   if constexpr (Cfg::background) {
@@ -79,8 +81,6 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, int row, int col, int H,
   // ---- primal re-trace: ray generation (render_pixel's arithmetic) ----
   const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
   const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
-  const float rows = u[U_ROW0] + static_cast<float>(row);
-  const float cols = static_cast<float>(col);
   const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
   const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
   const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));

@@ -126,9 +126,10 @@ def check_neural(scene: SDFNode, cfg: RenderConfig) -> None:
     check_settings(cfg)
 
 
-def _march_shadow_neural_plain(ev, k, cfg, shape, device):
+def _march_shadow_neural_plain(ev, k, cfg, shape, device, steps=None):
     """The neural kernel's shadow (``_neural_tile_kernel``'s): every ray,
-    ``sh = min(sh, k·√d2/denom)``, ``prev`` from +inf, stop at ``sh < ε``."""
+    ``sh = min(sh, k·√d2/denom)``, ``prev`` from +inf, stop at ``sh < ε``.
+    ``steps``, where given, counts each ray's distance evaluations."""
     mc = cfg.march
     kw = dict(dtype=torch.float32, device=device)
     dist = torch.zeros(shape, **kw)
@@ -139,6 +140,8 @@ def _march_shadow_neural_plain(ev, k, cfg, shape, device):
         if not bool(active.any()):
             break
         s = ev(dist)
+        if steps is not None:
+            steps += active
         inter = torch.zeros_like(s) if i == 0 else s * s / (2.0 * torch.where(prev == 0.0, 1e-30, prev))
         d2 = s * s - inter * inter
         denom = dist - inter
@@ -152,10 +155,13 @@ def _march_shadow_neural_plain(ev, k, cfg, shape, device):
 
 
 @torch.no_grad()
-def render_neural_forward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, cfg: RenderConfig):
+def render_neural_forward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, cfg: RenderConfig,
+                                steps: dict | None = None):
     """Plain PyTorch version of the neural kernel: ``(rgb (3,H,W), t, shadow,
     ao)`` from the parameter vector ``prm`` and uniforms ``uni``, whole-image
-    planes on ``prm``'s device.  ``scene`` gives the structure only."""
+    planes on ``prm``'s device.  ``scene`` gives the structure only.
+    ``steps``: a dict that receives the per-pixel evaluation counts of the
+    marches, ``"primary"`` and ``"shadow"`` (the kernel's work)."""
     check_neural(scene, cfg)
     dev = prm.device
     H, W = cfg.height, cfg.width
@@ -166,7 +172,11 @@ def render_neural_forward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Te
         return dist(px, py, pz, prm)
 
     (ox, oy, oz), (dx, dy, dz) = ray_planes(uni, H, W, cfg)
-    t = _march_primary_plain(lambda s: sdf(ox + s * dx, oy + s * dy, oz + s * dz), cfg.march, (H, W), dev)
+    counts = {k: torch.zeros((H, W), dtype=torch.float32, device=dev) for k in ("primary", "shadow")}
+    if steps is not None:
+        steps.update(counts)
+    t = _march_primary_plain(lambda s: sdf(ox + s * dx, oy + s * dy, oz + s * dz), cfg.march, (H, W), dev,
+                             counts["primary"] if steps is not None else None)
     hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
     nx, ny, nz = _normals_plain(sdf, hx, hy, hz, cfg)
     ix, iy, iz = _light_plain(u, hx, hy, hz)
@@ -174,7 +184,7 @@ def render_neural_forward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Te
         off = 2.0 * float(np.float32(cfg.march.epsilon))
         sox, soy, soz = hx + off * nx, hy + off * ny, hz + off * nz
         shadow = _march_shadow_neural_plain(lambda s: sdf(sox + s * ix, soy + s * iy, soz + s * iz),
-                                            u[_U_K], cfg, (H, W), dev)
+                                            u[_U_K], cfg, (H, W), dev, counts["shadow"] if steps is not None else None)
     else:
         shadow = torch.ones((H, W), dtype=torch.float32, device=dev)
     ao = _ao_plain(sdf, (hx, hy, hz), (nx, ny, nz), cfg)

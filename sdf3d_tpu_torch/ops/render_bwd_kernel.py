@@ -73,14 +73,15 @@ def planar_distance(sdf):
 
 
 def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
-                         cfg: RenderConfig) -> torch.Tensor:
+                         cfg: RenderConfig, pixels=None) -> torch.Tensor:
     """``∇ₚf(o + t0·d)·d`` per pixel (H, W), detached, for a scene or
     distance ``sdf`` (:func:`planar_distance`): the denominator of the
     implicit-function gradient of ``t``.  Where it is small (grazing rays at
-    a silhouette) that gradient is large and ill-conditioned."""
+    a silhouette) that gradient is large and ill-conditioned.  ``pixels``:
+    the planes' absolute ``(rows, cols)`` (``render_kernel.ray_planes``)."""
     dist = planar_distance(sdf)
     prm_c = prm.detach()
-    o, d = ray_planes(uni.detach(), *t0.shape, cfg)
+    o, d = ray_planes(uni.detach(), *t0.shape, cfg, pixels)
     with torch.enable_grad():
         q = [(oc + t0 * dc).requires_grad_(True) for oc, dc in zip(o, d)]
         gq = torch.autograd.grad(dist(*q, prm_c).sum(), q)
@@ -88,7 +89,7 @@ def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Te
 
 
 def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
-                 scene, cfg: RenderConfig) -> torch.Tensor:
+                 scene, cfg: RenderConfig, pixels=None) -> torch.Tensor:
     """The shading re-traced from the forward's planes, planar RGB (3, H, W),
     differentiable in ``prm`` (P,) and ``uni`` (30,), for a scene or distance
     ``scene`` (:func:`planar_distance`).  ``t0``, ``shadow`` and ``ao`` (H, W)
@@ -96,7 +97,9 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     (``t0 − (f − sg(f)) / sg(∇f·d)``, masked where ``t0 > max_distance`` or
     ``|∇f·d| < 1e-4``).  Stage for stage the port of
     ``sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile`` (and, for a neural
-    scene, of ``render_pallas.py::_planar_shade``'s generic branch)."""
+    scene, of ``render_pallas.py::_planar_shade``'s generic branch).
+    ``pixels``: the planes' absolute ``(rows, cols)``
+    (``render_kernel.ray_planes``)."""
     check_settings(cfg)
     dist = planar_distance(scene)
     H, W = t0.shape
@@ -106,10 +109,10 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     def sdf(px, py, pz):
         return dist(px, py, pz, prm)
 
-    (ox, oy, oz), (dx, dy, dz) = ray_planes(uni, H, W, cfg)
+    (ox, oy, oz), (dx, dy, dz) = ray_planes(uni, H, W, cfg, pixels)
 
     # ---- implicit-function re-attachment of the stored hit distance ----
-    denom = implicit_denominator(dist, prm, uni, t0, cfg)
+    denom = implicit_denominator(dist, prm, uni, t0, cfg, pixels)
     usable = (t0 <= mc.max_distance) & (denom.abs() >= DENOM_FLOOR)
     inv_denom = torch.where(usable, 1.0 / torch.where(usable, denom, torch.ones_like(denom)), torch.zeros_like(denom))
     f_here = sdf(ox + t0 * dx, oy + t0 * dy, oz + t0 * dz)
@@ -170,15 +173,17 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
 
 
 def render_kernel_backward_plain(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
-                                 t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig):
+                                 t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                                 pixels=None):
     """Plain PyTorch version of the render backward: ``(g_prm (P,), g_uni
     (30,))``, the VJP of :func:`shade_planes` with the cotangent ``g_rgb``
     (3, H, W), for a scene or distance ``scene`` (:func:`planar_distance`;
-    the neural render's backward passes ``neural_distance``)."""
+    the neural render's backward passes ``neural_distance``).  ``pixels``
+    as for :func:`shade_planes`."""
     prm_ = prm.detach().requires_grad_(True)
     uni_ = uni.detach().requires_grad_(True)
     with torch.enable_grad():
-        rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg)
+        rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels)
         g_prm, g_uni = torch.autograd.grad(rgb, (prm_, uni_), grad_outputs=g_rgb)
     return g_prm, g_uni
 

@@ -614,7 +614,8 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
 
-{_cfg_struct(cfg, block_w=int(kc.block_w), block_h=int(kc.block_h), ray_sdf=kc.ray_sdf)}
+{_cfg_struct(cfg, block_w=int(kc.block_w), block_h=int(kc.block_h), ray_sdf=kc.ray_sdf,
+             tile_h=int(kc.tile_h), tile_w=int(kc.tile_w))}
 
 struct Scene {{
   static constexpr int n_params = {count_params(scene)};

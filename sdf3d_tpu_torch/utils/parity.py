@@ -97,7 +97,7 @@ def check_pixel_budget(a, b, name: str = "image", channel_axis: int | None = Non
 COND_FLOOR = 1e-2
 
 
-def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR):
+def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR, pixels=None):
     """Pixels (H, W bool) whose gradient two implementations can be held to
     at the gradient bars: misses, and hits with ``|∇f·d| ≥ floor``.
     ``scene`` is a scene of the analytic kernels or a distance callable
@@ -109,14 +109,15 @@ def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR):
     difference in a ray direction (JAX's CPU ``rsqrt`` is not ``1/sqrt``;
     nvcc contracts FMA) moves the hit point, and at ``|∇f·d| = 3.6e-4`` it
     moved one pixel's term by 0.17% (ROADMAP Queue 3).  The comparisons give
-    such pixels a zero cotangent (or residual)."""
+    such pixels a zero cotangent (or residual).  ``pixels``: the planes'
+    absolute ``(rows, cols)`` (a tile stack's, ``render_kernel.ray_planes``)."""
     from sdf3d_tpu_torch.ops.render_bwd_kernel import implicit_denominator
 
-    den = implicit_denominator(scene, prm, uni, t, cfg)
+    den = implicit_denominator(scene, prm, uni, t, cfg, pixels)
     return (den.abs() >= floor) | (t > cfg.march.max_distance)
 
 
-def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg):
+def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels=None):
     """Per component of the render backward's ``(g_prm, g_uni)``, the sum
     over pixels of the magnitude of each pixel's term, ``(P + 30,)``.
 
@@ -124,7 +125,8 @@ def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg):
     the plane-normal gradient, for one, sums terms of ±(distance to the
     hit) that cancel.  It runs the plain backward with the parameters and
     uniforms expanded to one copy per pixel, which gives each pixel's term.
-    ``scene`` is a scene or a distance callable, as for :func:`conditioned`."""
+    ``scene`` is a scene or a distance callable, and ``pixels`` the planes'
+    absolute positions, as for :func:`conditioned`."""
     import torch
 
     from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
@@ -134,7 +136,7 @@ def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg):
     def planes(v):
         return v[:, None, None].expand(-1, H, W).contiguous()
 
-    mp, mu = render_kernel_backward_plain(scene, planes(prm), planes(uni), g_rgb, t, shadow, ao, cfg)
+    mp, mu = render_kernel_backward_plain(scene, planes(prm), planes(uni), g_rgb, t, shadow, ao, cfg, pixels)
     return torch.cat([mp.abs().sum((1, 2)), mu.abs().sum((1, 2))])
 
 

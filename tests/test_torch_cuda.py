@@ -1,5 +1,6 @@
-"""The CUDA kernels (forward render, fit step, render backward, neural render)
-against their plain PyTorch versions, on the card.
+"""The CUDA kernels (forward render, fit step, render backward, neural render,
+and the tile-queue forward and fit step) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -15,7 +16,14 @@ import torch
 import sdf3d_tpu_torch as tt
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import _build
-from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
+from sdf3d_tpu_torch.ops.fit_kernel import (
+    fit_step_kernel,
+    fit_step_kernel_launch,
+    fit_step_kernel_plain,
+    fit_step_kernel_tiles,
+    fit_step_kernel_tiles_launch,
+    fit_step_kernel_tiles_plain,
+)
 from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward, render_neural_forward_plain, render_neural_launch
 from sdf3d_tpu_torch.ops.render_bwd_kernel import (
     render_kernel_backward,
@@ -28,8 +36,14 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_forward,
     render_kernel_forward_plain,
     render_kernel_launch,
+    render_kernel_tiles_forward,
+    render_kernel_tiles_forward_plain,
+    render_kernel_tiles_launch,
+    tile_pixel_planes,
 )
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.parallel import make_mesh, render_sharded_kernel
+from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
 from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, check_grads, check_planes, conditioned, gradient_mass
 
 torch.set_num_threads(1)
@@ -203,3 +217,121 @@ def test_neural_weights_do_not_rebuild(dev):
     assert _build.LIBRARIES.loaded == loaded
     assert render_neural_forward.launches == launches + 1
     assert bool((a != b).any())
+
+
+TILE_CASES = {
+    "256x192": ((256, 192), KernelConfig(tile_h=8, tile_w=128)),
+    "ragged": ((248, 184), KernelConfig(block_w=8, block_h=8, tile_h=8, tile_w=8)),
+}
+
+
+def _plan(size, kc, policy):
+    W, H = size
+    work = torch.rand((H // kc.tile_h, W // kc.tile_w), generator=torch.Generator().manual_seed(1)).numpy()
+    return plan_tiles(H, W, kc.tile_h, kc.tile_w, 4, policy, work)
+
+
+@pytest.mark.parametrize("policy", ["round_robin", "balanced"])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tiles_forward_matches_plain(dev, case, policy):
+    """K2 per rank of a 4-rank plan against its plain version; the ranks'
+    stacks reassembled against K1's whole image."""
+    size, kc = TILE_CASES[case]
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    plan = _plan(size, kc, policy)
+    stacks = []
+    for r in range(4):
+        trow, tcol = plan.tables(r, dev)
+        got = render_kernel_tiles_launch(scene, prm, uni, trow, tcol, cfg, kc)
+        want = render_kernel_tiles_forward_plain(scene, prm, uni, trow, tcol, cfg, kc)
+        torch.cuda.synchronize()
+        check_planes(got, want, cfg.march.max_distance, f"rank {r}")
+        stacks.append(got)
+    index = torch.from_numpy(plan.gather_index.astype("int64")).to(dev)
+    images = []
+    for k in range(4):
+        x = torch.cat([st[k] for st in stacks], dim=-2)
+        lead = tuple(x.shape[:-2])
+        x = x.reshape(lead + (4 * plan.tiles_per_device, kc.tile_h, kc.tile_w))
+        images.append(x[..., index, :, :].transpose(-3, -2).reshape(lead + (cfg.height, cfg.width)))
+    check_planes(images, render_kernel_launch(scene, prm, uni, cfg, kc), cfg.march.max_distance, "reassembled")
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tiles_fit_step_matches_plain(dev, case):
+    """K4 per work-list against the plain reverse pass on K2's planes (1e-5
+    of the mass) and against its plain version (1e-3: its own march); the
+    sum over the plan against K3 on the whole image (1e-4); a work-list of
+    dummy tiles gives exactly 0."""
+    size, kc = TILE_CASES[case]
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg, kc)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    keep = conditioned(scene, prm, uni, t, cfg)
+    target = (rgb + (torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1) * keep).contiguous()
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    plan = _plan(size, kc, "balanced")
+    stacks = gather_target_tiles(target, plan)
+    total = None
+    for r in range(4):
+        trow, tcol = plan.tables(r, dev)
+        stack = stacks[r].contiguous()
+        got = fit_step_kernel_tiles_launch(scene, prm, uni, stack, trow, tcol, cfg, kc, True, FROZEN)
+        want = fit_step_kernel_tiles_plain(scene, prm, uni, stack, trow, tcol, cfg, kc, True, FROZEN)
+        pixels = tile_pixel_planes(trow, tcol, kc.tile_h, kc.tile_w)
+        k_rgb, k_t, k_sh, k_ao = render_kernel_tiles_launch(scene, prm, uni, trow, tcol, cfg, kc)
+        inside = ((pixels[0] < cfg.height) & (pixels[1] < cfg.width)).to(torch.float32)
+        g_rgb = 2.0 * (k_rgb - stack) * inside
+        s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, g_rgb, k_t, k_sh, k_ao, cfg, pixels)
+        s_prm[list(FROZEN)] = 0.0
+        torch.cuda.synchronize()
+        assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+        g = torch.cat(got[1:])
+        check_grads(g, torch.cat([s_prm, s_uni]), mass, rtol=1e-4, mass_tol=1e-5, label=f"rank {r} same planes")
+        check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=1e-3, label=f"rank {r}")
+        assert all(float(got[1][k]) == 0.0 for k in FROZEN)
+        total = got if total is None else tuple(a + b for a, b in zip(total, got))
+    w_loss, w_prm, w_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, True, FROZEN)
+    assert float(total[0]) == pytest.approx(float(w_loss), rel=1e-5)
+    check_grads(torch.cat(total[1:]), torch.cat([w_prm, w_uni]), mass, rtol=1e-4, mass_tol=1e-4)
+    dummy = torch.full((2,), cfg.height, dtype=torch.int32, device=dev), torch.zeros(2, dtype=torch.int32, device=dev)
+    ones = torch.ones((3, 2 * kc.tile_h, kc.tile_w), device=dev)
+    loss, g_prm, g_uni = fit_step_kernel_tiles_launch(scene, prm, uni, ones, *dummy, cfg, kc, True, FROZEN)
+    assert float(loss) == 0.0 and not bool(g_prm.any()) and not bool(g_uni.any())
+
+
+@pytest.mark.parametrize("layout,counts", [("tiles", (0, 3)), ("interleaved", (3, 0)), ("contiguous", (3, 0))])
+def test_fit_scene_mesh_launch_counters(dev, layout, counts):
+    """At world size 1 (no process group) the tile queue runs K4 once a step
+    and K3 never, the row layouts K3 once a step; the losses are the
+    unsharded fit's."""
+    cfg = dataclasses.replace(BASE, width=256, height=192)
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+    fc = dict(steps=3, log_every=1, chunk_steps=2)
+    ref = fit_scene(target, _fit_scene0(dev), cam, light, mat, cfg, FitConfig(**fc), trainable=(False, False, True, True),
+                    device=dev, kernel_config=kc)
+    fit_step_kernel.launches = fit_step_kernel_tiles.launches = 0
+    res = fit_scene(target, _fit_scene0(dev), cam, light, mat, cfg, FitConfig(**fc, shard_layout=layout),
+                    mesh=make_mesh(dev), trainable=(False, False, True, True), kernel_config=kc)
+    assert (fit_step_kernel.launches, fit_step_kernel_tiles.launches) == counts
+    for a, b in zip(res.losses, ref.losses):
+        assert a == pytest.approx(b, rel=1e-5)
+
+
+def test_render_sharded_tiles_launches_once(dev):
+    cfg = dataclasses.replace(BASE, width=256, height=192)
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    render_kernel_tiles_forward.launches = 0
+    img = render_sharded_kernel(tt.reference_scene().to(dev), cam, light, mat, cfg, make_mesh(dev), kc,
+                                layout="tiles", planar=True)
+    assert render_kernel_tiles_forward.launches == 1
+    ref = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, kc, planar=True, device=dev)
+    check_planes((img,), (ref[0],), cfg.march.max_distance)

@@ -20,6 +20,7 @@ from sdf3d_tpu_torch import convert
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_scene_multiview, fit_view
 from sdf3d_tpu_torch.ops import KernelConfig, cuda_scene_source, pack_uniforms, render_kernel_forward
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.parallel import make_mesh
 from sdf3d_tpu_torch.sdf import SDFNode, load_setup, save_setup
 
 torch.set_num_threads(1)
@@ -165,8 +166,15 @@ def test_fit_config_from_jax():
     got = convert.from_jax(JaxFitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="pallas",
                                         pallas_interpret=True, pallas_tile=(8, 128), loss="multiscale"))
     assert got == FitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="kernel", loss="multiscale")
-    with pytest.raises(NotImplementedError, match="shard_layout"):
-        convert.from_jax(JaxFitConfig(shard_layout="tiles"))
+    # The sharding fields carry over; the ring all-reduce kernels wait.
+    sharded = dict(shard_interleaved=True, shard_layout="tiles", shard_policy="balanced", replan_every=3,
+                   allreduce="psum")
+    got = convert.from_jax(JaxFitConfig(engine="pallas", **sharded))
+    assert got == FitConfig(**sharded)
+    assert {k: getattr(got, k) for k in sharded} == sharded
+    for ring in ("pallas_ring", "pallas_rs_ag"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+            convert.from_jax(JaxFitConfig(allreduce=ring))
 
 
 FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
@@ -178,7 +186,7 @@ FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
         dict(fit_config=FitConfig(engine="xla")),
         dict(fit_config=FitConfig(silhouette_weight=0.5)),
         dict(target_coverage=np.ones((24, 32), np.float32)),
-        dict(mesh=object()),
+        dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale")),
         dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
     ],
     ids=["xla", "silhouette", "coverage", "mesh", "shadow_ad"],
