@@ -89,6 +89,31 @@ Then the sharded path (``parallel/``) on its tile-queue kernels, K2
     the 135-tile plan beside K1, K4 beside K3, and ``fit_scene(mesh)`` ms/step
     beside the unsharded fit.
 
+Then the ring all-reduces K7 (``sdf3d_ring_allreduce``, the latency ring)
+and K8 (``sdf3d_rs_ag``, reduce-scatter + all-gather) between processes on
+the one card, over device memory shared by CUDA IPC:
+
+22. build: ``libsdf3d_collectives.so`` in this process, before any rank
+    starts, with the ``ptxas`` registers and spills;
+23. four processes, with sub-groups of 2 and 3 ranks: K7 and K8 against
+    their plain versions at N = 2, 3, 4, float64 and float32, payloads 1, 9
+    (the fit demo's ``[loss, g_prm]``), 130, the parameter count of
+    ``neural_sdf(hidden=64, depth=3)``, 70001 and ``_rs_ag_threshold(N) + 5``
+    under ``"auto"``: bit for bit, the same bits on every rank, float64
+    within 1e-12 of numpy's sum; two collective ids back to back; 50 calls
+    in a row; a wait without a peer raises within seconds;
+24. main path at 1920×1080: ``fit_scene(mesh=make_mesh())`` with two ranks
+    on the card in ``tiles``, 20 Adam steps each with ``allreduce="psum"``,
+    ``"pallas_ring"`` (K7 20 launches a rank) and ``"pallas_rs_ag"`` (K8
+    20), no ``dist.all_reduce`` call in the ring fits, the ranks' losses
+    equal and within 1e-5 of the psum run's;
+25. times with CUDA events at N = 2 and 4 for 9 and 70001 float64 values
+    (plain, kernel, kernel, plain), beside gloo's ``dist.all_reduce`` and an
+    empty payload: processes taking turns on one card, not scaling figures;
+    and both ranks of N = 2 in this process on two streams
+    (:func:`one_process_pair`), the flags' cost without the switch between
+    processes.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates, counted from
 this run's data (:func:`march_counts`: the marches' steps at 1080p) and the
@@ -424,6 +449,7 @@ def main() -> int:
     fit_kernels = fit_phases(torch, tt, card, dev)
     neural_kernel = neural_phases(torch, tt, card, dev)
     tiles_kernels = tiles_phases(torch, tt, card, dev, {"render_fwd": kernel_ms})
+    ring_kernels = ring_phases(torch, tt, card)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
@@ -436,7 +462,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + fit_kernels + [neural_kernel] + tiles_kernels}), flush=True)
+    }] + fit_kernels + [neural_kernel] + tiles_kernels + ring_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -1227,6 +1253,343 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
          "plain_ms": timing["fit_step_tiles"]["plain_ms"], "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
          "library_ms": None},
     ]
+
+
+RING_RANKS = r"""
+import hashlib, json, os, sys, time
+import numpy as np
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import torch
+import torch.distributed as dist
+from sdf3d_tpu_torch.parallel import launch, make_mesh, pallas_psum, ring_kernel
+from sdf3d_tpu_torch.parallel.collectives import _rs_ag_threshold, resolve_algorithm
+
+spec = json.load(open(os.path.join(outdir, "spec.json")))
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=4, rank=rank)  # four ranks, one card: gloo
+groups = {2: dist.new_group([0, 1]), 3: dist.new_group([0, 1, 2]), 4: None}
+dev = torch.device("cuda", 0)
+
+def vectors(n, size, dtype, seed):
+    return np.random.default_rng(seed).standard_normal((size, n)).astype(dtype)
+
+def time_ms(fn, warmup=3, calls=20):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+out = {"rank": rank, "cases": [], "checks": {}}
+# ---- 23: K7 and K8 against their plain versions at N = 2, 3, 4 ----
+for size in (2, 3, 4):
+    if rank >= size:
+        continue
+    mesh = make_mesh(group=groups[size])
+    cases = [(n, alg) for n in spec["payloads"] for alg in ("ring", "rs_ag")] + [(_rs_ag_threshold(size) + 5, "auto")]
+    for n, alg in cases:
+        for dtype in ("float64", "float32"):
+            xs = vectors(n, size, dtype, 17 * n + size)
+            x = torch.from_numpy(xs[rank]).to(dev)
+            got = pallas_psum(x, mesh, alg)
+            want = pallas_psum(x, mesh, alg, interpret=True)
+            g = got.cpu().numpy()
+            case = {"N": size, "n": n, "algorithm": alg, "ran": resolve_algorithm(alg, n, size), "dtype": dtype,
+                    "bit_equal_plain": bool(torch.equal(got, want)),
+                    "max_abs_err": float((got - want).abs().max()), "digest": hashlib.sha256(g.tobytes()).hexdigest()}
+            if dtype == "float64":
+                ref = xs.sum(0)
+                case["rel_err_vs_numpy"] = float(np.abs(g - ref).max() / np.abs(ref).max())
+            out["cases"].append(case)
+    # Two ids reduced back to back in one step.
+    a, b = (torch.from_numpy(vectors(9, size, "float64", 5 + i)[rank]).to(dev) for i in range(2))
+    ga, gb = pallas_psum(a, mesh, "ring", collective_id=2), pallas_psum(b, mesh, "ring", collective_id=3)
+    out["checks"][f"two_ids_N{size}"] = (torch.equal(ga, pallas_psum(a, mesh, "ring", interpret=True)) and
+                                         torch.equal(gb, pallas_psum(b, mesh, "ring", interpret=True)))
+    # 50 calls in a row: both parity sets, rising epochs.
+    x = torch.from_numpy(vectors(130, size, "float64", 99)[rank]).to(dev)
+    wr, wg = ring_kernel.ring_allreduce_plain(x, mesh), ring_kernel.rs_ag_plain(x, mesh)
+    row = [torch.equal(ring_kernel.ring_allreduce_launch(x, mesh, 7), wr) and
+           torch.equal(ring_kernel.rs_ag_launch(x, mesh, 8), wg) for _ in range(50)]
+    out["checks"][f"fifty_calls_N{size}"] = all(row)
+# A wait that never completes: both ranks set the buffers up, rank 0 alone calls.
+dist.barrier()
+if rank < 2:
+    mesh = make_mesh(group=groups[2])
+    ring_kernel.ring_buffers(mesh, 9, "ring", torch.float64).ensure(8)
+    if rank == 0:
+        t0 = time.perf_counter()
+        try:
+            ring_kernel.ring_allreduce_launch(torch.ones(16, dtype=torch.float64, device=dev), mesh, 9, spin_s=1.0)
+            out["timeout"] = None
+        except RuntimeError as e:
+            out["timeout"] = str(e)
+        out["timeout_seconds"] = time.perf_counter() - t0
+# ---- 25: times (plain, kernel, kernel, plain), ranks taking turns on the card ----
+timing = {}
+for size in (2, 4):
+    dist.barrier()
+    if rank >= size:
+        continue
+    mesh = make_mesh(group=groups[size])
+    for n in (9, 70001):
+        x = torch.from_numpy(vectors(n, size, "float64", 3)[rank]).to(dev)
+        row = {}
+        for alg, kern, plain in (("ring", ring_kernel.ring_allreduce_launch, ring_kernel.ring_allreduce_plain),
+                                 ("rs_ag", ring_kernel.rs_ag_launch, ring_kernel.rs_ag_plain)):
+            p1 = time_ms(lambda: plain(x, mesh))
+            k1, k2 = time_ms(lambda: kern(x, mesh)), time_ms(lambda: kern(x, mesh))
+            p2 = time_ms(lambda: plain(x, mesh))
+            row[alg] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+
+        def gloo():
+            v = x.cpu()
+            dist.all_reduce(v, group=mesh.group)
+            return v.to(dev)
+
+        row["gloo_all_reduce_ms"] = time_ms(gloo)
+        timing[f"N{size}_n{n}"] = row
+    empty = torch.empty(0, dtype=torch.float64, device=dev)
+    timing[f"N{size}_empty"] = {"ring_ms": time_ms(lambda: ring_kernel.ring_allreduce_launch(empty, mesh)),
+                                "rs_ag_ms": time_ms(lambda: ring_kernel.rs_ag_launch(empty, mesh))}
+dist.barrier()
+out["timing"] = timing
+with open(os.path.join(outdir, f"out_r{rank}.json"), "w") as f:
+    json.dump(out, f)
+launch.shutdown()
+"""
+
+
+RING_FIT = r"""
+import json, os, sys, time
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import dataclasses
+import torch
+import torch.distributed as dist
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_tiles
+from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward
+from sdf3d_tpu_torch.parallel import launch, make_mesh, ring_kernel
+
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)  # two ranks, one card: gloo
+mesh = make_mesh()
+dev = mesh.device
+W, H = 1920, 1080
+cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+cam, light, mat = tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev)
+target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+trainable = (False, False, True, True)
+
+def scene0():
+    return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+calls = {"all_reduce": 0, "plain": 0}
+
+def counted(fn, key):
+    def wrapper(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+dist.all_reduce = counted(dist.all_reduce, "all_reduce")
+for name in ("ring_allreduce_plain", "rs_ag_plain"):
+    setattr(ring_kernel, name, counted(getattr(ring_kernel, name), "plain"))
+runs = {}
+for allreduce in ("psum", "pallas_ring", "pallas_rs_ag"):
+    ring_kernel.ring_allreduce.launches = ring_kernel.rs_ag_allreduce.launches = fit_step_kernel_tiles.launches = 0
+    calls.update(all_reduce=0, plain=0)
+    t0 = time.perf_counter()
+    res = fit_scene(target, scene0(), cam, light, mat, cfg,
+                    FitConfig(steps=20, learning_rate=1e-2, log_every=1, shard_layout="tiles", allreduce=allreduce),
+                    mesh=mesh, trainable=trainable)
+    runs[allreduce] = {"seconds": time.perf_counter() - t0, "losses": res.losses, "radius": res.scene.b.radius.item(),
+                       "launches": {"ring_allreduce": ring_kernel.ring_allreduce.launches,
+                                    "rs_ag_allreduce": ring_kernel.rs_ag_allreduce.launches,
+                                    "fit_step_tiles": fit_step_kernel_tiles.launches},
+                       "all_reduce_calls": calls["all_reduce"], "plain_calls": calls["plain"]}
+with open(os.path.join(outdir, f"out_r{rank}.json"), "w") as f:
+    json.dump({"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(), "runs": runs}, f)
+launch.shutdown()
+"""
+
+
+def spawn_ranks(script: str, world: int, spec: dict | None = None, timeout: int = 400) -> list:
+    """Run ``script`` in ``world`` processes on the card (their rendezvous on
+    a free local port) and return each rank's JSON output."""
+    with tempfile.TemporaryDirectory() as outdir:
+        if spec is not None:
+            with open(os.path.join(outdir, "spec.json"), "w") as f:
+                json.dump(spec, f)
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen([sys.executable, "-c", script, str(port), str(r), outdir, REPO], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for p, out in zip(procs, outs):
+            check(p.returncode == 0, f"a rank failed:\n{out[-4000:]}")
+        return [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(world)]
+
+
+def one_process_pair(torch, kind: str, n: int, calls: int = 50) -> dict:
+    """Both ranks of a ring of two in this process, each on a stream of its
+    own over its own region (no IPC): both kernels are on the card at once,
+    so a call costs the flags' round trips and not a switch between
+    processes.  The first call is held to the rank-order sum; returns the
+    ms per call over ``calls`` calls (host clock, one sync at the end)."""
+    import ctypes
+
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    lib, dev = ring_kernel.collectives_library(), torch.device("cuda", 0)
+    m = ring_kernel.rs_ag_chunk(n, 2)
+    cap, length = ((n + 1) // 2, n) if kind == "ring" else (m, 4 * m)
+    nbytes, regions = ctypes.c_longlong(), []
+    lib.sdf3d_coll_region_bytes(ring_kernel._KIND[kind], 2, cap, 8, ctypes.byref(nbytes))
+    for _ in range(2):
+        ptr = ctypes.c_void_p()
+        check(lib.sdf3d_coll_alloc(0, nbytes.value, ctypes.byref(ptr)) == 0, "cudaMalloc of a region")
+        regions.append(ptr.value)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    xs = [torch.zeros(length, dtype=torch.float64, device=dev) for _ in range(2)]
+    for x in xs:
+        x[:n] = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+    outs = [x.clone() for x in xs]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    spin_ns = int(ring_kernel.SPIN_LIMIT_S * 1e9)
+
+    def call(c):
+        for d in range(2):
+            st = streams[d].cuda_stream
+            if kind == "ring":
+                err = lib.sdf3d_ring_allreduce(0, regions[d], regions[1 - d], xs[d].data_ptr(), outs[d].data_ptr(), n,
+                                               8, 2, d, c % 2, cap, c // 2 + 1, spin_ns, st)
+            else:
+                err = lib.sdf3d_rs_ag(0, regions[d], regions[1 - d], regions[1 - d], outs[d].data_ptr(), length, 8,
+                                      2, d, c % 2, cap, c // 2 + 1, spin_ns, st)
+            check(err == 0, f"{kind} launch: CUDA error {err}")
+
+    torch.cuda.synchronize()
+    call(0)
+    torch.cuda.synchronize()
+    want = xs[0][:n] + xs[1][:n]
+    check(all(torch.equal(o[:n], want) for o in outs), f"one-process {kind}: not the rank-order sum")
+    t0 = time.perf_counter()
+    for c in range(1, calls + 1):
+        call(c)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    status = (ctypes.c_int * 8)()
+    for r in regions:
+        lib.sdf3d_coll_status(0, r, status, torch.cuda.current_stream(dev).cuda_stream)
+        check(not any(status), f"one-process {kind}: a wait timed out")
+        lib.sdf3d_coll_free(0, r)
+    return {"ms": ms, "calls": calls}
+
+
+def ring_phases(torch, tt, card: str) -> list:
+    """Phases 22-25: the ring all-reduces K7 and K8.  Returns their entries
+    of the kernels line."""
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.scene_program import count_params
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    # ---- 22. build (in this process, before the ranks start) ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    t0 = time.perf_counter()
+    ring_kernel.collectives_library()
+    build_wall = time.perf_counter() - t0
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in libs.log(libs.key("", "collectives")).splitlines()
+             if re.search(r"Compiling entry function|Used \d+ registers|spill stores", ln)]
+    check(any("registers" in ln for ln in ptxas), f"no ptxas report for the collectives library: {ptxas}")
+    log("ring_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, ptxas=ptxas)
+
+    # ---- 23. K7 and K8 against their plain versions (4 processes) ----
+    neural = count_params(tt.sdf.neural_sdf(0, hidden=64, depth=3))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(RING_RANKS, 4, {"payloads": [1, 9, 130, neural, 70001]})
+    four_s = time.perf_counter() - t0
+    by_case = {}
+    for r in ranks:
+        for c in r["cases"]:
+            by_case.setdefault((c["N"], c["n"], c["algorithm"], c["dtype"]), []).append(c)
+    for key, cases in by_case.items():
+        check(len(cases) == key[0], f"{key}: {len(cases)} ranks reported")
+        check(all(c["bit_equal_plain"] for c in cases), f"{key}: a kernel differs from its plain version")
+        check(len({c["digest"] for c in cases}) == 1, f"{key}: the ranks hold different bits")
+        check(all(c.get("rel_err_vs_numpy", 0.0) <= 1e-12 for c in cases), f"{key}: off the numpy sum")
+        check(key[2] != "auto" or cases[0]["ran"] == "rs_ag", f"{key}: auto ran {cases[0]['ran']}")
+    checks = {k: [r["checks"][k] for r in ranks if k in r["checks"]] for k in ranks[0]["checks"]}
+    check(all(all(v) for v in checks.values()), f"two ids / fifty calls: {checks}")
+    timeout = ranks[0]["timeout"] or ""
+    check("rank 0 of 2" in timeout and "step 0" in timeout and "stream" in timeout
+          and ranks[0]["timeout_seconds"] < 5.0, f"the wait without a peer gave {timeout!r}")
+    max_err = max(c["max_abs_err"] for r in ranks for c in r["cases"])
+    rel = max(c["rel_err_vs_numpy"] for r in ranks for c in r["cases"] if "rel_err_vs_numpy" in c)
+    log("ring_parity", cases=len(by_case), payloads=[1, 9, 130, neural, 70001], max_abs_err_vs_plain=max_err,
+        float64_rel_err_vs_numpy=rel, checks=checks, timeout_message=timeout,
+        timeout_seconds=ranks[0]["timeout_seconds"], four_process_seconds=four_s)
+
+    # ---- 24. main path: fit_scene(mesh) with two ranks on the card, 1080p ----
+    t0 = time.perf_counter()
+    pair = spawn_ranks(RING_FIT, 2)
+    pair_s = time.perf_counter() - t0
+    want = {"psum": {"ring_allreduce": 0, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
+            "pallas_ring": {"ring_allreduce": 20, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
+            "pallas_rs_ag": {"ring_allreduce": 0, "rs_ag_allreduce": 20, "fit_step_tiles": 20}}
+    for r in pair:
+        check(r["backend"] == "gloo" and r["size"] == 2, f"rank {r['rank']}: {r['backend']}, size {r['size']}")
+        for name, run in r["runs"].items():
+            check(run["launches"] == want[name], f"rank {r['rank']} {name}: launches {run['launches']}")
+            check(run["all_reduce_calls"] == (20 if name == "psum" else 0),
+                  f"rank {r['rank']} {name}: {run['all_reduce_calls']} dist.all_reduce calls")
+            check(run["plain_calls"] == 0, f"rank {r['rank']} {name}: the plain versions ran")
+            check(run["losses"][-1] < run["losses"][0], f"{name}: the loss did not fall")
+    diffs = {}
+    for name in ("pallas_ring", "pallas_rs_ag"):
+        a, b = (r["runs"][name]["losses"] for r in pair)
+        check(a == b, f"{name}: the two ranks' losses differ")
+        psum = pair[0]["runs"]["psum"]["losses"]
+        diffs[name] = max(abs(x / y - 1.0) for x, y in zip(a, psum))
+        check(diffs[name] <= 1e-5, f"{name}: losses off the psum run's by {diffs[name]:.3g}")
+    log("ring_main_path", card=card, launches_per_rank={n: [r["runs"][n]["launches"] for r in pair] for n in want},
+        all_reduce_calls={n: [r["runs"][n]["all_reduce_calls"] for r in pair] for n in want},
+        max_rel_loss_diff_vs_psum=diffs, losses={n: pair[0]["runs"][n]["losses"] for n in want},
+        radius={n: pair[0]["runs"][n]["radius"] for n in want},
+        fit_seconds={n: [r["runs"][n]["seconds"] for r in pair] for n in want}, pair_seconds=pair_s)
+
+    # ---- 25. times, ranks taking turns on one card ----
+    timing = [r["timing"] for r in ranks]
+    # The bound: every rank reads its vector once and writes its sum once,
+    # all through the one card's memory.
+    bounds = {f"N{n}_n{k}": bound(0, 0, 2 * n * k * 8) for n in (2, 4) for k in (9, 70001)}
+    one_process = {f"{kind}_n{k}": one_process_pair(torch, kind, k) for kind in ("ring", "rs_ag") for k in (9, 70001)}
+    log("ring_times", card=card, note="two or four processes taking turns on one card over CUDA IPC, not scaling "
+        "figures; float64", rank0=timing[0], ranks=timing, bounds=bounds,
+        one_process_two_streams_n2=one_process)
+    main = timing[0]["N2_n9"]
+    return [
+        {"name": name, "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/collectives.cu",
+         "replaces": f"sdf3d_tpu/parallel/collectives.py:{line}",
+         "launches": pair[0]["runs"][fit]["launches"][name], "max_abs_err": max_err, "ms": main[alg]["ms"],
+         "plain_ms": main[alg]["plain_ms"], "bound_ms": bounds["N2_n9"][0], "bound_by": bounds["N2_n9"][1],
+         "library_ms": main["gloo_all_reduce_ms"]}
+        for name, alg, fit, line in (("ring_allreduce", "ring", "pallas_ring", 93),
+                                     ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
 
 
 def time_kernels(root: str) -> int:

@@ -9,9 +9,8 @@ a class the port does not have raises ``TypeError``.
 
 A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and drops the
 TPU-only ``pallas_interpret`` and ``pallas_tile``; its sharding fields
-(``shard_*``, ``replan_every``, ``allreduce``) carry over, and the ring
-all-reduce values of ``allreduce`` raise ``NotImplementedError`` (the
-kernels K7/K8, ROADMAP item 15b).  A
+(``shard_*``, ``replan_every``, ``allreduce``, the ring all-reduces
+included) carry over.  A
 ``NeuralRenderConfig`` keeps ``block_rays`` and drops the TPU-only
 ``check_every`` and ``interpret``.
 """
@@ -44,7 +43,7 @@ def _fit_config(v):
     for f in dataclasses.fields(v):
         value = getattr(v, f.name)
         if f.name == "allreduce":
-            check_allreduce(value)
+            check_allreduce(value)  # an unknown value raises here, not at the fit
         if f.name in ported:
             fields[f.name] = {"pallas": "kernel"}.get(value, value) if f.name == "engine" else value
         elif f.name not in _TPU_ONLY and value != getattr(defaults, f.name):

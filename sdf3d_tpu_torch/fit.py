@@ -115,8 +115,9 @@ class FitConfig:
     #: computes the same loss and gradients, so a re-plan only rebalances.
     replan_every: int = 0
     #: The all-reduce of sharded fits: "psum" (one ``dist.all_reduce`` a
-    #: step).  The ring kernels "pallas_ring" and "pallas_rs_ag" are ROADMAP
-    #: item 15b and raise ``NotImplementedError``.
+    #: step), "pallas_ring" (the ring kernels, K7 or K8 by payload),
+    #: "pallas_rs_ag" (K8), or either with "_interpret" (their plain
+    #: versions on any device); ``parallel/collectives.py``.
     allreduce: str = "psum"
 
 

@@ -11,7 +11,12 @@ ops/scene_program.py) and the sources of its kind:
   and the render backward (``csrc/render_bwd_kernel.cu``,
   ``sdf3d_render_bwd``);
 - ``"neural"``: the neural-scene forward render alone
-  (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``).
+  (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``);
+- ``"collectives"``: the ring all-reduces between processes and their
+  device buffers (``csrc/collectives.cu``, ``sdf3d_ring_allreduce``,
+  ``sdf3d_rs_ag``, the region allocator and the CUDA IPC wrappers).  It
+  reads no scene: it is built from an empty header, one library for every
+  scene.
 
 The sources compile in parallel (one nvcc each), then link into one library,
 cached by a hash of the kind, the header, every file under ``csrc/`` and the
@@ -55,17 +60,22 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter")
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 
 
 @dataclasses.dataclass(frozen=True)
 class LibraryKind:
     """What a library of one kind is built from and exports: its file name,
     its sources under ``csrc/`` and its C entry points with their argument
-    types (pointers, then H, W, stream)."""
+    types (pointers, then H, W, stream).  The host form exports each entry
+    point with the suffix ``_host`` and without the stream, unless
+    ``host_entry_points`` lists its own."""
 
     lib_name: str
     sources: tuple
     entry_points: tuple  # ((name, argtypes), ...)
+    host_entry_points: tuple | None = None
 
 
 KINDS = {
@@ -78,6 +88,21 @@ KINDS = {
     )),
     "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
         ("sdf3d_neural_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
+    )),
+    "collectives": LibraryKind("libsdf3d_collectives.so", ("collectives.cu",), (
+        ("sdf3d_coll_region_bytes", [_INT, _INT, _I64, _INT, _PTR]),
+        ("sdf3d_ring_allreduce", [_INT, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
+        ("sdf3d_rs_ag", [_INT, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
+        ("sdf3d_coll_alloc", [_INT, _I64, _PTR]),
+        ("sdf3d_coll_free", [_INT, _PTR]),
+        ("sdf3d_ipc_get_handle", [_INT, _PTR, _PTR]),
+        ("sdf3d_ipc_open", [_INT, _PTR, _PTR]),
+        ("sdf3d_ipc_close", [_INT, _PTR]),
+        ("sdf3d_coll_status", [_INT, _PTR, _PTR, _PTR]),
+    ), host_entry_points=(
+        ("sdf3d_coll_region_bytes", [_INT, _INT, _I64, _INT, _PTR]),
+        ("sdf3d_ring_allreduce_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _I64, _PTR]),
+        ("sdf3d_rs_ag_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _I64, _PTR]),
     )),
 }
 
@@ -173,9 +198,15 @@ class KernelLibraries:
             if not path.exists():
                 self._compile(path.parent, scene_header, spec)
             lib = ctypes.CDLL(str(path))
-            for name, argtypes in spec.entry_points:
-                fn = getattr(lib, name + "_host" if self.host else name)
-                fn.argtypes = argtypes[:-1] if self.host else argtypes
+            if not self.host:
+                entry_points = spec.entry_points
+            elif spec.host_entry_points is not None:
+                entry_points = spec.host_entry_points
+            else:
+                entry_points = [(name + "_host", argtypes[:-1]) for name, argtypes in spec.entry_points]
+            for name, argtypes in entry_points:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             with self._lock:
                 self._loaded[key] = lib
@@ -190,7 +221,7 @@ class KernelLibraries:
             cxx = find_cxx()
             compiles = [[cxx, *HOST_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
                         for src, obj in zip(spec.sources, objs)]
-            return compiles, [cxx, "-shared", "-o", str(out), *map(str, objs)]
+            return compiles, [cxx, "-shared", "-pthread", "-o", str(out), *map(str, objs)]
         nvcc = find_nvcc()
         compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
                     for src, obj in zip(spec.sources, objs)]

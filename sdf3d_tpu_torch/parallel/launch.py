@@ -66,7 +66,11 @@ def initialize(address: str | None = None, world_size: int | None = None, rank: 
 
 
 def shutdown() -> None:
-    """Leave the default process group (a no-op without one)."""
+    """Free the ring kernels' buffers, then leave the default process group
+    (a no-op without one)."""
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    ring_kernel.close_all()
     if dist.is_initialized():
         dist.destroy_process_group()
 

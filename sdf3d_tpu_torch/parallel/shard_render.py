@@ -12,8 +12,8 @@ layouts:
 - ``tiles``: a tile-queue work-list per rank (``tile_queue.py``).
 
 A forward render gathers the ranks' pieces (``dist.all_gather``); a fit
-all-reduces loss and gradients once a step (one ``dist.all_reduce`` of one
-flat vector), and the optimizer runs replicated.
+all-reduces loss and gradients once a step (one flat vector, through one
+``dist.all_reduce`` or one ring kernel), and the optimizer runs replicated.
 """
 
 from __future__ import annotations
@@ -130,9 +130,10 @@ def fused_loss_and_grad_sharded(vag_fn: Callable[..., tuple], mesh: Mesh, allred
 
     ``vag_fn(*args)`` returns its rows' (or work-list's) summed loss and its
     gradients, a sequence of tensors (the fused fit kernels, K3 or K4).  The
-    returned function sums both over the mesh with one ``dist.all_reduce``
-    of one flat vector (``collectives.allreduce_tree``), so every rank holds
-    the same values and the optimizer runs replicated with no further
+    returned function sums both over the mesh as one flat vector
+    (``collectives.allreduce_tree``: ``dist.all_reduce`` under ``"psum"``,
+    a ring kernel under ``"pallas_ring"``/``"pallas_rs_ag"``), so every rank
+    holds the same values and the optimizer runs replicated with no further
     communication.
     """
 

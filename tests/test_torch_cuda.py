@@ -1,6 +1,6 @@
 """The CUDA kernels (forward render, fit step, render backward, neural render,
-and the tile-queue forward and fit step) against their plain PyTorch
-versions, on the card.
+the tile-queue forward and fit step, and the ring all-reduces) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -9,6 +9,12 @@ card and without JAX (``tests/conftest.py`` imports JAX) run:
 """
 
 import dataclasses
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -335,3 +341,76 @@ def test_render_sharded_tiles_launches_once(dev):
     assert render_kernel_tiles_forward.launches == 1
     ref = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, kc, planar=True, device=dev)
     check_planes((img,), (ref[0],), cfg.march.max_distance)
+
+
+RING_WORKER = r"""
+import json, os, sys
+import numpy as np, torch
+port, rank, world, outdir, repo = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+sys.path.insert(0, repo)
+from sdf3d_tpu_torch.parallel import launch, make_mesh, ring_kernel
+from sdf3d_tpu_torch.parallel.collectives import _rs_ag_threshold
+
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)  # ranks sharing the card: gloo
+mesh = make_mesh()
+kernels = {"ring": ring_kernel.ring_allreduce_launch, "rs_ag": ring_kernel.rs_ag_launch}
+plains = {"ring": ring_kernel.ring_allreduce_plain, "rs_ag": ring_kernel.rs_ag_plain}
+out, digests = {"mismatches": []}, {}
+for n in (1, 9, 130, 5000, _rs_ag_threshold(world) + 5, 70001):
+    for dtype in ("float32", "float64"):
+        x = torch.from_numpy(np.random.default_rng(n + rank).standard_normal(n).astype(dtype)).to(mesh.device)
+        for alg in ("ring", "rs_ag"):
+            got, want = kernels[alg](x, mesh), plains[alg](x, mesh)
+            if not torch.equal(got, want):
+                out["mismatches"].append(f"{alg} {n} {dtype}")
+            digests[f"{alg} {n} {dtype}"] = got.cpu().numpy().tobytes().hex()[:4096]
+x = torch.arange(70001, dtype=torch.float64, device=mesh.device) * (rank + 1)
+want = ring_kernel.ring_allreduce_plain(x, mesh)
+for i in range(50):  # both parity sets, rising epochs
+    for alg in ("ring", "rs_ag"):
+        if not torch.equal(kernels[alg](x, mesh, collective_id=7), want):
+            out["mismatches"].append(f"call {i} {alg}")
+# A wait that never completes: every rank sets up the buffers, rank 0 alone calls.
+ring_kernel.ring_buffers(mesh, 9, "ring", torch.float32).ensure(8)
+if rank == 0:
+    try:
+        ring_kernel.ring_allreduce_launch(torch.ones(8, device=mesh.device), mesh, 9, spin_s=1.0)
+        out["timeout"] = None
+    except RuntimeError as e:
+        out["timeout"] = str(e)
+out["launches"] = [ring_kernel.ring_allreduce.launches, ring_kernel.rs_ag_allreduce.launches]
+out["digests"] = digests
+json.dump(out, open(os.path.join(outdir, f"out_r{rank}.json"), "w"))
+launch.shutdown()
+"""
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_kernels_match_plain(dev, world, tmp_path):
+    """K7 and K8 with ``world`` processes on the card, bit for bit against
+    their plain versions, the same bits on every rank, 50 calls in a row,
+    and a wait that never completes raises naming rank, step and stream."""
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    ring_kernel.collectives_library()  # built here, before the ranks start
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen([sys.executable, "-c", RING_WORKER, str(port), str(r), str(world), str(tmp_path),
+                               str(repo)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    outs = [json.loads((tmp_path / f"out_r{r}.json").read_text()) for r in range(world)]
+    for o in outs:
+        assert o["mismatches"] == []
+        assert o["digests"] == outs[0]["digests"]
+        assert o["launches"] == [12 + 50 + (o is outs[0]), 12 + 50]
+    assert "rank 0 of" in outs[0]["timeout"] and "step 0, stream A" in outs[0]["timeout"]

@@ -50,7 +50,20 @@ LAYOUTS = {
     "tiles_balanced": dict(shard_layout="tiles", shard_policy="balanced", replan_every=1),
     "interleaved": dict(shard_layout="interleaved"),
     "contiguous": dict(shard_layout="contiguous"),
+    # The ring all-reduces: a CPU rank runs their plain versions, JAX its
+    # interpret-mode kernels.
+    "tiles_ring": dict(shard_layout="tiles", allreduce="pallas_ring"),
+    "interleaved_rs_ag": dict(shard_layout="interleaved", allreduce="pallas_rs_ag"),
 }
+
+
+def _jax_layout(name):
+    """``LAYOUTS[name]`` as JAX's CPU mesh runs it (a ring kernel in
+    interpret mode)."""
+    fields = dict(LAYOUTS[name])
+    if "allreduce" in fields:
+        fields["allreduce"] += "_interpret"
+    return fields
 
 
 @pytest.mark.parametrize("n,th", [(4, 4), (2, 8), (8, 2)])
@@ -200,8 +213,8 @@ def test_two_process_fit_matches_unsharded_and_jax(name, two_ranks, unsharded, c
 
     jcfg, view, target, jscene0, jmask = _jax_setup()
     jfc = JaxFitConfig(steps=STEPS, learning_rate=1e-2, log_every=1, chunk_steps=CHUNK, engine="pallas",
-                       pallas_interpret=True, pallas_tile=(8, 128), **LAYOUTS[name])
-    assert {k: getattr(convert.from_jax(jfc), k) for k in LAYOUTS[name]} == LAYOUTS[name]
+                       pallas_interpret=True, pallas_tile=(8, 128), **_jax_layout(name))
+    assert {k: getattr(convert.from_jax(jfc), k) for k in LAYOUTS[name]} == _jax_layout(name)
     want = jax_fit_scene(target, jscene0, *view, jcfg, jfc, mesh=jax_make_mesh(cpu_devices, n_devices=8),
                          trainable=jmask)
     np.testing.assert_allclose(r0["losses"], want.losses, rtol=1e-5)

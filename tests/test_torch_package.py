@@ -166,15 +166,16 @@ def test_fit_config_from_jax():
     got = convert.from_jax(JaxFitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="pallas",
                                         pallas_interpret=True, pallas_tile=(8, 128), loss="multiscale"))
     assert got == FitConfig(steps=7, learning_rate=3e-3, optimizer="sgd", engine="kernel", loss="multiscale")
-    # The sharding fields carry over; the ring all-reduce kernels wait.
+    # The sharding fields carry over, the ring all-reduces included.
     sharded = dict(shard_interleaved=True, shard_layout="tiles", shard_policy="balanced", replan_every=3,
                    allreduce="psum")
     got = convert.from_jax(JaxFitConfig(engine="pallas", **sharded))
     assert got == FitConfig(**sharded)
     assert {k: getattr(got, k) for k in sharded} == sharded
-    for ring in ("pallas_ring", "pallas_rs_ag"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-            convert.from_jax(JaxFitConfig(allreduce=ring))
+    for ring in ("pallas_ring", "pallas_rs_ag", "pallas_ring_interpret", "pallas_rs_ag_interpret"):
+        assert convert.from_jax(JaxFitConfig(engine="pallas", allreduce=ring)) == FitConfig(allreduce=ring)
+    with pytest.raises(ValueError, match="allreduce"):
+        convert.from_jax(JaxFitConfig(allreduce="nccl"))
 
 
 FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
