@@ -114,6 +114,26 @@ the one card, over device memory shared by CUDA IPC:
     (:func:`one_process_pair`), the flags' cost without the switch between
     processes.
 
+Then K9, the fit step's benchmark variants (K3's kernel function compiled
+with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
+
+26. build: the variants' libraries under the one-step and the reference
+    config in one ``load_many``; ``full`` is K3's header and library (no
+    build); ``ptxas`` registers and spills and the SASS instruction count of
+    each, ``noscatter``'s against ``full``'s and ``primal``'s;
+27. every variant against its plain version at 256×192 and a ragged 250×190
+    under both configs: ``full`` and ``tgt3`` equal K3 bit for bit,
+    ``noscatter``'s loss ``full``'s, ``nopow`` ``full`` within the gradient
+    bar, ``empty`` the target's sum and ``empty_noin`` H·W exactly;
+28. main path: ``python -m sdf3d_tpu_torch.benchmarks.exp_ad`` at 1080p, one-step
+    and reference config; CUDA-event times of eight variants (plain, kernel,
+    kernel, plain) and of the float64 sum of the 8100 partial rows alone;
+    K9's bounds;
+29. the bench at 1080p: ``bench.run_benchmark`` in ``fwd`` and ``fwd_bwd``
+    (a reduced protocol), ``python -m sdf3d_tpu_torch.cli bench`` and
+    ``cli info``, ``bench.run_extras``; beside each cell the kernel's
+    CUDA-event time per frame and the device's idle share.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates, counted from
 this run's data (:func:`march_counts`: the marches' steps at 1080p) and the
@@ -125,14 +145,17 @@ It imports nothing of JAX and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --time-kernels ROOT
 
-times K1 and K3 at 1080p for the checkout at ``ROOT`` (run it for two checkouts
-in turns, in one call, to compare them on one card).
+times K1 and K3 at 1080p for the checkout at ``ROOT`` and prints SHA-256
+digests of K1's four planes and K3's partial rows (run it for two checkouts in
+turns, in one call, to compare them on one card).
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
+import hashlib
 import itertools
 import json
 import math
@@ -298,17 +321,24 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def time_ms(torch, fn, warmup=3, frames=20) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(frames):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / frames
+@functools.cache
+def _profiling():
+    """This checkout's ``sdf3d_tpu_torch/utils/profiling.py`` (torch and the
+    standard library only), loaded by path: ``--time-kernels`` times another
+    checkout's package with it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_profiling", os.path.join(REPO, "sdf3d_tpu_torch", "utils", "profiling.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_ms(fn, warmup=3, frames=20) -> float:
+    """ms per call of ``fn`` by CUDA events: the bench's timer
+    (``utils/profiling.py::cuda_event_ms``)."""
+    return _profiling().cuda_event_ms(fn, warmup, frames)
 
 
 def main() -> int:
@@ -430,11 +460,11 @@ def main() -> int:
     kern = lambda: render_kernel_launch(scene, prm, uni, cfg)  # noqa: E731
     plain = lambda: render_kernel_forward_plain(scene, prm, uni, cfg)  # noqa: E731
     wrapper = lambda: render_kernel_forward(scene, tt.Camera.reference(), light, mat, cfg, device=dev)  # noqa: E731
-    p1 = time_ms(torch, plain)
-    k1 = time_ms(torch, kern)
-    k2 = time_ms(torch, kern)
-    p2 = time_ms(torch, plain)
-    w1 = time_ms(torch, wrapper)
+    p1 = time_ms(plain)
+    k1 = time_ms(kern)
+    k2 = time_ms(kern)
+    p2 = time_ms(plain)
+    w1 = time_ms(wrapper)
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     log("times_1080p", card=card, kernel_ms=kernel_ms, kernel_ms_runs=[k1, k2],
         kernel_rays_per_s=W * H / (kernel_ms / 1e3), wrapper_ms=w1, plain_ms=plain_ms, plain_ms_runs=[p1, p2],
@@ -450,6 +480,8 @@ def main() -> int:
     neural_kernel = neural_phases(torch, tt, card, dev)
     tiles_kernels = tiles_phases(torch, tt, card, dev, {"render_fwd": kernel_ms})
     ring_kernels = ring_phases(torch, tt, card)
+    variant_kernel = variant_phases(torch, tt, card, dev)
+    bench_phases(torch, tt, card, dev)
     print(json.dumps({"kernels": [{
         "name": "render_fwd",
         "route": "cuda",
@@ -462,7 +494,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + fit_kernels + [neural_kernel] + tiles_kernels + ring_kernels}), flush=True)
+    }] + fit_kernels + [neural_kernel] + tiles_kernels + ring_kernels + [variant_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -491,7 +523,7 @@ class PlainCalls:
     every module-level reference to them in the package)."""
 
     NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain",
-             "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain")
+             "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain", "fit_step_variant_plain")
 
     def __enter__(self):
         self.calls, self._saved = {n: 0 for n in self.NAMES}, []
@@ -680,7 +712,7 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     fit_p = lambda: fit_step_kernel_plain(sc, prm, uni, tgt, cfg, KernelConfig(), False, frozen)  # noqa: E731
     runs = {}
     for name, kern, plain_fn in (("fit_step", fit_k, fit_p), ("render_bwd", bwd, bwd_plain)):
-        p1, k1, k2, p2 = time_ms(torch, plain_fn), time_ms(torch, kern), time_ms(torch, kern), time_ms(torch, plain_fn)
+        p1, k1, k2, p2 = time_ms(plain_fn), time_ms(kern), time_ms(kern), time_ms(plain_fn)
         runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
     bwd_st = check_grads(torch.cat(bwd()), torch.cat(bwd_plain()), gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, cfg),
                          rtol=1e-4, mass_tol=1e-3, label="render backward 1080p")
@@ -866,9 +898,9 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
         prm, uni = inputs(sc, tt.Camera.reference(device=dev), c)
         kern = lambda: render_neural_launch(sc, prm, uni, c, nc)  # noqa: E731
         plain = lambda: render_neural_forward_plain(sc, prm, uni, c)  # noqa: E731
-        p1 = time_ms(torch, plain, warmup, frames_p)
-        k1, k2 = time_ms(torch, kern, warmup, frames_k), time_ms(torch, kern, warmup, frames_k)
-        p2 = time_ms(torch, plain, warmup, frames_p)
+        p1 = time_ms(plain, warmup, frames_p)
+        k1, k2 = time_ms(kern, warmup, frames_k), time_ms(kern, warmup, frames_k)
+        p2 = time_ms(plain, warmup, frames_p)
         return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
                 "frames": frames_k, "plain_frames": frames_p, "warmup": warmup}
 
@@ -882,7 +914,7 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
     for hidden, sc in ((64, u64), (128, u128), (256, u256)):
         cam, c = tt.Camera.reference(device=dev), config(W, H)
         runs[f"hidden{hidden}_{W}x{H}"]["banded_ms"] = time_ms(
-            torch, lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
+            lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
     # K6's bound on the timed cell (hidden 64, 1080p, 64/32 steps): per
     # evaluation the MLP's multiply-adds (two operations each) and biases,
     # a softplus per hidden unit (about six operations, exp and log1p on the
@@ -1211,10 +1243,10 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     check(k4_st["loss_rel_err_vs_k3"] <= 1e-5, f"K4 1080p loss off K3's by {k4_st['loss_rel_err_vs_k3']:.3g}")
     timing = {}
     for name, kern, plain_fn, beside in (("render_tiles", k2, k2_plain, k1), ("fit_step_tiles", k4, k4_plain, k3)):
-        p1 = time_ms(torch, plain_fn, 1, 3)
-        a1, b1 = time_ms(torch, kern), time_ms(torch, beside)
-        a2, b2 = time_ms(torch, kern), time_ms(torch, beside)
-        p2 = time_ms(torch, plain_fn, 1, 3)
+        p1 = time_ms(plain_fn, 1, 3)
+        a1, b1 = time_ms(kern), time_ms(beside)
+        a2, b2 = time_ms(kern), time_ms(beside)
+        p2 = time_ms(plain_fn, 1, 3)
         timing[name] = {"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "whole_image_kernel_ms_runs": [b1, b2],
                         "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
     fit_ms = {}
@@ -1273,17 +1305,7 @@ dev = torch.device("cuda", 0)
 def vectors(n, size, dtype, seed):
     return np.random.default_rng(seed).standard_normal((size, n)).astype(dtype)
 
-def time_ms(fn, warmup=3, calls=20):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
+from sdf3d_tpu_torch.utils.profiling import cuda_event_ms as time_ms
 
 out = {"rank": rank, "cases": [], "checks": {}}
 # ---- 23: K7 and K8 against their plain versions at N = 2, 3, 4 ----
@@ -1592,11 +1614,374 @@ def ring_phases(torch, tt, card: str) -> list:
                                      ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
 
 
+def sass_instructions(path: str) -> dict:
+    """SASS instructions (NOPs left out) per kernel function of a built
+    library, from the toolkit's ``cuobjdump -sass``."""
+    from sdf3d_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln) and " NOP" not in ln:
+            counts[name] += 1
+    return counts
+
+
+def fit_kernel_alone(scene, prm, uni, target, cfg, kc, variant="full", wrt_uniforms=True):
+    """``(launch, partials)``: the fit kernel's entry point alone (K3, or a
+    K9 variant) on preallocated partial rows, no wrapper and no sum
+    (``ops/fit_kernel.py::fit_launcher``, the wrappers' launch)."""
+    from sdf3d_tpu_torch.ops.fit_kernel import _header_variant, fit_launcher
+
+    return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, (), _header_variant(variant))
+
+
+def device_us(torch, fn, calls: int = 20) -> dict:
+    """The device time per call of ``fn`` by kernel name, in µs
+    (``torch.profiler``'s CUDA activity), and its total."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / calls for e in prof.key_averages() if e.self_device_time_total > 0}
+    return {"total_us": sum(kernels.values()), "kernels_us": kernels}
+
+
+def variant_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 26-28: K9, the fit step's benchmark variants.  Returns its
+    entry of the kernels line."""
+    from sdf3d_tpu_torch.benchmarks import exp_ad
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        VARIANTS,
+        _totals,
+        _uniforms,
+        fit_step_kernel_launch,
+        fit_step_variant_launch,
+        fit_step_variant_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import shade_planes
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        kernel_library,
+        library_job,
+        pixel_planes,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import FIT_VARIANTS, cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import check_grads, conditioned, gradient_mass
+
+    kc = KernelConfig()
+    ref = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    configs = {"short": exp_ad.short_config(ref), "reference": ref}
+    scene = tt.reference_scene().to(dev)
+    cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    P = scene_param_vector(scene).numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+
+    # ---- 26. build: every variant under both configs, in one load_many ----
+    libs = _build.LIBRARIES
+    prm = scene_param_vector(scene, dev)
+    k3_lib = kernel_library(scene, prm, _uniforms(cam, light, mat, ref, dev), ref, kc, True, ())
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    jobs = [library_job(scene, c, kc, True, (), v) for c in configs.values() for v in FIT_VARIANTS]
+    t0 = time.perf_counter()
+    loaded = libs.load_many(jobs)
+    build_wall = time.perf_counter() - t0
+    k3_header = cuda_scene_source(scene, ref, kc, True, ())
+    check(cuda_scene_source(scene, ref, kc, True, (), "full") == k3_header, "full's header is not K3's")
+    check(loaded[len(FIT_VARIANTS) + FIT_VARIANTS.index("full")] is k3_lib, "full did not load K3's library")
+    check(libs.builds - builds0 <= len(jobs) - 1, f"{libs.builds - builds0} builds for {len(jobs) - 1} new libraries")
+    report = {}
+    for cname, c in configs.items():
+        for v in FIT_VARIANTS:
+            key = libs.key(cuda_scene_source(scene, c, kc, True, (), v))
+            sass = sass_instructions(str(libs.build_dir / key / _build.KINDS["render"].lib_name))
+            report[f"{cname} {v}"] = {"ptxas": ptxas_summary(libs.log(key)),
+                                      "sass_fit_step": next(n for k, n in sass.items() if "fit_step" in k)}
+    # That the variant plumbing left K1's and K3's registers alone is shown
+    # by ``--time-kernels`` on the parent and the change (ptxas and digests).
+    for cname in configs:
+        ns, fu, pr = (report[f"{cname} {v}"]["sass_fit_step"] for v in ("noscatter", "full", "primal"))
+        check(abs(ns - fu) < abs(ns - pr), f"{cname}: noscatter's {ns} instructions are nearer primal's {pr} than "
+                                           f"full's {fu}: its reverse pass was deleted")
+    log("variants_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(jobs), variants=report)
+
+    # ---- 27. every variant against its plain version: at 1080p, the lab's
+    # shape (the kernels line's max_abs_err), then 256x192 and 250x190 ----
+    def grad(out):
+        return torch.cat([x for x in out[1:] if x is not None])
+
+    max_err, rows = 0.0, []
+    for cname, base in configs.items():
+        for w, h in ((W, H), (256, 192), (250, 190)):
+            c = dataclasses.replace(base, width=w, height=h)
+            uni = _uniforms(orbit, light, mat, c, dev)
+            rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, c, kc)
+            keep = conditioned(scene, prm, uni, t, c)
+            target = (rgb + (torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1) * keep).contiguous()
+            p_rgb, p_t, p_sh, p_ao = render_kernel_forward_plain(scene, prm, uni, c, kc)
+            mass = gradient_mass(scene, prm, uni, 2.0 * (p_rgb - target), p_t, p_sh, p_ao, c)
+            ones = torch.ones((h, w), device=dev)
+            s_rgb = shade_planes(prm, uni, 2.0 * ones, ones, ones, scene, c, pixel_planes(uni, h, w, kc.tile_h))
+            s_mass = gradient_mass(scene, prm, uni, 2.0 * (s_rgb - target), 2.0 * ones, ones, ones, c)
+            k3 = fit_step_kernel_launch(scene, prm, uni, target, c, kc, True, ())
+            got = {v: fit_step_variant_launch(v, scene, prm, uni, target, c, kc) for v in VARIANTS}
+            want = {v: fit_step_variant_plain(v, scene, prm, uni, target, c, kc) for v in VARIANTS}
+            # shade_only shades t = 2, off the surface, where a few pixels are
+            # ill-conditioned in float32: at 1080p either float32 side lies
+            # up to about 2e-5 of the mass from the float64 plain version, so
+            # both are held to that at 1e-4.
+            s64 = fit_step_variant_plain("shade_only", scene, prm.double(), uni.double(), target.double(), c, kc)
+            s32_err = check_grads(grad(want["shade_only"]), grad(s64), s_mass, rtol=1e-4, mass_tol=1e-4,
+                                  label=f"{cname} {w}x{h} shade_only float32 plain")["err_over_mass"]
+            want["shade_only"] = s64
+            quantized = (torch.round(target * 256.0) / 256.0).contiguous()
+            empty = [(fit_step_variant_launch(v, scene, prm, uni, quantized, c, kc)[0],
+                      fit_step_variant_plain(v, scene, prm, uni, quantized, c, kc)[0]) for v in ("empty", "empty_noin")]
+            torch.cuda.synchronize()
+            label = f"{cname} {w}x{h}"
+            check(all(torch.equal(a, b) for a, b in zip(got["full"], k3)), f"{label}: full is not K3 bit for bit")
+            check(all(torch.equal(a, b) for a, b in zip(got["tgt3"], got["full"])), f"{label}: tgt3 is not full")
+            check(torch.equal(got["noscatter"][0], got["full"][0]), f"{label}: noscatter's loss is not full's")
+            check(all(float(a) == float(b) for a, b in empty), f"{label}: empty/empty_noin {empty} not exact")
+            check(float(empty[1][0]) == float(w * h), f"{label}: empty_noin {float(empty[1][0])} is not H·W")
+            row = {"case": label}
+            for v in VARIANTS:
+                # The loss on the same primal: the plain version shades K1's
+                # planes (where the two marches part, the pixels the image
+                # budget allows move the loss: 2.1e-5 at 1080p under the
+                # reference config).  Its own march's loss is logged.
+                same = want[v] if v in ("shade_only", "empty", "empty_noin") else fit_step_variant_plain(
+                    v, scene, prm, uni, target, c, kc, planes=(t, sh, ao))
+                rel = abs(float(got[v][0]) / float(same[0]) - 1.0)
+                check(rel <= 1e-5, f"{label} {v}: loss off its plain version's on the same planes by {rel:.3g}")
+                row[v] = {"loss_rel_err": rel, "own_march_loss_rel_err": abs(float(got[v][0]) / float(want[v][0]) - 1)}
+                if got[v][1] is None:
+                    continue
+                # shade_only shades the same fixed planes on both sides (its
+                # float64 plain version, above); the others march their own
+                # primal (the fit step's bar).
+                m = s_mass if v == "shade_only" else mass
+                st = check_grads(grad(got[v]), grad(want[v]), m[:grad(got[v]).numel()], rtol=1e-4,
+                                 mass_tol=1e-4 if v == "shade_only" else 1e-3, label=f"{label} {v}")
+                row[v].update(st)
+                if v == "shade_only":
+                    row[v]["float32_plain_err_over_mass"] = s32_err
+                if (w, h) == (W, H):
+                    max_err = max(max_err, st["max_abs_err"])
+            # nopow against full: the same primal planes, x^12 by a chain
+            # (shininess 12); the shininess gradient, 0 in nopow, left out.
+            keep_slots = [k for k in range(P + 30) if k != P + 26]
+            row["nopow_vs_full"] = check_grads(grad(got["nopow"])[keep_slots], grad(got["full"])[keep_slots],
+                                               mass[keep_slots], rtol=1e-4, mass_tol=1e-5,
+                                               label=f"{label} nopow vs full")
+            row["wrt_p_bits_equal_k3_scene_grad"] = bool(torch.equal(
+                got["wrt_p"][1], fit_step_kernel_launch(scene, prm, uni, target, c, kc, False, ())[1]))
+            row["primal_loss_bits_equal_full"] = bool(torch.equal(got["primal"][0], got["full"][0]))
+            rows.append(row)
+    log("variants_parity", cases=rows, max_abs_err_1080p=max_err)
+
+    # ---- 28. main path: the exp_ad lab at 1080p, then times ----
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_variant
+
+    lab = {}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for arg in ("short", "full"):
+        fit_step_variant.launches = 0
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.benchmarks.exp_ad", arg], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"exp_ad {arg} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        fields = dict(ln.split(None, 1) for ln in proc.stdout.splitlines() if ln.strip())
+        lab[arg] = {v: float(fields[v].split()[0]) for v in ("full", "wrt_p", "nopow", "primal")}
+        lab[arg]["launches"] = int(fields["launches"])
+        lab[arg]["seconds"] = time.perf_counter() - t0
+        check(lab[arg]["launches"] == 4 * (2 + 4 * 10) * exp_ad.FRAMES, f"exp_ad {arg}: launches {lab[arg]}")
+    check(fit_step_variant.launches == 0, "the lab's launches were counted in this process")
+
+    zero = torch.zeros((3, H, W), device=dev)
+    times = {}
+    for cname, c in configs.items():
+        uni = _uniforms(cam, light, mat, c, dev)
+        timed = ("full", "wrt_p", "nopow", "primal", "empty", "empty_noin", "noscatter", "shade_only")
+        for v in timed if cname == "short" else ("full", "wrt_p", "nopow", "primal"):
+            kern = fit_kernel_alone(scene, prm, uni, zero, c, kc, v)[0]
+            wrap = lambda v=v, c=c, uni=uni: fit_step_variant_launch(v, scene, prm, uni, zero, c, kc)  # noqa: E731
+            plain = lambda v=v, c=c, uni=uni: fit_step_variant_plain(v, scene, prm, uni, zero, c, kc)  # noqa: E731
+            row = {}
+            if cname == "short":
+                row["plain_ms_runs"] = [time_ms(plain, 1, 3)]
+            row["ms_runs"] = [time_ms(kern, 5, 50), time_ms(kern, 5, 50)]
+            if cname == "short":
+                row["plain_ms_runs"].append(time_ms(plain, 1, 3))
+                row["plain_ms"] = sum(row["plain_ms_runs"]) / 2
+            row["ms"] = sum(row["ms_runs"]) / 2
+            row["wrapper_ms"] = time_ms(wrap, 5, 50)
+            times[f"{cname} {v}"] = row
+    # The float64 sum of the partial rows: its device time (the profiler's
+    # kernels), and by CUDA events alone, where back-to-back calls are bound
+    # by their launches; the wrapper's time above less the kernel's is what
+    # it adds to a step.
+    full_launch, full_partials = fit_kernel_alone(scene, prm, _uniforms(cam, light, mat, ref, dev), zero,
+                                                  configs["short"], kc)
+    full_launch()
+    sums = {"rows": list(full_partials.shape),
+            "float64_device": device_us(torch, lambda: _totals(full_partials, P, torch.float32)),
+            "float32_device": device_us(torch, lambda: full_partials.sum(0)),
+            "float64_events_ms": time_ms(lambda: _totals(full_partials, P, torch.float32), 5, 100),
+            "wrapper_minus_kernel_ms": {k: times[k]["wrapper_ms"] - times[k]["ms"]
+                                        for k in ("short full", "reference full")}}
+
+    # K9's bounds at 1080p under the one-step config (the lab's cell): the
+    # marches' steps of this run's data, the normal taps and, for the
+    # gradient variants, the reverse pass; a partial row per block.
+    c = configs["short"]
+    uni = _uniforms(cam, light, mat, c, dev)
+    counts = march_counts(torch, scene, cam, c, prm, uni, render_kernel_forward_plain)
+    costs = scene_costs(cuda_scene_source(scene, c, kc, True, ()))
+    n, blocks = W * H, -(-W // kc.block_w) * -(-H // kc.block_h)
+    fwd_ops = analytic_work(costs, counts, c)
+    both = analytic_work(costs, counts, c, primal=True, reverse=True)
+    n_taps = n * (6 if c.normals == "central" else 4)  # shade_only's primal: the normal taps alone
+    rev = analytic_work(costs, counts, c, primal=False, reverse=True)
+    bounds = {v: bound(*ops, nb) for v, ops, nb in (
+        ("full", both, 12 * n + 4 * blocks * (P + 31)), ("wrt_p", both, 12 * n + 4 * blocks * (P + 1)),
+        ("nopow", both, 12 * n + 4 * blocks * (P + 31)), ("noscatter", both, 12 * n + 4 * blocks),
+        ("primal", fwd_ops, 12 * n + 4 * blocks),
+        ("shade_only", (n_taps * costs["point"][0] + rev[0], n_taps * costs["point"][1] + rev[1]),
+         12 * n + 4 * blocks * (P + 31)),
+        ("empty", (3 * n, 0), 12 * n + 4 * blocks), ("empty_noin", (n, 0), 4 * blocks))}
+    log("variants_times_1080p", card=card, exp_ad=lab, times=times, partial_sum=sums, counts=counts, bounds=bounds)
+    short = {v: times[f"short {v}"] for v in ("full", "wrt_p", "nopow", "primal", "empty", "empty_noin", "noscatter",
+                                             "shade_only")}
+    return {"name": "fit_variants", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/fit_kernel.cu",
+            "replaces": "benchmarks/exp_ad.py:53", "launches": lab["short"]["launches"], "max_abs_err": max_err,
+            "ms": short["full"]["ms"], "ms_per_variant": {v: r["ms"] for v, r in short.items()},
+            "plain_ms": short["full"]["plain_ms"], "plain_ms_per_variant": {v: r["plain_ms"] for v, r in short.items()},
+            "bound_ms": bounds["full"][0], "bound_by": bounds["full"][1],
+            "bound_ms_per_variant": {v: b[0] for v, b in bounds.items()}, "library_ms": None}
+
+
+def bench_phases(torch, tt, card: str, dev) -> None:
+    """Phase 29: the bench (``sdf3d_tpu_torch/bench.py``) at 1080p, its CLI,
+    and the extras, each cell beside its kernel's CUDA-event time."""
+    from sdf3d_tpu_torch import bench
+    from sdf3d_tpu_torch.ops.fit_kernel import _uniforms, fit_step_kernel
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, render_kernel_forward, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+
+    kc = KernelConfig()
+    cam, light, mat = tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev)
+    scene = tt.reference_scene().to(dev)
+    prm = scene_param_vector(scene, dev)
+
+    def kernel_launch(mode, c):
+        """The cell's kernel: K1, or K3's entry point alone on the zero
+        target (the chunk's step adds the float64 sum and the update)."""
+        uni = _uniforms(cam, light, mat, c, dev)
+        if mode == "fwd":
+            return lambda: render_kernel_launch(scene, prm, uni, c, kc)
+        zero = torch.zeros((3, c.height, c.width), device=dev)
+        return fit_kernel_alone(scene, prm, uni, zero, c, kc, wrt_uniforms=False)[0]
+
+    def kernel_ms(mode, c):
+        return time_ms(kernel_launch(mode, c))
+
+    def beside(r, ms):
+        return {"kernel_ms": ms, "idle_share": 1.0 - ms / (r["seconds_per_frame"] * 1e3)}
+
+    keys = {"metric", "value", "unit", "vs_baseline", "seconds_per_frame", "backend"}
+    ref = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    cells = {}
+    with PlainCalls() as plain:
+        for mode, counter, other, name in (("fwd", render_kernel_forward, fit_step_kernel, "sdf3d_render_fwd"),
+                                           ("fwd_bwd", fit_step_kernel, render_kernel_forward, "sdf3d_fit_step")):
+            kern = kernel_launch(mode, ref)
+            kernel_runs = [time_ms(kern, 20, 50) for _ in range(2)]
+            # The chunk's device time per frame by kernel (the profiler): the
+            # cell's kernel as it runs inside the bench, and every kernel.
+            make_fn, args = bench.make_workload(mode=mode)
+            chunk = make_fn(16)
+            prof = device_us(torch, lambda: chunk(*args), calls=3)
+            in_bench_ms = sum(us for k, us in prof["kernels_us"].items() if name in k) / 16e3
+            busy_ms = prof["total_us"] / 16e3
+            kernel_runs += [time_ms(kern, 20, 50) for _ in range(2)]
+            # A frame cannot take less than its kernel: the slope must reach
+            # the kernel's least time less the spread of its readings.  The
+            # slope is an estimate (JAX's rules: a round that pairs a slowed
+            # K window with a fast 4K one reads low; `run_extras`' reduced
+            # protocol has read 13% below K3), so a cell below that runs
+            # again, three times at most; every reading is logged.
+            readings = kernel_runs + [in_bench_ms]
+            floor_ms = 2 * min(readings) - max(readings)
+            frames_ms = []
+            while len(frames_ms) < 3 and (not frames_ms or frames_ms[-1] < floor_ms):
+                counter.launches = other.launches = 0
+                t0 = time.perf_counter()
+                r = bench.run_benchmark(mode=mode)  # the protocol of `cli bench`
+                seconds = time.perf_counter() - t0
+                launches = (counter.launches, other.launches)
+                check(set(r) == keys and r["metric"] == f"rays_per_second_1080p_{mode}_kernel"
+                      and r["backend"] == "cuda" and math.isfinite(r["value"]) and r["value"] > 0, f"bench {mode}: {r}")
+                check(launches[0] > 0 and launches[1] == 0, f"bench {mode} launched (its kernel, the other) = {launches}")
+                frames_ms.append(r["seconds_per_frame"] * 1e3)
+            check(frames_ms[-1] >= floor_ms, f"bench {mode}: {frames_ms} ms a frame, below its kernel's "
+                                             f"{readings} less their spread")
+            cells[mode] = {**r, **beside(r, sum(kernel_runs) / len(kernel_runs)), "kernel_ms_runs": kernel_runs,
+                           "kernel_in_bench_ms": in_bench_ms, "device_busy_ms": busy_ms,
+                           "device_idle_share": 1.0 - busy_ms / frames_ms[-1], "floor_ms": floor_ms,
+                           "frame_ms_readings": frames_ms, "launches": launches[0], "seconds": seconds}
+    check(sum(plain.calls.values()) == 0, f"the bench called plain versions: {plain.calls}")
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.cli", "bench"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    cli_seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli bench failed:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    cli_bench = json.loads(lines[-1])
+    check(len(lines) == 1 and set(cli_bench) == keys and cli_bench["metric"] == "rays_per_second_1080p_fwd_bwd_kernel",
+          f"cli bench printed {proc.stdout!r}")
+    info = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.cli", "info"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    check(info.returncode == 0 and torch.cuda.get_device_name(0) in info.stdout, f"cli info printed {info.stdout!r}")
+
+    t0 = time.perf_counter()
+    extras = bench.run_extras(budget_s=300.0)
+    extras_seconds = time.perf_counter() - t0
+    for name in ("fwd_4k", "fit_4k", "fit_fast_1080p"):
+        check(isinstance(extras[name], dict) and extras[name]["rays_per_second"] > 0, f"{name}: {extras[name]}")
+    check("item 13" in extras["fit_fractal_1080p"] and "item 12" in extras["fit_multiview_720p_v4"],
+          f"the unported extras read {extras}")
+    uhd = dataclasses.replace(ref, width=3840, height=2160)
+    for name, mode, c in (("fwd_4k", "fwd", uhd), ("fit_4k", "fwd_bwd", uhd),
+                          ("fit_fast_1080p", "fwd_bwd", tt.fast_config(ref))):
+        extras[name].update(beside(extras[name], kernel_ms(mode, c)))
+    log("bench", card=card, cells=cells, cli_bench=cli_bench, cli_bench_seconds=cli_seconds,
+        cli_info=info.stdout.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
+
+
 def time_kernels(root: str) -> int:
     """``--time-kernels ROOT``: K1 and K3 on the reference scene and the fit
-    demo at 1080p, three runs of 50 launches each by CUDA events, for the
-    package of the checkout at ``ROOT`` (run it for two checkouts in turns,
-    in one call, to compare them on one card).  Prints one JSON line."""
+    demo at 1080p, three runs of 50 launches each by CUDA events, SHA-256
+    digests of K1's four planes and K3's partial rows, and their kernels'
+    ptxas registers and spills, for the package of the
+    checkout at ``ROOT`` (run it for two checkouts in turns, in one call, to
+    compare them on one card).  Prints one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1605,9 +1990,10 @@ def time_kernels(root: str) -> int:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import sdf3d_tpu_torch as tt
+    from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_launch
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_launch
-    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, kernel_library, pack_uniforms, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
 
     check(tt.__file__.startswith(root), f"imported {tt.__file__}, not the package under {root}")
     dev = torch.device("cuda", 0)
@@ -1621,9 +2007,22 @@ def time_kernels(root: str) -> int:
     target = render_kernel_launch(ref, prm, uni, cfg)[0].contiguous()
     k1 = lambda: render_kernel_launch(ref, prm, uni, cfg)  # noqa: E731
     k3 = lambda: fit_step_kernel_launch(sc0, prm0, uni, target, cfg, KernelConfig(), False, (0, 1, 2, 3))  # noqa: E731
-    print(json.dumps({"root": root, "card": card_name_and_power(),
-                      "render_fwd_ms": [time_ms(torch, k1, 5, 50) for _ in range(3)],
-                      "fit_step_ms": [time_ms(torch, k3, 5, 50) for _ in range(3)]}), flush=True)
+    # The bits: K1's four planes, and K3's partial rows from its entry point.
+    planes = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k1())
+    kc = KernelConfig()
+    lib = kernel_library(sc0, prm0, uni, cfg, kc, False, (0, 1, 2, 3))
+    partials = torch.empty((-(-W // kc.block_w) * -(-H // kc.block_h), prm0.numel() + 31), device=dev)
+    check(lib.sdf3d_fit_step(uni.data_ptr(), prm0.data_ptr(), *(target[k].data_ptr() for k in range(3)),
+                             partials.data_ptr(), H, W, torch.cuda.current_stream(dev).cuda_stream) == 0, "K3 launch")
+    libs = _build.LIBRARIES
+    ptxas = {"render_fwd": ptxas_summary(libs.log(libs.key(cuda_scene_source(ref, cfg, kc))))["render_fwd"],
+             "fit_step": ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, cfg, kc, False, (0, 1, 2, 3)))))[
+                 "fit_step"]}
+    print(json.dumps({"root": root, "card": card_name_and_power(), "ptxas": ptxas,
+                      "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
+                      "fit_step_partials_sha256": hashlib.sha256(partials.cpu().numpy().tobytes()).hexdigest(),
+                      "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
+                      "fit_step_ms": [time_ms(k3, 5, 50) for _ in range(3)]}), flush=True)
     return 0
 
 

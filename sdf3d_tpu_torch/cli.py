@@ -1,8 +1,10 @@
-"""Command-line entry point of the port: ``render`` and ``fit`` (the ports of
-the JAX package's ``sdf3d render`` and ``sdf3d fit``).
+"""Command-line entry point of the port: ``render``, ``fit``, ``bench`` and
+``info`` (the ports of the JAX package's ``sdf3d`` subcommands of those names).
 
     python -m sdf3d_tpu_torch.cli render --width 1920 --height 1080 --out out.png
     python -m sdf3d_tpu_torch.cli fit --width 1920 --height 1080 --steps 100 --metrics fit.jsonl
+    python -m sdf3d_tpu_torch.cli bench            # one JSON line: fwd_bwd rays/s at 1080p
+    python -m sdf3d_tpu_torch.cli info
 
 ``render --engine kernel`` (default) renders through the CUDA render kernel,
 ``--engine torch`` through the plain PyTorch path.  ``fit`` is the
@@ -139,6 +141,31 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    import json
+
+    from sdf3d_tpu_torch.bench import run_benchmark
+
+    result = run_benchmark(width=args.width or 1920, height=args.height or 1080, engine=args.engine,
+                           profile=args.profile, device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_info(args) -> int:
+    import torch
+
+    import sdf3d_tpu_torch
+
+    print(f"sdf3d_tpu_torch {sdf3d_tpu_torch.__version__}")
+    print(f"torch {torch.__version__}")
+    print(f"cuda {torch.version.cuda} (available: {torch.cuda.is_available()})")
+    print("  cpu")
+    for i in range(torch.cuda.device_count()):
+        print(f"  cuda:{i} {torch.cuda.get_device_name(i)}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="sdf3d_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -172,6 +199,18 @@ def main(argv=None) -> int:
     pf.add_argument("--checkpoint-every", type=int, default=0)
     pf.add_argument("--device", default="cuda")
     pf.set_defaults(fn=cmd_fit, profile="parity", normals=None, ao=False)
+
+    pb = sub.add_parser("bench", help="throughput benchmark (prints one JSON line)")
+    pb.add_argument("--width", type=int, default=0)
+    pb.add_argument("--height", type=int, default=0)
+    pb.add_argument("--engine", choices=["kernel", "torch"], default="kernel")
+    pb.add_argument("--profile", choices=["parity", "fast"], default="parity",
+                    help="'fast' = config.fast_config (non-parity)")
+    pb.add_argument("--device", default="cuda")
+    pb.set_defaults(fn=cmd_bench)
+
+    pi = sub.add_parser("info", help="version and device info")
+    pi.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
     return args.fn(args)

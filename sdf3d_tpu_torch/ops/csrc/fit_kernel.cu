@@ -32,6 +32,18 @@
 // about ten distance evaluations per pixel and P + 31 values in registers.
 // Memory traffic is the target (12 B per pixel) and one partial row per
 // block.
+//
+// K9, the fit step's benchmark variants, replaces
+// benchmarks/exp_ad.py::make_variant(...).kernel: K3's tile program cut down
+// to time its fixed cost.  Each variant is K3's kernel function compiled with
+// Fit::variant (the generated header), the cuts taken by if constexpr; FULL
+// is K3 itself, header and library included.  WRT_P: the parameters'
+// gradient only; PRIMAL: the loss only; NOSCATTER: K3's reverse pass with
+// the loss alone written; NOPOW: the specular power as the chain
+// x³·x³·x³·x³ (spec_pow<false>); SHADE_ONLY: no marches, the shading and its
+// reverse at t = 2, shadow 1, AO 1; EMPTY: sum of the target; EMPTY_NOIN:
+// the pixel count, no input read.  JAX's one-hot (8, 128) scatter is not
+// ported: a variant writes one partial row of kCols values, the loss last.
 #include "shade_vjp.cuh"
 #include "sdf3d_scene.cuh"
 
@@ -39,15 +51,70 @@ namespace {
 constexpr int kP = Scene::n_params;
 constexpr int kG = kP + sdf3d::N_UNIFORMS + 1;  // dP, dU, loss
 
+// Fit::variant (ops/scene_program.py::FIT_VARIANTS, in this order).
+enum : int { FULL = 0, WRT_P, PRIMAL, NOSCATTER, NOPOW, SHADE_ONLY, EMPTY, EMPTY_NOIN };
+constexpr int kV = Fit::variant;
+constexpr bool kLossOnly = kV == PRIMAL || kV == NOSCATTER || kV == EMPTY || kV == EMPTY_NOIN;
+// The columns of a partial row, and the values a thread sums: NOSCATTER
+// keeps K3's whole gradient in registers and writes its loss alone.
+constexpr int kCols = kLossOnly ? 1 : (kV == WRT_P ? kP + 1 : kG);
+constexpr int kAcc = kV == NOSCATTER ? kG : kCols;
+
+// SHADE_ONLY's primal: render_pixel's shading at t = 2 with the shadow and
+// AO factors 1, no march.
+SDF3D_HD sdf3d::Pixel shade_fixed(const float* u, const float* p, float rows, float cols, int H, int W) {
+  constexpr float t = 2.0f;
+  float dx, dy, dz;
+  sdf3d::ray_direction<Cfg>(u, rows, cols, H, W, dx, dy, dz);
+  const float ox = u[sdf3d::U_CAM], oy = u[sdf3d::U_CAM + 1], oz = u[sdf3d::U_CAM + 2];
+  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
+  float nx, ny, nz, ix, iy, iz;
+  sdf3d::estimate_normal<Cfg>(sdf3d::ScenePoint<Scene>{p}, hx, hy, hz, nx, ny, nz);
+  sdf3d::light_direction(u, hx, hy, hz, ix, iy, iz);
+  return sdf3d::shade_pixel<Cfg>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, 1.0f, 1.0f);
+}
+
+// The primal of one pixel: render_pixel, or SHADE_ONLY's fixed planes.
+SDF3D_HD sdf3d::Pixel primal_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
+  if constexpr (kV == SHADE_ONLY) {
+    return shade_fixed(u, p, rows, cols, H, W);
+  } else {
+    return sdf3d::render_pixel<Cfg, Scene, kV != NOPOW>(u, p, rows, cols, H, W);
+  }
+}
+
 // One pixel at absolute (rows, cols) of an H x W image, its target at
-// position i of the target planes: adds its loss and gradient to acc[kG].
+// position i of the target planes: adds its loss and gradient to acc[kAcc]
+// (the loss last).
 SDF3D_HD void fit_pixel(const float* u, const float* p, const float* tr, const float* tg, const float* tb,
                         size_t i, float rows, float cols, int H, int W, float* acc) {
-  const sdf3d::Pixel px = sdf3d::render_pixel<Cfg, Scene>(u, p, rows, cols, H, W);
-  const float rr = px.r - tr[i], rg = px.g - tg[i], rb = px.b - tb[i];
-  acc[kG - 1] += ((rr * rr) + (rg * rg)) + (rb * rb);
-  sdf3d::shade_vjp<Cfg, Scene, Fit::wrt_uniforms>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
-                                                  2.0f * rr, 2.0f * rg, 2.0f * rb, acc, acc + kP);
+  if constexpr (kV == EMPTY_NOIN) {
+    acc[0] += 1.0f;
+  } else if constexpr (kV == EMPTY) {
+    acc[0] += (tr[i] + tg[i]) + tb[i];
+  } else {
+    const sdf3d::Pixel px = primal_pixel(u, p, rows, cols, H, W);
+    const float rr = px.r - tr[i], rg = px.g - tg[i], rb = px.b - tb[i];
+    acc[kAcc - 1] += ((rr * rr) + (rg * rg)) + (rb * rb);
+    if constexpr (kV == WRT_P) {
+      sdf3d::shade_vjp<Cfg, Scene, false>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
+                                          2.0f * rr, 2.0f * rg, 2.0f * rb, acc, nullptr);
+    } else if constexpr (kV != PRIMAL) {
+      sdf3d::shade_vjp<Cfg, Scene, Fit::wrt_uniforms, kV != NOPOW>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
+                                                                   2.0f * rr, 2.0f * rg, 2.0f * rb, acc, acc + kP);
+    }
+  }
+}
+
+// NOSCATTER's one value: the loss, plus the gradient where the loss is NaN
+// (then still NaN, so the loss's bits always), which keeps the reverse pass
+// live: with the loss alone stored the compiler deletes it.
+SDF3D_HD float loss_keeping_gradient(const float (&acc)[kAcc]) {
+  float keep = acc[kAcc - 1];
+  if (isnan(keep)) {
+    for (int k = 0; k < kAcc - 1; ++k) keep += acc[k];
+  }
+  return keep;
 }
 }  // namespace
 
@@ -58,13 +125,13 @@ namespace {
 // Uniforms and parameters into registers, the accumulator to zero.
 __device__ __forceinline__ void load_inputs(const float* __restrict__ uni, const float* __restrict__ prm,
                                             float (&u)[sdf3d::N_UNIFORMS], float (&p)[kP > 0 ? kP : 1],
-                                            float (&acc)[kG]) {
+                                            float (&acc)[kAcc]) {
 #pragma unroll
   for (int k = 0; k < sdf3d::N_UNIFORMS; ++k) u[k] = __ldg(uni + k);
 #pragma unroll
   for (int k = 0; k < kP; ++k) p[k] = __ldg(prm + k);
 #pragma unroll
-  for (int k = 0; k < kG; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
 }
 }  // namespace
 
@@ -85,7 +152,7 @@ sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ p
   const int row = tiles ? __ldg(trow + z) + y : y;
   const int col = tiles ? __ldg(tcol + z) + x : x;
   const bool inside = row < H && col < W && (!tiles || (y < Cfg::tile_h && x < Cfg::tile_w));
-  float u[sdf3d::N_UNIFORMS], p[kP > 0 ? kP : 1], acc[kG];
+  float u[sdf3d::N_UNIFORMS], p[kP > 0 ? kP : 1], acc[kAcc];
   load_inputs(uni, prm, u, p, acc);
   if (inside) {
     const size_t i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x
@@ -95,10 +162,16 @@ sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ p
   }
   Fit::zero_frozen(acc);
   const size_t block = (static_cast<size_t>(z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  sdf3d::block_sum_store<kG, Cfg::block_w * Cfg::block_h>(acc, partials + block * kG);
+  if constexpr (kV == NOSCATTER) {
+    const float keep[1] = {loss_keeping_gradient(acc)};
+    sdf3d::block_sum_store<1, Cfg::block_w * Cfg::block_h>(keep, partials + block);
+  } else {
+    sdf3d::block_sum_store<kAcc, Cfg::block_w * Cfg::block_h>(acc, partials + block * kAcc);  // kAcc == kCols
+  }
 }
 
-// partials: (n_blocks, P + 31), n_blocks = ceil(W/block_w) * ceil(H/block_h).
+// partials: (n_blocks, kCols), n_blocks = ceil(W/block_w) * ceil(H/block_h);
+// kCols is K3's P + 31 for FULL.
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* tr, const float* tg,
                               const float* tb, float* partials, int H, int W, void* stream) {
@@ -111,7 +184,7 @@ extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* t
 }
 
 // K4 over T tiles (int32 origin tables) of an H x W image; target planes of
-// T·TH x TW.  partials: (T · ceil(TH/block_h) · ceil(TW/block_w), P + 31).
+// T·TH x TW.  partials: (T · ceil(TH/block_h) · ceil(TW/block_w), kCols).
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sdf3d_fit_step_tiles(const float* uni, const float* prm, const int* trow, const int* tcol,
                                     const float* tr, const float* tg, const float* tb, float* partials, int T,
@@ -127,32 +200,45 @@ extern "C" int sdf3d_fit_step_tiles(const float* uni, const float* prm, const in
 
 #else  // A C++ compiler: the same per-pixel body, summed over the image or the work-list.
 
-// out: the (P + 31) totals.
+namespace {
+// The kCols totals from a thread's kAcc sums (NOSCATTER: its loss value).
+void store_totals(const float (&acc)[kAcc], float* out) {
+  if constexpr (kV == NOSCATTER) {
+    out[0] = loss_keeping_gradient(acc);
+  } else {
+    for (int k = 0; k < kCols; ++k) out[k] = acc[k];
+  }
+}
+}  // namespace
+
+// out: the kCols totals (K3's P + 31 for FULL).
 extern "C" int sdf3d_fit_step_host(const float* uni, const float* prm, const float* tr, const float* tg,
                                    const float* tb, float* out, int H, int W) {
-  for (int k = 0; k < kG; ++k) out[k] = 0.0f;
+  float acc[kAcc] = {};
   for (int row = 0; row < H; ++row)
     for (int col = 0; col < W; ++col)
       fit_pixel(uni, prm, tr, tg, tb, static_cast<size_t>(row) * W + col, sdf3d::abs_row<Cfg>(uni, row),
-                static_cast<float>(col), H, W, out);
-  Fit::zero_frozen(out);
+                static_cast<float>(col), H, W, acc);
+  Fit::zero_frozen(acc);
+  store_totals(acc, out);
   return 0;
 }
 
-// out: the (P + 31) totals over the T tiles.
+// out: the kCols totals over the T tiles.
 extern "C" int sdf3d_fit_step_tiles_host(const float* uni, const float* prm, const int* trow, const int* tcol,
                                          const float* tr, const float* tg, const float* tb, float* out, int T,
                                          int H, int W) {
-  for (int k = 0; k < kG; ++k) out[k] = 0.0f;
+  float acc[kAcc] = {};
   for (int z = 0; z < T; ++z)
     for (int r = 0; r < Cfg::tile_h; ++r)
       for (int c = 0; c < Cfg::tile_w; ++c) {
         const int row = trow[z] + r, col = tcol[z] + c;
         if (row < H && col < W)
           fit_pixel(uni, prm, tr, tg, tb, (static_cast<size_t>(z) * Cfg::tile_h + r) * Cfg::tile_w + c,
-                    static_cast<float>(row), static_cast<float>(col), H, W, out);
+                    static_cast<float>(row), static_cast<float>(col), H, W, acc);
       }
-  Fit::zero_frozen(out);
+  Fit::zero_frozen(acc);
+  store_totals(acc, out);
   return 0;
 }
 

@@ -171,10 +171,23 @@ SDF3D_HD void light_direction(const float* u, float hx, float hy, float hz, floa
   ix = ix * iinv; iy = iy * iinv; iz = iz * iinv;
 }
 
+// The specular power x^s: powf, or with POW false the chain x³·x³·x³·x³,
+// which ignores s (the fit kernel's benchmark variant "nopow", JAX's
+// cheap_pow in benchmarks/exp_ad.py; the reference shininess is 12).
+template <bool POW>
+SDF3D_HD float spec_pow(float x, float s) {
+  if constexpr (POW) {
+    return powf(x, s);
+  } else {
+    const float x3 = (x * x) * x;
+    return (x3 * x3) * (x3 * x3);
+  }
+}
+
 // Blinn-Phong / Lambert shading of hit h (normal n, light direction i) seen
 // from the camera at o, with the shadow and AO factors, and the background
 // composite of misses (t > max_distance).
-template <class Cfg>
+template <class Cfg, bool POW = true>
 SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t, float hx, float hy, float hz,
                            float nx, float ny, float nz, float ix, float iy, float iz, float shadow, float ao) {
   float wx = ox - hx, wy = oy - hy, wz = oz - hz;
@@ -192,7 +205,7 @@ SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t
   float g = (amb * u[U_MAT_AMB + 1]) + (dif * u[U_MAT_DIF + 1]);
   float b = (amb * u[U_MAT_AMB + 2]) + (dif * u[U_MAT_DIF + 2]);
   if constexpr (Cfg::blinn_phong) {
-    const float spec = powf(ndoth, u[U_SHN]);
+    const float spec = spec_pow<POW>(ndoth, u[U_SHN]);
     r = r + (spec * u[U_MAT_REF]);
     g = g + (spec * u[U_MAT_REF + 1]);
     b = b + (spec * u[U_MAT_REF + 2]);
@@ -205,8 +218,8 @@ SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t
   return Pixel{r, g, b, t, shadow, ao};
 }
 
-// One pixel at absolute (rows, cols) of an H x W image.
-template <class Cfg, class Scene>
+// One pixel at absolute (rows, cols) of an H x W image (POW: spec_pow).
+template <class Cfg, class Scene, bool POW = true>
 SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
   float dx, dy, dz;
   ray_direction<Cfg>(u, rows, cols, H, W, dx, dy, dz);
@@ -249,7 +262,7 @@ SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float co
   // ---- ambient occlusion, shading ----
   float ao = 1.0f;
   if constexpr (Cfg::ao_enabled) ao = Scene::ao(hx, hy, hz, nx, ny, nz, p);
-  return shade_pixel<Cfg>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, shadow, ao);
+  return shade_pixel<Cfg, POW>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, shadow, ao);
 }
 
 }  // namespace sdf3d

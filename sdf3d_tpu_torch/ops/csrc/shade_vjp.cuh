@@ -69,8 +69,9 @@ SDF3D_HD void sdf_bwd_add(float px, float py, float pz, const float* p, float g,
 // One pixel's VJP: adds the adjoint of its (r, g, b) = (gr, gg, gb) to
 // dP[0..P) and, when WRT_U, to dU[0..30).  (rows, cols) is the pixel's
 // absolute position in the H x W image; t0, shadow and ao_in are the
-// forward kernel's values for this pixel.
-template <class Cfg, class Scene, bool WRT_U>
+// forward kernel's values for this pixel.  POW false differentiates the
+// power chain of spec_pow<false> (no adjoint for the shininess).
+template <class Cfg, class Scene, bool WRT_U, bool POW = true>
 SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, int H, int W,
                         float t0, float shadow, float ao_in, float gr, float gg, float gb,
                         float* dP, float* dU) {
@@ -131,15 +132,22 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
   float g_ndoth = 0.0f;
   if constexpr (Cfg::blinn_phong) {
     const float shn = u[U_SHN];
-    const float spec = powf(ndoth, shn);
+    const float spec = spec_pow<POW>(ndoth, shn);
     const float g_spec = ((gr * u[U_MAT_REF]) + (gg * u[U_MAT_REF + 1])) + (gb * u[U_MAT_REF + 2]);
-    g_ndoth = shn == 0.0f ? 0.0f : g_spec * (shn * powf(ndoth, shn - 1.0f));
+    if constexpr (POW) {
+      g_ndoth = shn == 0.0f ? 0.0f : g_spec * (shn * powf(ndoth, shn - 1.0f));
+    } else {
+      // Reverse of x3 = (x·x)·x, x3·x3 twice, their product.
+      const float x2 = ndoth * ndoth, x3 = x2 * ndoth, x6 = x3 * x3;
+      const float g_x3 = 4.0f * ((g_spec * x6) * x3);
+      g_ndoth = (g_x3 * x2) + (2.0f * ((g_x3 * ndoth) * ndoth));
+    }
     if constexpr (WRT_U) {
       dU[U_MAT_REF] += gr * spec;
       dU[U_MAT_REF + 1] += gg * spec;
       dU[U_MAT_REF + 2] += gb * spec;
       // lax: d pow(x, s)/ds = log(x) * x^s, with log(1) in place of log(0).
-      dU[U_SHN] += ndoth == 0.0f ? 0.0f : g_spec * (logf(ndoth) * spec);
+      if constexpr (POW) dU[U_SHN] += ndoth == 0.0f ? 0.0f : g_spec * (logf(ndoth) * spec);
     }
   }
   if constexpr (WRT_U) {

@@ -26,6 +26,12 @@ zeros.  A rank of a row-sharded fit runs K3 on its rows through the
 ``frozen_slots`` (parameter slots whose gradient reads exactly 0) and
 ``wrt_uniforms`` are static settings of the kernel, compiled into its
 generated header as they are static ``jit`` arguments in JAX.
+
+K9, the benchmark variants of the fit step (the port of
+``benchmarks/exp_ad.py::make_variant``), is the same kernel function compiled
+with another ``Fit::variant`` (:data:`VARIANTS`, :func:`fit_step_variant`,
+:func:`fit_step_variant_plain`): ``full`` is K3, the others cut its tile
+program down to time its fixed cost.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_forward_plain,
     tile_pixel_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import check_scene, count_params, leaves, scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import FIT_VARIANTS, check_scene, count_params, leaves, scene_param_vector
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
 
@@ -73,14 +79,18 @@ def fused_l2_eligible(cfg: RenderConfig, scene: SDFNode, loss: str = "l2", sil_w
     return True
 
 
-def _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask=None):
+def _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask=None, planes=None,
+                    power=torch.pow):
     """The plain fit step on the absolute ``pixels`` planes, the residual
-    times ``mask`` where given."""
-    _, t, shadow, ao = render_kernel_forward_plain(scene, prm, uni, cfg, kc, pixels)
+    times ``mask`` where given.  ``planes``: the (t, shadow, ao) planes to
+    shade, else the plain primal's; ``power``: as ``shade_planes``."""
+    if planes is None:
+        planes = render_kernel_forward_plain(scene, prm, uni, cfg, kc, pixels)[1:]
+    t, shadow, ao = planes
     prm_ = prm.detach().requires_grad_(True)
     uni_ = uni.detach().requires_grad_(wrt_uniforms)
     with torch.enable_grad():
-        res = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels) - target
+        res = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels, power) - target
         if mask is not None:
             res = res * mask
         loss = torch.sum(res * res)
@@ -125,6 +135,40 @@ def _totals(partials: torch.Tensor, P: int, sum_dtype):
     return total[G - 1], total[:P], total[P:G - 1]
 
 
+def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
+    """``(launch, partials)`` of the fit kernel (K3, or a benchmark
+    ``variant`` of it) on ``prm``'s card: the library loaded and the inputs
+    checked once, the partial rows (one per block) allocated; each
+    ``launch()`` enqueues the kernel into ``partials`` on the stream that
+    was current when the launcher was made, and returns them (the caller
+    makes ``prm``'s card the current device).  Raises for inputs it does
+    not take and on any launch error; never falls back."""
+    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, variant)
+    dev = prm.device
+    H, W = cfg.height, cfg.width
+    check_plane("target", target, (3, H, W), dev)
+    n_blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    partials = torch.empty((n_blocks, variant_columns(variant, count_params(scene))), dtype=torch.float32,
+                           device=dev)
+    args = (uni.data_ptr(), prm.data_ptr(), target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
+            partials.data_ptr(), H, W, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = lib.sdf3d_fit_step(*args)
+        if err != 0:
+            raise RuntimeError(f"sdf3d_fit_step ({variant}) launch failed: CUDA error {err}")
+        return partials
+    launch.inputs = (uni, prm, target)  # ``args`` holds their addresses: keep them alive
+    return launch, partials
+
+
+def _launch_partials(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
+    """Launch the fit kernel once (:func:`fit_launcher`) on ``prm``'s card:
+    its partial rows."""
+    with torch.cuda.device(prm.device):
+        return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant)[0]()
+
+
 def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                            cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
                            frozen_slots: tuple = (), sum_dtype=torch.float32):
@@ -132,22 +176,9 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
     g_prm, g_uni)`` in ``sum_dtype`` (:func:`_totals`).  Raises for inputs it
     does not take and on any launch error; never falls back."""
     frozen_slots = tuple(sorted(set(frozen_slots)))
-    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots)
-    dev = prm.device
-    H, W = cfg.height, cfg.width
-    check_plane("target", target, (3, H, W), dev)
-    P = count_params(scene)
-    G = P + N_UNIFORMS + 1
-    n_blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
-    partials = torch.empty((n_blocks, G), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sdf3d_fit_step(uni.data_ptr(), prm.data_ptr(), target[0].data_ptr(), target[1].data_ptr(),
-                                 target[2].data_ptr(), partials.data_ptr(), H, W, stream)
-    if err != 0:
-        raise RuntimeError(f"sdf3d_fit_step launch failed: CUDA error {err}")
+    partials = _launch_partials(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots)
     fit_step_kernel.launches += 1
-    return _totals(partials, P, sum_dtype)
+    return _totals(partials, count_params(scene), sum_dtype)
 
 
 def _check_fused(scene: SDFNode, cfg: RenderConfig) -> None:
@@ -315,3 +346,109 @@ def l2_loss_and_grads_tiles(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode,
     loss, g_prm, g_uni = fit_step_kernel_tiles(scene, prm, uni, target_tiles.to(torch.float32).contiguous(),
                                                trow, tcol, cfg, kc, wrt_uniforms, frozen_slots)
     return loss, _split_grads(scene, camera, light, mat, cfg, prm.device, g_prm, g_uni, wrt_uniforms)
+
+
+# ---------------------------------------------------------------------------
+# K9: the fit step's benchmark variants.
+# ---------------------------------------------------------------------------
+
+#: The variants of :func:`fit_step_variant`: the header variants of
+#: ``scene_program.FIT_VARIANTS`` and ``tgt3``, which is ``full`` on one
+#: stacked (3, H, W) target (JAX's variant reads its three planes as one
+#: block; K3 already reads its target that way).
+VARIANTS = FIT_VARIANTS + ("tgt3",)
+#: The variants that write the loss alone.
+LOSS_ONLY = ("primal", "noscatter", "empty", "empty_noin")
+
+
+def _header_variant(variant: str) -> str:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not {variant!r}")
+    return "full" if variant == "tgt3" else variant
+
+
+def variant_columns(variant: str, n_params: int) -> int:
+    """The columns of a variant's partial row: 1 for the loss-only variants,
+    P + 1 for ``wrt_p``, K3's P + 31 for the others (the loss last)."""
+    v = _header_variant(variant)
+    return 1 if v in LOSS_ONLY else n_params + 1 if v == "wrt_p" else n_params + N_UNIFORMS + 1
+
+
+def _variant_outputs(variant, loss, g_prm, g_uni):
+    v = _header_variant(variant)
+    if v in LOSS_ONLY:
+        return loss, None, None
+    return loss, g_prm, None if v == "wrt_p" else g_uni
+
+
+def _chain_pow(x, s):
+    """``nopow``'s specular power: x³·x³·x³·x³, whatever the exponent
+    (JAX's ``cheap_pow``)."""
+    x3 = x * x * x
+    return (x3 * x3) * (x3 * x3)
+
+
+def fit_step_variant_plain(variant: str, scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
+                           cfg: RenderConfig, kc: KernelConfig = KernelConfig(), planes=None):
+    """Plain PyTorch version of the fit step's benchmark ``variant`` (K9):
+    K3's plain step (:func:`fit_step_kernel_plain`, ``wrt_uniforms=True``)
+    with the variant's cuts, ``(loss, g_prm | None, g_uni | None)``.
+
+    ``full``/``tgt3``: K3's step; ``wrt_p``: no uniform gradient;
+    ``primal``/``noscatter``: the loss; ``nopow``: the specular power as the
+    chain x³·x³·x³·x³ (no shininess gradient); ``shade_only``: the shading at
+    t = 2, shadow 1, AO 1, no march; ``empty``: the target's sum;
+    ``empty_noin``: the pixel count H·W.  ``planes``: the (t, shadow, ao)
+    planes a marching variant shades (the kernel's, to compare on the same
+    primal), else the plain primal's."""
+    v = _header_variant(variant)
+    H, W = cfg.height, cfg.width
+    if v == "empty_noin":
+        return torch.tensor(float(H * W), device=prm.device), None, None
+    if v == "empty":
+        return (target[0] + target[1] + target[2]).sum(dtype=torch.float64).to(torch.float32), None, None
+    pixels = pixel_planes(uni, H, W, kc.tile_h)
+    if v == "shade_only":
+        ones = torch.ones((H, W), dtype=torch.float32, device=prm.device)
+        planes = (2.0 * ones, ones, ones)
+    elif planes is None:
+        planes = render_kernel_forward_plain(scene, prm, uni, cfg, kc, pixels)[1:]
+    power = _chain_pow if v == "nopow" else torch.pow
+    if v in LOSS_ONLY:
+        with torch.no_grad():
+            res = shade_planes(prm, uni, *planes, scene, cfg, pixels, power) - target
+            return torch.sum(res * res), None, None
+    out = _fit_step_plain(scene, prm, uni, target, cfg, kc, v != "wrt_p", (), pixels, planes=planes, power=power)
+    return _variant_outputs(v, *out)
+
+
+def fit_step_variant_launch(variant: str, scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
+                            cfg: RenderConfig, kc: KernelConfig = KernelConfig()):
+    """Launch the fit step's benchmark ``variant`` on ``prm``'s card: K3's
+    kernel function compiled with ``Fit::variant`` (``full`` and ``tgt3``
+    are K3's own library).  Returns ``(loss, g_prm | None, g_uni | None)``
+    from the partial rows (:func:`variant_columns` each) summed by
+    :func:`_totals`.  Raises for inputs it does not take and on any launch
+    error; never falls back."""
+    v = _header_variant(variant)
+    partials = _launch_partials(scene, prm, uni, target, cfg, kc, True, (), v)
+    fit_step_variant.launches += 1
+    return _variant_outputs(v, *_totals(partials, count_params(scene), torch.float32))
+
+
+def fit_step_variant(variant: str, scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
+                     cfg: RenderConfig, kc: KernelConfig = KernelConfig()):
+    """The fit step's benchmark ``variant`` (K9, one of :data:`VARIANTS`):
+    ``(loss, g_prm | None, g_uni | None)`` for the planar target (3, H, W).
+    On the card it launches the CUDA kernel; on the CPU it runs the plain
+    PyTorch version.  ``fit_step_variant.launches`` counts kernel launches."""
+    _check_fused(scene, cfg)
+    if prm.device.type == "cpu":
+        return fit_step_variant_plain(variant, scene, prm, uni, target, cfg, kc)
+    if prm.device.type == "cuda":
+        return fit_step_variant_launch(variant, scene, prm, uni, target, cfg, kc)
+    raise ValueError(f"fit_step_variant runs on 'cuda' or 'cpu', not {prm.device}")
+
+
+#: Kernel launches in this process (the smoke resets and reads it).
+fit_step_variant.launches = 0

@@ -89,7 +89,7 @@ def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Te
 
 
 def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
-                 scene, cfg: RenderConfig, pixels=None) -> torch.Tensor:
+                 scene, cfg: RenderConfig, pixels=None, power=torch.pow) -> torch.Tensor:
     """The shading re-traced from the forward's planes, planar RGB (3, H, W),
     differentiable in ``prm`` (P,) and ``uni`` (30,), for a scene or distance
     ``scene`` (:func:`planar_distance`).  ``t0``, ``shadow`` and ``ao`` (H, W)
@@ -99,7 +99,8 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     ``sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile`` (and, for a neural
     scene, of ``render_pallas.py::_planar_shade``'s generic branch).
     ``pixels``: the planes' absolute ``(rows, cols)``
-    (``render_kernel.ray_planes``)."""
+    (``render_kernel.ray_planes``).  ``power(x, s)`` is the specular power
+    (the fit kernel's variant ``nopow`` passes its chain)."""
     check_settings(cfg)
     dist = planar_distance(scene)
     H, W = t0.shape
@@ -160,7 +161,7 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     ndoth = _floor(nx * hwx + ny * hwy + nz * hwz, 0.0)
     dif = _clip01(nx * ix + ny * iy + nz * iz) * shadow
     amb = u[_U_AMB] * ao if cfg.ao.enabled else u[_U_AMB]
-    spec = torch.pow(ndoth, u[_U_SHN])
+    spec = power(ndoth, u[_U_SHN])
     chans = []
     for c in range(3):
         v = amb * u[_U_MAT_AMB + c] + dif * u[_U_MAT_DIF + c]

@@ -576,13 +576,26 @@ def _cfg_struct(cfg, **launch) -> str:
 }};"""
 
 
-def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen_slots: tuple = ()) -> str:
+#: The fit kernel's variants (``struct Fit``'s ``variant``, in the order of
+#: ``csrc/fit_kernel.cu``): ``full`` is K3, the others are the benchmark
+#: variants of K9 (``ops/fit_kernel.py::fit_step_variant``).
+FIT_VARIANTS = ("full", "wrt_p", "primal", "noscatter", "nopow", "shade_only", "empty", "empty_noin")
+
+
+def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen_slots: tuple = (),
+                      variant: str = "full") -> str:
     """The generated header ``sdf3d_scene.cuh`` for ``scene`` under the
     static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig).
 
-    ``wrt_uniforms`` and ``frozen_slots`` are the fit kernel's static
-    settings (``struct Fit``): whether it computes the uniform gradients,
-    and the parameter slots whose gradient it leaves at exactly 0."""
+    ``wrt_uniforms``, ``frozen_slots`` and ``variant`` are the fit kernel's
+    static settings (``struct Fit``): whether it computes the uniform
+    gradients, the parameter slots whose gradient it leaves at exactly 0,
+    and which of :data:`FIT_VARIANTS` it is (a benchmark variant takes no
+    frozen slots)."""
+    if variant not in FIT_VARIANTS:
+        raise ValueError(f"variant must be one of {FIT_VARIANTS}, not {variant!r}")
+    if variant != "full" and frozen_slots:
+        raise ValueError(f"the fit kernel's variant {variant!r} takes no frozen slots")
     check_scene(scene)
     P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
     point = _emit(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps)
@@ -660,6 +673,7 @@ struct Scene {{
 // Static settings of the fit kernel.
 struct Fit {{
   static constexpr bool wrt_uniforms = {b(wrt_uniforms)};
+  static constexpr int variant = {FIT_VARIANTS.index(variant)};  // {variant}
   // Frozen parameter slots read exactly 0.
   static SDF3D_HD void zero_frozen(float* dp) {{{frozen}
   }}

@@ -1,6 +1,7 @@
 """The CUDA kernels (forward render, fit step, render backward, neural render,
-the tile-queue forward and fit step, and the ring all-reduces) against their
-plain PyTorch versions, on the card.
+the tile-queue forward and fit step, the ring all-reduces, and the fit
+step's benchmark variants) against their plain PyTorch versions, and the
+bench, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -20,25 +21,33 @@ import pytest
 import torch
 
 import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch import bench
+from sdf3d_tpu_torch.benchmarks.exp_ad import short_config
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import _build
 from sdf3d_tpu_torch.ops.fit_kernel import (
+    _totals,
+    fit_launcher,
     fit_step_kernel,
     fit_step_kernel_launch,
     fit_step_kernel_plain,
     fit_step_kernel_tiles,
     fit_step_kernel_tiles_launch,
     fit_step_kernel_tiles_plain,
+    fit_step_variant,
+    fit_step_variant_plain,
 )
 from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward, render_neural_forward_plain, render_neural_launch
 from sdf3d_tpu_torch.ops.render_bwd_kernel import (
     render_kernel_backward,
     render_kernel_backward_launch,
     render_kernel_backward_plain,
+    shade_planes,
 )
 from sdf3d_tpu_torch.ops.render_kernel import (
     KernelConfig,
     pack_uniforms,
+    pixel_planes,
     render_kernel_forward,
     render_kernel_forward_plain,
     render_kernel_launch,
@@ -47,7 +56,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_tiles_launch,
     tile_pixel_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import count_params, scene_param_vector
 from sdf3d_tpu_torch.parallel import make_mesh, render_sharded_kernel
 from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
 from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, check_grads, check_planes, conditioned, gradient_mass
@@ -414,3 +423,77 @@ def test_ring_kernels_match_plain(dev, world, tmp_path):
         assert o["digests"] == outs[0]["digests"]
         assert o["launches"] == [12 + 50 + (o is outs[0]), 12 + 50]
     assert "rank 0 of" in outs[0]["timeout"] and "step 0, stream A" in outs[0]["timeout"]
+
+
+@pytest.mark.parametrize("variant", ["full", "tgt3", "wrt_p", "primal", "noscatter", "nopow", "shade_only", "empty",
+                                     "empty_noin"])
+@pytest.mark.parametrize("short", [True, False], ids=["one_step", "reference"])
+def test_fit_variant_matches_plain(dev, variant, short):
+    """K9: each benchmark variant of the fit kernel against its plain
+    version (loss 1e-5 relative; gradients at the fit step's bar, its own
+    march on each side; shade_only on the same fixed planes); ``full`` is K3
+    bit for bit and ``noscatter``'s loss is ``full``'s."""
+    cfg = short_config(BASE) if short else BASE
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    keep = conditioned(scene, prm, uni, t, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    target = torch.round((rgb + (torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1) * keep) * 256) / 256
+    launches = fit_step_variant.launches
+    got = fit_step_variant(variant, scene, prm, uni, target.contiguous(), cfg)
+    want = fit_step_variant_plain(variant, scene, prm, uni, target.contiguous(), cfg)
+    torch.cuda.synchronize()
+    assert fit_step_variant.launches == launches + 1
+    if variant in ("empty", "empty_noin"):
+        assert float(got[0]) == float(want[0])
+        return
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+    full = fit_step_variant("full", scene, prm, uni, target.contiguous(), cfg)
+    if variant in ("full", "tgt3"):
+        k3 = fit_step_kernel_launch(scene, prm, uni, target.contiguous(), cfg, KernelConfig(), True, ())
+        assert all(torch.equal(a, b) for a, b in zip(got, k3))
+    if variant == "noscatter":
+        assert torch.equal(got[0], full[0])
+    if got[1] is None:
+        return
+    if variant == "shade_only":
+        ones = torch.ones_like(t)
+        s_rgb = shade_planes(prm, uni, 2.0 * ones, ones, ones, scene, cfg, pixel_planes(uni, cfg.height, cfg.width))
+        mass = gradient_mass(scene, prm, uni, 2.0 * (s_rgb - target), 2.0 * ones, ones, ones, cfg)
+    else:
+        p_rgb, p_t, p_sh, p_ao = render_kernel_forward_plain(scene, prm, uni, cfg)
+        mass = gradient_mass(scene, prm, uni, 2.0 * (p_rgb - target), p_t, p_sh, p_ao, cfg)
+    g = torch.cat([x for x in got[1:] if x is not None])
+    w = torch.cat([x for x in want[1:] if x is not None])
+    check_grads(g, w, mass[:g.numel()], rtol=1e-4, mass_tol=1e-5 if variant == "shade_only" else 1e-3)
+
+
+@pytest.mark.parametrize("mode", ["fwd", "fwd_bwd"])
+def test_run_benchmark_on_the_card(dev, mode):
+    """One bench cell at 256×192 (a reduced protocol): the payload, and the
+    cell's kernel launched (K1 for fwd, K3 for fwd_bwd), no other."""
+    counters = {"fwd": render_kernel_forward, "fwd_bwd": fit_step_kernel}
+    for c in counters.values():
+        c.launches = 0
+    r = bench.run_benchmark(width=256, height=192, mode=mode, iters=2, frames_per_dispatch=4)
+    assert r["metric"] == f"rays_per_second_192p_{mode}_kernel" and r["backend"] == "cuda" and r["value"] > 0
+    assert counters[mode].launches > 0
+    assert all(c.launches == 0 for m, c in counters.items() if m != mode)
+
+
+def test_fit_launcher_keeps_its_inputs(dev):
+    """``fit_launcher``'s launch holds the addresses of its inputs: it keeps
+    the tensors alive, so a launch after the caller dropped them (and the
+    allocator handed their memory on) still reads the same inputs."""
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), BASE, dev)
+    target = render_kernel_launch(scene, prm, uni, BASE)[0].contiguous() * 0.5
+    want = fit_step_kernel_launch(scene, prm, uni, target, BASE, KernelConfig(), True, ())
+    launch, partials = fit_launcher(scene, prm.clone(), uni.clone(), target.clone(), BASE, KernelConfig(), True, ())
+    del prm, uni, target
+    junk = [torch.full((4096,), float(k), device=dev) for k in range(64)]
+    got = _totals(launch(), count_params(scene), torch.float32)
+    torch.cuda.synchronize()
+    assert junk and all(torch.equal(a, b) for a, b in zip(got, want))
