@@ -91,10 +91,12 @@ Then the sharded path (``parallel/``) on its tile-queue kernels, K2
 
 Then the ring all-reduces K7 (``sdf3d_ring_allreduce``, the latency ring)
 and K8 (``sdf3d_rs_ag``, reduce-scatter + all-gather) between processes on
-the one card, over device memory shared by CUDA IPC:
+the one card, over device memory shared by CUDA IPC and flags in shared
+host memory (a call is a few segment kernels, each launched once the host
+has seen the flags it needs):
 
 22. build: ``libsdf3d_collectives.so`` in this process, before any rank
-    starts, with the ``ptxas`` registers and spills;
+    starts, with the segment kernels' ``ptxas`` registers and spills;
 23. four processes, with sub-groups of 2 and 3 ranks: K7 and K8 against
     their plain versions at N = 2, 3, 4, float64 and float32, payloads 1, 9
     (the fit demo's ``[loss, g_prm]``), 130, the parameter count of
@@ -105,14 +107,15 @@ the one card, over device memory shared by CUDA IPC:
 24. main path at 1920×1080: ``fit_scene(mesh=make_mesh())`` with two ranks
     on the card in ``tiles``, 20 Adam steps each with ``allreduce="psum"``,
     ``"pallas_ring"`` (K7 20 launches a rank) and ``"pallas_rs_ag"`` (K8
-    20), no ``dist.all_reduce`` call in the ring fits, the ranks' losses
-    equal and within 1e-5 of the psum run's;
+    20), each after a 3-step warm-up, no ``dist.all_reduce`` call in the
+    ring fits, the ranks' losses equal and within 1e-5 of the psum run's
+    (the exact difference and each fit's ms per step beside psum's logged);
 25. times with CUDA events at N = 2 and 4 for 9 and 70001 float64 values
     (plain, kernel, kernel, plain), beside gloo's ``dist.all_reduce`` and an
-    empty payload: processes taking turns on one card, not scaling figures;
-    and both ranks of N = 2 in this process on two streams
-    (:func:`one_process_pair`), the flags' cost without the switch between
-    processes.
+    empty payload, each kernel's ratio to gloo logged: processes sharing one
+    card, not scaling figures; and both ranks of N = 2 in this process, a
+    host thread and a stream each (:func:`one_process_pair`), the segments'
+    cost without the switch between processes.
 
 Then K9, the fit step's benchmark variants (K3's kernel function compiled
 with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
@@ -162,6 +165,7 @@ import math
 import os
 import re
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1352,7 +1356,7 @@ if rank < 2:
         except RuntimeError as e:
             out["timeout"] = str(e)
         out["timeout_seconds"] = time.perf_counter() - t0
-# ---- 25: times (plain, kernel, kernel, plain), ranks taking turns on the card ----
+# ---- 25: times (plain, kernel, kernel, plain), ranks sharing the card ----
 timing = {}
 for size in (2, 4):
     dist.barrier()
@@ -1425,13 +1429,19 @@ for name in ("ring_allreduce_plain", "rs_ag_plain"):
     setattr(ring_kernel, name, counted(getattr(ring_kernel, name), "plain"))
 runs = {}
 for allreduce in ("psum", "pallas_ring", "pallas_rs_ag"):
+    # A 3-step warm-up first (the buffer sets' set-up, the first fit's cost),
+    # then the counted and timed 20 steps.
+    fit_scene(target, scene0(), cam, light, mat, cfg,
+              FitConfig(steps=3, learning_rate=1e-2, log_every=1, shard_layout="tiles", allreduce=allreduce),
+              mesh=mesh, trainable=trainable)
     ring_kernel.ring_allreduce.launches = ring_kernel.rs_ag_allreduce.launches = fit_step_kernel_tiles.launches = 0
     calls.update(all_reduce=0, plain=0)
     t0 = time.perf_counter()
     res = fit_scene(target, scene0(), cam, light, mat, cfg,
                     FitConfig(steps=20, learning_rate=1e-2, log_every=1, shard_layout="tiles", allreduce=allreduce),
                     mesh=mesh, trainable=trainable)
-    runs[allreduce] = {"seconds": time.perf_counter() - t0, "losses": res.losses, "radius": res.scene.b.radius.item(),
+    runs[allreduce] = {"seconds": time.perf_counter() - t0, "ms_per_step": W * H / res.rays_per_second * 1e3,
+                       "losses": res.losses, "radius": res.scene.b.radius.item(),
                        "launches": {"ring_allreduce": ring_kernel.ring_allreduce.launches,
                                     "rs_ag_allreduce": ring_kernel.rs_ag_allreduce.launches,
                                     "fit_step_tiles": fit_step_kernel_tiles.launches},
@@ -1464,61 +1474,35 @@ def spawn_ranks(script: str, world: int, spec: dict | None = None, timeout: int 
         return [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(world)]
 
 
-def one_process_pair(torch, kind: str, n: int, calls: int = 50) -> dict:
-    """Both ranks of a ring of two in this process, each on a stream of its
-    own over its own region (no IPC): both kernels are on the card at once,
-    so a call costs the flags' round trips and not a switch between
-    processes.  The first call is held to the rank-order sum; returns the
-    ms per call over ``calls`` calls (host clock, one sync at the end)."""
-    import ctypes
-
+def one_process_pair(torch, kind: str, n: int, calls: int = 200, reps: int = 5) -> dict:
+    """Both ranks of a ring of two in this process (``LocalRing``: a stream,
+    a region and a host thread each, no IPC): a call costs the segments'
+    launches and the host's polls, not a switch between processes.  The
+    first call is held to the rank-order sum; after 20 calls of warm-up,
+    returns the ms per call of ``reps`` runs of ``calls`` calls (host clock
+    from the threads' start to the card's end) and their median."""
     from sdf3d_tpu_torch.parallel import ring_kernel
 
-    lib, dev = ring_kernel.collectives_library(), torch.device("cuda", 0)
-    m = ring_kernel.rs_ag_chunk(n, 2)
-    cap, length = ((n + 1) // 2, n) if kind == "ring" else (m, 4 * m)
-    nbytes, regions = ctypes.c_longlong(), []
-    lib.sdf3d_coll_region_bytes(ring_kernel._KIND[kind], 2, cap, 8, ctypes.byref(nbytes))
-    for _ in range(2):
-        ptr = ctypes.c_void_p()
-        check(lib.sdf3d_coll_alloc(0, nbytes.value, ctypes.byref(ptr)) == 0, "cudaMalloc of a region")
-        regions.append(ptr.value)
+    dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    xs = [torch.zeros(length, dtype=torch.float64, device=dev) for _ in range(2)]
-    for x in xs:
-        x[:n] = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
-    outs = [x.clone() for x in xs]
-    streams = [torch.cuda.Stream(dev) for _ in range(2)]
-    spin_ns = int(ring_kernel.SPIN_LIMIT_S * 1e9)
-
-    def call(c):
-        for d in range(2):
-            st = streams[d].cuda_stream
-            if kind == "ring":
-                err = lib.sdf3d_ring_allreduce(0, regions[d], regions[1 - d], xs[d].data_ptr(), outs[d].data_ptr(), n,
-                                               8, 2, d, c % 2, cap, c // 2 + 1, spin_ns, st)
-            else:
-                err = lib.sdf3d_rs_ag(0, regions[d], regions[1 - d], regions[1 - d], outs[d].data_ptr(), length, 8,
-                                      2, d, c % 2, cap, c // 2 + 1, spin_ns, st)
-            check(err == 0, f"{kind} launch: CUDA error {err}")
-
-    torch.cuda.synchronize()
-    call(0)
-    torch.cuda.synchronize()
-    want = xs[0][:n] + xs[1][:n]
-    check(all(torch.equal(o[:n], want) for o in outs), f"one-process {kind}: not the rank-order sum")
-    t0 = time.perf_counter()
-    for c in range(1, calls + 1):
-        call(c)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / calls * 1e3
-    status = (ctypes.c_int * 8)()
-    for r in regions:
-        lib.sdf3d_coll_status(0, r, status, torch.cuda.current_stream(dev).cuda_stream)
-        check(not any(status), f"one-process {kind}: a wait timed out")
-        lib.sdf3d_coll_free(0, r)
-    return {"ms": ms, "calls": calls}
+    xs = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(2)]
+    ring = ring_kernel.LocalRing(kind, 2, n, torch.float64, dev)
+    try:
+        outs = ring.run(xs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, xs[0] + xs[1]) for o in outs), f"one-process {kind}: not the rank-order sum")
+        ring.run(xs, 20)
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring.run(xs, calls)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / calls * 1e3)
+    finally:
+        ring.close()
+    return {"ms": statistics.median(runs), "ms_runs": runs, "calls": calls}
 
 
 def ring_phases(torch, tt, card: str) -> list:
@@ -1536,7 +1520,8 @@ def ring_phases(torch, tt, card: str) -> list:
     build_wall = time.perf_counter() - t0
     ptxas = [ln.split(":", 1)[-1].strip() for ln in libs.log(libs.key("", "collectives")).splitlines()
              if re.search(r"Compiling entry function|Used \d+ registers|spill stores", ln)]
-    check(any("registers" in ln for ln in ptxas), f"no ptxas report for the collectives library: {ptxas}")
+    check(any("registers" in ln for ln in ptxas) and any("sdf3d_segment_kernel" in ln for ln in ptxas),
+          f"no ptxas report of the segment kernels: {ptxas}")
     log("ring_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
         build_wall_seconds=build_wall, ptxas=ptxas)
 
@@ -1588,22 +1573,34 @@ def ring_phases(torch, tt, card: str) -> list:
         psum = pair[0]["runs"]["psum"]["losses"]
         diffs[name] = max(abs(x / y - 1.0) for x, y in zip(a, psum))
         check(diffs[name] <= 1e-5, f"{name}: losses off the psum run's by {diffs[name]:.3g}")
+    abs_diffs = {name: max(abs(x - y) for x, y in zip(pair[0]["runs"][name]["losses"],
+                                                      pair[0]["runs"]["psum"]["losses"]))
+                 for name in ("pallas_ring", "pallas_rs_ag")}
+    ms_step = {n: [r["runs"][n]["ms_per_step"] for r in pair] for n in want}
     log("ring_main_path", card=card, launches_per_rank={n: [r["runs"][n]["launches"] for r in pair] for n in want},
         all_reduce_calls={n: [r["runs"][n]["all_reduce_calls"] for r in pair] for n in want},
-        max_rel_loss_diff_vs_psum=diffs, losses={n: pair[0]["runs"][n]["losses"] for n in want},
+        max_rel_loss_diff_vs_psum=diffs, max_abs_loss_diff_vs_psum=abs_diffs,
+        ms_per_step=ms_step, ms_per_step_vs_psum={n: [a / b for a, b in zip(ms_step[n], ms_step["psum"])]
+                                                  for n in want},
+        losses={n: pair[0]["runs"][n]["losses"] for n in want},
         radius={n: pair[0]["runs"][n]["radius"] for n in want},
         fit_seconds={n: [r["runs"][n]["seconds"] for r in pair] for n in want}, pair_seconds=pair_s)
 
-    # ---- 25. times, ranks taking turns on one card ----
+    # ---- 25. times, ranks sharing one card ----
     timing = [r["timing"] for r in ranks]
     # The bound: every rank reads its vector once and writes its sum once,
     # all through the one card's memory.
     bounds = {f"N{n}_n{k}": bound(0, 0, 2 * n * k * 8) for n in (2, 4) for k in (9, 70001)}
     one_process = {f"{kind}_n{k}": one_process_pair(torch, kind, k) for kind in ("ring", "rs_ag") for k in (9, 70001)}
-    log("ring_times", card=card, note="two or four processes taking turns on one card over CUDA IPC, not scaling "
-        "figures; float64", rank0=timing[0], ranks=timing, bounds=bounds,
-        one_process_two_streams_n2=one_process)
+    vs_gloo = {case: {alg: {"ms": row[alg]["ms"], "gloo_ms": row["gloo_all_reduce_ms"],
+                            "ratio": row[alg]["ms"] / row["gloo_all_reduce_ms"]} for alg in ("ring", "rs_ag")}
+               for case, row in timing[0].items() if "gloo_all_reduce_ms" in row}
+    log("ring_times", card=card, note="two or four processes sharing one card over CUDA IPC and shared host flags, "
+        "not scaling figures; float64", vs_gloo_rank0=vs_gloo, rank0=timing[0], ranks=timing, bounds=bounds,
+        one_process_two_threads_n2=one_process)
     main = timing[0]["N2_n9"]
+    check(all(main[alg]["ms"] < main["gloo_all_reduce_ms"] for alg in ("ring", "rs_ag")),
+          f"two processes, N = 2, 9 values: a ring kernel is not faster than gloo's dist.all_reduce: {vs_gloo}")
     return [
         {"name": name, "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/collectives.cu",
          "replaces": f"sdf3d_tpu/parallel/collectives.py:{line}",

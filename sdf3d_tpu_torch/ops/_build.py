@@ -13,8 +13,10 @@ ops/scene_program.py) and the sources of its kind:
 - ``"neural"``: the neural-scene forward render alone
   (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``);
 - ``"collectives"``: the ring all-reduces between processes and their
-  device buffers (``csrc/collectives.cu``, ``sdf3d_ring_allreduce``,
-  ``sdf3d_rs_ag``, the region allocator and the CUDA IPC wrappers).  It
+  buffers (``csrc/collectives.cu``, ``sdf3d_ring_allreduce``,
+  ``sdf3d_rs_ag``, the region allocator, the CUDA IPC wrappers and the
+  shared host segment of their flags: POSIX shared memory registered with
+  CUDA).  It
   reads no scene: it is built from an empty header, one library for every
   scene.
 
@@ -62,6 +64,17 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
 _U64 = ctypes.c_ulonglong
+_STR = ctypes.c_char_p
+# The collectives' entry points that both forms export: sizes, the shared
+# host segment (POSIX shared memory) and the status words in it.
+_COLL_COMMON = (
+    ("sdf3d_coll_region_bytes", [_INT, _INT, _I64, _INT, _PTR]),
+    ("sdf3d_coll_sync_bytes", [_INT, _INT, _PTR]),
+    ("sdf3d_coll_shm_open", [_STR, _I64, _INT, _PTR]),
+    ("sdf3d_coll_shm_close", [_PTR, _I64]),
+    ("sdf3d_coll_shm_unlink", [_STR]),
+    ("sdf3d_coll_status", [_INT, _INT, _PTR, _INT, _PTR]),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,19 +103,22 @@ KINDS = {
         ("sdf3d_neural_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
     )),
     "collectives": LibraryKind("libsdf3d_collectives.so", ("collectives.cu",), (
-        ("sdf3d_coll_region_bytes", [_INT, _INT, _I64, _INT, _PTR]),
-        ("sdf3d_ring_allreduce", [_INT, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
-        ("sdf3d_rs_ag", [_INT, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
+        *_COLL_COMMON,
+        ("sdf3d_ring_allreduce", [_INT] + [_PTR] * 6 + [_I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
+        ("sdf3d_rs_ag", [_INT] + [_PTR] * 6 + [_I64, _INT, _INT, _INT, _INT, _I64, _U64, _I64, _PTR]),
+        ("sdf3d_coll_local_run", [_INT, _INT, _INT] + [_PTR] * 5 + [_I64, _INT, _I64, _I64, _INT, _U64, _I64, _PTR,
+                                                                      _PTR]),
         ("sdf3d_coll_alloc", [_INT, _I64, _PTR]),
         ("sdf3d_coll_free", [_INT, _PTR]),
+        ("sdf3d_coll_sync_register", [_INT, _PTR, _I64, _PTR]),
+        ("sdf3d_coll_sync_unregister", [_INT, _PTR]),
         ("sdf3d_ipc_get_handle", [_INT, _PTR, _PTR]),
         ("sdf3d_ipc_open", [_INT, _PTR, _PTR]),
         ("sdf3d_ipc_close", [_INT, _PTR]),
-        ("sdf3d_coll_status", [_INT, _PTR, _PTR, _PTR]),
     ), host_entry_points=(
-        ("sdf3d_coll_region_bytes", [_INT, _INT, _I64, _INT, _PTR]),
-        ("sdf3d_ring_allreduce_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _I64, _PTR]),
-        ("sdf3d_rs_ag_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _I64, _PTR]),
+        *_COLL_COMMON,
+        ("sdf3d_ring_allreduce_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _I64, _PTR]),
+        ("sdf3d_rs_ag_host", [_INT, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT, _I64, _I64, _PTR]),
     )),
 }
 

@@ -8,9 +8,11 @@
   bits on every rank; ``pallas_psum_tree``, ``allreduce_tree`` and two
   collective ids in one step;
 - ``algorithm="auto"`` against JAX's rule;
-- the kernels' schedule walks (``ops/csrc/collectives.cuh``) built with g++,
-  N threads playing the ranks over shared memory: bit for bit against the
-  plain versions, 50 calls in a row, and a wait that never completes.
+- the kernels' segments and the host's walk over them
+  (``ops/csrc/collectives.cuh``) built with g++, N threads playing the
+  ranks over shared memory: bit for bit against the plain versions, 50
+  calls in a row, ranks that start late, payloads off a 16-byte boundary,
+  a wait that never completes, and the shared host segment's life.
 """
 
 import ctypes
@@ -271,22 +273,18 @@ def _host_library():
     return _HOST["lib"]
 
 
-def _host_run(kind, xs, calls=1, absent=-1, spin_s=20.0):
-    """The g++ build's ``calls`` calls on ``len(xs)`` threads: ``(out,
-    status)``, out (N, n) (K8: the padded vector's)."""
+def _host_run(kind, xs, calls=1, absent=-1, spin_s=20.0, late=-1, late_s=0.0):
+    """The g++ build's ``calls`` calls on ``len(xs)`` threads, rank ``late``
+    starting ``late_s`` after the others: ``(out, status)``, out (N, n) (K8:
+    the padded vector's)."""
     lib = _host_library()
     n = xs.shape[0]
-    if kind == "rs_ag":
-        m = rs_ag_chunk(xs.shape[1], n)
-        pad = np.zeros((n, 2 * n * m), xs.dtype)
-        pad[:, :xs.shape[1]] = xs
-        xs = pad
     xs = np.ascontiguousarray(xs)
-    out = np.zeros_like(xs)
+    out = np.zeros_like(xs) if kind == "ring" else np.zeros((n, 2 * n * rs_ag_chunk(xs.shape[1], n)), xs.dtype)
     status = (ctypes.c_int * (n * 8))()
     fn = lib.sdf3d_ring_allreduce_host if kind == "ring" else lib.sdf3d_rs_ag_host
-    assert fn(n, xs.ctypes.data, out.ctypes.data, xs.shape[1], xs.itemsize, calls, absent, int(spin_s * 1e9),
-              status) == 0
+    assert fn(n, xs.ctypes.data, out.ctypes.data, xs.shape[1], xs.itemsize, calls, absent, late, int(late_s * 1e9),
+              int(spin_s * 1e9), status) == 0
     return out, np.asarray(status).reshape(n, 2, 4)
 
 
@@ -328,3 +326,78 @@ def test_host_build_wait_times_out(kind):
     # Rank 0 received rank 2's step-0 chunk; it then waits on a step rank 1
     # never completes.
     assert (status[0, :, 0] == 1).all() and set(status[0, :, 1]) <= {1, 2}
+
+
+@pytest.mark.parametrize("kind", ["ring", "rs_ag"])
+@pytest.mark.parametrize("n", SIZES)
+def test_host_build_staggered_start(n, kind):
+    """One rank starts its calls 0.2 s after the others: the host waits
+    hold the others at their first wait, and every rank still gets the
+    kernels' order of addition bit for bit (three calls, both parity sets)."""
+    xs = _inputs(n, 130, "float64")
+    for late in (0, n - 1):
+        out, status = _host_run(kind, xs, calls=3, late=late, late_s=0.2)
+        assert not status.any()
+        want = ring_order(xs) if kind == "ring" else rs_ag_order(xs)
+        for r in range(n):
+            np.testing.assert_array_equal(out[r, :130], want, err_msg=f"late rank {late}, rank {r}")
+
+
+@pytest.mark.parametrize("n, dtype", [(3, "float64"), (3, "float32"), (4, "float32")])
+def test_host_build_rs_ag_acks(n, dtype):
+    """K8 at N >= 3 (where a slot is rewritten within a call, behind the
+    right neighbour's ack) with 70001 values, 50 calls in a row."""
+    xs = _inputs(n, 70001, dtype)
+    out, status = _host_run("rs_ag", xs, calls=50)
+    assert not status.any()
+    want = rs_ag_order(xs)
+    for r in range(n):
+        np.testing.assert_array_equal(out[r, :70001], want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("size", [9, 130, 4482])
+@pytest.mark.parametrize("n", SIZES)
+def test_host_build_odd_offsets(n, size, dtype):
+    """Payloads whose K7 half B or K8 chunks start off a 16-byte boundary
+    (h = ceil(size / 2) or m = ceil(size / 2N) odd): the slots take their
+    vector's phase and the copies split into a scalar head, 16-byte items
+    and a scalar tail, with the plain versions' bits."""
+    m = rs_ag_chunk(size, n)
+    assert ((size + 1) // 2) % 2 == 1 or m % 2 == 1
+    xs = _inputs(n, size, dtype)
+    for kind, want in (("ring", ring_order(xs)), ("rs_ag", rs_ag_order(xs))):
+        out, status = _host_run(kind, xs, calls=2)
+        assert not status.any()
+        for r in range(n):
+            np.testing.assert_array_equal(out[r, :size], want, err_msg=f"{kind} rank {r}")
+            assert not out[r, size:].any()  # K8: the padding sums to zero
+
+
+def test_shared_segment_lifecycle():
+    """The shared host segment of a buffer set: the creator maps a new
+    zeroed POSIX shared-memory object of whole pages, a second mapping of
+    the name sees its stores, a second create of the name fails, and after
+    the unlink and unmaps nothing is left under /dev/shm."""
+    lib = _host_library()
+    nbytes = ctypes.c_longlong()
+    assert lib.sdf3d_coll_sync_bytes(0, 4, ctypes.byref(nbytes)) == 0
+    assert nbytes.value > 0 and nbytes.value % 4096 == 0
+    name = f"/sdf3d_coll_test_{os.getpid()}".encode()
+    a, b = ctypes.c_void_p(), ctypes.c_void_p()
+    assert lib.sdf3d_coll_shm_open(name, nbytes.value, 1, ctypes.byref(a)) == 0
+    try:
+        assert lib.sdf3d_coll_shm_open(name, nbytes.value, 1, ctypes.byref(b)) != 0  # EEXIST
+        assert lib.sdf3d_coll_shm_open(name, nbytes.value, 0, ctypes.byref(b)) == 0
+        words_a = (ctypes.c_int * 8).from_address(a.value)
+        assert list(words_a) == [0] * 8
+        words_a[2] = 7
+        status = (ctypes.c_int * 8)()
+        assert lib.sdf3d_coll_status(0, 4, b, 0, status) == 0
+        assert list(status) == [0, 0, 7, 0, 0, 0, 0, 0]
+    finally:
+        assert lib.sdf3d_coll_shm_unlink(name) == 0
+    assert not pathlib.Path("/dev/shm", name.decode().lstrip("/")).exists()
+    assert lib.sdf3d_coll_shm_close(a, nbytes.value) == 0
+    assert lib.sdf3d_coll_shm_close(b, nbytes.value) == 0
+    assert lib.sdf3d_coll_shm_open(name, nbytes.value, 0, ctypes.byref(b)) != 0  # ENOENT

@@ -16,6 +16,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -353,7 +354,7 @@ def test_render_sharded_tiles_launches_once(dev):
 
 
 RING_WORKER = r"""
-import json, os, sys
+import glob, json, os, sys, time
 import numpy as np, torch
 port, rank, world, outdir, repo = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
 sys.path.insert(0, repo)
@@ -382,13 +383,18 @@ for i in range(50):  # both parity sets, rising epochs
 # A wait that never completes: every rank sets up the buffers, rank 0 alone calls.
 ring_kernel.ring_buffers(mesh, 9, "ring", torch.float32).ensure(8)
 if rank == 0:
+    t0 = time.perf_counter()
     try:
         ring_kernel.ring_allreduce_launch(torch.ones(8, device=mesh.device), mesh, 9, spin_s=1.0)
         out["timeout"] = None
     except RuntimeError as e:
         out["timeout"] = str(e)
+    out["timeout_seconds"] = time.perf_counter() - t0
 out["launches"] = [ring_kernel.ring_allreduce.launches, ring_kernel.rs_ag_allreduce.launches]
 out["digests"] = digests
+# The shared segments' names went at set-up; nothing is left after close_all.
+ring_kernel.close_all()
+out["shm_left"] = sorted(glob.glob(f"/dev/shm/sdf3d_coll_{os.getpid()}_*"))
 json.dump(out, open(os.path.join(outdir, f"out_r{rank}.json"), "w"))
 launch.shutdown()
 """
@@ -423,6 +429,50 @@ def test_ring_kernels_match_plain(dev, world, tmp_path):
         assert o["digests"] == outs[0]["digests"]
         assert o["launches"] == [12 + 50 + (o is outs[0]), 12 + 50]
     assert "rank 0 of" in outs[0]["timeout"] and "step 0, stream A" in outs[0]["timeout"]
+    assert outs[0]["timeout_seconds"] < 1.0 + 1.0
+    assert all(o["shm_left"] == [] for o in outs)
+
+
+@pytest.mark.parametrize("kind", ["ring", "rs_ag"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [9, 4482, 70001])
+def test_local_ring_pair_matches_plain(dev, kind, dtype, n):
+    """Both ranks of a ring of two in one process, one host thread each
+    (``LocalRing``): K7 and K8 over three calls (both parity sets) give the
+    plain versions' bits (at N = 2 both add x0 + x1), and the shared
+    segment is gone from /dev/shm once set up."""
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    xs = [torch.randn(n, generator=gen, dtype=dtype, device=dev) for _ in range(2)]
+    ring = ring_kernel.LocalRing(kind, 2, n, dtype, dev)
+    try:
+        assert not pathlib.Path("/dev/shm", ring.sync.name.lstrip("/")).exists()
+        outs = ring.run(xs, calls=3)
+        torch.cuda.synchronize()
+    finally:
+        ring.close()
+    want = xs[0] + xs[1]
+    for o in outs:
+        assert torch.equal(o, want)
+
+
+@pytest.mark.parametrize("kind", ["ring", "rs_ag"])
+def test_local_ring_missing_peer_raises(dev, kind):
+    """A call whose peer never comes raises within spin_s + 1 s, naming the
+    rank, the step and the stream; it launches nothing after the wait."""
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    xs = [torch.ones(130, dtype=torch.float64, device=dev) for _ in range(2)]
+    ring = ring_kernel.LocalRing(kind, 2, 130, torch.float64, dev)
+    try:
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match=r"rank 0 of 2 .*wait of step 0, stream A; wait of step 0, stream B"):
+            ring.run(xs, ranks=[0], spin_s=0.5)
+        assert time.perf_counter() - t0 < 0.5 + 1.0
+    finally:
+        ring.close()
 
 
 @pytest.mark.parametrize("variant", ["full", "tgt3", "wrt_p", "primal", "noscatter", "nopow", "shade_only", "empty",
