@@ -48,9 +48,11 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
 ``examples/neural_sdf.py``:
 
 13. build: the library of ``ground_plane() | neural_sdf(hidden=64)`` (the
-    first frame's time, ``ptxas`` registers and spills); other weights reuse
-    it, a bare NeuralSDF and hidden 256 build their own; the other
-    libraries of phases 14 and 16 build together;
+    first frame's time, ``ptxas`` registers and spills per width); other
+    weights reuse it, a bare NeuralSDF and hidden 256 build their own; the
+    other libraries of phases 14 and 16 build together; the libraries of
+    hidden 64, 128 and 256 hold tensor-core (HMMA) instructions
+    (``cuobjdump -sass``; their share of the SASS logged);
 14. K6 vs its plain version at 256×192: two cameras, both scene shapes,
     hidden 64 and 256, the 64/32 and the reference 100/100 steps,
     tetrahedron normals with AO and a background, all four planes within
@@ -63,7 +65,10 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
     gradients for every weight tensor and the plane);
 16. times (plain, kernel, kernel, plain) at hidden 64, 128 and 256, at 720p
     and 1080p with 64/32 steps, and hidden 64 at 1080p with 100/100; one
-    frame of the banded reference path (``render_banded``) at each width.
+    frame of the banded reference path (``render_banded``) at each width;
+    K6's bound on the hidden 64 1080p cell as the largest of four pipes
+    (tensor cores, FP32 cores, special-function units, bytes), with the
+    FP32-only count of a per-thread MLP beside it.
 
 Then the sharded path (``parallel/``) on its tile-queue kernels, K2
 (``sdf3d_render_tiles``) and K4 (``sdf3d_fit_step_tiles``), on the fit demo:
@@ -138,7 +143,8 @@ with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
     CUDA-event time per frame and the device's idle share.
 
 Every kernel's bound is the larger of its bytes over the card's memory rate
-and its operations over the FP32 and special-function rates, counted from
+and its operations over the FP32 and special-function rates (and, for K6,
+the tensor cores' TF32 rate), counted from
 this run's data (:func:`march_counts`: the marches' steps at 1080p) and the
 generated code (:func:`scene_costs`).
 
@@ -149,8 +155,9 @@ It imports nothing of JAX and exits non-zero without a CUDA device.
     python3 chip_smoke.py --time-kernels ROOT
 
 times K1 and K3 at 1080p for the checkout at ``ROOT`` and prints SHA-256
-digests of K1's four planes and K3's partial rows (run it for two checkouts in
-turns, in one call, to compare them on one card).
+digests of K1's four planes and K3's partial rows, then times K6 at hidden 64,
+128 and 256 on phase 16's 1080p cell (run it for two checkouts in turns, in
+one call, to compare them on one card).
 """
 
 from __future__ import annotations
@@ -211,6 +218,9 @@ def project(cam, point, width, height):
 # at the 1.98 GHz boost clock.
 FP32_PEAK = 67e12
 SFU_PEAK = 132 * 16 * 1.98e9
+# The tensor cores' dense TF32 rate (NVIDIA's H100 SXM data sheet, without
+# sparsity): the neural kernel's split-TF32 products.
+TC_TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # Operations of one step of the kernels' loops around the distance
 # evaluation (render_kernel.cuh): the primary march adds the step and makes
@@ -824,9 +834,22 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
     parallel_s = time.perf_counter() - t0
     check(libs.loaded == loaded0 + 6, f"expected six neural libraries, got {libs.loaded - loaded0}")
     check(libs.builds - builds0 <= 6, f"{libs.builds - builds0} neural builds")
+    # The MLP runs on the tensor cores: each width's library holds HMMA
+    # instructions (cuobjdump -sass), their share of the kernel's SASS logged.
+    sass = {}
+    for name, sc in (("hidden64_union", u64), ("hidden128_union", u128), ("hidden256_union", u256)):
+        key = libs.key(cuda_neural_source(sc, small, nc), "neural")
+        ops = {}
+        for fn_ops in sass_opcodes(str(libs.build_dir / key / _build.KINDS["neural"].lib_name)).values():
+            for k, v in fn_ops.items():
+                ops[k] = ops.get(k, 0) + v
+        hmma = sum(v for k, v in ops.items() if k.startswith("HMMA"))
+        check(hmma > 0, f"{name}: no tensor-core (HMMA) instruction in K6's library")
+        sass[name] = {"hmma": hmma, "instructions": sum(ops.values()), "hmma_share": hmma / sum(ops.values()),
+                      "hmma_kinds": sorted(k for k in ops if k.startswith("HMMA"))}
     log("neural_build", first_frame_seconds=first_frame_s, builds=libs.builds - builds0,
         build_seconds=libs.build_seconds - seconds0, parallel_build_wall_seconds=parallel_s,
-        libraries=libs.loaded - loaded0,
+        libraries=libs.loaded - loaded0, sass=sass,
         ptxas={"hidden64_union": ptxas(small, u64), "hidden64_bare": ptxas(small, b64),
                "hidden128_union": ptxas(small, u128), "hidden256_union": ptxas(small, u256)})
 
@@ -919,22 +942,37 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
         cam, c = tt.Camera.reference(device=dev), config(W, H)
         runs[f"hidden{hidden}_{W}x{H}"]["banded_ms"] = time_ms(
             lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
-    # K6's bound on the timed cell (hidden 64, 1080p, 64/32 steps): per
-    # evaluation the MLP's multiply-adds (two operations each) and biases,
-    # a softplus per hidden unit (about six operations, exp and log1p on the
-    # special-function units) and the plane; the marches' steps and six
-    # normal taps from this run's data.
+    # K6's bound on the timed cell (hidden 64, 1080p, 64/32 steps), the
+    # largest of four pipes on this run's data (the marches' steps and six
+    # normal taps an evaluated point each):
+    # - the tensor cores: the H x H layers' split products, three TF32 passes
+    #   of 2 * hp^2 operations a point (hp: H padded to the mma shape);
+    # - the FP32 cores: the first layer and the output layer (two operations
+    #   a multiply-add), the biases, a softplus per hidden unit (about six
+    #   operations), the plane, the marches' loop arithmetic;
+    # - the special-function units: exp and log1p per softplus, the shadow
+    #   step's division and square root;
+    # - the bytes: the six planes written, the parameters read.
+    # The count with the whole MLP on the FP32 cores is logged beside it.
     cam0, c = tt.Camera.reference(device=dev), config(W, H)
     prm, uni = inputs(u64, cam0, c)
     work = march_counts(torch, u64, cam0, c, prm, uni, render_neural_forward_plain)
     mlp = u64.b
     hidden_units = sum(w.shape[1] for w in mlp.weights[:-1])  # weights (in, out)
+    square = [w for w in mlp.weights[1:-1]]  # the H x H layers
     per_eval = (sum(2 * w.numel() + w.shape[1] for w in mlp.weights) + 6 * hidden_units + 8, 2 * hidden_units)
     evals = work["primary"] + work["shadow"] + 6 * work["pixels"]
     fp = evals * per_eval[0] + work["shadow"] * NEURAL_SHADOW_STEP[0] + work["primary"] * PRIMARY_STEP[0]
     sfu = evals * per_eval[1] + work["shadow"] * NEURAL_SHADOW_STEP[1]
-    k6 = bound(fp, sfu, 24 * W * H + 4 * prm.numel())
-    log("neural_times", card=card, counts=work, ops_per_eval=per_eval, bound=k6, **runs)
+    nbytes = 24 * W * H + 4 * prm.numel()
+    fp32_only = bound(fp, sfu, nbytes)
+    hp = [-(-w.shape[0] // 8) * 8 for w in square]
+    pipes = {"tensor_ms": evals * sum(6 * n * n for n in hp) / TC_TF32_PEAK * 1e3,
+             "fp32_ms": (fp - evals * sum(2 * w.numel() for w in square)) / FP32_PEAK * 1e3,
+             "sfu_ms": sfu / SFU_PEAK * 1e3, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    k6 = (max(pipes.values()), "bytes" if pipes["bytes_ms"] >= max(pipes.values()) else "operations")
+    log("neural_times", card=card, counts=work, evaluations=evals, ops_per_eval_fp32_only=per_eval, pipes=pipes,
+        bound=k6, bound_fp32_only=fp32_only, **runs)
     return {"name": "neural_fwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/neural_kernel.cu",
             "replaces": "sdf3d_tpu/ops/neural_kernel.py:104", "launches": counts[0],
             "max_abs_err": parity["rgb"]["max_abs_err"], "ms": runs[f"hidden64_{W}x{H}"]["ms"],
@@ -1611,22 +1649,31 @@ def ring_phases(torch, tt, card: str) -> list:
                                      ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
 
 
-def sass_instructions(path: str) -> dict:
-    """SASS instructions (NOPs left out) per kernel function of a built
-    library, from the toolkit's ``cuobjdump -sass``."""
+def sass_opcodes(path: str) -> dict:
+    """SASS instructions per kernel function of a built library, by opcode
+    with its modifiers (NOPs left out), from the toolkit's ``cuobjdump
+    -sass``."""
     from sdf3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120, check=True).stdout
-    counts, name = {}, None
+    ops, name = {}, None
     for ln in out.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln) and " NOP" not in ln:
-            counts[name] += 1
-    return counts
+            ops[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", ln)
+        if name and m and m.group(1) != "NOP":
+            ops[name][m.group(1)] = ops[name].get(m.group(1), 0) + 1
+    return ops
+
+
+def sass_instructions(path: str) -> dict:
+    """SASS instructions (NOPs left out) per kernel function of a built
+    library."""
+    return {name: sum(ops.values()) for name, ops in sass_opcodes(path).items()}
 
 
 def fit_kernel_alone(scene, prm, uni, target, cfg, kc, variant="full", wrt_uniforms=True):
@@ -1976,9 +2023,10 @@ def time_kernels(root: str) -> int:
     """``--time-kernels ROOT``: K1 and K3 on the reference scene and the fit
     demo at 1080p, three runs of 50 launches each by CUDA events, SHA-256
     digests of K1's four planes and K3's partial rows, and their kernels'
-    ptxas registers and spills, for the package of the
-    checkout at ``ROOT`` (run it for two checkouts in turns, in one call, to
-    compare them on one card).  Prints one JSON line."""
+    ptxas registers and spills; then K6 on phase 16's cell at hidden 64, 128
+    and 256, three runs each; for the package of the checkout at ``ROOT``
+    (run it for two checkouts in turns, in one call, to compare them on one
+    card).  Prints one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2015,11 +2063,25 @@ def time_kernels(root: str) -> int:
     ptxas = {"render_fwd": ptxas_summary(libs.log(libs.key(cuda_scene_source(ref, cfg, kc))))["render_fwd"],
              "fit_step": ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, cfg, kc, False, (0, 1, 2, 3)))))[
                  "fit_step"]}
-    print(json.dumps({"root": root, "card": card_name_and_power(), "ptxas": ptxas,
-                      "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
-                      "fit_step_partials_sha256": hashlib.sha256(partials.cpu().numpy().tobytes()).hexdigest(),
-                      "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
-                      "fit_step_ms": [time_ms(k3, 5, 50) for _ in range(3)]}), flush=True)
+    result = {"root": root, "card": card_name_and_power(), "ptxas": ptxas,
+              "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
+              "fit_step_partials_sha256": hashlib.sha256(partials.cpu().numpy().tobytes()).hexdigest(),
+              "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
+              "fit_step_ms": [time_ms(k3, 5, 50) for _ in range(3)]}
+    # K6 on phase 16's cell: ground_plane() | neural_sdf(seed 0, hidden, depth 3)
+    # at 1080p with 64/32 steps, the reference camera; three runs each.
+    from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural_launch
+
+    ncfg = dataclasses.replace(cfg, march=dataclasses.replace(cfg.march, max_steps=64),
+                               shadow=dataclasses.replace(cfg.shadow, max_steps=32))
+    for hidden, frames in ((64, 10), (128, 4), (256, 1)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        sc = tt.sdf.ground_plane().to(dev) | tt.sdf.neural_sdf(gen, hidden=hidden, depth=3, radius=0.3)
+        nprm = scene_param_vector(sc, dev)
+        k6 = lambda: render_neural_launch(sc, nprm, uni, ncfg, NeuralRenderConfig())  # noqa: E731
+        result[f"neural_fwd_hidden{hidden}_ms"] = [time_ms(k6, 1, frames) for _ in range(3)]
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -100,7 +100,10 @@ KINDS = {
         ("sdf3d_render_bwd", [_PTR] * 9 + [_INT, _INT, _PTR]),
     )),
     "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
-        ("sdf3d_neural_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
+        ("sdf3d_neural_fwd", [_PTR] * 7 + [_INT, _INT, _PTR]),
+    ), host_entry_points=(
+        ("sdf3d_neural_fwd_host", [_PTR] * 6 + [_INT, _INT]),
+        ("sdf3d_neural_fwd_blocks_host", [_PTR] * 6 + [_INT, _INT, _INT]),
     )),
     "collectives": LibraryKind("libsdf3d_collectives.so", ("collectives.cu",), (
         *_COLL_COMMON,

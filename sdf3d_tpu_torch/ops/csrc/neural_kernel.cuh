@@ -1,303 +1,266 @@
-// Per-ray body of the neural-scene forward render: ray generation -> primary
-// march -> normals -> soft shadow -> AO -> Blinn-Phong/Lambert shading, with
-// the distance min(analytic(p), mlp(p)) (or mlp(p) alone).
+// Per-ray state machine of the neural-scene forward render: ray generation
+// -> primary march -> normals -> soft shadow -> AO -> Blinn-Phong/Lambert
+// shading, with the distance min(analytic(p), mlp(p)) (or mlp(p) alone).
 //
 // It computes what sdf3d_tpu/ops/neural_kernel.py::_neural_tile_kernel
-// computes, one ray per call, with real per-ray loops and breaks in place of
-// that kernel's f32 lane masks and whole-block convergence checks.  Where
-// that kernel differs from the analytic one, this follows it: the shadow is
-// marched for every ray (no N.I > 0 gate) in the un-squared Quilez form, and
-// the march always uses the point form.  Ray generation, normals and shading
-// are the render kernel's helpers (render_kernel.cuh).
-//
-// The MLP is evaluated in the thread's own body, in full float32: the first
-// layer into a register vector h[H], each middle layer through a second
-// one, and the last hidden layer fused with the H -> 1 output, so a depth-3
-// MLP holds one vector (none above hidden 128: mlp_chunked).  H is a
-// compile-time constant, so the loops over the register vector unroll.
-// Weights are read through a loader `w` (shared memory or __ldg from global
-// memory, neural_kernel.cu).
+// computes.  A ray lives in a slot (struct Slot) as a stage and its loop
+// variables.  Each step of a slot does two things: slot_point names the
+// next point at which the ray needs a distance, and slot_take takes that
+// distance and advances the stage.  Between the two the caller evaluates
+// the MLP on the points of all its slots at once as a tile (neural_kernel.cu:
+// tensor-core products on the card, a plain loop on the host).  The points
+// and the arithmetic are those of the per-ray loops they replace:
+// march_primary (add the step, then test), estimate_normal, the neural
+// kernel's shadow (every ray, no N.I gate, the un-squared Quilez form), the
+// AO taps and shade_pixel (render_kernel.cuh).  A pixel's bits therefore
+// depend only on its own sequence of points, never on its slot or on the
+// order in which slots take rays.
 //
 // __host__ __device__ like render_kernel.cuh: a C++ compiler builds the same
 // text for the CPU tests.
 #pragma once
 
-#include "render_kernel.cuh"
+#include <stdint.h>
+#include <string.h>
 
-#ifdef __CUDACC__
-#define SDF3D_HD_NOINLINE __host__ __device__ __noinline__
-#define SDF3D_UNROLL _Pragma("unroll")
-#define SDF3D_NO_UNROLL _Pragma("unroll 1")
-#else
-#define SDF3D_HD_NOINLINE
-#define SDF3D_UNROLL
-#define SDF3D_NO_UNROLL
-#endif
+#include "render_kernel.cuh"
 
 namespace sdf3d {
 
 // softplus(beta*x)/beta with softplus(z) = max(z, 0) + log1p(exp(-|z|)),
 // JAX's logaddexp(z, 0); expf and log1pf are the accurate library calls.
 // The division by beta is a multiply by inv_beta = 1/beta, each rounded to
-// float32: within an ulp of the quotient, where an IEEE division per unit
-// took about a third of the kernel's time at hidden 64.
+// float32: within an ulp of the quotient.
 SDF3D_HD float softplus_beta(float beta, float inv_beta, float x) {
   const float z = beta * x;
   return (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))) * inv_beta;
 }
 
-// Weights in shared memory (or host memory in the CPU build).  The block
-// starts 16-byte aligned.
-struct SharedWeights {
-  const float* w;
-  SDF3D_HD float operator[](int i) const { return w[i]; }
-  // w[i .. i+3], i a multiple of 4: one 16-byte load.
-  SDF3D_HD void quad(int i, float* q) const {
-#ifdef __CUDA_ARCH__
-    const float4 v = *reinterpret_cast<const float4*>(w + i);
-    q[0] = v.x; q[1] = v.y; q[2] = v.z; q[3] = v.w;
-#else
-    for (int t = 0; t < 4; ++t) q[t] = w[i + t];
-#endif
-  }
+enum Stage : int { PRIMARY = 0, NORMAL = 1, SHADOW = 2, AO = 3, SHADE = 4, IDLE = 5 };
+
+// One ray in flight: its pixel, its stage and the stage's loop variables.
+struct Slot {
+  int pix;    // row-major pixel index
+  int stage;  // Stage
+  int i;      // step or tap within the stage
+  float dx, dy, dz;             // the camera ray's direction
+  float t;                      // the primary march's distance
+  float hx, hy, hz;             // the hit point
+  float nx, ny, nz, ix, iy, iz;  // the normal (summed tap by tap), the light direction
+  float sx, sy, sz;             // the shadow ray's origin
+  float dist, prev, sh;         // the shadow march
+  float occ;                    // the AO taps' sum
 };
 
-// Weights read from global memory through the read-only data cache; 16-byte
-// loads when the block starts 16-byte aligned.
-template <bool Aligned>
-struct GlobalWeights {
-  const float* w;
-  SDF3D_HD float operator[](int i) const {
-#ifdef __CUDA_ARCH__
-    return __ldg(w + i);
-#else
-    return w[i];
-#endif
-  }
-  SDF3D_HD void quad(int i, float* q) const {
-#ifdef __CUDA_ARCH__
-    if constexpr (Aligned) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(w + i));
-      q[0] = v.x; q[1] = v.y; q[2] = v.z; q[3] = v.w;
+template <class Cfg>
+constexpr int normal_taps() { return Cfg::normals == 0 ? 6 : 4; }
+
+// Enter `stage` (or the first later one that evaluates anything).
+template <class Cfg, class Scene>
+SDF3D_HD void slot_enter(Slot& s, int stage) {
+  s.i = 0;
+  if (stage == SHADOW) {
+    if (Cfg::shadow_enabled && Cfg::shadow_steps > 0) {
+      const float off = 2.0f * Cfg::epsilon;
+      s.sx = s.hx + (off * s.nx); s.sy = s.hy + (off * s.ny); s.sz = s.hz + (off * s.nz);
+      s.dist = 0.0f; s.prev = INFINITY; s.sh = 1.0f;
+      s.stage = SHADOW;
       return;
     }
-#endif
-    for (int t = 0; t < 4; ++t) q[t] = (*this)[i + t];
+    s.sh = 1.0f;  // no shadow march: the factor is 1 (a 0-step march also clamps 1 to 1)
+    stage = AO;
   }
-};
-
-// The layers take T = 4 neighbouring outputs at a time where H allows: one
-// 16-byte load of a weight row serves four sums.  Every output's sum still
-// runs over k in order, so T changes no rounding.
-template <int H>
-constexpr int tile_width() { return H % 4 == 0 ? 4 : 1; }
-
-// w[i .. i+T-1] into q.
-template <int T, class Wt>
-SDF3D_HD void load_run(const Wt& w, int i, float* q) {
-  if constexpr (T == 4) {
-    w.quad(i, q);
-  } else {
-    q[0] = w[i];
-  }
-}
-
-// Layer 0, 3 -> H: h = sigma(p W0 + b0), W0 row-major (3, H) at w0.
-template <int H, class Wt>
-SDF3D_HD void mlp_first(const Wt& w, int w0, int b0, float beta, float px, float py, float pz, float* h) {
-  constexpr int T = tile_width<H>();
-  const float inv_beta = 1.0f / beta;
-  SDF3D_UNROLL
-  for (int j = 0; j < H; j += T) {
-    float a[T], b[T], c[T], d[T];
-    load_run<T>(w, w0 + j, a);
-    load_run<T>(w, w0 + H + j, b);
-    load_run<T>(w, w0 + 2 * H + j, c);
-    load_run<T>(w, b0 + j, d);
-    SDF3D_UNROLL
-    for (int t = 0; t < T; ++t) {
-      h[j + t] = softplus_beta(beta, inv_beta, (((px * a[t]) + (py * b[t])) + (pz * c[t])) + d[t]);
+  if (stage == AO) {
+    s.occ = 0.0f;
+    if (Cfg::ao_enabled && Scene::ao_taps > 0) {
+      s.stage = AO;
+      return;
     }
+    stage = SHADE;
   }
+  s.stage = stage;
 }
 
-// z[t] = sum_k h[k] W[k, j+t] for the T outputs from j, W row-major (H, H) at wi.
-template <int H, int T, class Wt>
-SDF3D_HD void row_sums(const Wt& w, int wi, int j, const float* h, float* z) {
-  SDF3D_UNROLL
-  for (int t = 0; t < T; ++t) z[t] = 0.0f;
-  SDF3D_UNROLL
-  for (int k = 0; k < H; ++k) {
-    float q[T];
-    load_run<T>(w, wi + k * H + j, q);
-    SDF3D_UNROLL
-    for (int t = 0; t < T; ++t) z[t] = z[t] + (h[k] * q[t]);
-  }
+// The primary march has ended at s.t: the hit point, then the normal taps.
+template <class Cfg, class Scene>
+SDF3D_HD void slot_hit(Slot& s, const float* u) {
+  s.hx = u[U_CAM] + (s.t * s.dx); s.hy = u[U_CAM + 1] + (s.t * s.dy); s.hz = u[U_CAM + 2] + (s.t * s.dz);
+  s.i = 0;
+  s.stage = NORMAL;
 }
 
-// A middle layer, H -> H, in place: h = sigma(h W + b).
-template <int H, class Wt>
-SDF3D_HD void mlp_hidden(const Wt& w, int wi, int bi, float beta, float* h) {
-  constexpr int T = tile_width<H>();
-  const float inv_beta = 1.0f / beta;
-  float g[H];
-  SDF3D_UNROLL
-  for (int j = 0; j < H; j += T) {
-    float z[T], b[T];
-    row_sums<H, T>(w, wi, j, h, z);
-    load_run<T>(w, bi + j, b);
-    SDF3D_UNROLL
-    for (int t = 0; t < T; ++t) g[j + t] = softplus_beta(beta, inv_beta, z[t] + b[t]);
-  }
-  SDF3D_UNROLL
-  for (int j = 0; j < H; ++j) h[j] = g[j];
+// Start the ray of pixel `pix` of an H x W image in slot s.
+template <class Cfg, class Scene>
+SDF3D_HD void slot_start(Slot& s, const float* u, int pix, int H, int W) {
+  const int row = pix / W, col = pix - row * W;
+  s.pix = pix;
+  ray_direction<Cfg>(u, u[U_ROW0] + static_cast<float>(row), static_cast<float>(col), H, W, s.dx, s.dy, s.dz);
+  s.t = 0.0f;
+  s.i = 0;
+  s.stage = PRIMARY;
+  if (Cfg::march_steps <= 0) slot_hit<Cfg, Scene>(s, u);
 }
 
-// The last hidden layer fused with the output: sum_j sigma((h W)_j + b_j) wo_j + bo.
-template <int H, class Wt>
-SDF3D_HD float mlp_last(const Wt& w, int wi, int bi, int wo, int bo, float beta, const float* h) {
-  constexpr int T = tile_width<H>();
-  const float inv_beta = 1.0f / beta;
-  float acc = 0.0f;
-  SDF3D_NO_UNROLL
-  for (int j = 0; j < H; j += T) {
-    float z[T], b[T], o[T];
-    row_sums<H, T>(w, wi, j, h, z);
-    load_run<T>(w, bi + j, b);
-    load_run<T>(w, wo + j, o);
-    SDF3D_UNROLL
-    for (int t = 0; t < T; ++t) acc = acc + (softplus_beta(beta, inv_beta, z[t] + b[t]) * o[t]);
-  }
-  return acc + w[bo];
-}
-
-// Depth 3 at a width whose activation vector does not fit the registers:
-// the hidden layer's outputs C at a time, each chunk recomputing the first
-// layer's activations one by one (H softplus more per chunk, no vector of
-// H).  The same sums as mlp_first + mlp_last, in the same order.
-template <int H, int C, class Wt>
-SDF3D_HD float mlp_chunked(const Wt& w, int w0, int b0, int w1, int b1, int wo, int bo, float beta, float px,
-                           float py, float pz) {
-  constexpr int T = tile_width<H>();
-  const float inv_beta = 1.0f / beta;
-  static_assert(H % C == 0 && C % T == 0, "chunks must tile the width");
-  float acc = 0.0f;
-  SDF3D_NO_UNROLL
-  for (int j = 0; j < H; j += C) {
-    float z[C];
-    SDF3D_UNROLL
-    for (int c = 0; c < C; ++c) z[c] = 0.0f;
-    SDF3D_NO_UNROLL
-    for (int k = 0; k < H; ++k) {
-      const float zk = (((px * w[w0 + k]) + (py * w[w0 + H + k])) + (pz * w[w0 + 2 * H + k])) + w[b0 + k];
-      const float hk = softplus_beta(beta, inv_beta, zk);
-      SDF3D_UNROLL
-      for (int c = 0; c < C; c += T) {
-        float q[T];
-        load_run<T>(w, w1 + k * H + j + c, q);
-        SDF3D_UNROLL
-        for (int t = 0; t < T; ++t) z[c + t] = z[c + t] + (hk * q[t]);
+// The point at which slot s needs a distance next (its stage is one that
+// evaluates: PRIMARY, NORMAL, SHADOW or AO).
+template <class Cfg, class Scene>
+SDF3D_HD void slot_point(const Slot& s, const float* u, float& px, float& py, float& pz) {
+  const float e = Cfg::epsilon;
+  switch (s.stage) {
+    case PRIMARY:
+      px = u[U_CAM] + (s.t * s.dx); py = u[U_CAM + 1] + (s.t * s.dy); pz = u[U_CAM + 2] + (s.t * s.dz);
+      return;
+    case NORMAL:
+      px = s.hx; py = s.hy; pz = s.hz;
+      if constexpr (Cfg::normals == 0) {  // +x, -x, +y, -y, +z, -z
+        const float d = (s.i & 1) ? -e : e;
+        if (s.i < 2) px = s.hx + d; else if (s.i < 4) py = s.hy + d; else pz = s.hz + d;
+      } else {  // the tetrahedron's corners (+,-,-), (-,-,+), (-,+,-), (+,+,+)
+        px = s.hx + ((s.i == 0 || s.i == 3) ? e : -e);
+        py = s.hy + ((s.i >= 2) ? e : -e);
+        pz = s.hz + ((s.i & 1) ? e : -e);
       }
-    }
-    SDF3D_UNROLL
-    for (int c = 0; c < C; c += T) {
-      float b[T], o[T];
-      load_run<T>(w, b1 + j + c, b);
-      load_run<T>(w, wo + j + c, o);
-      SDF3D_UNROLL
-      for (int t = 0; t < T; ++t) acc = acc + (softplus_beta(beta, inv_beta, z[c + t] + b[t]) * o[t]);
-    }
-  }
-  return acc + w[bo];
-}
-
-// Two layers, 3 -> H -> 1: the first fused with the output.
-template <int H, class Wt>
-SDF3D_HD float mlp_single(const Wt& w, int w0, int b0, int wo, int bo, float beta, float px, float py, float pz) {
-  constexpr int T = tile_width<H>();
-  const float inv_beta = 1.0f / beta;
-  float acc = 0.0f;
-  SDF3D_NO_UNROLL
-  for (int j = 0; j < H; j += T) {
-    float a[T], b[T], c[T], d[T], o[T];
-    load_run<T>(w, w0 + j, a);
-    load_run<T>(w, w0 + H + j, b);
-    load_run<T>(w, w0 + 2 * H + j, c);
-    load_run<T>(w, b0 + j, d);
-    load_run<T>(w, wo + j, o);
-    SDF3D_UNROLL
-    for (int t = 0; t < T; ++t) {
-      acc = acc + (softplus_beta(beta, inv_beta, (((px * a[t]) + (py * b[t])) + (pz * c[t])) + d[t]) * o[t]);
+      return;
+    case SHADOW:
+      px = s.sx + (s.dist * s.ix); py = s.sy + (s.dist * s.iy); pz = s.sz + (s.dist * s.iz);
+      return;
+    default: {  // AO
+      const float h = Scene::ao_h(s.i);
+      px = s.hx + (h * s.nx); py = s.hy + (h * s.ny); pz = s.hz + (h * s.nz);
+      return;
     }
   }
-  return acc + w[bo];
 }
 
-// The scene's distance: min(analytic(p), mlp(p)), or mlp(p) alone.
-template <class Scene, class Mlp, class Wt>
-struct NeuralPoint {
-  const float* pa;  // the analytic subtree's parameters
-  Wt w;             // the MLP's block
-  float beta;
-  SDF3D_HD float operator()(float x, float y, float z) const {
-    const float m = Mlp::eval(w, beta, x, y, z);
-    if constexpr (Scene::has_analytic) {
-      return fminf(Scene::sdf(x, y, z, pa), m);
-    } else {
-      return m;
+// Take the distance d at slot s's point and advance.  Returns true when
+// the ray has reached SHADE: slot_shade gives its pixel.
+template <class Cfg, class Scene>
+SDF3D_HD bool slot_take(Slot& s, const float* u, float d) {
+  switch (s.stage) {
+    case PRIMARY:
+      s.t = s.t + d;
+      ++s.i;
+      if (s.t > Cfg::max_distance || d < Cfg::epsilon || s.i >= Cfg::march_steps) slot_hit<Cfg, Scene>(s, u);
+      return false;
+    case NORMAL:
+      // estimate_normal's sums, a tap at a time, in its order (no array
+      // indexed by the tap, which would leave the registers).
+      if constexpr (Cfg::normals == 0) {  // n = (d0 - d1, d2 - d3, d4 - d5)
+        switch (s.i) {
+          case 0: s.nx = d; break;
+          case 1: s.nx = s.nx - d; break;
+          case 2: s.ny = d; break;
+          case 3: s.ny = s.ny - d; break;
+          case 4: s.nz = d; break;
+          default: s.nz = s.nz - d; break;
+        }
+      } else {  // ((s0 - s1) - s2) + s3, (((-s0) - s1) + s2) + s3, (((-s0) + s1) - s2) + s3
+        switch (s.i) {
+          case 0: s.nx = d; s.ny = -d; s.nz = -d; break;
+          case 1: s.nx = s.nx - d; s.ny = s.ny - d; s.nz = s.nz + d; break;
+          case 2: s.nx = s.nx - d; s.ny = s.ny + d; s.nz = s.nz - d; break;
+          default: s.nx = s.nx + d; s.ny = s.ny + d; s.nz = s.nz + d; break;
+        }
+      }
+      if (++s.i < normal_taps<Cfg>()) return false;
+      {
+        const float ninv = rsqrt_exact(fmaxf(((s.nx * s.nx) + (s.ny * s.ny)) + (s.nz * s.nz), 1e-24f));
+        s.nx = s.nx * ninv; s.ny = s.ny * ninv; s.nz = s.nz * ninv;
+      }
+      light_direction(u, s.hx, s.hy, s.hz, s.ix, s.iy, s.iz);
+      slot_enter<Cfg, Scene>(s, SHADOW);
+      break;
+    case SHADOW: {  // neural_kernel.py:213-245: prev = +inf, the first step's intersection term 0
+      const float k = u[U_K];
+      const float inter = s.i == 0 ? 0.0f : (d * d) / (2.0f * (s.prev == 0.0f ? 1e-30f : s.prev));
+      const float d2 = (d * d) - (inter * inter);
+      const float denom = s.dist - inter;
+      const bool valid = (denom > 0.0f) && (d2 >= 0.0f);
+      const float atten = valid ? ((k * sqrtf(fmaxf(d2, 0.0f))) / denom) : 1e30f;
+      s.sh = fminf(s.sh, atten);
+      s.dist = s.dist + d;
+      s.prev = d;
+      if (++s.i < Cfg::shadow_steps && !(s.dist > Cfg::max_distance || s.sh < Cfg::epsilon)) return false;
+      s.sh = fminf(fmaxf(s.sh, 0.0f), 1.0f);
+      slot_enter<Cfg, Scene>(s, AO);
+      break;
+    }
+    default:  // AO
+      s.occ = s.occ + (Scene::ao_w(s.i) * (Scene::ao_h(s.i) - d));
+      if (++s.i < Scene::ao_taps) return false;
+      s.stage = SHADE;
+      break;
+  }
+  return s.stage == SHADE;
+}
+
+// The pixel of a slot that has reached SHADE.
+template <class Cfg, class Scene>
+SDF3D_HD Pixel slot_shade(const Slot& s, const float* u) {
+  const float ao = (Cfg::ao_enabled && Scene::ao_taps > 0)
+                       ? fminf(fmaxf((1.0f - (Scene::ao_strength * s.occ)), 0.0f), 1.0f)
+                       : 1.0f;
+  return shade_pixel<Cfg>(u, u[U_CAM], u[U_CAM + 1], u[U_CAM + 2], s.t, s.hx, s.hy, s.hz, s.nx, s.ny, s.nz, s.ix,
+                          s.iy, s.iz, s.sh, ao);
+}
+
+// The scene's distance from the MLP's value m at (x, y, z): min(analytic, m)
+// per slot, in scalar code, or m alone.
+template <class Scene>
+SDF3D_HD float scene_distance(const float* pa, float x, float y, float z, float m) {
+  if constexpr (Scene::has_analytic) {
+    return fminf(Scene::sdf(x, y, z, pa), m);
+  } else {
+    return m;
+  }
+}
+
+// ---- split TF32 ----
+//
+// x_hi = tf32(x), x_lo = tf32(x - x_hi): cvt.rna.tf32.f32 rounds to the
+// nearest value with 10 stored mantissa bits, ties away from zero, and
+// leaves the low 13 bits 0.  A product a*b of the MLP is taken as
+// a_hi*b_hi + a_hi*b_lo + a_lo*b_hi in float32 (the a_lo*b_lo term is below
+// float32's rounding): about float32's accuracy, where one TF32 pass keeps
+// about three digits.
+SDF3D_HD float tf32_round(float x) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+#else
+  uint32_t b;
+  memcpy(&b, &x, 4);
+  if ((b & 0x7f800000u) != 0x7f800000u) b = (b + 0x1000u) & ~0x1fffu;  // inf and nan pass through
+  float r;
+  memcpy(&r, &b, 4);
+  return r;
+#endif
+}
+
+#ifndef __CUDACC__
+// The host form of one layer's product, C (m x n) = A (m x k) B (k x n),
+// row-major, from A and B split into TF32 hi and lo parts, in `passes`
+// passes (3: a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, 1: a_hi*b_hi alone): per
+// k-tile of 8, pass after pass, each pass summed in k order, as the card's
+// kernel issues its mma.sync products.  The card sums inside an mma in its
+// own order, so the bits differ; the error class is the same.
+inline void tf32_product(const float* ah, const float* al, const float* bh, const float* bl, float* C, int m, int k,
+                         int n, int passes) {
+  for (int r = 0; r < m; ++r) {
+    for (int c = 0; c < n; ++c) {
+      float acc = 0.0f;
+      for (int k0 = 0; k0 < k; k0 += 8) {
+        for (int p = 0; p < passes; ++p) {
+          const float* x = (p == 2 ? al : ah) + r * k;
+          const float* y = p == 1 ? bl : bh;
+          for (int q = k0; q < k0 + 8 && q < k; ++q) acc = acc + (x[q] * y[q * n + c]);
+        }
+      }
+      C[r * n + c] = acc;
     }
   }
-};
-
-// The neural kernel's soft shadow (neural_kernel.py:213-245): the
-// un-squared Quilez form sh = min(sh, k*sqrt(d2)/denom), prev = +inf, the
-// first step's intersection term 0, stop once sh < epsilon.
-template <class Cfg, class Ev>
-SDF3D_HD float march_shadow_neural(const Ev& ev, float k) {
-  float dist = 0.0f, prev = INFINITY, sh = 1.0f;
-  for (int i = 0; i < Cfg::shadow_steps; ++i) {
-    const float s = ev.eval(dist);
-    const float inter = i == 0 ? 0.0f : (s * s) / (2.0f * (prev == 0.0f ? 1e-30f : prev));
-    const float d2 = (s * s) - (inter * inter);
-    const float denom = dist - inter;
-    const bool valid = (denom > 0.0f) && (d2 >= 0.0f);
-    const float atten = valid ? ((k * sqrtf(fmaxf(d2, 0.0f))) / denom) : 1e30f;
-    sh = fminf(sh, atten);
-    dist = dist + s;
-    prev = s;
-    if (dist > Cfg::max_distance || sh < Cfg::epsilon) break;
-  }
-  return fminf(fmaxf(sh, 0.0f), 1.0f);
 }
-
-template <class Cfg, class Scene, class Mlp, class Wt>
-SDF3D_HD Pixel render_neural_pixel(const float* u, const float* pa, const Wt& w, int row, int col, int H, int W) {
-  float dx, dy, dz;
-  ray_direction<Cfg>(u, u[U_ROW0] + static_cast<float>(row), static_cast<float>(col), H, W, dx, dy, dz);
-  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
-  const NeuralPoint<Scene, Mlp, Wt> f{pa, w, w[Mlp::beta]};
-
-  // ---- primary march (point form) ----
-  const float t = march_primary<Cfg>(PointRay<NeuralPoint<Scene, Mlp, Wt>>{f, ox, oy, oz, dx, dy, dz});
-  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
-
-  // ---- normals, light direction ----
-  float nx, ny, nz, ix, iy, iz;
-  estimate_normal<Cfg>(f, hx, hy, hz, nx, ny, nz);
-  light_direction(u, hx, hy, hz, ix, iy, iz);
-
-  // ---- soft shadow, for every ray ----
-  float shadow = 1.0f;
-  if constexpr (Cfg::shadow_enabled) {
-    const float off = 2.0f * Cfg::epsilon;
-    const float sox = hx + (off * nx), soy = hy + (off * ny), soz = hz + (off * nz);
-    shadow = march_shadow_neural<Cfg>(PointRay<NeuralPoint<Scene, Mlp, Wt>>{f, sox, soy, soz, ix, iy, iz}, u[U_K]);
-  }
-
-  // ---- ambient occlusion, shading ----
-  float ao = 1.0f;
-  if constexpr (Cfg::ao_enabled) ao = Scene::ao(f, hx, hy, hz, nx, ny, nz);
-  return shade_pixel<Cfg>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, shadow, ao);
-}
+#endif
 
 }  // namespace sdf3d

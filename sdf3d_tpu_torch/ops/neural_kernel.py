@@ -8,9 +8,12 @@ un-squared Quilez form) → AO → shading, producing rgb ``(3, H, W)`` and the
 t / shadow / ao planes ``(H, W)``, all float32.  Two implementations of the
 same function:
 
-- the CUDA kernel (``csrc/neural_kernel.cu``), one thread per ray with the
-  MLP in its own body, built per scene structure and static settings into a
-  library of its own (``_build.py``, kind ``"neural"``), launched by
+- the CUDA kernel (``csrc/neural_kernel.cu``): persistent blocks of ray
+  slots, each slot a per-ray state machine (``csrc/neural_kernel.cuh``) that
+  takes the next unstarted ray when its own has shaded, each warp's MLP run
+  on its 32 slots' points as split-TF32 tensor-core products; built per
+  scene structure and static settings into a library of its own
+  (``_build.py``, kind ``"neural"``), launched by
   :func:`render_neural_forward` for tensors on the card;
 - :func:`render_neural_forward_plain`, whole-image PyTorch planes stage for
   stage from ``_neural_tile_kernel``, which the wrapper runs for tensors on
@@ -76,10 +79,11 @@ __all__ = [
 class NeuralRenderConfig:
     """Static settings of the neural kernel (part of the build key).
 
-    ``block_rays``: rays (threads) per CUDA block, whole warps, at most
-    1024.  256 lets two blocks share an SM at hidden 64 (128 registers a
-    thread on the H100); the JAX package's value (1024, the TPU's matmul
-    rows) is legal but caps a thread at 64 registers.
+    ``block_rays``: ray slots (threads) per CUDA block, whole warps, at most
+    1024.  The kernel's bits do not depend on it.  At 256 two blocks share
+    an SM at hidden 64 (121 registers a thread on the H100); the JAX
+    package's value (1024, the TPU's matmul rows) is legal but caps a thread
+    at 64 registers.
     """
 
     block_rays: int = 256
@@ -202,7 +206,7 @@ def neural_library(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, cfg: Re
     check_plane("prm", prm, (count_params(scene),), dev)
     check_plane("uni", uni, (N_UNIFORMS,), dev)
     if prm.data_ptr() % 16:
-        raise ValueError("prm must start 16-byte aligned: the kernel reads the MLP's weights 16 bytes at a time")
+        raise ValueError("prm must start 16-byte aligned: the kernel copies the MLP's weights 16 bytes at a time")
     return _build.LIBRARIES.load_for(neural_structure(scene, cfg, nc),
                                      lambda: cuda_neural_source(scene, cfg, nc), "neural")
 
@@ -224,10 +228,11 @@ def render_neural_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, c
     H, W = cfg.height, cfg.width
     rgb = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     t, sh, ao = (torch.empty((H, W), dtype=torch.float32, device=dev) for _ in range(3))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the rays the kernel's slots have taken
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sdf3d_neural_fwd(uni.data_ptr(), prm.data_ptr(), rgb.data_ptr(), t.data_ptr(),
-                                   sh.data_ptr(), ao.data_ptr(), H, W, stream)
+                                   sh.data_ptr(), ao.data_ptr(), counter.data_ptr(), H, W, stream)
     if err != 0:
         raise RuntimeError(f"sdf3d_neural_fwd launch failed: CUDA error {err}")
     render_neural_forward.launches += 1

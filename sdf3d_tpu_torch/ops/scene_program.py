@@ -783,26 +783,90 @@ def neural_layout(scene: SDFNode) -> NeuralLayout:
     )
 
 
-#: Widest activation vector the neural kernel keeps in registers; a wider
-#: depth-3 MLP recomputes its first layer per chunk of CHUNK outputs.
-REGISTER_WIDTH = 128
-CHUNK = 64
+#: Shared memory the neural kernel may fill with the MLP's H x H matrices
+#: (with its other blocks); wider MLPs stream them through a ring of panels.
+RESIDENT_BYTES = SMEM_BYTES
+#: MLPs up to this padded width cap the neural kernel's registers so that an
+#: SM holds TWO_BLOCK_THREADS threads (two blocks of 256: at most 128 registers
+#: a thread; measured faster at hidden 64, slower at 128 where it spills).
+TWO_BLOCK_WIDTH = 64
+TWO_BLOCK_THREADS = 512
 
 
-def _mlp_source(lay: NeuralLayout) -> str:
-    """The body of ``Mlp::eval``: the layer helpers of neural_kernel.cuh with
-    this MLP's offsets; the last hidden layer is fused with the output, so
-    no second activation vector is kept."""
-    H, L, w, b = lay.hidden, lay.layers, lay.w_offsets, lay.b_offsets
-    if L == 2:
-        return f"    return sdf3d::mlp_single<{H}>(w, {w[0]}, {b[0]}, {w[1]}, {b[1]}, beta, px, py, pz);"
-    if L == 3 and H > REGISTER_WIDTH and H % CHUNK == 0:
-        return (f"    return sdf3d::mlp_chunked<{H}, {CHUNK}>(w, {w[0]}, {b[0]}, {w[1]}, {b[1]}, {w[2]}, {b[2]}, "
-                "beta, px, py, pz);")
-    lines = [f"    float h[{H}];", f"    sdf3d::mlp_first<{H}>(w, {w[0]}, {b[0]}, beta, px, py, pz, h);"]
-    lines += [f"    sdf3d::mlp_hidden<{H}>(w, {w[i]}, {b[i]}, beta, h);" for i in range(1, L - 2)]
-    lines.append(f"    return sdf3d::mlp_last<{H}>(w, {w[L - 2]}, {b[L - 2]}, {w[L - 1]}, {b[L - 1]}, beta, h);")
-    return "\n".join(lines)
+@dataclasses.dataclass(frozen=True)
+class NeuralTile:
+    """How the neural kernel holds an MLP (``csrc/neural_kernel.cu``): the
+    width padded to the ``mma`` shape, the row strides of the weights in
+    shared memory, the threads an SM should hold, whether the H x H
+    matrices are resident in shared memory or stream in panels of
+    ``panel_rows`` rows, and the shared-memory layout in floats."""
+
+    hp: int
+    stride: int
+    qstride: int
+    min_threads: int
+    panel_rows: int
+    resident: bool
+    vec4: bool
+    sm_w0: int
+    sm_b: int
+    sm_wo: int
+    sm_bo: int
+    sm_beta: int
+    sm_uni: int
+    sm_pa: int
+    sm_mats: int
+    smem_floats: int
+
+
+def neural_tile(lay: NeuralLayout) -> NeuralTile:
+    """The neural kernel's tile of the MLP of ``lay``: H padded to a multiple
+    of 8; W_0, the biases, the output layer, β, the uniforms and the
+    analytic parameters first, each block 16-byte aligned; then either the
+    H x H matrices split into hi and lo, one 16-byte quad per pair of rows
+    and column at a row stride of ``qstride = hp + 2`` quads (resident: a
+    quarter warp's quads fall on distinct banks), or two panels of float32
+    rows at a stride of ``stride = hp + 4`` floats (streamed: the B
+    fragments' rows 2q and 2q + 1 fall on distinct banks)."""
+    H, L = lay.hidden, lay.layers
+    hp = -(-H // 8) * 8
+    stride = hp + 4
+    sm_b = 3 * hp
+    sm_wo = sm_b + (L - 1) * hp
+    sm_bo = sm_wo + hp
+    sm_uni = -(-(sm_bo + 2) // 4) * 4
+    sm_pa = sm_uni + 32
+    sm_mats = -(-(sm_pa + lay.n_analytic) // 4) * 4
+    qstride = hp + 2
+    resident_floats = sm_mats + (L - 2) * (hp // 2) * qstride * 4
+    resident = resident_floats * 4 <= RESIDENT_BYTES
+    panel_rows = next(k for k in (32, 16, 8) if hp % k == 0)
+    return NeuralTile(
+        hp=hp, stride=stride, qstride=qstride,
+        min_threads=TWO_BLOCK_THREADS if hp <= TWO_BLOCK_WIDTH else 0, panel_rows=panel_rows, resident=resident,
+        vec4=lay.offset % 4 == 0 and H % 4 == 0, sm_w0=0, sm_b=sm_b, sm_wo=sm_wo, sm_bo=sm_bo, sm_beta=sm_bo + 1,
+        sm_uni=sm_uni, sm_pa=sm_pa, sm_mats=sm_mats,
+        smem_floats=resident_floats if resident else sm_mats + 2 * panel_rows * stride)
+
+
+def _ao_taps_source(cfg) -> str:
+    """The AO taps as the neural kernel's slots take them, with the JAX
+    package's constants (:func:`_ao_source`'s): tap ``i`` at
+    ``h = step·(i+1)`` with weight ``falloff^i``."""
+    n = cfg.ao.samples if cfg.ao.enabled else 0
+    hs, ws, weight = [], [], 1.0
+    for tap in range(1, n + 1):
+        hs.append(c_float(cfg.ao.step * tap))
+        ws.append(c_float(weight))
+        weight *= cfg.ao.falloff
+
+    def switch(name, vals):
+        cases = "".join(f" case {i}: return {v};" for i, v in enumerate(vals))
+        return f"  static SDF3D_HD float {name}(int i) {{ switch (i) {{{cases} default: return 0.0f; }} }}"
+
+    return "\n".join([f"  static constexpr int ao_taps = {n};",
+                      f"  static constexpr float ao_strength = {c_float(cfg.ao.strength)};",
+                      switch("ao_h", hs), switch("ao_w", ws)])
 
 
 def cuda_neural_source(scene: SDFNode, cfg, nc) -> str:
@@ -818,9 +882,16 @@ def cuda_neural_source(scene: SDFNode, cfg, nc) -> str:
         what = describe(lay.analytic)
     else:
         point, what = "0.0f", "none"
-    smem = lay.size * 4 <= SMEM_BYTES
+    H, L = lay.hidden, lay.layers
+    w, b = lay.w_offsets, lay.b_offsets
+    w1 = w[1] if L > 2 else 0
+    if any(w[i] != w1 + (i - 1) * H * H for i in range(1, L - 1)) or any(b[i] != b[0] + i * H for i in range(L)):
+        raise ValueError(f"the neural kernel reads W_i and b_i at regular offsets; got {w}, {b}")
+    tile = neural_tile(lay)
+    sm = "\n".join(f"  static constexpr int {f} = {getattr(tile, f)};"
+                   for f in ("sm_w0", "sm_b", "sm_wo", "sm_bo", "sm_beta", "sm_uni", "sm_pa", "sm_mats", "smem_floats"))
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_neural_source.
-// Scene: {describe(scene)}, {count_params(scene)} parameters; MLP 3 -> {lay.hidden} x {lay.layers - 1} -> 1.
+// Scene: {describe(scene)}, {count_params(scene)} parameters; MLP 3 -> {H} x {L - 1} -> 1.
 #pragma once
 
 {_cfg_struct(cfg, block_rays=int(nc.block_rays))}
@@ -836,28 +907,35 @@ struct Scene {{
     return {point};
   }}
 
-  // Ambient occlusion factor at hit point h with normal n, distance f(x, y, z).
-  template <class F>
-  static SDF3D_HD float ao(const F& f, float hx, float hy, float hz, float nx, float ny, float nz) {{
-{_ao_source(cfg, "f({})")}
-  }}
+  // Ambient occlusion: tap i at h + ao_h(i) * n, weight ao_w(i).
+{_ao_taps_source(cfg)}
 }};
 
 // The MLP: its block of the parameter vector starts at `offset` and holds
-// `size` floats: W_i at w_offsets, b_i at b_offsets, beta at `beta`.
+// `size` floats: W_0 at w0, W_l (l = 1 .. layers - 2) at w1 + (l - 1) * hidden^2,
+// the output layer's weights at wo, b_l at b0 + l * hidden, the output bias
+// at bo, beta at `beta`.  The kernel's tile (ops/scene_program.py::neural_tile):
+// the width padded to hp; the H x H matrices resident in shared memory,
+// split, at qstride quads a pair of rows, or streamed in panels of panel_rows
+// float32 rows at `stride` floats; the shared layout in floats.
 struct Mlp {{
-  static constexpr int hidden = {lay.hidden};
-  static constexpr int layers = {lay.layers};
+  static constexpr int hidden = {H};
+  static constexpr int layers = {L};
   static constexpr int offset = {lay.offset};
   static constexpr int size = {lay.size};
+  static constexpr int w0 = {w[0]};
+  static constexpr int w1 = {w1};
+  static constexpr int wo = {w[L - 1]};
+  static constexpr int b0 = {b[0]};
+  static constexpr int bo = {b[L - 1]};
   static constexpr int beta = {lay.beta_offset};
-  // W offsets {list(lay.w_offsets)}, b offsets {list(lay.b_offsets)}.
-  static constexpr bool smem = {_c_bool(smem)};  // the block fits a CUDA block's shared memory
-  static constexpr bool aligned = {_c_bool(lay.offset % 4 == 0)};  // 16-byte aligned in a 16-byte aligned vector
-
-  template <class Wt>
-  static SDF3D_HD_NOINLINE float eval(const Wt& w, float beta, float px, float py, float pz) {{
-{_mlp_source(lay)}
-  }}
+  static constexpr int hp = {tile.hp};
+  static constexpr int stride = {tile.stride};
+  static constexpr int qstride = {tile.qstride};
+  static constexpr int min_blocks = {max(1, tile.min_threads // int(nc.block_rays))};  // blocks an SM holds at once
+  static constexpr int panel_rows = {tile.panel_rows};
+  static constexpr bool resident = {_c_bool(tile.resident)};
+  static constexpr bool vec4 = {_c_bool(tile.vec4)};  // 16-byte copies of the H x H rows
+{sm}
 }};
 """

@@ -38,7 +38,12 @@ from sdf3d_tpu_torch.ops.fit_kernel import (
     fit_step_variant,
     fit_step_variant_plain,
 )
-from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward, render_neural_forward_plain, render_neural_launch
+from sdf3d_tpu_torch.ops.neural_kernel import (
+    NeuralRenderConfig,
+    render_neural_forward,
+    render_neural_forward_plain,
+    render_neural_launch,
+)
 from sdf3d_tpu_torch.ops.render_bwd_kernel import (
     render_kernel_backward,
     render_kernel_backward_launch,
@@ -208,11 +213,12 @@ NEURAL = dataclasses.replace(BASE, march=dataclasses.replace(BASE.march, max_ste
                              shadow=dataclasses.replace(BASE.shadow, max_steps=32))
 
 
-@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("hidden", [64, 128, 256, 20])
 @pytest.mark.parametrize("shape", ["union", "bare"])
 def test_neural_kernel_matches_plain(dev, shape, hidden):
-    """Hidden 64 keeps the MLP in shared memory, 256 reads it from global
-    memory; the neural bar of utils/parity.py."""
+    """Hidden 64 and 128 keep the MLP's matrices in shared memory, 256
+    streams them in panels, 20 pads the width to 24; the neural bar of
+    utils/parity.py."""
     m = tt.sdf.neural_sdf(hidden, hidden=hidden, depth=3, radius=0.3)
     scene = (m if shape == "bare" else tt.sdf.ground_plane() | m).to(dev)
     prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), NEURAL, dev)
@@ -221,6 +227,24 @@ def test_neural_kernel_matches_plain(dev, shape, hidden):
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)
     check_planes(got, want, NEURAL.march.max_distance, f"{shape} hidden {hidden}", **NEURAL_BAR)
+
+
+@pytest.mark.parametrize("hidden,depth", [(64, 3), (256, 3), (16, 2), (24, 4)])
+def test_neural_kernel_bits_do_not_depend_on_block_rays(dev, hidden, depth):
+    """A pixel's bits depend only on its own sequence of points: 64 and 512
+    slots a block (other tiles, other grids, other orders) give the same
+    planes, bit for bit."""
+    m = tt.sdf.neural_sdf(hidden + depth, hidden=hidden, depth=depth, radius=0.3)
+    scene = (tt.sdf.ground_plane() | m).to(dev)
+    cfg = dataclasses.replace(NEURAL, ao=dataclasses.replace(NEURAL.ao, enabled=True))
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    a = render_neural_launch(scene, prm, uni, cfg, NeuralRenderConfig(block_rays=64))
+    b = render_neural_launch(scene, prm, uni, cfg, NeuralRenderConfig(block_rays=512))
+    want = render_neural_forward_plain(scene, prm, uni, cfg)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    check_planes(a, want, cfg.march.max_distance, f"hidden {hidden} depth {depth}", **NEURAL_BAR)
 
 
 def test_neural_weights_do_not_rebuild(dev):

@@ -214,33 +214,48 @@ HOST_CASES = {
         dict(normals="tetrahedron", shading="lambert"),
     ),
     "odd-width-depth3": (lambda: tt.sdf.ground_plane() | tt.sdf.neural_sdf(3, hidden=6, depth=3, radius=0.3), {}),
-    # The wide-MLP path (mlp_chunked), here at hidden 64 in two chunks, with
-    # the register limit lowered to 32.
-    "chunked-depth3": (lambda: tt.sdf.ground_plane() | tt.sdf.neural_sdf(4, hidden=64, depth=3, radius=0.3), {}),
+    # The streamed weights: the resident limit lowered so that hidden 64's
+    # H x H matrix streams through the ring of panels on the card.
+    "streamed-depth3": (lambda: tt.sdf.ground_plane() | tt.sdf.neural_sdf(4, hidden=64, depth=3, radius=0.3), {}),
 }
 
 
-@pytest.mark.parametrize("case", sorted(HOST_CASES))
-def test_generated_neural_source_on_cpu_matches_plain(case, tmp_path, monkeypatch):
-    scene_fn, overrides = HOST_CASES[case]
-    scene = scene_fn()
-    h, w = 48, 64
-    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=w, height=h, **overrides)
-    if case.startswith("chunked"):
-        monkeypatch.setattr(scene_program, "REGISTER_WIDTH", 32)
-        monkeypatch.setattr(scene_program, "CHUNK", 32)
-    source = cuda_neural_source(scene, cfg, NeuralRenderConfig())
-    assert ("mlp_chunked<64, 32>" in source) == case.startswith("chunked")
+def _host_neural(source, tmp_path):
+    tmp_path.mkdir(exist_ok=True)
     lib = _build_host_library(source, tmp_path, "neural_kernel.cu")
-    fn = lib.sdf3d_neural_fwd_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    lib.sdf3d_neural_fwd_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
+    lib.sdf3d_neural_fwd_blocks_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    lib.sdf3d_tf32_product_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    lib.sdf3d_tf32_product_host.restype = None
+    return lib
+
+
+def _host_inputs(scene, cfg):
     cam = tt.Camera.orbit(azimuth_deg=25.0, elevation_deg=10.0)
     prm = scene_param_vector(scene)
     uni = pack_uniforms(cam, tt.reference_light(), tt.reference_material(), cfg.ray_mode)
     uni[27] = cfg.shadow.k
-    out = [np.empty((3, h, w), np.float32)] + [np.empty((h, w), np.float32) for _ in range(3)]
-    assert fn(uni.numpy().ctypes.data, prm.numpy().ctypes.data, *(o.ctypes.data for o in out), h, w) == 0
+    out = [np.empty((3, cfg.height, cfg.width), np.float32)] + [
+        np.empty((cfg.height, cfg.width), np.float32) for _ in range(3)]
+    return prm, uni, out
+
+
+@pytest.mark.parametrize("case", sorted(HOST_CASES))
+def test_generated_neural_source_on_cpu_matches_plain(case, tmp_path, monkeypatch):
+    """The host form (the same slots and steps, the H x H products in
+    emulated split TF32) against the plain version, within NEURAL_BAR."""
+    scene_fn, overrides = HOST_CASES[case]
+    scene = scene_fn()
+    h, w = 48, 64
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=w, height=h, **overrides)
+    if case.startswith("streamed"):
+        monkeypatch.setattr(scene_program, "RESIDENT_BYTES", 16 * 1024)
+    source = cuda_neural_source(scene, cfg, NeuralRenderConfig())
+    assert ("resident = false;" in source) == case.startswith("streamed")
+    lib = _host_neural(source, tmp_path)
+    prm, uni, out = _host_inputs(scene, cfg)
+    assert lib.sdf3d_neural_fwd_host(uni.numpy().ctypes.data, prm.numpy().ctypes.data, *(o.ctypes.data for o in out),
+                                     h, w) == 0
     check_planes(out, render_neural_forward_plain(scene, prm, uni, cfg), cfg.march.max_distance, case,
                  **NEURAL_BAR)
 
@@ -249,8 +264,74 @@ def test_generated_neural_source_reads_weights_at_run_time():
     cfg, nc = tt.REFERENCE_CONFIG, NeuralRenderConfig()
     a = cuda_neural_source(tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=16), cfg, nc)
     assert cuda_neural_source(tt.sdf.ground_plane() | tt.sdf.neural_sdf(1, hidden=16), cfg, nc) == a
-    assert "offset = 4;" in a and "hidden = 16;" in a and "smem = true;" in a
+    assert "offset = 4;" in a and "hidden = 16;" in a and "hp = 16;" in a and "resident = true;" in a
     assert cuda_neural_source(tt.sdf.neural_sdf(0, hidden=16), cfg, nc) != a
     assert cuda_neural_source(tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=32), cfg, nc) != a
     wide = cuda_neural_source(tt.sdf.neural_sdf(0, hidden=256), cfg, nc)
-    assert "smem = false;" in wide and "aligned = true;" in wide and "mlp_chunked<256, 64>" in wide
+    assert "resident = false;" in wide and "vec4 = true;" in wide
+    assert "panel_rows = 32;" in wide and "stride = 260;" in wide
+    odd = cuda_neural_source(tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=20), cfg, nc)
+    assert "hp = 24;" in odd and "stride = 28;" in odd and "qstride = 26;" in odd
+
+
+def test_neural_tile_layout():
+    """The tile's padding, strides and shared-memory layout at the crossover
+    widths: a quarter warp's 16-byte quads of the split matrices (lanes 4g +
+    q, g < 2) and the streamed panels' B fragment rows 2q and 2q + 1 fall on
+    distinct banks, every block starts 16-byte aligned, hidden 64 and 128
+    hold their matrices in shared memory and 256 streams them."""
+    for hidden, resident, floats in ((64, True, 8872), (128, True, 34088), (256, False, 18216)):
+        lay = scene_program.neural_layout(tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=hidden))
+        tile = scene_program.neural_tile(lay)
+        banks = {(2 * q * tile.stride + g) % 32 for q in range(4) for g in range(8)}
+        quads = {(q * tile.qstride + g) % 8 for q in range(4) for g in range(2)}
+        assert len(banks) == 32 and len(quads) == 8 and tile.hp == hidden and tile.resident == resident
+        assert all(v % 4 == 0 for v in (tile.sm_uni, tile.sm_mats, tile.stride))
+        assert tile.smem_floats == floats and tile.smem_floats * 4 <= scene_program.SMEM_BYTES
+
+
+@pytest.mark.parametrize("k", [64, 256])
+def test_split_tf32_product_keeps_float32_accuracy(k, tmp_path):
+    """The host form's three-pass TF32 product against float64, as the error
+    relative to |A|.|B| over 4096 rows: within twice float32's own, where one
+    TF32 pass is off by more than 5e-5 (about three digits)."""
+    lib = _host_neural(cuda_neural_source(tt.sdf.neural_sdf(0, hidden=8), tt.REFERENCE_CONFIG,
+                                          NeuralRenderConfig()), tmp_path)
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(4096, k)).astype(np.float32)
+    b = rng.normal(size=(k, 8)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+
+    def err(c):
+        return float((np.abs(c - exact) / scale).max())
+
+    f32 = np.zeros((4096, 8), np.float32)
+    for q in range(k):  # float32 summed in k order
+        f32 += a[:, q:q + 1] * b[q:q + 1, :]
+    got = {}
+    for passes in (3, 1):
+        c = np.empty((4096, 8), np.float32)
+        lib.sdf3d_tf32_product_host(a.ctypes.data, b.ctypes.data, c.ctypes.data, 4096, k, 8, passes)
+        got[passes] = err(c)
+    assert got[3] <= 2 * err(f32), (got, err(f32))
+    assert got[1] > 5e-5, got
+
+
+@pytest.mark.parametrize("block_rays,blocks", [(32, 1), (64, 5), (256, 2)])
+def test_host_form_bits_do_not_depend_on_the_schedule(block_rays, blocks, tmp_path):
+    """A pixel's bits depend on its own sequence of points alone: the host
+    form with other slot counts and block counts (other rays share a tile,
+    in another order) gives the bits of 96 slots in 3 blocks."""
+    scene = tt.sdf.ground_plane() | tt.sdf.neural_sdf(5, hidden=16, depth=3, radius=0.3)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=40, height=30,
+                              ao=dataclasses.replace(tt.REFERENCE_CONFIG.ao, enabled=True))
+    planes = []
+    for nc, nb in ((NeuralRenderConfig(block_rays=96), 3), (NeuralRenderConfig(block_rays=block_rays), blocks)):
+        lib = _host_neural(cuda_neural_source(scene, cfg, nc), tmp_path / f"b{nc.block_rays}")
+        prm, uni, out = _host_inputs(scene, cfg)
+        assert lib.sdf3d_neural_fwd_blocks_host(uni.numpy().ctypes.data, prm.numpy().ctypes.data,
+                                                *(o.ctypes.data for o in out), 30, 40, nb) == 0
+        planes.append(out)
+    for x, y in zip(*planes):
+        assert x.tobytes() == y.tobytes()
