@@ -135,8 +135,10 @@ with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
     bar, ``empty`` the target's sum and ``empty_noin`` H·W exactly;
 28. main path: ``python -m sdf3d_tpu_torch.benchmarks.exp_ad`` at 1080p, one-step
     and reference config; CUDA-event times of eight variants (plain, kernel,
-    kernel, plain) and of the float64 sum of the 8100 partial rows alone;
-    K9's bounds;
+    kernel, plain), the wrapper's kernels on the card (the fit kernel, the
+    second kernel its C call launches, ``sdf3d_fit_total_kernel``, which
+    sums the partial rows in float64 one block a live column in an order
+    fixed by row and thread index, and the cast); K9's bounds;
 29. the bench at 1080p: ``bench.run_benchmark`` in ``fwd`` and ``fwd_bwd``
     (a reduced protocol), ``python -m sdf3d_tpu_torch.cli bench`` and
     ``cli info``, ``bench.run_extras``; beside each cell the kernel's
@@ -152,12 +154,13 @@ Then one JSON line describing the kernels, and last the JSON result line.
 Any failed check raises, so the script exits non-zero and prints no result.
 It imports nothing of JAX and exits non-zero without a CUDA device.
 
-    python3 chip_smoke.py --time-kernels ROOT
+    python3 chip_smoke.py --time-kernels ROOT [ROOT ...]
 
-times K1 and K3 at 1080p for the checkout at ``ROOT`` and prints SHA-256
-digests of K1's four planes and K3's partial rows, then times K6 at hidden 64,
-128 and 256 on phase 16's 1080p cell (run it for two checkouts in turns, in
-one call, to compare them on one card).
+times K1 and K3 at 1080p for each checkout in turn and prints SHA-256
+digests of K1's four planes and of K3's partial rows and float64 totals, the
+registers of K1, K3 and K5, then times K6 at hidden 64, 128 and 256 on phase
+16's 1080p cell, and last compares the checkouts (:func:`time_kernels`: give
+the parent and the change in turns to compare them on one card).
 """
 
 from __future__ import annotations
@@ -308,13 +311,15 @@ def march_counts(torch, scene, cam, cfg, prm, uni, plain) -> dict:
             "shadow_rays": float((steps["shadow"] > 0).sum()), "plain_primary": float(steps["primary"].sum())}
 
 
-def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: bool = False) -> tuple:
+def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: bool = False,
+                  retrace: bool = False) -> tuple:
     """``(FP32, special-function)`` operations of the analytic kernels on
     ``counts``' data: the primal's marches (each step an evaluation of the
     ray form and the loop's operations, a setup per marched ray) and normal
-    taps (the point form); the reverse pass's implicit-function gradient,
-    re-evaluated taps and reverse taps.  Ray generation and shading are left
-    out, so this is a floor."""
+    taps (the point form); the reverse pass's implicit-function gradient and
+    reverse taps, and with ``retrace`` the normal taps again (K5 rebuilds
+    the primal from the forward's planes; the fused fit step reverses its
+    own).  Ray generation and shading are left out, so this is a floor."""
     taps = 6 if cfg.normals == "central" else 4
     n = counts["pixels"]
     fp = sfu = 0.0
@@ -324,7 +329,8 @@ def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: 
         for calls, (f, s_), (lf, ls) in terms:
             fp, sfu = fp + calls * (f + lf), sfu + calls * (s_ + ls)
     if reverse:
-        for calls, (f, s_) in ((n, costs["grad"]), (n * taps, costs["point"]), (n * (taps + 1), costs["bwd"])):
+        terms = [(n, costs["grad"]), (n * (taps + 1), costs["bwd"])] + [(n * taps, costs["point"])] * retrace
+        for calls, (f, s_) in terms:
             fp, sfu = fp + calls * f, sfu + calls * s_
     return fp, sfu
 
@@ -735,13 +741,15 @@ def fit_phases(torch, tt, card: str, dev) -> list:
                     trainable=trainable, device=dev)
     fit_ms = W * H / res.rays_per_second * 1e3
     # Bounds on this cell (step 0 of the fit demo): K3's primal and reverse
-    # pass, K5's reverse pass; one partial row of P + 31 (P + 30) per block.
+    # pass, its target read and P + 31 float64 totals written; K5's reverse
+    # pass with its re-trace, six planes read and a partial row of P + 30
+    # per block written.
     counts = march_counts(torch, sc, cam, cfg, prm, uni, render_kernel_forward_plain)
     costs = scene_costs(cuda_scene_source(sc, cfg, KernelConfig(), False, frozen))
     blocks = -(-W // 32) * -(-H // 8)
-    g = prm.numel() + 31
-    k3 = bound(*analytic_work(costs, counts, cfg, primal=True, reverse=True), 12 * W * H + 4 * blocks * g)
-    k5 = bound(*analytic_work(costs, counts, cfg, primal=False, reverse=True), 24 * W * H + 4 * blocks * (g - 1))
+    k3 = bound(*analytic_work(costs, counts, cfg, primal=True, reverse=True), 12 * W * H + 8 * (prm.numel() + 31))
+    k5 = bound(*analytic_work(costs, counts, cfg, primal=False, reverse=True, retrace=True),
+               24 * W * H + 4 * blocks * (prm.numel() + 30))
     log("times_fit_1080p", card=card, fit_scene_ms_per_step=fit_ms, fwd_bwd_rays_per_s=res.rays_per_second,
         render_bwd_1080p=bwd_st, counts=counts, costs=costs, bound_fit_step=k3, bound_render_bwd=k5, **runs)
     return [
@@ -1305,10 +1313,9 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     k2_bound = bound(*analytic_work(scene_costs(cuda_scene_source(ref_scene, full, kc)), counts, full),
                      24 * W * H + 8 * plan.tiles_per_device)
     f_counts = march_counts(torch, sc, cam, full, f_prm, f_uni, render_kernel_forward_plain)
-    blocks = plan.tiles_per_device * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
     k4_bound = bound(*analytic_work(scene_costs(cuda_scene_source(sc, full, kc, False, frozen)), f_counts, full,
                                     primal=True, reverse=True),
-                     12 * W * H + 8 * plan.tiles_per_device + 4 * blocks * (f_prm.numel() + 31))
+                     12 * W * H + 8 * plan.tiles_per_device + 8 * (f_prm.numel() + 1))
     log("tiles_times_1080p", card=card, tiles=plan.tiles_per_device, k2_vs_plain=k2_st["rgb"], k4=k4_st,
         fit_scene_ms_per_step=fit_ms, render_fwd_ms_phase6=times["render_fwd"],
         two_ranks_one_card_ms_per_step={"note": "a correctness run of two ranks sharing one card over gloo, "
@@ -1677,8 +1684,8 @@ def sass_instructions(path: str) -> dict:
 
 
 def fit_kernel_alone(scene, prm, uni, target, cfg, kc, variant="full", wrt_uniforms=True):
-    """``(launch, partials)``: the fit kernel's entry point alone (K3, or a
-    K9 variant) on preallocated partial rows, no wrapper and no sum
+    """``(launch, partials, totals)``: the fit kernel's entry point alone (K3,
+    or a K9 variant) on preallocated partial rows and totals, no wrapper
     (``ops/fit_kernel.py::fit_launcher``, the wrappers' launch)."""
     from sdf3d_tpu_torch.ops.fit_kernel import _header_variant, fit_launcher
 
@@ -1705,7 +1712,6 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.fit_kernel import (
         VARIANTS,
-        _totals,
         _uniforms,
         fit_step_kernel_launch,
         fit_step_variant_launch,
@@ -1875,39 +1881,38 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
             row["ms"] = sum(row["ms_runs"]) / 2
             row["wrapper_ms"] = time_ms(wrap, 5, 50)
             times[f"{cname} {v}"] = row
-    # The float64 sum of the partial rows: its device time (the profiler's
-    # kernels), and by CUDA events alone, where back-to-back calls are bound
-    # by their launches; the wrapper's time above less the kernel's is what
-    # it adds to a step.
-    full_launch, full_partials = fit_kernel_alone(scene, prm, _uniforms(cam, light, mat, ref, dev), zero,
-                                                  configs["short"], kc)
-    full_launch()
+    # The float64 total is a second kernel of the same C call
+    # (sdf3d_fit_total_kernel): the wrapper's kernels on the card (the
+    # profiler: the fit kernel, its total and the cast of the totals), and
+    # the wrapper's time less the entry point's, what it adds to a step.
+    uni = _uniforms(cam, light, mat, configs["short"], dev)
+    full_partials = fit_kernel_alone(scene, prm, uni, zero, configs["short"], kc)[1]
     sums = {"rows": list(full_partials.shape),
-            "float64_device": device_us(torch, lambda: _totals(full_partials, P, torch.float32)),
-            "float32_device": device_us(torch, lambda: full_partials.sum(0)),
-            "float64_events_ms": time_ms(lambda: _totals(full_partials, P, torch.float32), 5, 100),
+            "wrapper_device": device_us(torch, lambda: fit_step_variant_launch("full", scene, prm, uni, zero,
+                                                                               configs["short"], kc)),
             "wrapper_minus_kernel_ms": {k: times[k]["wrapper_ms"] - times[k]["ms"]
                                         for k in ("short full", "reference full")}}
 
     # K9's bounds at 1080p under the one-step config (the lab's cell): the
     # marches' steps of this run's data, the normal taps and, for the
-    # gradient variants, the reverse pass; a partial row per block.
+    # gradient variants, the reverse pass; the target read and the float64
+    # totals written.
     c = configs["short"]
     uni = _uniforms(cam, light, mat, c, dev)
     counts = march_counts(torch, scene, cam, c, prm, uni, render_kernel_forward_plain)
     costs = scene_costs(cuda_scene_source(scene, c, kc, True, ()))
-    n, blocks = W * H, -(-W // kc.block_w) * -(-H // kc.block_h)
+    n = W * H
     fwd_ops = analytic_work(costs, counts, c)
     both = analytic_work(costs, counts, c, primal=True, reverse=True)
     n_taps = n * (6 if c.normals == "central" else 4)  # shade_only's primal: the normal taps alone
     rev = analytic_work(costs, counts, c, primal=False, reverse=True)
     bounds = {v: bound(*ops, nb) for v, ops, nb in (
-        ("full", both, 12 * n + 4 * blocks * (P + 31)), ("wrt_p", both, 12 * n + 4 * blocks * (P + 1)),
-        ("nopow", both, 12 * n + 4 * blocks * (P + 31)), ("noscatter", both, 12 * n + 4 * blocks),
-        ("primal", fwd_ops, 12 * n + 4 * blocks),
+        ("full", both, 12 * n + 8 * (P + 31)), ("wrt_p", both, 12 * n + 8 * (P + 31)),
+        ("nopow", both, 12 * n + 8 * (P + 31)), ("noscatter", both, 12 * n + 8),
+        ("primal", fwd_ops, 12 * n + 8),
         ("shade_only", (n_taps * costs["point"][0] + rev[0], n_taps * costs["point"][1] + rev[1]),
-         12 * n + 4 * blocks * (P + 31)),
-        ("empty", (3 * n, 0), 12 * n + 4 * blocks), ("empty_noin", (n, 0), 4 * blocks))}
+         12 * n + 8 * (P + 31)),
+        ("empty", (3 * n, 0), 12 * n + 8), ("empty_noin", (n, 0), 8))}
     log("variants_times_1080p", card=card, exp_ad=lab, times=times, partial_sum=sums, counts=counts, bounds=bounds)
     short = {v: times[f"short {v}"] for v in ("full", "wrt_p", "nopow", "primal", "empty", "empty_noin", "noscatter",
                                              "shade_only")}
@@ -1934,7 +1939,7 @@ def bench_phases(torch, tt, card: str, dev) -> None:
 
     def kernel_launch(mode, c):
         """The cell's kernel: K1, or K3's entry point alone on the zero
-        target (the chunk's step adds the float64 sum and the update)."""
+        target (the chunk's step adds the gradient split and the update)."""
         uni = _uniforms(cam, light, mat, c, dev)
         if mode == "fwd":
             return lambda: render_kernel_launch(scene, prm, uni, c, kc)
@@ -2019,25 +2024,25 @@ def bench_phases(torch, tt, card: str, dev) -> None:
         cli_info=info.stdout.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
 
 
-def time_kernels(root: str) -> int:
-    """``--time-kernels ROOT``: K1 and K3 on the reference scene and the fit
-    demo at 1080p, three runs of 50 launches each by CUDA events, SHA-256
-    digests of K1's four planes and K3's partial rows, and their kernels'
-    ptxas registers and spills; then K6 on phase 16's cell at hidden 64, 128
-    and 256, three runs each; for the package of the checkout at ``ROOT``
-    (run it for two checkouts in turns, in one call, to compare them on one
-    card).  Prints one JSON line."""
+def blocks_per_sm(registers: int, threads: int = 256) -> int:
+    """Resident blocks of ``threads`` threads an SM holds at ``registers`` a
+    thread (Hopper: 65536 registers an SM, allotted per warp in units of 256,
+    that is 8 a thread; at most 2048 threads an SM); shared memory, a few KB
+    a block here, is not the limit."""
+    per_block = -(-registers // 8) * 8 * threads
+    return min(65536 // per_block, 2048 // threads)
+
+
+def _time_root(root: str) -> dict:
+    """One checkout's measurements for ``--time-kernels`` (module docstring)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 1
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import sdf3d_tpu_torch as tt
     from sdf3d_tpu_torch.ops import _build
-    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_launch
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, kernel_library, pack_uniforms, render_kernel_launch
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher, fit_step_kernel_launch
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_launch
     from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
 
     check(tt.__file__.startswith(root), f"imported {tt.__file__}, not the package under {root}")
@@ -2049,25 +2054,44 @@ def time_kernels(root: str) -> int:
     ref = tt.reference_scene().to(dev)
     sc0 = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25)).to(dev)
     prm, prm0 = scene_param_vector(ref, dev), scene_param_vector(sc0, dev)
+    P, frozen, kc = prm0.numel(), (0, 1, 2, 3), KernelConfig()
     target = render_kernel_launch(ref, prm, uni, cfg)[0].contiguous()
     k1 = lambda: render_kernel_launch(ref, prm, uni, cfg)  # noqa: E731
-    k3 = lambda: fit_step_kernel_launch(sc0, prm0, uni, target, cfg, KernelConfig(), False, (0, 1, 2, 3))  # noqa: E731
-    # The bits: K1's four planes, and K3's partial rows from its entry point.
+    # K3 on the fit demo's main path, through the checkout's own launcher and
+    # wrapper.  A launcher that returns partial rows (before the in-launch
+    # total) has them summed as its wrapper sums them.
+    k3 = lambda: fit_step_kernel_launch(sc0, prm0, uni, target, cfg, kc, False, frozen)  # noqa: E731
+    launcher = fit_launcher(sc0, prm0, uni, target, cfg, kc, False, frozen)
+    out = launcher[0]()
+    totals = out if out.dtype == torch.float64 else out.sum(0, dtype=torch.float64)
+    partial_rows = launcher[1] if out.dtype == torch.float64 else out
+    torch.cuda.synchronize()
+    fit_totals = torch.cat([totals[:P], totals[-1:]]).cpu().numpy()
+    # The partial rows' live columns (the unfrozen slots, then the loss) as
+    # (blocks, live) on every checkout: a launcher that stores all P + 31
+    # columns has the others dropped, so the digests compare each block's
+    # sums bit for bit across checkouts.
+    rows = partial_rows.cpu()
+    live = [k for k in range(P) if k not in frozen] + [rows.shape[1] - 1]
+    live_rows = (rows if rows.shape[1] == len(live) else rows[:, live]).contiguous().numpy()
     planes = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k1())
-    kc = KernelConfig()
-    lib = kernel_library(sc0, prm0, uni, cfg, kc, False, (0, 1, 2, 3))
-    partials = torch.empty((-(-W // kc.block_w) * -(-H // kc.block_h), prm0.numel() + 31), device=dev)
-    check(lib.sdf3d_fit_step(uni.data_ptr(), prm0.data_ptr(), *(target[k].data_ptr() for k in range(3)),
-                             partials.data_ptr(), H, W, torch.cuda.current_stream(dev).cuda_stream) == 0, "K3 launch")
     libs = _build.LIBRARIES
-    ptxas = {"render_fwd": ptxas_summary(libs.log(libs.key(cuda_scene_source(ref, cfg, kc))))["render_fwd"],
-             "fit_step": ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, cfg, kc, False, (0, 1, 2, 3)))))[
-                 "fit_step"]}
+    ptxas = {k: ptxas_summary(libs.log(libs.key(cuda_scene_source(ref, cfg, kc))))[k] for k in ("render_fwd",
+                                                                                              "render_bwd")}
+    ptxas["fit_step"] = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, cfg, kc, False, frozen))))["fit_step"]
+    for v in ptxas.values():
+        v["blocks_per_sm"] = blocks_per_sm(v["registers"], kc.block_w * kc.block_h)
     result = {"root": root, "card": card_name_and_power(), "ptxas": ptxas,
               "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
-              "fit_step_partials_sha256": hashlib.sha256(partials.cpu().numpy().tobytes()).hexdigest(),
+              "fit_step_partials_sha256": hashlib.sha256(partial_rows.cpu().numpy().tobytes()).hexdigest(),
+              "fit_step_partials_shape": list(partial_rows.shape),
+              "fit_step_live_rows_sha256": hashlib.sha256(live_rows.tobytes()).hexdigest(),
+              "fit_totals": fit_totals.tolist(),
+              "fit_totals_sha256": hashlib.sha256(fit_totals.tobytes()).hexdigest(),
               "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
-              "fit_step_ms": [time_ms(k3, 5, 50) for _ in range(3)]}
+              "fit_step_ms": [time_ms(launcher[0], 5, 50) for _ in range(3)],
+              "fit_step_wrapper_ms": [time_ms(k3, 5, 50) for _ in range(3)],
+              "fit_step_wrapper_device_us": device_us(torch, k3)}
     # K6 on phase 16's cell: ground_plane() | neural_sdf(seed 0, hidden, depth 3)
     # at 1080p with 64/32 steps, the reference camera; three runs each.
     from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural_launch
@@ -2081,11 +2105,56 @@ def time_kernels(root: str) -> int:
         nprm = scene_param_vector(sc, dev)
         k6 = lambda: render_neural_launch(sc, nprm, uni, ncfg, NeuralRenderConfig())  # noqa: E731
         result[f"neural_fwd_hidden{hidden}_ms"] = [time_ms(k6, 1, frames) for _ in range(3)]
-    print(json.dumps(result), flush=True)
+    return result
+
+
+def max_rel_diff(a, b) -> float:
+    """The largest |a - b| / max(|a|, |b|) over two vectors (0 where both
+    are 0)."""
+    return max((abs(x - y) / max(abs(x), abs(y)) for x, y in zip(a, b) if x != y), default=0.0)
+
+
+def time_kernels(roots: list) -> int:
+    """``--time-kernels ROOT [ROOT ...]``: for each checkout in turn, in a
+    process of its own (the packages share a name), K1 and K3 at 1080p (the
+    reference scene, the fit demo's main path) and K6 on phase 16's cell,
+    three runs each by CUDA events; SHA-256 digests of K1's four planes, of
+    K3's partial rows (all, and their live columns in one layout for every
+    checkout) and of its float64 totals (the gradient and the loss);
+    ptxas registers, spills and resident blocks per SM of K1, K3 and K5.
+    One JSON line per checkout, then one comparing them: whether K1's planes
+    and K3's live partial rows agree bit for bit, the registers, and the
+    totals' largest relative difference from the first checkout's.  Give the parent and the change in turns (parent,
+    change, change, parent) to compare them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    results = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-root", root], capture_output=True,
+                              text=True, timeout=900)
+        check(proc.returncode == 0, f"--time-kernels {root} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(results[-1]), flush=True)
+    first = results[0]
+    print(json.dumps({
+        "roots": [r["root"] for r in results],
+        "render_fwd_sha256_equal": len({r["render_fwd_sha256"] for r in results}) == 1,
+        "fit_step_live_rows_sha256_equal": len({r["fit_step_live_rows_sha256"] for r in results}) == 1,
+        "registers": {k: [r["ptxas"][k]["registers"] for r in results] for k in ("render_fwd", "fit_step",
+                                                                              "render_bwd")},
+        "fit_totals_max_rel_diff": [max_rel_diff(r["fit_totals"], first["fit_totals"]) for r in results],
+        "fit_step_ms": [r["fit_step_ms"] for r in results],
+        "fit_step_wrapper_ms": [r["fit_step_wrapper_ms"] for r in results]}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-kernels"]:
-        sys.exit(time_kernels(sys.argv[2]))
+        sys.exit(time_kernels(sys.argv[2:]))
+    if sys.argv[1:2] == ["--time-root"]:
+        print(json.dumps(_time_root(sys.argv[2])), flush=True)
+        sys.exit(0)
     sys.exit(main())

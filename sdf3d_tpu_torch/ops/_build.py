@@ -7,8 +7,9 @@ ops/scene_program.py) and the sources of its kind:
 - ``"render"``: the kernels of an analytic scene, the forward render and
   its tile-queue form (``csrc/render_kernel.cu``, ``sdf3d_render_fwd``,
   ``sdf3d_render_tiles``), the fused fit step and its tile-queue form
-  (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``, ``sdf3d_fit_step_tiles``)
-  and the render backward (``csrc/render_bwd_kernel.cu``,
+  (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``, ``sdf3d_fit_step_tiles``:
+  partial rows and their float64 totals in one call) and the render
+  backward (``csrc/render_bwd_kernel.cu``,
   ``sdf3d_render_bwd``);
 - ``"neural"``: the neural-scene forward render alone
   (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``);
@@ -81,23 +82,31 @@ _COLL_COMMON = (
 class LibraryKind:
     """What a library of one kind is built from and exports: its file name,
     its sources under ``csrc/`` and its C entry points with their argument
-    types (pointers, then H, W, stream).  The host form exports each entry
-    point with the suffix ``_host`` and without the stream, unless
-    ``host_entry_points`` lists its own."""
+    types (pointers, then H, W, stream), and those of its host form
+    (``host_entry_points``: the suffix ``_host``, no stream)."""
 
     lib_name: str
     sources: tuple
     entry_points: tuple  # ((name, argtypes), ...)
-    host_entry_points: tuple | None = None
+    host_entry_points: tuple
 
 
 KINDS = {
     "render": LibraryKind("libsdf3d_render.so", ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu"), (
         ("sdf3d_render_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
         ("sdf3d_render_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
-        ("sdf3d_fit_step", [_PTR] * 6 + [_INT, _INT, _PTR]),
-        ("sdf3d_fit_step_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
+        ("sdf3d_fit_step", [_PTR] * 7 + [_INT, _INT, _PTR]),
+        ("sdf3d_fit_step_tiles", [_PTR] * 9 + [_INT, _INT, _INT, _PTR]),
+        ("sdf3d_fit_columns", [_PTR]),
         ("sdf3d_render_bwd", [_PTR] * 9 + [_INT, _INT, _PTR]),
+    ), host_entry_points=(
+        ("sdf3d_render_fwd_host", [_PTR] * 6 + [_INT, _INT]),
+        ("sdf3d_render_tiles_host", [_PTR] * 8 + [_INT, _INT, _INT]),
+        ("sdf3d_fit_step_host", [_PTR] * 7 + [_INT, _INT]),
+        ("sdf3d_fit_step_tiles_host", [_PTR] * 9 + [_INT, _INT, _INT]),
+        ("sdf3d_fit_retrace_host", [_PTR] * 7 + [_INT, _INT]),
+        ("sdf3d_fit_columns", [_PTR]),
+        ("sdf3d_render_bwd_host", [_PTR] * 9 + [_INT, _INT]),
     )),
     "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
         ("sdf3d_neural_fwd", [_PTR] * 7 + [_INT, _INT, _PTR]),
@@ -217,13 +226,7 @@ class KernelLibraries:
             if not path.exists():
                 self._compile(path.parent, scene_header, spec)
             lib = ctypes.CDLL(str(path))
-            if not self.host:
-                entry_points = spec.entry_points
-            elif spec.host_entry_points is not None:
-                entry_points = spec.host_entry_points
-            else:
-                entry_points = [(name + "_host", argtypes[:-1]) for name, argtypes in spec.entry_points]
-            for name, argtypes in entry_points:
+            for name, argtypes in spec.host_entry_points if self.host else spec.entry_points:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

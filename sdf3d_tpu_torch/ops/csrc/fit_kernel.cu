@@ -1,37 +1,53 @@
 // Fused L2 fit steps for Hopper (sm_90a): the loss sum(rgb - target)^2 and
 // its gradient with respect to the scene parameters (and, with
-// Fit::wrt_uniforms, the 30 uniforms) in one launch.  K3 runs over an image
-// (or a row slab of one), K4 over a work-list of tiles.
+// Fit::wrt_uniforms, the 30 uniforms) in one launch, totals included.  K3
+// runs over an image (or a row slab of one), K4 over a work-list of tiles.
 //
 // K3 replaces sdf3d_tpu/ops/fit_kernel.py::_fit_tile_kernel (the Pallas
 // kernel launched by fit_step_kernel) in its plain-L2 form.  One thread per
-// pixel, Cfg::block_w x Cfg::block_h blocks as in the render kernel:
-// render_pixel (the render kernel's primal: march, normals, shadow, AO,
-// shading) gives rgb and the t/shadow/ao values in registers, then
-// shade_vjp seeded with 2*(rgb - target) accumulates the pixel's
-// gradient.  Each block sums its threads' (P + 30 + 1) values in a fixed
-// order and writes one partial row; the caller sums the rows (torch.sum),
-// as the JAX package sums its per-tile partials outside its kernel.  No
-// atomics: the result is deterministic.  Threads outside the image take
-// part in the block sum with zeros (the padding mask of the Pallas kernel).
-// Frozen parameter slots (Fit::zero_frozen) read exactly 0.  Launch row r
-// is the absolute image row abs_row(r) (render_kernel.cuh), so a rank of a
-// sharded fit runs its contiguous or interleaved rows.
+// pixel, Cfg::block_w x Cfg::block_h blocks as in the render kernel.  A
+// thread traces its pixel's primal once (trace_pixel: the marches and the
+// Primal of render_kernel.cuh), shades it, and runs the reverse pass
+// (shade_vjp.cuh) over that same Primal seeded with 2*(rgb - target): the
+// ray, hit point, normal taps and unit vectors are not traced again.
+// Launch row r is the absolute image row abs_row(r) (render_kernel.cuh), so
+// a rank of a sharded fit runs its contiguous or interleaved rows.
+//
+// The totals are dP, dU and the loss (the loss alone for K9's loss-only
+// variants).  A block reduces only the live ones: dU only with
+// Fit::wrt_uniforms, and never a frozen parameter slot (Fit::is_frozen).
+// Each block sums its threads' live values in a fixed order
+// (block_sum_store: shuffles within a warp, then the warps in order) into
+// one partial row, stored by column.  The same entry point then launches a
+// second kernel, sdf3d_fit_total_kernel, one 256-thread block a live
+// column, which sums the partial rows in float64 in an order fixed by row
+// and thread index (fixed_order_total below), never by arrival, and writes
+// the totals; its block 0 writes the columns no block sums (frozen slots,
+// dU without the uniforms' gradient) as exact zeros.  No atomics, no Python
+// between the two launches, no sum on the host.  Threads outside the image
+// add zeros (the padding mask of the Pallas kernel).
 //
 // K4 (sdf3d_fit_step_tiles) replaces the same Pallas body with
 // tile_queue=True (fit_step_kernel_tiles), the per-device fit program of
 // the tile-queue layout; one kernel function serves K3 and K4 (below).
-// The grid is K2's, (TW/block_w, TH/block_h, T);
-// block z reads its tile's origin (trow[z], tcol[z]) and the target stack
-// (3, T·TH, TW) at row z·TH + r.  The mask is taken in absolute pixels,
-// row < H and col < W of the full image, so the dummy tiles of a plan
-// (row0 == H) add exact zeros.  One partial row per block, as K3.
+// The grid is K2's, (TW/block_w, TH/block_h, T); block z reads its tile's
+// origin (trow[z], tcol[z]) and the target stack (3, T·TH, TW) at row
+// z·TH + r.  The mask is taken in absolute pixels, row < H and col < W of
+// the full image, so the dummy tiles of a plan (row0 == H) add exact zeros.
+// A block covers the same pixels in K3 and K4 when the tile splits into
+// whole blocks, so the two give the same partial rows for them.
 //
-// What bounds them: the render kernel's marches (FP32/SFU issue and warp
-// divergence), plus the reverse pass, which is straight-line code with
-// about ten distance evaluations per pixel and P + 31 values in registers.
-// Memory traffic is the target (12 B per pixel) and one partial row per
-// block.
+// What bounds them: FP32 and special-function issue (the marches' distance
+// evaluations, then the reverse pass's sqrt/divide/pow and its seven
+// reverse taps) and the latency of the marches' dependent steps, which
+// only more resident warps hide; one register count serves the whole
+// kernel, so the reverse pass's peak sets the marches' occupancy.  The
+// design: trace the primal once (the re-trace's six distance evaluations,
+// six IEEE square roots and divisions and a powf per pixel are gone), cap
+// the registers for 4 blocks an SM (kMinBlocks below: 32 warps instead of
+// 16, a few values spilled), reduce only live columns (5 of K3's
+// 39 on the fit demo) and total them on the card.  Memory traffic is the
+// target (12 B per pixel) and one partial row per block.
 //
 // K9, the fit step's benchmark variants, replaces
 // benchmarks/exp_ad.py::make_variant(...).kernel: K3's tile program cut down
@@ -43,44 +59,78 @@
 // x³·x³·x³·x³ (spec_pow<false>); SHADE_ONLY: no marches, the shading and its
 // reverse at t = 2, shadow 1, AO 1; EMPTY: sum of the target; EMPTY_NOIN:
 // the pixel count, no input read.  JAX's one-hot (8, 128) scatter is not
-// ported: a variant writes one partial row of kCols values, the loss last.
+// ported: a variant writes one partial row of its live columns a block, the
+// loss last.
+#include <type_traits>
+#include <utility>
+
 #include "shade_vjp.cuh"
 #include "sdf3d_scene.cuh"
 
 namespace {
 constexpr int kP = Scene::n_params;
-constexpr int kG = kP + sdf3d::N_UNIFORMS + 1;  // dP, dU, loss
+constexpr int kNT = Cfg::block_w * Cfg::block_h;  // threads a block
 
 // Fit::variant (ops/scene_program.py::FIT_VARIANTS, in this order).
 enum : int { FULL = 0, WRT_P, PRIMAL, NOSCATTER, NOPOW, SHADE_ONLY, EMPTY, EMPTY_NOIN };
 constexpr int kV = Fit::variant;
 constexpr bool kLossOnly = kV == PRIMAL || kV == NOSCATTER || kV == EMPTY || kV == EMPTY_NOIN;
-// The columns of a partial row, and the values a thread sums: NOSCATTER
-// keeps K3's whole gradient in registers and writes its loss alone.
-constexpr int kCols = kLossOnly ? 1 : (kV == WRT_P ? kP + 1 : kG);
+// The uniforms' gradient: taken with Fit::wrt_uniforms, except by WRT_P.
+constexpr bool kGradU = Fit::wrt_uniforms && kV != WRT_P;
+// K3's values of a pixel: dP, dU where taken, the loss last.
+constexpr int kG = kP + (kGradU ? sdf3d::N_UNIFORMS : 0) + 1;
+// The values a thread's result holds, and those it sums: NOSCATTER keeps
+// K3's whole gradient in registers and writes its loss alone.
+constexpr int kCols = kLossOnly ? 1 : kG;
 constexpr int kAcc = kV == NOSCATTER ? kG : kCols;
+// The totals: dP, dU and the loss whatever Fit::wrt_uniforms, the loss
+// alone for the loss-only variants.
+constexpr int kTotals = kLossOnly ? 1 : kP + sdf3d::N_UNIFORMS + 1;
 
-// SHADE_ONLY's primal: render_pixel's shading at t = 2 with the shadow and
-// AO factors 1, no march.
-SDF3D_HD sdf3d::Pixel shade_fixed(const float* u, const float* p, float rows, float cols, int H, int W) {
-  constexpr float t = 2.0f;
-  float dx, dy, dz;
-  sdf3d::ray_direction<Cfg>(u, rows, cols, H, W, dx, dy, dz);
-  const float ox = u[sdf3d::U_CAM], oy = u[sdf3d::U_CAM + 1], oz = u[sdf3d::U_CAM + 2];
-  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
-  float nx, ny, nz, ix, iy, iz;
-  sdf3d::estimate_normal<Cfg>(sdf3d::ScenePoint<Scene>{p}, hx, hy, hz, nx, ny, nz);
-  sdf3d::light_direction(u, hx, hy, hz, ix, iy, iz);
-  return sdf3d::shade_pixel<Cfg>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, 1.0f, 1.0f);
+// A frozen parameter slot is not reduced: its total reads exactly 0.
+SDF3D_HD constexpr bool frozen_col(int k) { return kCols > 1 && k < kP && Fit::is_frozen(k); }
+
+SDF3D_HD constexpr int count_live() {
+  int n = 0;
+  for (int k = 0; k < kCols; ++k) n += frozen_col(k) ? 0 : 1;
+  return n;
 }
 
-// The primal of one pixel: render_pixel, or SHADE_ONLY's fixed planes.
-SDF3D_HD sdf3d::Pixel primal_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
-  if constexpr (kV == SHADE_ONLY) {
-    return shade_fixed(u, p, rows, cols, H, W);
-  } else {
-    return sdf3d::render_pixel<Cfg, Scene, kV != NOPOW>(u, p, rows, cols, H, W);
+// The columns of a partial row: the result's live columns, in order.
+constexpr int kLive = count_live();
+
+// The result's column of live column j.
+SDF3D_HD constexpr int live_col(int j) {
+  for (int k = 0; k < kCols; ++k) {
+    if (!frozen_col(k) && j-- == 0) return k;
   }
+  return kCols;
+}
+
+// The totals' column of the result's column k (the loss is the last of both).
+SDF3D_HD constexpr int total_col(int k) { return k == kCols - 1 ? kTotals - 1 : k; }
+
+// Whether no block sums total k: a frozen slot, or dU without kGradU.
+SDF3D_HD constexpr bool zero_total(int k) {
+  return k < kP ? frozen_col(k) : k < kTotals - 1 && !kGradU;
+}
+
+// The primal of one pixel: trace_pixel, or SHADE_ONLY's fixed planes.
+SDF3D_HD sdf3d::Primal primal(const float* u, const float* p, float rows, float cols, int H, int W) {
+  if constexpr (kV == SHADE_ONLY) {
+    return sdf3d::make_primal<Cfg, Scene>(u, p, rows, cols, H, W, 2.0f, 1.0f, 1.0f);
+  } else {
+    return sdf3d::trace_pixel<Cfg, Scene, kV != NOPOW>(u, p, rows, cols, H, W);
+  }
+}
+
+// The residual of pixel px against its target at position i, times 2 (the
+// loss's cotangent), and its loss.
+SDF3D_HD float residual(const sdf3d::Pixel& px, const float* tr, const float* tg, const float* tb, size_t i,
+                        float (&g)[3]) {
+  const float rr = px.r - tr[i], rg = px.g - tg[i], rb = px.b - tb[i];
+  g[0] = 2.0f * rr; g[1] = 2.0f * rg; g[2] = 2.0f * rb;
+  return ((rr * rr) + (rg * rg)) + (rb * rb);
 }
 
 // One pixel at absolute (rows, cols) of an H x W image, its target at
@@ -93,16 +143,34 @@ SDF3D_HD void fit_pixel(const float* u, const float* p, const float* tr, const f
   } else if constexpr (kV == EMPTY) {
     acc[0] += (tr[i] + tg[i]) + tb[i];
   } else {
-    const sdf3d::Pixel px = primal_pixel(u, p, rows, cols, H, W);
-    const float rr = px.r - tr[i], rg = px.g - tg[i], rb = px.b - tb[i];
-    acc[kAcc - 1] += ((rr * rr) + (rg * rg)) + (rb * rb);
-    if constexpr (kV == WRT_P) {
-      sdf3d::shade_vjp<Cfg, Scene, false>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
-                                          2.0f * rr, 2.0f * rg, 2.0f * rb, acc, nullptr);
-    } else if constexpr (kV != PRIMAL) {
-      sdf3d::shade_vjp<Cfg, Scene, Fit::wrt_uniforms, kV != NOPOW>(u, p, rows, cols, H, W, px.t, px.shadow, px.ao,
-                                                                   2.0f * rr, 2.0f * rg, 2.0f * rb, acc, acc + kP);
+    const sdf3d::Primal pr = primal(u, p, rows, cols, H, W);
+    float g[3];
+    acc[kAcc - 1] += residual(sdf3d::shade<Cfg>(u, pr), tr, tg, tb, i, g);
+    if constexpr (kV != PRIMAL) {
+      sdf3d::shade_vjp<Cfg, Scene, kGradU, kV != NOPOW>(u, p, pr, g[0], g[1], g[2], acc,
+                                                        kGradU ? acc + kP : nullptr);
     }
+  }
+}
+
+// Thread (tx, ty) of block (bx, by, z): adds its pixel's terms to acc, or
+// nothing outside the image.  trow == nullptr is K3 (pixel (y, x) of the
+// grid, absolute row abs_row(y)), else K4 (pixel (trow[z] + y, tcol[z] + x)
+// of tile z, masked in absolute pixels).  Both meet in one call of
+// fit_pixel, so a pixel's terms have the same bits whichever layout
+// launched them.
+SDF3D_HD void block_thread(const float* u, const float* p, const int* trow, const int* tcol, const float* tr,
+                           const float* tg, const float* tb, int bx, int by, int z, int tx, int ty, int H, int W,
+                           float* acc) {
+  const int x = bx * Cfg::block_w + tx, y = by * Cfg::block_h + ty;
+  const bool tiles = trow != nullptr;
+  const int row = tiles ? trow[z] + y : y;
+  const int col = tiles ? tcol[z] + x : x;
+  if (row < H && col < W && (!tiles || (y < Cfg::tile_h && x < Cfg::tile_w))) {
+    const size_t i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x
+                           : static_cast<size_t>(y) * W + x;
+    fit_pixel(u, p, tr, tg, tb, i, tiles ? static_cast<float>(row) : sdf3d::abs_row<Cfg>(u, y),
+              static_cast<float>(col), H, W, acc);
   }
 }
 
@@ -116,129 +184,224 @@ SDF3D_HD float loss_keeping_gradient(const float (&acc)[kAcc]) {
   }
   return keep;
 }
+
+template <int... J>
+SDF3D_HD void gather_live(const float (&acc)[kAcc], float (&v)[kLive], std::integer_sequence<int, J...>) {
+  ((v[J] = acc[std::integral_constant<int, live_col(J)>::value]), ...);
+}
+
+// A thread's partial-row values: its sums' live columns (NOSCATTER: its loss).
+SDF3D_HD void row_values(const float (&acc)[kAcc], float (&v)[kLive]) {
+  if constexpr (kV == NOSCATTER) {
+    v[0] = loss_keeping_gradient(acc);
+  } else {
+    gather_live(acc, v, std::make_integer_sequence<int, kLive>{});
+  }
+}
+
+// ---- fixed_order_total: the float64 total of the partial rows ----
+// Column c of the rows is summed by one block of kTotalThreads threads:
+// thread j adds rows 4j .. 4j + 3, then 4(j + kTotalThreads) .. + 3, and so
+// on, in row order into a float64 sum from 0, and the block adds its
+// threads' sums in block_sum_store's order (shuffles within a warp, then the
+// warps in order).  The rows are stored by column, each padded to a
+// multiple of 4 (16-byte loads).
+constexpr int kTotalThreads = 256;
+
+SDF3D_HD int padded_rows(int rows) { return (rows + 3) & ~3; }
 }  // namespace
+
+// out[0]: the totals' columns (kTotals), out[1]: a partial row's (kLive).
+extern "C" int sdf3d_fit_columns(int* out) {
+  out[0] = kTotals;
+  out[1] = kLive;
+  return 0;
+}
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
 namespace {
-// Uniforms and parameters into registers, the accumulator to zero.
-__device__ __forceinline__ void load_inputs(const float* __restrict__ uni, const float* __restrict__ prm,
-                                            float (&u)[sdf3d::N_UNIFORMS], float (&p)[kP > 0 ? kP : 1],
-                                            float (&acc)[kAcc]) {
-#pragma unroll
-  for (int k = 0; k < sdf3d::N_UNIFORMS; ++k) u[k] = __ldg(uni + k);
-#pragma unroll
-  for (int k = 0; k < kP; ++k) p[k] = __ldg(prm + k);
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+// The blocks of kNT threads an SM must hold (__launch_bounds__' second
+// argument; ptxas caps the registers to fit, spilling what does not: 64 a
+// thread for 4 blocks of 256, 80 for 3).  The reverse pass peaks near 90
+// registers (128 with the uniforms' 30 gradients), which would allow only
+// 2 blocks, and the marches before it need the warps to hide their latency.
+// 4 blocks, and 3 where a thread also sums the uniforms' gradients (whose
+// spills then cost more than a fourth block gains; PERF.md).
+constexpr int kMinBlocks = kAcc > kP + 1 ? 3 : 4;
+
+// fixed_order_total on the card: block c sums live column c of the `rows`
+// partial rows (stored by column, `ld` floats apart) and writes its total;
+// block 0 writes the zeros of the totals no block sums.
+__global__ void __launch_bounds__(kTotalThreads)
+sdf3d_fit_total_kernel(const float* __restrict__ partials, int rows, int ld, double* __restrict__ totals) {
+  const int c = blockIdx.x;
+  const float4* col = reinterpret_cast<const float4*>(partials + static_cast<size_t>(c) * ld);
+  double s[1] = {0.0};
+#pragma unroll 4
+  for (int m = threadIdx.x; 4 * m < rows; m += kTotalThreads) {
+    const float4 x = __ldg(col + m);
+    const int r = 4 * m;
+    s[0] += static_cast<double>(x.x);
+    if (r + 1 < rows) s[0] += static_cast<double>(x.y);
+    if (r + 2 < rows) s[0] += static_cast<double>(x.z);
+    if (r + 3 < rows) s[0] += static_cast<double>(x.w);
+  }
+  sdf3d::block_sum_store<1, kTotalThreads, double>(s, totals + total_col(live_col(c)));
+  if (c == 0) {
+    for (int k = threadIdx.x; k < kTotals; k += kTotalThreads) {
+      if (zero_total(k)) totals[k] = 0.0;
+    }
+  }
+}
+
+// The total of `rows` partial rows after the fit kernel, on the same stream.
+int launch_total(const float* partials, int rows, double* totals, cudaStream_t stream) {
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  sdf3d_fit_total_kernel<<<kLive, kTotalThreads, 0, stream>>>(partials, rows, padded_rows(rows), totals);
+  return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
 
-// K3 and K4 are one kernel: trow == nullptr launches K3 (pixel (y, x) of
-// the grid, absolute row abs_row(y)), else K4 (pixel (trow[z] + y,
-// tcol[z] + x) of tile z, masked in absolute pixels).  Both meet in one
-// call of fit_pixel, so a pixel's terms, and a block's partial row over the
-// same pixels, have the same bits whichever layout launched them.
-__global__ void __launch_bounds__(Cfg::block_w * Cfg::block_h)
+// K3 and K4 are one kernel (block_thread).
+__global__ void __launch_bounds__(kNT, kMinBlocks)
 sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ prm,
                       const int* __restrict__ trow, const int* __restrict__ tcol,
                       const float* __restrict__ tr, const float* __restrict__ tg,
                       const float* __restrict__ tb, float* __restrict__ partials, int H, int W) {
-  const int x = blockIdx.x * Cfg::block_w + threadIdx.x;
-  const int y = blockIdx.y * Cfg::block_h + threadIdx.y;
-  const int z = blockIdx.z;
-  const bool tiles = trow != nullptr;
-  const int row = tiles ? __ldg(trow + z) + y : y;
-  const int col = tiles ? __ldg(tcol + z) + x : x;
-  const bool inside = row < H && col < W && (!tiles || (y < Cfg::tile_h && x < Cfg::tile_w));
-  float u[sdf3d::N_UNIFORMS], p[kP > 0 ? kP : 1], acc[kAcc];
-  load_inputs(uni, prm, u, p, acc);
-  if (inside) {
-    const size_t i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x
-                           : static_cast<size_t>(y) * W + x;
-    fit_pixel(u, p, tr, tg, tb, i, tiles ? static_cast<float>(row) : sdf3d::abs_row<Cfg>(u, y),
-              static_cast<float>(col), H, W, acc);
-  }
-  Fit::zero_frozen(acc);
-  const size_t block = (static_cast<size_t>(z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  if constexpr (kV == NOSCATTER) {
-    const float keep[1] = {loss_keeping_gradient(acc)};
-    sdf3d::block_sum_store<1, Cfg::block_w * Cfg::block_h>(keep, partials + block);
-  } else {
-    sdf3d::block_sum_store<kAcc, Cfg::block_w * Cfg::block_h>(acc, partials + block * kAcc);  // kAcc == kCols
-  }
+  // The uniforms and parameters from shared memory, loaded once a block
+  // (faster than registers or global memory at each use; PERF.md).
+  __shared__ float inputs[sdf3d::N_UNIFORMS + kP];
+  for (int k = threadIdx.y * blockDim.x + threadIdx.x; k < sdf3d::N_UNIFORMS + kP; k += kNT)
+    inputs[k] = k < sdf3d::N_UNIFORMS ? __ldg(uni + k) : __ldg(prm + (k - sdf3d::N_UNIFORMS));
+  __syncthreads();
+  const float* u = inputs;
+  const float* p = inputs + sdf3d::N_UNIFORMS;
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+  block_thread(u, p, trow, tcol, tr, tg, tb, blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, threadIdx.y, H, W,
+               acc);
+  float v[kLive];
+  row_values(acc, v);
+  const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  sdf3d::block_sum_store<kLive, kNT>(v, partials + block, padded_rows(gridDim.x * gridDim.y * gridDim.z));
 }
 
-// partials: (n_blocks, kCols), n_blocks = ceil(W/block_w) * ceil(H/block_h);
-// kCols is K3's P + 31 for FULL.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// partials: the n_blocks partial rows by column, (kLive, padded_rows(n_blocks))
+// float32, n_blocks = ceil(W/block_w) * ceil(H/block_h); totals: (kTotals,)
+// float64 (P + 31; the loss alone for the loss-only variants).  Launches
+// the fit kernel and its total on `stream`, allocates nothing, returns
+// cudaGetLastError().
 extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* tr, const float* tg,
-                              const float* tb, float* partials, int H, int W, void* stream) {
+                              const float* tb, float* partials, double* totals, int H, int W, void* stream) {
   if (H <= 0 || W <= 0) return 0;
   const dim3 block(Cfg::block_w, Cfg::block_h);
   const dim3 grid((W + Cfg::block_w - 1) / Cfg::block_w, (H + Cfg::block_h - 1) / Cfg::block_h);
-  sdf3d_fit_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      uni, prm, nullptr, nullptr, tr, tg, tb, partials, H, W);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sdf3d_fit_step_kernel<<<grid, block, 0, s>>>(uni, prm, nullptr, nullptr, tr, tg, tb, partials, H, W);
+  return launch_total(partials, grid.x * grid.y, totals, s);
 }
 
 // K4 over T tiles (int32 origin tables) of an H x W image; target planes of
-// T·TH x TW.  partials: (T · ceil(TH/block_h) · ceil(TW/block_w), kCols).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// T·TH x TW.  partials: (kLive, padded_rows(n_blocks)), n_blocks = T ·
+// ceil(TH/block_h) · ceil(TW/block_w); totals as sdf3d_fit_step.  Launches
+// on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sdf3d_fit_step_tiles(const float* uni, const float* prm, const int* trow, const int* tcol,
-                                    const float* tr, const float* tg, const float* tb, float* partials, int T,
-                                    int H, int W, void* stream) {
+                                    const float* tr, const float* tg, const float* tb, float* partials,
+                                    double* totals, int T, int H, int W, void* stream) {
   if (T <= 0) return 0;
   const dim3 block(Cfg::block_w, Cfg::block_h);
   const dim3 grid((Cfg::tile_w + Cfg::block_w - 1) / Cfg::block_w, (Cfg::tile_h + Cfg::block_h - 1) / Cfg::block_h,
                   T);
-  sdf3d_fit_step_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      uni, prm, trow, tcol, tr, tg, tb, partials, H, W);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sdf3d_fit_step_kernel<<<grid, block, 0, s>>>(uni, prm, trow, tcol, tr, tg, tb, partials, H, W);
+  return launch_total(partials, grid.x * grid.y * grid.z, totals, s);
 }
 
-#else  // A C++ compiler: the same per-pixel body, summed over the image or the work-list.
+#else  // A C++ compiler: the same blocks, rows and total, one after another.
 
 namespace {
-// The kCols totals from a thread's kAcc sums (NOSCATTER: its loss value).
-void store_totals(const float (&acc)[kAcc], float* out) {
-  if constexpr (kV == NOSCATTER) {
-    out[0] = loss_keeping_gradient(acc);
-  } else {
-    for (int k = 0; k < kCols; ++k) out[k] = acc[k];
+// The kernel's grid of gx x gy x gz blocks on the host: each block's
+// partial row in the card's order (block_sum_host), then
+// fixed_order_total.
+void run_grid(const float* uni, const float* prm, const int* trow, const int* tcol, const float* tr,
+              const float* tg, const float* tb, int gx, int gy, int gz, int H, int W, float* partials,
+              double* totals) {
+  float v[kNT][kLive];
+  for (int z = 0; z < gz; ++z)
+    for (int by = 0; by < gy; ++by)
+      for (int bx = 0; bx < gx; ++bx) {
+        for (int ty = 0; ty < Cfg::block_h; ++ty)
+          for (int tx = 0; tx < Cfg::block_w; ++tx) {
+            float acc[kAcc] = {};
+            block_thread(uni, prm, trow, tcol, tr, tg, tb, bx, by, z, tx, ty, H, W, acc);
+            row_values(acc, v[ty * Cfg::block_w + tx]);
+          }
+        const size_t block = (static_cast<size_t>(z) * gy + by) * gx + bx;
+        sdf3d::block_sum_host<kLive, kNT>(v, partials + block * kLive);
+      }
+  const int rows = gx * gy * gz;
+  for (int c = 0; c < kLive; ++c) {
+    double sums[kTotalThreads][1];
+    for (int j = 0; j < kTotalThreads; ++j) {
+      sums[j][0] = 0.0;
+      for (int r = 4 * j; r < rows; r += 4 * kTotalThreads)
+        for (int e = r; e < r + 4 && e < rows; ++e)
+          sums[j][0] += static_cast<double>(partials[static_cast<size_t>(e) * kLive + c]);
+    }
+    sdf3d::block_sum_host<1, kTotalThreads, double>(sums, totals + total_col(live_col(c)));
+  }
+  for (int k = 0; k < kTotals; ++k) {
+    if (zero_total(k)) totals[k] = 0.0;
   }
 }
 }  // namespace
 
-// out: the kCols totals (K3's P + 31 for FULL).
+// partials: the n_blocks partial rows row by row, (n_blocks, kLive) (the
+// card stores them by column); totals as sdf3d_fit_step.
 extern "C" int sdf3d_fit_step_host(const float* uni, const float* prm, const float* tr, const float* tg,
-                                   const float* tb, float* out, int H, int W) {
-  float acc[kAcc] = {};
-  for (int row = 0; row < H; ++row)
-    for (int col = 0; col < W; ++col)
-      fit_pixel(uni, prm, tr, tg, tb, static_cast<size_t>(row) * W + col, sdf3d::abs_row<Cfg>(uni, row),
-                static_cast<float>(col), H, W, acc);
-  Fit::zero_frozen(acc);
-  store_totals(acc, out);
+                                   const float* tb, float* partials, double* totals, int H, int W) {
+  if (H <= 0 || W <= 0) return 0;
+  run_grid(uni, prm, nullptr, nullptr, tr, tg, tb, (W + Cfg::block_w - 1) / Cfg::block_w,
+           (H + Cfg::block_h - 1) / Cfg::block_h, 1, H, W, partials, totals);
   return 0;
 }
 
-// out: the kCols totals over the T tiles.
+// K4 over the T tiles: partials and totals as sdf3d_fit_step_tiles.
 extern "C" int sdf3d_fit_step_tiles_host(const float* uni, const float* prm, const int* trow, const int* tcol,
-                                         const float* tr, const float* tg, const float* tb, float* out, int T,
-                                         int H, int W) {
-  float acc[kAcc] = {};
-  for (int z = 0; z < T; ++z)
-    for (int r = 0; r < Cfg::tile_h; ++r)
-      for (int c = 0; c < Cfg::tile_w; ++c) {
-        const int row = trow[z] + r, col = tcol[z] + c;
-        if (row < H && col < W)
-          fit_pixel(uni, prm, tr, tg, tb, (static_cast<size_t>(z) * Cfg::tile_h + r) * Cfg::tile_w + c,
-                    static_cast<float>(row), static_cast<float>(col), H, W, acc);
+                                         const float* tr, const float* tg, const float* tb, float* partials,
+                                         double* totals, int T, int H, int W) {
+  if (T <= 0) return 0;
+  run_grid(uni, prm, trow, tcol, tr, tg, tb, (Cfg::tile_w + Cfg::block_w - 1) / Cfg::block_w,
+           (Cfg::tile_h + Cfg::block_h - 1) / Cfg::block_h, T, H, W, partials, totals);
+  return 0;
+}
+
+// Each pixel's kAcc values twice, (H·W, kAcc) row-major each: `own` from the
+// reverse pass over the Primal of the pixel's own forward (K3), `retraced`
+// over the Primal rebuilt from that forward's (t, shadow, ao) by make_primal
+// (K5's route, shade_vjp_planes).
+extern "C" int sdf3d_fit_retrace_host(const float* uni, const float* prm, const float* tr, const float* tg,
+                                      const float* tb, float* own, float* retraced, int H, int W) {
+  for (int row = 0; row < H; ++row)
+    for (int col = 0; col < W; ++col) {
+      const size_t i = static_cast<size_t>(row) * W + col;
+      const float rows = sdf3d::abs_row<Cfg>(uni, row), cols = static_cast<float>(col);
+      float* a = own + i * kAcc;
+      float* b = retraced + i * kAcc;
+      for (int k = 0; k < kAcc; ++k) a[k] = b[k] = 0.0f;
+      fit_pixel(uni, prm, tr, tg, tb, i, rows, cols, H, W, a);
+      if constexpr (!kLossOnly && kV != SHADE_ONLY) {
+        const sdf3d::Primal pr = primal(uni, prm, rows, cols, H, W);
+        float g[3];
+        b[kAcc - 1] += residual(sdf3d::shade<Cfg>(uni, pr), tr, tg, tb, i, g);
+        sdf3d::shade_vjp_planes<Cfg, Scene, kGradU, kV != NOPOW>(uni, prm, rows, cols, H, W, pr.t, pr.shadow, pr.ao,
+                                                                 g[0], g[1], g[2], b, kGradU ? b + kP : nullptr);
       }
-  Fit::zero_frozen(acc);
-  store_totals(acc, out);
+    }
   return 0;
 }
 

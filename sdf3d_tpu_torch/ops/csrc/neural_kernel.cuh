@@ -10,7 +10,7 @@
 // the MLP on the points of all its slots at once as a tile (neural_kernel.cu:
 // tensor-core products on the card, a plain loop on the host).  The points
 // and the arithmetic are those of the per-ray loops they replace:
-// march_primary (add the step, then test), estimate_normal, the neural
+// march_primary (add the step, then test), normal_sums, the neural
 // kernel's shadow (every ray, no N.I gate, the un-squared Quilez form), the
 // AO taps and shade_pixel (render_kernel.cuh).  A pixel's bits therefore
 // depend only on its own sequence of points, never on its slot or on the
@@ -143,7 +143,7 @@ SDF3D_HD bool slot_take(Slot& s, const float* u, float d) {
       if (s.t > Cfg::max_distance || d < Cfg::epsilon || s.i >= Cfg::march_steps) slot_hit<Cfg, Scene>(s, u);
       return false;
     case NORMAL:
-      // estimate_normal's sums, a tap at a time, in its order (no array
+      // normal_sums' sums, a tap at a time, in its order (no array
       // indexed by the tap, which would leave the registers).
       if constexpr (Cfg::normals == 0) {  // n = (d0 - d1, d2 - d3, d4 - d5)
         switch (s.i) {
@@ -200,8 +200,7 @@ SDF3D_HD Pixel slot_shade(const Slot& s, const float* u) {
   const float ao = (Cfg::ao_enabled && Scene::ao_taps > 0)
                        ? fminf(fmaxf((1.0f - (Scene::ao_strength * s.occ)), 0.0f), 1.0f)
                        : 1.0f;
-  return shade_pixel<Cfg>(u, u[U_CAM], u[U_CAM + 1], u[U_CAM + 2], s.t, s.hx, s.hy, s.hz, s.nx, s.ny, s.nz, s.ix,
-                          s.iy, s.iz, s.sh, ao);
+  return shade_pixel<Cfg>(u, s.t, s.hx, s.hy, s.hz, s.nx, s.ny, s.nz, s.ix, s.iy, s.iz, s.sh, ao);
 }
 
 // The scene's distance from the MLP's value m at (x, y, z): min(analytic, m)

@@ -5,9 +5,10 @@
 //
 // Replaces sdf3d_tpu/ops/render_bwd_kernel.py::_bwd_tile_kernel (the
 // Pallas kernel launched by render_kernel_backward).  One thread per pixel
-// in Cfg::block_w x Cfg::block_h blocks: shade_vjp seeded with the pixel's
-// cotangent, then a fixed-order block sum into one (P + 30) partial row per
-// block, summed by the caller.  No atomics: deterministic.  Threads outside
+// in Cfg::block_w x Cfg::block_h blocks: shade_vjp_planes (the pixel's
+// primal rebuilt from the planes, then its reverse pass) seeded with the
+// pixel's cotangent, then a fixed-order block sum into one (P + 30)
+// partial row per block, summed by the caller.  No atomics: deterministic.  Threads outside
 // the image add zeros.
 //
 // What bounds it: the reverse pass (about ten distance evaluations and the
@@ -24,8 +25,8 @@ SDF3D_HD void bwd_pixel(const float* u, const float* p, const float* gr, const f
                         const float* t, const float* sh, const float* ao, int row, int col, int H, int W,
                         float* acc) {
   const size_t i = static_cast<size_t>(row) * W + col;
-  sdf3d::shade_vjp<Cfg, Scene, true>(u, p, sdf3d::abs_row<Cfg>(u, row), static_cast<float>(col), H, W, t[i],
-                                     sh[i], ao[i], gr[i], gg[i], gb[i], acc, acc + kP);
+  sdf3d::shade_vjp_planes<Cfg, Scene, true>(u, p, sdf3d::abs_row<Cfg>(u, row), static_cast<float>(col), H, W, t[i],
+                                            sh[i], ao[i], gr[i], gg[i], gb[i], acc, acc + kP);
 }
 }  // namespace
 

@@ -1,5 +1,6 @@
 // Per-pixel body of the fused forward render: ray generation -> primary
-// march -> normals -> soft shadow -> AO -> Blinn-Phong/Lambert shading.
+// march -> normals -> soft shadow -> AO -> Blinn-Phong/Lambert shading, as
+// the stages of a pixel's Primal (below) and its shading.
 //
 // It computes what sdf3d_tpu/ops/render_kernel.py::_render_tile_kernel
 // computes, one pixel per call, with real per-ray loops and breaks in place
@@ -121,31 +122,65 @@ SDF3D_HD float abs_row(const float* u, int row) {
   return (u[U_ROW0] + (static_cast<float>(row / Cfg::tile_h) * stride)) + static_cast<float>(row % Cfg::tile_h);
 }
 
-// Unit ray direction of the pixel at absolute (rows, cols) (NDC over the
-// logical extent, Cfg::ndc_h x ndc_w, else H x W).
+// v * rsqrt(q), q = v.v (floored at 1e-24 when `floored`), with the values
+// the reverse pass reads (shade_vjp.cuh::unit3_bwd).
+struct Unit3 {
+  float x, y, z, s, q, r, ux, uy, uz;
+};
+
+SDF3D_HD Unit3 unit3(float x, float y, float z, bool floored) {
+  Unit3 n;
+  n.x = x; n.y = y; n.z = z;
+  n.s = ((x * x) + (y * y)) + (z * z);
+  n.q = floored ? fmaxf(n.s, 1e-24f) : n.s;
+  n.r = rsqrt_exact(n.q);
+  n.ux = x * n.r; n.uy = y * n.r; n.uz = z * n.r;
+  return n;
+}
+
+// The primal of one pixel: every value its shading and the shading's
+// reverse pass (shade_vjp.cuh) read.  Built in three stages, in this order:
+// primal_ray, primal_surface (from t), primal_shading (from the shadow and
+// AO factors).  trace_pixel runs them around the marches; make_primal runs
+// them from a forward's (t, shadow, ao) planes, with the same arithmetic.
+struct Primal {
+  Unit3 cv, d;            // camera-space and world ray direction
+  float t, shadow, ao;    // the marches' values
+  float hx, hy, hz;       // hit point o + t*d
+  Unit3 n;                // the normal taps' sums (x, y, z) and the unit normal
+  Unit3 li, w, hw;        // unit light, view and half vectors
+  float ndoti, ndoth_arg, ndoth, spec;
+};
+
+// Ray direction of the pixel at absolute (rows, cols) (NDC over the logical
+// extent, Cfg::ndc_h x ndc_w, else H x W): d = unit(M cv), cv = unit(qx*ar,
+// qy, fz).
 template <class Cfg>
-SDF3D_HD void ray_direction(const float* u, float rows, float cols, int H, int W, float& dx, float& dy, float& dz) {
+SDF3D_HD void primal_ray(const float* u, float rows, float cols, int H, int W, Primal& pr) {
   const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
   const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
   const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
   const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
   const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));
-
-  float vx = qx * ar, vy = qy, vz = u[U_FZ];
-  const float inv = rsqrt_exact(((vx * vx) + (vy * vy)) + (vz * vz));
-  vx = vx * inv; vy = vy * inv; vz = vz * inv;
+  pr.cv = unit3(qx * ar, qy, u[U_FZ], false);
   const float* m = u + U_C2W;
-  dx = ((m[0] * vx) + (m[1] * vy)) + (m[2] * vz);
-  dy = ((m[3] * vx) + (m[4] * vy)) + (m[5] * vz);
-  dz = ((m[6] * vx) + (m[7] * vy)) + (m[8] * vz);
-  const float inv2 = rsqrt_exact(((dx * dx) + (dy * dy)) + (dz * dz));
-  dx = dx * inv2; dy = dy * inv2; dz = dz * inv2;
+  pr.d = unit3(((m[0] * pr.cv.ux) + (m[1] * pr.cv.uy)) + (m[2] * pr.cv.uz),
+               ((m[3] * pr.cv.ux) + (m[4] * pr.cv.uy)) + (m[5] * pr.cv.uz),
+               ((m[6] * pr.cv.ux) + (m[7] * pr.cv.uy)) + (m[8] * pr.cv.uz), false);
 }
 
-// Unit normal at h from the distance functor f: central differences (6
+// Unit ray direction of the pixel (primal_ray's d).
+template <class Cfg>
+SDF3D_HD void ray_direction(const float* u, float rows, float cols, int H, int W, float& dx, float& dy, float& dz) {
+  Primal pr;
+  primal_ray<Cfg>(u, rows, cols, H, W, pr);
+  dx = pr.d.ux; dy = pr.d.uy; dz = pr.d.uz;
+}
+
+// The raw normal at h from the distance functor f: central differences (6
 // taps) or the tetrahedron (4 taps), step Cfg::epsilon.
 template <class Cfg, class F>
-SDF3D_HD void estimate_normal(const F& f, float hx, float hy, float hz, float& nx, float& ny, float& nz) {
+SDF3D_HD void normal_sums(const F& f, float hx, float hy, float hz, float& nx, float& ny, float& nz) {
   const float e = Cfg::epsilon;
   if constexpr (Cfg::normals == 0) {
     nx = f(hx + e, hy, hz) - f(hx - e, hy, hz);
@@ -160,15 +195,32 @@ SDF3D_HD void estimate_normal(const F& f, float hx, float hy, float hz, float& n
     ny = (((-s0) - s1) + s2) + s3;
     nz = (((-s0) + s1) - s2) + s3;
   }
-  const float ninv = rsqrt_exact(fmaxf(((nx * nx) + (ny * ny)) + (nz * nz), 1e-24f));
-  nx = nx * ninv; ny = ny * ninv; nz = nz * ninv;
 }
 
-// Unit direction from h to the light.
+// Unit vector from h to the light.
+SDF3D_HD Unit3 light_unit(const float* u, float hx, float hy, float hz) {
+  return unit3(u[U_LIGHT] - hx, u[U_LIGHT + 1] - hy, u[U_LIGHT + 2] - hz, true);
+}
+
+// Unit direction from h to the light (light_unit's unit vector).
 SDF3D_HD void light_direction(const float* u, float hx, float hy, float hz, float& ix, float& iy, float& iz) {
-  ix = u[U_LIGHT] - hx; iy = u[U_LIGHT + 1] - hy; iz = u[U_LIGHT + 2] - hz;
-  const float iinv = rsqrt_exact(fmaxf(((ix * ix) + (iy * iy)) + (iz * iz), 1e-24f));
-  ix = ix * iinv; iy = iy * iinv; iz = iz * iinv;
+  const Unit3 li = light_unit(u, hx, hy, hz);
+  ix = li.ux; iy = li.uy; iz = li.uz;
+}
+
+// The hit point at t (after primal_ray), the normal there, the light
+// vector and N.I.
+template <class Cfg, class Scene>
+SDF3D_HD void primal_surface(const float* u, const float* p, float t, Primal& pr) {
+  pr.t = t;
+  pr.hx = u[U_CAM] + (t * pr.d.ux);
+  pr.hy = u[U_CAM + 1] + (t * pr.d.uy);
+  pr.hz = u[U_CAM + 2] + (t * pr.d.uz);
+  float nx, ny, nz;
+  normal_sums<Cfg>(ScenePoint<Scene>{p}, pr.hx, pr.hy, pr.hz, nx, ny, nz);
+  pr.n = unit3(nx, ny, nz, true);
+  pr.li = light_unit(u, pr.hx, pr.hy, pr.hz);
+  pr.ndoti = ((pr.n.ux * pr.li.ux) + (pr.n.uy * pr.li.uy)) + (pr.n.uz * pr.li.uz);
 }
 
 // The specular power x^s: powf, or with POW false the chain x³·x³·x³·x³,
@@ -184,47 +236,78 @@ SDF3D_HD float spec_pow(float x, float s) {
   }
 }
 
-// Blinn-Phong / Lambert shading of hit h (normal n, light direction i) seen
-// from the camera at o, with the shadow and AO factors, and the background
-// composite of misses (t > max_distance).
+// The shading's vectors (after primal_surface): the view vector to the
+// camera, the half vector, N.H and the specular term (POW: spec_pow).
 template <class Cfg, bool POW = true>
-SDF3D_HD Pixel shade_pixel(const float* u, float ox, float oy, float oz, float t, float hx, float hy, float hz,
-                           float nx, float ny, float nz, float ix, float iy, float iz, float shadow, float ao) {
-  float wx = ox - hx, wy = oy - hy, wz = oz - hz;
-  const float winv = rsqrt_exact(fmaxf(((wx * wx) + (wy * wy)) + (wz * wz), 1e-24f));
-  wx = wx * winv; wy = wy * winv; wz = wz * winv;
-  float hwx = ix + wx, hwy = iy + wy, hwz = iz + wz;
-  const float hwinv = rsqrt_exact(fmaxf(((hwx * hwx) + (hwy * hwy)) + (hwz * hwz), 1e-24f));
-  hwx = hwx * hwinv; hwy = hwy * hwinv; hwz = hwz * hwinv;
+SDF3D_HD void primal_shading(const float* u, float shadow, float ao, Primal& pr) {
+  pr.shadow = shadow;
+  pr.ao = ao;
+  pr.w = unit3(u[U_CAM] - pr.hx, u[U_CAM + 1] - pr.hy, u[U_CAM + 2] - pr.hz, true);
+  pr.hw = unit3(pr.li.ux + pr.w.ux, pr.li.uy + pr.w.uy, pr.li.uz + pr.w.uz, true);
+  pr.ndoth_arg = ((pr.n.ux * pr.hw.ux) + (pr.n.uy * pr.hw.uy)) + (pr.n.uz * pr.hw.uz);
+  pr.ndoth = fmaxf(pr.ndoth_arg, 0.0f);
+  pr.spec = Cfg::blinn_phong ? spec_pow<POW>(pr.ndoth, u[U_SHN]) : 0.0f;
+}
 
-  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
-  const float ndoth = fmaxf(((nx * hwx) + (ny * hwy)) + (nz * hwz), 0.0f);
-  const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
-  const float amb = Cfg::ao_enabled ? u[U_AMB] * ao : u[U_AMB];
+// Blinn-Phong / Lambert shading of a pixel's primal, with the shadow and AO
+// factors, and the background composite of misses (t > max_distance).
+template <class Cfg>
+SDF3D_HD Pixel shade(const float* u, const Primal& pr) {
+  const float dif = fminf(fmaxf(pr.ndoti, 0.0f), 1.0f) * pr.shadow;
+  const float amb = Cfg::ao_enabled ? u[U_AMB] * pr.ao : u[U_AMB];
   float r = (amb * u[U_MAT_AMB]) + (dif * u[U_MAT_DIF]);
   float g = (amb * u[U_MAT_AMB + 1]) + (dif * u[U_MAT_DIF + 1]);
   float b = (amb * u[U_MAT_AMB + 2]) + (dif * u[U_MAT_DIF + 2]);
   if constexpr (Cfg::blinn_phong) {
-    const float spec = spec_pow<POW>(ndoth, u[U_SHN]);
-    r = r + (spec * u[U_MAT_REF]);
-    g = g + (spec * u[U_MAT_REF + 1]);
-    b = b + (spec * u[U_MAT_REF + 2]);
+    r = r + (pr.spec * u[U_MAT_REF]);
+    g = g + (pr.spec * u[U_MAT_REF + 1]);
+    b = b + (pr.spec * u[U_MAT_REF + 2]);
   }
   if constexpr (Cfg::background) {
-    if (t > Cfg::max_distance) {
+    if (pr.t > Cfg::max_distance) {
       r = Cfg::bg_r; g = Cfg::bg_g; b = Cfg::bg_b;
     }
   }
-  return Pixel{r, g, b, t, shadow, ao};
+  return Pixel{r, g, b, pr.t, pr.shadow, pr.ao};
 }
 
-// One pixel at absolute (rows, cols) of an H x W image (POW: spec_pow).
+// shade() of hit h (unit normal n, unit light direction i) seen from the
+// camera at u[U_CAM], for a caller that holds these values alone (the
+// neural kernel).
+template <class Cfg>
+SDF3D_HD Pixel shade_pixel(const float* u, float t, float hx, float hy, float hz, float nx, float ny, float nz,
+                           float ix, float iy, float iz, float shadow, float ao) {
+  Primal pr{};
+  pr.t = t;
+  pr.hx = hx; pr.hy = hy; pr.hz = hz;
+  pr.n.ux = nx; pr.n.uy = ny; pr.n.uz = nz;
+  pr.li.ux = ix; pr.li.uy = iy; pr.li.uz = iz;
+  pr.ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
+  primal_shading<Cfg>(u, shadow, ao, pr);
+  return shade<Cfg>(u, pr);
+}
+
+// The primal of the pixel at absolute (rows, cols) of an H x W image from a
+// forward's (t, shadow, ao): the three stages without the marches.
 template <class Cfg, class Scene, bool POW = true>
-SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
-  float dx, dy, dz;
-  ray_direction<Cfg>(u, rows, cols, H, W, dx, dy, dz);
+SDF3D_HD Primal make_primal(const float* u, const float* p, float rows, float cols, int H, int W, float t,
+                            float shadow, float ao) {
+  Primal pr;
+  primal_ray<Cfg>(u, rows, cols, H, W, pr);
+  primal_surface<Cfg, Scene>(u, p, t, pr);
+  primal_shading<Cfg, POW>(u, shadow, ao, pr);
+  return pr;
+}
+
+// The primal of the pixel at absolute (rows, cols) of an H x W image: the
+// primary march, the soft shadow (marched only where N.I > 0, elsewhere
+// 1) and AO between make_primal's stages.
+template <class Cfg, class Scene, bool POW = true>
+SDF3D_HD Primal trace_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
+  Primal pr;
+  primal_ray<Cfg>(u, rows, cols, H, W, pr);
   const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
-  const ScenePoint<Scene> f{p};
+  const float dx = pr.d.ux, dy = pr.d.uy, dz = pr.d.uz;
 
   // ---- primary march ----
   float t;
@@ -233,36 +316,38 @@ SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float co
     ray.setup(ox, oy, oz, dx, dy, dz, p);
     t = march_primary<Cfg>(ray);
   } else {
-    t = march_primary<Cfg>(PointRay<ScenePoint<Scene>>{f, ox, oy, oz, dx, dy, dz});
+    t = march_primary<Cfg>(PointRay<ScenePoint<Scene>>{ScenePoint<Scene>{p}, ox, oy, oz, dx, dy, dz});
   }
-  const float hx = ox + (t * dx), hy = oy + (t * dy), hz = oz + (t * dz);
+  primal_surface<Cfg, Scene>(u, p, t, pr);
 
-  // ---- normals (always the point form), light direction ----
-  float nx, ny, nz, ix, iy, iz;
-  estimate_normal<Cfg>(f, hx, hy, hz, nx, ny, nz);
-  light_direction(u, hx, hy, hz, ix, iy, iz);
-  const float ndoti = ((nx * ix) + (ny * iy)) + (nz * iz);
-
-  // ---- soft shadow, marched only where N.I > 0 (elsewhere it reads 1) ----
+  // ---- soft shadow, marched only where N.I > 0 ----
   float shadow = 1.0f;
   if constexpr (Cfg::shadow_enabled) {
-    if (ndoti > 0.0f) {
+    if (pr.ndoti > 0.0f) {
       const float off = 2.0f * Cfg::epsilon;
-      const float sox = hx + (off * nx), soy = hy + (off * ny), soz = hz + (off * nz);
+      const float sox = pr.hx + (off * pr.n.ux), soy = pr.hy + (off * pr.n.uy), soz = pr.hz + (off * pr.n.uz);
       if constexpr (Cfg::ray_sdf) {
         typename Scene::Ray ray;
-        ray.setup(sox, soy, soz, ix, iy, iz, p);
+        ray.setup(sox, soy, soz, pr.li.ux, pr.li.uy, pr.li.uz, p);
         shadow = march_shadow<Cfg>(ray, u[U_K]);
       } else {
-        shadow = march_shadow<Cfg>(PointRay<ScenePoint<Scene>>{f, sox, soy, soz, ix, iy, iz}, u[U_K]);
+        shadow = march_shadow<Cfg>(
+            PointRay<ScenePoint<Scene>>{ScenePoint<Scene>{p}, sox, soy, soz, pr.li.ux, pr.li.uy, pr.li.uz}, u[U_K]);
       }
     }
   }
 
-  // ---- ambient occlusion, shading ----
+  // ---- ambient occlusion ----
   float ao = 1.0f;
-  if constexpr (Cfg::ao_enabled) ao = Scene::ao(hx, hy, hz, nx, ny, nz, p);
-  return shade_pixel<Cfg, POW>(u, ox, oy, oz, t, hx, hy, hz, nx, ny, nz, ix, iy, iz, shadow, ao);
+  if constexpr (Cfg::ao_enabled) ao = Scene::ao(pr.hx, pr.hy, pr.hz, pr.n.ux, pr.n.uy, pr.n.uz, p);
+  primal_shading<Cfg, POW>(u, shadow, ao, pr);
+  return pr;
+}
+
+// One pixel at absolute (rows, cols) of an H x W image (POW: spec_pow).
+template <class Cfg, class Scene, bool POW = true>
+SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
+  return shade<Cfg>(u, trace_pixel<Cfg, Scene, POW>(u, p, rows, cols, H, W));
 }
 
 }  // namespace sdf3d

@@ -3,21 +3,25 @@
 // backward (render_bwd_kernel.cu, K5).
 //
 // It computes, for one pixel, what jax.vjp of
-// sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile computes: the shading
-// re-traced from the forward's stored planes (t, shadow, ao) as a function
-// of the scene parameters p and the uniforms u, with
+// sdf3d_tpu/ops/render_bwd_kernel.py::_shade_tile computes: the shading of
+// the pixel's primal (render_kernel.cuh::Primal) as a function of the scene
+// parameters p and the uniforms u, with
 // - t re-attached by the implicit-function theorem: the adjoint of t flows
 //   into the distance at o + t*d, scaled by -1/(grad_p f . d) where that
 //   denominator is usable (t <= max_distance, |denom| >= 1e-4), else 0;
 // - shadow a detached factor (uniform 27, k, gets 0);
-// - AO flowing through its recomputed taps, with the forward's plane as
-//   its value;
+// - AO flowing through its recomputed taps, with the forward's value;
 // - rows and columns constants (uniforms 28 and 29 get 0): the pixel's
 //   absolute (rows, cols) come in as values;
 // - min/max/clip splitting the adjoint at exact ties and pow's exponent
 //   derivative guarded at a zero base, as lax's rules do.
 // A miss is still shaded and carries adjoint through its normals and light
 // terms, unless Cfg::background composites it out.
+//
+// K3 hands shade_vjp the Primal its own forward built (trace_pixel), so it
+// traces the primal once.  K5 has only the forward's (t, shadow, ao) planes:
+// shade_vjp_planes rebuilds the Primal from them with make_primal, the same
+// stages and arithmetic as the forward.
 //
 // Like render_kernel.cuh the code is __host__ __device__, so a C++ compiler
 // builds it for the CPU tests.  Every intermediate stays in registers.
@@ -28,22 +32,6 @@
 namespace sdf3d {
 
 constexpr float DENOM_FLOOR = 1e-4f;  // sdf3d_tpu/diff.py::_DENOM_FLOOR
-
-// v * rsqrt(q), q = v.v (floored at 1e-24 when `floored`), with the values
-// its reverse reads.
-struct Unit3 {
-  float x, y, z, s, q, r, ux, uy, uz;
-};
-
-SDF3D_HD Unit3 unit3(float x, float y, float z, bool floored) {
-  Unit3 n;
-  n.x = x; n.y = y; n.z = z;
-  n.s = ((x * x) + (y * y)) + (z * z);
-  n.q = floored ? fmaxf(n.s, 1e-24f) : n.s;
-  n.r = rsqrt_exact(n.q);
-  n.ux = x * n.r; n.uy = y * n.r; n.uz = z * n.r;
-  return n;
-}
 
 // Adds to (gx, gy, gz) the adjoint of v given the adjoint of v * r
 // (lax.rsqrt: dr/dq = -0.5 * r / q).
@@ -66,64 +54,29 @@ SDF3D_HD void sdf_bwd_add(float px, float py, float pz, const float* p, float g,
   gx += qx; gy += qy; gz += qz;
 }
 
-// One pixel's VJP: adds the adjoint of its (r, g, b) = (gr, gg, gb) to
-// dP[0..P) and, when WRT_U, to dU[0..30).  (rows, cols) is the pixel's
-// absolute position in the H x W image; t0, shadow and ao_in are the
-// forward kernel's values for this pixel.  POW false differentiates the
-// power chain of spec_pow<false> (no adjoint for the shininess).
+// One pixel's VJP over its primal pr: adds the adjoint of its (r, g, b) =
+// (gr, gg, gb) to dP[0..P) and, when WRT_U, to dU[0..30).  POW false
+// differentiates the power chain of spec_pow<false> (no adjoint for the
+// shininess).
 template <class Cfg, class Scene, bool WRT_U, bool POW = true>
-SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, int H, int W,
-                        float t0, float shadow, float ao_in, float gr, float gg, float gb,
-                        float* dP, float* dU) {
+SDF3D_HD void shade_vjp(const float* u, const float* p, const Primal& pr, float gr, float gg, float gb, float* dP,
+                        float* dU) {
+  const float t0 = pr.t, shadow = pr.shadow;
   if constexpr (Cfg::background) {
     if (t0 > Cfg::max_distance) return;  // where(miss, bg, .) passes no adjoint
   }
-
-  // ---- primal re-trace: ray generation (render_pixel's arithmetic) ----
-  const int nh = Cfg::ndc_h > 0 ? Cfg::ndc_h : H;
-  const int nw = Cfg::ndc_w > 0 ? Cfg::ndc_w : W;
-  const float qx = ((2.0f * (cols + 0.5f)) / static_cast<float>(nw)) - 1.0f;
-  const float qy = 1.0f - ((2.0f * (rows + 0.5f)) / static_cast<float>(nh));
-  const float ar = static_cast<float>(static_cast<double>(nw) / static_cast<double>(nh));
-  const Unit3 cv = unit3(qx * ar, qy, u[U_FZ], false);
-  const float* m = u + U_C2W;
-  const Unit3 d = unit3(((m[0] * cv.ux) + (m[1] * cv.uy)) + (m[2] * cv.uz),
-                        ((m[3] * cv.ux) + (m[4] * cv.uy)) + (m[5] * cv.uz),
-                        ((m[6] * cv.ux) + (m[7] * cv.uy)) + (m[8] * cv.uz), false);
+  const Unit3 &d = pr.d, &n = pr.n, &li = pr.li, &w = pr.w, &hw = pr.hw;
   const float dx = d.ux, dy = d.uy, dz = d.uz;
-  const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
+  const float hx = pr.hx, hy = pr.hy, hz = pr.hz;
 
   // ---- implicit-function t: its value is t0, so h = o + t0*d ----
-  const float hx = ox + (t0 * dx), hy = oy + (t0 * dy), hz = oz + (t0 * dz);
   float fx, fy, fz;
   Scene::sdf_grad_p(hx, hy, hz, p, fx, fy, fz);
   const float denom = ((fx * dx) + (fy * dy)) + (fz * dz);
   const bool usable = (t0 <= Cfg::max_distance) && (fabsf(denom) >= DENOM_FLOOR);
   const float inv_denom = usable ? 1.0f / denom : 0.0f;
-
-  // ---- normals, light, view and half vectors ----
   const float e = Cfg::epsilon;
-  float nrx, nry, nrz;
-  if constexpr (Cfg::normals == 0) {
-    nrx = Scene::sdf(hx + e, hy, hz, p) - Scene::sdf(hx - e, hy, hz, p);
-    nry = Scene::sdf(hx, hy + e, hz, p) - Scene::sdf(hx, hy - e, hz, p);
-    nrz = Scene::sdf(hx, hy, hz + e, p) - Scene::sdf(hx, hy, hz - e, p);
-  } else {
-    const float s0 = Scene::sdf(hx + e, hy - e, hz - e, p);
-    const float s1 = Scene::sdf(hx - e, hy - e, hz + e, p);
-    const float s2 = Scene::sdf(hx - e, hy + e, hz - e, p);
-    const float s3 = Scene::sdf(hx + e, hy + e, hz + e, p);
-    nrx = ((s0 - s1) - s2) + s3;
-    nry = (((-s0) - s1) + s2) + s3;
-    nrz = (((-s0) + s1) - s2) + s3;
-  }
-  const Unit3 n = unit3(nrx, nry, nrz, true);
-  const Unit3 li = unit3(u[U_LIGHT] - hx, u[U_LIGHT + 1] - hy, u[U_LIGHT + 2] - hz, true);
-  const Unit3 w = unit3(ox - hx, oy - hy, oz - hz, true);
-  const Unit3 hw = unit3(li.ux + w.ux, li.uy + w.uy, li.uz + w.uz, true);
-  const float ndoth_arg = ((n.ux * hw.ux) + (n.uy * hw.uy)) + (n.uz * hw.uz);
-  const float ndoth = fmaxf(ndoth_arg, 0.0f);
-  const float ndoti = ((n.ux * li.ux) + (n.uy * li.uy)) + (n.uz * li.uz);
+  const float ndoti = pr.ndoti;
   const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
 
   // ---- reverse: channels -> ambient, diffuse, specular ----
@@ -131,8 +84,7 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
   const float g_dif = ((gr * u[U_MAT_DIF]) + (gg * u[U_MAT_DIF + 1])) + (gb * u[U_MAT_DIF + 2]);
   float g_ndoth = 0.0f;
   if constexpr (Cfg::blinn_phong) {
-    const float shn = u[U_SHN];
-    const float spec = spec_pow<POW>(ndoth, shn);
+    const float shn = u[U_SHN], ndoth = pr.ndoth, spec = pr.spec;
     const float g_spec = ((gr * u[U_MAT_REF]) + (gg * u[U_MAT_REF + 1])) + (gb * u[U_MAT_REF + 2]);
     if constexpr (POW) {
       g_ndoth = shn == 0.0f ? 0.0f : g_spec * (shn * powf(ndoth, shn - 1.0f));
@@ -151,14 +103,14 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
     }
   }
   if constexpr (WRT_U) {
-    const float amb = Cfg::ao_enabled ? u[U_AMB] * ao_in : u[U_AMB];
+    const float amb = Cfg::ao_enabled ? u[U_AMB] * pr.ao : u[U_AMB];
     dU[U_MAT_AMB] += gr * amb;
     dU[U_MAT_AMB + 1] += gg * amb;
     dU[U_MAT_AMB + 2] += gb * amb;
     dU[U_MAT_DIF] += gr * dif;
     dU[U_MAT_DIF + 1] += gg * dif;
     dU[U_MAT_DIF + 2] += gb * dif;
-    dU[U_AMB] += Cfg::ao_enabled ? g_amb * ao_in : g_amb;
+    dU[U_AMB] += Cfg::ao_enabled ? g_amb * pr.ao : g_amb;
   }
 
   // ---- reverse: N.I, N.H and the unit vectors ----
@@ -167,7 +119,7 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
   const float g_ndoti = (g_dif * shadow) * clip_adj(ndoti, 0.0f, 1.0f);
   gnx += g_ndoti * li.ux; gny += g_ndoti * li.uy; gnz += g_ndoti * li.uz;
   gix += g_ndoti * n.ux; giy += g_ndoti * n.uy; giz += g_ndoti * n.uz;
-  const float g_arg = g_ndoth * max_adj(ndoth_arg, 0.0f);
+  const float g_arg = g_ndoth * max_adj(pr.ndoth_arg, 0.0f);
   gnx += g_arg * hw.ux; gny += g_arg * hw.uy; gnz += g_arg * hw.uz;
   float ghwx = 0.0f, ghwy = 0.0f, ghwz = 0.0f;
   unit3_bwd(hw, true, g_arg * n.ux, g_arg * n.uy, g_arg * n.uz, ghwx, ghwy, ghwz);
@@ -218,6 +170,8 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
     dU[U_CAM + 1] += goy;
     dU[U_CAM + 2] += goz;
     // ---- reverse: ray generation (d = unit(M cv), cv = unit(qx*ar, qy, fz)) ----
+    const Unit3& cv = pr.cv;
+    const float* m = u + U_C2W;
     float gdrx = 0.0f, gdry = 0.0f, gdrz = 0.0f;
     unit3_bwd(d, false, gdx, gdy, gdz, gdrx, gdry, gdrz);
     dU[U_C2W] += gdrx * cv.ux; dU[U_C2W + 1] += gdrx * cv.uy; dU[U_C2W + 2] += gdrx * cv.uz;
@@ -232,30 +186,63 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, float rows, float cols, 
   }
 }
 
+// shade_vjp of the pixel at absolute (rows, cols) of an H x W image from the
+// forward's values t0, shadow and ao_in for it (K5): its primal rebuilt by
+// make_primal.
+template <class Cfg, class Scene, bool WRT_U, bool POW = true>
+SDF3D_HD void shade_vjp_planes(const float* u, const float* p, float rows, float cols, int H, int W, float t0,
+                               float shadow, float ao_in, float gr, float gg, float gb, float* dP, float* dU) {
+  if constexpr (Cfg::background) {
+    if (t0 > Cfg::max_distance) return;
+  }
+  shade_vjp<Cfg, Scene, WRT_U, POW>(u, p, make_primal<Cfg, Scene, POW>(u, p, rows, cols, H, W, t0, shadow, ao_in),
+                                    gr, gg, gb, dP, dU);
+}
+
 #ifdef __CUDACC__
 // Sums v[0..N) over the block in a fixed order (warp shuffles, then the
-// warps in order through shared memory) and writes the N sums to out.
-// Every thread of the block must call it.
-template <int N, int NT>
-__device__ __forceinline__ void block_sum_store(const float (&v)[N], float* __restrict__ out) {
+// warps in order through shared memory) and writes the N sums to
+// out[k * stride].  Every thread of the block must call it.
+template <int N, int NT, class T = float>
+__device__ __forceinline__ void block_sum_store(const T (&v)[N], T* __restrict__ out, size_t stride = 1) {
   static_assert(NT % 32 == 0, "the block must hold whole warps");
   constexpr int NWARP = NT / 32;
-  __shared__ float part[NWARP][N];
+  __shared__ T part[NWARP][N];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    float s = v[k];
+    T s = v[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
     if (lane == 0) part[warp][k] = s;
   }
   __syncthreads();
   for (int k = tid; k < N; k += NT) {
-    float s = 0.0f;
+    T s = 0;
 #pragma unroll
     for (int i = 0; i < NWARP; ++i) s += part[i][k];
-    out[k] = s;
+    out[k * stride] = s;
+  }
+}
+#else
+// block_sum_store's sums on the host, in its order: v holds the block's NT
+// threads' values by thread index (y * blockDim.x + x).  Within a warp lane
+// l adds lane l + 16, 8, 4, 2, 1 in turn (the shuffles), so lane 0 holds a
+// fixed tree; the warps' sums are then added in order to 0.
+template <int N, int NT, class T = float>
+void block_sum_host(const T (*v)[N], T* out) {
+  static_assert(NT % 32 == 0, "the block must hold whole warps");
+  for (int k = 0; k < N; ++k) {
+    T total = 0;
+    for (int warp = 0; warp < NT / 32; ++warp) {
+      T s[32];
+      for (int lane = 0; lane < 32; ++lane) s[lane] = v[warp * 32 + lane][k];
+      for (int off = 16; off > 0; off >>= 1)
+        for (int lane = 0; lane < off; ++lane) s[lane] += s[lane + off];
+      total += s[0];
+    }
+    out[k] = total;
   }
 }
 #endif

@@ -8,8 +8,10 @@ function:
 - the CUDA kernel (``csrc/fit_kernel.cu``), launched by
   :func:`fit_step_kernel` for tensors on the card: per pixel the render
   kernel's primal, the residual and the hand-written reverse pass of the
-  shading (``csrc/shade_vjp.cuh``), one launch and no image written to
-  device memory;
+  shading (``csrc/shade_vjp.cuh``) over the same primal, a partial row a
+  block, and their float64 totals in a fixed order from a second small
+  kernel launched by the same C call: one call a step, no image written to
+  device memory and no sum on the host;
 - :func:`fit_step_kernel_plain`, whole-image PyTorch code: the primal under
   ``no_grad`` (``render_kernel_forward_plain``), then autograd through
   ``shade_planes`` for the loss.  The wrapper runs it for tensors on the
@@ -36,6 +38,7 @@ program down to time its fixed cost.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -125,46 +128,72 @@ def fit_step_kernel_tiles_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Te
     return _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask)
 
 
-def _totals(partials: torch.Tensor, P: int, sum_dtype):
-    """``(loss, g_prm, g_uni)`` from the kernel's partial rows, summed in
-    float64: the total does not depend on the order of the rows (to the
-    rounding of ``sum_dtype``), so the tile queue's blocks, which cover the
-    same pixels as the image grid's in another order, give the same bits."""
-    total = partials.sum(0, dtype=torch.float64).to(sum_dtype)
-    G = total.shape[0]
-    return total[G - 1], total[:P], total[P:G - 1]
+def _split_totals(totals: torch.Tensor, P: int, sum_dtype):
+    """``(loss, g_prm, g_uni)`` in ``sum_dtype`` from the kernel's float64
+    totals (``(g_prm, g_uni, loss)``; ``g_uni`` reads 0 unless the kernel
+    takes the uniforms' gradient): slices, no copy for float64.  The totals
+    are summed in an order fixed by block and thread index, so a layout's
+    blocks, which cover the same pixels in another order, give the same
+    totals to float64's rounding."""
+    total = totals.to(sum_dtype)
+    return total[-1], total[:P], total[P:P + N_UNIFORMS]
+
+
+def fit_columns(lib) -> tuple:
+    """``(columns, live)`` of a fit library (its ``sdf3d_fit_columns``): the
+    totals' columns (P + 31, or 1 for a loss-only variant) and a partial
+    row's (those a block sums: dU only with the uniforms' gradient, no
+    frozen slot), as its static settings made them."""
+    cols = getattr(lib, "fit_columns_", None)
+    if cols is None:
+        out = (ctypes.c_int * 2)()
+        lib.sdf3d_fit_columns(out)
+        cols = lib.fit_columns_ = tuple(out)
+    return cols
+
+
+def _fit_buffers(lib, n_blocks: int, dev: torch.device):
+    """``(partials, rows, totals, stream)`` of a launch on ``dev``'s current
+    stream: the partial rows as the kernel stores them, by column
+    (``(live, n_blocks)`` padded to a multiple of 4 rows, float32), the
+    same rows as an ``(n_blocks, live)`` view, and the totals
+    (``(columns,)`` float64; :func:`fit_columns`)."""
+    cols, live = fit_columns(lib)
+    partials = torch.empty((live, -(-n_blocks // 4) * 4), dtype=torch.float32, device=dev)
+    totals = torch.empty((cols,), dtype=torch.float64, device=dev)
+    return partials, partials[:, :n_blocks].t(), totals, torch.cuda.current_stream(dev).cuda_stream
 
 
 def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
-    """``(launch, partials)`` of the fit kernel (K3, or a benchmark
+    """``(launch, partials, totals)`` of the fit kernel (K3, or a benchmark
     ``variant`` of it) on ``prm``'s card: the library loaded and the inputs
-    checked once, the partial rows (one per block) allocated; each
-    ``launch()`` enqueues the kernel into ``partials`` on the stream that
-    was current when the launcher was made, and returns them (the caller
-    makes ``prm``'s card the current device).  Raises for inputs it does
-    not take and on any launch error; never falls back."""
+    checked once, the partial rows (one per block, the live columns; an
+    ``(n_blocks, live)`` view of the kernel's store by column) and the
+    float64 totals allocated; each ``launch()`` enqueues the kernel and its
+    total on the stream that was current when the launcher was made and
+    returns the totals (the caller makes ``prm``'s card the current
+    device).  Raises for inputs it does not take and on any launch error;
+    never falls back."""
     lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, variant)
     dev = prm.device
     H, W = cfg.height, cfg.width
     check_plane("target", target, (3, H, W), dev)
-    n_blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
-    partials = torch.empty((n_blocks, variant_columns(variant, count_params(scene))), dtype=torch.float32,
-                           device=dev)
+    partials, rows, totals, stream = _fit_buffers(lib, -(-W // kc.block_w) * -(-H // kc.block_h), dev)
     args = (uni.data_ptr(), prm.data_ptr(), target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
-            partials.data_ptr(), H, W, torch.cuda.current_stream(dev).cuda_stream)
+            partials.data_ptr(), totals.data_ptr(), H, W, stream)
 
     def launch():
         err = lib.sdf3d_fit_step(*args)
         if err != 0:
             raise RuntimeError(f"sdf3d_fit_step ({variant}) launch failed: CUDA error {err}")
-        return partials
-    launch.inputs = (uni, prm, target)  # ``args`` holds their addresses: keep them alive
-    return launch, partials
+        return totals
+    launch.inputs = (uni, prm, target, partials)  # ``args`` holds their addresses: keep them alive
+    return launch, rows, totals
 
 
-def _launch_partials(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
+def _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
     """Launch the fit kernel once (:func:`fit_launcher`) on ``prm``'s card:
-    its partial rows."""
+    its float64 totals."""
     with torch.cuda.device(prm.device):
         return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant)[0]()
 
@@ -173,12 +202,12 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
                            cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
                            frozen_slots: tuple = (), sum_dtype=torch.float32):
     """Launch the CUDA fit step on ``prm``'s card and return ``(loss,
-    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_totals`).  Raises for inputs it
-    does not take and on any launch error; never falls back."""
+    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_split_totals`).  Raises for
+    inputs it does not take and on any launch error; never falls back."""
     frozen_slots = tuple(sorted(set(frozen_slots)))
-    partials = _launch_partials(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots)
+    totals = _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots)
     fit_step_kernel.launches += 1
-    return _totals(partials, count_params(scene), sum_dtype)
+    return _split_totals(totals, count_params(scene), sum_dtype)
 
 
 def _check_fused(scene: SDFNode, cfg: RenderConfig) -> None:
@@ -243,19 +272,16 @@ def fit_step_kernel_tiles_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.T
     dev = prm.device
     T = check_tables(trow, tcol, dev)
     check_plane("target", target, (3, T * kc.tile_h, kc.tile_w), dev)
-    P = count_params(scene)
-    G = P + N_UNIFORMS + 1
-    n_blocks = T * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
-    partials = torch.empty((n_blocks, G), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        n_blocks = T * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
+        partials, _, totals, stream = _fit_buffers(lib, n_blocks, dev)
         err = lib.sdf3d_fit_step_tiles(uni.data_ptr(), prm.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
                                        target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
-                                       partials.data_ptr(), T, cfg.height, cfg.width, stream)
+                                       partials.data_ptr(), totals.data_ptr(), T, cfg.height, cfg.width, stream)
     if err != 0:
         raise RuntimeError(f"sdf3d_fit_step_tiles launch failed: CUDA error {err}")
     fit_step_kernel_tiles.launches += 1
-    return _totals(partials, P, sum_dtype)
+    return _split_totals(totals, count_params(scene), sum_dtype)
 
 
 def fit_step_kernel_tiles(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
@@ -367,13 +393,6 @@ def _header_variant(variant: str) -> str:
     return "full" if variant == "tgt3" else variant
 
 
-def variant_columns(variant: str, n_params: int) -> int:
-    """The columns of a variant's partial row: 1 for the loss-only variants,
-    P + 1 for ``wrt_p``, K3's P + 31 for the others (the loss last)."""
-    v = _header_variant(variant)
-    return 1 if v in LOSS_ONLY else n_params + 1 if v == "wrt_p" else n_params + N_UNIFORMS + 1
-
-
 def _variant_outputs(variant, loss, g_prm, g_uni):
     v = _header_variant(variant)
     if v in LOSS_ONLY:
@@ -427,13 +446,13 @@ def fit_step_variant_launch(variant: str, scene: SDFNode, prm: torch.Tensor, uni
     """Launch the fit step's benchmark ``variant`` on ``prm``'s card: K3's
     kernel function compiled with ``Fit::variant`` (``full`` and ``tgt3``
     are K3's own library).  Returns ``(loss, g_prm | None, g_uni | None)``
-    from the partial rows (:func:`variant_columns` each) summed by
-    :func:`_totals`.  Raises for inputs it does not take and on any launch
-    error; never falls back."""
+    from the launch's float64 totals.  Raises for inputs it
+    does not take and on any launch error; never falls back."""
     v = _header_variant(variant)
-    partials = _launch_partials(scene, prm, uni, target, cfg, kc, True, (), v)
+    totals = _launch_totals(scene, prm, uni, target, cfg, kc, True, (), v)
     fit_step_variant.launches += 1
-    return _variant_outputs(v, *_totals(partials, count_params(scene), torch.float32))
+    loss, g_prm, g_uni = _split_totals(totals, count_params(scene), torch.float32)
+    return _variant_outputs(v, loss, g_prm, g_uni)
 
 
 def fit_step_variant(variant: str, scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,

@@ -622,7 +622,7 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
     n_params = count_params(scene)
     if any(not 0 <= k < n_params for k in frozen_slots):
         raise ValueError(f"frozen_slots {frozen_slots} out of range for {n_params} parameters")
-    frozen = "".join(f"\n    dp[{k}] = 0.0f;" for k in sorted(set(frozen_slots)))
+    frozen = " || ".join(f"k == {k}" for k in sorted(set(frozen_slots))) or "false"
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
@@ -674,9 +674,8 @@ struct Scene {{
 struct Fit {{
   static constexpr bool wrt_uniforms = {b(wrt_uniforms)};
   static constexpr int variant = {FIT_VARIANTS.index(variant)};  // {variant}
-  // Frozen parameter slots read exactly 0.
-  static SDF3D_HD void zero_frozen(float* dp) {{{frozen}
-  }}
+  // Frozen parameter slots: not reduced, their gradient reads exactly 0.
+  static SDF3D_HD constexpr bool is_frozen(int k) {{ return {frozen}; }}
 }};
 """
 

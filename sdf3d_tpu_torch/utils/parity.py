@@ -178,3 +178,34 @@ def check_planes(got, want, max_distance: float, label: str = "", **bar) -> dict
             g, w, f"{label} {name}".strip(), channel_axis=0 if name == "rgb" else None, relative=name == "t", **bar
         )
     return stats
+
+
+def fixed_order_total(partials, threads: int = 256) -> np.ndarray:
+    """The float64 totals of the fit kernel's partial rows ``(rows, live)``
+    in its fixed order (``csrc/fit_kernel.cu``, ``fixed_order_total``), in
+    Python's float64 arithmetic: for each column, thread ``j`` of
+    ``threads`` adds rows ``4j .. 4j + 3``, ``4(j + threads) ..``, ... in row
+    order from 0; within each warp of 32 threads lane ``l`` then adds lane
+    ``l + 16, 8, 4, 2, 1`` in turn, and the warps' sums are added in order
+    from 0.  The kernel's totals equal these bit for bit."""
+    rows = np.asarray(partials, dtype=np.float32)
+    n = rows.shape[0]
+    out = np.zeros(rows.shape[1], np.float64)
+    for c in range(rows.shape[1]):
+        sums = []
+        for j in range(threads):
+            s = 0.0
+            for r in range(4 * j, n, 4 * threads):
+                for x in rows[r:r + 4, c]:
+                    s += float(x)
+            sums.append(s)
+        total = 0.0
+        for w in range(0, threads, 32):
+            lanes = sums[w:w + 32]
+            off = 16
+            while off:
+                lanes[:off] = [lanes[k] + lanes[k + off] for k in range(off)]
+                off //= 2
+            total += lanes[0]
+        out[c] = total
+    return out

@@ -18,6 +18,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +28,8 @@ from sdf3d_tpu_torch.benchmarks.exp_ad import short_config
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import _build
 from sdf3d_tpu_torch.ops.fit_kernel import (
-    _totals,
+    _fit_buffers,
+    _split_totals,
     fit_launcher,
     fit_step_kernel,
     fit_step_kernel_launch,
@@ -52,6 +54,7 @@ from sdf3d_tpu_torch.ops.render_bwd_kernel import (
 )
 from sdf3d_tpu_torch.ops.render_kernel import (
     KernelConfig,
+    kernel_library,
     pack_uniforms,
     pixel_planes,
     render_kernel_forward,
@@ -65,7 +68,14 @@ from sdf3d_tpu_torch.ops.render_kernel import (
 from sdf3d_tpu_torch.ops.scene_program import count_params, scene_param_vector
 from sdf3d_tpu_torch.parallel import make_mesh, render_sharded_kernel
 from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
-from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, check_grads, check_planes, conditioned, gradient_mass
+from sdf3d_tpu_torch.utils.parity import (
+    NEURAL_BAR,
+    check_grads,
+    check_planes,
+    conditioned,
+    fixed_order_total,
+    gradient_mass,
+)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -565,9 +575,74 @@ def test_fit_launcher_keeps_its_inputs(dev):
     prm, uni = _inputs(scene, tt.Camera.reference(), BASE, dev)
     target = render_kernel_launch(scene, prm, uni, BASE)[0].contiguous() * 0.5
     want = fit_step_kernel_launch(scene, prm, uni, target, BASE, KernelConfig(), True, ())
-    launch, partials = fit_launcher(scene, prm.clone(), uni.clone(), target.clone(), BASE, KernelConfig(), True, ())
+    launch, _, totals = fit_launcher(scene, prm.clone(), uni.clone(), target.clone(), BASE, KernelConfig(), True, ())
     del prm, uni, target
     junk = [torch.full((4096,), float(k), device=dev) for k in range(64)]
-    got = _totals(launch(), count_params(scene), torch.float32)
+    assert launch() is totals
+    got = _split_totals(totals, count_params(scene), torch.float32)
     torch.cuda.synchronize()
     assert junk and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+def test_fit_total_in_launch_is_the_fixed_order_sum(dev, wrt_uniforms, frozen):
+    """The float64 totals of a launch are its partial rows summed in the
+    kernel's fixed order (``fixed_order_total``), bit for bit, and the frozen
+    slots (and the uniforms' columns unless taken) read 0; launches in a row
+    agree bit for bit."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), cfg, dev)
+    target = render_kernel_launch(tt.reference_scene().to(dev), scene_param_vector(tt.reference_scene(), dev), uni,
+                                  cfg)[0].contiguous()
+    kc = KernelConfig()
+    launch, partials, totals = fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen)
+    first = launch().clone()
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int64), totals.view(torch.int64))
+    P = count_params(scene)
+    cols = P + 31  # dP, dU (zeros unless taken), the loss
+    keep = [k for k in range(P) if k not in frozen] + (list(range(P, cols - 1)) if wrt_uniforms else []) + [cols - 1]
+    assert partials.shape == (-(-cfg.width // kc.block_w) * -(-cfg.height // kc.block_h), len(keep))
+    want = np.zeros(cols, np.float64)
+    want[keep] = fixed_order_total(partials.cpu().numpy())
+    assert np.array_equal(totals.cpu().numpy().view(np.uint64), want.view(np.uint64))
+    assert all(float(totals[k]) == 0.0 for k in frozen)
+
+
+def test_fit_k3_and_k4_partial_rows_equal(dev):
+    """K3 over a 1280×48 image and K4 over a balanced plan of its four
+    24×640 tiles (whole 32×8 blocks, out of image order) give bit-equal
+    partial rows for the same pixels, and equal totals once rounded to
+    float32 (their float64 totals add the rows in another block order)."""
+    cfg = dataclasses.replace(BASE, width=1280, height=48)
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=20.0, elevation_deg=10.0), cfg, dev)
+    target = render_kernel_launch(tt.reference_scene().to(dev), scene_param_vector(tt.reference_scene(), dev), uni,
+                                  cfg)[0].contiguous()
+    kc = KernelConfig()
+    launch3, rows3, totals3 = fit_launcher(scene, prm, uni, target, cfg, kc, False, FROZEN)
+    launch3()
+    work = np.random.default_rng(5).exponential(size=(cfg.height // kc.tile_h, cfg.width // kc.tile_w))
+    plan = plan_tiles(cfg.height, cfg.width, kc.tile_h, kc.tile_w, 1, "balanced", work)
+    trow, tcol = plan.tables(0, dev)
+    stack = gather_target_tiles(target, plan)[0].contiguous()
+    T = int(trow.shape[0])
+    bx4, by4 = kc.tile_w // kc.block_w, kc.tile_h // kc.block_h
+    lib = kernel_library(scene, prm, uni, cfg, kc, False, FROZEN)
+    store4, rows4, totals4, stream = _fit_buffers(lib, T * bx4 * by4, dev)
+    assert lib.sdf3d_fit_step_tiles(uni.data_ptr(), prm.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
+                                    *(stack[k].data_ptr() for k in range(3)), store4.data_ptr(), totals4.data_ptr(),
+                                    T, cfg.height, cfg.width, stream) == 0
+    torch.cuda.synchronize()
+    gx3 = cfg.width // kc.block_w
+    tr, tc = trow.cpu().tolist(), tcol.cpu().tolist()
+    index3 = [(tr[z] // kc.block_h + by) * gx3 + tc[z] // kc.block_w + bx
+              for z in range(T) for by in range(by4) for bx in range(bx4)]
+    assert torch.equal(rows3[index3].view(torch.int32), rows4.view(torch.int32))
+    assert torch.equal(totals3.float(), totals4.float())
+    loss4 = fit_step_kernel_tiles_launch(scene, prm, uni, stack, trow, tcol, cfg, kc, False, FROZEN)
+    loss3 = fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, False, FROZEN)
+    assert all(torch.equal(a, b) for a, b in zip(loss3, loss4))

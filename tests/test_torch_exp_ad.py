@@ -37,10 +37,10 @@ from sdf3d_tpu_torch.ops import _build
 from sdf3d_tpu_torch.ops.fit_kernel import (
     VARIANTS,
     _header_variant,
+    fit_columns,
     fit_step_kernel_plain,
     fit_step_variant,
     fit_step_variant_plain,
-    variant_columns,
 )
 from sdf3d_tpu_torch.ops.render_bwd_kernel import shade_planes
 from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, pixel_planes, render_kernel_forward_plain
@@ -263,15 +263,21 @@ def test_host_form_matches_plain(variant):
     uni[27] = cfg.shadow.k
     target = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (3, 24, 40)).astype(np.float32) / 256)
     lib = _host_library(cuda_scene_source(scene, cfg, KernelConfig(), True, (), _header_variant(variant)))
-    out = np.zeros(variant_columns(variant, P), np.float32)
+    totals = np.zeros(fit_columns(lib)[0], np.float64)
+    partials = np.zeros((-(-40 // 32) * -(-24 // 8), totals.size), np.float32)
     assert lib.sdf3d_fit_step_host(uni.numpy().ctypes.data, prm.numpy().ctypes.data,
-                                   *(target[k].numpy().ctypes.data for k in range(3)), out.ctypes.data, 24, 40) == 0
+                                   *(target[k].numpy().ctypes.data for k in range(3)), partials.ctypes.data,
+                                   totals.ctypes.data, 24, 40) == 0
+    out = totals.astype(np.float32)
     loss, g_prm, g_uni = fit_step_variant_plain(variant, scene, prm, uni, target, cfg)
     if variant in ("empty", "empty_noin"):
         assert out.tolist() == [float(loss)]
         return
     assert float(out[-1]) == pytest.approx(float(loss), rel=1e-5)
     grads = [g for g in (g_prm, g_uni) if g is not None]
+    if variant == "wrt_p":
+        assert not out[P:-1].any()
+        out = np.concatenate([out[:P], out[-1:]])
     assert out.size == 1 + sum(g.numel() for g in grads)
     if grads:
         planes = render_kernel_forward_plain(scene, prm, uni, cfg)

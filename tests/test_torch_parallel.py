@@ -367,9 +367,12 @@ def test_tiles_kernels_on_cpu_match_plain(kc):
         want = render_kernel_tiles_forward_plain(scene, prm, uni, trow, tcol, cfg, kc)
         check_planes(got, want, cfg.march.max_distance)
         stack = stacks[r].contiguous()
-        out = torch.empty(prm.numel() + 31)
+        n_blocks = T * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
+        partials = np.empty((n_blocks, prm.numel() + 31), np.float32)
+        totals = np.empty(prm.numel() + 31, np.float64)
         assert lib.sdf3d_fit_step_tiles_host(_ptr(uni), _ptr(prm), _ptr(trow), _ptr(tcol), *(_ptr(c) for c in stack),
-                                             _ptr(out), T, H, W) == 0
+                                             _ptr(partials), _ptr(totals), T, H, W) == 0
+        out = torch.from_numpy(totals.astype(np.float32))
         loss, g_prm, g_uni = fit_step_kernel_tiles_plain(scene, prm, uni, stack, trow, tcol, cfg, kc, True, (0, 1))
         assert float(out[-1]) == pytest.approx(float(loss), rel=1e-5)
         check_grads(out[:-1], torch.cat([g_prm, g_uni]), mass, rtol=1e-4, mass_tol=1e-4)
