@@ -18,24 +18,31 @@ sources in this checkout.  Phases, one line each:
    version at 1080p;
 5. CLI: ``python -m sdf3d_tpu_torch.cli render`` at 1080p writes a PNG;
 6. times at 1080p with CUDA events (3 warm-up frames, 20 timed; plain,
-   kernel, kernel, plain).
+   kernel, kernel, plain); K1's bound, and its issue floor: the warp
+   instructions of its SASS (``cuobjdump -sass``: the primary march's and
+   the shadow's loop per step, the rest once a warp) on this run's marches
+   over the card's issue rate (:func:`issue_floor`).
 
 Then the training path, ``fit_scene`` on the reference scene at 1920×1080
 (the JAX CLI's fit demo: a perturbed sphere, the plane frozen, Adam):
 
 7. build: the fit step (K3) and render backward (K5) libraries, with the
-   ``ptxas`` registers and spills of all three kernels;
+   ``ptxas`` registers, spills and resident blocks an SM of every kernel,
+   both forms of K5 included (with and without the uniforms' gradient);
 8. fit step vs its plain version at 256×192 (two cameras, ``wrt_uniforms``
    and ``frozen_slots`` both ways) and at a ragged 250×190;
-9. render backward vs its plain version at 256×192 (same planes, a seeded
-   cotangent);
+9. render backward vs its plain version at 256×192 and a ragged 250×190
+   (same planes, a seeded cotangent), with and without the uniforms'
+   gradient;
 10. main path: ``fit_scene`` for 20 Adam steps launches the fit step once a
     step and nothing else; ``fit_scene(loss="multiscale")`` for 5 steps
-    launches the forward and backward kernels once a step each; step 0 of
-    the fit step against its plain version at 1080p;
+    launches the forward and backward kernels once a step each, the
+    backward without the uniforms' gradient (the uniforms are not trained);
+    step 0 of the fit step against its plain version at 1080p;
 11. CLI: ``python -m sdf3d_tpu_torch.cli fit`` at 1080p writes a metrics file;
-12. times at 1080p (fit step, render backward, each beside its plain
-    version; ``fit_scene`` ms/step and fwd_bwd rays/s).
+12. times at 1080p (fit step, render backward in both forms: its entry
+    point with its total, then its wrapper; each beside its plain version;
+    ``fit_scene`` ms/step and fwd_bwd rays/s).
 
 Gradient comparisons use the bars of ``utils/parity.py::check_grads`` with
 the cotangent (or residual) zero on grazing rays (``conditioned``): 1e-5 of
@@ -136,7 +143,7 @@ with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
 28. main path: ``python -m sdf3d_tpu_torch.benchmarks.exp_ad`` at 1080p, one-step
     and reference config; CUDA-event times of eight variants (plain, kernel,
     kernel, plain), the wrapper's kernels on the card (the fit kernel, the
-    second kernel its C call launches, ``sdf3d_fit_total_kernel``, which
+    second kernel its C call launches, ``sdf3d_column_total_kernel``, which
     sums the partial rows in float64 one block a live column in an order
     fixed by row and thread index, and the cast); K9's bounds;
 29. the bench at 1080p: ``bench.run_benchmark`` in ``fwd`` and ``fwd_bwd``
@@ -156,9 +163,10 @@ It imports nothing of JAX and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --time-kernels ROOT [ROOT ...]
 
-times K1 and K3 at 1080p for each checkout in turn and prints SHA-256
-digests of K1's four planes and of K3's partial rows and float64 totals, the
-registers of K1, K3 and K5, then times K6 at hidden 64, 128 and 256 on phase
+times K1, K2, K3 and both forms of K5 at 1080p for each checkout in turn
+and prints SHA-256 digests of K1's planes, K2's stacks, K3's partial rows
+and float64 totals and K5's parameter columns, the registers of K1, K3 and
+K5, K1's issue floor, then times K6 at hidden 64, 128 and 256 on phase
 16's 1080p cell, and last compares the checkouts (:func:`time_kernels`: give
 the parent and the change in turns to compare them on one card).
 """
@@ -225,6 +233,9 @@ SFU_PEAK = 132 * 16 * 1.98e9
 # sparsity): the neural kernel's split-TF32 products.
 TC_TF32_PEAK = 495e12
 HBM_BYTES_PER_S = 3.35e12
+# Warp instructions the card issues a second: one a clock on each of an
+# SM's four schedulers, 132 SMs at the 1.98 GHz boost clock.
+ISSUE_RATE = 132 * 4 * 1.98e9
 # Operations of one step of the kernels' loops around the distance
 # evaluation (render_kernel.cuh): the primary march adds the step and makes
 # two compares; a soft-shadow step (march_shadow) makes 19 FP32 operations,
@@ -494,7 +505,13 @@ def main() -> int:
     counts = march_counts(torch, scene, tt.Camera.reference(), cfg, prm, uni, render_kernel_forward_plain)
     fp, sfu = analytic_work(scene_costs(cuda_scene_source(scene, cfg, KernelConfig())), counts, cfg)
     bound_ms, bound_by = bound(fp, sfu, 24 * W * H)
-    log("bound_render_fwd", counts=counts, fp32_ops=fp, sfu_ops=sfu, bound_ms=bound_ms, bound_by=bound_by)
+    # K1's issue floor on the same data: its SASS's warp instructions.
+    lib_path = str(libs.build_dir / libs.key(cuda_scene_source(scene, cfg, KernelConfig()))
+                   / _build.KINDS["render"].lib_name)
+    k1_sass = next(v for k, v in sass_listing(lib_path).items() if "sdf3d_render_fwd_kernel" in k)
+    floor = issue_floor(k1_sass, counts)
+    log("bound_render_fwd", counts=counts, fp32_ops=fp, sfu_ops=sfu, bound_ms=bound_ms, bound_by=bound_by,
+        issue_floor=floor, kernel_ms_over_issue_floor=kernel_ms / floor["issue_floor_ms"])
 
     fit_kernels = fit_phases(torch, tt, card, dev)
     neural_kernel = neural_phases(torch, tt, card, dev)
@@ -521,13 +538,25 @@ def main() -> int:
     return 0
 
 
+def kernel_key(mangled: str) -> str:
+    """A kernel function's short name: ``render_fwd`` (K1, K2),
+    ``fit_step`` (K3, K4), ``render_bwd`` (K5 with the uniforms' gradient,
+    and a library's only K5 where it has one form) and ``render_bwd_params``
+    (K5 without it, ``WRT_U = false``); other kernels keep their mangled
+    names."""
+    if "render_bwd" in mangled:
+        return "render_bwd_params" if "ILb0E" in mangled else "render_bwd"
+    return next((k for k in ("render_fwd", "fit_step") if k in mangled), mangled)
+
+
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes per kernel from an ``nvcc -Xptxas -v`` log."""
+    """Registers and spill bytes per kernel (:func:`kernel_key`) from an
+    ``nvcc -Xptxas -v`` log."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = next((k for k in ("render_fwd", "fit_step", "render_bwd") if k in m.group(1)), m.group(1))
+            name = kernel_key(m.group(1))
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -567,6 +596,29 @@ class PlainCalls:
         return False
 
 
+class BackwardModes:
+    """Records, while active, the ``wrt_uniforms`` of every call the
+    differentiable render's backward makes of the render backward
+    (``ops/render_autograd.py``): True where it asked for the uniforms'
+    gradient."""
+
+    def __enter__(self):
+        from sdf3d_tpu_torch.ops import render_autograd
+
+        self.calls, self._module = [], render_autograd
+        self._saved = fn = render_autograd.render_kernel_backward
+
+        def recording(*args, wrt_uniforms=True, **kwargs):
+            self.calls.append(wrt_uniforms)
+            return fn(*args, wrt_uniforms=wrt_uniforms, **kwargs)
+        render_autograd.render_kernel_backward = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._module.render_kernel_backward = self._saved
+        return False
+
+
 def fit_phases(torch, tt, card: str, dev) -> list:
     """Phases 7-12: the training path.  Returns the fit step's and the
     render backward's entries of the kernels line."""
@@ -575,6 +627,7 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
     from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_bwd_launcher,
         render_kernel_backward,
         render_kernel_backward_launch,
         render_kernel_backward_plain,
@@ -647,10 +700,13 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     for wrt, fr in ((False, frozen), (True, ())):
         key = libs.key(cuda_scene_source(sc, cfg, KernelConfig(), wrt, fr))
         ptxas[f"wrt_uniforms={wrt} frozen={list(fr)}"] = ptxas_summary(libs.log(key))
+    for kernels in ptxas.values():
+        check(set(kernels) >= {"render_fwd", "fit_step", "render_bwd", "render_bwd_params"},
+              f"ptxas reported {sorted(kernels)}")
+        for v in kernels.values():
+            v["blocks_per_sm"] = blocks_per_sm(v["registers"])
     log("build_fit", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
         libraries=libs.loaded, ptxas=ptxas)
-    for kernels in ptxas.values():
-        check(set(kernels) >= {"render_fwd", "fit_step", "render_bwd"}, f"ptxas reported {sorted(kernels)}")
 
     # ---- 8. fit step vs plain at 256x192, and ragged 250x190 ----
     cams = (("reference", tt.Camera.reference(device=dev)),
@@ -663,23 +719,28 @@ def fit_phases(torch, tt, card: str, dev) -> list:
         st = k3_vs_plain(sc, cam, ragged, True, frozen, f"fit step 250x190 {cam_name}")
         log("fit_step_250x190", camera=cam_name, **st)
 
-    # ---- 9. render backward vs plain at 256x192, and ragged 250x190 ----
+    # ---- 9. render backward vs plain at 256x192, and ragged 250x190, with
+    # and without the uniforms' gradient ----
     for c, (cam_name, cam) in ((small, cams[0]), (small, cams[1]), (ragged, cams[1])):
         prm, uni = inputs(sc, cam, c)
         _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
         keep = conditioned(sc, prm, uni, t, c)
         g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev) * keep).contiguous()
-        got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c)
-        want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c)
-        torch.cuda.synchronize()
-        st = check_grads(torch.cat(got), torch.cat(want), gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c),
-                         rtol=1e-4, mass_tol=1e-5, label=f"render backward {c.width}x{c.height} {cam_name}")
-        log(f"render_bwd_{c.width}x{c.height}", camera=cam_name, **st)
+        mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c)
+        for wrt in (True, False):
+            label = f"render backward {c.width}x{c.height} {cam_name} wrt_uniforms={wrt}"
+            got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            torch.cuda.synchronize()
+            check(wrt or (got[1] is None and want[1] is None), f"{label}: a uniforms' gradient")
+            st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                             mass if wrt else mass[:prm.numel()], rtol=1e-4, mass_tol=1e-5, label=label)
+            log(f"render_bwd_{c.width}x{c.height}", camera=cam_name, wrt_uniforms=wrt, **st)
 
     # ---- 10. main path: fit_scene at 1920x1080 ----
     cam = tt.Camera.reference(device=dev)
     target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, BackwardModes() as modes:
         render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
         t0 = time.perf_counter()
         l2 = fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=20, learning_rate=1e-2, log_every=1),
@@ -693,9 +754,12 @@ def fit_phases(torch, tt, card: str, dev) -> list:
                        trainable=trainable, device=dev)
         ms_counts = (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches)
         ms_seconds = time.perf_counter() - t0
+        ms_modes = modes.calls[len(modes.calls) - ms_counts[2]:]
     check(l2_counts == (20, 0, 0), f"fit_scene launched (fit step, forward, backward) = {l2_counts}, expected (20, 0, 0)")
     check(ms_counts == (0, 5, 5), f"multiscale fit launched (fit step, forward, backward) = {ms_counts}, expected (0, 5, 5)")
     check(sum(plain.calls.values()) == 0, f"the main path called plain versions: {plain.calls}")
+    check(ms_modes == [False] * 5, f"the multiscale fit's backward asked for wrt_uniforms {ms_modes}, "
+                                   "expected False on every step (the uniforms are not trained)")
     for name, res in (("l2", l2), ("multiscale", ms)):
         check(all(math.isfinite(v) for v in res.losses), f"{name} fit: non-finite loss")
         check(res.losses[-1] < res.losses[0], f"{name} fit: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
@@ -704,7 +768,8 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     fit_st = k3_vs_plain(scene0(), cam, cfg, False, frozen, "fit step 1080p step 0",
                          target.permute(2, 0, 1).contiguous(), same_tol=1e-4)
     log("fit_main_path", steps=20, l2_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), l2_counts)),
-        multiscale_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), ms_counts)), plain_calls=plain.calls,
+        multiscale_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), ms_counts)),
+        multiscale_render_bwd_wrt_uniforms=ms_modes, plain_calls=plain.calls,
         l2_losses=l2.losses, multiscale_losses=ms.losses, radius=l2.scene.b.radius.item(),
         l2_seconds=l2_seconds, multiscale_seconds=ms_seconds, step0=fit_st)
 
@@ -726,30 +791,51 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     tgt = target.permute(2, 0, 1).contiguous()
     _, t, sh, ao = render_kernel_launch(sc, prm, uni, cfg)
     g_rgb = torch.randn((3, H, W), generator=gen, device=dev)
-    bwd = lambda: render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, cfg)  # noqa: E731
-    bwd_plain = lambda: render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, cfg)  # noqa: E731
     fit_k = lambda: fit_step_kernel_launch(sc, prm, uni, tgt, cfg, KernelConfig(), False, frozen)  # noqa: E731
     fit_p = lambda: fit_step_kernel_plain(sc, prm, uni, tgt, cfg, KernelConfig(), False, frozen)  # noqa: E731
+    # K5 in the multiscale fit's form (the parameters' gradient alone:
+    # "render_bwd") and with the uniforms' ("render_bwd_uniforms"): its entry
+    # point, the kernel and its float64 total in one C call, beside its
+    # plain version, then its wrapper (host-bound: its checks and library
+    # lookup take longer than the kernel).
+    timed = [("fit_step", fit_k, fit_p)]
+    bwd_forms = {"render_bwd": False, "render_bwd_uniforms": True}
+    for name, wrt in bwd_forms.items():
+        timed.append((name, render_bwd_launcher(sc, prm, uni, g_rgb, t, sh, ao, cfg, KernelConfig(), wrt)[0],
+                      functools.partial(render_kernel_backward_plain, sc, prm, uni, g_rgb, t, sh, ao, cfg,
+                                        wrt_uniforms=wrt)))
     runs = {}
-    for name, kern, plain_fn in (("fit_step", fit_k, fit_p), ("render_bwd", bwd, bwd_plain)):
+    for name, kern, plain_fn in timed:
         p1, k1, k2, p2 = time_ms(plain_fn), time_ms(kern), time_ms(kern), time_ms(plain_fn)
         runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
-    bwd_st = check_grads(torch.cat(bwd()), torch.cat(bwd_plain()), gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, cfg),
-                         rtol=1e-4, mass_tol=1e-3, label="render backward 1080p")
+    bwd_mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, cfg)
+    bwd_st = {}
+    for name, wrt in bwd_forms.items():
+        wrapper = functools.partial(render_kernel_backward_launch, sc, prm, uni, g_rgb, t, sh, ao, cfg,
+                                    wrt_uniforms=wrt)
+        runs[name]["wrapper_ms"] = time_ms(wrapper)
+        got = wrapper()
+        want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt)
+        bwd_st[name] = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                                   bwd_mass if wrt else bwd_mass[:prm.numel()], rtol=1e-4, mass_tol=1e-3,
+                                   label=f"render backward 1080p wrt_uniforms={wrt}")
     fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=5, log_every=5), trainable=trainable, device=dev)
     res = fit_scene(target, scene0(), cam, light, mat, cfg, FitConfig(steps=50, log_every=50),
                     trainable=trainable, device=dev)
     fit_ms = W * H / res.rays_per_second * 1e3
     # Bounds on this cell (step 0 of the fit demo): K3's primal and reverse
     # pass, its target read and P + 31 float64 totals written; K5's reverse
-    # pass with its re-trace, six planes read and a partial row of P + 30
-    # per block written.
+    # pass with its re-trace, six planes read, a partial row of its live
+    # columns (P, or P + 30 with the uniforms) per block written and read
+    # again by its total, and the float64 totals written.
     counts = march_counts(torch, sc, cam, cfg, prm, uni, render_kernel_forward_plain)
     costs = scene_costs(cuda_scene_source(sc, cfg, KernelConfig(), False, frozen))
     blocks = -(-W // 32) * -(-H // 8)
     k3 = bound(*analytic_work(costs, counts, cfg, primal=True, reverse=True), 12 * W * H + 8 * (prm.numel() + 31))
-    k5 = bound(*analytic_work(costs, counts, cfg, primal=False, reverse=True, retrace=True),
-               24 * W * H + 4 * blocks * (prm.numel() + 30))
+    k5 = {name: bound(*analytic_work(costs, counts, cfg, primal=False, reverse=True, retrace=True),
+                      24 * W * H + (8 * blocks + 8) * (prm.numel() + (30 if "uniforms" in name else 0)))
+          for name in ("render_bwd", "render_bwd_uniforms")}
+    k5_st = bwd_st["render_bwd"]
     log("times_fit_1080p", card=card, fit_scene_ms_per_step=fit_ms, fwd_bwd_rays_per_s=res.rays_per_second,
         render_bwd_1080p=bwd_st, counts=counts, costs=costs, bound_fit_step=k3, bound_render_bwd=k5, **runs)
     return [
@@ -759,8 +845,9 @@ def fit_phases(torch, tt, card: str, dev) -> list:
          "plain_ms": runs["fit_step"]["plain_ms"], "bound_ms": k3[0], "bound_by": k3[1], "library_ms": None},
         {"name": "render_bwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/render_bwd_kernel.cu",
          "replaces": "sdf3d_tpu/ops/render_bwd_kernel.py:194", "launches": ms_counts[2],
-         "max_abs_err": bwd_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
-         "plain_ms": runs["render_bwd"]["plain_ms"], "bound_ms": k5[0], "bound_by": k5[1], "library_ms": None},
+         "max_abs_err": k5_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
+         "plain_ms": runs["render_bwd"]["plain_ms"], "bound_ms": k5["render_bwd"][0],
+         "bound_by": k5["render_bwd"][1], "library_ms": None},
     ]
 
 
@@ -1656,25 +1743,107 @@ def ring_phases(torch, tt, card: str) -> list:
                                      ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
 
 
-def sass_opcodes(path: str) -> dict:
-    """SASS instructions per kernel function of a built library, by opcode
-    with its modifiers (NOPs left out), from the toolkit's ``cuobjdump
-    -sass``."""
+def sass_listing(path: str) -> dict:
+    """The SASS of each kernel function of a built library, from the
+    toolkit's ``cuobjdump -sass``: ``[(address, opcode with its modifiers,
+    branch or call target address or None), ...]`` in address order, NOPs
+    left out."""
     from sdf3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120, check=True).stdout
-    ops, name = {}, None
+    funcs, labels, name, pending = {}, {}, None, []
     for ln in out.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            name = m.group(1)
-            ops[name] = {}
+            name, pending = m.group(1), []
+            funcs[name], labels[name] = [], {}
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", ln)
-        if name and m and m.group(1) != "NOP":
-            ops[name][m.group(1)] = ops[name].get(m.group(1), 0) + 1
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)(.*)", ln)
+        if not (name and m):
+            continue
+        addr = int(m.group(1), 16)
+        for label in pending:
+            labels[name][label] = addr
+        pending = []
+        if m.group(2) == "NOP":
+            continue
+        target = (re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", m.group(3)) if m.group(2).startswith(("BRA", "CALL"))
+                  else None)
+        funcs[name].append((addr, m.group(2), target.group(1) if target else None))
+    return {f: [(a, op, None if t is None else int(t, 16) if t.startswith("0x") else labels[f].get(t))
+                for a, op, t in ins] for f, ins in funcs.items()}
+
+
+def sass_opcodes(path: str) -> dict:
+    """SASS instructions per kernel function of a built library, by opcode
+    with its modifiers (NOPs left out)."""
+    ops = {}
+    for name, ins in sass_listing(path).items():
+        ops[name] = {}
+        for _, op, _ in ins:
+            ops[name][op] = ops[name].get(op, 0) + 1
     return ops
+
+
+def sass_loops(listing: list) -> list:
+    """The loops of one kernel function's SASS (:func:`sass_listing`): each
+    backward branch's span, merged by start, with its instructions and its
+    exits (forward branches out of the span and ``BREAK``s).  An unrolled
+    loop holds a copy of its step, with its exit test, per exit."""
+    spans = {}
+    for addr, op, target in listing:
+        if op.startswith("BRA") and target is not None and target <= addr:
+            spans[target] = max(spans.get(target, addr), addr)
+    loops = []
+    for start, end in sorted(spans.items()):
+        body = [(a, op, t) for a, op, t in listing if start <= a <= end]
+        exits = sum(1 for a, op, t in body
+                    if (op.startswith("BRA") and t is not None and t > end) or op.startswith("BREAK"))
+        loops.append({"start": hex(start), "end": hex(end), "instructions": len(body), "exits": exits})
+    return loops
+
+
+def issue_floor(listing: list, counts: dict) -> dict:
+    """K1's issue floor on ``counts``' data (:func:`march_counts`): the warp
+    instructions it issues over the card's issue rate, one warp instruction
+    a clock on each of an SM's four schedulers.  From its SASS: the first two
+    loops that hold a special-function instruction (``MUFU``: the primary
+    march's square root, the shadow's divisions) are the marches, a step
+    each an iteration; the rest of the function before its first subroutine
+    (the slow paths of the IEEE square roots and divisions, which the rays
+    of this scene do not take) runs once a warp, other loops left out; a
+    ``CALL`` of a slow path and the branch past it are not counted.  Warps
+    march as far as their rays (warp efficiency 1): an estimate of the
+    least issue, not a measurement."""
+    loops = sass_loops(listing)
+
+    def ops(lo, hi):
+        return [op for a, op, _ in listing if lo <= a <= hi]
+
+    march = [lp for lp in loops if any(op.startswith("MUFU") for op in ops(int(lp["start"], 16),
+                                                                          int(lp["end"], 16)))][:2]
+    check(len(march) == 2, f"expected the two march loops in K1's SASS, found {loops}")
+    calls = [t for _, op, t in listing if op.startswith("CALL") and t is not None]
+    body_end = min(calls, default=listing[-1][0] + 1)
+
+    def issued(lo, hi):  # instructions less two for each slow-path CALL
+        span = ops(lo, hi)
+        return len(span) - 2 * sum(op.startswith("CALL") for op in span)
+
+    per_step = [issued(int(lp["start"], 16), int(lp["end"], 16)) for lp in march]
+    in_loops = sum(issued(int(lp["start"], 16), int(lp["end"], 16)) for lp in loops
+                   if int(lp["start"], 16) < body_end)
+    rest = issued(0, body_end - 1) - in_loops
+    warp_instructions = (counts["primary"] * per_step[0] + counts["shadow"] * per_step[1]
+                         + counts["pixels"] * rest) / 32
+    return {"loops": loops, "primary_step_instructions": per_step[0], "shadow_step_instructions": per_step[1],
+            "rest_instructions": rest, "warp_instructions": warp_instructions, "counts": counts,
+            "issue_floor_ms": warp_instructions / ISSUE_RATE * 1e3}
 
 
 def sass_instructions(path: str) -> dict:
@@ -1882,7 +2051,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
             row["wrapper_ms"] = time_ms(wrap, 5, 50)
             times[f"{cname} {v}"] = row
     # The float64 total is a second kernel of the same C call
-    # (sdf3d_fit_total_kernel): the wrapper's kernels on the card (the
+    # (sdf3d_column_total_kernel): the wrapper's kernels on the card (the
     # profiler: the fit kernel, its total and the cast of the totals), and
     # the wrapper's time less the entry point's, what it adds to a step.
     uni = _uniforms(cam, light, mat, configs["short"], dev)
@@ -2042,8 +2211,15 @@ def _time_root(root: str) -> dict:
     import sdf3d_tpu_torch as tt
     from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher, fit_step_kernel_launch
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_launch
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        pack_uniforms,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_launch,
+    )
     from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel.tile_queue import plan_tiles
 
     check(tt.__file__.startswith(root), f"imported {tt.__file__}, not the package under {root}")
     dev = torch.device("cuda", 0)
@@ -2076,13 +2252,26 @@ def _time_root(root: str) -> dict:
     live_rows = (rows if rows.shape[1] == len(live) else rows[:, live]).contiguous().numpy()
     planes = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k1())
     libs = _build.LIBRARIES
-    ptxas = {k: ptxas_summary(libs.log(libs.key(cuda_scene_source(ref, cfg, kc))))[k] for k in ("render_fwd",
-                                                                                              "render_bwd")}
+    ref_key = libs.key(cuda_scene_source(ref, cfg, kc))
+    ptxas = {k: v for k, v in ptxas_summary(libs.log(ref_key)).items()
+             if k in ("render_fwd", "render_bwd", "render_bwd_params")}
     ptxas["fit_step"] = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, cfg, kc, False, frozen))))["fit_step"]
     for v in ptxas.values():
         v["blocks_per_sm"] = blocks_per_sm(v["registers"], kc.block_w * kc.block_h)
+    # K1's issue floor (its SASS on this run's marches).
+    counts = march_counts(torch, ref, cam, cfg, prm, uni, render_kernel_forward_plain)
+    k1_sass = next(v for k, v in sass_listing(str(libs.build_dir / ref_key / _build.KINDS["render"].lib_name)).items()
+                   if "sdf3d_render_fwd_kernel" in k)
+    # K2 over the 135-tile plan of phase 21 (world size 1, round robin).
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    k2 = lambda: render_kernel_tiles_launch(ref, prm, uni, trow, tcol, cfg, kc)  # noqa: E731
+    stacks = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k2())
     result = {"root": root, "card": card_name_and_power(), "ptxas": ptxas,
+              "render_fwd_issue_floor": issue_floor(k1_sass, counts),
               "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
+              "render_tiles_sha256": hashlib.sha256(stacks).hexdigest(),
+              "render_tiles": plan.tiles_per_device,
               "fit_step_partials_sha256": hashlib.sha256(partial_rows.cpu().numpy().tobytes()).hexdigest(),
               "fit_step_partials_shape": list(partial_rows.shape),
               "fit_step_live_rows_sha256": hashlib.sha256(live_rows.tobytes()).hexdigest(),
@@ -2091,7 +2280,9 @@ def _time_root(root: str) -> dict:
               "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
               "fit_step_ms": [time_ms(launcher[0], 5, 50) for _ in range(3)],
               "fit_step_wrapper_ms": [time_ms(k3, 5, 50) for _ in range(3)],
-              "fit_step_wrapper_device_us": device_us(torch, k3)}
+              "fit_step_wrapper_device_us": device_us(torch, k3),
+              "render_tiles_ms": [time_ms(k2, 5, 50) for _ in range(3)],
+              "render_bwd": _time_render_bwd(torch, sc0, prm0, uni, target, cfg, kc)}
     # K6 on phase 16's cell: ground_plane() | neural_sdf(seed 0, hidden, depth 3)
     # at 1080p with 64/32 steps, the reference camera; three runs each.
     from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural_launch
@@ -2108,6 +2299,53 @@ def _time_root(root: str) -> dict:
     return result
 
 
+def _time_render_bwd(torch, scene, prm, uni, target, cfg, kc) -> dict:
+    """K5 for ``--time-kernels``, on the checkout imported: at 1080p on the
+    planes of ``scene`` with the cotangent of an L2 loss against ``target``,
+    in each form the checkout has (``params``: the parameters' gradient
+    alone, the multiscale fit's; ``uniforms``: with the uniforms'), the
+    entry point alone (``ms``: with its float64 total where the checkout's C
+    call launches one) and through its wrapper, three runs each, the
+    wrapper's kernels on the card (the profiler), and the SHA-256 of the
+    partial rows' P parameter columns (blocks, P)."""
+    from sdf3d_tpu_torch.ops import render_bwd_kernel as k5
+    from sdf3d_tpu_torch.ops.render_kernel import kernel_library, render_kernel_launch
+
+    dev = prm.device
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg, kc)
+    g_rgb = (2.0 * (rgb - target)).contiguous()
+    P = prm.numel()
+    forms = {}
+    if hasattr(k5, "render_bwd_launcher"):
+        for form, wrt in (("params", False), ("uniforms", True)):
+            launch, rows, _ = k5.render_bwd_launcher(scene, prm, uni, g_rgb, t, sh, ao, cfg, kc, wrt)
+            forms[form] = (launch, rows, functools.partial(k5.render_kernel_backward_launch, scene, prm, uni, g_rgb,
+                                                           t, sh, ao, cfg, kc, wrt_uniforms=wrt))
+    else:
+        # One form (the uniforms'), partial rows (blocks, P + 30), summed by
+        # the wrapper.
+        lib = kernel_library(scene, prm, uni, cfg, kc)
+        rows = torch.empty((-(-cfg.width // kc.block_w) * -(-cfg.height // kc.block_h), P + 30), device=dev)
+        args = [x.data_ptr() for x in (uni, prm, g_rgb[0], g_rgb[1], g_rgb[2], t, sh, ao, rows)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            check(lib.sdf3d_render_bwd(*args, cfg.height, cfg.width, stream) == 0, "sdf3d_render_bwd failed")
+        forms["uniforms"] = (launch, rows, functools.partial(k5.render_kernel_backward_launch, scene, prm, uni, g_rgb,
+                                                             t, sh, ao, cfg, kc))
+    out = {}
+    for form, (launch, rows, wrapper) in forms.items():
+        launch()
+        torch.cuda.synchronize()
+        dp_rows = rows[:, :P].contiguous().cpu().numpy()
+        out[form] = {"ms": [time_ms(launch, 5, 50) for _ in range(3)],
+                     "wrapper_ms": [time_ms(wrapper, 5, 50) for _ in range(3)],
+                     "wrapper_device_us": device_us(torch, wrapper),
+                     "with_total": hasattr(k5, "render_bwd_launcher"),
+                     "dp_rows_sha256": hashlib.sha256(dp_rows.tobytes()).hexdigest()}
+    return out
+
+
 def max_rel_diff(a, b) -> float:
     """The largest |a - b| / max(|a|, |b|) over two vectors (0 where both
     are 0)."""
@@ -2116,16 +2354,19 @@ def max_rel_diff(a, b) -> float:
 
 def time_kernels(roots: list) -> int:
     """``--time-kernels ROOT [ROOT ...]``: for each checkout in turn, in a
-    process of its own (the packages share a name), K1 and K3 at 1080p (the
-    reference scene, the fit demo's main path) and K6 on phase 16's cell,
-    three runs each by CUDA events; SHA-256 digests of K1's four planes, of
-    K3's partial rows (all, and their live columns in one layout for every
-    checkout) and of its float64 totals (the gradient and the loss);
-    ptxas registers, spills and resident blocks per SM of K1, K3 and K5.
-    One JSON line per checkout, then one comparing them: whether K1's planes
-    and K3's live partial rows agree bit for bit, the registers, and the
-    totals' largest relative difference from the first checkout's.  Give the parent and the change in turns (parent,
-    change, change, parent) to compare them on one card."""
+    process of its own (the packages share a name), K1, K2 over the 135-tile
+    plan and K3 at 1080p (the reference scene, the fit demo's main path),
+    K5 on the fit demo's start in each form (:func:`_time_render_bwd`) and
+    K6 on phase 16's cell, three runs each by CUDA events; SHA-256 digests
+    of K1's four planes, K2's stacks, K3's partial rows (all, and their
+    live columns in one layout for every checkout), its float64 totals (the
+    gradient and the loss) and K5's parameter columns of its partial rows;
+    ptxas registers, spills and resident blocks per SM of K1, K3 and both
+    forms of K5; K1's issue floor (:func:`issue_floor`).  One JSON line per
+    checkout, then one comparing them: whether the digests agree bit for
+    bit, the registers, the totals' largest relative difference from the
+    first checkout's, and the times.  Give the parent and the change in
+    turns (parent, change, change, parent) to compare them on one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2142,12 +2383,22 @@ def time_kernels(roots: list) -> int:
     print(json.dumps({
         "roots": [r["root"] for r in results],
         "render_fwd_sha256_equal": len({r["render_fwd_sha256"] for r in results}) == 1,
+        "render_tiles_sha256_equal": len({r["render_tiles_sha256"] for r in results}) == 1,
         "fit_step_live_rows_sha256_equal": len({r["fit_step_live_rows_sha256"] for r in results}) == 1,
-        "registers": {k: [r["ptxas"][k]["registers"] for r in results] for k in ("render_fwd", "fit_step",
-                                                                              "render_bwd")},
+        "fit_totals_sha256_equal": len({r["fit_totals_sha256"] for r in results}) == 1,
+        "render_bwd_dp_rows_sha256_equal": len({f["dp_rows_sha256"] for r in results
+                                                for f in r["render_bwd"].values()}) == 1,
+        "registers": {k: [r["ptxas"].get(k, {}).get("registers") for r in results]
+                      for k in ("render_fwd", "fit_step", "render_bwd", "render_bwd_params")},
         "fit_totals_max_rel_diff": [max_rel_diff(r["fit_totals"], first["fit_totals"]) for r in results],
+        "render_fwd_ms": [r["render_fwd_ms"] for r in results],
+        "render_fwd_issue_floor_ms": [r["render_fwd_issue_floor"]["issue_floor_ms"] for r in results],
+        "render_tiles_ms": [r["render_tiles_ms"] for r in results],
         "fit_step_ms": [r["fit_step_ms"] for r in results],
-        "fit_step_wrapper_ms": [r["fit_step_wrapper_ms"] for r in results]}), flush=True)
+        "fit_step_wrapper_ms": [r["fit_step_wrapper_ms"] for r in results],
+        "render_bwd_ms": [{f: v["ms"] for f, v in r["render_bwd"].items()} for r in results],
+        "render_bwd_wrapper_ms": [{f: v["wrapper_ms"] for f, v in r["render_bwd"].items()} for r in results],
+        "neural_fwd_hidden64_ms": [r["neural_fwd_hidden64_ms"] for r in results]}), flush=True)
     return 0
 
 

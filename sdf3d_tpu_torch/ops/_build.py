@@ -9,8 +9,9 @@ ops/scene_program.py) and the sources of its kind:
   ``sdf3d_render_tiles``), the fused fit step and its tile-queue form
   (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``, ``sdf3d_fit_step_tiles``:
   partial rows and their float64 totals in one call) and the render
-  backward (``csrc/render_bwd_kernel.cu``,
-  ``sdf3d_render_bwd``);
+  backward (``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``: with or
+  without the uniforms' gradient, chosen at launch, and its float64 totals
+  in the same call; both totals by ``csrc/column_total.cuh``);
 - ``"neural"``: the neural-scene forward render alone
   (``csrc/neural_kernel.cu``, ``sdf3d_neural_fwd``);
 - ``"collectives"``: the ring all-reduces between processes and their
@@ -98,7 +99,7 @@ KINDS = {
         ("sdf3d_fit_step", [_PTR] * 7 + [_INT, _INT, _PTR]),
         ("sdf3d_fit_step_tiles", [_PTR] * 9 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_fit_columns", [_PTR]),
-        ("sdf3d_render_bwd", [_PTR] * 9 + [_INT, _INT, _PTR]),
+        ("sdf3d_render_bwd", [_PTR] * 10 + [_INT, _INT, _INT, _PTR]),
     ), host_entry_points=(
         ("sdf3d_render_fwd_host", [_PTR] * 6 + [_INT, _INT]),
         ("sdf3d_render_tiles_host", [_PTR] * 8 + [_INT, _INT, _INT]),
@@ -106,7 +107,7 @@ KINDS = {
         ("sdf3d_fit_step_tiles_host", [_PTR] * 9 + [_INT, _INT, _INT]),
         ("sdf3d_fit_retrace_host", [_PTR] * 7 + [_INT, _INT]),
         ("sdf3d_fit_columns", [_PTR]),
-        ("sdf3d_render_bwd_host", [_PTR] * 9 + [_INT, _INT]),
+        ("sdf3d_render_bwd_host", [_PTR] * 10 + [_INT, _INT, _INT]),
     )),
     "neural": LibraryKind("libsdf3d_neural.so", ("neural_kernel.cu",), (
         ("sdf3d_neural_fwd", [_PTR] * 7 + [_INT, _INT, _PTR]),

@@ -19,13 +19,13 @@
 // Each block sums its threads' live values in a fixed order
 // (block_sum_store: shuffles within a warp, then the warps in order) into
 // one partial row, stored by column.  The same entry point then launches a
-// second kernel, sdf3d_fit_total_kernel, one 256-thread block a live
-// column, which sums the partial rows in float64 in an order fixed by row
-// and thread index (fixed_order_total below), never by arrival, and writes
-// the totals; its block 0 writes the columns no block sums (frozen slots,
-// dU without the uniforms' gradient) as exact zeros.  No atomics, no Python
-// between the two launches, no sum on the host.  Threads outside the image
-// add zeros (the padding mask of the Pallas kernel).
+// second kernel, sdf3d_column_total_kernel (column_total.cuh, shared with
+// K5), one 256-thread block a live column, which sums the partial rows in
+// float64 in an order fixed by row and thread index, never by arrival, and
+// writes the totals; its block 0 writes the columns no block sums (frozen
+// slots, dU without the uniforms' gradient) as exact zeros.  No atomics, no
+// Python between the two launches, no sum on the host.  Threads outside the
+// image add zeros (the padding mask of the Pallas kernel).
 //
 // K4 (sdf3d_fit_step_tiles) replaces the same Pallas body with
 // tile_queue=True (fit_step_kernel_tiles), the per-device fit program of
@@ -64,7 +64,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "shade_vjp.cuh"
+#include "column_total.cuh"
 #include "sdf3d_scene.cuh"
 
 namespace {
@@ -199,16 +199,12 @@ SDF3D_HD void row_values(const float (&acc)[kAcc], float (&v)[kLive]) {
   }
 }
 
-// ---- fixed_order_total: the float64 total of the partial rows ----
-// Column c of the rows is summed by one block of kTotalThreads threads:
-// thread j adds rows 4j .. 4j + 3, then 4(j + kTotalThreads) .. + 3, and so
-// on, in row order into a float64 sum from 0, and the block adds its
-// threads' sums in block_sum_store's order (shuffles within a warp, then the
-// warps in order).  The rows are stored by column, each padded to a
-// multiple of 4 (16-byte loads).
-constexpr int kTotalThreads = 256;
-
-SDF3D_HD int padded_rows(int rows) { return (rows + 3) & ~3; }
+// The totals' layout of the live columns (column_total.cuh).
+struct FitColumns {
+  static constexpr int n_totals = kTotals;
+  SDF3D_HD static constexpr int total(int c) { return total_col(live_col(c)); }
+  SDF3D_HD static constexpr bool zero(int k) { return zero_total(k); }
+};
 }  // namespace
 
 // out[0]: the totals' columns (kTotals), out[1]: a partial row's (kLive).
@@ -230,39 +226,6 @@ namespace {
 // 4 blocks, and 3 where a thread also sums the uniforms' gradients (whose
 // spills then cost more than a fourth block gains; PERF.md).
 constexpr int kMinBlocks = kAcc > kP + 1 ? 3 : 4;
-
-// fixed_order_total on the card: block c sums live column c of the `rows`
-// partial rows (stored by column, `ld` floats apart) and writes its total;
-// block 0 writes the zeros of the totals no block sums.
-__global__ void __launch_bounds__(kTotalThreads)
-sdf3d_fit_total_kernel(const float* __restrict__ partials, int rows, int ld, double* __restrict__ totals) {
-  const int c = blockIdx.x;
-  const float4* col = reinterpret_cast<const float4*>(partials + static_cast<size_t>(c) * ld);
-  double s[1] = {0.0};
-#pragma unroll 4
-  for (int m = threadIdx.x; 4 * m < rows; m += kTotalThreads) {
-    const float4 x = __ldg(col + m);
-    const int r = 4 * m;
-    s[0] += static_cast<double>(x.x);
-    if (r + 1 < rows) s[0] += static_cast<double>(x.y);
-    if (r + 2 < rows) s[0] += static_cast<double>(x.z);
-    if (r + 3 < rows) s[0] += static_cast<double>(x.w);
-  }
-  sdf3d::block_sum_store<1, kTotalThreads, double>(s, totals + total_col(live_col(c)));
-  if (c == 0) {
-    for (int k = threadIdx.x; k < kTotals; k += kTotalThreads) {
-      if (zero_total(k)) totals[k] = 0.0;
-    }
-  }
-}
-
-// The total of `rows` partial rows after the fit kernel, on the same stream.
-int launch_total(const float* partials, int rows, double* totals, cudaStream_t stream) {
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  sdf3d_fit_total_kernel<<<kLive, kTotalThreads, 0, stream>>>(partials, rows, padded_rows(rows), totals);
-  return static_cast<int>(cudaGetLastError());
-}
 }  // namespace
 
 // K3 and K4 are one kernel (block_thread).
@@ -287,7 +250,8 @@ sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ p
   float v[kLive];
   row_values(acc, v);
   const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  sdf3d::block_sum_store<kLive, kNT>(v, partials + block, padded_rows(gridDim.x * gridDim.y * gridDim.z));
+  sdf3d::block_sum_store<kLive, kNT>(v, partials + block,
+                                     sdf3d::padded_rows(gridDim.x * gridDim.y * gridDim.z));
 }
 
 // partials: the n_blocks partial rows by column, (kLive, padded_rows(n_blocks))
@@ -302,7 +266,7 @@ extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* t
   const dim3 grid((W + Cfg::block_w - 1) / Cfg::block_w, (H + Cfg::block_h - 1) / Cfg::block_h);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   sdf3d_fit_step_kernel<<<grid, block, 0, s>>>(uni, prm, nullptr, nullptr, tr, tg, tb, partials, H, W);
-  return launch_total(partials, grid.x * grid.y, totals, s);
+  return sdf3d::launch_column_total<kLive, FitColumns>(partials, grid.x * grid.y, totals, s);
 }
 
 // K4 over T tiles (int32 origin tables) of an H x W image; target planes of
@@ -318,7 +282,7 @@ extern "C" int sdf3d_fit_step_tiles(const float* uni, const float* prm, const in
                   T);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   sdf3d_fit_step_kernel<<<grid, block, 0, s>>>(uni, prm, trow, tcol, tr, tg, tb, partials, H, W);
-  return launch_total(partials, grid.x * grid.y * grid.z, totals, s);
+  return sdf3d::launch_column_total<kLive, FitColumns>(partials, grid.x * grid.y * grid.z, totals, s);
 }
 
 #else  // A C++ compiler: the same blocks, rows and total, one after another.
@@ -343,20 +307,7 @@ void run_grid(const float* uni, const float* prm, const int* trow, const int* tc
         const size_t block = (static_cast<size_t>(z) * gy + by) * gx + bx;
         sdf3d::block_sum_host<kLive, kNT>(v, partials + block * kLive);
       }
-  const int rows = gx * gy * gz;
-  for (int c = 0; c < kLive; ++c) {
-    double sums[kTotalThreads][1];
-    for (int j = 0; j < kTotalThreads; ++j) {
-      sums[j][0] = 0.0;
-      for (int r = 4 * j; r < rows; r += 4 * kTotalThreads)
-        for (int e = r; e < r + 4 && e < rows; ++e)
-          sums[j][0] += static_cast<double>(partials[static_cast<size_t>(e) * kLive + c]);
-    }
-    sdf3d::block_sum_host<1, kTotalThreads, double>(sums, totals + total_col(live_col(c)));
-  }
-  for (int k = 0; k < kTotals; ++k) {
-    if (zero_total(k)) totals[k] = 0.0;
-  }
+  sdf3d::column_total_host<kLive, FitColumns>(partials, gx * gy * gz, totals);
 }
 }  // namespace
 

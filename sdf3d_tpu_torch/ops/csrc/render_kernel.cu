@@ -24,13 +24,18 @@
 // other and never gathered.  The tiles of a work-list are independent, so
 // the blocks run in any order on the 132 SMs.
 //
-// What bounds both: FP32 and SFU issue (sqrt, divide, pow per march step
-// and shading) and warp divergence -- the slowest ray of a warp sets its
-// pace, the SIMT form of the TPU kernel's whole-tile exit.  Not memory: they
-// read 30 uniforms and the scene parameters once per thread (broadcast,
-// cached), K2 two table entries per block, and write 24 B per pixel (about
-// 50 MB at 1920x1080, 15 us at 3.35 TB/s).  Simple first versions: wgmma
-// and TMA have no role in them.
+// What bounds both: instruction issue.  On the reference scene at 1080p K1
+// runs within about 7% of its issue floor (the warp instructions of its
+// SASS on the run's marches over four per clock per SM: chip_smoke.py
+// phase 6, issue_floor): a primary-march step is about 22 instructions (an
+// IEEE sqrtf), a shadow step about 61 (a sqrtf and two IEEE divisions),
+// and each depends on the one before.  Warp divergence costs under 3%;
+// more resident warps (a register cap for 6 or 8 blocks an SM) and the
+// inputs in shared memory gained nothing (PERF.md): fewer instructions a
+// step is what would make it faster.  Not memory: they read 30 uniforms
+// and the scene parameters once per thread (broadcast, cached), K2 two
+// table entries per block, and write 24 B per pixel (about 50 MB at
+// 1920x1080, 15 us at 3.35 TB/s).  wgmma and TMA have no role in them.
 //
 // Built per scene structure: the generated header sdf3d_scene.cuh
 // (ops/scene_program.py) supplies struct Scene (distance code) and struct

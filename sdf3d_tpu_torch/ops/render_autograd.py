@@ -4,7 +4,8 @@
 :class:`RenderKernelFunction` is a ``torch.autograd.Function`` on the planar
 (3, H, W) boundary, as ``render_pallas_planar`` is JAX's: its forward runs
 the render kernel (K1) and keeps the ``t``/``shadow``/``ao`` planes, its
-backward runs the render backward (K5) on them, so no march is repeated.
+backward runs the render backward (K5) on them, so no march is repeated,
+with the uniforms' gradient only where autograd asks for it.
 :func:`render_kernel_diff` wraps it for scenes, cameras, lights and
 materials: any PyTorch loss of its (H, W, 3) image gets gradients for the
 scene's ``nn.Parameter``s and for every camera, light and material tensor
@@ -49,9 +50,12 @@ class RenderKernelFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb):
+        # The uniforms' gradient only where autograd asks for it (a camera,
+        # light or material that requires grad): without it the kernel
+        # computes and sums the parameters' P columns alone.
         prm, uni, t, shadow, ao = ctx.saved_tensors
         g_prm, g_uni = render_kernel_backward(ctx.scene, prm, uni, g_rgb.contiguous(), t, shadow, ao,
-                                              ctx.cfg, ctx.kc)
+                                              ctx.cfg, ctx.kc, wrt_uniforms=ctx.needs_input_grad[1])
         return g_prm, g_uni, None, None, None
 
 

@@ -1,8 +1,9 @@
 """The render backward (the port of ``sdf3d_tpu/ops/render_bwd_kernel.py``).
 
 The gradient of a loss of the rendered image with respect to the scene
-parameters and the 30 uniforms, from the forward's ``t``/``shadow``/``ao``
-planes and the planar RGB cotangent ``g_rgb`` (3, H, W).  It differentiates
+parameters and, with ``wrt_uniforms`` (the default), the 30 uniforms, from
+the forward's ``t``/``shadow``/``ao`` planes and the planar RGB cotangent
+``g_rgb`` (3, H, W).  It differentiates
 the shading re-traced from those planes (:func:`shade_planes`, the port of
 ``_shade_tile``): ``t`` re-attached by the implicit-function theorem, the
 shadow a detached factor, AO flowing through its recomputed taps.  Two
@@ -10,7 +11,10 @@ implementations of the same function:
 
 - the CUDA kernel (``csrc/render_bwd_kernel.cu`` with the hand-written
   reverse pass of ``csrc/shade_vjp.cuh``), launched by
-  :func:`render_kernel_backward` for tensors on the card;
+  :func:`render_kernel_backward` for tensors on the card: one C call
+  launches the kernel (partial rows of the requested columns) and their
+  float64 total (``csrc/column_total.cuh``), which the wrapper casts to
+  float32;
 - :func:`render_kernel_backward_plain`, autograd through
   :func:`shade_planes`, which the wrapper runs for tensors on the CPU and
   which the tests and ``chip_smoke.py`` hold the kernel against.
@@ -175,63 +179,88 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
 
 def render_kernel_backward_plain(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
                                  t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
-                                 pixels=None):
+                                 pixels=None, wrt_uniforms: bool = True):
     """Plain PyTorch version of the render backward: ``(g_prm (P,), g_uni
     (30,))``, the VJP of :func:`shade_planes` with the cotangent ``g_rgb``
     (3, H, W), for a scene or distance ``scene`` (:func:`planar_distance`;
-    the neural render's backward passes ``neural_distance``).  ``pixels``
-    as for :func:`shade_planes`."""
+    the neural render's backward passes ``neural_distance``).  Without
+    ``wrt_uniforms`` it takes the gradient of ``prm`` alone and ``g_uni`` is
+    None.  ``pixels`` as for :func:`shade_planes`."""
     prm_ = prm.detach().requires_grad_(True)
-    uni_ = uni.detach().requires_grad_(True)
+    uni_ = uni.detach().requires_grad_(wrt_uniforms)
     with torch.enable_grad():
         rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels)
-        g_prm, g_uni = torch.autograd.grad(rgb, (prm_, uni_), grad_outputs=g_rgb)
-    return g_prm, g_uni
+        grads = torch.autograd.grad(rgb, (prm_, uni_) if wrt_uniforms else (prm_,), grad_outputs=g_rgb)
+    return grads[0], grads[1] if wrt_uniforms else None
 
 
-def render_kernel_backward_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
-                                  t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
-                                  kc: KernelConfig = KernelConfig()):
-    """Launch the CUDA render backward on ``prm``'s card and return
-    ``(g_prm, g_uni)``.  Raises for inputs it does not take and on any
-    launch error; never falls back."""
+def render_bwd_launcher(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                        t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                        kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True):
+    """``(launch, partials, totals)`` of the render backward on ``prm``'s
+    card: the library loaded and the inputs checked once, the partial rows
+    (one per block of the P columns of ``g_prm``, then with ``wrt_uniforms``
+    the 30 of ``g_uni``; an ``(n_blocks, columns)`` view of the kernel's
+    store by column) and their float64 totals allocated.  Each ``launch()``
+    enqueues the kernel and its total on the stream that was current when
+    the launcher was made and returns the totals (the caller makes
+    ``prm``'s card the current device).  Raises for inputs it does not take
+    and on any launch error; never falls back."""
     lib = kernel_library(scene, prm, uni, cfg, kc)
     dev = prm.device
     H, W = cfg.height, cfg.width
     check_plane("g_rgb", g_rgb, (3, H, W), dev)
     for name, x in (("t", t), ("shadow", shadow), ("ao", ao)):
         check_plane(name, x, (H, W), dev)
-    P = count_params(scene)
-    G = P + N_UNIFORMS
+    cols = count_params(scene) + (N_UNIFORMS if wrt_uniforms else 0)
     n_blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
-    partials = torch.empty((n_blocks, G), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sdf3d_render_bwd(uni.data_ptr(), prm.data_ptr(), g_rgb[0].data_ptr(), g_rgb[1].data_ptr(),
-                                   g_rgb[2].data_ptr(), t.data_ptr(), shadow.data_ptr(), ao.data_ptr(),
-                                   partials.data_ptr(), H, W, stream)
-    if err != 0:
-        raise RuntimeError(f"sdf3d_render_bwd launch failed: CUDA error {err}")
+    partials = torch.empty((cols, -(-n_blocks // 4) * 4), dtype=torch.float32, device=dev)
+    totals = torch.empty((cols,), dtype=torch.float64, device=dev)
+    args = (uni.data_ptr(), prm.data_ptr(), g_rgb[0].data_ptr(), g_rgb[1].data_ptr(), g_rgb[2].data_ptr(),
+            t.data_ptr(), shadow.data_ptr(), ao.data_ptr(), partials.data_ptr(), totals.data_ptr(), H, W,
+            int(wrt_uniforms), torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = lib.sdf3d_render_bwd(*args)
+        if err != 0:
+            raise RuntimeError(f"sdf3d_render_bwd launch failed: CUDA error {err}")
+        return totals
+    launch.inputs = (uni, prm, g_rgb, t, shadow, ao)  # ``args`` holds their addresses: keep them alive
+    return launch, partials[:, :n_blocks].t(), totals
+
+
+def render_kernel_backward_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                                  t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                                  kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True):
+    """Launch the CUDA render backward on ``prm``'s card and return
+    ``(g_prm, g_uni)``, float32 from the kernel's float64 totals (``g_uni``
+    None without ``wrt_uniforms``).  Raises for inputs it does not take and
+    on any launch error; never falls back."""
+    with torch.cuda.device(prm.device):
+        totals = render_bwd_launcher(scene, prm, uni, g_rgb, t, shadow, ao, cfg, kc, wrt_uniforms)[0]()
     render_kernel_backward.launches += 1
-    total = partials.sum(0)
-    return total[:P], total[P:]
+    g = totals.to(torch.float32)
+    P = count_params(scene)
+    return g[:P], g[P:] if wrt_uniforms else None
 
 
 def render_kernel_backward(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
                            t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
-                           kc: KernelConfig = KernelConfig()):
+                           kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True):
     """Render backward: ``(g_prm (P,), g_uni (30,))`` from the planar
-    cotangent ``g_rgb`` (3, H, W) and the forward's planes.  On the card it
-    launches the CUDA kernel; on the CPU it runs the kernel's plain PyTorch
-    version.  ``render_kernel_backward.launches`` counts kernel launches."""
+    cotangent ``g_rgb`` (3, H, W) and the forward's planes; without
+    ``wrt_uniforms`` the parameters' gradient alone (``g_uni`` None, and the
+    kernel computes and sums only the P columns).  On the card it launches
+    the CUDA kernel; on the CPU it runs the kernel's plain PyTorch version.
+    ``render_kernel_backward.launches`` counts kernel launches."""
     if cfg.shadow.enabled and cfg.shadow.grad != "detach":
         raise NotImplementedError(
             f"shadow.grad == {cfg.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12); "
             "the render backward treats the shadow as a detached factor")
     if prm.device.type == "cpu":
-        return render_kernel_backward_plain(scene, prm, uni, g_rgb, t, shadow, ao, cfg)
+        return render_kernel_backward_plain(scene, prm, uni, g_rgb, t, shadow, ao, cfg, wrt_uniforms=wrt_uniforms)
     if prm.device.type == "cuda":
-        return render_kernel_backward_launch(scene, prm, uni, g_rgb, t, shadow, ao, cfg, kc)
+        return render_kernel_backward_launch(scene, prm, uni, g_rgb, t, shadow, ao, cfg, kc, wrt_uniforms)
     raise ValueError(f"render_kernel_backward runs on 'cuda' or 'cpu', not {prm.device}")
 
 

@@ -47,6 +47,7 @@ from sdf3d_tpu_torch.ops.neural_kernel import (
     render_neural_launch,
 )
 from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+    render_bwd_launcher,
     render_kernel_backward,
     render_kernel_backward_launch,
     render_kernel_backward_plain,
@@ -180,8 +181,9 @@ def test_fit_step_matches_plain(dev, wrt_uniforms, frozen, size):
     assert wrt_uniforms or float(g_uni.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
 @pytest.mark.parametrize("normals", ["central", "tetrahedron"])
-def test_render_backward_matches_plain(dev, normals):
+def test_render_backward_matches_plain(dev, normals, wrt_uniforms):
     cfg = dataclasses.replace(BASE, width=250, height=190, normals=normals,
                               ao=dataclasses.replace(BASE.ao, enabled=normals == "tetrahedron"))
     scene = tt.reference_scene().to(dev)
@@ -190,11 +192,58 @@ def test_render_backward_matches_plain(dev, normals):
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev) * conditioned(scene, prm, uni, t, cfg))
-    got = render_kernel_backward_launch(scene, prm, uni, g_rgb.contiguous(), t, sh, ao, cfg)
-    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb.contiguous(), t, sh, ao, cfg,
+                                        wrt_uniforms=wrt_uniforms)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
     torch.cuda.synchronize()
-    check_grads(torch.cat(got), torch.cat(want), gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg),
-                rtol=1e-4, mass_tol=1e-5)
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    if wrt_uniforms:
+        check_grads(torch.cat(got), torch.cat(want), mass, rtol=1e-4, mass_tol=1e-5)
+    else:
+        assert got[1] is None and want[1] is None
+        check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=1e-5)
+
+
+def _render_bwd_rows(dev, wrt_uniforms):
+    """K5 on a ragged 250×190 image of the fit demo's start scene: its
+    partial rows (blocks, columns) and float64 totals, launched twice."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    g_rgb = torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev)
+    launch, partials, totals = render_bwd_launcher(scene, prm, uni, g_rgb, t, sh, ao, cfg, KernelConfig(),
+                                                   wrt_uniforms)
+    first = launch().clone()
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int64), totals.view(torch.int64))
+    kc = KernelConfig()
+    cols = count_params(scene) + (30 if wrt_uniforms else 0)
+    assert partials.shape == (-(-cfg.width // kc.block_w) * -(-cfg.height // kc.block_h), cols)
+    return partials.cpu().numpy(), totals.cpu().numpy()
+
+
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
+def test_render_bwd_total_in_launch_is_the_fixed_order_sum(dev, wrt_uniforms):
+    """K5's float64 totals are its partial rows summed in the fixed order of
+    ``fixed_order_total``, bit for bit, and launches in a row agree."""
+    partials, totals = _render_bwd_rows(dev, wrt_uniforms)
+    assert np.array_equal(totals.view(np.uint64), fixed_order_total(partials).view(np.uint64))
+
+
+def test_render_bwd_params_alone_keeps_the_rows(dev):
+    """K5 without the uniforms' gradient (the P columns) gives the partial
+    rows and totals of the parameters' columns with it, bit for bit: a
+    pixel's dP has the same arithmetic in both instantiations."""
+    rows_u, totals_u = _render_bwd_rows(dev, True)
+    rows_p, totals_p = _render_bwd_rows(dev, False)
+    P = rows_p.shape[1]
+    assert np.abs(rows_p).max() > 0.0
+    assert np.array_equal(rows_p.view(np.uint32), np.ascontiguousarray(rows_u[:, :P]).view(np.uint32))
+    assert np.array_equal(totals_p.view(np.uint64), totals_u[:P].view(np.uint64))
 
 
 def test_fit_parameter_change_does_not_rebuild(dev):

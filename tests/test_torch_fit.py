@@ -157,6 +157,28 @@ def test_multiscale_fit_descends():
     assert all(math.isfinite(v) for v in result.losses)
 
 
+def test_multiscale_fit_takes_no_uniform_gradient(monkeypatch):
+    """The multiscale fit trains the scene alone: its backward asks the
+    render backward (K5's path) for the parameters' gradient without the
+    uniforms' (``wrt_uniforms=False``), once a step."""
+    from sdf3d_tpu_torch.ops import render_autograd
+
+    calls = []
+    backward = render_autograd.render_kernel_backward
+
+    def recording(*args, wrt_uniforms=True, **kwargs):
+        calls.append(wrt_uniforms)
+        return backward(*args, wrt_uniforms=wrt_uniforms, **kwargs)
+
+    monkeypatch.setattr(render_autograd, "render_kernel_backward", recording)
+    target, scene0 = _target_and_init()
+    result = fit_scene(target, scene0, *VIEW, CFG, FitConfig(steps=3, learning_rate=2e-2, log_every=1,
+                                                             loss="multiscale"),
+                       trainable=PLANE_FROZEN, device="cpu")
+    assert calls == [False, False, False]
+    assert result.losses[-1] < result.losses[0]
+
+
 def test_cli_fit_cpu(tmp_path, capsys):
     metrics = tmp_path / "fit.jsonl"
     assert cli.main(["fit", "--device", "cpu", "--width", "48", "--height", "32", "--steps", "12",

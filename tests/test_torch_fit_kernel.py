@@ -102,3 +102,36 @@ def test_render_kernel_diff_gradients_match_fused_step():
     assert float(grads[-1].abs().max()) > 0 and all(float(g.abs().max()) > 0 for g in grads[2:4])
     for g_ad, g_fused in zip(grads, g_scene + [g_cam.position]):
         torch.testing.assert_close(g_ad, g_fused, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("camera_grad", [True, False], ids=["camera", "scene"])
+def test_render_kernel_diff_asks_for_uniforms_only_when_needed(camera_grad, monkeypatch):
+    """The backward takes the uniforms' gradient only when autograd needs
+    it: with a camera position that requires grad, ``wrt_uniforms=True`` and
+    a non-zero gradient for it; without, ``wrt_uniforms=False`` and the
+    scene's gradients unchanged."""
+    from sdf3d_tpu_torch.ops import render_autograd
+
+    calls = []
+    backward = render_autograd.render_kernel_backward
+
+    def recording(*args, wrt_uniforms=True, **kwargs):
+        calls.append(wrt_uniforms)
+        return backward(*args, wrt_uniforms=wrt_uniforms, **kwargs)
+
+    monkeypatch.setattr(render_autograd, "render_kernel_backward", recording)
+    W, H = 48, 32
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    light, mat = tt.reference_light(), tt.reference_material()
+    target = tt.render(tt.reference_scene(), tt.Camera.reference(), light, mat, cfg)
+    scene = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25))
+    cam = tt.Camera.reference()
+    cam.position.requires_grad_(camera_grad)
+    params = list(leaves(scene))
+    loss = torch.sum((render_kernel_diff(cfg, KernelConfig(), scene, cam, light, mat) - target) ** 2)
+    grads = torch.autograd.grad(loss, params + ([cam.position] if camera_grad else []))
+    assert calls == [camera_grad]
+    _, (g_scene, g_cam, _, _) = l2_loss_and_grads(cfg, KernelConfig(), scene, cam, light, mat, target)
+    for g_ad, g_fused in zip(grads, g_scene + [g_cam.position]):
+        torch.testing.assert_close(g_ad, g_fused, rtol=1e-4, atol=1e-4)
+    assert all(float(g.abs().max()) > 0 for g in grads[2:])

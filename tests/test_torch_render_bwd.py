@@ -47,8 +47,11 @@ def _id(case):
     return f"{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}-{cam}"
 
 
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
 @pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
-def test_plain_backward_matches_jax_kernel(case):
+def test_plain_backward_matches_jax_kernel(case, wrt_uniforms):
+    """With ``wrt_uniforms`` the whole (P + 30) gradient against JAX's; without
+    it ``g_prm`` alone, at the same bar, and no ``g_uni``."""
     ray_sdf, normals, ao, cam_name = case
     jcfg = dataclasses.replace(BASE, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
     jscene, jcam, jlight, jmat = s.reference_scene(), CAMERAS[cam_name](), s.reference_light(), s.reference_material()
@@ -71,14 +74,19 @@ def test_plain_backward_matches_jax_kernel(case):
     want = jax_render_kernel_backward(
         treedef, tuple(jnp.shape(l) for l in leaves), jax_scene_param_vector(jscene), juni,
         jnp.asarray(g_rgb), *(jnp.asarray(x) for x in (t, shadow, ao_plane)), jcfg, pc)
-    got = render_kernel_backward_plain(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    got = render_kernel_backward_plain(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg,
+                                       wrt_uniforms=wrt_uniforms)
 
     mass = gradient_mass(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
-    check_grads(torch.cat(got), np.concatenate([np.asarray(w) for w in want]), mass, rtol=1e-4, mass_tol=1e-5)
-    # Slot 27 (shadow k, a detached factor) and the row slots read exactly 0.
-    assert float(got[1][27:].abs().max()) == 0.0
+    if wrt_uniforms:
+        check_grads(torch.cat(got), np.concatenate([np.asarray(w) for w in want]), mass, rtol=1e-4, mass_tol=1e-5)
+        # Slot 27 (shadow k, a detached factor) and the row slots read exactly 0.
+        assert float(got[1][27:].abs().max()) == 0.0
+    else:
+        assert got[1] is None
+        check_grads(got[0], np.asarray(want[0]), mass[:prm.numel()], rtol=1e-4, mass_tol=1e-5)
     # The wrapper on CPU tensors is the same plain version.
-    again = render_kernel_backward(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    again = render_kernel_backward(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg, wrt_uniforms=wrt_uniforms)
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 

@@ -31,7 +31,7 @@ from sdf3d_tpu_torch.ops import (
 from sdf3d_tpu_torch.ops._build import CSRC, SCENE_HEADER
 from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_plain
 from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
-from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
+from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, fixed_order_total, gradient_mass
 
 torch.set_num_threads(1)
 
@@ -181,23 +181,53 @@ def _ptr(x):
     return x.numpy().ctypes.data
 
 
+def _render_bwd_host(lib, prm, uni, g_rgb, t, sh, ao, wrt_uniforms):
+    """The host form of the render backward: ``(partial rows (blocks, G),
+    float64 totals (G,))``, G = P + 30 with ``wrt_uniforms``, else P."""
+    fn = lib.sdf3d_render_bwd_host
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    kc = KernelConfig()
+    cols = prm.numel() + (30 if wrt_uniforms else 0)
+    partials = torch.empty((-(-t.shape[1] // kc.block_w) * -(-t.shape[0] // kc.block_h), cols))
+    totals = torch.empty(cols, dtype=torch.float64)
+    assert fn(_ptr(uni), _ptr(prm), *(_ptr(g) for g in g_rgb), _ptr(t), _ptr(sh), _ptr(ao), _ptr(partials),
+              _ptr(totals), *t.shape, int(wrt_uniforms)) == 0
+    return partials, totals
+
+
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
 def test_generated_render_bwd_on_cpu_matches_plain(case, tmp_path):
     """The hand-written reverse pass (csrc/shade_vjp.cuh, render_bwd_kernel.cu)
-    built with g++, against autograd through the plain version."""
+    built with g++, against autograd through the plain version; its float64
+    totals are its partial rows in the fixed order of ``fixed_order_total``."""
     scene, cfg, prm, uni, (_, t, sh, ao) = _grad_setup(case)
     lib = _build_host_library(cuda_scene_source(scene, cfg, KernelConfig()), tmp_path, "render_bwd_kernel.cu")
-    fn = lib.sdf3d_render_bwd_host
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
     keep = conditioned(scene, prm, uni, t, cfg)
     g_rgb = torch.from_numpy(np.random.default_rng(3).normal(size=(3,) + t.shape).astype(np.float32)) * keep
-    out = torch.empty(prm.numel() + 30)
-    assert fn(_ptr(uni), _ptr(prm), *(_ptr(g) for g in g_rgb), _ptr(t), _ptr(sh), _ptr(ao), _ptr(out),
-              *t.shape) == 0
+    partials, totals = _render_bwd_host(lib, prm, uni, g_rgb, t, sh, ao, True)
+    assert np.array_equal(totals.numpy().view(np.uint64), fixed_order_total(partials.numpy()).view(np.uint64))
     want = torch.cat(render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg))
     assert float(want[:prm.numel()].abs().min()) > 0.0
-    check_grads(out, want, gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg), rtol=1e-4, mass_tol=1e-5)
+    check_grads(totals.to(torch.float32), want, gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg), rtol=1e-4,
+                mass_tol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_generated_render_bwd_params_alone_keeps_bits(case, tmp_path):
+    """The host form without the uniforms' gradient (``WRT_U = false``: P
+    columns) gives the parameters' partial rows and totals of the form with
+    it bit for bit: the same arithmetic per pixel, the same sums."""
+    scene, cfg, prm, uni, (_, t, sh, ao) = _grad_setup(case)
+    lib = _build_host_library(cuda_scene_source(scene, cfg, KernelConfig()), tmp_path, "render_bwd_kernel.cu")
+    g_rgb = torch.from_numpy(np.random.default_rng(7).normal(size=(3,) + t.shape).astype(np.float32))
+    rows_u, totals_u = _render_bwd_host(lib, prm, uni, g_rgb, t, sh, ao, True)
+    rows_p, totals_p = _render_bwd_host(lib, prm, uni, g_rgb, t, sh, ao, False)
+    P = prm.numel()
+    assert rows_p.shape == (rows_u.shape[0], P)
+    assert float(rows_p.abs().max()) > 0.0
+    assert np.array_equal(rows_p.numpy().view(np.uint32), rows_u[:, :P].contiguous().numpy().view(np.uint32))
+    assert np.array_equal(totals_p.numpy().view(np.uint64), totals_u[:P].numpy().view(np.uint64))
 
 
 @pytest.mark.parametrize("wrt_uniforms,frozen", [(False, ()), (True, (0, 1, 2, 3))], ids=["scene", "uniforms-frozen"])
