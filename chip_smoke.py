@@ -65,7 +65,7 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
     tetrahedron normals with AO and a background, all four planes within
     ``utils/parity.py::NEURAL_BAR``;
 15. main path: ``distill`` (seed 0, hidden 64, 400 steps, batch 4096) onto
-    the example's two spheres (a hard union), then
+    the example's two spheres (``smooth_union(..., k=0.08)``), then
     ``render_batch(engine="kernel")`` of ``ground_plane() | model`` over 12
     orbit cameras at 1080p (12 K6 launches, no K1), frame 0 against the plain
     version, and ``render_kernel_diff`` at 256×192 (one K6 launch, finite
@@ -151,6 +151,40 @@ with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
     ``cli info``, ``bench.run_extras``; beside each cell the kernel's
     CUDA-event time per frame and the device's idle share.
 
+Then the flagship scene (``flagship_scene``: a sphere and a rounded box
+smooth-blended, a torus, the ground plane; 21 parameters) and an every-node
+CSG sampler (``utils/parity.py::csg_sampler``) on K1-K5 (:func:`flagship_phases`):
+
+30. build: the flagship's libraries (K3 with and without the uniforms'
+    gradient and frozen slots, the point form) and the sampler's, together,
+    with the ``ptxas`` registers, spills and blocks an SM of K1, K3 and both
+    forms of K5 beside the reference scene's and the fit demo's;
+31. at 256x192 (two cameras) and a ragged 250x190: K1 in ray and point
+    form (all four planes), K3 (``wrt_uniforms`` and frozen slots both
+    ways; on the fit's perturbed start) and K5 in both forms against their
+    plain versions, and K2 and K4 on a 4-rank balanced plan, on both
+    scenes; gradients at the flagship's bars (1e-4 of the mass on the same
+    planes, 1e-3 where the plain version marches its own: ROADMAP Queue 3);
+32. main path at 1920x1080: ``render_batch(engine="kernel")`` over 4 orbit
+    cameras (K1 = 4, nothing else; frame 0 against the plain version),
+    ``cli render --scene flagship`` (a PNG), a 20-step Adam fit (step 3e-4)
+    of the perturbed flagship to its render with the plane frozen (K3 = 20,
+    step 0 against the plain version), ``fit_scene(loss="multiscale")`` for 5
+    steps (K1 = K5 = 5, K5 in its P form), ``fit_scene(mesh=make_mesh())``
+    in ``tiles`` for 20 steps (K4 = 20, the unsharded fit's losses),
+    ``render_sharded_kernel(layout="tiles")`` (K2 = 1, K1's image) and
+    ``bench.run_benchmark(scene_name="flagship")`` in ``fwd`` and
+    ``fwd_bwd``;
+33. CUDA-event times at 1080p (plain, kernel, kernel, plain) of K1, K2,
+    K3, K4 and both forms of K5 on the flagship, each beside its bound on
+    this run's marches, and ``fit_scene``'s ms a step; both forms of K5
+    against their plain version there (the multiscale fit launches it at
+    1080p), at the flagship's bar on the same planes.
+
+The kernels line gives each of ``render_fwd``, ``render_tiles``,
+``fit_step``, ``fit_step_tiles`` and ``render_bwd`` a ``flagship`` entry with
+the flagship's launches, times, bound and error.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -167,7 +201,9 @@ times K1, K2, K3 and both forms of K5 at 1080p for each checkout in turn
 and prints SHA-256 digests of K1's planes, K2's stacks, K3's partial rows
 and float64 totals and K5's parameter columns, the registers of K1, K3 and
 K5, K1's issue floor, then times K6 at hidden 64, 128 and 256 on phase
-16's 1080p cell, and last compares the checkouts (:func:`time_kernels`: give
+16's 1080p cell, and, for a checkout that has the flagship, K1, K3 and K5
+(its P form) on the flagship with the digests of K1's planes and K3's and
+K5's totals and their registers, and last compares the checkouts (:func:`time_kernels`: give
 the parent and the change in turns to compare them on one card).
 """
 
@@ -519,7 +555,8 @@ def main() -> int:
     ring_kernels = ring_phases(torch, tt, card)
     variant_kernel = variant_phases(torch, tt, card, dev)
     bench_phases(torch, tt, card, dev)
-    print(json.dumps({"kernels": [{
+    flagship = flagship_phases(torch, tt, card, dev)
+    kernels = [{
         "name": "render_fwd",
         "route": "cuda",
         "source": "sdf3d_tpu_torch/ops/csrc/render_kernel.cu",
@@ -531,7 +568,13 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + fit_kernels + [neural_kernel] + tiles_kernels + ring_kernels + [variant_kernel]}), flush=True)
+    }] + fit_kernels + [neural_kernel] + tiles_kernels + ring_kernels + [variant_kernel]
+    for entry in kernels:
+        if entry["name"] in flagship:
+            entry["flagship"] = flagship[entry["name"]]
+    check(all("flagship" in e for e in kernels if e["name"] in flagship) and len(flagship) == 5,
+          "a flagship entry of the kernels line is missing")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -960,7 +1003,8 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
         log("neural_parity_256x192", case=label, **compare(sc, cam, c, label))
 
     # ---- 15. main path: distill, then a 12-frame turntable at 1080p ----
-    target = tt.sdf.union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18), tt.sdf.sphere((0.15, 0.48, 0.0), 0.14)).to(dev)
+    target = tt.sdf.smooth_union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18), tt.sdf.sphere((0.15, 0.48, 0.0), 0.14),
+                                 k=0.08).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -2193,6 +2237,471 @@ def bench_phases(torch, tt, card: str, dev) -> None:
         cli_info=info.stdout.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
 
 
+def flagship_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 30-33: the flagship scene (``flagship_scene``: a sphere and a
+    rounded box smooth-blended, a torus, the ground plane; 21 parameters)
+    and an every-node CSG sampler on K1-K5.  Returns, per kernel entry of
+    the kernels line (``render_fwd``, ``render_tiles``, ``fit_step``,
+    ``fit_step_tiles``, ``render_bwd``), the flagship's launches, times,
+    bound and error."""
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch import bench, cli
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        fit_launcher,
+        fit_step_kernel,
+        fit_step_kernel_launch,
+        fit_step_kernel_plain,
+        fit_step_kernel_tiles,
+        fit_step_kernel_tiles_launch,
+        fit_step_kernel_tiles_plain,
+    )
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_bwd_launcher,
+        render_kernel_backward,
+        render_kernel_backward_launch,
+        render_kernel_backward_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+        render_kernel_tiles_forward_plain,
+        render_kernel_tiles_launch,
+        tile_pixel_planes,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel import launch, make_mesh, render_sharded_kernel
+    from sdf3d_tpu_torch.parallel.tile_queue import (
+        estimate_tile_work,
+        gather_target_tiles,
+        plan_tiles,
+        pool_work_to_tiles,
+    )
+    from sdf3d_tpu_torch.utils.parity import (
+        CREASE_BAR,
+        FLAGSHIP_OWN,
+        FLAGSHIP_SAME,
+        check_grads,
+        check_planes,
+        conditioned,
+        csg_sampler,
+        flagship_fit_start,
+        gradient_mass,
+        primals_agree,
+        razor_edge,
+    )
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    small = dataclasses.replace(full, width=256, height=192)
+    ragged = dataclasses.replace(full, width=250, height=190)
+    kc, kc_point = KernelConfig(), KernelConfig(ray_sdf=False)
+    kc_tiles = KernelConfig(tile_h=8, tile_w=128)  # phase 18's tile at 256x192
+    frozen = (0, 1, 2, 3)  # the ground plane
+    ref_cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    cams = (("reference", ref_cam), ("orbit30_15", orbit))
+    flagship, sampler = tt.flagship_scene().to(dev), csg_sampler(dev)
+    scenes = {"flagship": flagship, "sampler": sampler}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                fit_step_kernel_tiles, render_neural_forward)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def planes_stats(st):
+        return {n: {q: v[q] for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
+
+    def k3_vs_plain(sc, cam, c, wrt, fr, label, target=None, bar=None):
+        """K3 against the plain reverse pass on K1's planes (the same primal)
+        and against its plain version (its own march).  The target: K1's
+        render plus seeded noise, or the one given, on the pixels where the
+        gradient is well conditioned (``conditioned``) and the two primals
+        agree (``primals_agree``; the pixel budget holds the others);
+        elsewhere each side's own render, so that no residual there reaches
+        either side's gradient."""
+        prm, uni = inputs(sc, cam, c)
+        rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+        own = render_kernel_forward_plain(sc, prm, uni, c)
+        primal = check_planes((rgb, t, sh, ao), own, c.march.max_distance, f"{label} primal",
+                              razor=razor_edge(sc, prm, uni, c), **(bar or {}))
+        keep = conditioned(sc, prm, uni, t, c) & primals_agree((rgb, t, sh, ao), own, c.march.max_distance)
+        if target is None:
+            target = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+        target, p_target = (torch.where(keep, target, x).contiguous() for x in (rgb, own[0]))
+        got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr)
+        want = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr)
+        g_p, g_u = render_kernel_backward_plain(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+        g_p[list(fr)] = 0.0
+        torch.cuda.synchronize()
+        mass = gradient_mass(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+        g = torch.cat(got[1:])
+        check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
+        # The loss against K1's planes (the same primal) and the plain
+        # version's (its own primal; no residual where the two disagree).
+        same_loss = float(((rgb - target).double() ** 2).sum())
+        loss_rel = abs(float(got[0]) / same_loss - 1.0)
+        check(loss_rel <= 1e-5, f"{label}: loss off K1's planes' by {loss_rel:.3g} relative")
+        own_rel = abs(float(got[0]) / float(want[0]) - 1.0)
+        check(own_rel <= 1e-5, f"{label}: loss off the plain version's by {own_rel:.3g} relative")
+        check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
+        check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
+        same = torch.cat([g_p, g_u if wrt else torch.zeros_like(g_u)])
+        return {"loss_rel_err": loss_rel, "own_march_loss_rel_err": own_rel,
+                "primal": planes_stats(primal), "pixels_left_out": int((~keep).sum()),
+                "same_planes": check_grads(g, same, mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=f"{label} (same)"),
+                "own_march": check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN, label=label)}
+
+    # ---- 30. build: the flagship's and the sampler's libraries ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    combos = [(kc, True, ()), (kc, False, frozen), (kc, False, ()), (kc, True, frozen), (kc_point, True, ()),
+              (kc_tiles, True, ()), (kc_tiles, False, frozen)]
+    jobs = [library_job(flagship, full, k, wrt, fr) for k, wrt, fr in combos]
+    jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4, 5, 6)]]
+    t0 = time.perf_counter()
+    libs.load_many(jobs)
+    build_wall = time.perf_counter() - t0
+    ptxas = {}
+    fit_demo = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25))
+    for name, sc in (("reference", tt.reference_scene()), ("fit_demo_start", fit_demo), ("flagship", flagship),
+                     ("sampler", sampler)):
+        for wrt, fr in ((True, ()), (False, frozen)):
+            if name == "reference" and not wrt:
+                continue
+            kernels = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc, full, kc, wrt, fr))))
+            check(name in ("reference", "fit_demo_start") or
+                  set(kernels) >= {"render_fwd", "fit_step", "render_bwd", "render_bwd_params"},
+                  f"{name}: ptxas reported {sorted(kernels)}")
+            for v in kernels.values():
+                v["blocks_per_sm"] = blocks_per_sm(v["registers"])
+            ptxas[f"{name} wrt_uniforms={wrt}"] = kernels
+    header = cuda_scene_source(flagship, full, kc)
+    log("flagship_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(jobs), header_bytes=len(header),
+        sampler_header_bytes=len(cuda_scene_source(sampler, full, kc)), costs=scene_costs(header), ptxas=ptxas)
+
+    # ---- 31. K1-K5 vs their plain versions, flagship and sampler ----
+    errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "render_tiles": [], "fit_step_tiles": []}
+    for sname, sc in scenes.items():
+        bar = CREASE_BAR if sname == "sampler" else {}
+        for (cam_name, cam), c in itertools.product(cams, (small, ragged)):
+            for ray_sdf in (True, False):
+                prm, uni = inputs(sc, cam, c)
+                k = kc if ray_sdf else kc_point
+                got, want = render_kernel_launch(sc, prm, uni, c, k), render_kernel_forward_plain(sc, prm, uni, c, k)
+                torch.cuda.synchronize()
+                # Past the hard limit only razor-edge rays (utils/parity.py).
+                st = check_planes(got, want, c.march.max_distance, f"{sname} K1 {cam_name} {c.width}x{c.height}",
+                                  razor=razor_edge(sc, prm, uni, c, k), **bar)
+                errs["render_fwd"].append(st["rgb"]["max_abs_err"])
+                log("flagship_k1_parity", scene=sname, camera=cam_name, size=[c.width, c.height], ray_sdf=ray_sdf,
+                    **planes_stats(st))
+        fit_cases = list(itertools.product(cams, (False, True), ((), frozen)))
+        if sname == "sampler":
+            fit_cases = [(cams[1], False, frozen), (cams[1], True, ())]
+        for (cam_name, cam), wrt, fr in fit_cases:
+            for c in (small, ragged):
+                label = f"{sname} K3 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt} frozen={list(fr)}"
+                st = k3_vs_plain(flagship_fit_start(dev) if sname == "flagship" else sc, cam, c, wrt, fr, label,
+                                 bar=bar)
+                errs["fit_step"].append(st["own_march"]["max_abs_err"])
+                log("flagship_k3_parity", scene=sname, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
+                    frozen=list(fr), **st)
+        for (cam_name, cam), c in itertools.product(cams, (small, ragged)):
+            prm, uni = inputs(sc, cam, c)
+            _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+            g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
+                     * conditioned(sc, prm, uni, t, c)).contiguous()
+            mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c)
+            for wrt in (True, False):
+                label = f"{sname} K5 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt}"
+                got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+                want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+                torch.cuda.synchronize()
+                st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                                 mass if wrt else mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=label)
+                errs["render_bwd"].append(st["max_abs_err"])
+                log("flagship_k5_parity", scene=sname, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
+                    **st)
+        # K2 and K4 on a 4-rank balanced plan at 256x192 (phase 18's tile).
+        sc4 = flagship_fit_start(dev) if sname == "flagship" else sc
+        prm, uni = inputs(sc4, orbit, small)
+        work = pool_work_to_tiles(estimate_tile_work(sc4, orbit, small, light), small.height, small.width,
+                                  kc_tiles.tile_h, kc_tiles.tile_w)
+        plan = plan_tiles(small.height, small.width, kc_tiles.tile_h, kc_tiles.tile_w, 4, "balanced", work)
+        rgb, t, sh, ao = render_kernel_launch(sc4, prm, uni, small)
+        own = render_kernel_forward_plain(sc4, prm, uni, small)
+        keep = conditioned(sc4, prm, uni, t, small) & primals_agree((rgb, t, sh, ao), own, small.march.max_distance)
+        noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+        # Each side's own render where the gradient is ill-conditioned or the
+        # primals disagree (as in k3_vs_plain).
+        target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+        mass = gradient_mass(sc4, prm, uni, 2.0 * (rgb - target), t, sh, ao, small)
+        stacks, total, ranks = gather_target_tiles(target, plan), None, []
+        p_stacks = gather_target_tiles(p_target, plan)
+        k2_stacks = []  # (K2's, the plain version's, the razor-edge rays) a rank
+        for r in range(4):
+            trow, tcol = plan.tables(r, dev)
+            got2 = render_kernel_tiles_launch(sc4, prm, uni, trow, tcol, small, kc_tiles)
+            want2 = render_kernel_tiles_forward_plain(sc4, prm, uni, trow, tcol, small, kc_tiles)
+            stack = stacks[r].contiguous()
+            got4 = fit_step_kernel_tiles_launch(sc4, prm, uni, stack, trow, tcol, small, kc_tiles, False, frozen)
+            want4 = fit_step_kernel_tiles_plain(sc4, prm, uni, p_stacks[r].contiguous(), trow, tcol, small, kc_tiles,
+                                                False, frozen)
+            pixels = tile_pixel_planes(trow, tcol, kc_tiles.tile_h, kc_tiles.tile_w)
+            inside = ((pixels[0] < small.height) & (pixels[1] < small.width)).to(torch.float32)
+            s_prm, _ = render_kernel_backward_plain(sc4, prm, uni, 2.0 * (got2[0] - stack) * inside, *got2[1:],
+                                                    small, pixels)
+            s_prm[list(frozen)] = 0.0
+            torch.cuda.synchronize()
+            k2_stacks.append((got2, want2, razor_edge(sc4, prm, uni, small, kc_tiles, pixels)))
+            label = f"{sname} K4 rank {r}"
+            same_loss = float((((got2[0] - stack) * inside).double() ** 2).sum())
+            loss_rel = abs(float(got4[0]) / same_loss - 1.0)
+            check(loss_rel <= 1e-5, f"{label}: loss off K2's planes' by {loss_rel:.3g}")
+            own_rel = abs(float(got4[0]) / float(want4[0]) - 1.0)
+            check(own_rel <= 1e-5, f"{label}: loss off the plain version's by {own_rel:.3g}")
+            st4 = {"loss_rel_err": loss_rel, "own_march_loss_rel_err": own_rel,
+                   "same_planes": check_grads(got4[1], s_prm, mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                                              label=f"{label} (same)"),
+                   "own_march": check_grads(got4[1], want4[1], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_OWN,
+                                            label=label)}
+            errs["fit_step_tiles"].append(st4["own_march"]["max_abs_err"])
+            ranks.append(st4)
+            total = got4 if total is None else tuple(a + b for a, b in zip(total, got4))
+        # K2 over the plan's four stacks together (the whole image and its
+        # dummy tiles), at the image budget.
+        got2s = [torch.cat([k[0][q] for k in k2_stacks], dim=-2) for q in range(4)]
+        want2s = [torch.cat([k[1][q] for k in k2_stacks], dim=-2) for q in range(4)]
+        st2 = check_planes(got2s, want2s, small.march.max_distance, f"{sname} K2, 4 ranks",
+                           razor=torch.cat([k[2] for k in k2_stacks], dim=-2), **bar)
+        errs["render_tiles"].append(st2["rgb"]["max_abs_err"])
+        whole = fit_step_kernel_launch(sc4, prm, uni, target, small, kc_tiles, False, frozen)
+        vs_k3 = check_grads(total[1], whole[1], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                            label=f"{sname} K4 sum vs K3")
+        log("flagship_tiles_parity", scene=sname, tiles_per_rank=plan.tiles_per_device, k2=planes_stats(st2), k4=ranks,
+            sum_vs_k3={"loss_rel_err": abs(float(total[0]) / float(whole[0]) - 1.0), **vs_k3})
+
+    # ---- 32. main path at 1920x1080 ----
+    trainable = (False, False) + (True,) * 9  # the plane's normal and offset frozen
+    # Adam moves each of the 17 trained parameters by about the step whatever
+    # its gradient's size: at 1e-2 (a third of the corner radius, a sixth of
+    # the torus's tube) the flagship's loss rises, in the JAX package's fit
+    # as in this one; 3e-4 fits (tests/test_torch_fit.py::
+    # test_adam_fit_matches_jax_flagship).
+    lr = 3e-4
+    target = render_kernel_forward(flagship, ref_cam, light, mat, full, device=dev)[0]
+    tgt = target.permute(2, 0, 1).contiguous()
+    orbit4 = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, device=dev) for i in range(4)]
+    main = {}
+    with PlainCalls() as plain, BackwardModes() as modes:
+        reset()
+        frames = tt.render_batch(flagship, orbit4, light, mat, full, engine="kernel")
+        torch.cuda.synchronize()
+        main["render_batch"] = launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, "flagship.png")
+            check(cli.main(["render", "--scene", "flagship", "--width", str(W), "--height", str(H), "--out", png]) == 0,
+                  "cli render --scene flagship failed")
+            with open(png, "rb") as f:
+                head = f.read(24)
+        check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[16:24] == W.to_bytes(4, "big") + H.to_bytes(4, "big"),
+              "cli render --scene flagship did not write a 1920x1080 PNG")
+        main["render_with_cli"] = launches()
+        reset()
+        l2 = fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+                       FitConfig(steps=20, learning_rate=lr, log_every=1), trainable=trainable, device=dev)
+        main["fit_l2"] = launches()
+        reset()
+        ms = fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+                       FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
+                       device=dev)
+        main["fit_multiscale"] = launches()
+        ms_modes = list(modes.calls[-5:])
+        launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend() == "nccl" and mesh.size == 1, f"mesh {mesh}")
+            reset()
+            tiles = fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+                              FitConfig(steps=20, learning_rate=lr, log_every=1, shard_layout="tiles"), mesh=mesh,
+                              trainable=trainable)
+            main["fit_mesh_tiles"] = launches()
+            reset()
+            sharded = render_sharded_kernel(flagship, ref_cam, light, mat, full, mesh, kc, layout="tiles", planar=True)
+            torch.cuda.synchronize()
+            main["render_sharded_tiles"] = launches()
+        finally:
+            launch.shutdown()
+        cells = {}
+        for mode in ("fwd", "fwd_bwd"):
+            reset()
+            r = bench.run_benchmark(scene_name="flagship", mode=mode, iters=2, frames_per_dispatch=4)
+            cells[mode] = {**r, "launches": launches()}
+    check(sum(plain.calls.values()) == 0, f"the flagship's main path called plain versions: {plain.calls}")
+    zero = {fn.__name__: 0 for fn in counters}
+    want_counts = {
+        "render_batch": {**zero, "render_kernel_forward": 4},
+        "render_with_cli": {**zero, "render_kernel_forward": 5},
+        "fit_l2": {**zero, "fit_step_kernel": 20},
+        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+        "fit_mesh_tiles": {**zero, "fit_step_kernel_tiles": 20},
+        "render_sharded_tiles": {**zero, "render_kernel_tiles_forward": 1},
+    }
+    for name, want in want_counts.items():
+        check(main[name] == want, f"flagship {name} launched {main[name]}, expected {want}")
+    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    for mode, counter in (("fwd", "render_kernel_forward"), ("fwd_bwd", "fit_step_kernel")):
+        got = cells[mode]["launches"]
+        check(got[counter] > 0 and sum(got.values()) == got[counter] and cells[mode]["value"] > 0,
+              f"bench flagship {mode}: {cells[mode]}")
+    check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), "bad flagship frames")
+    for name, res in (("l2", l2), ("multiscale", ms), ("mesh_tiles", tiles)):
+        check(all(math.isfinite(v) for v in res.losses), f"flagship {name} fit: non-finite loss")
+        check(res.losses[-1] < res.losses[0], f"flagship {name} fit: the loss did not fall "
+                                              f"({res.losses[0]} -> {res.losses[-1]})")
+        check(bool(torch.isfinite(scene_param_vector(res.scene)).all()), f"flagship {name} fit: non-finite parameters")
+    tiles_rel = max(abs(a / b - 1.0) for a, b in zip(tiles.losses, l2.losses))
+    check(tiles_rel <= 1e-5, f"flagship fit_scene(mesh, tiles): losses off the unsharded fit's by {tiles_rel:.3g}")
+    prm0, uni0 = inputs(flagship, orbit4[0], full)
+    k0 = render_kernel_launch(flagship, prm0, uni0, full)
+    torch.testing.assert_close(k0[0].permute(1, 2, 0), frames[0], rtol=0, atol=0)
+    frame0 = check_planes(k0, render_kernel_forward_plain(flagship, prm0, uni0, full), full.march.max_distance,
+                          "flagship 1080p frame 0", razor=razor_edge(flagship, prm0, uni0, full))
+    # K2's image (the 135-tile plan) against K1's.
+    ref_prm, ref_uni = inputs(flagship, ref_cam, full)
+    k1_ref = render_kernel_launch(flagship, ref_prm, ref_uni, full)
+    sharded_st = check_planes((sharded,), k1_ref[:1], full.march.max_distance, "flagship render_sharded_kernel vs K1",
+                              razor=razor_edge(flagship, ref_prm, ref_uni, full))
+    sharded_st["rgb"]["pixels_differing_bits"] = int((sharded != k1_ref[0]).any(0).sum())
+    step0 = k3_vs_plain(flagship_fit_start(dev), ref_cam, full, False, frozen, "flagship K3 1080p step 0", tgt)
+    log("flagship_main_path", launches=main, multiscale_render_bwd_wrt_uniforms=ms_modes,
+        frame0=planes_stats(frame0), l2_losses=l2.losses, multiscale_losses=ms.losses, mesh_tiles_losses=tiles.losses,
+        mesh_tiles_loss_rel_err=tiles_rel, mesh_tiles_losses_equal=tiles.losses == l2.losses,
+        mesh_tiles_loss_max_abs_diff=max(abs(a - b) for a, b in zip(tiles.losses, l2.losses)),
+        fitted=scene_param_vector(l2.scene).tolist(), target=scene_param_vector(flagship).tolist(),
+        render_sharded_vs_k1=sharded_st["rgb"], step0=step0, bench=cells)
+
+    # ---- 33. times at 1080p (plain, kernel, kernel, plain) and bounds ----
+    sc = flagship_fit_start(dev)
+    prm, uni = inputs(flagship, ref_cam, full)
+    s_prm, s_uni = inputs(sc, ref_cam, full)
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    stack = gather_target_tiles(tgt, plan)[0].contiguous()
+    rgb, t, sh, ao = render_kernel_launch(sc, s_prm, s_uni, full)
+    g_rgb = (2.0 * (rgb - tgt)).contiguous()
+    k3_launch, _, k3_totals = fit_launcher(sc, s_prm, s_uni, tgt, full, kc, False, frozen)
+    k3_launch()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k3_totals).all()), "flagship K3's totals at 1080p are not finite")
+    timed = {
+        "render_fwd": (lambda: render_kernel_launch(flagship, prm, uni, full),
+                       lambda: render_kernel_forward_plain(flagship, prm, uni, full)),
+        "render_tiles": (lambda: render_kernel_tiles_launch(flagship, prm, uni, trow, tcol, full, kc),
+                         lambda: render_kernel_tiles_forward_plain(flagship, prm, uni, trow, tcol, full, kc)),
+        "fit_step": (k3_launch, lambda: fit_step_kernel_plain(sc, s_prm, s_uni, tgt, full, kc, False, frozen)),
+        "fit_step_tiles": (lambda: fit_step_kernel_tiles_launch(sc, s_prm, s_uni, stack, trow, tcol, full, kc, False,
+                                                                frozen),
+                           lambda: fit_step_kernel_tiles_plain(sc, s_prm, s_uni, stack, trow, tcol, full, kc, False,
+                                                               frozen)),
+    }
+    for name, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+        k5_launch, _, k5_totals = render_bwd_launcher(sc, s_prm, s_uni, g_rgb, t, sh, ao, full, kc, wrt)
+        k5_launch()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k5_totals).all()), f"flagship {name}'s totals at 1080p are not finite")
+        timed[name] = (k5_launch, functools.partial(render_kernel_backward_plain, sc, s_prm, s_uni, g_rgb, t, sh, ao,
+                                                    full, wrt_uniforms=wrt))
+    runs = {}
+    for name, (kern, plain_fn) in timed.items():
+        p1, k1, k2, p2 = time_ms(plain_fn, 1, 3), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 3)
+        runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
+    runs["fit_step"]["wrapper_ms"] = time_ms(lambda: fit_step_kernel_launch(sc, s_prm, s_uni, tgt, full, kc, False,
+                                                                            frozen))
+    # K5 at the size the multiscale fit launches it (1920x1080), both forms,
+    # against its plain version on the timed cotangent, zeroed where the
+    # gradient is ill-conditioned.
+    g_cond = (g_rgb * conditioned(sc, s_prm, s_uni, t, full)).contiguous()
+    mass = gradient_mass(sc, s_prm, s_uni, g_cond, t, sh, ao, full)
+    for name, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+        got = render_kernel_backward_launch(sc, s_prm, s_uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        want = render_kernel_backward_plain(sc, s_prm, s_uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        torch.cuda.synchronize()
+        st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                         mass if wrt else mass[:s_prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                         label=f"flagship K5 1080p wrt_uniforms={wrt}")
+        runs[name]["vs_plain_1080p"] = st
+        errs["render_bwd"].append(st["max_abs_err"])
+    fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+              FitConfig(steps=5, learning_rate=lr, log_every=5), trainable=trainable, device=dev)
+    res = fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+                    FitConfig(steps=50, learning_rate=lr, log_every=50), trainable=trainable, device=dev)
+    fit_ms = W * H / res.rays_per_second * 1e3
+    # Bounds on this run's data: K1 and K2 the flagship's marches and taps
+    # (its planes written); K3 and K4 the fit's start, its primal and reverse
+    # pass (the target read, the totals written); K5 the reverse pass with its
+    # re-trace (six planes read, a partial row of its columns per block
+    # written and read, the totals written).
+    counts = march_counts(torch, flagship, ref_cam, full, prm, uni, render_kernel_forward_plain)
+    s_counts = march_counts(torch, sc, ref_cam, full, s_prm, s_uni, render_kernel_forward_plain)
+    costs = scene_costs(cuda_scene_source(flagship, full, kc))
+    s_costs = scene_costs(cuda_scene_source(sc, full, kc, False, frozen))
+    P = s_prm.numel()
+    blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    bounds = {
+        "render_fwd": bound(*analytic_work(costs, counts, full), 24 * W * H),
+        "render_tiles": bound(*analytic_work(costs, counts, full), 24 * W * H + 8 * plan.tiles_per_device),
+        "fit_step": bound(*analytic_work(s_costs, s_counts, full, reverse=True), 12 * W * H + 8 * (P + 31)),
+        "fit_step_tiles": bound(*analytic_work(s_costs, s_counts, full, reverse=True),
+                                12 * W * H + 8 * plan.tiles_per_device + 8 * (P + 31)),
+        "render_bwd": bound(*analytic_work(s_costs, s_counts, full, primal=False, reverse=True, retrace=True),
+                            24 * W * H + (8 * blocks + 8) * P),
+        "render_bwd_uniforms": bound(*analytic_work(s_costs, s_counts, full, primal=False, reverse=True, retrace=True),
+                                     24 * W * H + (8 * blocks + 8) * (P + 30)),
+    }
+    for name, b in bounds.items():
+        runs[name].update(bound_ms=b[0], bound_by=b[1])
+    log("flagship_times_1080p", card=card, counts=counts, fit_start_counts=s_counts, costs=costs,
+        fit_start_costs=s_costs, fit_scene_ms_per_step=fit_ms, fwd_bwd_rays_per_s=res.rays_per_second, **runs)
+    main_launches = {"render_fwd": main["render_batch"]["render_kernel_forward"],
+                     "render_tiles": main["render_sharded_tiles"]["render_kernel_tiles_forward"],
+                     "fit_step": main["fit_l2"]["fit_step_kernel"],
+                     "fit_step_tiles": main["fit_mesh_tiles"]["fit_step_kernel_tiles"],
+                     "render_bwd": main["fit_multiscale"]["render_kernel_backward"]}
+    out = {}
+    for name in main_launches:
+        out[name] = {"launches": main_launches[name], "max_abs_err": max(errs[name]), "ms": runs[name]["ms"],
+                     "plain_ms": runs[name]["plain_ms"], "bound_ms": runs[name]["bound_ms"],
+                     "bound_by": runs[name]["bound_by"]}
+    out["render_bwd"]["uniforms"] = {k: runs["render_bwd_uniforms"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                                  "bound_by")}
+    out["render_bwd"]["max_abs_err_1080p"] = max(runs[n]["vs_plain_1080p"]["max_abs_err"]
+                                                 for n in ("render_bwd", "render_bwd_uniforms"))
+    out["fit_step"]["fit_scene_ms_per_step"] = fit_ms
+    return out
+
+
 def blocks_per_sm(registers: int, threads: int = 256) -> int:
     """Resident blocks of ``threads`` threads an SM holds at ``registers`` a
     thread (Hopper: 65536 registers an SM, allotted per warp in units of 256,
@@ -2296,7 +2805,60 @@ def _time_root(root: str) -> dict:
         nprm = scene_param_vector(sc, dev)
         k6 = lambda: render_neural_launch(sc, nprm, uni, ncfg, NeuralRenderConfig())  # noqa: E731
         result[f"neural_fwd_hidden{hidden}_ms"] = [time_ms(k6, 1, frames) for _ in range(3)]
+    if hasattr(tt, "flagship_scene"):
+        result["flagship"] = _time_flagship(torch, tt, uni, cfg, kc)
     return result
+
+
+def _time_flagship(torch, tt, uni, cfg, kc) -> dict:
+    """The flagship for ``--time-kernels``, on the checkout imported: K1 on
+    its render at 1080p, K3 on the flagship fit's start (the plane frozen)
+    against that render, K5 without the uniforms' gradient (the multiscale
+    fit's form) on the start's planes; three runs each of the entry point,
+    SHA-256 of K1's four planes and of K3's float64 totals (the gradient
+    and the loss) and K5's, and the ptxas registers, spills and blocks an
+    SM of K1, K3 and both forms of K5; K5 with the uniforms' gradient is
+    timed too."""
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_bwd_launcher
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import flagship_fit_start
+
+    dev, frozen = uni.device, (0, 1, 2, 3)
+    flag, start = tt.flagship_scene().to(dev), flagship_fit_start(dev)
+    prm, s_prm = scene_param_vector(flag, dev), scene_param_vector(start, dev)
+    P = s_prm.numel()
+    k1 = lambda: render_kernel_launch(flag, prm, uni, cfg, kc)  # noqa: E731
+    planes = k1()
+    target = planes[0].contiguous()
+    k3 = fit_launcher(start, s_prm, uni, target, cfg, kc, False, frozen)[0]
+    rgb, t, sh, ao = render_kernel_launch(start, s_prm, uni, cfg, kc)
+    g_rgb = (2.0 * (rgb - target)).contiguous()
+    k5 = render_bwd_launcher(start, s_prm, uni, g_rgb, t, sh, ao, cfg, kc, False)[0]
+    k5u = render_bwd_launcher(start, s_prm, uni, g_rgb, t, sh, ao, cfg, kc, True)[0]
+    fit_totals, bwd_totals = k3().clone(), k5().clone()
+    torch.cuda.synchronize()
+    fit_totals = torch.cat([fit_totals[:P], fit_totals[-1:]]).cpu().numpy()
+    libs = _build.LIBRARIES
+    ptxas = {k: v for k, v in ptxas_summary(libs.log(libs.key(cuda_scene_source(flag, cfg, kc)))).items()
+             if k in ("render_fwd", "render_bwd", "render_bwd_params")}
+    ptxas["fit_step"] = ptxas_summary(libs.log(libs.key(cuda_scene_source(start, cfg, kc, False, frozen))))["fit_step"]
+    for v in ptxas.values():
+        v["blocks_per_sm"] = blocks_per_sm(v["registers"], kc.block_w * kc.block_h)
+    return {"ptxas": ptxas,
+            "render_fwd_sha256": hashlib.sha256(b"".join(x.contiguous().cpu().numpy().tobytes()
+                                                         for x in planes)).hexdigest(),
+            "fit_totals": fit_totals.tolist(),
+            "fit_totals_sha256": hashlib.sha256(fit_totals.tobytes()).hexdigest(),
+            "render_bwd_totals_sha256": hashlib.sha256(bwd_totals.cpu().numpy().tobytes()).hexdigest(),
+            "finite": all(math.isfinite(x) for x in fit_totals.tolist()) and bool(torch.isfinite(bwd_totals).all()),
+            "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
+            "fit_step_ms": [time_ms(k3, 5, 50) for _ in range(3)],
+            "render_bwd_ms": [time_ms(k5, 5, 50) for _ in range(3)],
+            "render_bwd_uniforms_ms": [time_ms(k5u, 5, 50) for _ in range(3)]}
+
 
 
 def _time_render_bwd(torch, scene, prm, uni, target, cfg, kc) -> dict:
@@ -2398,7 +2960,20 @@ def time_kernels(roots: list) -> int:
         "fit_step_wrapper_ms": [r["fit_step_wrapper_ms"] for r in results],
         "render_bwd_ms": [{f: v["ms"] for f, v in r["render_bwd"].items()} for r in results],
         "render_bwd_wrapper_ms": [{f: v["wrapper_ms"] for f, v in r["render_bwd"].items()} for r in results],
-        "neural_fwd_hidden64_ms": [r["neural_fwd_hidden64_ms"] for r in results]}), flush=True)
+        "neural_fwd_hidden64_ms": [r["neural_fwd_hidden64_ms"] for r in results],
+        "flagship": {
+            "render_fwd_sha256_equal": len({r["flagship"]["render_fwd_sha256"] for r in results if "flagship" in r}) == 1,
+            "fit_totals_sha256_equal": len({r["flagship"]["fit_totals_sha256"] for r in results if "flagship" in r}) == 1,
+            "render_bwd_totals_sha256_equal": len({r["flagship"]["render_bwd_totals_sha256"] for r in results
+                                                   if "flagship" in r}) == 1,
+            "registers": {k: [r["flagship"]["ptxas"].get(k, {}).get("registers") if "flagship" in r else None
+                              for r in results] for k in ("render_fwd", "fit_step", "render_bwd", "render_bwd_params")},
+            "finite": [r["flagship"]["finite"] if "flagship" in r else None for r in results],
+            "render_fwd_ms": [r.get("flagship", {}).get("render_fwd_ms") for r in results],
+            "fit_step_ms": [r.get("flagship", {}).get("fit_step_ms") for r in results],
+            "render_bwd_ms": [r.get("flagship", {}).get("render_bwd_ms") for r in results],
+            "render_bwd_uniforms_ms": [r.get("flagship", {}).get("render_bwd_uniforms_ms") for r in results]}}),
+          flush=True)
     return 0
 
 

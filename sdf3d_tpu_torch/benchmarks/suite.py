@@ -7,7 +7,7 @@
 Reports JSONL (one ``bench.run_benchmark`` payload per cell) to stdout and
 optionally appends it to a file.  ``--scaling`` (a mesh-size sweep, ROADMAP
 item 15b: one card here) and ``--scene-cost`` (a ``random_blobs`` sweep,
-item 13) are not ported and raise.  Runs on the card (``--device``; ``cpu``
+item 13b) are not ported and raise.  Runs on the card (``--device``; ``cpu``
 runs the plain versions).
 """
 
@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     if args.scaling:
         raise NotImplementedError("the mesh-size sweep needs several cards (ROADMAP item 15b)")
     if args.scene_cost:
-        raise NotImplementedError("the scene-cost sweep needs random_blobs' nodes (ROADMAP item 13)")
+        raise NotImplementedError("the scene-cost sweep needs random_blobs, which is not ported yet (ROADMAP item 13b)")
     w, h = (256, 192) if args.quick else (1920, 1080)
     results = [run_benchmark(w, h, mode=mode, iters=5, device=args.device) for mode in ("fwd", "fwd_bwd")]
     lines = [json.dumps(r) for r in results]

@@ -28,7 +28,7 @@ import numpy as np
 def _build_scene(name: str):
     import sdf3d_tpu_torch as s
 
-    scenes = {"reference": s.reference_scene, "sphere": s.sphere_scene}
+    scenes = {"reference": s.reference_scene, "sphere": s.sphere_scene, "flagship": s.flagship_scene}
     if name not in scenes:
         raise SystemExit(f"unknown scene {name!r}; choose from {sorted(scenes)}")
     return scenes[name]()

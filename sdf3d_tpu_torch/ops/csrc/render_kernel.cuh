@@ -52,13 +52,21 @@ struct Pixel {
 
 SDF3D_HD float rsqrt_exact(float x) { return 1.0f / sqrtf(x); }
 
-// Derivatives of min, max and clip = min(max(x, lo), hi) with respect to
-// x, by lax's rule: the adjoint splits 0.5/0.5 at an exact tie (the union
-// of a plane and a sphere meets ties on its seam).  The reverse passes
-// (generated Scene::sdf_bwd, shade_vjp.cuh) use them.
+// Derivatives of min, max, clip = min(max(x, lo), hi) and abs with respect
+// to x, by lax's rule: the adjoint splits 0.5/0.5 at an exact tie (the
+// union of a plane and a sphere meets ties on its seam), and abs passes it
+// unchanged at x >= 0 (+1 at 0).  The reverse passes (generated
+// Scene::sdf_bwd, shade_vjp.cuh) use them.
 SDF3D_HD float min_adj(float x, float y) { return x < y ? 1.0f : (x == y ? 0.5f : 0.0f); }
 SDF3D_HD float max_adj(float x, float y) { return x > y ? 1.0f : (x == y ? 0.5f : 0.0f); }
 SDF3D_HD float clip_adj(float x, float lo, float hi) { return max_adj(x, lo) * min_adj(fmaxf(x, lo), hi); }
+SDF3D_HD float abs_adj(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+// A scene's reverse pass is large when sdf_bwd keeps more forward values than
+// this (Scene::bwd_values: the reference scene's 27, the flagship's 92): the
+// register caps of the fit step and the render backward then ask half the
+// blocks an SM (fit_kernel.cu, render_bwd_kernel.cu).
+constexpr int kLargeReverseValues = 64;
 
 // The scene's point form as a distance functor f(x, y, z).
 template <class Scene>

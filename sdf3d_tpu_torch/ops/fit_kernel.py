@@ -213,8 +213,9 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
 def _check_fused(scene: SDFNode, cfg: RenderConfig) -> None:
     if not fused_l2_eligible(cfg, scene):
         raise NotImplementedError(
-            "the fused fit step takes detached-shadow gradients, central/tetrahedron normals and scenes "
-            "of Sphere, Plane and Union (ROADMAP item 12)")
+            "the fused fit step takes the plain L2 loss with detached-shadow gradients and central or "
+            "tetrahedron normals (the other losses and gradients are ROADMAP item 12), on scenes whose every "
+            "node has an emitter (ops/scene_program.py::check_scene names the first that has none)")
 
 
 def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:

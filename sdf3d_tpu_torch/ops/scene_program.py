@@ -26,9 +26,19 @@ then ``b``'s.
 
 Emitters keep the JAX emitters' algebra and operation order: plane
 ``a·t + b``; sphere in completed-square form ``A·sqrt((t+B)² + C) − r`` with
-``C`` clamped ≥ 0 at setup.  Every binary operation is parenthesised in the
-C text, so the compiler keeps the same association (it may still contract
-``a*b + c`` into one FMA).
+``C`` clamped ≥ 0 at setup; box and rounded box ``|a + t·d| − h`` per axis;
+torus a quadratic in ``t`` under the ring's square root; hard CSG as
+min/max (subtraction ``max(a, −b)``), smooth CSG as the polynomial mix
+with ``k`` clamped to ``1e-6``.  Every binary operation is parenthesised
+in the C text, so the compiler keeps the same association (it may still
+contract ``a*b + c`` into one FMA).
+
+Derivatives follow lax's rules in every backend, at ties too: ``min`` and
+``max`` split the adjoint 0.5/0.5 (a constant operand included), ``abs``
+passes ``+g`` at ``x ≥ 0`` and ``−g`` below, ``clip`` is
+``min(hi, max(lo, x))``.  The torch backend carries them under
+``torch.autograd`` (the plain versions differentiate it), the tape in the
+generated reverse pass.
 """
 
 from __future__ import annotations
@@ -94,8 +104,47 @@ def walk_nodes(node: SDFNode):
 # ---------------------------------------------------------------------------
 
 
+def _reduce_to(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``g`` summed over the dimensions ``like`` was broadcast along."""
+    if g.shape == like.shape:
+        return g
+    return g.sum_to_size(like.shape) if like.dim() else g.sum()
+
+
+class _LaxMinMax(torch.autograd.Function):
+    """``max(a, b)`` (``sign = +1``) or ``min(a, b)`` (``-1``) with lax's
+    derivative: the adjoint times 1, 0.5 at an exact tie, or 0, multiplied
+    in, so a NaN adjoint stays NaN on both operands as in ``jax.vjp``
+    (``torch.maximum`` masks it to 0 on the operand not taken, and
+    ``torch.clamp`` gives a constant's tie wholly to the tensor)."""
+
+    @staticmethod
+    def forward(ctx, a, b, sign):
+        ctx.save_for_backward(a, b)
+        ctx.sign = sign
+        return torch.maximum(a, b) if sign > 0 else torch.minimum(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        wins = (a > b) if ctx.sign > 0 else (a < b)
+        w = wins.to(g.dtype) + 0.5 * (a == b).to(g.dtype)
+        ga = _reduce_to(g * w, a) if ctx.needs_input_grad[0] else None
+        gb = _reduce_to(g * (1.0 - w), b) if ctx.needs_input_grad[1] else None
+        return ga, gb, None
+
+
+def _lax_minmax(a, b, sign: float):
+    if not isinstance(a, torch.Tensor):
+        a = b.new_tensor(a)
+    if not isinstance(b, torch.Tensor):
+        b = a.new_tensor(b)
+    return _LaxMinMax.apply(a, b, sign)
+
+
 class _TorchOps:
-    """Numeric backend: tensors (planes or 0-d parameters)."""
+    """Numeric backend: tensors (planes or 0-d parameters), with lax's
+    derivatives under ``torch.autograd``."""
 
     @staticmethod
     def sqrt(x):
@@ -103,11 +152,20 @@ class _TorchOps:
 
     @staticmethod
     def maximum(a, b):
-        if not isinstance(b, torch.Tensor):
-            return torch.clamp(a, min=b)
-        return torch.maximum(a, b)
+        return _lax_minmax(a, b, 1.0)
 
-    minimum = staticmethod(torch.minimum)
+    @staticmethod
+    def minimum(a, b):
+        return _lax_minmax(a, b, -1.0)
+
+    @staticmethod
+    def abs(x):
+        # torch.abs has derivative 0 at 0; lax's is +1 (x >= 0).
+        return torch.where(x >= 0, x, -x)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return _TorchOps.minimum(hi, _TorchOps.maximum(lo, x))
 
     @staticmethod
     def hoist(x):
@@ -159,6 +217,9 @@ class CExpr:
     def __rtruediv__(self, o):
         return self._bin("/", o, True)
 
+    def __neg__(self):
+        return CExpr(f"(-({self.s}))")
+
 
 def _c(x) -> str:
     return x.s if isinstance(x, CExpr) else c_float(x)
@@ -166,11 +227,13 @@ def _c(x) -> str:
 
 class _COps:
     """Symbolic backend: C expressions; ``hoist`` turns a per-ray setup
-    value into a field of ``Scene::Ray`` assigned in ``setup``."""
+    value into a field of ``Scene::Ray`` assigned in ``setup`` (one field
+    per distinct expression)."""
 
     def __init__(self):
         self.fields: list[str] = []
         self.setup: list[str] = []
+        self._hoisted: dict[str, str] = {}
 
     @staticmethod
     def sqrt(x):
@@ -184,11 +247,22 @@ class _COps:
     def minimum(a, b):
         return CExpr(f"fminf({_c(a)}, {_c(b)})")
 
+    @staticmethod
+    def abs(x):
+        return CExpr(f"fabsf({_c(x)})")
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return CExpr(f"fminf({_c(hi)}, fmaxf({_c(lo)}, {_c(x)}))")
+
     def hoist(self, x):
-        name = f"h{len(self.fields)}"
-        self.fields.append(name)
-        self.setup.append(f"{name} = {_c(x)};")
-        return CExpr(name)
+        expr = _c(x)
+        if expr not in self._hoisted:
+            name = f"h{len(self.fields)}"
+            self.fields.append(name)
+            self.setup.append(f"{name} = {expr};")
+            self._hoisted[expr] = name
+        return CExpr(self._hoisted[expr])
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +272,18 @@ class _COps:
 
 def _len3(x, y, z, m):
     return m.sqrt(x * x + y * y + z * z)
+
+
+def _len2(x, y, m):
+    return m.sqrt(x * x + y * y)
+
+
+def _smooth_mix(da, db, k, sign: float, m):
+    """Quilez polynomial smooth min (``sign = +1``) / max (``-1``) with
+    ``k`` already clamped to ``max(k, 1e-6)``; ``0.5 * sign`` folds to one
+    constant, as in the JAX emitter."""
+    h = m.clip(0.5 + 0.5 * sign * (db - da) / k, 0.0, 1.0)
+    return db + (da - db) * h - sign * k * h * (1.0 - h)
 
 
 def _sphere(n, px, py, pz, getp, off, m):
@@ -210,16 +296,77 @@ def _plane(n, px, py, pz, getp, off, m):
     return px * nx + py * ny + pz * nz - d
 
 
-def _union(n, px, py, pz, getp, off, m):
-    da = _emit(n.a, px, py, pz, getp, off, m)
-    db = _emit(n.b, px, py, pz, getp, off + count_params(n.a), m)
-    return m.minimum(da, db)
+def _box_core(px, py, pz, cx, cy, cz, hx, hy, hz, m):
+    qx = m.abs(px - cx) - hx
+    qy = m.abs(py - cy) - hy
+    qz = m.abs(pz - cz) - hz
+    ox = m.maximum(qx, 0.0)
+    oy = m.maximum(qy, 0.0)
+    oz = m.maximum(qz, 0.0)
+    outside = _len3(ox, oy, oz, m)
+    inside = m.minimum(m.maximum(qx, m.maximum(qy, qz)), 0.0)
+    return outside + inside
+
+
+def _box(n, px, py, pz, getp, off, m):
+    return _box_core(px, py, pz, *(getp(off + i) for i in range(6)), m)
+
+
+def _round_box(n, px, py, pz, getp, off, m):
+    return _box_core(px, py, pz, *(getp(off + i) for i in range(6)), m) - getp(off + 6)
+
+
+def _torus(n, px, py, pz, getp, off, m):
+    cx, cy, cz, major, minor = (getp(off + i) for i in range(5))
+    ring = _len2(px - cx, pz - cz, m) - major
+    return _len2(ring, py - cy, m) - minor
+
+
+def _binary(op):
+    def h(n, px, py, pz, getp, off, m):
+        da = _emit(n.a, px, py, pz, getp, off, m)
+        db = _emit(n.b, px, py, pz, getp, off + count_params(n.a), m)
+        return op(m, da, db)
+
+    return h
+
+
+def _smooth(sign: float, neg_b: bool = False):
+    def h(n, px, py, pz, getp, off, m):
+        na, nb = count_params(n.a), count_params(n.b)
+        da = _emit(n.a, px, py, pz, getp, off, m)
+        db = _emit(n.b, px, py, pz, getp, off + na, m)
+        if neg_b:
+            db = -db
+        return _smooth_mix(da, db, m.maximum(getp(off + na + nb), 1e-6), sign, m)
+
+    return h
+
+
+def _union_op(m, a, b):
+    return m.minimum(a, b)
+
+
+def _intersection_op(m, a, b):
+    return m.maximum(a, b)
+
+
+def _subtraction_op(m, a, b):
+    return m.maximum(a, -b)
 
 
 _HANDLERS = {
     primitives.Sphere: _sphere,
     primitives.Plane: _plane,
-    csg.Union: _union,
+    primitives.Box: _box,
+    primitives.RoundBox: _round_box,
+    primitives.Torus: _torus,
+    csg.Union: _binary(_union_op),
+    csg.Intersection: _binary(_intersection_op),
+    csg.Subtraction: _binary(_subtraction_op),
+    csg.SmoothUnion: _smooth(+1.0),
+    csg.SmoothIntersection: _smooth(-1.0),
+    csg.SmoothSubtraction: _smooth(-1.0, neg_b=True),
 }
 
 
@@ -232,8 +379,9 @@ def _no_emitter(node):
             "with render, render_banded or render_batch(engine='torch')"
         )
     return NotImplementedError(
-        f"no render-kernel emitter for scene node {type(node).__name__}; the port supports Sphere, "
-        "Plane, Union and NeuralSDF so far: the other analytic nodes are ROADMAP item 13, VoxelGrid "
+        f"no render-kernel emitter for scene node {type(node).__name__}; the port supports Sphere, Plane, "
+        "Box, RoundBox, Torus, the hard and smooth Union, Intersection and Subtraction, and NeuralSDF so far: "
+        "Capsule, Cylinder, Ellipsoid and the transforms are ROADMAP item 13b, Mandelbulb item 13c, VoxelGrid "
         "item 14 (sdf3d_tpu_torch/ops/scene_program.py)"
     )
 
@@ -269,8 +417,11 @@ def compile_scene(scene: SDFNode):
 # operation has an adjoint rule, so the reverse pass of a node is derived
 # from its forward emitter and parameter offsets cannot drift.  Adjoint
 # rules follow lax's derivatives (min/max split the adjoint 0.5/0.5 at an
-# exact tie; sqrt's derivative is 0.5/sqrt(x)), which the JAX package's
-# jax.vjp of the same emitters applies.
+# exact tie; sqrt's derivative is 0.5/sqrt(x); abs passes +g at x >= 0;
+# clip is recorded as min(hi, max(lo, x))), which the JAX package's
+# jax.vjp of the same emitters applies.  Like JAX's emitters, the box's
+# outside length has no guard: a tap inside the box's core (every q < 0)
+# meets sqrt(0)'s infinite derivative times 0, a NaN.
 # ---------------------------------------------------------------------------
 
 
@@ -306,6 +457,9 @@ class _Var:
     def __rtruediv__(self, o):
         return self.tape.op("/", o, self)
 
+    def __neg__(self):
+        return self.tape.op("neg", self)
+
 
 class _Tape:
     """Symbolic backend that records operations in order: ``nodes[i]`` is
@@ -338,9 +492,15 @@ class _Tape:
     def maximum(self, a, b):
         return self.op("max", a, b)
 
+    def abs(self, x):
+        return self.op("abs", x)
+
+    def clip(self, x, lo, hi):
+        return self.minimum(hi, self.maximum(lo, x))
+
 
 # Forward values each adjoint rule reads: operands, or the result itself.
-_NEEDS = {"+": "", "-": "", "*": "ab", "/": "ab", "sqrt": "r", "min": "ab", "max": "ab"}
+_NEEDS = {"+": "", "-": "", "*": "ab", "/": "ab", "sqrt": "r", "min": "ab", "max": "ab", "abs": "a", "neg": ""}
 
 
 def _adjoints(op: str, g: str, a: str, b: str, r: str):
@@ -356,6 +516,10 @@ def _adjoints(op: str, g: str, a: str, b: str, r: str):
         return f"({g} / {b})", f"(-(({g} * {a}) / ({b} * {b})))"
     if op == "sqrt":
         return f"({g} * (0.5f / {r}))", None
+    if op == "abs":
+        return f"({g} * sdf3d::abs_adj({a}))", None
+    if op == "neg":
+        return f"(-{g})", None
     return f"({g} * sdf3d::{op}_adj({a}, {b}))", f"({g} * sdf3d::{op}_adj({b}, {a}))"
 
 
@@ -408,6 +572,10 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
             expr = args[0]
         elif op == "sqrt":
             expr = f"sqrtf({val(args[0])})"
+        elif op == "abs":
+            expr = f"fabsf({val(args[0])})"
+        elif op == "neg":
+            expr = f"(-({val(args[0])}))"
         elif op in ("min", "max"):
             expr = f"f{op}f({val(args[0])}, {val(args[1])})"
         else:
@@ -462,16 +630,93 @@ def _ray_plane(n, ox, oy, oz, dx, dy, dz, getp, off, m):
     return lambda t: a * t + b
 
 
-def _ray_union(n, ox, oy, oz, dx, dy, dz, getp, off, m):
-    ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
-    eb = _ray_emit(n.b, ox, oy, oz, dx, dy, dz, getp, off + count_params(n.a), m)
-    return lambda t: m.minimum(ea(t), eb(t))
+def _ray_box_core(ox, oy, oz, dx, dy, dz, cx, cy, cz, hx, hy, hz, m):
+    ax, ay, az = m.hoist(ox - cx), m.hoist(oy - cy), m.hoist(oz - cz)
+    dx, dy, dz = m.hoist(dx), m.hoist(dy), m.hoist(dz)
+    hx, hy, hz = m.hoist(hx), m.hoist(hy), m.hoist(hz)
+
+    def ev(t):
+        qx = m.abs(ax + t * dx) - hx
+        qy = m.abs(ay + t * dy) - hy
+        qz = m.abs(az + t * dz) - hz
+        mx = m.maximum(qx, 0.0)
+        my = m.maximum(qy, 0.0)
+        mz = m.maximum(qz, 0.0)
+        outside = m.sqrt(mx * mx + my * my + mz * mz)
+        inside = m.minimum(m.maximum(qx, m.maximum(qy, qz)), 0.0)
+        return outside + inside
+
+    return ev
+
+
+def _ray_box(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    return _ray_box_core(ox, oy, oz, dx, dy, dz, *(getp(off + i) for i in range(6)), m)
+
+
+def _ray_round_box(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    ev0 = _ray_box_core(ox, oy, oz, dx, dy, dz, *(getp(off + i) for i in range(6)), m)
+    r = m.hoist(getp(off + 6))
+    return lambda t: ev0(t) - r
+
+
+def _ray_torus(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    # |(o − c + t·d)_xz|² = t·(qa·t + 2·qb) + qc (JAX's _quad_eval; its y
+    # terms are zeros, whose products add exactly 0).
+    cx, cy, cz, major, minor = (getp(off + i) for i in range(5))
+    ax, az = ox - cx, oz - cz
+    qa = m.hoist(dx * dx + dz * dz)
+    qb2 = m.hoist(2.0 * (ax * dx + az * dz))
+    qc = m.hoist(ax * ax + az * az)
+    ay, by = m.hoist(oy - cy), m.hoist(dy)
+    major, minor = m.hoist(major), m.hoist(minor)
+
+    def ev(t):
+        ring = m.sqrt(m.maximum(t * (qa * t + qb2) + qc, 0.0)) - major
+        y = ay + t * by
+        return m.sqrt(ring * ring + y * y) - minor
+
+    return ev
+
+
+def _ray_binary(op):
+    def h(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+        ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+        eb = _ray_emit(n.b, ox, oy, oz, dx, dy, dz, getp, off + count_params(n.a), m)
+        return lambda t: op(m, ea(t), eb(t))
+
+    return h
+
+
+def _ray_smooth(sign: float, neg_b: bool = False):
+    def h(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+        na, nb = count_params(n.a), count_params(n.b)
+        ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+        eb = _ray_emit(n.b, ox, oy, oz, dx, dy, dz, getp, off + na, m)
+        k = m.hoist(m.maximum(getp(off + na + nb), 1e-6))
+
+        def ev(t):
+            db = eb(t)
+            if neg_b:
+                db = -db
+            return _smooth_mix(ea(t), db, k, sign, m)
+
+        return ev
+
+    return h
 
 
 _RAY_HANDLERS = {
     primitives.Sphere: _ray_sphere,
     primitives.Plane: _ray_plane,
-    csg.Union: _ray_union,
+    primitives.Box: _ray_box,
+    primitives.RoundBox: _ray_round_box,
+    primitives.Torus: _ray_torus,
+    csg.Union: _ray_binary(_union_op),
+    csg.Intersection: _ray_binary(_intersection_op),
+    csg.Subtraction: _ray_binary(_subtraction_op),
+    csg.SmoothUnion: _ray_smooth(+1.0),
+    csg.SmoothIntersection: _ray_smooth(-1.0),
+    csg.SmoothSubtraction: _ray_smooth(-1.0, neg_b=True),
 }
 
 
@@ -623,6 +868,7 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
     if any(not 0 <= k < n_params for k in frozen_slots):
         raise ValueError(f"frozen_slots {frozen_slots} out of range for {n_params} parameters")
     frozen = " || ".join(f"k == {k}" for k in sorted(set(frozen_slots))) or "false"
+    bwd = _reverse_source(scene, with_params=True)
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
@@ -632,6 +878,9 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
 
 struct Scene {{
   static constexpr int n_params = {count_params(scene)};
+  // Forward values sdf_bwd keeps for its adjoints (the register caps of the
+  // fit step and the render backward read it).
+  static constexpr int bwd_values = {bwd.count("const float v")};
 
   // Point form: distance at (px, py, pz).
   static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
@@ -659,7 +908,7 @@ struct Scene {{
   // dp[k] += g * df/dp_k, and (dpx, dpy, dpz) = g * grad_p f.
   static SDF3D_HD void sdf_bwd(float px, float py, float pz, const float* p, float g, float* dp,
                                float& dpx, float& dpy, float& dpz) {{
-{_reverse_source(scene, with_params=True)}
+{bwd}
   }}
 
   // grad_p f at (px, py, pz) (the implicit-function denominator).

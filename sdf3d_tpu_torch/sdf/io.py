@@ -31,11 +31,12 @@ def registry() -> dict:
     from sdf3d_tpu_torch.camera import Camera
     from sdf3d_tpu_torch.config import AOConfig, MarchConfig, RenderConfig, ShadowConfig
     from sdf3d_tpu_torch.lighting import Material, PointLight
-    from sdf3d_tpu_torch.sdf.csg import Union
+    from sdf3d_tpu_torch.sdf import csg, primitives
     from sdf3d_tpu_torch.sdf.neural import NeuralSDF
-    from sdf3d_tpu_torch.sdf.primitives import Plane, Sphere
 
-    classes = (Sphere, Plane, Union, NeuralSDF, Camera, PointLight, Material,
+    classes = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
+               csg.Union, csg.Intersection, csg.Subtraction, csg.SmoothUnion, csg.SmoothIntersection,
+               csg.SmoothSubtraction, NeuralSDF, Camera, PointLight, Material,
                RenderConfig, MarchConfig, ShadowConfig, AOConfig)
     return {cls.__name__: cls for cls in classes}
 

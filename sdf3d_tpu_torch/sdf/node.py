@@ -40,6 +40,17 @@ def vlength(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
+def vlength_safe(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis with a zero gradient at ``v = 0``.
+
+    ``sqrt(sum(v²))`` has a ``0·inf = NaN`` gradient at the origin, which a
+    box's clamped outside vector is at every interior point; the double
+    ``where`` guards both branches of the derivative."""
+    sq = torch.sum(v * v, dim=-1)
+    positive = sq > 0.0
+    return torch.where(positive, torch.sqrt(torch.where(positive, sq, torch.ones_like(sq))), torch.zeros_like(sq))
+
+
 def vnormalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Unit vector over the last axis, safe at zero (GLSL ``normalize``)."""
     return v / torch.clamp(vlength(v), min=eps)[..., None]
@@ -67,7 +78,8 @@ class SDFNode(nn.Module):
     where they have such fields or defaults; the constructor takes the
     fields positionally or by name.  Child nodes become submodules, static
     fields plain attributes, tuple fields an ``nn.ParameterList``, everything
-    else a float32 ``nn.Parameter``.  ``a | b`` is the hard union.
+    else a float32 ``nn.Parameter``.  ``a | b`` is the hard union, ``a & b``
+    the intersection and ``a - b`` the subtraction.
     """
 
     fields: tuple[str, ...] = ()
@@ -108,6 +120,16 @@ class SDFNode(nn.Module):
         from sdf3d_tpu_torch.sdf.csg import Union
 
         return Union(self, other)
+
+    def __and__(self, other: "SDFNode") -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.csg import Intersection
+
+        return Intersection(self, other)
+
+    def __sub__(self, other: "SDFNode") -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.csg import Subtraction
+
+        return Subtraction(self, other)
 
     def extra_repr(self) -> str:
         return ", ".join(self.fields)

@@ -154,9 +154,15 @@ def test_bench_without_a_card_raises(call, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"scene_name": "fractal"}, "item 13"), ({"scene_name": "flagship"}, "item 13"),
+    ({"scene_name": "fractal"}, "item 13c"), ({"scene_name": "flagship"}, None),
     ({"engine": "torch"}, "item 5")])
 def test_unported_cells_raise(kwargs, match):
+    """The cells whose paths are not ported raise naming their item; the
+    flagship's cell (ported: ROADMAP 13a) runs."""
+    if match is None:
+        r = bench.run_benchmark(width=32, height=24, device="cpu", iters=1, frames_per_dispatch=1, **kwargs)
+        assert r["value"] > 0 and math.isfinite(r["value"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         bench.run_benchmark(width=32, height=24, device="cpu", **kwargs)
 

@@ -70,12 +70,17 @@ from sdf3d_tpu_torch.ops.scene_program import count_params, scene_param_vector
 from sdf3d_tpu_torch.parallel import make_mesh, render_sharded_kernel
 from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
 from sdf3d_tpu_torch.utils.parity import (
+    FLAGSHIP_OWN,
+    FLAGSHIP_SAME,
     NEURAL_BAR,
     check_grads,
     check_planes,
     conditioned,
     fixed_order_total,
+    flagship_fit_start,
     gradient_mass,
+    primals_agree,
+    razor_edge,
 )
 
 torch.set_num_threads(1)
@@ -98,13 +103,15 @@ def _inputs(scene, cam, cfg, dev):
     return scene_param_vector(scene, dev), uni
 
 
-def _compare(scene, cam, cfg, kc, dev):
+def _compare(scene, cam, cfg, kc, dev, razor=False):
+    """K1 against its plain version; with ``razor``, past the hard limit only
+    razor-edge rays (``utils/parity.py::razor_edge``)."""
     prm, uni = _inputs(scene, cam, cfg, dev)
     got = render_kernel_launch(scene, prm, uni, cfg, kc)
     want = render_kernel_forward_plain(scene, prm, uni, cfg, kc)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    check_planes(got, want, cfg.march.max_distance)
+    check_planes(got, want, cfg.march.max_distance, razor=razor_edge(scene, prm, uni, cfg, kc) if razor else None)
 
 
 @pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
@@ -202,6 +209,88 @@ def test_render_backward_matches_plain(dev, normals, wrt_uniforms):
     else:
         assert got[1] is None and want[1] is None
         check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=1e-5)
+
+
+@pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+def test_flagship_kernel_matches_plain(dev, ray_sdf, size):
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    _compare(tt.flagship_scene().to(dev), tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg,
+             KernelConfig(ray_sdf=ray_sdf), dev, razor=True)
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+def test_flagship_fit_step_matches_plain(dev, wrt_uniforms, frozen):
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = flagship_fit_start(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    # Where the gradient is ill-conditioned or the two primals disagree, each
+    # side's target is its own render: no residual there reaches either
+    # gradient.
+    keep = conditioned(scene, prm, uni, t, cfg) & primals_agree((rgb, t, sh, ao), own, cfg.march.max_distance)
+    noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    p_loss, p_prm, p_uni = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    s_prm[list(frozen)] = 0.0
+    check_planes((rgb, t, sh, ao), own, cfg.march.max_distance, razor=razor_edge(scene, prm, uni, cfg))
+    torch.cuda.synchronize()
+    # The loss against K1's planes (the same primal).
+    assert float(loss) == pytest.approx(float(((rgb - target).double() ** 2).sum()), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    got = torch.cat([g_prm, g_uni])
+    check_grads(got, torch.cat([s_prm, s_uni if wrt_uniforms else torch.zeros_like(s_uni)]), mass,
+                rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    # The plain version's own march.
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN)
+    assert all(float(g_prm[k]) == 0.0 for k in frozen)
+
+
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
+def test_flagship_render_backward_matches_plain(dev, wrt_uniforms):
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = tt.flagship_scene().to(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev)
+             * conditioned(scene, prm, uni, t, cfg)).contiguous()
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    torch.cuda.synchronize()
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    if wrt_uniforms:
+        check_grads(torch.cat(got), torch.cat(want), mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    else:
+        check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+
+
+@pytest.mark.parametrize("kernel", ["fit_step", "fit_step_uniforms", "render_bwd", "render_bwd_uniforms"])
+def test_flagship_totals_finite_at_1080p(dev, kernel):
+    """K3 and K5 on the flagship fit's start at 1920x1080, the target the
+    flagship's render: every float64 total finite (no reverse-pass tap in a
+    box's core, where the emitters' derivative is NaN)."""
+    cfg = dataclasses.replace(BASE, width=1920, height=1080)
+    scene = flagship_fit_start(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), cfg, dev)
+    target = render_kernel_launch(tt.flagship_scene().to(dev), scene_param_vector(tt.flagship_scene(), dev), uni,
+                                  cfg)[0].contiguous()
+    wrt = kernel.endswith("uniforms")
+    if kernel.startswith("fit_step"):
+        totals = fit_launcher(scene, prm, uni, target, cfg, KernelConfig(), wrt, () if wrt else FROZEN)[0]()
+    else:
+        rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+        totals = render_bwd_launcher(scene, prm, uni, (2.0 * (rgb - target)).contiguous(), t, sh, ao, cfg,
+                                     KernelConfig(), wrt)[0]()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(totals).all()) and float(totals.abs().max()) > 0.0
 
 
 def _render_bwd_rows(dev, wrt_uniforms):

@@ -29,19 +29,29 @@ torch.set_num_threads(1)
 
 PC = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True)
 FROZEN = (0, 1, 2, 3)  # the plane of the fit demo
-CASES = list(itertools.product([(128, 96), (120, 90)], [False, True], [(), FROZEN]))
+# (size, wrt_uniforms, frozen slots, scene): every combination on the
+# reference scene; the flagship (its plane frozen in one) at 128x96 and 120x90
+# under an orbit camera that sees the box's and the torus's sides.
+CASES = [c + ("reference",) for c in itertools.product([(128, 96), (120, 90)], [False, True], [(), FROZEN])] + [
+    ((128, 96), False, (), "flagship"),
+    ((120, 90), True, FROZEN, "flagship"),
+]
+SCENES = {"reference": (s.reference_scene, s.Camera.reference),
+          "flagship": (s.flagship_scene, lambda: s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0))}
 
 
 def _id(case):
-    (w, h), wrt_uniforms, frozen = case
-    return f"{w}x{h}-{'uni' if wrt_uniforms else 'scene'}-{'frozen' if frozen else 'all'}"
+    (w, h), wrt_uniforms, frozen, scene = case
+    head = "" if scene == "reference" else f"{scene}-"
+    return f"{head}{w}x{h}-{'uni' if wrt_uniforms else 'scene'}-{'frozen' if frozen else 'all'}"
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
 def test_plain_fit_step_matches_jax_kernel(case):
-    (W, H), wrt_uniforms, frozen = case
+    (W, H), wrt_uniforms, frozen, scene_name = case
     jcfg = dataclasses.replace(s.REFERENCE_CONFIG, width=W, height=H)
-    jscene, jcam, jlight, jmat = s.reference_scene(), s.Camera.reference(), s.reference_light(), s.reference_material()
+    scene_fn, cam_fn = SCENES[scene_name]
+    jscene, jcam, jlight, jmat = scene_fn(), cam_fn(), s.reference_light(), s.reference_material()
     rgb, t, _, _ = (np.asarray(x) for x in jax_render_kernel_forward(jscene, jcam, jlight, jmat, jcfg, PC, planar=True))
 
     scene, cam, light, mat, cfg = (convert.from_jax(o) for o in (jscene, jcam, jlight, jmat, jcfg))
@@ -59,21 +69,26 @@ def test_plain_fit_step_matches_jax_kernel(case):
     j_loss, j_gp, j_gu = jax_fit_step_kernel(
         treedef, tuple(jnp.shape(l) for l in jleaves), jax_scene_param_vector(jscene), juni, jnp.asarray(target),
         jcfg, PC, wrt_uniforms=wrt_uniforms, frozen_slots=frozen)
-    loss, g_prm, g_uni = fit_step_kernel_plain(scene, prm, uni, torch.from_numpy(target), cfg,
+    p_target = torch.from_numpy(target)
+    loss, g_prm, g_uni = fit_step_kernel_plain(scene, prm, uni, p_target, cfg,
                                                wrt_uniforms=wrt_uniforms, frozen_slots=frozen)
 
     assert float(loss) == pytest.approx(float(j_loss), rel=1e-5)
     p_rgb, p_t, p_sh, p_ao = render_kernel_forward_plain(scene, prm, uni, cfg)
-    mass = gradient_mass(scene, prm, uni, 2.0 * (p_rgb - torch.from_numpy(target)), p_t, p_sh, p_ao, cfg)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (p_rgb - p_target), p_t, p_sh, p_ao, cfg)
     got, want = torch.cat([g_prm, g_uni]), np.concatenate([np.asarray(j_gp), np.asarray(j_gu)])
     # The loosened bar of the fused step (ROADMAP Queue 3): each primal is
     # marched anew, so a ray that ends a step apart moves its pixel's term.
-    check_grads(got, want, mass, rtol=1e-4, mass_tol=1e-4, max_tol=1e-3)
+    # On the flagship a hit point 1e-5 apart turns a normal by 1e-5 times the
+    # curvature (33 on the box's rounded corners, 17 on the torus): up to
+    # 4.6e-4 of the mass, held at 1e-3, the top of the own-march range
+    # (ROADMAP Queue 3).
+    check_grads(got, want, mass, rtol=1e-4, mass_tol=1e-4 if scene_name == "reference" else 1e-3, max_tol=1e-3)
     assert all(float(g_prm[k]) == 0.0 for k in frozen)
     if not wrt_uniforms:
         assert float(g_uni.abs().max()) == 0.0
     # The wrapper on CPU tensors is the same plain version.
-    again = fit_step_kernel(scene, prm, uni, torch.from_numpy(target), cfg,
+    again = fit_step_kernel(scene, prm, uni, p_target, cfg,
                             wrt_uniforms=wrt_uniforms, frozen_slots=frozen)
     for a, b in zip(again, (loss, g_prm, g_uni)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -181,7 +181,8 @@ def test_render_batch_runs_plain_neural_on_cpu():
 
 
 class _Box(tt.sdf.SDFNode):
-    """A node the port has no emitter for (the JAX package's Box is ROADMAP item 13)."""
+    """A node the port has no emitter for (a class of its own, not the
+    port's ``sdf.Box``)."""
 
     fields = ("half_extents",)
 
@@ -197,7 +198,7 @@ def test_kernel_paths_raise_for_unsupported_scenes():
         render_kernel_forward(tt.sdf.ground_plane() | n, *view, cfg)
     with pytest.raises(NotImplementedError, match="render_banded"):
         tt.render_batch(n | n, [view[0]], *view[1:], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
         tt.render_batch(tt.sdf.Union(tt.sdf.ground_plane(), _Box()), [view[0]], *view[1:], cfg, device="cpu")
     with pytest.raises(ValueError, match="Union"):
         render_neural_forward(n | n, *view, cfg)

@@ -39,12 +39,17 @@ CASES = [
     (True, "tetrahedron", False, "orbit"),
     (False, "tetrahedron", True, "orbit"),
     (True, "tetrahedron", True, "reference"),
+    # The flagship at 128x96 and a ragged 120x90.
+    (True, "central", False, "orbit", "flagship", (W, H)),
+    (False, "central", False, "reference", "flagship", (120, 90)),
 ]
+SCENES = {"reference": s.reference_scene, "flagship": s.flagship_scene}
 
 
 def _id(case):
-    ray_sdf, normals, ao, cam = case
-    return f"{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}-{cam}"
+    ray_sdf, normals, ao, cam = case[:4]
+    head = f"{case[4]}-{case[5][0]}x{case[5][1]}-" if len(case) > 4 else ""
+    return f"{head}{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}-{cam}"
 
 
 @pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
@@ -52,9 +57,10 @@ def _id(case):
 def test_plain_backward_matches_jax_kernel(case, wrt_uniforms):
     """With ``wrt_uniforms`` the whole (P + 30) gradient against JAX's; without
     it ``g_prm`` alone, at the same bar, and no ``g_uni``."""
-    ray_sdf, normals, ao, cam_name = case
-    jcfg = dataclasses.replace(BASE, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
-    jscene, jcam, jlight, jmat = s.reference_scene(), CAMERAS[cam_name](), s.reference_light(), s.reference_material()
+    ray_sdf, normals, ao, cam_name = case[:4]
+    scene_name, (w, h) = case[4:] if len(case) > 4 else ("reference", (W, H))
+    jcfg = dataclasses.replace(BASE, width=w, height=h, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
+    jscene, jcam, jlight, jmat = SCENES[scene_name](), CAMERAS[cam_name](), s.reference_light(), s.reference_material()
     pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True, ray_sdf=ray_sdf)
     _, t, shadow, ao_plane = (np.asarray(x) for x in jax_render_kernel_forward(
         jscene, jcam, jlight, jmat, jcfg, pc, planar=True))
@@ -67,7 +73,7 @@ def test_plain_backward_matches_jax_kernel(case, wrt_uniforms):
     # A seeded cotangent, zero where a grazing ray makes the gradient
     # ill-conditioned (utils/parity.py::conditioned).
     keep = conditioned(scene, prm, uni, planes[0], cfg).numpy()
-    g_rgb = np.random.default_rng(1).normal(size=(3, H, W)).astype(np.float32) * keep
+    g_rgb = np.random.default_rng(1).normal(size=(3, h, w)).astype(np.float32) * keep
 
     leaves, treedef = jax.tree_util.tree_flatten(jscene)
     juni = jax_pack_uniforms(jcam, jlight, jmat, jcfg.ray_mode).at[27].set(jcfg.shadow.k)
@@ -78,13 +84,19 @@ def test_plain_backward_matches_jax_kernel(case, wrt_uniforms):
                                        wrt_uniforms=wrt_uniforms)
 
     mass = gradient_mass(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    # The flagship's bar is 1e-4 of the mass (ROADMAP Queue 3): a ray
+    # at |∇f·d| = 0.01005, on the edge of ``conditioned``'s floor, grazes a
+    # rounded corner, and float32 rounding moves its term 6e-4 (the port)
+    # and 1e-4 (JAX) off float64's: 1.4e-5 of the mass.
+    mass_tol = 1e-5 if scene_name == "reference" else 1e-4
     if wrt_uniforms:
-        check_grads(torch.cat(got), np.concatenate([np.asarray(w) for w in want]), mass, rtol=1e-4, mass_tol=1e-5)
+        check_grads(torch.cat(got), np.concatenate([np.asarray(w) for w in want]), mass, rtol=1e-4,
+                    mass_tol=mass_tol)
         # Slot 27 (shadow k, a detached factor) and the row slots read exactly 0.
         assert float(got[1][27:].abs().max()) == 0.0
     else:
         assert got[1] is None
-        check_grads(got[0], np.asarray(want[0]), mass[:prm.numel()], rtol=1e-4, mass_tol=1e-5)
+        check_grads(got[0], np.asarray(want[0]), mass[:prm.numel()], rtol=1e-4, mass_tol=mass_tol)
     # The wrapper on CPU tensors is the same plain version.
     again = render_kernel_backward(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg, wrt_uniforms=wrt_uniforms)
     torch.testing.assert_close(again, got, rtol=0, atol=0)

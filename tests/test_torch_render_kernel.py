@@ -21,26 +21,36 @@ torch.set_num_threads(1)
 
 W, H = 128, 96
 BASE = dataclasses.replace(s.REFERENCE_CONFIG, width=W, height=H)
-CASES = list(itertools.product([True, False], ["central", "tetrahedron"], [False, True]))
+# (ray form, normals, AO, scene, size): every option on the reference scene,
+# and the flagship in both forms at 128x96 and a ragged 120x90.
+CASES = [c + ("reference", (W, H)) for c in itertools.product([True, False], ["central", "tetrahedron"],
+                                                             [False, True])] + [
+    (True, "central", False, "flagship", (W, H)),
+    (False, "central", False, "flagship", (W, H)),
+    (True, "central", False, "flagship", (120, 90)),
+]
+SCENES = {"reference": s.reference_scene, "flagship": s.flagship_scene}
 
 
 def _ids(case):
-    ray_sdf, normals, ao = case
-    return f"{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}"
+    ray_sdf, normals, ao, scene, (w, h) = case
+    head = "" if scene == "reference" else f"{scene}-{w}x{h}-"
+    return f"{head}{'ray' if ray_sdf else 'point'}-{normals}-{'ao' if ao else 'noao'}"
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_ids(c) for c in CASES])
 def test_plain_matches_jax_pallas_kernel(case):
-    ray_sdf, normals, ao = case
-    jcfg = dataclasses.replace(BASE, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
+    ray_sdf, normals, ao, scene_name, (w, h) = case
+    jcfg = dataclasses.replace(BASE, width=w, height=h, normals=normals, ao=dataclasses.replace(BASE.ao, enabled=ao))
     jcam = s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
+    jscene = SCENES[scene_name]()
     pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True, ray_sdf=ray_sdf)
     want = jax_render_kernel_forward(
-        s.reference_scene(), jcam, s.reference_light(), s.reference_material(), jcfg, pc, planar=True
+        jscene, jcam, s.reference_light(), s.reference_material(), jcfg, pc, planar=True
     )
 
     scene, cam, light, mat, cfg = (
-        convert.from_jax(o) for o in (s.reference_scene(), jcam, s.reference_light(), s.reference_material(), jcfg)
+        convert.from_jax(o) for o in (jscene, jcam, s.reference_light(), s.reference_material(), jcfg)
     )
     prm = scene_param_vector(scene)
     uni = pack_uniforms(cam, light, mat, cfg.ray_mode)

@@ -31,6 +31,7 @@ from sdf3d_tpu_torch.ops import (
 from sdf3d_tpu_torch.ops._build import CSRC, SCENE_HEADER
 from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_plain
 from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+from sdf3d_tpu_torch.utils import parity
 from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, fixed_order_total, gradient_mass
 
 torch.set_num_threads(1)
@@ -50,7 +51,52 @@ def _nested_jax_scene():
     )
 
 
-SCENES = {"reference": s.reference_scene, "sphere": s.sphere_scene, "nested": _nested_jax_scene}
+def csg_sampler():
+    """Every node of the flagship's family in one scene: a hard Subtraction
+    and Intersection, a SmoothIntersection and SmoothSubtraction, a bare Box
+    blended into a sphere by a SmoothUnion, a RoundBox and two tori on the
+    ground plane: the JAX twin of ``utils/parity.py::csg_sampler`` (which
+    says why its numbers are these)."""
+    S = s.sdf
+    return S.union(
+        S.ground_plane(),
+        S.subtraction(S.sphere((-0.55, 0.3, 0.0), 0.2), S.sphere((-0.45, 0.42, 0.12), 0.12)),
+        S.intersection(S.sphere((0.0, 0.3, -0.5), 0.22), S.torus(0.2, 0.1, (0.0, 0.3, -0.5))),
+        S.smooth_intersection(S.sphere((0.55, 0.3, 0.0), 0.22), S.sphere((0.65, 0.3, 0.05), 0.2), k=0.06),
+        S.smooth_subtraction(S.torus(0.25, 0.07, (0.0, 0.1, 0.45)), S.sphere((0.2, 0.12, 0.5), 0.1), k=0.05),
+        S.smooth_union(S.sphere((0.0, 0.38, 0.0), 0.2), S.box((0.095, 0.095, 0.095), (0.0, 0.38, 0.0)), k=0.1),
+        S.round_box((0.12, 0.08, 0.12), 0.03, (0.45, 0.11, -0.45)),
+    )
+
+
+def jax_flagship_fit_start():
+    """The flagship with its sphere, rounded box, k and torus moved: the JAX
+    twin of ``utils/parity.py::flagship_fit_start``."""
+    S = s.sdf
+    blob = S.smooth_union(
+        S.sphere(center=(-0.22, 0.42, 0.02), radius=0.2),
+        S.round_box(half_extents=(0.19, 0.21, 0.2), corner_radius=0.035, center=(0.27, 0.31, 0.0)),
+        k=0.13,
+    )
+    return S.union(S.ground_plane(), blob, S.torus(major=0.47, minor=0.065, center=(0.02, 0.12, 0.33)))
+
+
+@pytest.mark.parametrize("name", ["sampler", "flagship_fit_start"])
+def test_shared_scenes_match_their_jax_twins(name):
+    """``utils/parity.py``'s scenes, which the smoke and the card tests use,
+    are the JAX scenes these tests build: the same generated header (the
+    nodes and their order) and the same parameters, bit for bit."""
+    jax_twin, shared = {"sampler": (csg_sampler, parity.csg_sampler),
+                        "flagship_fit_start": (jax_flagship_fit_start, parity.flagship_fit_start)}[name]
+    twin, port = convert.from_jax(jax_twin()), shared()
+    assert [type(m).__name__ for m in twin.modules()] == [type(m).__name__ for m in port.modules()]
+    assert cuda_scene_source(twin, tt.REFERENCE_CONFIG, KernelConfig()) == cuda_scene_source(
+        port, tt.REFERENCE_CONFIG, KernelConfig())
+    assert torch.equal(scene_param_vector(twin), scene_param_vector(port))
+
+
+SCENES = {"reference": s.reference_scene, "sphere": s.sphere_scene, "nested": _nested_jax_scene,
+          "flagship": s.flagship_scene, "sampler": csg_sampler}
 
 
 def _both(scene_name):
@@ -125,6 +171,9 @@ HOST_CASES = {
         KernelConfig(),
     ),
     "nested": (lambda: convert.from_jax(_nested_jax_scene()), {}, KernelConfig()),
+    "flagship": (tt.flagship_scene, {}, KernelConfig()),
+    "flagship_point_form": (tt.flagship_scene, {}, KernelConfig(ray_sdf=False)),
+    "sampler": (lambda: convert.from_jax(csg_sampler()), {}, KernelConfig()),
 }
 
 
@@ -162,6 +211,8 @@ GRAD_CASES = {
                              tt.sdf.sphere((0.35, 0.15, 0.1), 0.15)),
         dict(ao=dataclasses.replace(tt.REFERENCE_CONFIG.ao, enabled=True)),
     ),
+    "flagship": (tt.flagship_scene, {}),
+    "sampler": (lambda: convert.from_jax(csg_sampler()), {}),
 }
 
 
