@@ -185,6 +185,46 @@ The kernels line gives each of ``render_fwd``, ``render_tiles``,
 ``fit_step``, ``fit_step_tiles`` and ``render_bwd`` a ``flagship`` entry with
 the flagship's launches, times, bound and error.
 
+Then the scenes of ROADMAP item 13b (the capsule, cylinder, ellipsoid and
+the transforms): the JAX package's ``csg_showcase``, ``lattice_scene``,
+``capsule_chain`` and ``random_blobs(n=8)`` under their gallery cameras,
+and the transform sampler (``utils/parity.py::transform_sampler``: every
+13b node) under the reference camera (:func:`scenes_13b_phases`):
+
+34. build: the five scenes' libraries (K1 ray and point form, K3 with the
+    plane frozen; K5 in each) and ``random_blobs(2/3/4/16)``'s, together,
+    with each scene's ``Scene::bwd_values``, ``ptxas`` registers, spills
+    and blocks an SM, K1's registers for n = 2, 4, 8, 16, and the SASS
+    opcodes of the sampler's K1 march loops in both forms (whether the
+    point form's rotation stays in the loop); a changed rotation vector and
+    period reuse the library;
+35. at 256x192 (the scene's camera and orbit 30/15) and a ragged 250x190:
+    K1 in both forms on each scene (``csg_showcase`` at
+    ``utils/parity.py::SCENE_BARS``); K3 and both K5 forms on the sampler
+    and the capsule chain's fit start at the flagship's bars; on
+    ``csg_showcase`` K3's and K5's totals non-finite exactly where the plain
+    versions' are; K2 over the 135-tile plan at 1080p on the capsule chain
+    equal to K1 in every value;
+36. main path at 1920x1080: ``render_batch(engine="kernel")`` of each of
+    the four scenes over its gallery camera and 3 orbit cameras (K1 = 4 a
+    scene, frame 0 against the plain version), a 20-step Adam fit (step
+    3e-4) of the capsule chain's perturbed start to its render with the
+    plane frozen (K3 = 20; step 0 against the plain version), 5 multiscale
+    steps (K1 = K5 = 5, K5's P form), ``suite --scene-cost`` (K1 = 24);
+    then CUDA-event times (plain, kernel, kernel, plain) of K1, K3 and both
+    K5 forms per scene with their bounds and the marches' mean steps, and
+    both K5 forms at 1080p against their plain version on each scene with
+    finite gradients (the multiscale fit launches K5 at that size).
+
+In phases 35 and 36 an image of a 13b scene may pass the hard limit only on
+a razor-edge ray or a pixel rounding decides
+(``utils/parity.py::rounding_decided``).  The register line's sweep runs
+apart (``--register-line``, below).
+
+The kernels line gives ``render_fwd``, ``fit_step`` and ``render_bwd`` a
+``scenes_13b`` entry: per scene its launches on the main path, ms, plain
+ms, bound, registers and spills.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -205,6 +245,12 @@ K5, K1's issue floor, then times K6 at hidden 64, 128 and 256 on phase
 (its P form) on the flagship with the digests of K1's planes and K3's and
 K5's totals and their registers, and last compares the checkouts (:func:`time_kernels`: give
 the parent and the change in turns to compare them on one card).
+
+    python3 chip_smoke.py --register-line
+
+times K3 and both forms of K5 at 1080p on the register line's scenes at
+every cap of :data:`SWEEP_CAPS`, all in one process, the caps interleaved,
+with their registers and spills (:func:`register_line`).
 """
 
 from __future__ import annotations
@@ -227,10 +273,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
+_T0 = time.perf_counter()
 
 
 def log(phase: str, **fields) -> None:
-    print(f"[{phase}] " + json.dumps(fields, sort_keys=True), flush=True)
+    """One phase's line; ``wall_s``: seconds since the script started."""
+    print(f"[{phase}] " + json.dumps({**fields, "wall_s": time.perf_counter() - _T0}, sort_keys=True), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -556,6 +604,7 @@ def main() -> int:
     variant_kernel = variant_phases(torch, tt, card, dev)
     bench_phases(torch, tt, card, dev)
     flagship = flagship_phases(torch, tt, card, dev)
+    scenes = scenes_13b_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -574,11 +623,36 @@ def main() -> int:
             entry["flagship"] = flagship[entry["name"]]
     check(all("flagship" in e for e in kernels if e["name"] in flagship) and len(flagship) == 5,
           "a flagship entry of the kernels line is missing")
+    for entry in kernels:
+        if entry["name"] in scenes:
+            entry["scenes_13b"] = scenes[entry["name"]]
+    check(sum("scenes_13b" in e for e in kernels) == 3 and all(
+        "scenes_13b" in e for e in kernels if e["name"] in ("render_fwd", "fit_step", "render_bwd")),
+        "a scenes_13b entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def worst_pixels(torch, got, want, razor, max_distance: float, n: int = 6) -> dict:
+    """The ``n`` pixels of each plane that differ most between two renders
+    ``(rgb, t, shadow, ao)``: position, both values and the razor-edge flag
+    (a failed comparison's log)."""
+    out = {}
+    for name, g, w in zip(("rgb", "t", "shadow", "ao"), got, want):
+        if name == "t":
+            g, w = g.clamp(max=max_distance), w.clamp(max=max_distance)
+        d = (g - w).abs()
+        d = d.amax(0) if name == "rgb" else d
+        top = torch.topk(d.reshape(-1), n).indices.tolist()
+        W_ = d.shape[-1]
+        out[name] = [{"px": [i // W_, i % W_], "diff": float(d.reshape(-1)[i]), "razor": bool(razor.reshape(-1)[i]),
+                      "got": (g[:, i // W_, i % W_] if name == "rgb" else g[i // W_, i % W_]).tolist(),
+                      "want": (w[:, i // W_, i % W_] if name == "rgb" else w[i // W_, i % W_]).tolist()}
+                     for i in top]
+    return out
 
 
 def kernel_key(mangled: str) -> str:
@@ -2237,6 +2311,95 @@ def bench_phases(torch, tt, card: str, dev) -> None:
         cli_info=info.stdout.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
 
 
+class Witness:
+    """The 13b scenes' hard-limit mask for ``check_planes(..., razor=)``:
+    razor-edge rays or pixels rounding decides (``utils/parity.py``), built
+    at the first call (``check_planes`` calls it only when a pixel passes the
+    hard limit); ``counts``: each mask's pixels, once built."""
+
+    def __init__(self, razor_edge, rounding_decided, *args):
+        self.fns, self.args, self.mask, self.counts = (razor_edge, rounding_decided), args, None, {}
+
+    def __call__(self):
+        if self.mask is None:
+            edge, rounding = (fn(*self.args) for fn in self.fns)
+            self.counts = {"razor_edge_pixels": int(edge.sum()), "rounding_decided_pixels": int(rounding.sum())}
+            self.mask = edge | rounding
+        return self.mask
+
+
+def k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target=None, bar=None,
+                     rounding: bool = False) -> dict:
+    """K3 against the plain reverse pass on K1's planes (the same primal)
+    and against its plain version (its own march), at the flagship's bars
+    (``FLAGSHIP_SAME``, ``FLAGSHIP_OWN``).  K1's planes are
+    held to the plain version's past the hard limit off razor-edge rays,
+    and with ``rounding`` also off the pixels rounding decides
+    (``rounding_decided``: the 13b scenes).  The target: K1's render plus
+    noise from ``gen``, or the one given, on the pixels where the gradient
+    is well conditioned (``conditioned``) and the two primals agree
+    (``primals_agree``; the pixel budget holds the others); elsewhere each
+    side's own render, so that no residual there reaches either side's
+    gradient."""
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel_launch, fit_step_kernel_plain
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward_plain, render_kernel_launch
+    from sdf3d_tpu_torch.utils.parity import (
+        FLAGSHIP_OWN,
+        FLAGSHIP_SAME,
+        check_grads,
+        check_planes,
+        conditioned,
+        gradient_mass,
+        primals_agree,
+        razor_edge,
+        rounding_decided,
+    )
+
+    dev = prm.device
+
+    def planes_stats(st):
+        return {n: {q: v[q] for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
+
+    rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+    own = render_kernel_forward_plain(sc, prm, uni, c)
+    razor = Witness(razor_edge, rounding_decided, sc, prm, uni, c) if rounding else razor_edge(sc, prm, uni, c)
+    try:
+        primal = check_planes((rgb, t, sh, ao), own, c.march.max_distance, f"{label} primal", razor=razor,
+                              **(bar or {}))
+    except AssertionError:
+        log("k3_primal_failed", label=label, worst=worst_pixels(torch, (rgb, t, sh, ao), own,
+                                                                razor() if rounding else razor, c.march.max_distance))
+        raise
+    keep = conditioned(sc, prm, uni, t, c) & primals_agree((rgb, t, sh, ao), own, c.march.max_distance)
+    if target is None:
+        target = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, target, x).contiguous() for x in (rgb, own[0]))
+    got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr)
+    want = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr)
+    g_p, g_u = render_kernel_backward_plain(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+    g_p[list(fr)] = 0.0
+    torch.cuda.synchronize()
+    mass = gradient_mass(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
+    g = torch.cat(got[1:])
+    check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
+    # The loss against K1's planes (the same primal) and the plain
+    # version's (its own primal; no residual where the two disagree).
+    same_loss = float(((rgb - target).double() ** 2).sum())
+    loss_rel = abs(float(got[0]) / same_loss - 1.0)
+    check(loss_rel <= 1e-5, f"{label}: loss off K1's planes' by {loss_rel:.3g} relative")
+    own_rel = abs(float(got[0]) / float(want[0]) - 1.0)
+    check(own_rel <= 1e-5, f"{label}: loss off the plain version's by {own_rel:.3g} relative")
+    check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
+    check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
+    same = torch.cat([g_p, g_u if wrt else torch.zeros_like(g_u)])
+    return {"loss_rel_err": loss_rel, "own_march_loss_rel_err": own_rel,
+            "primal": planes_stats(primal), "pixels_left_out": int((~keep).sum()),
+            "same_planes": check_grads(g, same, mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=f"{label} (same)"),
+            "own_march": check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN,
+                                     label=label)}
+
+
 def flagship_phases(torch, tt, card: str, dev) -> dict:
     """Phases 30-33: the flagship scene (``flagship_scene``: a sphere and a
     rounded box smooth-blended, a torus, the ground plane; 21 parameters)
@@ -2332,44 +2495,8 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
         return {n: {q: v[q] for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
 
     def k3_vs_plain(sc, cam, c, wrt, fr, label, target=None, bar=None):
-        """K3 against the plain reverse pass on K1's planes (the same primal)
-        and against its plain version (its own march).  The target: K1's
-        render plus seeded noise, or the one given, on the pixels where the
-        gradient is well conditioned (``conditioned``) and the two primals
-        agree (``primals_agree``; the pixel budget holds the others);
-        elsewhere each side's own render, so that no residual there reaches
-        either side's gradient."""
         prm, uni = inputs(sc, cam, c)
-        rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
-        own = render_kernel_forward_plain(sc, prm, uni, c)
-        primal = check_planes((rgb, t, sh, ao), own, c.march.max_distance, f"{label} primal",
-                              razor=razor_edge(sc, prm, uni, c), **(bar or {}))
-        keep = conditioned(sc, prm, uni, t, c) & primals_agree((rgb, t, sh, ao), own, c.march.max_distance)
-        if target is None:
-            target = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
-        target, p_target = (torch.where(keep, target, x).contiguous() for x in (rgb, own[0]))
-        got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr)
-        want = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr)
-        g_p, g_u = render_kernel_backward_plain(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
-        g_p[list(fr)] = 0.0
-        torch.cuda.synchronize()
-        mass = gradient_mass(sc, prm, uni, 2.0 * (rgb - target), t, sh, ao, c)
-        g = torch.cat(got[1:])
-        check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
-        # The loss against K1's planes (the same primal) and the plain
-        # version's (its own primal; no residual where the two disagree).
-        same_loss = float(((rgb - target).double() ** 2).sum())
-        loss_rel = abs(float(got[0]) / same_loss - 1.0)
-        check(loss_rel <= 1e-5, f"{label}: loss off K1's planes' by {loss_rel:.3g} relative")
-        own_rel = abs(float(got[0]) / float(want[0]) - 1.0)
-        check(own_rel <= 1e-5, f"{label}: loss off the plain version's by {own_rel:.3g} relative")
-        check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
-        check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
-        same = torch.cat([g_p, g_u if wrt else torch.zeros_like(g_u)])
-        return {"loss_rel_err": loss_rel, "own_march_loss_rel_err": own_rel,
-                "primal": planes_stats(primal), "pixels_left_out": int((~keep).sum()),
-                "same_planes": check_grads(g, same, mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=f"{label} (same)"),
-                "own_march": check_grads(g, torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN, label=label)}
+        return k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target, bar)
 
     # ---- 30. build: the flagship's and the sampler's libraries ----
     libs = _build.LIBRARIES
@@ -2702,6 +2829,530 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
     return out
 
 
+#: The register-line sweep's caps (``--register-line``): each a copy of
+#: ``ops/csrc`` whose ``kMinBlocks`` lines ask these blocks an SM of K3, of
+#: K5's parameters' form and of its P + 30 form, whatever the scene.  K5's
+#: P + 30 form at 1 block is one program in the last two: their difference
+#: is the sweep's own spread.
+SWEEP_CAPS = {"4/4/2": (4, 4, 2), "2/2/1": (2, 2, 1), "1/1/1": (1, 1, 1)}
+#: The sweep's scenes, by ``Scene::bwd_values``: lattice_scene 48,
+#: random_blobs(2) 57, random_blobs(3) 87, csg_showcase 159,
+#: random_blobs(8) 237, capsule_chain 277.
+SWEEP_SCENES = ("lattice_scene", "random_blobs_2", "random_blobs_3", "csg_showcase", "random_blobs_8",
+                "capsule_chain")
+
+
+def caps_csrc(root: str, caps) -> str:
+    """A copy of this checkout's ``ops/csrc`` under ``root`` whose K3 asks
+    ``caps[0]`` blocks an SM and whose K5 asks ``caps[1]`` (its parameters'
+    form) and ``caps[2]`` (with the uniforms)."""
+    import shutil
+
+    src = os.path.join(REPO, "sdf3d_tpu_torch", "ops", "csrc")
+    dst = os.path.join(root, "csrc_" + "_".join(map(str, caps)))
+    shutil.copytree(src, dst)
+    line = r"constexpr int kMinBlocks = [^;]*;"
+    for name, repl in (("fit_kernel.cu", f"constexpr int kMinBlocks = {caps[0]};"),
+                       ("render_bwd_kernel.cu", f"constexpr int kMinBlocks = WRT_U ? {caps[2]} : {caps[1]};")):
+        path = os.path.join(dst, name)
+        with open(path) as f:
+            text = f.read()
+        check(len(re.findall(line, text)) == 1, f"{name}: not one kMinBlocks line")
+        with open(path, "w") as f:
+            f.write(re.sub(line, repl, text))
+    return dst
+
+
+def _sweep_scene(tt, name: str, dev):
+    """A scene of the register-line sweep: ``random_blobs_<n>`` (seed 0) or
+    a scene of ``scenes.py`` by name."""
+    if name.startswith("random_blobs_"):
+        return tt.random_blobs(n=int(name.rsplit("_", 1)[1])).to(dev)
+    return getattr(tt, name)().to(dev)
+
+
+class _OneLibrary:
+    """Stands for ``ops._build.LIBRARIES`` while :func:`register_line`
+    makes one cap's launchers: every load is that cap's library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def load_for(self, *job):
+        return self.lib
+
+
+def register_line(rounds: int = 5) -> dict:
+    """``--register-line``: K3 (the plane frozen) and both forms of K5 at
+    1080p on each scene of :data:`SWEEP_SCENES` under the reference camera,
+    at every cap of :data:`SWEEP_CAPS`, all in this process: one library per
+    scene and cap (:func:`caps_csrc`, built together), then ``rounds``
+    rounds of CUDA-event times (10 calls after one), the caps in a rotating
+    order within each round.  The inputs: the plain version's planes, the
+    target its image dimmed by 5%.  Per scene, kernel and cap: the times and
+    their median, ``ptxas`` registers, spills and blocks an SM, and whether
+    the totals are finite."""
+    import concurrent.futures
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    import sdf3d_tpu_torch as tt
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_bwd_launcher
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward_plain,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    kc, frozen = KernelConfig(), (0, 1, 2, 3)
+    uni = pack_uniforms(tt.Camera.reference(device=dev), tt.reference_light(device=dev),
+                        tt.reference_material(device=dev), cfg.ray_mode, dev)
+    uni[27] = float(cfg.shadow.k)
+    scenes = {n: _sweep_scene(tt, n, dev) for n in SWEEP_SCENES}
+    out = {"card": card_name_and_power(), "caps": SWEEP_CAPS, "rounds": rounds, "scenes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {label: _build.KernelLibraries(csrc=caps_csrc(tmp, caps)) for label, caps in SWEEP_CAPS.items()}
+        jobs = [(label, name, library_job(sc, cfg, kc, False, frozen)) for label in libs for name, sc in scenes.items()]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            loaded = dict(zip([(label, name) for label, name, _ in jobs],
+                              pool.map(lambda job: libs[job[0]].load_for(*job[2]), jobs)))
+        out["build_wall_seconds"] = time.perf_counter() - t0
+        for name, sc in scenes.items():
+            prm = scene_param_vector(sc, dev)
+            with torch.no_grad():
+                rgb, t, sh, ao = render_kernel_forward_plain(sc, prm, uni, cfg, kc)
+            target = (rgb * 0.95).contiguous()
+            g_rgb = (2.0 * (rgb - target)).contiguous()
+            t, sh, ao = (x.contiguous() for x in (t, sh, ao))
+            header = cuda_scene_source(sc, cfg, kc, False, frozen)
+            entry = {"bwd_values": int(header.split("bwd_values = ")[1].split(";")[0])}
+            runs = {}
+            saved = _build.LIBRARIES
+            try:
+                for label in libs:
+                    # K5 reads nothing of the header's fit settings, so the
+                    # fit step's library serves both.
+                    _build.LIBRARIES = _OneLibrary(loaded[(label, name)])
+                    runs[label] = {"fit_step": fit_launcher(sc, prm, uni, target, cfg, kc, False, frozen)[0]}
+                    for form, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+                        runs[label][form] = render_bwd_launcher(sc, prm, uni, g_rgb, t, sh, ao, cfg, kc, wrt)[0]
+            finally:
+                _build.LIBRARIES = saved
+            for label, lib in libs.items():
+                ptxas = ptxas_summary(lib.log(lib.key(header)))
+                entry[label] = {}
+                for kname, launch in runs[label].items():
+                    totals = launch()
+                    torch.cuda.synchronize()
+                    px = ptxas[{"fit_step": "fit_step", "render_bwd": "render_bwd_params",
+                                "render_bwd_uniforms": "render_bwd"}[kname]]
+                    entry[label][kname] = {"ms": [], "registers": px["registers"],
+                                           "spill_stores": px.get("spill_stores"), "spill_loads": px.get("spill_loads"),
+                                           "blocks_per_sm": blocks_per_sm(px["registers"], kc.block_w * kc.block_h),
+                                           "finite": bool(torch.isfinite(totals).all())}
+            labels = list(libs)
+            for r in range(rounds):
+                for label in labels[r % len(labels):] + labels[:r % len(labels)]:
+                    for kname, launch in runs[label].items():
+                        entry[label][kname]["ms"].append(time_ms(launch, 1, 10))
+            for label in labels:
+                for v in entry[label].values():
+                    v["median_ms"] = statistics.median(v["ms"])
+            out["scenes"][name] = entry
+            log("register_line_scene", scene=name, **entry)
+    return out
+
+
+def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 34-36: the scenes of ROADMAP item 13b (``csg_showcase``,
+    ``lattice_scene``, ``capsule_chain``, ``random_blobs``) and the transform
+    sampler (``utils/parity.py::transform_sampler``: every 13b node) on
+    K1-K5.  Returns, per kernel entry of the kernels line (``render_fwd``,
+    ``fit_step``, ``render_bwd``), each scene's launches, times, plain
+    times, bound, registers and spills."""
+    import contextlib
+    import io
+
+    from sdf3d_tpu_torch.benchmarks import suite
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher, fit_step_kernel, fit_step_kernel_launch, fit_step_kernel_plain
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_bwd_launcher,
+        render_kernel_backward,
+        render_kernel_backward_launch,
+        render_kernel_backward_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+        render_kernel_tiles_launch,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
+    from sdf3d_tpu_torch.utils.parity import (
+        FLAGSHIP_SAME,
+        SCENE_BARS,
+        capsule_chain_fit_start,
+        check_grads,
+        check_planes,
+        conditioned,
+        gradient_mass,
+        razor_edge,
+        rounding_decided,
+        scenes_13b,
+    )
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    small = dataclasses.replace(full, width=256, height=192)
+    ragged = dataclasses.replace(full, width=250, height=190)
+    kc, kc_point = KernelConfig(), KernelConfig(ray_sdf=False)
+    frozen = (0, 1, 2, 3)  # the ground plane
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    shared = scenes_13b(dev)
+    blobs = {n: tt.random_blobs(n=n).to(dev) for n in (2, 3, 4, 16)}
+    blobs[8] = shared["random_blobs"][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                render_neural_forward)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def planes_stats(st):
+        return {n: {q: v.get(q) for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
+
+    def bwd_values(header):
+        return int(header.split("bwd_values = ")[1].split(";")[0])
+
+    # ---- 34. build: the 13b scenes' libraries together ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    jobs = []
+    for sc, _ in shared.values():
+        jobs += [library_job(sc, full, kc), library_job(sc, full, kc_point), library_job(sc, full, kc, False, frozen)]
+    jobs += [library_job(blobs[n], full, kc, False, frozen) for n in (2, 3)]
+    jobs += [library_job(blobs[n], full, kc) for n in (2, 4, 16)]
+    t0 = time.perf_counter()
+    libs.load_many(jobs)
+    build_wall = time.perf_counter() - t0
+    built = {}
+    for name, sc in [(n, sc) for n, (sc, _) in shared.items()] + [(f"random_blobs_{n}", blobs[n]) for n in (2, 3)]:
+        header = cuda_scene_source(sc, full, kc, False, frozen)
+        kernels = ptxas_summary(libs.log(libs.key(header)))
+        check(set(kernels) >= {"render_fwd", "fit_step", "render_bwd", "render_bwd_params"},
+              f"{name}: ptxas reported {sorted(kernels)}")
+        for v in kernels.values():
+            v["blocks_per_sm"] = blocks_per_sm(v["registers"])
+        built[name] = {"bwd_values": bwd_values(header), "n_params": int(scene_param_vector(sc).numel()),
+                       "header_bytes": len(header), "ptxas": kernels}
+    scene_cost_k1 = {n: ptxas_summary(libs.log(libs.key(cuda_scene_source(blobs[n], full, kc))))["render_fwd"]
+                     for n in (2, 4, 8, 16)}
+    # The rotation in the point form: the sampler's K1 march loops and the
+    # opcodes of the range reduction and slow paths of sinf/cosf there.
+    sampler = shared["transform_sampler"][0]
+    loops = {}
+    for form, k in (("ray", kc), ("point", kc_point)):
+        path = str(libs.build_dir / libs.key(cuda_scene_source(sampler, full, k)) / _build.KINDS["render"].lib_name)
+        listing = next(v for key, v in sass_listing(path).items() if "sdf3d_render_fwd_kernel" in key)
+        found = []
+        for lp in sass_loops(listing)[:4]:
+            lo, hi = int(lp["start"], 16), int(lp["end"], 16)
+            ops = [op for a, op, _ in listing if lo <= a <= hi]
+            found.append({**lp, "MUFU": sum(op.startswith("MUFU") for op in ops),
+                          "I2F": sum(op.startswith("I2F") for op in ops), "F2I": sum(op.startswith("F2I") for op in ops),
+                          "CALL": sum(op.startswith("CALL") for op in ops)})
+        loops[form] = found
+    # A changed rotation (across the series' threshold) and period reuse the
+    # library: the selects are run-time.
+    before = libs.builds
+    moved = scenes_13b(dev)["transform_sampler"][0]
+    with torch.no_grad():
+        for m in moved.modules():
+            if type(m).__name__ == "Rotate":
+                m.rotvec.add_(0.3)
+            if type(m).__name__ == "RepeatInfinite":
+                m.period.mul_(1.2)
+    a = render_kernel_forward(sampler, shared["transform_sampler"][1], light, mat, small, device=dev)[0]
+    b = render_kernel_forward(moved, shared["transform_sampler"][1], light, mat, small, device=dev)[0]
+    torch.cuda.synchronize()
+    check(libs.builds == before, f"a changed rotation or period rebuilt a library ({libs.builds - before})")
+    check(bool((a != b).any()), "moving the rotations and the period did not change the image")
+    log("scenes_13b_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(jobs), scenes=built, scene_cost_render_fwd_ptxas=scene_cost_k1,
+        transform_sampler_k1_loops=loops)
+
+    # ---- 35. K1-K5 vs their plain versions on the 13b scenes ----
+    errs = {"render_fwd": [], "fit_step": [], "render_bwd": []}
+    for name, (sc, cam) in shared.items():
+        bar = SCENE_BARS.get(name, {})
+        cams = (("scene", cam), ("orbit30_15", orbit))
+        for (cam_name, cm), c, ray_sdf in [(cm, c, r) for cm in cams for c in (small,) for r in (True, False)] + [
+                (cams[0], ragged, r) for r in (True, False)]:
+            k = kc if ray_sdf else kc_point
+            prm, uni = inputs(sc, cm, c)
+            got, want = render_kernel_launch(sc, prm, uni, c, k), render_kernel_forward_plain(sc, prm, uni, c, k)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(g).all()) for g in got), f"{name} K1: non-finite planes")
+            # Past the hard limit only razor-edge rays and pixels rounding
+            # decides (utils/parity.py), found when a pixel is past it.
+            witness = Witness(razor_edge, rounding_decided, sc, prm, uni, c, k)
+            try:
+                st = check_planes(got, want, c.march.max_distance, f"{name} K1 {cam_name} {c.width}x{c.height}",
+                                  razor=witness, **bar)
+            except AssertionError:
+                log("scenes_13b_k1_failed", scene=name, camera=cam_name, size=[c.width, c.height], ray_sdf=ray_sdf,
+                    worst=worst_pixels(torch, got, want, witness(), c.march.max_distance))
+                raise
+            errs["render_fwd"].append(st["rgb"]["max_abs_err"])
+            log("scenes_13b_k1_parity", scene=name, camera=cam_name, size=[c.width, c.height], ray_sdf=ray_sdf,
+                **witness.counts, **planes_stats(st))
+    for name in ("transform_sampler", "capsule_chain"):
+        sc = capsule_chain_fit_start(dev) if name == "capsule_chain" else shared[name][0]
+        # The sampler under orbit 30/15 (under the reference camera its
+        # rounded cylinder's edge is seen from below at grazing:
+        # tests/test_torch_fit_kernel.py), the chain under its camera too.
+        k3_cams = [("orbit30_15", orbit)] + ([("scene", shared[name][1])] if name == "capsule_chain" else [])
+        for (cam_name, cm), c, wrt, fr in [(k3_cams[-1], small, False, frozen), (k3_cams[0], small, True, ()),
+                                           (k3_cams[0], ragged, False, frozen)]:
+            label = f"{name} K3 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt}"
+            prm, uni = inputs(sc, cm, c)
+            st = k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, rounding=True)
+            errs["fit_step"].append(st["own_march"]["max_abs_err"])
+            log("scenes_13b_k3_parity", scene=name, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
+                frozen=list(fr), **st)
+        for (cam_name, cm), c in ((("scene", shared[name][1]), small), (("orbit30_15", orbit), ragged)):
+            prm, uni = inputs(sc, cm, c)
+            _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+            g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
+                     * conditioned(sc, prm, uni, t, c)).contiguous()
+            mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c)
+            for wrt in (True, False):
+                label = f"{name} K5 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt}"
+                got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+                want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+                torch.cuda.synchronize()
+                st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                                 mass if wrt else mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=label)
+                errs["render_bwd"].append(st["max_abs_err"])
+                log("scenes_13b_k5_parity", scene=name, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
+                    **st)
+    # csg_showcase: its bare box's and cylinder's cores give K3 and K5
+    # non-finite totals exactly where the plain versions' are (JAX's too:
+    # ROADMAP Queue 3).
+    sc, cam = shared["csg_showcase"]
+    prm, uni = inputs(sc, cam, small)
+    rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, small)
+    target = (rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1).contiguous()
+    got3 = fit_step_kernel_launch(sc, prm, uni, target, small, kc, True, ())
+    want3 = fit_step_kernel_plain(sc, prm, uni, target, small, kc, True, ())
+    g_rgb = (2.0 * (rgb - target)).contiguous()
+    nonfinite = {"fit_step": (torch.cat(got3[1:]), torch.cat(want3[1:]))}
+    for wrt in (True, False):
+        got5 = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, small, wrt_uniforms=wrt)
+        want5 = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, small, wrt_uniforms=wrt)
+        nonfinite["render_bwd" if not wrt else "render_bwd_uniforms"] = (
+            torch.cat(got5) if wrt else got5[0], torch.cat(want5) if wrt else want5[0])
+    torch.cuda.synchronize()
+    showcase_nan, showcase_params = {}, prm.numel()
+    for kname, (g, w) in nonfinite.items():
+        check(torch.equal(torch.isfinite(g), torch.isfinite(w)),
+              f"csg_showcase {kname}: non-finite slots {(~torch.isfinite(g)).nonzero().ravel().tolist()} against the "
+              f"plain version's {(~torch.isfinite(w)).nonzero().ravel().tolist()}")
+        showcase_nan[kname] = int((~torch.isfinite(g[:prm.numel()])).sum())
+    check(showcase_nan["fit_step"] > 0, "csg_showcase: K3's totals are all finite (JAX's are not)")
+    # K2 over the 135-tile plan at 1080p on capsule_chain, against K1.
+    sc, cam = shared["capsule_chain"]
+    prm, uni = inputs(sc, cam, full)
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    k2 = render_kernel_tiles_launch(sc, prm, uni, trow, tcol, full, kc)
+    k1 = render_kernel_launch(sc, prm, uni, full)
+    torch.cuda.synchronize()
+    k1_stacks = [gather_target_tiles(x, plan)[0] for x in k1]
+    k2_st = check_planes(k2, k1_stacks, full.march.max_distance, "capsule_chain K2 vs K1")
+    k2_vs_k1 = {n: int((a != b).sum()) for n, a, b in zip(("rgb", "t", "shadow", "ao"), k2, k1_stacks)}
+    log("scenes_13b_special", csg_showcase_nonfinite_param_slots=showcase_nan, csg_showcase_params=showcase_params,
+        capsule_chain_k2_tiles=plan.tiles_per_device, capsule_chain_k2_vs_k1=planes_stats(k2_st),
+        capsule_chain_k2_vs_k1_differing_values=k2_vs_k1)
+
+    # ---- 36. main path at 1920x1080 ----
+    gallery = {n: v for n, v in shared.items() if n != "transform_sampler"}
+    orbit3 = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, elevation_deg=20.0, device=dev) for i in range(1, 4)]
+    chain, chain_cam = shared["capsule_chain"]
+    lr = 3e-4  # the step both packages' fits descend at (tests/test_torch_fit.py)
+    trainable = (False, False) + (True,) * (len(list(capsule_chain_fit_start().parameters())) - 2)
+    target = render_kernel_forward(chain, chain_cam, light, mat, full, device=dev)[0]
+    main, frames0 = {}, {}
+    with PlainCalls() as plain, BackwardModes() as modes:
+        for name, (sc, cam) in gallery.items():
+            reset()
+            frames = tt.render_batch(sc, [cam] + orbit3, light, mat, full, engine="kernel")
+            torch.cuda.synchronize()
+            main[f"render_batch {name}"] = launches()
+            check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), f"bad {name} frames")
+            frames0[name] = frames[0]
+        reset()
+        l2 = fit_scene(target, capsule_chain_fit_start(dev), chain_cam, light, mat, full,
+                       FitConfig(steps=20, learning_rate=lr, log_every=1), trainable=trainable, device=dev)
+        main["fit_l2"] = launches()
+        reset()
+        ms = fit_scene(target, capsule_chain_fit_start(dev), chain_cam, light, mat, full,
+                       FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
+                       device=dev)
+        main["fit_multiscale"] = launches()
+        ms_modes = list(modes.calls[-5:])
+        reset()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(suite.main(["--scene-cost"]) == 0, "suite --scene-cost failed")
+        main["suite_scene_cost"] = launches()
+        scene_cost = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+    check(sum(plain.calls.values()) == 0, f"the 13b main path called plain versions: {plain.calls}")
+    zero = {fn.__name__: 0 for fn in counters}
+    want_counts = {f"render_batch {n}": {**zero, "render_kernel_forward": 4} for n in gallery}
+    want_counts.update({"fit_l2": {**zero, "fit_step_kernel": 20},
+                        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+                        "suite_scene_cost": {**zero, "render_kernel_forward": 4 * 6}})
+    for name, want in want_counts.items():
+        check(main[name] == want, f"13b {name} launched {main[name]}, expected {want}")
+    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    check([r["n_primitives"] for r in scene_cost] == [3, 5, 9, 17] and
+          all(r["metric"] == "scene_cost_rays_per_second" and r["value"] > 0 for r in scene_cost),
+          f"suite --scene-cost printed {scene_cost}")
+    for name, res in (("l2", l2), ("multiscale", ms)):
+        check(all(math.isfinite(v) for v in res.losses), f"capsule_chain {name} fit: non-finite loss")
+        check(res.losses[-1] < res.losses[0], f"capsule_chain {name} fit: the loss did not fall "
+                                              f"({res.losses[0]} -> {res.losses[-1]})")
+    frame0 = {}
+    for name, (sc, cam) in gallery.items():
+        prm0, uni0 = inputs(sc, cam, full)
+        k0 = render_kernel_launch(sc, prm0, uni0, full)
+        torch.testing.assert_close(k0[0].permute(1, 2, 0), frames0[name], rtol=0, atol=0)
+        p0 = render_kernel_forward_plain(sc, prm0, uni0, full)
+        witness = Witness(razor_edge, rounding_decided, sc, prm0, uni0, full)
+        try:
+            frame0[name] = planes_stats(check_planes(k0, p0, full.march.max_distance, f"{name} 1080p frame 0",
+                                                     razor=witness, **SCENE_BARS.get(name, {})))
+            frame0[name].update(witness.counts)
+        except AssertionError:
+            log("scenes_13b_frame0_failed", scene=name,
+                worst=worst_pixels(torch, k0, p0, witness(), full.march.max_distance))
+            raise
+    prm0, uni0 = inputs(chain, chain_cam, full)
+    step0 = k3_against_plain(torch, capsule_chain_fit_start(dev), scene_param_vector(capsule_chain_fit_start(dev), dev),
+                             uni0, full, kc, False, frozen, "capsule_chain K3 1080p step 0", gen,
+                             target.permute(2, 0, 1).contiguous(), rounding=True)
+    errs["fit_step"].append(step0["own_march"]["max_abs_err"])
+    log("scenes_13b_main_path", launches=main, multiscale_render_bwd_wrt_uniforms=ms_modes, frame0=frame0,
+        l2_losses=l2.losses, multiscale_losses=ms.losses, fitted=scene_param_vector(l2.scene).tolist(),
+        target=scene_param_vector(chain).tolist(), step0=step0, suite_scene_cost=scene_cost)
+
+    # Times at 1080p (plain, kernel, kernel, plain) per scene, its camera:
+    # K1; K3 (the plane frozen) and both K5 forms against the scene's render
+    # dimmed by 5% (a residual at every pixel); bounds on this run's marches.
+    times = {"render_fwd": {}, "fit_step": {}, "render_bwd": {}}
+    errs_1080p = []
+    blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    for name, (sc, cam) in shared.items():
+        prm, uni = inputs(sc, cam, full)
+        rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, full)
+        tgt = (rgb * 0.95).contiguous()
+        g_rgb = (2.0 * (rgb - tgt)).contiguous()
+        k3 = fit_launcher(sc, prm, uni, tgt, full, kc, False, frozen)[0]
+        timed = {"render_fwd": (lambda: render_kernel_launch(sc, prm, uni, full),
+                                lambda: render_kernel_forward_plain(sc, prm, uni, full)),
+                 "fit_step": (k3, lambda: fit_step_kernel_plain(sc, prm, uni, tgt, full, kc, False, frozen))}
+        for form, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+            timed[form] = (render_bwd_launcher(sc, prm, uni, g_rgb, t, sh, ao, full, kc, wrt)[0],
+                           functools.partial(render_kernel_backward_plain, sc, prm, uni, g_rgb, t, sh, ao, full,
+                                             wrt_uniforms=wrt))
+        counts = march_counts(torch, sc, cam, full, prm, uni, render_kernel_forward_plain)
+        costs = scene_costs(cuda_scene_source(sc, full, kc, False, frozen))
+        P = prm.numel()
+        bounds = {
+            "render_fwd": bound(*analytic_work(costs, counts, full), 24 * W * H),
+            "fit_step": bound(*analytic_work(costs, counts, full, reverse=True), 12 * W * H + 8 * (P + 31)),
+            "render_bwd": bound(*analytic_work(costs, counts, full, primal=False, reverse=True, retrace=True),
+                                24 * W * H + (8 * blocks + 8) * P),
+            "render_bwd_uniforms": bound(*analytic_work(costs, counts, full, primal=False, reverse=True,
+                                                        retrace=True), 24 * W * H + (8 * blocks + 8) * (P + 30)),
+        }
+        ptxas = built[name]["ptxas"]
+        render_ptxas = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc, full, kc))))["render_fwd"]
+        for kname, (kern, plain_fn) in timed.items():
+            kern()
+            torch.cuda.synchronize()
+            p1, k1_, k2_, p2 = time_ms(plain_fn, 1, 2), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 2)
+            px = {"render_fwd": render_ptxas, "fit_step": ptxas["fit_step"], "render_bwd": ptxas["render_bwd_params"],
+                  "render_bwd_uniforms": ptxas["render_bwd"]}[kname]
+            row = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                   "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "registers": px["registers"],
+                   "spill_stores": px.get("spill_stores"), "spill_loads": px.get("spill_loads"),
+                   "blocks_per_sm": blocks_per_sm(px["registers"])}
+            if kname == "render_bwd_uniforms":
+                times["render_bwd"][name]["uniforms"] = row
+            else:
+                times[kname][name] = row
+        # K5 at the size the multiscale fit launches it (1920x1080), both
+        # forms, against its plain version on the timed cotangent, zeroed
+        # where the gradient is ill-conditioned (csg_showcase's totals are
+        # non-finite in both: phase 35).
+        if name != "csg_showcase":
+            g_cond = (g_rgb * conditioned(sc, prm, uni, t, full)).contiguous()
+            mass = gradient_mass(sc, prm, uni, g_cond, t, sh, ao, full)
+            for wrt in (False, True):
+                got = render_kernel_backward_launch(sc, prm, uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+                want = render_kernel_backward_plain(sc, prm, uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+                torch.cuda.synchronize()
+                st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                                 mass if wrt else mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                                 label=f"{name} K5 1080p wrt_uniforms={wrt}")
+                row = times["render_bwd"][name]
+                (row["uniforms"] if wrt else row)["vs_plain_1080p"] = st
+                errs_1080p.append(st["max_abs_err"])
+        times["render_fwd"][name]["march_counts"] = {
+            "mean_primary_steps": counts["primary"] / counts["pixels"], "mean_shadow_steps":
+            counts["shadow"] / max(counts["shadow_rays"], 1.0), "shadow_rays": counts["shadow_rays"]}
+        times["fit_step"][name]["bwd_values"] = built[name]["bwd_values"]
+        log("scenes_13b_times_1080p", card=card, scene=name, costs=costs, counts=counts,
+            **{k: v[name] for k, v in times.items()})
+    main_launches = {"render_fwd": {n: main[f"render_batch {n}"]["render_kernel_forward"] for n in gallery},
+                     "fit_step": {"capsule_chain": main["fit_l2"]["fit_step_kernel"]},
+                     "render_bwd": {"capsule_chain": main["fit_multiscale"]["render_kernel_backward"]}}
+    out = {}
+    for kname, per_scene in times.items():
+        out[kname] = {"max_abs_err": max(errs[kname]), "scenes": per_scene}
+        for n, launched in main_launches[kname].items():
+            per_scene[n]["launches"] = launched
+    out["render_bwd"]["max_abs_err_1080p"] = max(errs_1080p)
+    return out
+
+
 def blocks_per_sm(registers: int, threads: int = 256) -> int:
     """Resident blocks of ``threads`` threads an SM holds at ``registers`` a
     thread (Hopper: 65536 registers an SM, allotted per warp in units of 256,
@@ -2982,5 +3633,8 @@ if __name__ == "__main__":
         sys.exit(time_kernels(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-root"]:
         print(json.dumps(_time_root(sys.argv[2])), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--register-line"]:
+        print(json.dumps(register_line()), flush=True)
         sys.exit(0)
     sys.exit(main())

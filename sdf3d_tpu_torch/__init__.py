@@ -1,7 +1,9 @@
 """sdf3d_tpu_torch: the PyTorch and CUDA port of sdf3d_tpu.
 
 The forward render of analytic SDF scenes (sphere, plane, box, rounded box,
-torus; hard and smooth union, intersection and subtraction) with soft
+torus, capsule, cylinder, ellipsoid; hard and smooth union, intersection and
+subtraction; translate, rotate, scale, round, onion, elongate and infinite
+repetition) with soft
 shadows and Blinn-Phong shading: a plain PyTorch reference path
 (``render``), and a CUDA kernel written for the H100
 (``ops.render_kernel_forward``, ``render_batch(engine="kernel")``), built per
@@ -56,6 +58,14 @@ from sdf3d_tpu_torch.render import (
     render_rays_banded,
     shade_pixels,
 )
-from sdf3d_tpu_torch.scenes import flagship_scene, reference_scene, sphere_scene
+from sdf3d_tpu_torch.scenes import (
+    capsule_chain,
+    csg_showcase,
+    flagship_scene,
+    lattice_scene,
+    random_blobs,
+    reference_scene,
+    sphere_scene,
+)
 
 __version__ = "0.1.0"

@@ -165,12 +165,14 @@ class KernelLibraries:
     ``-Xptxas -v``: registers, spills and shared memory per kernel).
     ``load_many`` builds several libraries at once, one thread each.
     ``host=True``: the host forms, built by the C++ compiler (module
-    docstring).
+    docstring).  ``csrc``: the sources' directory (a copy with a constant
+    changed builds libraries of its own keys, loadable beside this one's).
     """
 
-    def __init__(self, build_dir: pathlib.Path = BUILD_DIR, host: bool = False):
+    def __init__(self, build_dir: pathlib.Path = BUILD_DIR, host: bool = False, csrc: pathlib.Path = CSRC):
         self.build_dir = pathlib.Path(build_dir)
         self.host = host
+        self.csrc = pathlib.Path(csrc)
         self.builds = 0
         self.build_seconds = 0.0
         self._loaded: dict[str, ctypes.CDLL] = {}
@@ -190,7 +192,7 @@ class KernelLibraries:
         """The build key: a hash of the kind, the header, every file under
         ``csrc/`` (names and texts) and the flags."""
         if self._csrc is None:
-            self._csrc = tuple(f"{f.name}\0{f.read_text()}" for f in sorted(CSRC.iterdir()) if f.is_file())
+            self._csrc = tuple(f"{f.name}\0{f.read_text()}" for f in sorted(self.csrc.iterdir()) if f.is_file())
         h = hashlib.sha256()
         for part in (kind, scene_header, *self._csrc, " ".join(self.flags)):
             h.update(part.encode())
@@ -242,11 +244,13 @@ class KernelLibraries:
         out = tmp / spec.lib_name
         if self.host:
             cxx = find_cxx()
-            compiles = [[cxx, *HOST_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
+            compiles = [[cxx, *HOST_FLAGS, "-I", str(self.csrc), "-I", str(tmp), "-c", "-o", str(obj),
+                         str(self.csrc / src)]
                         for src, obj in zip(spec.sources, objs)]
             return compiles, [cxx, "-shared", "-pthread", "-o", str(out), *map(str, objs)]
         nvcc = find_nvcc()
-        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(tmp), "-c", "-o", str(obj), str(CSRC / src)]
+        compiles = [[nvcc, *NVCC_FLAGS, "-I", str(self.csrc), "-I", str(tmp), "-c", "-o", str(obj),
+                     str(self.csrc / src)]
                     for src, obj in zip(spec.sources, objs)]
         return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out), *map(str, objs)]
 

@@ -225,11 +225,12 @@ namespace {
 // 2 blocks, and the marches before it need the warps to hide their latency.
 // 4 blocks, and 3 where a thread also sums the uniforms' gradients (whose
 // spills then cost more than a fourth block gains; PERF.md).  A large
-// reverse pass (sdf3d::kLargeReverseValues) spills several kB at those caps:
-// 2 blocks (128 registers) took the flagship's fit step from 1.21 to 0.79 ms
-// at 1080p on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
-constexpr bool kLargeReverse = Scene::bwd_values > sdf3d::kLargeReverseValues;
-constexpr int kMinBlocks = kLargeReverse ? 2 : (kAcc > kP + 1 ? 3 : 4);
+// reverse pass spills several kB at those caps: 2 blocks (128 registers)
+// took the flagship's fit step from 1.21 to 0.79 ms at 1080p on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md); sdf3d::reverse_blocks gives the cap
+// from Scene::bwd_values.
+constexpr int kMinBlocks = sdf3d::reverse_blocks(kAcc > kP + 1 ? 3 : 4, Scene::bwd_values,
+                                                 sdf3d::kLargeReverseValues);
 }  // namespace
 
 // K3 and K4 are one kernel (block_thread).

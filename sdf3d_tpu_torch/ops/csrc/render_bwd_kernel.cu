@@ -61,12 +61,13 @@ namespace {
 // 1080p on an NVIDIA H100 80GB HBM3 at 700 W; 3 did as well, 5 worse.  The
 // uniforms' form holds its P + 30 accumulators: at 3 or more blocks its
 // spills cost more than the warps gain, so it keeps 2 (127 registers, none
-// spilled; PERF.md).  A large reverse pass (sdf3d::kLargeReverseValues) asks
-// half: on the flagship 2 blocks took the parameters' form from 1.17 to
-// 0.50 ms and 1 block the uniforms' from 0.68 to 0.60 (PERF.md).
-constexpr bool kLargeReverse = Scene::bwd_values > sdf3d::kLargeReverseValues;
+// spilled; PERF.md).  A large reverse pass asks fewer (sdf3d::reverse_blocks
+// from Scene::bwd_values): on the flagship 2 blocks took the parameters'
+// form from 1.17 to 0.50 ms and 1 block the uniforms' from 0.68 to 0.60
+// (PERF.md).
 template <bool WRT_U>
-constexpr int kMinBlocks = WRT_U ? (kLargeReverse ? 1 : 2) : (kLargeReverse ? 2 : 4);
+constexpr int kMinBlocks = WRT_U ? sdf3d::reverse_blocks(2, Scene::bwd_values, sdf3d::kLargeReverseValues)
+                                 : sdf3d::reverse_blocks(4, Scene::bwd_values, sdf3d::kLargeReverseValuesK5);
 
 template <bool WRT_U>
 __global__ void __launch_bounds__(kNT, kMinBlocks<WRT_U>)

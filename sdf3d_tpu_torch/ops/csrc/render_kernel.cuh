@@ -62,11 +62,33 @@ SDF3D_HD float max_adj(float x, float y) { return x > y ? 1.0f : (x == y ? 0.5f 
 SDF3D_HD float clip_adj(float x, float lo, float hi) { return max_adj(x, lo) * min_adj(fmaxf(x, lo), hi); }
 SDF3D_HD float abs_adj(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
 
-// A scene's reverse pass is large when sdf_bwd keeps more forward values than
-// this (Scene::bwd_values: the reference scene's 27, the flagship's 92): the
-// register caps of the fit step and the render backward then ask half the
-// blocks an SM (fit_kernel.cu, render_bwd_kernel.cu).
+// jnp.where(c, a, b) of the generated scene code (Rotate's series branch,
+// RepeatInfinite's disabled axes) and its adjoint: a select, so the operand
+// not taken gets exactly 0.
+SDF3D_HD float select(bool c, float a, float b) { return c ? a : b; }
+
+// The register caps of the fit step and the render backward follow the size
+// of the scene's reverse pass (Scene::bwd_values, the forward values sdf_bwd
+// keeps: the reference scene's 27, lattice_scene's 48, random_blobs(2)'s 57,
+// random_blobs(3)'s 87, the flagship's 92, csg_showcase's 159,
+// random_blobs(8)'s 237, capsule_chain's 277).  A kernel asks `base` blocks
+// an SM up to its line (`half_above`), half of them above it, and 1 above
+// kHugeReverseValues (fit_kernel.cu, render_bwd_kernel.cu).  The lines: K3's
+// and K5's uniforms' form kLargeReverseValues, K5's parameters' form
+// kLargeReverseValuesK5.  In one process at 1080p on an NVIDIA H100 80GB HBM3
+// at 700 W (chip_smoke.py --register-line; PERF.md): K3 at 4 blocks against
+// 2 ran 0.46 against 0.55 ms on lattice_scene, 0.50 against 0.53 on
+// random_blobs(2), 1.11 against 0.87 on random_blobs(3); K5's parameters'
+// form 0.18 against 0.21 on lattice_scene, 0.40 against 0.26 on
+// random_blobs(2); on csg_showcase 1 block against 2 ran K3 1.78 against 2.18
+// and K5's parameters' form 0.91 against 1.82, on random_blobs(3) 1.32 and
+// 0.63 against 0.87 and 0.49.
 constexpr int kLargeReverseValues = 64;
+constexpr int kLargeReverseValuesK5 = 48;
+constexpr int kHugeReverseValues = 128;
+constexpr int reverse_blocks(int base, int values, int half_above) {
+  return values > kHugeReverseValues ? 1 : (values > half_above ? (base + 1) / 2 : base);
+}
 
 // The scene's point form as a distance functor f(x, y, z).
 template <class Scene>

@@ -27,16 +27,26 @@ then ``b``'s.
 Emitters keep the JAX emitters' algebra and operation order: plane
 ``a·t + b``; sphere in completed-square form ``A·sqrt((t+B)² + C) − r`` with
 ``C`` clamped ≥ 0 at setup; box and rounded box ``|a + t·d| − h`` per axis;
-torus a quadratic in ``t`` under the ring's square root; hard CSG as
-min/max (subtraction ``max(a, −b)``), smooth CSG as the polynomial mix
-with ``k`` clamped to ``1e-6``.  Every binary operation is parenthesised
-in the C text, so the compiler keeps the same association (it may still
-contract ``a*b + c`` into one FMA).
+torus, cylinder and ellipsoid quadratics in ``t`` under their square roots;
+capsule the clipped projection ``h(t)``, affine in ``t`` before the clip;
+hard CSG as min/max (subtraction ``max(a, −b)``), smooth CSG as the
+polynomial mix with ``k`` clamped to ``1e-6``; ``Translate``, ``Rotate``
+(Rodrigues on scalars, ``R·q`` written out) and ``Scale`` fold into the
+ray's origin and direction at setup; ``Elongate`` and ``RepeatInfinite``
+have no ray form and evaluate the point form at ``o + t·d`` per step (JAX's
+``_ray_fallback``).  Every binary operation is parenthesised in the C text,
+so the compiler keeps the same association (it may still contract ``a*b +
+c`` into one FMA).  A run-time parameter decides ``Rotate``'s series branch
+(``|w|² < 1e-8``) and ``RepeatInfinite``'s disabled axes (``period > 0``):
+they stay selects of the generated code, which never depends on a value.
 
 Derivatives follow lax's rules in every backend, at ties too: ``min`` and
 ``max`` split the adjoint 0.5/0.5 (a constant operand included), ``abs``
 passes ``+g`` at ``x ≥ 0`` and ``−g`` below, ``clip`` is
-``min(hi, max(lo, x))``.  The torch backend carries them under
+``min(hi, max(lo, x))``, ``sin``/``cos`` give ``cos``/``−sin``, ``round``
+(to nearest, ties to even: ``rintf``) and the comparisons give none, and
+``select(c, a, b)`` sends the adjoint to the chosen operand as a select, a
+true 0 to the other.  The torch backend carries them under
 ``torch.autograd`` (the plain versions differentiate it), the tape in the
 generated reverse pass.
 """
@@ -51,7 +61,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from sdf3d_tpu_torch.sdf import csg, primitives
+from sdf3d_tpu_torch.sdf import csg, primitives, transforms
 from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
@@ -168,7 +178,37 @@ class _TorchOps:
         return _TorchOps.minimum(hi, _TorchOps.maximum(lo, x))
 
     @staticmethod
+    def sin(x):
+        return torch.sin(x)
+
+    @staticmethod
+    def cos(x):
+        return torch.cos(x)
+
+    @staticmethod
+    def round(x):
+        # Half to even, derivative 0 (as lax.round's).
+        return torch.round(x)
+
+    @staticmethod
+    def less(a, b):
+        return a < b
+
+    @staticmethod
+    def greater(a, b):
+        return a > b
+
+    @staticmethod
+    def where(c, a, b):
+        # torch.where's adjoint is a select: a true 0 to the operand not taken.
+        return torch.where(c, a, b)
+
+    @staticmethod
     def hoist(x):
+        return x
+
+    @staticmethod
+    def let(x):
         return x
 
 
@@ -226,14 +266,24 @@ def _c(x) -> str:
 
 
 class _COps:
-    """Symbolic backend: C expressions; ``hoist`` turns a per-ray setup
-    value into a field of ``Scene::Ray`` assigned in ``setup`` (one field
-    per distinct expression)."""
+    """Symbolic backend: C expressions.  ``hoist`` turns a per-ray setup
+    value of the ray form into a field of ``Scene::Ray`` assigned in
+    ``setup`` (one field per distinct expression).  ``let`` names a value
+    the expression would otherwise repeat (a rotation's entries and rotated
+    point, a smooth combination's operands): in the ray form's setup a
+    field like ``hoist``; in a function body (``in_eval``: the ray form's
+    step, the point form) a ``const float`` of the body (``lets``), one per
+    distinct expression; ``body`` is then the statements and the
+    ``return``.  A scene without such values gives the one ``return``
+    line."""
 
-    def __init__(self):
+    def __init__(self, in_eval: bool = False):
         self.fields: list[str] = []
         self.setup: list[str] = []
         self._hoisted: dict[str, str] = {}
+        self.in_eval = in_eval
+        self.lets: list[str] = []
+        self._named: dict[str, str] = {}
 
     @staticmethod
     def sqrt(x):
@@ -255,6 +305,32 @@ class _COps:
     def clip(x, lo, hi):
         return CExpr(f"fminf({_c(hi)}, fmaxf({_c(lo)}, {_c(x)}))")
 
+    @staticmethod
+    def sin(x):
+        return CExpr(f"sinf({_c(x)})")
+
+    @staticmethod
+    def cos(x):
+        return CExpr(f"cosf({_c(x)})")
+
+    @staticmethod
+    def round(x):
+        # rintf rounds half to even in the default rounding mode, as
+        # jnp.round; roundf would round half away from zero.
+        return CExpr(f"rintf({_c(x)})")
+
+    @staticmethod
+    def less(a, b):
+        return CExpr(f"({_c(a)} < {_c(b)})")
+
+    @staticmethod
+    def greater(a, b):
+        return CExpr(f"({_c(a)} > {_c(b)})")
+
+    @staticmethod
+    def where(c, a, b):
+        return CExpr(f"sdf3d::select({_c(c)}, {_c(a)}, {_c(b)})")
+
     def hoist(self, x):
         expr = _c(x)
         if expr not in self._hoisted:
@@ -263,6 +339,26 @@ class _COps:
             self.setup.append(f"{name} = {expr};")
             self._hoisted[expr] = name
         return CExpr(self._hoisted[expr])
+
+    def let(self, x):
+        if not self.in_eval:
+            return self.hoist(x)
+        expr = _c(x)
+        if expr not in self._named:
+            name = f"e{len(self.lets)}"
+            self.lets.append(f"const float {name} = {expr};")
+            self._named[expr] = name
+        return CExpr(self._named[expr])
+
+    def body(self, value, indent: str = "    ") -> str:
+        return "\n".join(indent + s for s in self.lets + [f"return {_c(value)};"])
+
+
+def _c_point_body(scene: SDFNode, indent: str = "    ") -> str:
+    """The body of ``Scene::sdf(px, py, pz, p)`` for ``scene``."""
+    P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
+    pt = _COps(in_eval=True)
+    return pt.body(_emit(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, pt), indent)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +418,114 @@ def _torus(n, px, py, pz, getp, off, m):
     return _len2(ring, py - cy, m) - minor
 
 
+def _capsule(n, px, py, pz, getp, off, m):
+    ax, ay, az, bx, by, bz, r = (getp(off + i) for i in range(7))
+    pax, pay, paz = px - ax, py - ay, pz - az
+    bax, bay, baz = bx - ax, by - ay, bz - az
+    denom = m.maximum(bax * bax + bay * bay + baz * baz, 1e-12)
+    h = m.let(m.clip((pax * bax + pay * bay + paz * baz) / denom, 0.0, 1.0))
+    return _len3(pax - bax * h, pay - bay * h, paz - baz * h, m) - r
+
+
+def _cylinder(n, px, py, pz, getp, off, m):
+    cx, cy, cz, r, hh = (getp(off + i) for i in range(5))
+    radial = _len2(px - cx, pz - cz, m) - r
+    axial = m.abs(py - cy) - hh
+    # No vlength_safe here, as in JAX's emitter: inside the core both
+    # clamps are 0 and the length's derivative is NaN (ROADMAP Queue 3).
+    outside = _len2(m.maximum(radial, 0.0), m.maximum(axial, 0.0), m)
+    inside = m.minimum(m.maximum(radial, axial), 0.0)
+    return outside + inside
+
+
+def _ellipsoid(n, px, py, pz, getp, off, m):
+    cx, cy, cz, rx, ry, rz = (getp(off + i) for i in range(6))
+    qx, qy, qz = px - cx, py - cy, pz - cz
+    k0 = m.let(_len3(qx / rx, qy / ry, qz / rz, m))
+    k1 = _len3(qx / (rx * rx), qy / (ry * ry), qz / (rz * rz), m)
+    return k0 * (k0 - 1.0) / m.maximum(k1, 1e-12)
+
+
+def _translate(n, px, py, pz, getp, off, m):
+    nc = count_params(n.child)
+    ox, oy, oz = (getp(off + nc + i) for i in range(3))
+    return _emit(n.child, px - ox, py - oy, pz - oz, getp, off, m)
+
+
+def _rodrigues_scalars(wx, wy, wz, m):
+    """The nine entries of the Rodrigues matrix R = I + sinc·K + cosc·K²,
+    row-major, on scalars: the series below |w|² = 1e-8, where the exact
+    branch is evaluated at a safe θ = 1 (a double select, so the branch not
+    taken gets a true 0 adjoint and the series' gradient survives)."""
+    t2 = m.let(wx * wx + wy * wy + wz * wz)
+    small = m.less(t2, 1e-8)
+    safe2 = m.let(m.where(small, 1.0, t2))
+    theta = m.let(m.sqrt(safe2))
+    sinc = m.let(m.where(small, 1.0 - t2 / 6.0, m.sin(theta) / theta))
+    cosc = m.let(m.where(small, 0.5 - t2 / 24.0, (1.0 - m.cos(theta)) / safe2))
+    r00 = 1.0 + cosc * (-(wy * wy + wz * wz))
+    r01 = -sinc * wz + cosc * (wx * wy)
+    r02 = sinc * wy + cosc * (wx * wz)
+    r10 = sinc * wz + cosc * (wx * wy)
+    r11 = 1.0 + cosc * (-(wx * wx + wz * wz))
+    r12 = -sinc * wx + cosc * (wy * wz)
+    r20 = -sinc * wy + cosc * (wx * wz)
+    r21 = sinc * wx + cosc * (wy * wz)
+    r22 = 1.0 + cosc * (-(wx * wx + wy * wy))
+    return r00, r01, r02, r10, r11, r12, r20, r21, r22
+
+
+def _rotate_query(px, py, pz, r):
+    """R⁻¹ = Rᵀ applied to the query point (row i of Rᵀ is column i of R),
+    written out: no matrix product (ROADMAP Queue 3, reduced precision)."""
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
+    qx = r00 * px + r10 * py + r20 * pz
+    qy = r01 * px + r11 * py + r21 * pz
+    qz = r02 * px + r12 * py + r22 * pz
+    return qx, qy, qz
+
+
+def _rotate(n, px, py, pz, getp, off, m):
+    nc = count_params(n.child)
+    r = tuple(m.let(v) for v in _rodrigues_scalars(*(getp(off + nc + i) for i in range(3)), m))
+    qx, qy, qz = (m.let(v) for v in _rotate_query(px, py, pz, r))
+    return _emit(n.child, qx, qy, qz, getp, off, m)
+
+
+def _scale(n, px, py, pz, getp, off, m):
+    s = m.maximum(getp(off + count_params(n.child)), 1e-12)
+    return _emit(n.child, px / s, py / s, pz / s, getp, off, m) * s
+
+
+def _round(n, px, py, pz, getp, off, m):
+    return _emit(n.child, px, py, pz, getp, off, m) - getp(off + count_params(n.child))
+
+
+def _onion(n, px, py, pz, getp, off, m):
+    return m.abs(_emit(n.child, px, py, pz, getp, off, m)) - getp(off + count_params(n.child))
+
+
+def _elongate(n, px, py, pz, getp, off, m):
+    nc = count_params(n.child)
+    ax, ay, az = (getp(off + nc + i) for i in range(3))
+    qx = px - m.clip(px, -ax, ax)
+    qy = py - m.clip(py, -ay, ay)
+    qz = pz - m.clip(pz, -az, az)
+    return _emit(n.child, qx, qy, qz, getp, off, m)
+
+
+def _repeat(n, px, py, pz, getp, off, m):
+    nc = count_params(n.child)
+
+    def fold(p, period):
+        on = m.greater(period, 0.0)
+        safe = m.where(on, period, 1.0)
+        return m.where(on, p - period * m.round(p / safe), p)
+
+    qx, qy, qz = (fold(v, getp(off + nc + i)) for i, v in enumerate((px, py, pz)))
+    return _emit(n.child, qx, qy, qz, getp, off, m)
+
+
 def _binary(op):
     def h(n, px, py, pz, getp, off, m):
         da = _emit(n.a, px, py, pz, getp, off, m)
@@ -331,11 +535,24 @@ def _binary(op):
     return h
 
 
+_PRIMITIVES = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
+               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid)
+
+
+def _name_operand(node, d, m):
+    """``d``, the distance of ``node``, named once (``m.let``) when the node
+    is a combination or a transform: the smooth mix reads each operand
+    several times, so a chain of smooth unions would otherwise repeat its
+    inner terms exponentially in the C text.  A primitive's text is kept
+    inline (the flagship's headers stay as they were)."""
+    return d if isinstance(node, _PRIMITIVES) else m.let(d)
+
+
 def _smooth(sign: float, neg_b: bool = False):
     def h(n, px, py, pz, getp, off, m):
         na, nb = count_params(n.a), count_params(n.b)
-        da = _emit(n.a, px, py, pz, getp, off, m)
-        db = _emit(n.b, px, py, pz, getp, off + na, m)
+        da = _name_operand(n.a, _emit(n.a, px, py, pz, getp, off, m), m)
+        db = _name_operand(n.b, _emit(n.b, px, py, pz, getp, off + na, m), m)
         if neg_b:
             db = -db
         return _smooth_mix(da, db, m.maximum(getp(off + na + nb), 1e-6), sign, m)
@@ -361,12 +578,22 @@ _HANDLERS = {
     primitives.Box: _box,
     primitives.RoundBox: _round_box,
     primitives.Torus: _torus,
+    primitives.Capsule: _capsule,
+    primitives.Cylinder: _cylinder,
+    primitives.Ellipsoid: _ellipsoid,
     csg.Union: _binary(_union_op),
     csg.Intersection: _binary(_intersection_op),
     csg.Subtraction: _binary(_subtraction_op),
     csg.SmoothUnion: _smooth(+1.0),
     csg.SmoothIntersection: _smooth(-1.0),
     csg.SmoothSubtraction: _smooth(-1.0, neg_b=True),
+    transforms.Translate: _translate,
+    transforms.Rotate: _rotate,
+    transforms.Scale: _scale,
+    transforms.Round: _round,
+    transforms.Onion: _onion,
+    transforms.Elongate: _elongate,
+    transforms.RepeatInfinite: _repeat,
 }
 
 
@@ -379,10 +606,11 @@ def _no_emitter(node):
             "with render, render_banded or render_batch(engine='torch')"
         )
     return NotImplementedError(
-        f"no render-kernel emitter for scene node {type(node).__name__}; the port supports Sphere, Plane, "
-        "Box, RoundBox, Torus, the hard and smooth Union, Intersection and Subtraction, and NeuralSDF so far: "
-        "Capsule, Cylinder, Ellipsoid and the transforms are ROADMAP item 13b, Mandelbulb item 13c, VoxelGrid "
-        "item 14 (sdf3d_tpu_torch/ops/scene_program.py)"
+        f"no render-kernel emitter for scene node {type(node).__name__}; the port supports the primitives "
+        "Sphere, Plane, Box, RoundBox, Torus, Capsule, Cylinder and Ellipsoid, the hard and smooth Union, "
+        "Intersection and Subtraction, the transforms Translate, Rotate, Scale, Round, Onion, Elongate and "
+        "RepeatInfinite, and NeuralSDF so far: Mandelbulb is ROADMAP item 13c, VoxelGrid item 14 "
+        "(sdf3d_tpu_torch/ops/scene_program.py)"
     )
 
 
@@ -418,10 +646,13 @@ def compile_scene(scene: SDFNode):
 # from its forward emitter and parameter offsets cannot drift.  Adjoint
 # rules follow lax's derivatives (min/max split the adjoint 0.5/0.5 at an
 # exact tie; sqrt's derivative is 0.5/sqrt(x); abs passes +g at x >= 0;
-# clip is recorded as min(hi, max(lo, x))), which the JAX package's
-# jax.vjp of the same emitters applies.  Like JAX's emitters, the box's
-# outside length has no guard: a tap inside the box's core (every q < 0)
-# meets sqrt(0)'s infinite derivative times 0, a NaN.
+# clip is recorded as min(hi, max(lo, x)); sin and cos give cos and -sin;
+# rint and the comparisons pass none; a select passes g to the operand it
+# took and exactly 0 to the other), which the JAX package's jax.vjp of the
+# same emitters applies.  Like JAX's emitters, the box's and the cylinder's
+# outside lengths have no guard: a tap inside the core (every clamp at 0)
+# meets sqrt(0)'s infinite derivative times 0, a NaN.  A comparison is a
+# `const bool`, not one of the forward values Scene::bwd_values counts.
 # ---------------------------------------------------------------------------
 
 
@@ -463,8 +694,8 @@ class _Var:
 
 class _Tape:
     """Symbolic backend that records operations in order: ``nodes[i]`` is
-    ``("leaf", c_name)`` or ``(op, a, b)`` with operands a node index or a
-    float constant."""
+    ``("leaf", c_name)`` or ``(op, *operands)`` with each operand a node
+    index or a float constant."""
 
     def __init__(self):
         self.nodes: list[tuple] = []
@@ -476,11 +707,12 @@ class _Tape:
             self.named[name] = _Var(self, len(self.nodes) - 1)
         return self.named[name]
 
-    def op(self, op: str, a, b=None) -> _Var:
+    def op(self, op: str, a, b=None, c=None) -> _Var:
         def ref(x):
             return x.i if isinstance(x, _Var) else float(x)
 
-        self.nodes.append((op, ref(a), None if b is None else ref(b)))
+        args = (a, b) if c is None else (a, b, c)
+        self.nodes.append((op,) + tuple(None if x is None else ref(x) for x in args))
         return _Var(self, len(self.nodes) - 1)
 
     def sqrt(self, x):
@@ -498,14 +730,40 @@ class _Tape:
     def clip(self, x, lo, hi):
         return self.minimum(hi, self.maximum(lo, x))
 
+    def sin(self, x):
+        return self.op("sin", x)
 
-# Forward values each adjoint rule reads: operands, or the result itself.
-_NEEDS = {"+": "", "-": "", "*": "ab", "/": "ab", "sqrt": "r", "min": "ab", "max": "ab", "abs": "a", "neg": ""}
+    def cos(self, x):
+        return self.op("cos", x)
+
+    def round(self, x):
+        return self.op("rint", x)
+
+    def less(self, a, b):
+        return self.op("<", a, b)
+
+    def greater(self, a, b):
+        return self.op(">", a, b)
+
+    def where(self, c, a, b):
+        return self.op("select", c, a, b)
+
+    @staticmethod
+    def let(x):
+        return x
 
 
-def _adjoints(op: str, g: str, a: str, b: str, r: str):
-    """C terms of the adjoints of the operands ``a``, ``b`` of ``r = op(a, b)``
-    given the adjoint ``g`` of ``r`` (lax's derivative rules)."""
+# Operations with no adjoint: rint's derivative is 0 (lax.round's), and a
+# comparison gives a boolean.  No adjoint flows through them.
+_NO_ADJOINT = ("rint", "<", ">")
+# C forms of the recorded operations (the forward values of the reverse pass).
+_C_CALLS = {"sqrt": "sqrtf", "abs": "fabsf", "sin": "sinf", "cos": "cosf", "rint": "rintf"}
+
+
+def _adjoints(op: str, g: str, a: str, b: str, r: str, c: str = None):
+    """C terms of the adjoints of the operands ``a``, ``b`` (and ``c``) of
+    ``r = op(a, b[, c])`` given the adjoint ``g`` of ``r`` (lax's derivative
+    rules); None for an operand that gets none."""
     if op == "+":
         return g, g
     if op == "-":
@@ -520,6 +778,14 @@ def _adjoints(op: str, g: str, a: str, b: str, r: str):
         return f"({g} * sdf3d::abs_adj({a}))", None
     if op == "neg":
         return f"(-{g})", None
+    if op == "sin":
+        return f"({g} * cosf({a}))", None
+    if op == "cos":
+        return f"(-({g} * sinf({a})))", None
+    if op == "select":
+        # A select, not a 0/1 mask: the operand not taken gets exactly 0,
+        # even where g is not finite.
+        return None, f"sdf3d::select({a}, {g}, 0.0f)", f"sdf3d::select({a}, 0.0f, {g})"
     return f"({g} * sdf3d::{op}_adj({a}, {b}))", f"({g} * sdf3d::{op}_adj({b}, {a}))"
 
 
@@ -545,20 +811,20 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
         if op == "leaf":
             reach.append(args[0] in wanted or (with_params and args[0].startswith("p[")))
         else:
-            reach.append(any(is_var(x) and reach[x] for x in args))
+            reach.append(op not in _NO_ADJOINT and any(is_var(x) and reach[x] for x in args))
 
-    rev, needed = [], set()
+    rev = []
     for i in range(len(nodes) - 1, -1, -1):
-        op, a, b = nodes[i] if nodes[i][0] != "leaf" else (None, None, None)
-        if op is None or not reach[i]:
+        op, args = nodes[i][0], [x for x in nodes[i][1:] if x is not None]
+        if op == "leaf" or not reach[i]:
             continue
-        needed.update(x for flag, x in zip("ab", (a, b)) if flag in _NEEDS[op] and is_var(x))
-        if "r" in _NEEDS[op]:
-            needed.add(i)
-        terms = _adjoints(op, f"a{i}", val(a), None if b is None else val(b), f"v{i}")
-        for x, t in zip((a, b), terms):
-            if is_var(x) and reach[x]:
+        vals = [val(x) for x in args] + [None] * (3 - len(args))
+        terms = _adjoints(op, f"a{i}", vals[0], vals[1], f"v{i}", vals[2])
+        for x, t in zip(args, terms):
+            if t is not None and is_var(x) and reach[x]:
                 rev.append(f"a{x} += {t};")
+    # The forward values the emitted adjoint terms read.
+    needed = {int(k) for k in re.findall(r"\bv(\d+)\b", " ".join(rev))}
 
     # Forward values: the needed ones and everything they are computed from.
     for i in range(len(nodes) - 1, -1, -1):
@@ -568,19 +834,21 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
     for i, (op, *args) in enumerate(nodes):
         if i not in needed:
             continue
+        kind = "float"
         if op == "leaf":
             expr = args[0]
-        elif op == "sqrt":
-            expr = f"sqrtf({val(args[0])})"
-        elif op == "abs":
-            expr = f"fabsf({val(args[0])})"
+        elif op in _C_CALLS:
+            expr = f"{_C_CALLS[op]}({val(args[0])})"
         elif op == "neg":
             expr = f"(-({val(args[0])}))"
         elif op in ("min", "max"):
             expr = f"f{op}f({val(args[0])}, {val(args[1])})"
+        elif op == "select":
+            expr = f"sdf3d::select({', '.join(val(x) for x in args)})"
         else:
             expr = f"({val(args[0])} {op} {val(args[1])})"
-        fwd.append(f"const float v{i} = {expr};")
+            kind = "bool" if op in ("<", ">") else kind
+        fwd.append(f"const {kind} v{i} = {expr};")
 
     decl = [f"float a{i} = {'g' if i == root else '0.0f'};" for i in range(len(nodes)) if reach[i]]
     out = []
@@ -678,6 +946,111 @@ def _ray_torus(n, ox, oy, oz, dx, dy, dz, getp, off, m):
     return ev
 
 
+def _ray_capsule(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    axp, ayp, azp, bxp, byp, bzp, r = (getp(off + i) for i in range(7))
+    bax, bay, baz = bxp - axp, byp - ayp, bzp - azp
+    inv = 1.0 / m.maximum(bax * bax + bay * bay + baz * baz, 1e-12)
+    # h(t) = clip((o − a + t·d)·(b − a)·inv, 0, 1): affine in t before the clip.
+    h0 = m.hoist(((ox - axp) * bax + (oy - ayp) * bay + (oz - azp) * baz) * inv)
+    h1 = m.hoist((dx * bax + dy * bay + dz * baz) * inv)
+    wx0, wy0, wz0 = m.hoist(ox - axp), m.hoist(oy - ayp), m.hoist(oz - azp)
+    dx, dy, dz = m.hoist(dx), m.hoist(dy), m.hoist(dz)
+    bax, bay, baz = m.hoist(bax), m.hoist(bay), m.hoist(baz)
+    r = m.hoist(r)
+
+    def ev(t):
+        h = m.clip(h0 + t * h1, 0.0, 1.0)
+        ux = wx0 + t * dx - bax * h
+        uy = wy0 + t * dy - bay * h
+        uz = wz0 + t * dz - baz * h
+        return m.sqrt(ux * ux + uy * uy + uz * uz) - r
+
+    return ev
+
+
+def _ray_cylinder(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    # The radial length as the torus's: JAX's _quad_coeffs with zero y terms.
+    cx, cy, cz, r, hh = (getp(off + i) for i in range(5))
+    ax, az = ox - cx, oz - cz
+    qa = m.hoist(dx * dx + dz * dz)
+    qb2 = m.hoist(2.0 * (ax * dx + az * dz))
+    qc = m.hoist(ax * ax + az * az)
+    ay, by = m.hoist(oy - cy), m.hoist(dy)
+    r, hh = m.hoist(r), m.hoist(hh)
+
+    def ev(t):
+        radial = m.sqrt(m.maximum(t * (qa * t + qb2) + qc, 0.0)) - r
+        axial = m.abs(ay + t * by) - hh
+        mr = m.maximum(radial, 0.0)
+        ma = m.maximum(axial, 0.0)
+        outside = m.sqrt(mr * mr + ma * ma)
+        inside = m.minimum(m.maximum(radial, axial), 0.0)
+        return outside + inside
+
+    return ev
+
+
+def _ray_ellipsoid(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    # k0 reads q/rᵢ, k1 q/rᵢ²: two quadratics in t of the scaled (o − c, d).
+    cx, cy, cz, rx, ry, rz = (getp(off + i) for i in range(6))
+    qa0, qb0, qc0 = _quad_coeffs((ox - cx) / rx, (oy - cy) / ry, (oz - cz) / rz, dx / rx, dy / ry, dz / rz)
+    rx2, ry2, rz2 = rx * rx, ry * ry, rz * rz
+    qa1, qb1, qc1 = _quad_coeffs((ox - cx) / rx2, (oy - cy) / ry2, (oz - cz) / rz2, dx / rx2, dy / ry2, dz / rz2)
+    qa0, qb0, qc0 = m.hoist(qa0), m.hoist(2.0 * qb0), m.hoist(qc0)
+    qa1, qb1, qc1 = m.hoist(qa1), m.hoist(2.0 * qb1), m.hoist(qc1)
+
+    def ev(t):
+        k0 = m.sqrt(m.maximum(t * (qa0 * t + qb0) + qc0, 0.0))
+        k1 = m.sqrt(m.maximum(t * (qa1 * t + qb1) + qc1, 0.0))
+        return k0 * (k0 - 1.0) / m.maximum(k1, 1e-12)
+
+    return ev
+
+
+def _ray_translate(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    nc = count_params(n.child)
+    tx, ty, tz = (getp(off + nc + i) for i in range(3))
+    return _ray_emit(n.child, ox - tx, oy - ty, oz - tz, dx, dy, dz, getp, off, m)
+
+
+def _ray_rotate(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    nc = count_params(n.child)
+    r = tuple(m.hoist(v) for v in _rodrigues_scalars(*(getp(off + nc + i) for i in range(3)), m))
+    qo = (m.hoist(v) for v in _rotate_query(ox, oy, oz, r))
+    qd = (m.hoist(v) for v in _rotate_query(dx, dy, dz, r))
+    return _ray_emit(n.child, *qo, *qd, getp, off, m)
+
+
+def _ray_scale(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    s = m.hoist(m.maximum(getp(off + count_params(n.child)), 1e-12))
+    ev = _ray_emit(n.child, ox / s, oy / s, oz / s, dx / s, dy / s, dz / s, getp, off, m)
+    return lambda t: ev(t) * s
+
+
+def _ray_round(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    ev = _ray_emit(n.child, ox, oy, oz, dx, dy, dz, getp, off, m)
+    r = m.hoist(getp(off + count_params(n.child)))
+    return lambda t: ev(t) - r
+
+
+def _ray_onion(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    ev = _ray_emit(n.child, ox, oy, oz, dx, dy, dz, getp, off, m)
+    r = m.hoist(getp(off + count_params(n.child)))
+    return lambda t: m.abs(ev(t)) - r
+
+
+def _ray_fallback(node, ox, oy, oz, dx, dy, dz, getp, off, m):
+    """A node without a ray form (``Elongate``, ``RepeatInfinite``): the
+    point form of its subtree at ``o + t·d``, per step; the ray and the
+    parameters are hoisted, so the step reads setup values only."""
+    ox, oy, oz, dx, dy, dz = (m.hoist(v) for v in (ox, oy, oz, dx, dy, dz))
+
+    def hoisted(i):
+        return m.hoist(getp(i))
+
+    return lambda t: _emit(node, ox + t * dx, oy + t * dy, oz + t * dz, hoisted, off, m)
+
+
 def _ray_binary(op):
     def h(n, ox, oy, oz, dx, dy, dz, getp, off, m):
         ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
@@ -695,10 +1068,10 @@ def _ray_smooth(sign: float, neg_b: bool = False):
         k = m.hoist(m.maximum(getp(off + na + nb), 1e-6))
 
         def ev(t):
-            db = eb(t)
+            db = _name_operand(n.b, eb(t), m)
             if neg_b:
                 db = -db
-            return _smooth_mix(ea(t), db, k, sign, m)
+            return _smooth_mix(_name_operand(n.a, ea(t), m), db, k, sign, m)
 
         return ev
 
@@ -711,19 +1084,29 @@ _RAY_HANDLERS = {
     primitives.Box: _ray_box,
     primitives.RoundBox: _ray_round_box,
     primitives.Torus: _ray_torus,
+    primitives.Capsule: _ray_capsule,
+    primitives.Cylinder: _ray_cylinder,
+    primitives.Ellipsoid: _ray_ellipsoid,
     csg.Union: _ray_binary(_union_op),
     csg.Intersection: _ray_binary(_intersection_op),
     csg.Subtraction: _ray_binary(_subtraction_op),
     csg.SmoothUnion: _ray_smooth(+1.0),
     csg.SmoothIntersection: _ray_smooth(-1.0),
     csg.SmoothSubtraction: _ray_smooth(-1.0, neg_b=True),
+    transforms.Translate: _ray_translate,
+    transforms.Rotate: _ray_rotate,
+    transforms.Scale: _ray_scale,
+    transforms.Round: _ray_round,
+    transforms.Onion: _ray_onion,
 }
 
 
 def _ray_emit(node, ox, oy, oz, dx, dy, dz, getp: GetP, off: int, m):
     h = _RAY_HANDLERS.get(type(node))
     if h is None:
-        raise _no_emitter(node)
+        if type(node) not in _HANDLERS:
+            raise _no_emitter(node)
+        h = _ray_fallback
     return h(node, ox, oy, oz, dx, dy, dz, getp, off, m)
 
 
@@ -843,11 +1226,11 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
         raise ValueError(f"the fit kernel's variant {variant!r} takes no frozen slots")
     check_scene(scene)
     P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
-    point = _emit(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps)
 
     ray = _COps()
     ev = _ray_emit(scene, *(CExpr(v) for v in ("ox", "oy", "oz", "dx", "dy", "dz")), P, 0, ray)
-    body = _c(ev(CExpr("t")))
+    ray.in_eval = True
+    body = ray.body(ev(CExpr("t")), "      ")
     if re.search(r"p\[|\b[od][xyz]\b", body):
         raise AssertionError(f"ray-form eval reads a setup value that was not hoisted: {body}")
 
@@ -884,7 +1267,7 @@ struct Scene {{
 
   // Point form: distance at (px, py, pz).
   static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
-    return {_c(point)};
+{_c_point_body(scene)}
   }}
 
   // Ray form: distance at o + t*d, per-ray constants hoisted in setup().
@@ -895,7 +1278,7 @@ struct Scene {{
 {setup}
     }}
     SDF3D_HD float eval(float t) const {{
-      return {body};
+{body}
     }}
   }};
 
@@ -1125,11 +1508,9 @@ def cuda_neural_source(scene: SDFNode, cfg, nc) -> str:
     device memory), the AO taps and the static settings."""
     lay = neural_layout(scene)
     if lay.analytic is not None:
-        P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
-        point = _c(_emit(lay.analytic, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0, _COps))
-        what = describe(lay.analytic)
+        point, what = _c_point_body(lay.analytic), describe(lay.analytic)
     else:
-        point, what = "0.0f", "none"
+        point, what = "    return 0.0f;", "none"
     H, L = lay.hidden, lay.layers
     w, b = lay.w_offsets, lay.b_offsets
     w1 = w[1] if L > 2 else 0
@@ -1152,7 +1533,7 @@ struct Scene {{
 
   // Point form of the analytic subtree ({what}); p holds its n_analytic parameters.
   static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
-    return {point};
+{point}
   }}
 
   // Ambient occlusion: tap i at h + ao_h(i) * n, weight ao_w(i).

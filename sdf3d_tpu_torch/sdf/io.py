@@ -31,13 +31,15 @@ def registry() -> dict:
     from sdf3d_tpu_torch.camera import Camera
     from sdf3d_tpu_torch.config import AOConfig, MarchConfig, RenderConfig, ShadowConfig
     from sdf3d_tpu_torch.lighting import Material, PointLight
-    from sdf3d_tpu_torch.sdf import csg, primitives
+    from sdf3d_tpu_torch.sdf import csg, primitives, transforms
     from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 
     classes = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
+               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid,
                csg.Union, csg.Intersection, csg.Subtraction, csg.SmoothUnion, csg.SmoothIntersection,
-               csg.SmoothSubtraction, NeuralSDF, Camera, PointLight, Material,
-               RenderConfig, MarchConfig, ShadowConfig, AOConfig)
+               csg.SmoothSubtraction, transforms.Translate, transforms.Rotate, transforms.Scale, transforms.Round,
+               transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, NeuralSDF, Camera, PointLight,
+               Material, RenderConfig, MarchConfig, ShadowConfig, AOConfig)
     return {cls.__name__: cls for cls in classes}
 
 

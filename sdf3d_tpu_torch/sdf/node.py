@@ -11,6 +11,9 @@ package's ``tree_flatten`` order — not ``nn.Module.parameters()``, which lists
 a node's own parameters before its children's.
 
 ``distance(p)`` takes points of shape ``(..., 3)`` and returns ``(...,)``.
+``translate``, ``rotate``, ``scale``, ``round``, ``shell`` and
+``smooth_union`` wrap a node in a transform or a smooth union, as the JAX
+package's methods do.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ class SDFNode(nn.Module):
     fields positionally or by name.  Child nodes become submodules, static
     fields plain attributes, tuple fields an ``nn.ParameterList``, everything
     else a float32 ``nn.Parameter``.  ``a | b`` is the hard union, ``a & b``
-    the intersection and ``a - b`` the subtraction.
+    the intersection and ``a - b`` the subtraction; the transform methods
+    below wrap the node.
     """
 
     fields: tuple[str, ...] = ()
@@ -130,6 +134,37 @@ class SDFNode(nn.Module):
         from sdf3d_tpu_torch.sdf.csg import Subtraction
 
         return Subtraction(self, other)
+
+    # --- transform sugar (JAX's SDFNode methods) ---------------------------
+    def translate(self, offset) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.transforms import Translate
+
+        return Translate(self, offset)
+
+    def rotate(self, rotvec) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.transforms import Rotate
+
+        return Rotate(self, rotvec)
+
+    def scale(self, factor) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.transforms import Scale
+
+        return Scale(self, factor)
+
+    def round(self, radius) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.transforms import Round
+
+        return Round(self, radius)
+
+    def shell(self, thickness) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.transforms import Onion
+
+        return Onion(self, thickness)
+
+    def smooth_union(self, other: "SDFNode", k) -> "SDFNode":
+        from sdf3d_tpu_torch.sdf.csg import SmoothUnion
+
+        return SmoothUnion(self, other, k)
 
     def extra_repr(self) -> str:
         return ", ".join(self.fields)

@@ -1,9 +1,9 @@
 """Analytic SDF primitives (the port of ``sdf3d_tpu/sdf/primitives.py``).
 
-The reference's two primitives, the sphere and the ground plane, and the
-flagship scene's box, rounded box and torus.  The other primitives of the
-JAX package (capsule, cylinder, ellipsoid, Mandelbulb) are not ported yet.
-A node's fields are its parameters in ``tree_flatten`` order.
+The reference's two primitives, the sphere and the ground plane, the
+flagship scene's box, rounded box and torus, and the capsule, cylinder and
+ellipsoid.  The JAX package's Mandelbulb is not ported yet (ROADMAP item
+13c).  A node's fields are its parameters in ``tree_flatten`` order.
 """
 
 from __future__ import annotations
@@ -70,6 +70,45 @@ class Torus(SDFNode):
         return torch.sqrt(ring**2 + q[..., 1] ** 2) - self.minor
 
 
+class Capsule(SDFNode):
+    """Capsule between endpoints ``a`` and ``b`` with given ``radius``."""
+
+    fields = ("a", "b", "radius")  # (3,), (3,), ()
+
+    def distance(self, p: torch.Tensor) -> torch.Tensor:
+        pa = p - self.a
+        ba = self.b - self.a
+        denom = torch.clamp(torch.sum(ba * ba, dim=-1), min=1e-12)
+        h = torch.clamp(torch.sum(pa * ba, dim=-1) / denom, 0.0, 1.0)
+        return vlength(pa - ba * h[..., None]) - self.radius
+
+
+class Cylinder(SDFNode):
+    """Capped vertical (y-axis) cylinder, exact SDF (Quilez ``sdCappedCylinder``)."""
+
+    fields = ("center", "radius", "half_height")  # (3,), (), ()
+
+    def distance(self, p: torch.Tensor) -> torch.Tensor:
+        q = p - self.center
+        radial = torch.sqrt(q[..., 0] ** 2 + q[..., 2] ** 2) - self.radius
+        axial = torch.abs(q[..., 1]) - self.half_height
+        outside = vlength_safe(torch.stack([torch.clamp(radial, min=0.0), torch.clamp(axial, min=0.0)], dim=-1))
+        inside = torch.clamp(torch.maximum(radial, axial), max=0.0)
+        return outside + inside
+
+
+class Ellipsoid(SDFNode):
+    """Ellipsoid, Quilez bound-improved approximation (not exact off-axis)."""
+
+    fields = ("center", "radii")  # (3,), (3,)
+
+    def distance(self, p: torch.Tensor) -> torch.Tensor:
+        q = p - self.center
+        k0 = vlength(q / self.radii)
+        k1 = vlength(q / (self.radii * self.radii))
+        return k0 * (k0 - 1.0) / torch.clamp(k1, min=1e-12)
+
+
 def sphere(center=(0.0, 0.0, 0.0), radius=1.0) -> Sphere:
     return Sphere(center=center, radius=radius)
 
@@ -93,3 +132,15 @@ def round_box(half_extents=(1.0, 1.0, 1.0), corner_radius=0.1, center=(0.0, 0.0,
 
 def torus(major=1.0, minor=0.25, center=(0.0, 0.0, 0.0)) -> Torus:
     return Torus(center=center, major=major, minor=minor)
+
+
+def capsule(a=(0.0, 0.0, 0.0), b=(0.0, 1.0, 0.0), radius=0.25) -> Capsule:
+    return Capsule(a=a, b=b, radius=radius)
+
+
+def cylinder(radius=0.5, half_height=0.5, center=(0.0, 0.0, 0.0)) -> Cylinder:
+    return Cylinder(center=center, radius=radius, half_height=half_height)
+
+
+def ellipsoid(radii=(1.0, 0.5, 0.5), center=(0.0, 0.0, 0.0)) -> Ellipsoid:
+    return Ellipsoid(center=center, radii=radii)

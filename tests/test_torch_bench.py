@@ -227,3 +227,23 @@ def test_cli_info(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("sdf3d_tpu_torch ") and out[1] == f"torch {torch.__version__}"
     assert "  cpu" in out
+
+
+def test_suite_scene_cost_prints_jax_fields(monkeypatch, capsys):
+    """``suite --scene-cost --device cpu`` (random_blobs n = 2, 4, 8, 16 on
+    the plain version, here at 24x16) prints one line a size with the JAX
+    suite's fields and values of its kind."""
+    import functools
+
+    import benchmarks.suite as jax_suite
+    from sdf3d_tpu_torch.benchmarks import suite
+
+    want = jax_suite.bench_scene_cost(width=16, height=12, iters=1)
+    monkeypatch.setattr(suite, "bench_scene_cost", functools.partial(suite.bench_scene_cost, width=24, height=16,
+                                                                      iters=1))
+    assert suite.main(["--scene-cost", "--device", "cpu"]) == 0
+    got = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert [(r["metric"], r["n_primitives"], r["unit"]) for r in got] == [
+        (r["metric"], r["n_primitives"], r["unit"]) for r in want]
+    assert all(r["value"] > 0 and math.isfinite(r["value"]) for r in got)

@@ -413,6 +413,37 @@ def test_check_planes_holds_the_hard_limit_off_razor_edge_rays():
         check_planes(got, want, 100.0, edge_frac=0.05)  # no razor mask: the hard limit everywhere
 
 
+def test_check_planes_calls_a_razor_callable_only_past_the_hard_limit():
+    """``razor`` may be a callable (the 13b scenes' witness, which costs
+    renders): called once when a pixel passes the hard limit, never
+    otherwise, with the same verdicts as its mask."""
+    from sdf3d_tpu_torch.utils.parity import check_planes
+
+    want = [np.zeros((3, 8, 8), np.float32)] + [np.zeros((8, 8), np.float32) for _ in range(3)]
+    calls = []
+
+    def razor(mask):
+        def build():
+            calls.append(1)
+            return mask
+        return build
+
+    close = [w.copy() for w in want]
+    close[0][:, 2, 3] = 0.01
+    check_planes(close, want, 100.0, razor=razor(np.zeros((8, 8), bool)), edge_frac=0.05)
+    assert not calls
+    far = [w.copy() for w in want]
+    far[0][:, 2, 3] = 0.6
+    far[2][2, 3] = 0.6
+    with pytest.raises(AssertionError, match="not razor-edge"):
+        check_planes(far, want, 100.0, razor=razor(np.zeros((8, 8), bool)), edge_frac=0.05)
+    edge = np.zeros((8, 8), bool)
+    edge[2, 3] = True
+    calls.clear()
+    st = check_planes(far, want, 100.0, razor=razor(edge), edge_frac=0.05)
+    assert calls == [1] and st["rgb"]["over_hard"] == 1 and st["shadow"]["over_hard"] == 1
+
+
 def test_razor_edge_rays_are_few_and_are_the_rays_that_move():
     """On the flagship the razor-edge rays are a few of the image, and a ray
     whose march ends more than 4ε apart when ε moves by 1% is one of them

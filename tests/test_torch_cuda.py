@@ -73,6 +73,7 @@ from sdf3d_tpu_torch.utils.parity import (
     FLAGSHIP_OWN,
     FLAGSHIP_SAME,
     NEURAL_BAR,
+    SCENE_BARS,
     check_grads,
     check_planes,
     conditioned,
@@ -81,6 +82,9 @@ from sdf3d_tpu_torch.utils.parity import (
     gradient_mass,
     primals_agree,
     razor_edge,
+    rounding_decided,
+    scenes_13b,
+    transform_sampler,
 )
 
 torch.set_num_threads(1)
@@ -103,15 +107,21 @@ def _inputs(scene, cam, cfg, dev):
     return scene_param_vector(scene, dev), uni
 
 
-def _compare(scene, cam, cfg, kc, dev, razor=False):
+def _compare(scene, cam, cfg, kc, dev, razor=False, rounding=False, **bar):
     """K1 against its plain version; with ``razor``, past the hard limit only
-    razor-edge rays (``utils/parity.py::razor_edge``)."""
+    razor-edge rays (``utils/parity.py::razor_edge``), with ``rounding`` also
+    the pixels rounding decides (``rounding_decided``); ``bar`` overrides the
+    budget (``utils/parity.py::SCENE_BARS``)."""
     prm, uni = _inputs(scene, cam, cfg, dev)
     got = render_kernel_launch(scene, prm, uni, cfg, kc)
     want = render_kernel_forward_plain(scene, prm, uni, cfg, kc)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    check_planes(got, want, cfg.march.max_distance, razor=razor_edge(scene, prm, uni, cfg, kc) if razor else None)
+    mask = razor_edge(scene, prm, uni, cfg, kc) if razor and not rounding else None
+    if rounding:
+        def mask():
+            return razor_edge(scene, prm, uni, cfg, kc) | rounding_decided(scene, prm, uni, cfg, kc)
+    check_planes(got, want, cfg.march.max_distance, razor=mask, **bar)
 
 
 @pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
@@ -291,6 +301,86 @@ def test_flagship_totals_finite_at_1080p(dev, kernel):
                                      KernelConfig(), wrt)[0]()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(totals).all()) and float(totals.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
+@pytest.mark.parametrize("name", ["csg_showcase", "lattice_scene", "capsule_chain", "random_blobs",
+                                  "transform_sampler"])
+def test_13b_scene_kernel_matches_plain(dev, name, ray_sdf):
+    """K1 on each scene of ROADMAP item 13b under its camera at 256x192."""
+    scene, cam = scenes_13b(dev)[name]
+    cfg = dataclasses.replace(BASE, width=256, height=192)
+    _compare(scene, cam, cfg, KernelConfig(ray_sdf=ray_sdf), dev, razor=True, rounding=True,
+             **SCENE_BARS.get(name, {}))
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+def test_transform_sampler_fit_step_matches_plain(dev, wrt_uniforms, frozen):
+    """K3 on the transform sampler (every 13b node) at a ragged 250x190,
+    against the plain reverse pass on K1's planes (``FLAGSHIP_SAME``) and
+    against its plain version on the pixels where the primals agree
+    (``FLAGSHIP_OWN``)."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = transform_sampler(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    keep = conditioned(scene, prm, uni, t, cfg) & primals_agree((rgb, t, sh, ao), own, cfg.march.max_distance)
+    noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    p_loss, p_prm, p_uni = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    s_prm[list(frozen)] = 0.0
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(((rgb - target).double() ** 2).sum()), rel=1e-5)
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    got = torch.cat([g_prm, g_uni])
+    check_grads(got, torch.cat([s_prm, s_uni if wrt_uniforms else torch.zeros_like(s_uni)]), mass,
+                rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN)
+    assert all(float(g_prm[k]) == 0.0 for k in frozen)
+
+
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
+def test_transform_sampler_render_backward_matches_plain(dev, wrt_uniforms):
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = transform_sampler(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev)
+             * conditioned(scene, prm, uni, t, cfg)).contiguous()
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    torch.cuda.synchronize()
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    if wrt_uniforms:
+        check_grads(torch.cat(got), torch.cat(want), mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    else:
+        check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+
+
+def test_13b_parameter_change_reuses_the_library(dev):
+    """A changed rotation vector (across the series' threshold) or period
+    reuses the scene's library: the selects are run-time."""
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    cfg = dataclasses.replace(BASE, width=64, height=48)
+    a = transform_sampler(dev)
+    render_kernel_forward(a, cam, light, mat, cfg, device=dev)
+    builds = _build.LIBRARIES.builds
+    with torch.no_grad():
+        for m in a.modules():
+            if type(m).__name__ == "Rotate":
+                m.rotvec.add_(0.2)
+            if type(m).__name__ == "RepeatInfinite":
+                m.period.mul_(1.3)
+    render_kernel_forward(a, cam, light, mat, cfg, device=dev)
+    assert _build.LIBRARIES.builds == builds
 
 
 def _render_bwd_rows(dev, wrt_uniforms):

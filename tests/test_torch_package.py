@@ -108,9 +108,9 @@ def test_reference_scene_param_vector():
 
 
 def test_unknown_jax_class_raises():
-    # Capsule is ROADMAP item 13b: the port has no such class yet.
-    with pytest.raises(TypeError, match="Capsule"):
-        convert.from_jax(s.sdf.capsule())
+    # Mandelbulb is ROADMAP item 13c: the port has no such class yet.
+    with pytest.raises(TypeError, match="Mandelbulb"):
+        convert.from_jax(s.sdf.mandelbulb())
 
 
 class Box(SDFNode):
@@ -130,7 +130,7 @@ def test_kernel_path_raises_for_unsupported_node():
         cuda_scene_source(scene, CFG, KernelConfig())
     with pytest.raises(NotImplementedError, match="Box"):
         render_kernel_forward(scene, *VIEW, CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
+    with pytest.raises(NotImplementedError, match="Mandelbulb is ROADMAP item 13c"):
         render_kernel_forward(scene, *VIEW, CFG)
 
 
@@ -215,3 +215,34 @@ def test_fit_has_no_quiet_move_to_cpu():
         pytest.skip("a card is present; the cuda-marked tests cover this path")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit_scene(*FIT_ARGS, FitConfig(steps=1))
+
+
+def test_13b_exports_carry_the_jax_names():
+    """The primitives, transforms, factories and scenes of ROADMAP item 13b
+    under the JAX package's names; every node class of JAX's
+    ``sdf/primitives.py`` and ``sdf/transforms.py`` but Mandelbulb (13c)
+    has a counterpart the scene compiler accepts."""
+    import inspect
+    import re
+
+    import sdf3d_tpu.sdf.primitives as jp
+    import sdf3d_tpu.sdf.transforms as jt
+    from sdf3d_tpu_torch.ops.scene_program import check_scene
+
+    names = ("Capsule", "Cylinder", "Ellipsoid", "capsule", "cylinder", "ellipsoid", "Translate", "Rotate", "Scale",
+             "Round", "Onion", "Elongate", "RepeatInfinite", "translate", "rotate", "scale", "round_edges", "onion",
+             "elongate", "repeat_infinite", "rotvec_to_matrix")
+    assert all(n in tt.sdf.__all__ and hasattr(tt.sdf, n) for n in names)
+    assert all(hasattr(tt, n) for n in ("csg_showcase", "lattice_scene", "capsule_chain", "random_blobs"))
+    classes = [c for mod in (jp, jt) for _, c in inspect.getmembers(mod, inspect.isclass)
+               if issubclass(c, s.sdf.SDFNode) and c is not s.sdf.SDFNode and c.__module__ == mod.__name__]
+    assert {c.__name__ for c in classes} >= {"Capsule", "Translate", "RepeatInfinite", "Mandelbulb"}
+    sphere = tt.sdf.sphere((0.0, 0.3, 0.0), 0.2)
+    for c in classes:
+        if c.__name__ == "Mandelbulb":
+            continue
+        port = getattr(tt.sdf, c.__name__)
+        node = port(sphere, [0.1, 0.2, 0.3] if c.__name__ in ("Translate", "Rotate", "Elongate", "RepeatInfinite")
+                    else 0.1) if "child" in port.fields else convert.from_jax(
+            getattr(jp, re.sub(r"(?<!^)(?=[A-Z])", "_", c.__name__).lower())())
+        check_scene(tt.sdf.union(tt.sdf.ground_plane(), node))

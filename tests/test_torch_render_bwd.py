@@ -21,7 +21,8 @@ from sdf3d_tpu_torch import convert
 from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain
 from sdf3d_tpu_torch.ops.render_kernel import pack_uniforms
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
-from sdf3d_tpu_torch.utils.parity import check_grads, conditioned, gradient_mass
+from sdf3d_tpu_torch.utils.parity import FLAGSHIP_SAME, check_grads, conditioned, gradient_mass
+from test_torch_scene_program import transform_sampler
 
 torch.set_num_threads(1)
 
@@ -100,6 +101,52 @@ def test_plain_backward_matches_jax_kernel(case, wrt_uniforms):
     # The wrapper on CPU tensors is the same plain version.
     again = render_kernel_backward(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg, wrt_uniforms=wrt_uniforms)
     torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+# The scenes of ROADMAP item 13b at 96x72 (the cameras of
+# test_torch_fit_kernel.py's 13b cases).
+SCENES_13B = {"transform_sampler": (transform_sampler, CAMERAS["orbit"]),
+              "capsule_chain": (s.capsule_chain, lambda: s.Camera.orbit(0, 25, 2.2)),
+              "csg_showcase": (s.csg_showcase, lambda: s.Camera.orbit(25, 25, 2.4))}
+
+
+@pytest.mark.parametrize("name", sorted(SCENES_13B))
+def test_plain_backward_matches_jax_kernel_13b_scenes(name):
+    """Both forms of the plain K5 (P + 30 and P columns) against JAX's
+    interpret-mode backward on the same planes and cotangent, at the
+    flagship's bar (``FLAGSHIP_SAME``: 1e-4 of the mass); on
+    ``csg_showcase`` non-finite in the same slots as JAX's (every one)."""
+    w, h = 96, 72
+    jcfg = dataclasses.replace(BASE, width=w, height=h)
+    scene_fn, cam_fn = SCENES_13B[name]
+    jscene, jcam, jlight, jmat = scene_fn(), cam_fn(), s.reference_light(), s.reference_material()
+    pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True)
+    _, t, shadow, ao_plane = (np.asarray(x) for x in jax_render_kernel_forward(
+        jscene, jcam, jlight, jmat, jcfg, pc, planar=True))
+    scene, cam, light, mat, cfg = (convert.from_jax(o) for o in (jscene, jcam, jlight, jmat, jcfg))
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, light, mat, cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    planes = [torch.from_numpy(x.copy()) for x in (t, shadow, ao_plane)]
+    keep = conditioned(scene, prm, uni, planes[0], cfg).numpy()
+    g_rgb = np.random.default_rng(1).normal(size=(3, h, w)).astype(np.float32) * keep
+    leaves, treedef = jax.tree_util.tree_flatten(jscene)
+    juni = jax_pack_uniforms(jcam, jlight, jmat, jcfg.ray_mode).at[27].set(jcfg.shadow.k)
+    want = [np.asarray(x) for x in jax_render_kernel_backward(
+        treedef, tuple(jnp.shape(l) for l in leaves), jax_scene_param_vector(jscene), juni,
+        jnp.asarray(g_rgb), *(jnp.asarray(x) for x in (t, shadow, ao_plane)), jcfg, pc)]
+    got = render_kernel_backward_plain(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg, wrt_uniforms=True)
+    got_p, none = render_kernel_backward_plain(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg,
+                                               wrt_uniforms=False)
+    assert none is None
+    np.testing.assert_array_equal(np.isfinite(got[0].numpy()), np.isfinite(want[0]))
+    np.testing.assert_array_equal(np.isfinite(got_p.numpy()), np.isfinite(want[0]))
+    if name == "csg_showcase":
+        assert not np.isfinite(want[0]).any()
+        return
+    mass = gradient_mass(scene, prm, uni, torch.from_numpy(g_rgb), *planes, cfg)
+    check_grads(torch.cat(got), np.concatenate(want), mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    check_grads(got_p, want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME)
 
 
 def test_background_misses_carry_no_gradient():

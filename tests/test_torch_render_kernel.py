@@ -15,7 +15,8 @@ from sdf3d_tpu.ops.render_kernel import render_kernel_forward as jax_render_kern
 from sdf3d_tpu_torch import convert
 from sdf3d_tpu_torch.ops import KernelConfig, pack_uniforms, render_kernel_forward, render_kernel_forward_plain
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
-from sdf3d_tpu_torch.utils.parity import check_planes
+from sdf3d_tpu_torch.utils.parity import CREASE_BAR, check_planes
+from test_torch_scene_program import transform_sampler
 
 torch.set_num_threads(1)
 
@@ -30,6 +31,16 @@ CASES = [c + ("reference", (W, H)) for c in itertools.product([True, False], ["c
     (True, "central", False, "flagship", (120, 90)),
 ]
 SCENES = {"reference": s.reference_scene, "flagship": s.flagship_scene}
+# The scenes of ROADMAP item 13b in the ray form at 128x96, each under its
+# camera of the JAX gallery (examples/render_gallery.py), the transform
+# sampler under the reference camera.
+GALLERY = {
+    "csg_showcase": (s.csg_showcase, lambda: s.Camera.orbit(25, 25, 2.4)),
+    "lattice_scene": (s.lattice_scene, lambda: s.Camera.orbit(15, 18, 3.0)),
+    "capsule_chain": (s.capsule_chain, lambda: s.Camera.orbit(0, 25, 2.2)),
+    "random_blobs": (lambda: s.random_blobs(n=8), lambda: s.Camera.orbit(40, 22, 2.4)),
+    "transform_sampler": (transform_sampler, s.Camera.reference),
+}
 
 
 def _ids(case):
@@ -62,3 +73,25 @@ def test_plain_matches_jax_pallas_kernel(case):
     torch.testing.assert_close(rgb, got[0].permute(1, 2, 0), rtol=0, atol=0)
     torch.testing.assert_close(t, got[1], rtol=0, atol=0)
 
+
+
+@pytest.mark.parametrize("name", sorted(GALLERY))
+def test_plain_matches_jax_pallas_kernel_13b_scenes(name):
+    """The plain version of K1 (ray form) against JAX's interpret-mode kernel
+    on each 13b scene, all four planes within ``docs/parity.md``'s budget.
+    ``csg_showcase`` is held to ``CREASE_BAR``: 28 of 12288 shadow pixels
+    (0.23%, at most 4.6e-4) are over 1e-4 here, on the hard Subtraction's
+    and Intersection's creases; in the point form none is."""
+    scene_fn, cam_fn = GALLERY[name]
+    jcfg, jscene, jcam = BASE, scene_fn(), cam_fn()
+    pc = PallasRenderConfig(tile_h=8, tile_w=128, interpret=True)
+    want = jax_render_kernel_forward(jscene, jcam, s.reference_light(), s.reference_material(), jcfg, pc, planar=True)
+    scene, cam, light, mat, cfg = (
+        convert.from_jax(o) for o in (jscene, jcam, s.reference_light(), s.reference_material(), jcfg)
+    )
+    prm = scene_param_vector(scene)
+    uni = pack_uniforms(cam, light, mat, cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    got = render_kernel_forward_plain(scene, prm, uni, cfg, KernelConfig())
+    check_planes(got, [np.asarray(w) for w in want], cfg.march.max_distance,
+                 **(CREASE_BAR if name == "csg_showcase" else {}))

@@ -69,6 +69,37 @@ def csg_sampler():
     )
 
 
+def transform_sampler():
+    """Every node of ROADMAP item 13b with finite gradients: the JAX twin of
+    ``utils/parity.py::transform_sampler`` (which says why its numbers are
+    these)."""
+    S = s.sdf
+    return S.union(
+        S.ground_plane(),
+        S.translate(S.rotate(S.capsule((-0.12, 0.0, 0.0), (0.12, 0.0, 0.0), 0.07), (0.3, 0.5, 0.4)),
+                    (-0.55, 0.25, 0.05)),
+        S.rotate(S.ellipsoid((0.18, 0.1, 0.12), (-0.15, 0.22, -0.35)), (0.0, 0.0, 0.0)),
+        S.round_edges(S.cylinder(0.1, 0.12, (0.55, 0.22, 0.0)), 0.04),
+        S.scale(S.sphere((0.0, 0.62, 0.0), 0.18), 0.5),
+        S.onion(S.sphere((0.22, 0.25, 0.35), 0.14), 0.02),
+        S.translate(S.elongate(S.torus(0.07, 0.035, (0.0, 0.0, 0.0)), (0.1, 0.03, 0.0)), (-0.2, 0.13, 0.4)),
+        S.repeat_infinite(S.sphere((0.0, 0.12, -0.6), 0.07), (1.1, 0.0, 0.0)),
+    )
+
+
+def jax_capsule_chain_fit_start():
+    """The JAX twin of ``utils/parity.py::capsule_chain_fit_start``."""
+    S = s.sdf
+    out = None
+    for i in range(5):
+        sign = -1.0 if i % 2 else 1.0
+        a = (-0.6 + 0.3 * i + 0.02 * sign, 0.235 + 0.12 * (i % 2), 0.01)
+        b = (-0.6 + 0.3 * (i + 0.7), 0.3 + 0.01 * sign, 0.085)
+        link = S.capsule(a, b, 0.09)
+        out = link if out is None else S.smooth_union(out, link, k=0.07)
+    return S.union(S.ground_plane(), out)
+
+
 def jax_flagship_fit_start():
     """The flagship with its sphere, rounded box, k and torus moved: the JAX
     twin of ``utils/parity.py::flagship_fit_start``."""
@@ -81,13 +112,16 @@ def jax_flagship_fit_start():
     return S.union(S.ground_plane(), blob, S.torus(major=0.47, minor=0.065, center=(0.02, 0.12, 0.33)))
 
 
-@pytest.mark.parametrize("name", ["sampler", "flagship_fit_start"])
+@pytest.mark.parametrize("name", ["sampler", "flagship_fit_start", "transform_sampler", "capsule_chain_fit_start"])
 def test_shared_scenes_match_their_jax_twins(name):
     """``utils/parity.py``'s scenes, which the smoke and the card tests use,
     are the JAX scenes these tests build: the same generated header (the
     nodes and their order) and the same parameters, bit for bit."""
     jax_twin, shared = {"sampler": (csg_sampler, parity.csg_sampler),
-                        "flagship_fit_start": (jax_flagship_fit_start, parity.flagship_fit_start)}[name]
+                        "flagship_fit_start": (jax_flagship_fit_start, parity.flagship_fit_start),
+                        "transform_sampler": (transform_sampler, parity.transform_sampler),
+                        "capsule_chain_fit_start": (jax_capsule_chain_fit_start,
+                                                    parity.capsule_chain_fit_start)}[name]
     twin, port = convert.from_jax(jax_twin()), shared()
     assert [type(m).__name__ for m in twin.modules()] == [type(m).__name__ for m in port.modules()]
     assert cuda_scene_source(twin, tt.REFERENCE_CONFIG, KernelConfig()) == cuda_scene_source(
@@ -96,7 +130,9 @@ def test_shared_scenes_match_their_jax_twins(name):
 
 
 SCENES = {"reference": s.reference_scene, "sphere": s.sphere_scene, "nested": _nested_jax_scene,
-          "flagship": s.flagship_scene, "sampler": csg_sampler}
+          "flagship": s.flagship_scene, "sampler": csg_sampler, "csg_showcase": s.csg_showcase,
+          "lattice_scene": s.lattice_scene, "capsule_chain": s.capsule_chain,
+          "random_blobs": lambda: s.random_blobs(n=8), "transform_sampler": transform_sampler}
 
 
 def _both(scene_name):
@@ -174,6 +210,12 @@ HOST_CASES = {
     "flagship": (tt.flagship_scene, {}, KernelConfig()),
     "flagship_point_form": (tt.flagship_scene, {}, KernelConfig(ray_sdf=False)),
     "sampler": (lambda: convert.from_jax(csg_sampler()), {}, KernelConfig()),
+    "csg_showcase": (lambda: convert.from_jax(s.csg_showcase()), {}, KernelConfig()),
+    "lattice_scene": (lambda: convert.from_jax(s.lattice_scene()), {}, KernelConfig()),
+    "capsule_chain": (lambda: convert.from_jax(s.capsule_chain()), {}, KernelConfig()),
+    "random_blobs": (lambda: convert.from_jax(s.random_blobs(n=8)), {}, KernelConfig()),
+    "transform_sampler": (lambda: convert.from_jax(transform_sampler()), {}, KernelConfig()),
+    "transform_sampler_point_form": (lambda: convert.from_jax(transform_sampler()), {}, KernelConfig(ray_sdf=False)),
 }
 
 
