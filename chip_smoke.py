@@ -225,6 +225,42 @@ The kernels line gives ``render_fwd``, ``fit_step`` and ``render_bwd`` a
 ``scenes_13b`` entry: per scene its launches on the main path, ms, plain
 ms, bound, registers and spills.
 
+Then the fractal (ROADMAP item 13c: ``fractal_scene()``, a power-8
+Mandelbulb of six iterations on the ground plane) and the over-relaxed march
+(``march.relaxation`` = 1.6, the branch of ``render_kernel.cuh::march_primary``
+that K1-K4 share) (:func:`fractal_phases`):
+
+37. build: the fractal's libraries (K1 in both forms, K3 with the plane
+    frozen, K5) and the relaxed march's on the reference scene and the
+    fractal (the ray form: one template serves both), together, with ``Scene::bwd_values``, the header's
+    size and ``ptxas`` registers, spills and blocks an SM; a moved
+    Mandelbulb reuses the library;
+38. at 256x192 (reference camera and orbit 30/15) and a ragged 250x190:
+    K1 on the fractal in both forms, and relaxed, and on the reference
+    scene relaxed (the fractal's images past the hard limit only on
+    razor-edge rays or pixels rounding decides); K3 on the fractal's fit
+    start (center and scale moved) and relaxed on the fit demo's start, at
+    the flagship's bars; both K5 forms on the fractal; K2 and K4 relaxed on
+    a 4-rank plan against their plain tile versions;
+39. main path at 1920x1080: ``render_batch`` over 4 orbit cameras (K1 =
+    4), ``cli render --scene fractal`` (K1 = 1), a 20-step Adam fit (step
+    1e-3) of the fractal's fit start to its render with the plane frozen (K3
+    = 20; step 0 against the plain version; K3's and the plain version's
+    gradients at the start finite), 5 multiscale steps (K1 = K5 = 5);
+    ``render_batch`` relaxed on the reference scene and the fractal (K1
+    = 8), a 20-step relaxed fit of the fit demo (K3 = 20) and the same fit
+    as ``fit_scene(mesh)`` in ``tiles`` at world size 1 (K4 = 20, the
+    unsharded losses), ``render_sharded_kernel(layout="tiles")`` relaxed (K2
+    = 1), the bench's ``fractal`` cells in both modes; then CUDA-event times
+    of the fractal's K1, K3 and both K5 forms with their bounds (both K5
+    forms at 1080p against their plain version), and K1 relaxed beside K1
+    exact on both scenes and K2 relaxed beside exact on the reference scene
+    (135 tiles), in turns.
+
+The kernels line gives ``render_fwd``, ``fit_step`` and ``render_bwd`` a
+``fractal`` entry, and ``render_fwd``, ``render_tiles``, ``fit_step`` and
+``fit_step_tiles`` a ``relaxed`` entry.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -250,7 +286,8 @@ the parent and the change in turns to compare them on one card).
 
 times K3 and both forms of K5 at 1080p on the register line's scenes at
 every cap of :data:`SWEEP_CAPS`, all in one process, the caps interleaved,
-with their registers and spills (:func:`register_line`).
+with their registers and spills (:func:`register_line`); scene names after
+the flag (``--register-line fractal_scene``) time those scenes alone.
 """
 
 from __future__ import annotations
@@ -605,6 +642,7 @@ def main() -> int:
     bench_phases(torch, tt, card, dev)
     flagship = flagship_phases(torch, tt, card, dev)
     scenes = scenes_13b_phases(torch, tt, card, dev)
+    fractal = fractal_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -629,6 +667,16 @@ def main() -> int:
     check(sum("scenes_13b" in e for e in kernels) == 3 and all(
         "scenes_13b" in e for e in kernels if e["name"] in ("render_fwd", "fit_step", "render_bwd")),
         "a scenes_13b entry of the kernels line is missing")
+    for key in ("fractal", "relaxed"):
+        for entry in kernels:
+            if entry["name"] in fractal[key]:
+                entry[key] = fractal[key][entry["name"]]
+    check(sum("fractal" in e for e in kernels) == 3 and all(
+        "fractal" in e for e in kernels if e["name"] in ("render_fwd", "fit_step", "render_bwd")),
+        "a fractal entry of the kernels line is missing")
+    check(sum("relaxed" in e for e in kernels) == 4 and all(
+        "relaxed" in e for e in kernels if e["name"] in ("render_fwd", "render_tiles", "fit_step", "fit_step_tiles")),
+        "a relaxed entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2299,10 +2347,9 @@ def bench_phases(torch, tt, card: str, dev) -> None:
     t0 = time.perf_counter()
     extras = bench.run_extras(budget_s=300.0)
     extras_seconds = time.perf_counter() - t0
-    for name in ("fwd_4k", "fit_4k", "fit_fast_1080p"):
+    for name in ("fwd_4k", "fit_4k", "fit_fast_1080p", "fit_fractal_1080p"):
         check(isinstance(extras[name], dict) and extras[name]["rays_per_second"] > 0, f"{name}: {extras[name]}")
-    check("item 13" in extras["fit_fractal_1080p"] and "item 12" in extras["fit_multiview_720p_v4"],
-          f"the unported extras read {extras}")
+    check("item 12" in extras["fit_multiview_720p_v4"], f"the unported extra reads {extras}")
     uhd = dataclasses.replace(ref, width=3840, height=2160)
     for name, mode, c in (("fwd_4k", "fwd", uhd), ("fit_4k", "fwd_bwd", uhd),
                           ("fit_fast_1080p", "fwd_bwd", tt.fast_config(ref))):
@@ -2837,9 +2884,10 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
 SWEEP_CAPS = {"4/4/2": (4, 4, 2), "2/2/1": (2, 2, 1), "1/1/1": (1, 1, 1)}
 #: The sweep's scenes, by ``Scene::bwd_values``: lattice_scene 48,
 #: random_blobs(2) 57, random_blobs(3) 87, csg_showcase 159,
-#: random_blobs(8) 237, capsule_chain 277.
+#: random_blobs(8) 237, capsule_chain 277, transform_sampler 398,
+#: fractal_scene 409 (392 kept by its Mandelbulb alone).
 SWEEP_SCENES = ("lattice_scene", "random_blobs_2", "random_blobs_3", "csg_showcase", "random_blobs_8",
-                "capsule_chain")
+                "capsule_chain", "transform_sampler", "fractal_scene")
 
 
 def caps_csrc(root: str, caps) -> str:
@@ -2864,10 +2912,15 @@ def caps_csrc(root: str, caps) -> str:
 
 
 def _sweep_scene(tt, name: str, dev):
-    """A scene of the register-line sweep: ``random_blobs_<n>`` (seed 0) or
-    a scene of ``scenes.py`` by name."""
+    """A scene of the register-line sweep: ``random_blobs_<n>`` (seed 0),
+    ``transform_sampler`` (``utils/parity.py``) or a scene of ``scenes.py``
+    by name."""
     if name.startswith("random_blobs_"):
         return tt.random_blobs(n=int(name.rsplit("_", 1)[1])).to(dev)
+    if name == "transform_sampler":
+        from sdf3d_tpu_torch.utils.parity import transform_sampler
+
+        return transform_sampler(dev)
     return getattr(tt, name)().to(dev)
 
 
@@ -2882,7 +2935,7 @@ class _OneLibrary:
         return self.lib
 
 
-def register_line(rounds: int = 5) -> dict:
+def register_line(rounds: int = 5, names=SWEEP_SCENES) -> dict:
     """``--register-line``: K3 (the plane frozen) and both forms of K5 at
     1080p on each scene of :data:`SWEEP_SCENES` under the reference camera,
     at every cap of :data:`SWEEP_CAPS`, all in this process: one library per
@@ -2915,7 +2968,7 @@ def register_line(rounds: int = 5) -> dict:
     uni = pack_uniforms(tt.Camera.reference(device=dev), tt.reference_light(device=dev),
                         tt.reference_material(device=dev), cfg.ray_mode, dev)
     uni[27] = float(cfg.shadow.k)
-    scenes = {n: _sweep_scene(tt, n, dev) for n in SWEEP_SCENES}
+    scenes = {n: _sweep_scene(tt, n, dev) for n in names}
     out = {"card": card_name_and_power(), "caps": SWEEP_CAPS, "rounds": rounds, "scenes": {}}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {label: _build.KernelLibraries(csrc=caps_csrc(tmp, caps)) for label, caps in SWEEP_CAPS.items()}
@@ -3353,6 +3406,462 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
     return out
 
 
+#: The over-relaxed march's factor in phases 37-39 (JAX's measured range is
+#: 1.2-1.9; sdf3d_tpu/config.py).
+OMEGA = 1.6
+#: FP32 operations of one relaxed primary step around the distance
+#: evaluation (render_kernel.cuh::march_primary): the failure test (a
+#: compare, an abs, an add, a compare), the hit test, the step's two
+#: products and selects, omega's select, t's add and the stop compare.
+RELAXED_STEP = (12, 0)
+
+
+def fractal_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 37-39: the fractal (ROADMAP 13c: ``fractal_scene()``, a power-8
+    Mandelbulb of six iterations on the ground plane) on K1, K3 and K5, and
+    the over-relaxed march (ω = 1.6) on K1-K4, on the reference scene and
+    the fractal.  Returns, per kernel entry of the kernels line
+    (``render_fwd``, ``render_tiles``, ``fit_step``, ``fit_step_tiles``,
+    ``render_bwd``), the fractal's and the relaxed march's launches, times,
+    bound and error."""
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch import bench, cli
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        fit_launcher,
+        fit_step_kernel,
+        fit_step_kernel_launch,
+        fit_step_kernel_plain,
+        fit_step_kernel_tiles,
+        fit_step_kernel_tiles_launch,
+        fit_step_kernel_tiles_plain,
+    )
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_bwd_launcher,
+        render_kernel_backward,
+        render_kernel_backward_launch,
+        render_kernel_backward_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+        render_kernel_tiles_forward_plain,
+        render_kernel_tiles_launch,
+        tile_pixel_planes,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel import launch, make_mesh, render_sharded_kernel
+    from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
+    from sdf3d_tpu_torch.utils.parity import (
+        FLAGSHIP_SAME,
+        SCENE_BARS,
+        check_grads,
+        check_planes,
+        conditioned,
+        fractal_fit_start,
+        gradient_mass,
+        primals_agree,
+        razor_edge,
+        rounding_decided,
+    )
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+
+    def relaxed(c):
+        return dataclasses.replace(c, march=dataclasses.replace(c.march, relaxation=OMEGA))
+
+    small = dataclasses.replace(full, width=256, height=192)
+    ragged = dataclasses.replace(full, width=250, height=190)
+    kc, kc_point = KernelConfig(), KernelConfig(ray_sdf=False)
+    kc_tiles = KernelConfig(tile_h=8, tile_w=128)  # phase 18's tile at 256x192
+    frozen = (0, 1, 2, 3)  # the ground plane
+    ref_cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    fractal, reference = tt.fractal_scene().to(dev), tt.reference_scene().to(dev)
+
+    def start():  # the fit demo's start (phase 10)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    bar = SCENE_BARS.get("fractal", {})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                fit_step_kernel_tiles, render_neural_forward)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def planes_stats(st):
+        return {n: {q: v.get(q) for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
+
+    def k1_check(sc, prm, uni, c, k, label, rounding=True):
+        got, want = render_kernel_launch(sc, prm, uni, c, k), render_kernel_forward_plain(sc, prm, uni, c, k)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{label}: non-finite planes")
+        witness = Witness(razor_edge, rounding_decided, sc, prm, uni, c, k) if rounding else (
+            lambda: razor_edge(sc, prm, uni, c, k))
+        try:
+            st = check_planes(got, want, c.march.max_distance, label, razor=witness, **(bar if sc is fractal else {}))
+        except AssertionError:
+            log("fractal_k1_failed", label=label, worst=worst_pixels(torch, got, want, witness(), c.march.max_distance))
+            raise
+        return {**planes_stats(st), **getattr(witness, "counts", {})}
+
+    # ---- 37. build: the fractal's and the relaxed march's libraries together ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    jobs = [library_job(fractal, full, kc), library_job(fractal, full, kc_point),
+            library_job(fractal, full, kc, False, frozen), library_job(reference, relaxed(full), kc),
+            library_job(reference, relaxed(full), kc_tiles), library_job(reference, relaxed(full), kc, False, frozen),
+            library_job(reference, relaxed(full), kc_tiles, False, ()), library_job(fractal, relaxed(full), kc)]
+    t0 = time.perf_counter()
+    libs.load_many(jobs)
+    build_wall = time.perf_counter() - t0
+    header = cuda_scene_source(fractal, full, kc, False, frozen)
+    ptxas = ptxas_summary(libs.log(libs.key(header)))
+    check(set(ptxas) >= {"render_fwd", "fit_step", "render_bwd", "render_bwd_params"},
+          f"fractal: ptxas reported {sorted(ptxas)}")
+    for v in ptxas.values():
+        v["blocks_per_sm"] = blocks_per_sm(v["registers"])
+    render_ptxas = ptxas_summary(libs.log(libs.key(cuda_scene_source(fractal, full, kc))))["render_fwd"]
+    relaxed_ptxas = {n: ptxas_summary(libs.log(libs.key(cuda_scene_source(sc, relaxed(full), kc))))["render_fwd"]
+                     for n, sc in (("reference", reference), ("fractal", fractal))}
+    bwd_values = int(header.split("bwd_values = ")[1].split(";")[0])
+    # Another center and scale reuse the library: they are run-time parameters.
+    before = libs.builds
+    a = render_kernel_forward(fractal, ref_cam, light, mat, small, device=dev)[0]
+    b = render_kernel_forward(fractal_fit_start(dev), ref_cam, light, mat, small, device=dev)[0]
+    torch.cuda.synchronize()
+    check(libs.builds == before, f"a moved Mandelbulb rebuilt a library ({libs.builds - before})")
+    check(bool((a != b).any()), "moving the Mandelbulb did not change the image")
+    log("fractal_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(jobs), bwd_values=bwd_values, header_bytes=len(header),
+        ptxas=ptxas, render_fwd_ptxas=render_ptxas, relaxed_render_fwd_ptxas=relaxed_ptxas)
+
+    # ---- 38. K1-K5 on the fractal, K1-K4 relaxed, against their plain versions ----
+    errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "relaxed": [], "render_tiles": [],
+            "fit_step_tiles": []}
+    # The relaxed branch is one template for both forms: the ray form alone.
+    for sc_name, sc in (("fractal", fractal), ("reference", reference)):
+        for (cam_name, cm), c, k in [((n, cm), c, k) for n, cm in (("reference", ref_cam), ("orbit30_15", orbit))
+                                     for c in (small, relaxed(small)) for k in (kc, kc_point)] + [
+                (("reference", ref_cam), ragged, kc), (("reference", ref_cam), relaxed(ragged), kc)]:
+            if (sc is reference and c.march.relaxation == 1.0) or (c.march.relaxation != 1.0 and not k.ray_sdf):
+                continue  # phase 3; one form
+            prm, uni = inputs(sc, cm, c)
+            label = f"{sc_name} K1 {cam_name} {c.width}x{c.height} ray_sdf={k.ray_sdf} relaxation={c.march.relaxation}"
+            st = k1_check(sc, prm, uni, c, k, label, rounding=sc is fractal)
+            errs["relaxed" if c.march.relaxation != 1.0 else "render_fwd"].append(st["rgb"]["max_abs_err"])
+            log("fractal_k1_parity", scene=sc_name, camera=cam_name, size=[c.width, c.height], ray_sdf=k.ray_sdf,
+                relaxation=c.march.relaxation, **st)
+    # K3 on the fractal's fit start (its own march against the plain version's,
+    # and the plain reverse pass on K1's planes), K3 relaxed on the reference.
+    for sc_name, sc, c, cm, wrt, fr in (("fractal", fractal_fit_start(dev), small, ref_cam, False, frozen),
+                                       ("fractal", fractal_fit_start(dev), small, orbit, False, frozen),
+                                       ("fractal", fractal_fit_start(dev), ragged, ref_cam, False, frozen),
+                                       ("reference", start(), relaxed(small), orbit, False, frozen)):
+        prm, uni = inputs(sc, cm, c)
+        label = f"{sc_name} K3 {c.width}x{c.height} wrt_uniforms={wrt} relaxation={c.march.relaxation}"
+        st = k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, rounding=True,
+                              bar=bar if sc_name == "fractal" else None)
+        errs["fit_step"].append(st["own_march"]["max_abs_err"])
+        log("fractal_k3_parity", scene=sc_name, size=[c.width, c.height], wrt_uniforms=wrt, frozen=list(fr),
+            relaxation=c.march.relaxation, **st)
+    for c, cm in ((small, ref_cam), (ragged, orbit)):
+        sc = fractal_fit_start(dev)
+        prm, uni = inputs(sc, cm, c)
+        _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+        g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
+                 * conditioned(sc, prm, uni, t, c)).contiguous()
+        mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, c)
+        for wrt in (True, False):
+            label = f"fractal K5 {c.width}x{c.height} wrt_uniforms={wrt}"
+            got = render_kernel_backward_launch(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            want = render_kernel_backward_plain(sc, prm, uni, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            torch.cuda.synchronize()
+            st = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                             mass if wrt else mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME, label=label)
+            errs["render_bwd"].append(st["max_abs_err"])
+            log("fractal_k5_parity", size=[c.width, c.height], wrt_uniforms=wrt, **st)
+    # K2 and K4 relaxed on a 4-rank plan at 256x192 (phase 18's tile) against
+    # the plain tile versions, each side's own render as the target where the
+    # gradient is ill-conditioned or the primals disagree (k3_against_plain).
+    sc, c = start(), relaxed(small)
+    prm, uni = inputs(sc, orbit, c)
+    plan = plan_tiles(c.height, c.width, kc_tiles.tile_h, kc_tiles.tile_w, 4)
+    rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
+    own = render_kernel_forward_plain(sc, prm, uni, c)
+    keep = conditioned(sc, prm, uni, t, c) & primals_agree((rgb, t, sh, ao), own, c.march.max_distance)
+    noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    stacks, p_stacks = gather_target_tiles(target, plan), gather_target_tiles(p_target, plan)
+    tiles_st = []
+    for rank in range(4):
+        trow, tcol = plan.tables(rank, dev)
+        k2 = render_kernel_tiles_launch(sc, prm, uni, trow, tcol, c, kc_tiles)
+        p2 = render_kernel_tiles_forward_plain(sc, prm, uni, trow, tcol, c, kc_tiles)
+        k4 = fit_step_kernel_tiles_launch(sc, prm, uni, stacks[rank].contiguous(), trow, tcol, c, kc_tiles, False,
+                                          frozen)
+        p4 = fit_step_kernel_tiles_plain(sc, prm, uni, p_stacks[rank].contiguous(), trow, tcol, c, kc_tiles, False,
+                                         frozen)
+        torch.cuda.synchronize()
+        pixels = tile_pixel_planes(trow, tcol, kc_tiles.tile_h, kc_tiles.tile_w)
+        st2 = check_planes(k2, p2, c.march.max_distance, f"relaxed K2 rank {rank}",
+                           razor=razor_edge(sc, prm, uni, c, kc_tiles, pixels))
+        rel = abs(float(k4[0]) / float(p4[0]) - 1.0)
+        check(rel <= 1e-5, f"relaxed K4 rank {rank}: loss off the plain version's by {rel:.3g}")
+        g_err = float((k4[1] - p4[1]).abs().max())
+        errs["render_tiles"].append(st2["rgb"]["max_abs_err"])
+        errs["fit_step_tiles"].append(g_err)
+        tiles_st.append({"k2": planes_stats(st2), "k4_loss_rel_err": rel, "k4_grad_max_abs_err": g_err})
+    log("fractal_tiles_relaxed_parity", ranks=4, tiles=plan.tiles_per_device, stats=tiles_st)
+
+    # ---- 39. main path at 1920x1080 ----
+    orbit4 = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, device=dev) for i in range(4)]
+    target = render_kernel_forward(fractal, ref_cam, light, mat, full, device=dev)[0]
+    ref_target = render_kernel_forward(reference, ref_cam, light, mat, relaxed(full), device=dev)[0]
+    lr, trainable = 1e-3, (False, False, True, True)
+    main = {}
+    with PlainCalls() as plain, BackwardModes() as modes:
+        reset()
+        frames = tt.render_batch(fractal, orbit4, light, mat, full, engine="kernel")
+        torch.cuda.synchronize()
+        main["render_batch"] = launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, "fractal.png")
+            check(cli.main(["render", "--scene", "fractal", "--width", str(W), "--height", str(H), "--out", png]) == 0,
+                  "cli render --scene fractal failed")
+            with open(png, "rb") as f:
+                head = f.read(24)
+        check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[16:24] == W.to_bytes(4, "big") + H.to_bytes(4, "big"),
+              "cli render --scene fractal did not write a 1920x1080 PNG")
+        main["render_with_cli"] = launches()
+        reset()
+        l2 = fit_scene(target, fractal_fit_start(dev), ref_cam, light, mat, full,
+                       FitConfig(steps=20, learning_rate=lr, log_every=1), trainable=trainable, device=dev)
+        main["fit_l2"] = launches()
+        reset()
+        ms = fit_scene(target, fractal_fit_start(dev), ref_cam, light, mat, full,
+                       FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
+                       device=dev)
+        main["fit_multiscale"] = launches()
+        ms_modes = list(modes.calls[-5:])
+        reset()
+        frames_relaxed = {n: tt.render_batch(sc, orbit4, light, mat, relaxed(full), engine="kernel")
+                          for n, sc in (("reference", reference), ("fractal", fractal))}
+        torch.cuda.synchronize()
+        main["render_batch_relaxed"] = launches()
+        reset()
+        rl2 = fit_scene(ref_target, start(), ref_cam, light, mat, relaxed(full),
+                        FitConfig(steps=20, learning_rate=1e-2, log_every=1), trainable=(False, False, True, True),
+                        device=dev)
+        main["fit_l2_relaxed"] = launches()
+        launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend() == "nccl" and mesh.size == 1, f"mesh {mesh}")
+            reset()
+            tiles = fit_scene(ref_target, start(), ref_cam, light, mat, relaxed(full),
+                              FitConfig(steps=20, learning_rate=1e-2, log_every=1, shard_layout="tiles"), mesh=mesh,
+                              trainable=(False, False, True, True))
+            main["fit_mesh_tiles_relaxed"] = launches()
+            reset()
+            sharded = render_sharded_kernel(reference, ref_cam, light, mat, relaxed(full), mesh, kc, layout="tiles",
+                                            planar=True)
+            torch.cuda.synchronize()
+            main["render_sharded_tiles_relaxed"] = launches()
+        finally:
+            launch.shutdown()
+        cells = {}
+        for mode in ("fwd", "fwd_bwd"):
+            reset()
+            r = bench.run_benchmark(scene_name="fractal", mode=mode, iters=2, frames_per_dispatch=4)
+            cells[mode] = {**r, "launches": launches()}
+    check(sum(plain.calls.values()) == 0, f"the fractal's main path called plain versions: {plain.calls}")
+    zero = {fn.__name__: 0 for fn in counters}
+    want_counts = {
+        "render_batch": {**zero, "render_kernel_forward": 4},
+        "render_with_cli": {**zero, "render_kernel_forward": 5},
+        "fit_l2": {**zero, "fit_step_kernel": 20},
+        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+        "render_batch_relaxed": {**zero, "render_kernel_forward": 8},
+        "fit_l2_relaxed": {**zero, "fit_step_kernel": 20},
+        "fit_mesh_tiles_relaxed": {**zero, "fit_step_kernel_tiles": 20},
+        "render_sharded_tiles_relaxed": {**zero, "render_kernel_tiles_forward": 1},
+    }
+    for name, want in want_counts.items():
+        check(main[name] == want, f"fractal {name} launched {main[name]}, expected {want}")
+    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    for mode, counter in (("fwd", "render_kernel_forward"), ("fwd_bwd", "fit_step_kernel")):
+        got = cells[mode]["launches"]
+        check(got[counter] > 0 and sum(got.values()) == got[counter] and cells[mode]["value"] > 0,
+              f"bench fractal {mode}: {cells[mode]}")
+    check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), "bad fractal frames")
+    for name, res in (("l2", l2), ("multiscale", ms), ("l2_relaxed", rl2), ("mesh_tiles_relaxed", tiles)):
+        check(all(math.isfinite(v) for v in res.losses), f"fractal {name} fit: non-finite loss")
+        check(res.losses[-1] < res.losses[0], f"fractal {name} fit: the loss did not fall "
+                                              f"({res.losses[0]} -> {res.losses[-1]})")
+    tiles_rel = max(abs(a / b - 1.0) for a, b in zip(tiles.losses, rl2.losses))
+    check(tiles_rel <= 1e-5, f"relaxed fit_scene(mesh, tiles): losses off the unsharded fit's by {tiles_rel:.3g}")
+    frame0 = {}
+    for name, sc, c, fr in (("fractal", fractal, full, frames[0]),
+                            ("reference_relaxed", reference, relaxed(full), frames_relaxed["reference"][0]),
+                            ("fractal_relaxed", fractal, relaxed(full), frames_relaxed["fractal"][0])):
+        prm0, uni0 = inputs(sc, orbit4[0], c)
+        frame0[name] = k1_check(sc, prm0, uni0, c, kc, f"{name} 1080p frame 0", rounding=sc is fractal)
+        torch.testing.assert_close(render_kernel_launch(sc, prm0, uni0, c)[0].permute(1, 2, 0), fr, rtol=0, atol=0)
+    ref_prm, ref_uni = inputs(reference, ref_cam, relaxed(full))
+    k1_ref = render_kernel_launch(reference, ref_prm, ref_uni, relaxed(full))
+    sharded_st = check_planes((sharded,), k1_ref[:1], full.march.max_distance, "relaxed render_sharded_kernel vs K1",
+                              razor=razor_edge(reference, ref_prm, ref_uni, relaxed(full)))
+    # JAX's reverse pass of the Mandelbulb is NaN near its escape boundaries,
+    # where the escape selects' untaken branch overflows; the port's clamp
+    # (sdf/primitives.py::mandelbulb_de) keeps the fit start's gradient
+    # finite at 1080p (ROADMAP Queue 3).
+    prm0, uni0 = inputs(fractal_fit_start(dev), ref_cam, full)
+    nonfinite_start = int((~torch.isfinite(torch.cat(fit_step_kernel_launch(
+        fractal_fit_start(dev), prm0, uni0, target.permute(2, 0, 1).contiguous(), full, kc, False, frozen)[1:]))).sum())
+    check(nonfinite_start == 0, f"fractal fit start: {nonfinite_start} non-finite gradient slots")
+    step0 = k3_against_plain(torch, fractal_fit_start(dev), scene_param_vector(fractal_fit_start(dev), dev), uni0,
+                             full, kc, False, frozen, "fractal K3 1080p step 0", gen,
+                             target.permute(2, 0, 1).contiguous(), rounding=True, bar=bar)
+    errs["fit_step"].append(step0["own_march"]["max_abs_err"])
+    log("fractal_main_path", launches=main, multiscale_render_bwd_wrt_uniforms=ms_modes, frame0=frame0,
+        l2_losses=l2.losses, multiscale_losses=ms.losses, fitted=scene_param_vector(l2.scene).tolist(),
+        target=scene_param_vector(fractal).tolist(), start_nonfinite_gradient_slots=nonfinite_start,
+        relaxed_l2_losses=rl2.losses,
+        relaxed_mesh_tiles_losses_equal=tiles.losses == rl2.losses, relaxed_mesh_tiles_loss_rel_err=tiles_rel,
+        relaxed_render_sharded_vs_k1=sharded_st["rgb"], step0=step0, bench=cells)
+
+    # Times at 1080p, the reference camera (plain, kernel, kernel, plain): the
+    # fractal's K1, K3 (the plane frozen) and both K5 forms against its
+    # render dimmed by 5%; K1 relaxed beside K1 exact on both scenes, in
+    # turns (exact, relaxed, relaxed, exact); bounds on this run's marches.
+    blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    prm, uni = inputs(fractal, ref_cam, full)
+    rgb, t, sh, ao = render_kernel_launch(fractal, prm, uni, full)
+    tgt = (rgb * 0.95).contiguous()
+    g_rgb = (2.0 * (rgb - tgt)).contiguous()
+    timed = {"render_fwd": (lambda: render_kernel_launch(fractal, prm, uni, full),
+                            lambda: render_kernel_forward_plain(fractal, prm, uni, full)),
+             "fit_step": (fit_launcher(fractal, prm, uni, tgt, full, kc, False, frozen)[0],
+                          lambda: fit_step_kernel_plain(fractal, prm, uni, tgt, full, kc, False, frozen))}
+    for form, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+        timed[form] = (render_bwd_launcher(fractal, prm, uni, g_rgb, t, sh, ao, full, kc, wrt)[0],
+                       functools.partial(render_kernel_backward_plain, fractal, prm, uni, g_rgb, t, sh, ao, full,
+                                         wrt_uniforms=wrt))
+    counts = march_counts(torch, fractal, ref_cam, full, prm, uni, render_kernel_forward_plain)
+    costs = scene_costs(header)
+    P = prm.numel()
+    bounds = {
+        "render_fwd": bound(*analytic_work(costs, counts, full), 24 * W * H),
+        "fit_step": bound(*analytic_work(costs, counts, full, reverse=True), 12 * W * H + 8 * (P + 31)),
+        "render_bwd": bound(*analytic_work(costs, counts, full, primal=False, reverse=True, retrace=True),
+                            24 * W * H + (8 * blocks + 8) * P),
+        "render_bwd_uniforms": bound(*analytic_work(costs, counts, full, primal=False, reverse=True, retrace=True),
+                                     24 * W * H + (8 * blocks + 8) * (P + 30)),
+    }
+    times = {}
+    for kname, (kern, plain_fn) in timed.items():
+        kern()
+        torch.cuda.synchronize()
+        # The plain version once: seconds a call at 1080p on the fractal.
+        p1, k1_, k2_ = time_ms(plain_fn, 0, 1), time_ms(kern), time_ms(kern)
+        px = {"render_fwd": render_ptxas, "fit_step": ptxas["fit_step"], "render_bwd": ptxas["render_bwd_params"],
+              "render_bwd_uniforms": ptxas["render_bwd"]}[kname]
+        times[kname] = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": p1,
+                        "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                        "registers": px["registers"], "spill_stores": px.get("spill_stores"),
+                        "spill_loads": px.get("spill_loads"), "blocks_per_sm": blocks_per_sm(px["registers"])}
+    # K5 at the size the multiscale fit launches it, both forms, against its
+    # plain version on the timed cotangent, zeroed where ill-conditioned.
+    g_cond = (g_rgb * conditioned(fractal, prm, uni, t, full)).contiguous()
+    mass = gradient_mass(fractal, prm, uni, g_cond, t, sh, ao, full)
+    for wrt, key in ((False, "render_bwd"), (True, "render_bwd_uniforms")):
+        got = render_kernel_backward_launch(fractal, prm, uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        want = render_kernel_backward_plain(fractal, prm, uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        torch.cuda.synchronize()
+        times[key]["vs_plain_1080p"] = check_grads(torch.cat(got) if wrt else got[0],
+                                                   torch.cat(want) if wrt else want[0],
+                                                   mass if wrt else mass[:P], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                                                   label=f"fractal K5 1080p wrt_uniforms={wrt}")
+    times["render_fwd"]["march_counts"] = {
+        "mean_primary_steps": counts["primary"] / counts["pixels"],
+        "mean_shadow_steps": counts["shadow"] / max(counts["shadow_rays"], 1.0), "shadow_rays": counts["shadow_rays"]}
+    times["fit_step"]["bwd_values"] = bwd_values
+    relaxed_times = {}
+    for name, sc in (("reference", reference), ("fractal", fractal)):
+        prm_r, uni_r = inputs(sc, ref_cam, full)
+        exact = lambda: render_kernel_launch(sc, prm_r, uni_r, full)  # noqa: E731
+        relax = lambda: render_kernel_launch(sc, prm_r, uni_r, relaxed(full))  # noqa: E731
+        relax()
+        torch.cuda.synchronize()
+        e1, r1, r2, e2 = time_ms(exact), time_ms(relax), time_ms(relax), time_ms(exact)
+        ec = march_counts(torch, sc, ref_cam, full, prm_r, uni_r, render_kernel_forward_plain)
+        rc = march_counts(torch, sc, ref_cam, relaxed(full), prm_r, uni_r, render_kernel_forward_plain)
+        rc["primary"] = rc["plain_primary"]  # the relaxed march's own steps
+        fp, sfu = analytic_work(scene_costs(cuda_scene_source(sc, relaxed(full), kc)), rc, full)
+        rbound = bound(fp + rc["primary"] * (RELAXED_STEP[0] - PRIMARY_STEP[0]), sfu, 24 * W * H)
+        pr = time_ms(lambda: render_kernel_forward_plain(sc, prm_r, uni_r, relaxed(full)), 0, 1)
+        relaxed_times[name] = {"ms": (r1 + r2) / 2, "ms_runs": [r1, r2], "exact_ms": (e1 + e2) / 2,
+                               "exact_ms_runs": [e1, e2], "plain_ms": pr, "bound_ms": rbound[0],
+                               "bound_by": rbound[1], "registers": relaxed_ptxas[name]["registers"],
+                               "mean_primary_steps": rc["primary"] / rc["pixels"],
+                               "mean_primary_steps_exact": ec["primary"] / ec["pixels"]}
+    # K2 over the 135-tile plan of phase 21 on the reference scene, relaxed
+    # beside exact, in turns.
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    prm_r, uni_r = inputs(reference, ref_cam, full)
+    exact2 = lambda: render_kernel_tiles_launch(reference, prm_r, uni_r, trow, tcol, full, kc)  # noqa: E731
+    relax2 = lambda: render_kernel_tiles_launch(reference, prm_r, uni_r, trow, tcol, relaxed(full), kc)  # noqa: E731
+    relax2()
+    torch.cuda.synchronize()
+    e1, r1, r2, e2 = time_ms(exact2), time_ms(relax2), time_ms(relax2), time_ms(exact2)
+    relaxed_times["reference_tiles"] = {"ms": (r1 + r2) / 2, "ms_runs": [r1, r2], "exact_ms": (e1 + e2) / 2,
+                                        "exact_ms_runs": [e1, e2], "tiles": plan.tiles_per_device}
+    log("fractal_times_1080p", card=card, costs=costs, counts=counts, times=times, relaxed=relaxed_times)
+
+    out = {
+        "render_fwd": {**times["render_fwd"], "launches": main["render_batch"]["render_kernel_forward"],
+                       "max_abs_err": max(errs["render_fwd"])},
+        "fit_step": {**times["fit_step"], "launches": main["fit_l2"]["fit_step_kernel"],
+                     "max_abs_err": max(errs["fit_step"])},
+        "render_bwd": {**times["render_bwd"], "uniforms": times["render_bwd_uniforms"],
+                       "launches": main["fit_multiscale"]["render_kernel_backward"],
+                       "max_abs_err": max(errs["render_bwd"])},
+    }
+    relaxed_out = {
+        "render_fwd": {"omega": OMEGA, "scenes": relaxed_times,
+                       "launches": main["render_batch_relaxed"]["render_kernel_forward"],
+                       "max_abs_err": max(errs["relaxed"])},
+        "render_tiles": {"omega": OMEGA, "launches": main["render_sharded_tiles_relaxed"]["render_kernel_tiles_forward"],
+                         "max_abs_err": max(errs["render_tiles"]), **relaxed_times.pop("reference_tiles")},
+        "fit_step": {"omega": OMEGA, "launches": main["fit_l2_relaxed"]["fit_step_kernel"]},
+        "fit_step_tiles": {"omega": OMEGA, "launches": main["fit_mesh_tiles_relaxed"]["fit_step_kernel_tiles"],
+                           "max_abs_err": max(errs["fit_step_tiles"])},
+    }
+    return {"fractal": out, "relaxed": relaxed_out}
+
+
 def blocks_per_sm(registers: int, threads: int = 256) -> int:
     """Resident blocks of ``threads`` threads an SM holds at ``registers`` a
     thread (Hopper: 65536 registers an SM, allotted per warp in units of 256,
@@ -3635,6 +4144,6 @@ if __name__ == "__main__":
         print(json.dumps(_time_root(sys.argv[2])), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == ["--register-line"]:
-        print(json.dumps(register_line()), flush=True)
+        print(json.dumps(register_line(names=tuple(sys.argv[2:]) or SWEEP_SCENES)), flush=True)
         sys.exit(0)
     sys.exit(main())

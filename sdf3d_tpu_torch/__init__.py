@@ -44,6 +44,7 @@ from sdf3d_tpu_torch.march import (
     ambient_occlusion,
     estimate_normals,
     hit_mask,
+    normal_autodiff,
     normal_central,
     normal_tetrahedron,
     soft_shadow,
@@ -51,9 +52,11 @@ from sdf3d_tpu_torch.march import (
 )
 from sdf3d_tpu_torch.render import (
     render,
+    render_aa,
     render_aux_banded,
     render_banded,
     render_batch,
+    render_depth,
     render_rays,
     render_rays_banded,
     shade_pixels,
@@ -62,6 +65,7 @@ from sdf3d_tpu_torch.scenes import (
     capsule_chain,
     csg_showcase,
     flagship_scene,
+    fractal_scene,
     lattice_scene,
     random_blobs,
     reference_scene,

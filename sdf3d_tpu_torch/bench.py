@@ -27,10 +27,6 @@ import torch
 
 from sdf3d_tpu_torch.utils import profiling
 
-#: Scenes of the JAX bench that the port cannot build yet.
-_UNPORTED_SCENES = {"fractal"}
-
-
 def robust_min_seconds(
     fn,
     *args,
@@ -121,11 +117,10 @@ def _device(device) -> torch.device:
 def _scene(name: str):
     import sdf3d_tpu_torch as tt
 
-    if name in _UNPORTED_SCENES:
-        raise NotImplementedError(f"the {name} scene needs nodes that are not ported yet (ROADMAP item 13c)")
-    scenes = {"reference": tt.reference_scene, "sphere": tt.sphere_scene, "flagship": tt.flagship_scene}
+    scenes = {"reference": tt.reference_scene, "sphere": tt.sphere_scene, "flagship": tt.flagship_scene,
+              "fractal": tt.fractal_scene}
     if name not in scenes:
-        raise ValueError(f"scene_name must be one of {sorted(scenes) + sorted(_UNPORTED_SCENES)}, not {name!r}")
+        raise ValueError(f"scene_name must be one of {sorted(scenes)}, not {name!r}")
     return scenes[name]()
 
 
@@ -246,8 +241,8 @@ def run_extras(budget_s: float = 900.0, on_update=None, device="cuda") -> dict:
 
     Each entry holds either ``rays_per_second`` and ``seconds_per_frame``,
     or an error string: ``"error: NotImplementedError: ..."`` for a path not
-    ported yet (the fractal scene, ROADMAP item 13c; the multiview fit, item
-    12), ``"skipped: ..."`` once the budget is spent.  Any other failure
+    ported yet (the multiview fit, ROADMAP item 12), ``"skipped: ..."`` once
+    the budget is spent.  Any other failure
     raises.  ``on_update(partial_dict)`` is called after every entry."""
     from sdf3d_tpu_torch.fit import fit_scene_multiview
 

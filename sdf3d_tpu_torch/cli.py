@@ -7,7 +7,8 @@
     python -m sdf3d_tpu_torch.cli info
 
 ``render --engine kernel`` (default) renders through the CUDA render kernel,
-``--engine torch`` through the plain PyTorch path.  ``fit`` is the
+``--engine torch`` through the plain PyTorch path (which alone takes
+``--normals autodiff``).  ``fit`` is the
 inverse-rendering demo: it renders the scene as the target, then recovers
 the sphere of a perturbed start with the fused fit-step kernel.
 ``--device`` defaults to ``cuda``; without a card the command fails rather
@@ -28,7 +29,8 @@ import numpy as np
 def _build_scene(name: str):
     import sdf3d_tpu_torch as s
 
-    scenes = {"reference": s.reference_scene, "sphere": s.sphere_scene, "flagship": s.flagship_scene}
+    scenes = {"reference": s.reference_scene, "sphere": s.sphere_scene, "flagship": s.flagship_scene,
+              "fractal": s.fractal_scene}
     if name not in scenes:
         raise SystemExit(f"unknown scene {name!r}; choose from {sorted(scenes)}")
     return scenes[name]()
@@ -180,7 +182,8 @@ def main(argv=None) -> int:
     pr.add_argument("--azimuth", type=float, default=None)
     pr.add_argument("--elevation", type=float, default=None)
     pr.add_argument("--radius", type=float, default=None)
-    pr.add_argument("--normals", choices=["central", "tetrahedron"], default=None)
+    pr.add_argument("--normals", choices=["central", "tetrahedron", "autodiff"], default=None,
+                    help="'autodiff' takes --engine torch (the kernels raise, as JAX's Pallas path)")
     pr.add_argument("--ao", action="store_true")
     pr.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="'fast' = config.fast_config (non-parity)")

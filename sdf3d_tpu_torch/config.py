@@ -24,8 +24,11 @@ class MarchConfig:
     #: Stop a march once every ray has terminated; ``False`` runs every step
     #: (bitwise identical, never exits early).
     early_exit: bool = True
-    #: Over-relaxed sphere tracing.  Only the reference march (1.0) is
-    #: ported; other values raise ``NotImplementedError``.
+    #: Over-relaxed sphere tracing (Keinert et al. 2014): step ``ω·s`` and
+    #: fall back to ``ω = 1`` once consecutive bounding spheres stop
+    #: overlapping.  ``1.0`` is the reference's exact march; the torch march,
+    #: K1-K4 and their plain versions take other values (the neural kernel
+    #: marches exactly, as JAX's).
     relaxation: float = 1.0
 
 
@@ -61,8 +64,9 @@ class RenderConfig:
 
     ``ray_mode``: ``"reference"`` keeps the reference's ray z-term
     ``-2/tan(fov·π/360)``; ``"pinhole"`` is the standard ``-1/tan(fov/2)``.
-    ``normals``: ``"central"`` (6 taps) or ``"tetrahedron"`` (4 taps);
-    ``"autodiff"`` is not ported yet.  ``background``: ``None`` shades rays
+    ``normals``: ``"central"`` (6 taps), ``"tetrahedron"`` (4 taps) or
+    ``"autodiff"`` (the distance's gradient: the torch engine only; the
+    kernels raise ``ValueError``, as JAX's Pallas path).  ``background``: ``None`` shades rays
     beyond ``max_distance`` at their far point (the reference has no miss
     branch); an RGB tuple composites misses over that colour.
     """

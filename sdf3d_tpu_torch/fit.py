@@ -166,6 +166,9 @@ def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, t
         raise NotImplementedError("engine='xla' (diff.py's render_rays_diff) is not ported yet (ROADMAP item 5)")
     if fit_config.engine != "kernel":
         raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
+    if fit_config.silhouette_weight > 0.0 and render_config.march.relaxation != 1.0:
+        # JAX's min-SDF tracker marches unrelaxed (its _march_primary(track_min=True)).
+        raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
     if fit_config.silhouette_weight > 0.0 or target_coverage is not None:
         raise NotImplementedError("the silhouette coverage term is not ported yet (ROADMAP item 12)")
     if render_config.shadow.enabled and render_config.shadow.grad != "detach":

@@ -14,7 +14,7 @@ from typing import Callable
 import torch
 
 from sdf3d_tpu_torch.config import AOConfig, MarchConfig, ShadowConfig
-from sdf3d_tpu_torch.sdf.node import vnormalize
+from sdf3d_tpu_torch.sdf.node import sqrt_rn, vnormalize
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -29,22 +29,18 @@ def _batch(origins, directions):
     return torch.broadcast_shapes(origins.shape[:-1], directions.shape[:-1])
 
 
-def _require_plain_march(cfg: MarchConfig):
-    if cfg.relaxation != 1.0:
-        raise NotImplementedError(
-            "over-relaxed sphere tracing (march.relaxation != 1.0) is not ported yet"
-        )
-
-
 def sphere_trace(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor, cfg: MarchConfig) -> torch.Tensor:
     """Sphere-trace march; the marched distance per ray, shape ``(...,)``.
 
     Each step evaluates the SDF, **adds it to the distance**, then stops the
     ray when ``distance > max_distance or sdf < epsilon`` — so the returned
     distance overshoots by the last step, and a miss carries a distance
-    beyond ``max_distance`` (test with :func:`hit_mask`).
+    beyond ``max_distance`` (test with :func:`hit_mask`).  With
+    ``cfg.relaxation != 1`` the march is over-relaxed
+    (:func:`_sphere_trace_relaxed`).
     """
-    _require_plain_march(cfg)
+    if cfg.relaxation != 1.0:
+        return _sphere_trace_relaxed(sdf_fn, origins, directions, cfg)
     dist = torch.zeros(_batch(origins, directions), dtype=origins.dtype, device=origins.device)
     active = torch.ones_like(dist, dtype=torch.bool)
     for _ in range(cfg.max_steps):
@@ -56,13 +52,53 @@ def sphere_trace(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor,
     return dist
 
 
+def _sphere_trace_relaxed(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor,
+                          cfg: MarchConfig) -> torch.Tensor:
+    """Over-relaxed sphere trace (Keinert et al. 2014; JAX's
+    ``_sphere_trace_relaxed``): a ray steps ``ω·s``; when consecutive
+    bounding spheres stop overlapping (``ω > 1`` and ``|s| + prev_r <
+    step_len``) the step failed, so the ray steps back by ``step_len·(1 −
+    ω)`` and marches on with ``ω = 1``.  A hit (no failure and ``s <
+    epsilon``) lands with ``+s``, like the exact march; a failed step's
+    ``s < epsilon`` does not stop the ray (its point lies beyond the
+    validated interval).  A ray stops on a hit or past ``max_distance``."""
+    shape = _batch(origins, directions)
+    kw = dict(dtype=origins.dtype, device=origins.device)
+    t = torch.zeros(shape, **kw)
+    prev_r = torch.zeros(shape, **kw)
+    step_len = torch.zeros(shape, **kw)
+    om = torch.full(shape, cfg.relaxation, **kw)
+    active = torch.ones(shape, dtype=torch.bool, device=origins.device)
+    for _ in range(cfg.max_steps):
+        if cfg.early_exit and not bool(active.any()):
+            break
+        s = sdf_fn(origins + t[..., None] * directions)
+        t, prev_r, step_len, om, active = relaxed_step(s, t, prev_r, step_len, om, active, cfg)
+    return t
+
+
+def relaxed_step(s, t, prev_r, step_len, om, active, cfg: MarchConfig):
+    """One step of the over-relaxed march from the distance ``s`` at ``t``:
+    the new ``(t, prev_r, step_len, ω, active)``, the inactive rays' ``t``
+    and ``step_len`` unmoved (:func:`_sphere_trace_relaxed`; the kernels'
+    ``csrc/render_kernel.cuh::march_primary``)."""
+    fail = (om > 1.0) & (torch.abs(s) + prev_r < step_len)
+    hit = ~fail & (s < cfg.epsilon)
+    new_step = torch.where(fail, step_len * (1.0 - om), om * s)
+    new_step = torch.where(hit, s, new_step)
+    om = torch.where(fail, torch.ones_like(om), om)
+    t = torch.where(active, t + new_step, t)
+    done = hit | (t > cfg.max_distance)
+    return t, torch.abs(s), torch.where(active, new_step, step_len), om, active & ~done
+
+
 def march_step_map(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor, cfg: MarchConfig):
     """Per-ray ``(distance, steps)`` of the unrelaxed primary march: the
     masked loop of :func:`sphere_trace` with a count of the steps each ray
     took (float32).  The work model of the tile-queue's balanced plans
     (``parallel/tile_queue.estimate_tile_work``) and of the kernels' bounds:
-    a ray costs one distance evaluation a step."""
-    _require_plain_march(cfg)
+    a ray costs one distance evaluation a step.  It marches unrelaxed
+    whatever ``cfg.relaxation`` says, as JAX's."""
     dist = torch.zeros(_batch(origins, directions), dtype=origins.dtype, device=origins.device)
     steps = torch.zeros_like(dist)
     active = torch.ones_like(dist, dtype=torch.bool)
@@ -115,7 +151,7 @@ def soft_shadow(
             inter = s * s / (2.0 * torch.where(prev == 0.0, _TINY, prev))
         inter = torch.clamp(inter, -_INTER_CAP, _INTER_CAP)
         d2 = s * s - inter * inter
-        d_est = torch.sqrt(torch.clamp(d2, min=0.0))
+        d_est = sqrt_rn(torch.clamp(d2, min=0.0))
         denom = dist - inter
         valid = (denom > 0.0) & (d2 >= 0.0)
         atten = torch.where(valid, cfg.k * d_est / torch.where(valid, denom, 1.0), _NO_DARKEN)
@@ -156,6 +192,18 @@ def normal_tetrahedron(sdf_fn: SDFFn, points: torch.Tensor, eps: float) -> torch
     return vnormalize(n)
 
 
+def normal_autodiff(sdf_fn: SDFFn, points: torch.Tensor) -> torch.Tensor:
+    """Exact normals: the gradient of the distance (``torch.autograd.grad``
+    of ``sum(sdf(p))``, the distance being pointwise), normalised.  When the
+    caller differentiates (autograd records a graph), the gradient keeps its
+    own graph (``create_graph``), so the normals are differentiable too."""
+    differentiating = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = points if points.requires_grad else points.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(sdf_fn(p).sum(), p, create_graph=differentiating)
+    return vnormalize(g)
+
+
 def estimate_normals(sdf_fn: SDFFn, points: torch.Tensor, mode: str, eps: float) -> torch.Tensor:
     """Dispatch on the configured normal scheme."""
     if mode == "central":
@@ -163,5 +211,5 @@ def estimate_normals(sdf_fn: SDFFn, points: torch.Tensor, mode: str, eps: float)
     if mode == "tetrahedron":
         return normal_tetrahedron(sdf_fn, points, eps)
     if mode == "autodiff":
-        raise NotImplementedError("autodiff normals are not ported yet")
+        return normal_autodiff(sdf_fn, points)
     raise ValueError(f"unknown normals mode: {mode!r}")

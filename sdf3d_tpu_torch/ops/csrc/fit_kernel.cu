@@ -228,8 +228,8 @@ namespace {
 // reverse pass spills several kB at those caps: 2 blocks (128 registers)
 // took the flagship's fit step from 1.21 to 0.79 ms at 1080p on an NVIDIA
 // H100 80GB HBM3 at 700 W (PERF.md); sdf3d::reverse_blocks gives the cap
-// from Scene::bwd_values.
-constexpr int kMinBlocks = sdf3d::reverse_blocks(kAcc > kP + 1 ? 3 : 4, Scene::bwd_values,
+// from Scene::bwd_values and Scene::bwd_node_values.
+constexpr int kMinBlocks = sdf3d::reverse_blocks(kAcc > kP + 1 ? 3 : 4, Scene::bwd_values, Scene::bwd_node_values,
                                                  sdf3d::kLargeReverseValues);
 }  // namespace
 

@@ -62,12 +62,13 @@ namespace {
 // uniforms' form holds its P + 30 accumulators: at 3 or more blocks its
 // spills cost more than the warps gain, so it keeps 2 (127 registers, none
 // spilled; PERF.md).  A large reverse pass asks fewer (sdf3d::reverse_blocks
-// from Scene::bwd_values): on the flagship 2 blocks took the parameters'
-// form from 1.17 to 0.50 ms and 1 block the uniforms' from 0.68 to 0.60
-// (PERF.md).
+// from Scene::bwd_values and Scene::bwd_node_values): on the flagship 2
+// blocks took the parameters' form from 1.17 to 0.50 ms and 1 block the
+// uniforms' from 0.68 to 0.60 (PERF.md).
 template <bool WRT_U>
-constexpr int kMinBlocks = WRT_U ? sdf3d::reverse_blocks(2, Scene::bwd_values, sdf3d::kLargeReverseValues)
-                                 : sdf3d::reverse_blocks(4, Scene::bwd_values, sdf3d::kLargeReverseValuesK5);
+constexpr int kMinBlocks =
+    WRT_U ? sdf3d::reverse_blocks(2, Scene::bwd_values, Scene::bwd_node_values, sdf3d::kLargeReverseValues)
+          : sdf3d::reverse_blocks(4, Scene::bwd_values, Scene::bwd_node_values, sdf3d::kLargeReverseValuesK5);
 
 template <bool WRT_U>
 __global__ void __launch_bounds__(kNT, kMinBlocks<WRT_U>)

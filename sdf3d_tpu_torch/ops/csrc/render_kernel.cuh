@@ -71,9 +71,14 @@ SDF3D_HD float select(bool c, float a, float b) { return c ? a : b; }
 // of the scene's reverse pass (Scene::bwd_values, the forward values sdf_bwd
 // keeps: the reference scene's 27, lattice_scene's 48, random_blobs(2)'s 57,
 // random_blobs(3)'s 87, the flagship's 92, csg_showcase's 159,
-// random_blobs(8)'s 237, capsule_chain's 277).  A kernel asks `base` blocks
-// an SM up to its line (`half_above`), half of them above it, and 1 above
-// kHugeReverseValues (fit_kernel.cu, render_bwd_kernel.cu).  The lines: K3's
+// random_blobs(8)'s 237, capsule_chain's 277, the transform sampler's 398,
+// fractal_scene's 409).  A kernel asks `base` blocks an SM up to its line
+// (`half_above`), half of them above it, and 1 above kHugeReverseValues; but
+// at most 2 where one primitive keeps more than kSpillingNodeValues
+// (Scene::bwd_node_values: a Mandelbulb's 392, every other scene's at most
+// 33), whose serial pass spills kB at every cap, and more resident warps
+// then hide the spills' latency (fit_kernel.cu, render_bwd_kernel.cu).  The
+// lines: K3's
 // and K5's uniforms' form kLargeReverseValues, K5's parameters' form
 // kLargeReverseValuesK5.  In one process at 1080p on an NVIDIA H100 80GB HBM3
 // at 700 W (chip_smoke.py --register-line; PERF.md): K3 at 4 blocks against
@@ -82,12 +87,18 @@ SDF3D_HD float select(bool c, float a, float b) { return c ? a : b; }
 // form 0.18 against 0.21 on lattice_scene, 0.40 against 0.26 on
 // random_blobs(2); on csg_showcase 1 block against 2 ran K3 1.78 against 2.18
 // and K5's parameters' form 0.91 against 1.82, on random_blobs(3) 1.32 and
-// 0.63 against 0.87 and 0.49.
+// 0.63 against 0.87 and 0.49; on fractal_scene 2 blocks against 1 ran K3
+// 11.49 against 13.83, K5's parameters' form 9.83 against 12.19 and its
+// uniforms' form 10.45 against 12.77, while on the transform sampler (398
+// values, 33 a primitive) 1 block against 2 ran 7.97 against 8.30, 6.46
+// against 7.84 and 7.56 against 8.47.
 constexpr int kLargeReverseValues = 64;
 constexpr int kLargeReverseValuesK5 = 48;
 constexpr int kHugeReverseValues = 128;
-constexpr int reverse_blocks(int base, int values, int half_above) {
-  return values > kHugeReverseValues ? 1 : (values > half_above ? (base + 1) / 2 : base);
+constexpr int kSpillingNodeValues = 255;
+constexpr int reverse_blocks(int base, int values, int node_values, int half_above) {
+  return node_values > kSpillingNodeValues ? (base < 2 ? base : 2)
+       : values > kHugeReverseValues ? 1 : (values > half_above ? (base + 1) / 2 : base);
 }
 
 // The scene's point form as a distance functor f(x, y, z).
@@ -106,11 +117,43 @@ struct PointRay {
   SDF3D_HD float eval(float t) const { return f((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz))); }
 };
 
+// a * b rounded once: nvcc may not contract it into a following add (an
+// FMA), so the relaxed step keeps the plain version's bits.
+SDF3D_HD float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
 // Primary sphere trace: add the step, then test (the returned t overshoots
 // by the last step; a ray that never stops ends after march_steps steps).
+// With Cfg::relaxation != 1 the march is over-relaxed (Keinert et al. 2014;
+// JAX's relaxed_body in sdf3d_tpu/ops/render_kernel.py): a ray steps
+// relaxation * s; a step fails when omega > 1 and |s| + prev_r < step_len
+// (the bounding spheres stopped overlapping), goes back by step_len * (1 -
+// omega) and sets omega = 1 for the rest of the march; a hit (!fail and s <
+// epsilon) lands with +s, like the exact march; a failed step's s < epsilon
+// does not stop the ray.
 template <class Cfg, class Ev>
 SDF3D_HD float march_primary(const Ev& ev) {
   float t = 0.0f;
+  if constexpr (Cfg::relaxation != 1.0f) {
+    float prev_r = 0.0f, step_len = 0.0f, om = Cfg::relaxation;
+    for (int i = 0; i < Cfg::march_steps; ++i) {
+      const float s = ev.eval(t);
+      const bool fail = om > 1.0f && fabsf(s) + prev_r < step_len;
+      const bool hit = !fail && s < Cfg::epsilon;
+      const float step = hit ? s : (fail ? mul_rn(step_len, 1.0f - om) : mul_rn(om, s));
+      if (fail) om = 1.0f;
+      t = t + step;
+      prev_r = fabsf(s);
+      step_len = step;
+      if (hit || t > Cfg::max_distance) break;
+    }
+    return t;
+  }
   for (int i = 0; i < Cfg::march_steps; ++i) {
     const float s = ev.eval(t);
     t = t + s;

@@ -52,6 +52,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     N_UNIFORMS,
     KernelConfig,
     check_plane,
+    check_settings,
     check_tables,
     kernel_library,
     pack_uniforms,
@@ -211,6 +212,7 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
 
 
 def _check_fused(scene: SDFNode, cfg: RenderConfig) -> None:
+    check_settings(cfg)  # autodiff normals: ValueError, as JAX's Pallas path
     if not fused_l2_eligible(cfg, scene):
         raise NotImplementedError(
             "the fused fit step takes the plain L2 loss with detached-shadow gradients and central or "

@@ -62,7 +62,7 @@ from sdf3d_tpu_torch.ops.scene_program import (
     split_neural,
 )
 from sdf3d_tpu_torch.sdf.neural import mlp
-from sdf3d_tpu_torch.sdf.node import SDFNode
+from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
 __all__ = [
     "NeuralRenderConfig",
@@ -125,7 +125,9 @@ def neural_distance(scene: SDFNode):
 def check_neural(scene: SDFNode, cfg: RenderConfig) -> None:
     """Raise for what the neural kernel does not take, before any build or
     launch: other scene shapes (``ValueError``), analytic nodes without an
-    emitter, the relaxed march and autodiff normals."""
+    emitter, autodiff normals.  The kernel marches exactly whatever
+    ``march.relaxation`` says, as JAX's neural kernel (it has no relaxed
+    body)."""
     neural_layout(scene)
     check_settings(cfg)
 
@@ -150,7 +152,7 @@ def _march_shadow_neural_plain(ev, k, cfg, shape, device, steps=None):
         d2 = s * s - inter * inter
         denom = dist - inter
         valid = (denom > 0.0) & (d2 >= 0.0)
-        atten = torch.where(valid, k * torch.sqrt(torch.clamp(d2, min=0.0)) / torch.where(valid, denom, 1.0), 1e30)
+        atten = torch.where(valid, k * sqrt_rn(torch.clamp(d2, min=0.0)) / torch.where(valid, denom, 1.0), 1e30)
         sh = torch.where(active, torch.minimum(sh, atten), sh)
         dist = torch.where(active, dist + s, dist)
         prev = torch.where(active, s, prev)
@@ -179,7 +181,8 @@ def render_neural_forward_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Te
     counts = {k: torch.zeros((H, W), dtype=torch.float32, device=dev) for k in ("primary", "shadow")}
     if steps is not None:
         steps.update(counts)
-    t = _march_primary_plain(lambda s: sdf(ox + s * dx, oy + s * dy, oz + s * dz), cfg.march, (H, W), dev,
+    exact = dataclasses.replace(cfg.march, relaxation=1.0)  # the kernel has no relaxed march
+    t = _march_primary_plain(lambda s: sdf(ox + s * dx, oy + s * dy, oz + s * dz), exact, (H, W), dev,
                              counts["primary"] if steps is not None else None)
     hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
     nx, ny, nz = _normals_plain(sdf, hx, hy, hz, cfg)

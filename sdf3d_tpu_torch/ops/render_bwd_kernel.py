@@ -41,14 +41,14 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     ray_planes,
 )
 from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params
-from sdf3d_tpu_torch.sdf.node import SDFNode
+from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
 #: Smallest usable |grad f . d| for the implicit-function ``t`` (``sdf3d_tpu/diff.py``).
 DENOM_FLOOR = 1e-4
 
 
 def _rsqrt(x):
-    return 1.0 / torch.sqrt(x)
+    return 1.0 / sqrt_rn(x)
 
 
 def _floor(x, lo):

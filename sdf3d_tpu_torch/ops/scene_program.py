@@ -34,7 +34,8 @@ polynomial mix with ``k`` clamped to ``1e-6``; ``Translate``, ``Rotate``
 (Rodrigues on scalars, ``R·q`` written out) and ``Scale`` fold into the
 ray's origin and direction at setup; ``Elongate`` and ``RepeatInfinite``
 have no ray form and evaluate the point form at ``o + t·d`` per step (JAX's
-``_ray_fallback``).  Every binary operation is parenthesised in the C text,
+``_ray_fallback``), as does the ``Mandelbulb`` (its six iterations unrolled,
+every intermediate named).  Every binary operation is parenthesised in the C text,
 so the compiler keeps the same association (it may still contract ``a*b +
 c`` into one FMA).  A run-time parameter decides ``Rotate``'s series branch
 (``|w|² < 1e-8``) and ``RepeatInfinite``'s disabled axes (``period > 0``):
@@ -43,7 +44,9 @@ they stay selects of the generated code, which never depends on a value.
 Derivatives follow lax's rules in every backend, at ties too: ``min`` and
 ``max`` split the adjoint 0.5/0.5 (a constant operand included), ``abs``
 passes ``+g`` at ``x ≥ 0`` and ``−g`` below, ``clip`` is
-``min(hi, max(lo, x))``, ``sin``/``cos`` give ``cos``/``−sin``, ``round``
+``min(hi, max(lo, x))``, ``sin``/``cos`` give ``cos``/``−sin``, ``log``
+gives ``g/x`` and ``rsqrt`` (``1/sqrt``, no approximate ``rsqrtf``)
+``g·(−0.5·r/x)``, ``round``
 (to nearest, ties to even: ``rintf``) and the comparisons give none, and
 ``select(c, a, b)`` sends the adjoint to the chosen operand as a select, a
 true 0 to the other.  The torch backend carries them under
@@ -63,7 +66,7 @@ import torch
 
 from sdf3d_tpu_torch.sdf import csg, primitives, transforms
 from sdf3d_tpu_torch.sdf.neural import NeuralSDF
-from sdf3d_tpu_torch.sdf.node import SDFNode
+from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
 GetP = Callable[[int], object]
 
@@ -152,13 +155,38 @@ def _lax_minmax(a, b, sign: float):
     return _LaxMinMax.apply(a, b, sign)
 
 
+class _Rsqrt(torch.autograd.Function):
+    """``1/sqrt(x)`` (the kernels' form: no approximate ``rsqrtf``) with
+    lax's derivative of ``rsqrt``, ``g·(−0.5·(r/x))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = 1.0 / sqrt_rn(x)
+        ctx.save_for_backward(x, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r = ctx.saved_tensors
+        return g * (-0.5 * (r / x))
+
+
 class _TorchOps:
     """Numeric backend: tensors (planes or 0-d parameters), with lax's
     derivatives under ``torch.autograd``."""
 
     @staticmethod
     def sqrt(x):
-        return torch.sqrt(x)
+        return sqrt_rn(x)
+
+    @staticmethod
+    def rsqrt(x):
+        return _Rsqrt.apply(x)
+
+    @staticmethod
+    def log(x):
+        # lax's derivative, g / x, as torch.log's.
+        return torch.log(x)
 
     @staticmethod
     def maximum(a, b):
@@ -288,6 +316,16 @@ class _COps:
     @staticmethod
     def sqrt(x):
         return CExpr(f"sqrtf({_c(x)})")
+
+    @staticmethod
+    def rsqrt(x):
+        # 1/sqrtf: no approximate rsqrtf on a parity path (ROADMAP Queue 3).
+        return CExpr(f"(1.0f / sqrtf({_c(x)}))")
+
+    @staticmethod
+    def log(x):
+        # The accurate logf, not __logf.
+        return CExpr(f"logf({_c(x)})")
 
     @staticmethod
     def maximum(a, b):
@@ -446,6 +484,15 @@ def _ellipsoid(n, px, py, pz, getp, off, m):
     return k0 * (k0 - 1.0) / m.maximum(k1, 1e-12)
 
 
+def _mandelbulb(n, px, py, pz, getp, off, m):
+    # JAX's emitter: the query scaled by inv = 1/scale, the estimate times
+    # scale (the node divides by scale).
+    cx, cy, cz, sc = (getp(off + i) for i in range(4))
+    inv = m.let(1.0 / sc)
+    qx, qy, qz = m.let((px - cx) * inv), m.let((py - cy) * inv), m.let((pz - cz) * inv)
+    return primitives.mandelbulb_de(qx, qy, qz, int(n.iterations), m) * sc
+
+
 def _translate(n, px, py, pz, getp, off, m):
     nc = count_params(n.child)
     ox, oy, oz = (getp(off + nc + i) for i in range(3))
@@ -536,7 +583,7 @@ def _binary(op):
 
 
 _PRIMITIVES = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
-               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid)
+               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid, primitives.Mandelbulb)
 
 
 def _name_operand(node, d, m):
@@ -581,6 +628,7 @@ _HANDLERS = {
     primitives.Capsule: _capsule,
     primitives.Cylinder: _cylinder,
     primitives.Ellipsoid: _ellipsoid,
+    primitives.Mandelbulb: _mandelbulb,
     csg.Union: _binary(_union_op),
     csg.Intersection: _binary(_intersection_op),
     csg.Subtraction: _binary(_subtraction_op),
@@ -607,9 +655,9 @@ def _no_emitter(node):
         )
     return NotImplementedError(
         f"no render-kernel emitter for scene node {type(node).__name__}; the port supports the primitives "
-        "Sphere, Plane, Box, RoundBox, Torus, Capsule, Cylinder and Ellipsoid, the hard and smooth Union, "
-        "Intersection and Subtraction, the transforms Translate, Rotate, Scale, Round, Onion, Elongate and "
-        "RepeatInfinite, and NeuralSDF so far: Mandelbulb is ROADMAP item 13c, VoxelGrid item 14 "
+        "Sphere, Plane, Box, RoundBox, Torus, Capsule, Cylinder, Ellipsoid and Mandelbulb, the hard and smooth "
+        "Union, Intersection and Subtraction, the transforms Translate, Rotate, Scale, Round, Onion, Elongate and "
+        "RepeatInfinite, and NeuralSDF so far: VoxelGrid is ROADMAP item 14 "
         "(sdf3d_tpu_torch/ops/scene_program.py)"
     )
 
@@ -618,6 +666,11 @@ def _emit(node, px, py, pz, getp: GetP, off: int, m):
     h = _HANDLERS.get(type(node))
     if h is None:
         raise _no_emitter(node)
+    if isinstance(m, _Tape) and isinstance(node, _PRIMITIVES):
+        first = len(m.nodes)
+        out = h(node, px, py, pz, getp, off, m)
+        m.spans.append((first, len(m.nodes)))
+        return out
     return h(node, px, py, pz, getp, off, m)
 
 
@@ -647,9 +700,9 @@ def compile_scene(scene: SDFNode):
 # rules follow lax's derivatives (min/max split the adjoint 0.5/0.5 at an
 # exact tie; sqrt's derivative is 0.5/sqrt(x); abs passes +g at x >= 0;
 # clip is recorded as min(hi, max(lo, x)); sin and cos give cos and -sin;
-# rint and the comparisons pass none; a select passes g to the operand it
-# took and exactly 0 to the other), which the JAX package's jax.vjp of the
-# same emitters applies.  Like JAX's emitters, the box's and the cylinder's
+# log gives g/x and rsqrt g*(-0.5*r/x); rint and the comparisons pass
+# none; a select passes g to the operand it took and exactly 0 to the
+# other), which the JAX package's jax.vjp of the same emitters applies.  Like JAX's emitters, the box's and the cylinder's
 # outside lengths have no guard: a tap inside the core (every clamp at 0)
 # meets sqrt(0)'s infinite derivative times 0, a NaN.  A comparison is a
 # `const bool`, not one of the forward values Scene::bwd_values counts.
@@ -700,6 +753,8 @@ class _Tape:
     def __init__(self):
         self.nodes: list[tuple] = []
         self.named: dict[str, _Var] = {}
+        # (first, end) tape indices of each primitive's emitter.
+        self.spans: list[tuple[int, int]] = []
 
     def leaf(self, name: str) -> _Var:
         if name not in self.named:
@@ -717,6 +772,12 @@ class _Tape:
 
     def sqrt(self, x):
         return self.op("sqrt", x)
+
+    def rsqrt(self, x):
+        return self.op("rsqrt", x)
+
+    def log(self, x):
+        return self.op("log", x)
 
     def minimum(self, a, b):
         return self.op("min", a, b)
@@ -757,7 +818,7 @@ class _Tape:
 # comparison gives a boolean.  No adjoint flows through them.
 _NO_ADJOINT = ("rint", "<", ">")
 # C forms of the recorded operations (the forward values of the reverse pass).
-_C_CALLS = {"sqrt": "sqrtf", "abs": "fabsf", "sin": "sinf", "cos": "cosf", "rint": "rintf"}
+_C_CALLS = {"sqrt": "sqrtf", "abs": "fabsf", "sin": "sinf", "cos": "cosf", "rint": "rintf", "log": "logf"}
 
 
 def _adjoints(op: str, g: str, a: str, b: str, r: str, c: str = None):
@@ -774,6 +835,10 @@ def _adjoints(op: str, g: str, a: str, b: str, r: str, c: str = None):
         return f"({g} / {b})", f"(-(({g} * {a}) / ({b} * {b})))"
     if op == "sqrt":
         return f"({g} * (0.5f / {r}))", None
+    if op == "rsqrt":
+        return f"({g} * (-0.5f * ({r} / {a})))", None
+    if op == "log":
+        return f"({g} / {a})", None
     if op == "abs":
         return f"({g} * sdf3d::abs_adj({a}))", None
     if op == "neg":
@@ -789,10 +854,11 @@ def _adjoints(op: str, g: str, a: str, b: str, r: str, c: str = None):
     return f"({g} * sdf3d::{op}_adj({a}, {b}))", f"({g} * sdf3d::{op}_adj({b}, {a}))"
 
 
-def _reverse_source(scene: SDFNode, with_params: bool) -> str:
+def _reverse_source(scene: SDFNode, with_params: bool) -> tuple[str, int]:
     """C statements for the reverse pass of the point form at (px, py, pz)
     with the output adjoint ``g``: ``dp[k] += g·∂f/∂p_k`` when
-    ``with_params``, and ``(dpx, dpy, dpz) = g·∇ₚf``."""
+    ``with_params``, and ``(dpx, dpy, dpz) = g·∇ₚf``; and the most forward
+    values the pass keeps from one primitive (the register caps read it)."""
     tape = _Tape()
     root = _emit(scene, tape.leaf("px"), tape.leaf("py"), tape.leaf("pz"),
                  lambda i: tape.leaf(f"p[{i}]"), 0, tape).i
@@ -839,6 +905,8 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
             expr = args[0]
         elif op in _C_CALLS:
             expr = f"{_C_CALLS[op]}({val(args[0])})"
+        elif op == "rsqrt":
+            expr = f"(1.0f / sqrtf({val(args[0])}))"
         elif op == "neg":
             expr = f"(-({val(args[0])}))"
         elif op in ("min", "max"):
@@ -850,6 +918,8 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
             kind = "bool" if op in ("<", ">") else kind
         fwd.append(f"const {kind} v{i} = {expr};")
 
+    node_values = max((sum(1 for i in range(a, b) if i in needed and nodes[i][0] not in ("leaf", "<", ">"))
+                       for a, b in tape.spans), default=0)
     decl = [f"float a{i} = {'g' if i == root else '0.0f'};" for i in range(len(nodes)) if reach[i]]
     out = []
     for name, var in tape.named.items():
@@ -858,7 +928,7 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> str:
             out.append(f"d{name} = {a};")
         elif with_params and reach[var.i]:
             out.append(f"dp[{name[2:-1]}] += {a};")
-    return "\n".join("    " + s for s in fwd + decl + rev + out)
+    return "\n".join("    " + s for s in fwd + decl + rev + out), node_values
 
 
 # ---------------------------------------------------------------------------
@@ -1191,6 +1261,7 @@ def _cfg_struct(cfg, **launch) -> str:
   static constexpr int march_steps = {int(mc.max_steps)};
   static constexpr float max_distance = {c_float(mc.max_distance)};
   static constexpr float epsilon = {c_float(mc.epsilon)};
+  static constexpr float relaxation = {c_float(mc.relaxation)};  // 1: the exact march
   static constexpr bool shadow_enabled = {b(cfg.shadow.enabled)};
   static constexpr int shadow_steps = {int(cfg.shadow.max_steps)};
   static constexpr float epsilon2 = {c_float(mc.epsilon * mc.epsilon)};
@@ -1251,7 +1322,7 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
     if any(not 0 <= k < n_params for k in frozen_slots):
         raise ValueError(f"frozen_slots {frozen_slots} out of range for {n_params} parameters")
     frozen = " || ".join(f"k == {k}" for k in sorted(set(frozen_slots))) or "false"
-    bwd = _reverse_source(scene, with_params=True)
+    bwd, node_values = _reverse_source(scene, with_params=True)
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
@@ -1264,6 +1335,8 @@ struct Scene {{
   // Forward values sdf_bwd keeps for its adjoints (the register caps of the
   // fit step and the render backward read it).
   static constexpr int bwd_values = {bwd.count("const float v")};
+  // The most of them one primitive keeps (a Mandelbulb's iterations).
+  static constexpr int bwd_node_values = {node_values};
 
   // Point form: distance at (px, py, pz).
   static SDF3D_HD float sdf(float px, float py, float pz, const float* p) {{
@@ -1298,7 +1371,7 @@ struct Scene {{
   static SDF3D_HD void sdf_grad_p(float px, float py, float pz, const float* p,
                                   float& dpx, float& dpy, float& dpz) {{
     const float g = 1.0f;
-{_reverse_source(scene, with_params=False)}
+{_reverse_source(scene, with_params=False)[0]}
   }}
 {ao_bwd}}};
 

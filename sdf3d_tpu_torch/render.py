@@ -97,6 +97,43 @@ def render(
     return render_rays(scene, origins, directions, light, mat, config)
 
 
+def render_aa(
+    scene: SDFNode,
+    camera: Camera,
+    light: PointLight,
+    mat: Material,
+    config: RenderConfig,
+    factor: int = 2,
+    engine: str = "kernel",
+    device="cuda",
+) -> torch.Tensor:
+    """Supersampled render ``(H, W, 3)``: the image rendered at ``factor``
+    times the size (``factor²`` rays a pixel), then the mean of each
+    ``factor × factor`` block, in JAX's reshape order.  No reference
+    counterpart.  ``engine``: ``"kernel"`` (JAX's ``"pallas"``) or
+    ``"torch"`` (JAX's ``"xla"``), through :func:`render_batch` on
+    ``device``; JAX's ``"diff"`` engine is ``diff.py``'s, not ported yet
+    (ROADMAP item 5)."""
+    import dataclasses
+
+    if engine == "diff":
+        raise NotImplementedError("render_aa(engine='diff') renders through diff.py, which is not ported yet "
+                                  "(ROADMAP item 5)")
+    big = dataclasses.replace(config, width=config.width * factor, height=config.height * factor)
+    img = render_batch(scene, [camera], light, mat, big, engine=engine, device=device)[0]
+    h, w = config.height, config.width
+    return img.reshape(h, factor, w, factor, 3).mean(dim=(1, 3))
+
+
+@torch.no_grad()
+def render_depth(scene: SDFNode, camera: Camera, config: RenderConfig) -> torch.Tensor:
+    """Marched distance per pixel ``(H, W)`` (an AOV for debugging), on the
+    device of the inputs: :func:`camera_rays` and :func:`sphere_trace`,
+    over-relaxed when ``config.march.relaxation != 1``."""
+    origins, directions = camera_rays(camera, config.width, config.height, config.ray_mode)
+    return sphere_trace(scene.distance, origins, directions, config.march)
+
+
 def _bands(x: torch.Tensor, band_rows: int) -> torch.Tensor:
     """(H, W, ...) → (n_bands, band_rows, W, ...), the last band padded by
     repeating the last row (JAX's ``jnp.pad(mode="edge")``)."""

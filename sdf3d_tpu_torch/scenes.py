@@ -10,6 +10,7 @@ from sdf3d_tpu_torch.sdf import (
     capsule,
     cylinder,
     ground_plane,
+    mandelbulb,
     onion,
     repeat_infinite,
     round_box,
@@ -73,6 +74,13 @@ def lattice_scene(period: float = 1.2, radius: float = 0.18) -> SDFNode:
     march-depth stress scene (many occluders, long shadow rays)."""
     field = repeat_infinite(sphere(center=(0.0, 0.35, 0.0), radius=radius), (period, 0.0, period))
     return union(ground_plane(), field)
+
+
+def fractal_scene(iterations: int = 6) -> SDFNode:
+    """A power-8 Mandelbulb over the ground plane: the eval-dominated stress
+    scene (about 300 operations an evaluation against the reference scene's
+    10), where a step's cost dwarfs the march's bookkeeping."""
+    return union(ground_plane(), mandelbulb(center=(0.0, 0.55, 0.0), scale=0.45, iterations=iterations))
 
 
 def capsule_chain(n: int = 5) -> SDFNode:

@@ -35,7 +35,7 @@ def registry() -> dict:
     from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 
     classes = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
-               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid,
+               primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid, primitives.Mandelbulb,
                csg.Union, csg.Intersection, csg.Subtraction, csg.SmoothUnion, csg.SmoothIntersection,
                csg.SmoothSubtraction, transforms.Translate, transforms.Rotate, transforms.Scale, transforms.Round,
                transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, NeuralSDF, Camera, PointLight,

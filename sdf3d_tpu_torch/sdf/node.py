@@ -38,9 +38,37 @@ def tensors_to(obj, device):
     return type(obj)(*(as_f32(getattr(obj, f.name), device) for f in dataclasses.fields(obj)))
 
 
+class _Sqrt(torch.autograd.Function):
+    """The square root of :func:`sqrt_rn` with lax's derivative ``g·(0.5/r)``
+    (the generated reverse pass's ``g * (0.5f / v)``; torch's own is
+    ``g/(2r)``, one rounding apart)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = torch.sqrt(x.double()).to(x.dtype) if x.dtype == torch.float32 else torch.sqrt(x)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g * (0.5 / r)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root rounded to nearest, as IEEE ``sqrtf`` on the
+    card and in the host build: taken in float64 and rounded once (a
+    float64 square root of a float32 value rounds to the float32 one
+    correctly).  torch's float32 ``sqrt`` on the CPU is not correctly
+    rounded: its vectorised kernel missed by one ulp on about 20% of
+    uniform inputs in [0, 1), and which values it misses depends on the
+    machine (``tests/test_torch_render_modes.py`` holds the two)."""
+    return _Sqrt.apply(x)
+
+
 def vlength(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis (GLSL ``length``)."""
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return sqrt_rn(torch.sum(v * v, dim=-1))
 
 
 def vlength_safe(v: torch.Tensor) -> torch.Tensor:
@@ -51,7 +79,7 @@ def vlength_safe(v: torch.Tensor) -> torch.Tensor:
     ``where`` guards both branches of the derivative."""
     sq = torch.sum(v * v, dim=-1)
     positive = sq > 0.0
-    return torch.where(positive, torch.sqrt(torch.where(positive, sq, torch.ones_like(sq))), torch.zeros_like(sq))
+    return torch.where(positive, sqrt_rn(torch.where(positive, sq, torch.ones_like(sq))), torch.zeros_like(sq))
 
 
 def vnormalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

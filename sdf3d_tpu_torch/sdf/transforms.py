@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from sdf3d_tpu_torch.sdf.node import SDFNode, mat_vec
+from sdf3d_tpu_torch.sdf.node import SDFNode, mat_vec, sqrt_rn
 
 
 def rotvec_to_matrix(rotvec: torch.Tensor) -> torch.Tensor:
@@ -21,7 +21,7 @@ def rotvec_to_matrix(rotvec: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(rotvec * rotvec)
     small = theta2 < 1e-8
     safe2 = torch.where(small, torch.ones_like(theta2), theta2)
-    theta = torch.sqrt(safe2)
+    theta = sqrt_rn(safe2)
     sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     cosc = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe2)
     wx, wy, wz = rotvec[0], rotvec[1], rotvec[2]

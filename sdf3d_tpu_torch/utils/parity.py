@@ -165,6 +165,15 @@ def transform_sampler(device=None):
     ).to(device)
 
 
+def fractal_fit_start(device=None):
+    """The fractal fit's start: ``fractal_scene()`` with the Mandelbulb's
+    center moved by (0.02, 0.02, -0.015) and its scale 0.47 for 0.45 (the
+    ground plane, slots 0-3, as it is)."""
+    from sdf3d_tpu_torch.sdf import ground_plane, mandelbulb, union
+
+    return union(ground_plane(), mandelbulb(center=(0.02, 0.57, -0.015), scale=0.47)).to(device)
+
+
 #: The 13b scenes' image bars (keyword arguments of :func:`check_planes`),
 #: each above the 0.05% budget only as far as a measured share needs:
 #: ``csg_showcase``'s hard Subtraction and Intersection have creases, and its

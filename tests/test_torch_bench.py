@@ -154,11 +154,11 @@ def test_bench_without_a_card_raises(call, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"scene_name": "fractal"}, "item 13c"), ({"scene_name": "flagship"}, None),
+    ({"scene_name": "fractal"}, None), ({"scene_name": "flagship"}, None),
     ({"engine": "torch"}, "item 5")])
 def test_unported_cells_raise(kwargs, match):
     """The cells whose paths are not ported raise naming their item; the
-    flagship's cell (ported: ROADMAP 13a) runs."""
+    fractal's and the flagship's cells (ported: ROADMAP 13c, 13a) run."""
     if match is None:
         r = bench.run_benchmark(width=32, height=24, device="cpu", iters=1, frames_per_dispatch=1, **kwargs)
         assert r["value"] > 0 and math.isfinite(r["value"])
@@ -168,13 +168,10 @@ def test_unported_cells_raise(kwargs, match):
 
 
 def _fake_cells(monkeypatch, error=None):
-    """``run_benchmark`` answering the reference-scene cells at once (nothing
-    runs at 4K), the others by the real function."""
-    real = bench.run_benchmark
+    """``run_benchmark`` answering every cell at once (nothing runs at 4K or
+    1080p here); the fractal's cell is ported since ROADMAP 13c."""
 
     def fake(**kw):
-        if kw.get("scene_name", "reference") != "reference":
-            return real(**kw)
         if error is not None:
             raise error
         return {"value": 3e9, "seconds_per_frame": float(kw.get("width", 1920))}
@@ -189,7 +186,7 @@ def test_extras_name_the_unported_items(monkeypatch):
     assert list(out) == ["fwd_4k", "fit_4k", "fit_fast_1080p", "fit_fractal_1080p", "fit_multiview_720p_v4"]
     assert out["fwd_4k"] == out["fit_4k"] == {"rays_per_second": 3e9, "seconds_per_frame": 3840.0}
     assert out["fit_fast_1080p"] == {"rays_per_second": 3e9, "seconds_per_frame": 1920.0}
-    assert out["fit_fractal_1080p"].startswith("error: NotImplementedError") and "item 13" in out["fit_fractal_1080p"]
+    assert out["fit_fractal_1080p"] == {"rays_per_second": 3e9, "seconds_per_frame": 1920.0}
     assert out["fit_multiview_720p_v4"].startswith("error: NotImplementedError")
     assert "item 12" in out["fit_multiview_720p_v4"]
     assert len(seen) == 5 and seen[-1] == out

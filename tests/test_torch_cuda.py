@@ -79,6 +79,7 @@ from sdf3d_tpu_torch.utils.parity import (
     conditioned,
     fixed_order_total,
     flagship_fit_start,
+    fractal_fit_start,
     gradient_mass,
     primals_agree,
     razor_edge,
@@ -874,3 +875,162 @@ def test_fit_k3_and_k4_partial_rows_equal(dev):
     loss4 = fit_step_kernel_tiles_launch(scene, prm, uni, stack, trow, tcol, cfg, kc, False, FROZEN)
     loss3 = fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, False, FROZEN)
     assert all(torch.equal(a, b) for a, b in zip(loss3, loss4))
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP item 13c: the fractal (six iterations) on K1, K3 and K5, and the
+# over-relaxed march (omega = 1.6) on K1-K4 (chip_smoke.py phases 37-39).
+# ---------------------------------------------------------------------------
+
+OMEGA = 1.6
+
+
+def _relaxed(cfg):
+    return dataclasses.replace(cfg, march=dataclasses.replace(cfg.march, relaxation=OMEGA))
+
+
+@pytest.mark.parametrize("relaxation", [1.0, OMEGA], ids=["exact", "relaxed"])
+@pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+def test_fractal_kernel_matches_plain(dev, ray_sdf, size, relaxation):
+    """K1 on the fractal against its plain version, exact and relaxed, past
+    the hard limit only on razor-edge rays and pixels rounding decides."""
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    cfg = _relaxed(cfg) if relaxation != 1.0 else cfg
+    _compare(tt.fractal_scene().to(dev), tt.Camera.reference(), cfg, KernelConfig(ray_sdf=ray_sdf), dev,
+             rounding=True, **SCENE_BARS.get("fractal", {}))
+
+
+@pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
+@pytest.mark.parametrize("azimuth", [0.0, 30.0])
+def test_relaxed_kernel_matches_plain(dev, ray_sdf, azimuth):
+    """K1 relaxed on the reference scene against its plain version, whose
+    march (``march.relaxed_step``) the kernel's relaxed branch follows."""
+    cam = tt.Camera.orbit(azimuth_deg=azimuth, elevation_deg=15.0 if azimuth else 0.0)
+    _compare(tt.reference_scene(), cam, _relaxed(BASE), KernelConfig(ray_sdf=ray_sdf), dev, razor=True)
+
+
+@pytest.mark.parametrize("case", ["fractal-scene-frozen", "fractal-uniforms", "reference-relaxed"])
+def test_fractal_and_relaxed_fit_step_match_plain(dev, case):
+    """K3 on the fractal's fit start (and relaxed on the fit demo's start)
+    against the plain reverse pass on K1's planes (``FLAGSHIP_SAME``) and
+    the plain version's own march (``FLAGSHIP_OWN``, on the pixels where the
+    two primals agree)."""
+    if case.startswith("fractal"):
+        scene, cfg, cam = fractal_fit_start(dev), BASE, tt.Camera.reference()
+    else:
+        scene, cfg, cam = _fit_scene0(dev), _relaxed(BASE), tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
+    wrt_uniforms, frozen = (True, ()) if case == "fractal-uniforms" else (False, FROZEN)
+    prm, uni = _inputs(scene, cam, cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    keep = conditioned(scene, prm, uni, t, cfg) & primals_agree((rgb, t, sh, ao), own, cfg.march.max_distance)
+    noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    p_loss, p_prm, p_uni = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    s_prm[list(frozen)] = 0.0
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(((rgb - target).double() ** 2).sum()), rel=1e-5)
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    got = torch.cat([g_prm, g_uni])
+    check_grads(got, torch.cat([s_prm, s_uni if wrt_uniforms else torch.zeros_like(s_uni)]), mass, rtol=1e-4,
+                mass_tol=FLAGSHIP_SAME)
+    check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN)
+
+
+@pytest.mark.parametrize("wrt_uniforms", [False, True], ids=["params", "uniforms"])
+def test_fractal_render_backward_matches_plain(dev, wrt_uniforms):
+    """Both K5 forms on the fractal's fit start against the plain version on
+    the same planes, at the flagship's bar."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene = fractal_fit_start(dev)
+    prm, uni = _inputs(scene, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev)
+             * conditioned(scene, prm, uni, t, cfg)).contiguous()
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    torch.cuda.synchronize()
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    if wrt_uniforms:
+        check_grads(torch.cat(got), torch.cat(want), mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    else:
+        check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+
+
+def test_relaxed_tiles_match_plain(dev):
+    """K2 and K4 relaxed on a 4-rank plan at 256×192 against their plain tile
+    versions (the loss within 1e-5), and ``fit_scene(mesh)`` in ``tiles``
+    relaxed gives the unsharded relaxed fit's losses."""
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch.parallel import launch
+
+    cfg, kc = _relaxed(BASE), KernelConfig(tile_h=8, tile_w=128)
+    scene = _fit_scene0(dev)
+    cam = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
+    prm, uni = _inputs(scene, cam, cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    keep = conditioned(scene, prm, uni, t, cfg) & primals_agree((rgb, t, sh, ao), own, cfg.march.max_distance)
+    noisy = rgb + 0.05
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    plan = plan_tiles(cfg.height, cfg.width, kc.tile_h, kc.tile_w, 4)
+    stacks, p_stacks = gather_target_tiles(target, plan), gather_target_tiles(p_target, plan)
+    for rank in range(4):
+        trow, tcol = plan.tables(rank, dev)
+        got2 = render_kernel_tiles_launch(scene, prm, uni, trow, tcol, cfg, kc)
+        want2 = render_kernel_tiles_forward_plain(scene, prm, uni, trow, tcol, cfg, kc)
+        got4 = fit_step_kernel_tiles_launch(scene, prm, uni, stacks[rank].contiguous(), trow, tcol, cfg, kc, False,
+                                            FROZEN)
+        want4 = fit_step_kernel_tiles_plain(scene, prm, uni, p_stacks[rank].contiguous(), trow, tcol, cfg, kc, False,
+                                            FROZEN)
+        torch.cuda.synchronize()
+        pixels = tile_pixel_planes(trow, tcol, kc.tile_h, kc.tile_w)
+        check_planes(got2, want2, cfg.march.max_distance, razor=razor_edge(scene, prm, uni, cfg, kc, pixels))
+        assert float(got4[0]) == pytest.approx(float(want4[0]), rel=1e-5)
+    full = dataclasses.replace(cfg, width=640, height=48)
+    target_img = render_kernel_forward(tt.reference_scene(), cam, tt.reference_light(), tt.reference_material(), full,
+                                       device=dev)[0]
+    port = socket.socket()
+    port.bind(("127.0.0.1", 0))
+    addr = f"tcp://127.0.0.1:{port.getsockname()[1]}"
+    port.close()
+    unsharded = fit_scene(target_img, _fit_scene0(dev), cam, tt.reference_light(), tt.reference_material(), full,
+                          FitConfig(steps=5, learning_rate=1e-2), trainable=(False, False, True, True), device=dev)
+    launch.initialize(addr, world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        fit_step_kernel_tiles.launches = 0
+        tiles = fit_scene(target_img, _fit_scene0(dev), cam, tt.reference_light(), tt.reference_material(), full,
+                          FitConfig(steps=5, learning_rate=1e-2, shard_layout="tiles"), mesh=make_mesh(),
+                          trainable=(False, False, True, True))
+        assert fit_step_kernel_tiles.launches == 5
+    finally:
+        launch.shutdown()
+    assert max(abs(a / b - 1.0) for a, b in zip(tiles.losses, unsharded.losses)) <= 1e-5
+
+
+def test_fractal_totals_finite_at_1080p(dev):
+    """K3 and both K5 forms on the fractal at 1920×1080 under the reference
+    camera give finite totals: the clamp of ``rho^8`` keeps the escape
+    selects' untaken branch finite where JAX's reverse pass is NaN (ROADMAP
+    Queue 3)."""
+    cfg = dataclasses.replace(BASE, width=1920, height=1080)
+    scene = fractal_fit_start(dev)
+    prm, uni = _inputs(scene, tt.Camera.reference(), cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    target = (rgb * 0.95).contiguous()
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), True, ())
+    assert bool(torch.isfinite(torch.cat([g_prm, g_uni])).all()) and float(loss) > 0.0
+    for wrt in (False, True):
+        got = render_kernel_backward_launch(scene, prm, uni, (2.0 * (rgb - target)).contiguous(), t, sh, ao, cfg,
+                                            wrt_uniforms=wrt)
+        assert all(bool(torch.isfinite(g).all()) for g in got if g is not None)

@@ -45,7 +45,7 @@ from sdf3d_tpu_torch.ops.fit_kernel import (
 from sdf3d_tpu_torch.ops.render_bwd_kernel import shade_planes
 from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, pixel_planes, render_kernel_forward_plain
 from sdf3d_tpu_torch.ops.scene_program import FIT_VARIANTS, cuda_scene_source, scene_param_vector
-from sdf3d_tpu_torch.utils.parity import check_grads, conditioned, gradient_mass
+from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass, primals_agree
 
 torch.set_num_threads(1)
 
@@ -72,23 +72,32 @@ def _pc(name):
 @functools.cache
 def _setup(name):
     """JAX's and the port's inputs under config ``name``: the reference
-    scene, an orbit camera, and a target of the JAX render plus seeded noise
-    (none on grazing rays)."""
+    scene, an orbit camera, and each side's target, in the form of the
+    own-march fit comparisons (``test_torch_fit_kernel.py``): the JAX render
+    plus seeded noise where the gradient is well conditioned and the two
+    primals agree (``conditioned``, ``primals_agree``), elsewhere each side's
+    own render, so that no residual there reaches either gradient.  The two
+    renders are held to the image bar, which counts the pixels where they
+    disagree (``disagree``)."""
     jcfg = _cfg(name)
     jscene, jcam = s.reference_scene(), s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
     jlight, jmat = s.reference_light(), s.reference_material()
-    rgb, t, _, _ = (np.asarray(x) for x in jax_render_kernel_forward(jscene, jcam, jlight, jmat, jcfg, _pc(name),
-                                                                      planar=True))
+    j_planes = [torch.from_numpy(np.asarray(x).copy())
+                for x in jax_render_kernel_forward(jscene, jcam, jlight, jmat, jcfg, _pc(name), planar=True)]
     scene, cam, light, mat, cfg = (convert.from_jax(o) for o in (jscene, jcam, jlight, jmat, jcfg))
     prm = scene_param_vector(scene)
     uni = pack_uniforms(cam, light, mat, cfg.ray_mode)
     uni[27] = cfg.shadow.k
-    keep = conditioned(scene, prm, uni, torch.from_numpy(t.copy()), cfg).numpy()
-    noise = np.random.default_rng(6).uniform(-0.1, 0.1, (3, H, W)).astype(np.float32)
-    target = (rgb + noise * keep).astype(np.float32)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    check_planes(own, j_planes, cfg.march.max_distance)
+    agree = primals_agree(own, j_planes, cfg.march.max_distance)
+    keep = conditioned(scene, prm, uni, j_planes[1], cfg) & agree
+    noise = torch.from_numpy(np.random.default_rng(6).uniform(-0.1, 0.1, (3, H, W)).astype(np.float32))
+    target = torch.where(keep, j_planes[0] + noise, j_planes[0]).numpy()
+    p_target = torch.where(keep, j_planes[0] + noise, own[0]).numpy()
     juni = jax_pack_uniforms(jcam, jlight, jmat, jcfg.ray_mode).at[27].set(jcfg.shadow.k)
     return {"jscene": jscene, "jcfg": jcfg, "juni": juni, "scene": scene, "cfg": cfg, "prm": prm, "uni": uni,
-            "target": target}
+            "target": target, "p_target": p_target, "own": own, "disagree": int((~agree).sum())}
 
 
 @functools.cache
@@ -103,13 +112,13 @@ def _jax_step(name, wrt_uniforms):
 
 def _port(name, variant):
     d = _setup(name)
-    return fit_step_variant(variant, d["scene"], d["prm"], d["uni"], torch.from_numpy(d["target"]), d["cfg"])
+    return fit_step_variant(variant, d["scene"], d["prm"], d["uni"], torch.from_numpy(d["p_target"]), d["cfg"])
 
 
 def _mass(name):
     d = _setup(name)
-    p_rgb, p_t, p_sh, p_ao = render_kernel_forward_plain(d["scene"], d["prm"], d["uni"], d["cfg"])
-    return gradient_mass(d["scene"], d["prm"], d["uni"], 2.0 * (p_rgb - torch.from_numpy(d["target"])), p_t, p_sh,
+    p_rgb, p_t, p_sh, p_ao = d["own"]
+    return gradient_mass(d["scene"], d["prm"], d["uni"], 2.0 * (p_rgb - torch.from_numpy(d["p_target"])), p_t, p_sh,
                          p_ao, d["cfg"])
 
 
@@ -119,10 +128,13 @@ def _grad(out):
 
 @pytest.mark.parametrize("config", CONFIGS)
 @pytest.mark.parametrize("variant", ["full", "tgt3", "wrt_p"])
-def test_gradient_variants_match_jax_fit_kernel(variant, config):
+def test_gradient_variants_match_jax_fit_kernel(variant, config, record_property):
     """``full`` (and ``tgt3``, the same step on one stacked target) against
     JAX's fit kernel with the uniform gradients, ``wrt_p`` without: each
-    marches its own primal, so the fit step's loosened bar (ROADMAP Queue 3)."""
+    marches its own primal, so the fit step's loosened bar, on the pixels
+    where the two primals agree (``_setup``; ROADMAP Queue 3: JAX's own
+    march moves with the ISA its CPU compiler targets)."""
+    record_property("pixels_where_the_primals_disagree", _setup(config)["disagree"])
     wrt_uniforms = variant != "wrt_p"
     j_loss, j_gp, j_gu = _jax_step(config, wrt_uniforms)
     out = _port(config, variant)
@@ -210,7 +222,7 @@ def test_empty_variants_are_exact():
 
 def test_full_is_k3_and_rejects_unknown_variants():
     d = _setup("reference")
-    args = (d["scene"], d["prm"], d["uni"], torch.from_numpy(d["target"]), d["cfg"])
+    args = (d["scene"], d["prm"], d["uni"], torch.from_numpy(d["p_target"]), d["cfg"])
     for a, b in zip(fit_step_variant("full", *args), fit_step_kernel_plain(*args)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="variant"):

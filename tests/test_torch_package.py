@@ -22,6 +22,7 @@ from sdf3d_tpu_torch.ops import KernelConfig, cuda_scene_source, pack_uniforms, 
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
 from sdf3d_tpu_torch.parallel import make_mesh
 from sdf3d_tpu_torch.sdf import SDFNode, load_setup, save_setup
+from sdf3d_tpu_torch.utils.parity import check_pixel_budget
 
 torch.set_num_threads(1)
 
@@ -108,9 +109,9 @@ def test_reference_scene_param_vector():
 
 
 def test_unknown_jax_class_raises():
-    # Mandelbulb is ROADMAP item 13c: the port has no such class yet.
-    with pytest.raises(TypeError, match="Mandelbulb"):
-        convert.from_jax(s.sdf.mandelbulb())
+    # VoxelGrid is ROADMAP item 14: the port has no such class yet.
+    with pytest.raises(TypeError, match="VoxelGrid"):
+        convert.from_jax(s.sdf.voxel_grid(np.zeros((2, 2, 2), np.float32)))
 
 
 class Box(SDFNode):
@@ -130,7 +131,7 @@ def test_kernel_path_raises_for_unsupported_node():
         cuda_scene_source(scene, CFG, KernelConfig())
     with pytest.raises(NotImplementedError, match="Box"):
         render_kernel_forward(scene, *VIEW, CFG)
-    with pytest.raises(NotImplementedError, match="Mandelbulb is ROADMAP item 13c"):
+    with pytest.raises(NotImplementedError, match="VoxelGrid is ROADMAP item 14"):
         render_kernel_forward(scene, *VIEW, CFG)
 
 
@@ -143,8 +144,17 @@ def test_kernel_path_raises_for_unsupported_node():
     ids=["relaxed", "autodiff"],
 )
 def test_kernel_path_raises_for_later_settings(cfg):
-    with pytest.raises(NotImplementedError):
-        render_kernel_forward(tt.reference_scene(), *VIEW, cfg)
+    """The relaxed march is ported (ROADMAP 13c): the kernel path renders it
+    (the plain version, on the CPU), as the torch engine's relaxed march.
+    Autodiff normals raise ``ValueError`` on the kernel path, as JAX's Pallas
+    path does; the torch engine takes them."""
+    if cfg.normals == "autodiff":
+        with pytest.raises(ValueError, match="autodiff"):
+            render_kernel_forward(tt.reference_scene(), *VIEW, cfg)
+        return
+    rgb, t, _, _ = render_kernel_forward(tt.reference_scene(), *VIEW, cfg)
+    assert torch.isfinite(rgb).all()
+    check_pixel_budget(rgb, tt.render(tt.reference_scene(), *VIEW, cfg), channel_axis=-1)
 
 
 def test_no_quiet_move_to_cpu():

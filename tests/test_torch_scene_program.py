@@ -216,6 +216,9 @@ HOST_CASES = {
     "random_blobs": (lambda: convert.from_jax(s.random_blobs(n=8)), {}, KernelConfig()),
     "transform_sampler": (lambda: convert.from_jax(transform_sampler()), {}, KernelConfig()),
     "transform_sampler_point_form": (lambda: convert.from_jax(transform_sampler()), {}, KernelConfig(ray_sdf=False)),
+    "fractal": (lambda: tt.fractal_scene(4), {}, KernelConfig()),
+    "fractal_relaxed": (lambda: tt.fractal_scene(4), dict(march=dataclasses.replace(tt.REFERENCE_CONFIG.march,
+                                                                                    relaxation=1.6)), KernelConfig()),
 }
 
 
@@ -255,6 +258,7 @@ GRAD_CASES = {
     ),
     "flagship": (tt.flagship_scene, {}),
     "sampler": (lambda: convert.from_jax(csg_sampler()), {}),
+    "fractal": (lambda: tt.fractal_scene(4), {}),
 }
 
 
