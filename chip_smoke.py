@@ -35,10 +35,12 @@ Then the training path, ``fit_scene`` on the reference scene at 1920×1080
    (same planes, a seeded cotangent), with and without the uniforms'
    gradient;
 10. main path: ``fit_scene`` for 20 Adam steps launches the fit step once a
-    step and nothing else; ``fit_scene(loss="multiscale")`` for 5 steps
-    launches the forward and backward kernels once a step each, the
-    backward without the uniforms' gradient (the uniforms are not trained);
-    step 0 of the fit step against its plain version at 1080p;
+    step and nothing else; so does ``fit_scene(loss="multiscale")`` for 5
+    steps (the pyramid inside the fit step); with ``pyramid_levels=4`` (a
+    group the kernel's block cannot hold) it launches the forward and
+    backward kernels once a step each, the backward without the uniforms'
+    gradient (the uniforms are not trained); step 0 of the fit step against
+    its plain version at 1080p;
 11. CLI: ``python -m sdf3d_tpu_torch.cli fit`` at 1080p writes a metrics file;
 12. times at 1080p (fit step, render backward in both forms: its entry
     point with its total, then its wrapper; each beside its plain version;
@@ -170,7 +172,8 @@ CSG sampler (``utils/parity.py::csg_sampler``) on K1-K5 (:func:`flagship_phases`
     ``cli render --scene flagship`` (a PNG), a 20-step Adam fit (step 3e-4)
     of the perturbed flagship to its render with the plane frozen (K3 = 20,
     step 0 against the plain version), ``fit_scene(loss="multiscale")`` for 5
-    steps (K1 = K5 = 5, K5 in its P form), ``fit_scene(mesh=make_mesh())``
+    steps (K3 = 5) and with ``pyramid_levels=4`` (K1 = K5 = 5, K5 in its P
+    form), ``fit_scene(mesh=make_mesh())``
     in ``tiles`` for 20 steps (K4 = 20, the unsharded fit's losses),
     ``render_sharded_kernel(layout="tiles")`` (K2 = 1, K1's image) and
     ``bench.run_benchmark(scene_name="flagship")`` in ``fwd`` and
@@ -210,7 +213,8 @@ and the transform sampler (``utils/parity.py::transform_sampler``: every
     scene, frame 0 against the plain version), a 20-step Adam fit (step
     3e-4) of the capsule chain's perturbed start to its render with the
     plane frozen (K3 = 20; step 0 against the plain version), 5 multiscale
-    steps (K1 = K5 = 5, K5's P form), ``suite --scene-cost`` (K1 = 24);
+    steps (K3 = 5) and 5 with ``pyramid_levels=4`` (K1 = K5 = 5, K5's P
+    form), ``suite --scene-cost`` (K1 = 24);
     then CUDA-event times (plain, kernel, kernel, plain) of K1, K3 and both
     K5 forms per scene with their bounds and the marches' mean steps, and
     both K5 forms at 1080p against their plain version on each scene with
@@ -246,7 +250,8 @@ that K1-K4 share) (:func:`fractal_phases`):
     4), ``cli render --scene fractal`` (K1 = 1), a 20-step Adam fit (step
     1e-3) of the fractal's fit start to its render with the plane frozen (K3
     = 20; step 0 against the plain version; K3's and the plain version's
-    gradients at the start finite), 5 multiscale steps (K1 = K5 = 5);
+    gradients at the start finite), 5 multiscale steps (K3 = 5) and 5 with
+    ``pyramid_levels=4`` (K1 = K5 = 5);
     ``render_batch`` relaxed on the reference scene and the fractal (K1
     = 8), a 20-step relaxed fit of the fit demo (K3 = 20) and the same fit
     as ``fit_scene(mesh)`` in ``tiles`` at world size 1 (K4 = 20, the
@@ -260,6 +265,38 @@ that K1-K4 share) (:func:`fractal_phases`):
 The kernels line gives ``render_fwd``, ``fit_step`` and ``render_bwd`` a
 ``fractal`` entry, and ``render_fwd``, ``render_tiles``, ``fit_step`` and
 ``fit_step_tiles`` a ``relaxed`` entry.
+
+Then the fit kernel's loss branches (ROADMAP item 12a: the multiscale
+pyramid and the silhouette coverage term inside K3 and K4, the same kernel
+function compiled with ``Fit::levels`` and ``Fit::silhouette``)
+(:func:`loss_phases`):
+
+40. build: the branches' libraries together (the fit demo's K3 with each
+    branch, with and without the uniforms' gradient, ``fit_view``'s form,
+    K4's at 8×128 tiles), with the ``ptxas`` registers, spills and blocks
+    an SM of each beside the plain-L2 K3's;
+41. at 256x192 (two cameras) and a ragged 250x190: K3 with the pyramid
+    and with the coverage term (``background=(0, 0, 0)``, ``sil_w = 0.5``),
+    ``wrt_uniforms`` and frozen slots both ways, against the plain step on
+    K1's planes and the plain version; K4 with each on a balanced 4-rank
+    plan against its plain version, its sum against K3;
+42. main path at 1920x1080: ``fit_scene(loss="multiscale")`` and the
+    silhouette fit for 20 steps (K3 = 20 each), the same in ``tiles`` at
+    world size 1 (K4 = 20 each, the unsharded losses), ``fit_view``
+    recovering ``cli fit-view``'s perturbed camera (``pert 0.06``) for 200
+    steps (K3 = 200 with the uniforms' gradient and the coverage term; the
+    loss and the position error fall) and ``cli fit-view`` (K1 = 1 for its
+    target, K3 = 200); step 0 of each form against its plain versions;
+43. CUDA-event times at 1080p of K3 plain L2, multiscale, silhouette and
+    ``fit_view``'s form in turns, each beside its plain version and bound;
+    K4 with each branch over the 135-tile plan beside K3; ``fit_scene``'s
+    ms a step; the multiscale K3 beside the L2 K3 on the flagship's and the
+    fractal's fit starts (and the silhouette K3 on the flagship's), each
+    first held to its plain versions at 256x192.
+
+The kernels line gives ``fit_step`` ``multiscale``, ``silhouette`` and
+``view`` entries and ``fit_step_tiles`` ``multiscale`` and ``silhouette``
+entries.
 
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
@@ -643,6 +680,7 @@ def main() -> int:
     flagship = flagship_phases(torch, tt, card, dev)
     scenes = scenes_13b_phases(torch, tt, card, dev)
     fractal = fractal_phases(torch, tt, card, dev)
+    losses = loss_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -677,6 +715,11 @@ def main() -> int:
     check(sum("relaxed" in e for e in kernels) == 4 and all(
         "relaxed" in e for e in kernels if e["name"] in ("render_fwd", "render_tiles", "fit_step", "fit_step_tiles")),
         "a relaxed entry of the kernels line is missing")
+    for entry in kernels:
+        entry.update(losses.get(entry["name"], {}))
+    check(all(k in e for e in kernels if e["name"] == "fit_step" for k in ("multiscale", "silhouette", "view")) and all(
+        k in e for e in kernels if e["name"] == "fit_step_tiles" for k in ("multiscale", "silhouette")),
+        "a loss branch's entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -919,13 +962,22 @@ def fit_phases(torch, tt, card: str, dev) -> list:
                        trainable=trainable, device=dev)
         ms_counts = (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches)
         ms_seconds = time.perf_counter() - t0
-        ms_modes = modes.calls[len(modes.calls) - ms_counts[2]:]
+        # A pyramid the kernel's block cannot hold (4 levels: 16-pixel
+        # groups, 8-row blocks) takes the differentiable render, K1 + K5.
+        render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
+        ms4 = fit_scene(target, scene0(), cam, light, mat, cfg,
+                        FitConfig(steps=5, learning_rate=1e-2, log_every=1, loss="multiscale", pyramid_levels=4),
+                        trainable=trainable, device=dev)
+        ms4_counts = (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches)
+        ms_modes = modes.calls[len(modes.calls) - ms4_counts[2]:]
     check(l2_counts == (20, 0, 0), f"fit_scene launched (fit step, forward, backward) = {l2_counts}, expected (20, 0, 0)")
-    check(ms_counts == (0, 5, 5), f"multiscale fit launched (fit step, forward, backward) = {ms_counts}, expected (0, 5, 5)")
+    check(ms_counts == (5, 0, 0), f"multiscale fit launched (fit step, forward, backward) = {ms_counts}, expected (5, 0, 0)")
+    check(ms4_counts == (0, 5, 5),
+          f"4-level multiscale fit launched (fit step, forward, backward) = {ms4_counts}, expected (0, 5, 5)")
     check(sum(plain.calls.values()) == 0, f"the main path called plain versions: {plain.calls}")
-    check(ms_modes == [False] * 5, f"the multiscale fit's backward asked for wrt_uniforms {ms_modes}, "
+    check(ms_modes == [False] * 5, f"the 4-level multiscale fit's backward asked for wrt_uniforms {ms_modes}, "
                                    "expected False on every step (the uniforms are not trained)")
-    for name, res in (("l2", l2), ("multiscale", ms)):
+    for name, res in (("l2", l2), ("multiscale", ms), ("multiscale_4_levels", ms4)):
         check(all(math.isfinite(v) for v in res.losses), f"{name} fit: non-finite loss")
         check(res.losses[-1] < res.losses[0], f"{name} fit: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
     # Step 0 of the fit step against its plain version at 1080p (the real
@@ -934,8 +986,10 @@ def fit_phases(torch, tt, card: str, dev) -> list:
                          target.permute(2, 0, 1).contiguous(), same_tol=1e-4)
     log("fit_main_path", steps=20, l2_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), l2_counts)),
         multiscale_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), ms_counts)),
+        multiscale_4_levels_launches=dict(zip(("fit_step", "render_fwd", "render_bwd"), ms4_counts)),
         multiscale_render_bwd_wrt_uniforms=ms_modes, plain_calls=plain.calls,
-        l2_losses=l2.losses, multiscale_losses=ms.losses, radius=l2.scene.b.radius.item(),
+        l2_losses=l2.losses, multiscale_losses=ms.losses, multiscale_4_levels_losses=ms4.losses,
+        radius=l2.scene.b.radius.item(),
         l2_seconds=l2_seconds, multiscale_seconds=ms_seconds, step0=fit_st)
 
     # ---- 11. CLI ----
@@ -1009,7 +1063,7 @@ def fit_phases(torch, tt, card: str, dev) -> list:
          "max_abs_err": fit_st["own_march"]["max_abs_err"], "ms": runs["fit_step"]["ms"],
          "plain_ms": runs["fit_step"]["plain_ms"], "bound_ms": k3[0], "bound_by": k3[1], "library_ms": None},
         {"name": "render_bwd", "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/render_bwd_kernel.cu",
-         "replaces": "sdf3d_tpu/ops/render_bwd_kernel.py:194", "launches": ms_counts[2],
+         "replaces": "sdf3d_tpu/ops/render_bwd_kernel.py:194", "launches": ms4_counts[2],
          "max_abs_err": k5_st["max_abs_err"], "ms": runs["render_bwd"]["ms"],
          "plain_ms": runs["render_bwd"]["plain_ms"], "bound_ms": k5["render_bwd"][0],
          "bound_by": k5["render_bwd"][1], "library_ms": None},
@@ -2552,6 +2606,9 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
               (kc_tiles, True, ()), (kc_tiles, False, frozen)]
     jobs = [library_job(flagship, full, k, wrt, fr) for k, wrt, fr in combos]
     jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4, 5, 6)]]
+    jobs += [library_job(flagship, full, kc, False, frozen, "full", 3),  # the multiscale fit's K3
+             library_job(flagship, dataclasses.replace(full, background=(0.0, 0.0, 0.0)), kc, False, frozen, "full", 0,
+                         True)]  # the silhouette K3 (phase 43)
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -2711,6 +2768,11 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
                        device=dev)
         main["fit_multiscale"] = launches()
+        reset()
+        ms4 = fit_scene(target, flagship_fit_start(dev), ref_cam, light, mat, full,
+                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale", pyramid_levels=4),
+                        trainable=trainable, device=dev)
+        main["fit_multiscale_4_levels"] = launches()
         ms_modes = list(modes.calls[-5:])
         launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
         try:
@@ -2738,19 +2800,20 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
         "render_batch": {**zero, "render_kernel_forward": 4},
         "render_with_cli": {**zero, "render_kernel_forward": 5},
         "fit_l2": {**zero, "fit_step_kernel": 20},
-        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+        "fit_multiscale": {**zero, "fit_step_kernel": 5},
+        "fit_multiscale_4_levels": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
         "fit_mesh_tiles": {**zero, "fit_step_kernel_tiles": 20},
         "render_sharded_tiles": {**zero, "render_kernel_tiles_forward": 1},
     }
     for name, want in want_counts.items():
         check(main[name] == want, f"flagship {name} launched {main[name]}, expected {want}")
-    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    check(ms_modes == [False] * 5, f"the 4-level multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
     for mode, counter in (("fwd", "render_kernel_forward"), ("fwd_bwd", "fit_step_kernel")):
         got = cells[mode]["launches"]
         check(got[counter] > 0 and sum(got.values()) == got[counter] and cells[mode]["value"] > 0,
               f"bench flagship {mode}: {cells[mode]}")
     check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), "bad flagship frames")
-    for name, res in (("l2", l2), ("multiscale", ms), ("mesh_tiles", tiles)):
+    for name, res in (("l2", l2), ("multiscale", ms), ("multiscale_4_levels", ms4), ("mesh_tiles", tiles)):
         check(all(math.isfinite(v) for v in res.losses), f"flagship {name} fit: non-finite loss")
         check(res.losses[-1] < res.losses[0], f"flagship {name} fit: the loss did not fall "
                                               f"({res.losses[0]} -> {res.losses[-1]})")
@@ -2770,7 +2833,8 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
     sharded_st["rgb"]["pixels_differing_bits"] = int((sharded != k1_ref[0]).any(0).sum())
     step0 = k3_vs_plain(flagship_fit_start(dev), ref_cam, full, False, frozen, "flagship K3 1080p step 0", tgt)
     log("flagship_main_path", launches=main, multiscale_render_bwd_wrt_uniforms=ms_modes,
-        frame0=planes_stats(frame0), l2_losses=l2.losses, multiscale_losses=ms.losses, mesh_tiles_losses=tiles.losses,
+        frame0=planes_stats(frame0), l2_losses=l2.losses, multiscale_losses=ms.losses,
+        multiscale_4_levels_losses=ms4.losses, mesh_tiles_losses=tiles.losses,
         mesh_tiles_loss_rel_err=tiles_rel, mesh_tiles_losses_equal=tiles.losses == l2.losses,
         mesh_tiles_loss_max_abs_diff=max(abs(a - b) for a, b in zip(tiles.losses, l2.losses)),
         fitted=scene_param_vector(l2.scene).tolist(), target=scene_param_vector(flagship).tolist(),
@@ -2862,7 +2926,7 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
                      "render_tiles": main["render_sharded_tiles"]["render_kernel_tiles_forward"],
                      "fit_step": main["fit_l2"]["fit_step_kernel"],
                      "fit_step_tiles": main["fit_mesh_tiles"]["fit_step_kernel_tiles"],
-                     "render_bwd": main["fit_multiscale"]["render_kernel_backward"]}
+                     "render_bwd": main["fit_multiscale_4_levels"]["render_kernel_backward"]}
     out = {}
     for name in main_launches:
         out[name] = {"launches": main_launches[name], "max_abs_err": max(errs[name]), "ms": runs[name]["ms"],
@@ -3111,6 +3175,7 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
         jobs += [library_job(sc, full, kc), library_job(sc, full, kc_point), library_job(sc, full, kc, False, frozen)]
     jobs += [library_job(blobs[n], full, kc, False, frozen) for n in (2, 3)]
     jobs += [library_job(blobs[n], full, kc) for n in (2, 4, 16)]
+    jobs += [library_job(capsule_chain_fit_start(dev), full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -3279,6 +3344,11 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
                        device=dev)
         main["fit_multiscale"] = launches()
+        reset()
+        ms4 = fit_scene(target, capsule_chain_fit_start(dev), chain_cam, light, mat, full,
+                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale", pyramid_levels=4),
+                        trainable=trainable, device=dev)
+        main["fit_multiscale_4_levels"] = launches()
         ms_modes = list(modes.calls[-5:])
         reset()
         with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -3289,15 +3359,16 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
     zero = {fn.__name__: 0 for fn in counters}
     want_counts = {f"render_batch {n}": {**zero, "render_kernel_forward": 4} for n in gallery}
     want_counts.update({"fit_l2": {**zero, "fit_step_kernel": 20},
-                        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+                        "fit_multiscale": {**zero, "fit_step_kernel": 5},
+                        "fit_multiscale_4_levels": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
                         "suite_scene_cost": {**zero, "render_kernel_forward": 4 * 6}})
     for name, want in want_counts.items():
         check(main[name] == want, f"13b {name} launched {main[name]}, expected {want}")
-    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    check(ms_modes == [False] * 5, f"the 4-level multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
     check([r["n_primitives"] for r in scene_cost] == [3, 5, 9, 17] and
           all(r["metric"] == "scene_cost_rays_per_second" and r["value"] > 0 for r in scene_cost),
           f"suite --scene-cost printed {scene_cost}")
-    for name, res in (("l2", l2), ("multiscale", ms)):
+    for name, res in (("l2", l2), ("multiscale", ms), ("multiscale_4_levels", ms4)):
         check(all(math.isfinite(v) for v in res.losses), f"capsule_chain {name} fit: non-finite loss")
         check(res.losses[-1] < res.losses[0], f"capsule_chain {name} fit: the loss did not fall "
                                               f"({res.losses[0]} -> {res.losses[-1]})")
@@ -3396,7 +3467,7 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
             **{k: v[name] for k, v in times.items()})
     main_launches = {"render_fwd": {n: main[f"render_batch {n}"]["render_kernel_forward"] for n in gallery},
                      "fit_step": {"capsule_chain": main["fit_l2"]["fit_step_kernel"]},
-                     "render_bwd": {"capsule_chain": main["fit_multiscale"]["render_kernel_backward"]}}
+                     "render_bwd": {"capsule_chain": main["fit_multiscale_4_levels"]["render_kernel_backward"]}}
     out = {}
     for kname, per_scene in times.items():
         out[kname] = {"max_abs_err": max(errs[kname]), "scenes": per_scene}
@@ -3531,7 +3602,8 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
     jobs = [library_job(fractal, full, kc), library_job(fractal, full, kc_point),
             library_job(fractal, full, kc, False, frozen), library_job(reference, relaxed(full), kc),
             library_job(reference, relaxed(full), kc_tiles), library_job(reference, relaxed(full), kc, False, frozen),
-            library_job(reference, relaxed(full), kc_tiles, False, ()), library_job(fractal, relaxed(full), kc)]
+            library_job(reference, relaxed(full), kc_tiles, False, ()), library_job(fractal, relaxed(full), kc),
+            library_job(fractal, full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -3663,6 +3735,11 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale"), trainable=trainable,
                        device=dev)
         main["fit_multiscale"] = launches()
+        reset()
+        ms4 = fit_scene(target, fractal_fit_start(dev), ref_cam, light, mat, full,
+                        FitConfig(steps=5, learning_rate=lr, log_every=1, loss="multiscale", pyramid_levels=4),
+                        trainable=trainable, device=dev)
+        main["fit_multiscale_4_levels"] = launches()
         ms_modes = list(modes.calls[-5:])
         reset()
         frames_relaxed = {n: tt.render_batch(sc, orbit4, light, mat, relaxed(full), engine="kernel")
@@ -3701,7 +3778,8 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         "render_batch": {**zero, "render_kernel_forward": 4},
         "render_with_cli": {**zero, "render_kernel_forward": 5},
         "fit_l2": {**zero, "fit_step_kernel": 20},
-        "fit_multiscale": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
+        "fit_multiscale": {**zero, "fit_step_kernel": 5},
+        "fit_multiscale_4_levels": {**zero, "render_kernel_forward": 5, "render_kernel_backward": 5},
         "render_batch_relaxed": {**zero, "render_kernel_forward": 8},
         "fit_l2_relaxed": {**zero, "fit_step_kernel": 20},
         "fit_mesh_tiles_relaxed": {**zero, "fit_step_kernel_tiles": 20},
@@ -3709,13 +3787,14 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
     }
     for name, want in want_counts.items():
         check(main[name] == want, f"fractal {name} launched {main[name]}, expected {want}")
-    check(ms_modes == [False] * 5, f"the multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
+    check(ms_modes == [False] * 5, f"the 4-level multiscale fit's K5 asked for wrt_uniforms {ms_modes}")
     for mode, counter in (("fwd", "render_kernel_forward"), ("fwd_bwd", "fit_step_kernel")):
         got = cells[mode]["launches"]
         check(got[counter] > 0 and sum(got.values()) == got[counter] and cells[mode]["value"] > 0,
               f"bench fractal {mode}: {cells[mode]}")
     check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), "bad fractal frames")
-    for name, res in (("l2", l2), ("multiscale", ms), ("l2_relaxed", rl2), ("mesh_tiles_relaxed", tiles)):
+    for name, res in (("l2", l2), ("multiscale", ms), ("multiscale_4_levels", ms4), ("l2_relaxed", rl2),
+                      ("mesh_tiles_relaxed", tiles)):
         check(all(math.isfinite(v) for v in res.losses), f"fractal {name} fit: non-finite loss")
         check(res.losses[-1] < res.losses[0], f"fractal {name} fit: the loss did not fall "
                                               f"({res.losses[0]} -> {res.losses[-1]})")
@@ -3846,7 +3925,7 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         "fit_step": {**times["fit_step"], "launches": main["fit_l2"]["fit_step_kernel"],
                      "max_abs_err": max(errs["fit_step"])},
         "render_bwd": {**times["render_bwd"], "uniforms": times["render_bwd_uniforms"],
-                       "launches": main["fit_multiscale"]["render_kernel_backward"],
+                       "launches": main["fit_multiscale_4_levels"]["render_kernel_backward"],
                        "max_abs_err": max(errs["render_bwd"])},
     }
     relaxed_out = {
@@ -3860,6 +3939,441 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
                            "max_abs_err": max(errs["fit_step_tiles"])},
     }
     return {"fractal": out, "relaxed": relaxed_out}
+
+
+#: The fit step's loss branches (ROADMAP 12a) as ``fit_step_kernel``'s options.
+LOSS_BRANCHES = {"multiscale": dict(loss_kind="multiscale", levels=3), "silhouette": dict(sil_w=0.5)}
+
+
+def branch_work(costs: dict, counts: dict, levels: int, silhouette: bool) -> tuple:
+    """``(FP32, special-function)`` operations the loss branches add to the
+    fit step's floor (:func:`analytic_work`): the min-SDF tracker's compare
+    and two selects a primary step, and a pixel's reverse evaluation
+    (``sdf_bwd``) at its argmin and its sigmoid (an exp and two divisions);
+    the pyramid's three cotangent adds a pixel and level."""
+    n = counts["pixels"]
+    fp = 9.0 * n * levels
+    sfu = 0.0
+    if silhouette:
+        f, s_ = costs["bwd"]
+        fp += 3.0 * counts["primary"] + n * (f + 12.0)
+        sfu += n * (s_ + 3.0)
+    return fp, sfu
+
+
+def loss_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 40-43: the fit kernel's loss branches (ROADMAP 12a) in K3 and
+    K4, the multiscale pyramid and the silhouette coverage term, and the
+    entry points that take them: ``fit_scene`` unsharded and sharded,
+    ``fit_view``, ``cli fit-view``.  Returns the ``multiscale``,
+    ``silhouette`` and ``view`` entries of the kernels line's ``fit_step``
+    and the first two of its ``fit_step_tiles``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch import cli
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_view
+    from sdf3d_tpu_torch.march import ray_min_sdf
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        _fit_step_plain,
+        fit_launcher,
+        fit_step_kernel,
+        fit_step_kernel_launch,
+        fit_step_kernel_plain,
+        fit_step_kernel_tiles,
+        fit_step_kernel_tiles_launch,
+        fit_step_kernel_tiles_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        pixel_planes,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.parallel import launch, make_mesh
+    from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+    from sdf3d_tpu_torch.utils.parity import (
+        FLAGSHIP_OWN,
+        FLAGSHIP_SAME,
+        check_grads,
+        fit_targets,
+        flagship_fit_start,
+        fractal_fit_start,
+        loss_mass,
+    )
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    black = dataclasses.replace(full, background=(0.0, 0.0, 0.0))
+    kc, kc_tiles = KernelConfig(), KernelConfig(tile_h=8, tile_w=128)
+    frozen, trainable = (0, 1, 2, 3), (False, False, True, True)
+    eps = full.march.epsilon
+    beta = eps / 2.5
+    ref_cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    reference = tt.reference_scene().to(dev)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                fit_step_kernel_tiles)
+
+    def start():  # the fit demo's start (phase 10)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def cfg_of(branch, c):
+        return dataclasses.replace(c, background=(0.0, 0.0, 0.0)) if branch == "silhouette" else c
+
+    def reference_target(cam, c, scene_true=None):
+        """The reference scene's render (or ``scene_true``'s; planar, on the
+        card) and its object mask off the black background."""
+        scene_true = reference if scene_true is None else scene_true
+        prm, uni = inputs(scene_true, cam, c)
+        rgb = render_kernel_launch(scene_true, prm, uni, c)[0].contiguous()
+        return rgb, (rgb.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
+
+    def plain_opts(opts, cov):
+        """``_fit_step_plain``'s loss options of ``fit_step_kernel``'s ``opts``."""
+        sil_w = opts.get("sil_w", 0.0)
+        return dict(levels=opts.get("levels", 0), coverage=cov if sil_w else None, sil_w=sil_w)
+
+    def k3_vs_plain(opts, sc, cam, c, wrt, fr, label, base, cov, same_tol=None, own_tol=1e-3):
+        """K3 with the loss options ``opts`` against the plain step on K1's
+        planes (1e-5 of the whole loss's gradient mass; 1e-4 with the
+        coverage term, whose plain version tracks its own march) and the
+        plain version marching its own primal (1e-3); the losses 1e-5
+        relative.  The target: ``base`` where the gradient is well
+        conditioned (whole pyramid groups of such pixels;
+        ``utils/parity.py::fit_targets``), each side's own render
+        elsewhere."""
+        prm, uni = inputs(sc, cam, c)
+        rgb, t, sh, ao = planes = render_kernel_launch(sc, prm, uni, c)
+        own_planes = render_kernel_forward_plain(sc, prm, uni, c)
+        target, p_target = fit_targets(base, planes, own_planes, sc, prm, uni, c, opts.get("levels", 0))
+        got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr, target_coverage=cov, **opts)
+        po = plain_opts(opts, cov)
+        same = _fit_step_plain(sc, prm, uni, target, c, kc, wrt, fr, pixel_planes(uni, c.height, c.width),
+                               planes=(t, sh, ao), **po)
+        own = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr, target_coverage=cov, **opts)
+        torch.cuda.synchronize()
+        mass = loss_mass(sc, prm, uni, rgb, target, t, sh, ao, c, po["levels"], po["coverage"], po["sil_w"])
+        g = torch.cat(got[1:])
+        check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
+        rel = abs(float(got[0]) / float(same[0]) - 1.0)
+        own_rel = abs(float(got[0]) / float(own[0]) - 1.0)
+        check(rel <= 1e-5 and own_rel <= 1e-5, f"{label}: loss off the plain step's by {rel:.3g} / {own_rel:.3g}")
+        check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
+        check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
+        return {"loss_rel_err": rel, "own_march_loss_rel_err": own_rel,
+                "pixels_left_out": int((target != p_target).any(0).sum()),
+                "same_planes": check_grads(g, torch.cat(same[1:]), mass, rtol=1e-4,
+                                           mass_tol=same_tol or (1e-4 if po["sil_w"] else 1e-5),
+                                           label=f"{label} (same)"),
+                "own_march": check_grads(g, torch.cat(own[1:]), mass, rtol=1e-4, mass_tol=own_tol, label=label)}
+
+    # ---- 40. build: the loss branches' libraries together ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    sc0 = start()
+    settings = {  # name: (config, kernel config, wrt_uniforms, frozen, levels, silhouette)
+        "multiscale": (full, kc, False, frozen, 3, False), "multiscale_uniforms": (full, kc, True, (), 3, False),
+        "silhouette": (black, kc, False, frozen, 0, True), "silhouette_uniforms": (black, kc, True, (), 0, True),
+        "view": (full, kc, True, (), 0, True), "multiscale_tiles": (full, kc_tiles, True, frozen, 3, False),
+        "silhouette_tiles": (black, kc_tiles, True, frozen, 0, True),
+    }
+    t0 = time.perf_counter()
+    libs.load_many([library_job(sc0, c, k, w, f, "full", lv, sil) for c, k, w, f, lv, sil in settings.values()] +
+                   [library_job(sc0, full, kc, False, frozen)])  # the plain-L2 K3 (phase 7's), beside them
+    build_wall = time.perf_counter() - t0
+    ptxas = {}
+    for name, (c, k, w, f, lv, sil) in settings.items():
+        p = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, c, k, w, f, "full", lv, sil))))["fit_step"]
+        ptxas[name] = {**p, "blocks_per_sm": blocks_per_sm(p["registers"])}
+    l2_ptxas = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, full, kc, False, frozen))))["fit_step"]
+    ptxas["l2"] = {**l2_ptxas, "blocks_per_sm": blocks_per_sm(l2_ptxas["registers"])}
+    log("loss_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(settings), ptxas=ptxas)
+
+    # ---- 41. K3 and K4 with each branch against their plain versions ----
+    small = dataclasses.replace(full, width=256, height=192)
+    ragged = dataclasses.replace(full, width=250, height=190)
+    errs = {"multiscale": [], "silhouette": [], "view": [], "multiscale_tiles": [], "silhouette_tiles": []}
+    for branch in LOSS_BRANCHES:
+        for c0, cam_name, cam in ((small, "orbit30_15", orbit), (small, "reference", ref_cam), (ragged, "orbit30_15", orbit)):
+            c = cfg_of(branch, c0)
+            target, cov = reference_target(cam, c)
+            for wrt, fr in ((False, frozen), (True, ())):
+                label = f"K3 {branch} {c.width}x{c.height} {cam_name} wrt_uniforms={wrt}"
+                st = k3_vs_plain(LOSS_BRANCHES[branch], start(), cam, c, wrt, fr, label, target, cov)
+                errs[branch].append(st["own_march"]["max_abs_err"])
+                log("loss_k3_small", branch=branch, size=[c.width, c.height], camera=cam_name, wrt_uniforms=wrt, **st)
+        # K4 over a balanced 4-rank plan of 8x128 tiles: each work-list
+        # against its plain version, the sum against K3.
+        c = cfg_of(branch, small)
+        base, cov = reference_target(orbit, c)
+        work = torch.rand((c.height // 8, c.width // 128), generator=torch.Generator().manual_seed(1)).numpy()
+        plan = plan_tiles(c.height, c.width, 8, 128, 4, "balanced", work)
+        sc = start()
+        prm, uni = inputs(sc, orbit, c)
+        opts = LOSS_BRANCHES[branch]
+        rgb, t, sh, ao = planes = render_kernel_launch(sc, prm, uni, c, kc_tiles)
+        target, p_target = fit_targets(base, planes, render_kernel_forward_plain(sc, prm, uni, c, kc_tiles), sc, prm,
+                                       uni, c, opts.get("levels", 0))
+        stacks, p_stacks = (gather_target_tiles(torch.cat([x, cov[None]]), plan) for x in (target, p_target))
+        po = plain_opts(opts, cov)
+        mass = loss_mass(sc, prm, uni, rgb, target, t, sh, ao, c, po["levels"], po["coverage"], po["sil_w"])
+        total, ranks = None, []
+        for r in range(4):
+            trow, tcol = plan.tables(r, dev)
+            s_, p_s = stacks[r], p_stacks[r]
+            got = fit_step_kernel_tiles_launch(sc, prm, uni, s_[:3].contiguous(), trow, tcol, c, kc_tiles, True, frozen,
+                                               coverage_tiles=s_[3].contiguous(), **opts)
+            want = fit_step_kernel_tiles_plain(sc, prm, uni, p_s[:3].contiguous(), trow, tcol, c, kc_tiles, True,
+                                               frozen, coverage_tiles=p_s[3].contiguous(), **opts)
+            torch.cuda.synchronize()
+            rel = abs(float(got[0]) / float(want[0]) - 1.0) if float(want[0]) else abs(float(got[0]))
+            check(rel <= 1e-5, f"K4 {branch} rank {r}: loss off the plain version's by {rel:.3g}")
+            ranks.append(check_grads(torch.cat(got[1:]), torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=1e-3,
+                                     label=f"K4 {branch} rank {r}"))
+            errs[f"{branch}_tiles"].append(ranks[-1]["max_abs_err"])
+            total = got if total is None else tuple(a + b for a, b in zip(total, got))
+        whole = fit_step_kernel_launch(sc, prm, uni, target, c, kc_tiles, True, frozen, target_coverage=cov, **opts)
+        k3_rel = abs(float(total[0]) / float(whole[0]) - 1.0)
+        check(k3_rel <= 1e-5, f"K4 {branch}: the plan's loss off K3's by {k3_rel:.3g}")
+        vs_k3 = check_grads(torch.cat(total[1:]), torch.cat(whole[1:]), mass, rtol=1e-4, mass_tol=1e-4,
+                            label=f"K4 {branch} summed vs K3")
+        log("loss_k4_small", branch=branch, ranks=ranks, loss_rel_err_vs_k3=k3_rel, vs_k3=vs_k3)
+
+    # ---- 42. main path at 1920x1080 ----
+    target_full = render_kernel_forward(reference, ref_cam, light, mat, full, device=dev)[0]
+    target_black = render_kernel_forward(reference, ref_cam, light, mat, black, device=dev)[0]
+    pert = 0.06
+    rot = rotvec_to_matrix(pert * torch.tensor([0.3, 0.8, -0.3], device=dev))
+    cam0 = tt.Camera(position=ref_cam.position + pert * torch.tensor([1.0, -0.7, 1.3], device=dev),
+                     c2w=(rot[:, :, None] * ref_cam.c2w[None, :, :]).sum(1), fov_deg=ref_cam.fov_deg)
+    o, d = tt.camera_rays(ref_cam, W, H, full.ray_mode)
+    cov_true = torch.sigmoid((2.0 * eps - ray_min_sdf(reference.distance, o, d, full.march)[0]) / beta).contiguous()
+    main, fits = {}, {}
+    with PlainCalls() as plain:
+        for name, tgt, c, extra in (("multiscale", target_full, full, dict(loss="multiscale")),
+                                    ("silhouette", target_black, black, dict(silhouette_weight=0.5))):
+            reset()
+            t0 = time.perf_counter()
+            fits[name] = fit_scene(tgt, start(), ref_cam, light, mat, c,
+                                   FitConfig(steps=20, learning_rate=1e-2, log_every=1, **extra), trainable=trainable,
+                                   device=dev)
+            fits[name].seconds = time.perf_counter() - t0
+            main[name] = launches()
+        launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend() == "nccl" and mesh.size == 1, f"mesh {mesh}")
+            for name, tgt, c, extra in (("multiscale", target_full, full, dict(loss="multiscale")),
+                                        ("silhouette", target_black, black, dict(silhouette_weight=0.5))):
+                reset()
+                fits[f"{name}_tiles"] = fit_scene(tgt, start(), ref_cam, light, mat, c,
+                                                  FitConfig(steps=20, learning_rate=1e-2, log_every=1,
+                                                            shard_layout="tiles", **extra),
+                                                  mesh=mesh, trainable=trainable)
+                main[f"{name}_tiles"] = launches()
+        finally:
+            launch.shutdown()
+        reset()
+        t0 = time.perf_counter()
+        # 200 steps, as cli fit-view: over the first 20 the loss falls while the
+        # position error still rises (0.107 -> 0.134 at 192x108 on the CPU).
+        view = fit_view(target_full, reference, cam0, light, mat, full,
+                        FitConfig(steps=200, learning_rate=2e-3, log_every=10, silhouette_weight=1.0),
+                        target_coverage=cov_true, device=dev)
+        view_seconds = time.perf_counter() - t0
+        main["view"] = launches()
+        reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli.main(["fit-view"]) == 0, "cli fit-view failed")
+        main["cli_fit_view"] = launches()
+    check(sum(plain.calls.values()) == 0, f"the loss branches' main path called plain versions: {plain.calls}")
+    want_counts = {"multiscale": {"fit_step_kernel": 20}, "silhouette": {"fit_step_kernel": 20},
+                   "multiscale_tiles": {"fit_step_kernel_tiles": 20}, "silhouette_tiles": {"fit_step_kernel_tiles": 20},
+                   "view": {"fit_step_kernel": 200},
+                   "cli_fit_view": {"render_kernel_forward": 1, "fit_step_kernel": 200}}  # its target's render
+    for name, want in want_counts.items():
+        check(main[name] == want, f"{name} launched {main[name]}, expected {want}")
+    for name, res in fits.items():
+        check(all(math.isfinite(v) for v in res.losses), f"{name} fit: non-finite loss")
+        check(res.losses[-1] < res.losses[0], f"{name} fit: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
+    tiles_rel = {b: max(abs(a / w - 1.0) for a, w in zip(fits[f"{b}_tiles"].losses, fits[b].losses))
+                 for b in LOSS_BRANCHES}
+    check(max(tiles_rel.values()) <= 1e-5, f"fit_scene(mesh, tiles): losses off the unsharded fit's by {tiles_rel}")
+    e0 = float(torch.linalg.vector_norm(cam0.position - ref_cam.position))
+    e1 = float(torch.linalg.vector_norm(view.camera.position - ref_cam.position))
+    check(all(math.isfinite(v) for v in view.losses) and view.losses[-1] < view.losses[0] and e1 < e0,
+          f"fit_view: loss {view.losses[0]} -> {view.losses[-1]}, position error {e0} -> {e1}")
+    cli_line = out.getvalue().strip().splitlines()[-1]
+    cli_err = [float(x) for x in cli_line.split("position error")[1].split("->")]
+    check(cli_err[1] < cli_err[0], f"cli fit-view did not reduce the position error: {cli_line}")
+    # Step 0 of each at 1080p against the plain versions.
+    step0 = {"multiscale": k3_vs_plain(LOSS_BRANCHES["multiscale"], start(), ref_cam, full, False, frozen,
+                                       "K3 multiscale 1080p step 0", target_full.permute(2, 0, 1).contiguous(), None),
+             "silhouette": k3_vs_plain(LOSS_BRANCHES["silhouette"], start(), ref_cam, black, False, frozen,
+                                       "K3 silhouette 1080p step 0", target_black.permute(2, 0, 1).contiguous(),
+                                       (target_black.abs().amax(-1) > 1e-3).to(torch.float32).contiguous()),
+             "view": k3_vs_plain(dict(sil_w=1.0), reference, cam0, full, True, (), "K3 fit_view 1080p step 0",
+                                 target_full.permute(2, 0, 1).contiguous(), cov_true)}
+    for name in step0:
+        errs[name].append(step0[name]["own_march"]["max_abs_err"])
+    log("loss_main_path", launches=main, plain_calls=plain.calls,
+        losses={n: r.losses for n, r in fits.items()}, seconds={n: r.seconds for n, r in fits.items()
+                                                                 if hasattr(r, "seconds")},
+        tiles_loss_rel_err=tiles_rel, tiles_losses_equal={b: fits[f"{b}_tiles"].losses == fits[b].losses
+                                                          for b in LOSS_BRANCHES},
+        view_losses=view.losses, view_position_error=[e0, e1], view_seconds=view_seconds, cli_fit_view=cli_line,
+        step0=step0)
+
+    # ---- 43. times at 1080p (plain, kernel, kernel, plain) and bounds ----
+    sc = start()
+    prm, uni = inputs(sc, ref_cam, full)
+    _, uni_black = inputs(sc, ref_cam, black)
+    v_prm, v_uni = inputs(reference, cam0, full)
+    tgt = target_full.permute(2, 0, 1).contiguous()
+    tgt_black = target_black.permute(2, 0, 1).contiguous()
+    cov_black = (tgt_black.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
+    forms = {  # name: (scene, prm, uni, target, config, wrt_uniforms, frozen, launcher loss options, plain options)
+        "l2": (sc, prm, uni, tgt, full, False, frozen, {}, {}),
+        "multiscale": (sc, prm, uni, tgt, full, False, frozen, dict(levels=3), dict(loss_kind="multiscale")),
+        "silhouette": (sc, prm, uni_black, tgt_black, black, False, frozen,
+                       dict(coverage=cov_black, sil_w=0.5, sil_beta=beta), dict(sil_w=0.5, target_coverage=cov_black)),
+        "view": (reference, v_prm, v_uni, tgt, full, True, (), dict(coverage=cov_true, sil_w=1.0, sil_beta=beta),
+                 dict(sil_w=1.0, target_coverage=cov_true)),
+    }
+    kern = {n: fit_launcher(f[0], f[1], f[2], f[3], f[4], kc, f[5], f[6], "full", **f[7])[0] for n, f in forms.items()}
+    runs = {n: {"ms_runs": [], "plain_ms_runs": []} for n in forms}
+    for n, f in forms.items():
+        runs[n]["plain_ms_runs"].append(time_ms(functools.partial(fit_step_kernel_plain, *f[:5], kc, f[5], f[6], **f[8]),
+                                                1, 3))
+    for order in (list(forms), list(reversed(forms))):
+        for n in order:
+            runs[n]["ms_runs"].append(time_ms(kern[n]))
+    for n, f in forms.items():
+        runs[n]["plain_ms_runs"].append(time_ms(functools.partial(fit_step_kernel_plain, *f[:5], kc, f[5], f[6], **f[8]),
+                                                1, 3))
+        runs[n].update(ms=sum(runs[n]["ms_runs"]) / 2, plain_ms=sum(runs[n]["plain_ms_runs"]) / 2)
+    # K4 with each branch over the 135-tile plan beside K3 (both through
+    # their wrappers, as phase 21), in turns.
+    plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan.tables(0, dev)
+    tiles_runs = {}
+    for n in ("l2", "multiscale", "silhouette"):
+        f = forms[n]
+        cov = f[7].get("coverage")
+        stack = gather_target_tiles(f[3] if cov is None else torch.cat([f[3], cov[None]]), plan)[0]
+        tile_opts = {k: v for k, v in f[8].items() if k != "target_coverage"}
+        args4 = (f[0], f[1], f[2], stack[:3].contiguous(), trow, tcol, f[4], kc, False, frozen)
+        cov4 = None if cov is None else stack[3].contiguous()
+        k4 = functools.partial(fit_step_kernel_tiles_launch, *args4, coverage_tiles=cov4, **tile_opts)
+        k4_plain = functools.partial(fit_step_kernel_tiles_plain, *args4, coverage_tiles=cov4, **tile_opts)
+        k3 = functools.partial(fit_step_kernel_launch, *f[:5], kc, False, frozen, **f[8])
+        got4, got3 = k4(), k3()
+        rel = abs(float(got4[0]) / float(got3[0]) - 1.0)
+        check(rel <= 1e-5, f"K4 {n} 1080p: loss off K3's by {rel:.3g}")
+        p1 = time_ms(k4_plain, 1, 3)
+        a1, b1 = time_ms(k4), time_ms(k3)
+        a2, b2 = time_ms(k4), time_ms(k3)
+        p2 = time_ms(k4_plain, 1, 3)
+        tiles_runs[n] = {"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "k3_wrapper_ms_runs": [b1, b2],
+                         "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2], "loss_rel_err_vs_k3": rel}
+    # fit_scene's ms a step with the pyramid (phase 12's L2 beside it).
+    fit_ms = {}
+    for n, tg, c, extra in (("l2", target_full, full, {}), ("multiscale", target_full, full, dict(loss="multiscale")),
+                            ("silhouette", target_black, black, dict(silhouette_weight=0.5))):
+        fit_scene(tg, start(), ref_cam, light, mat, c, FitConfig(steps=5, log_every=5, **extra), trainable=trainable,
+                  device=dev)
+        res = fit_scene(tg, start(), ref_cam, light, mat, c, FitConfig(steps=50, log_every=50, **extra),
+                        trainable=trainable, device=dev)
+        fit_ms[n] = W * H / res.rays_per_second * 1e3
+    # Bounds on this run's data: K3's floor (analytic_work) plus what each
+    # branch adds (branch_work); bytes: the target (and the coverage plane)
+    # read, the float64 totals written.
+    costs = scene_costs(cuda_scene_source(sc, full, kc, False, frozen))
+    bounds = {}
+    for n, f in forms.items():
+        counts = march_counts(torch, f[0], ref_cam if n != "view" else cam0, f[4], f[1], f[2],
+                              render_kernel_forward_plain)
+        fp, sfu = analytic_work(costs, counts, f[4], primal=True, reverse=True)
+        bf, bs = branch_work(costs, counts, 3 if n == "multiscale" else 0, n in ("silhouette", "view"))
+        P = f[1].numel()
+        bounds[n] = bound(fp + bf, sfu + bs, (16 if n in ("silhouette", "view") else 12) * W * H + 8 * (P + 31))
+        runs[n].update(bound_ms=bounds[n][0], bound_by=bounds[n][1], counts=counts)
+    # The multiscale K3 on the flagship's and the fractal's fit starts (their
+    # libraries built in phases 30 and 37): against its plain versions at
+    # 256x192 at the flagship's bars, then at 1080p beside their L2 K3, in
+    # turns.
+    scenes_ms = {}
+    fr = (0, 1, 2, 3)  # the ground plane
+    for name, sc_ in (("flagship", flagship_fit_start(dev)), ("fractal", fractal_fit_start(dev))):
+        scene_true = tt.flagship_scene().to(dev) if name == "flagship" else tt.fractal_scene().to(dev)
+        _, s_uni = inputs(sc_, ref_cam, small)
+        base = render_kernel_launch(scene_true, scene_param_vector(scene_true, dev), s_uni, small)[0].contiguous()
+        parity = {"multiscale": k3_vs_plain(LOSS_BRANCHES["multiscale"], sc_, ref_cam, small, False, fr,
+                                            f"K3 multiscale {name} 256x192", base, None, FLAGSHIP_SAME, FLAGSHIP_OWN)}
+        p_, u_ = inputs(sc_, ref_cam, full)
+        tg_ = render_kernel_launch(scene_true, scene_param_vector(scene_true, dev), u_, full)[0].contiguous()
+        kern_ = {"l2": fit_launcher(sc_, p_, u_, tg_, full, kc, False, fr)[0],
+                 "multiscale": fit_launcher(sc_, p_, u_, tg_, full, kc, False, fr, "full", levels=3)[0]}
+        headers = {"l2": cuda_scene_source(sc_, full, kc, False, fr), "multiscale": cuda_scene_source(
+            sc_, full, kc, False, fr, "full", 3)}
+        if name == "flagship":  # the silhouette K3 on the flagship too (its registers)
+            b_base, b_cov = reference_target(ref_cam, cfg_of("silhouette", small), scene_true)
+            parity["silhouette"] = k3_vs_plain(LOSS_BRANCHES["silhouette"], sc_, ref_cam, cfg_of("silhouette", small),
+                                               False, fr, "K3 silhouette flagship 256x192", b_base, b_cov,
+                                               FLAGSHIP_SAME, FLAGSHIP_OWN)
+            tg_b, cov_b = reference_target(ref_cam, black, scene_true)
+            kern_["silhouette"] = fit_launcher(sc_, p_, inputs(sc_, ref_cam, black)[1], tg_b, black, kc, False, fr,
+                                               "full", coverage=cov_b, sil_w=0.5, sil_beta=beta)[0]
+            headers["silhouette"] = cuda_scene_source(sc_, black, kc, False, fr, "full", 0, True)
+        runs_ = {f: [] for f in kern_}
+        for _ in range(2):
+            for f, k_ in kern_.items():
+                runs_[f].append(time_ms(k_, 2, 10))
+        scenes_ms[name] = {"parity_256x192": parity}
+        for form, header in headers.items():
+            p = ptxas_summary(libs.log(libs.key(header)))["fit_step"]
+            scenes_ms[name][form] = {"ms": sum(runs_[form]) / 2, "ms_runs": runs_[form],
+                                     "ptxas": {**p, "blocks_per_sm": blocks_per_sm(p["registers"])}}
+    log("loss_times_1080p", card=card, k3=runs, k4=tiles_runs, fit_scene_ms_per_step=fit_ms, scenes=scenes_ms,
+        ptxas=ptxas)
+    entry = {}
+    for n, count in (("multiscale", main["multiscale"]["fit_step_kernel"]),
+                     ("silhouette", main["silhouette"]["fit_step_kernel"]),
+                     ("view", main["view"]["fit_step_kernel"])):
+        entry[n] = {"launches": count, "max_abs_err": max(errs[n]), "ms": runs[n]["ms"],
+                    "plain_ms": runs[n]["plain_ms"], "bound_ms": runs[n]["bound_ms"], "bound_by": runs[n]["bound_by"]}
+    tiles_entry = {}
+    for n in LOSS_BRANCHES:
+        tiles_entry[n] = {"launches": main[f"{n}_tiles"]["fit_step_kernel_tiles"],
+                          "max_abs_err": max(errs[f"{n}_tiles"]), "ms": tiles_runs[n]["ms"],
+                          "plain_ms": tiles_runs[n]["plain_ms"], "bound_ms": runs[n]["bound_ms"],
+                          "bound_by": runs[n]["bound_by"]}
+    return {"fit_step": entry, "fit_step_tiles": tiles_entry}
 
 
 def blocks_per_sm(registers: int, threads: int = 256) -> int:

@@ -8,7 +8,9 @@ shadows and Blinn-Phong shading: a plain PyTorch reference path
 (``render``), and a CUDA kernel written for the H100
 (``ops.render_kernel_forward``, ``render_batch(engine="kernel")``), built per
 scene structure at first use.  Inverse rendering on one card: ``fit_scene``
-on the fused fit-step kernel, and a differentiable kernel render
+on the fused fit-step kernel (the plain L2 loss, the multiscale pyramid and the
+silhouette coverage term in one launch), ``fit_view`` (camera, light and
+material against an image, on the same kernel's uniforms' gradient), and a differentiable kernel render
 (``ops.render_kernel_diff``: forward kernel, backward kernel).  The neural
 SDF family (``sdf.NeuralSDF``, ``sdf.neural_sdf``, ``sdf.distill``) renders
 on its own CUDA kernel (``ops.render_neural_forward``, ``ops.render_neural``,
@@ -31,7 +33,7 @@ from sdf3d_tpu_torch.config import (
     ShadowConfig,
     fast_config,
 )
-from sdf3d_tpu_torch.fit import FitConfig, FitResult, fit_scene, pixel_loss
+from sdf3d_tpu_torch.fit import FitConfig, FitResult, ViewFitResult, fit_scene, fit_view, pixel_loss
 from sdf3d_tpu_torch.lighting import (
     Material,
     PointLight,
@@ -47,6 +49,7 @@ from sdf3d_tpu_torch.march import (
     normal_autodiff,
     normal_central,
     normal_tetrahedron,
+    ray_min_sdf,
     soft_shadow,
     sphere_trace,
 )

@@ -241,7 +241,7 @@ def run_extras(budget_s: float = 900.0, on_update=None, device="cuda") -> dict:
 
     Each entry holds either ``rays_per_second`` and ``seconds_per_frame``,
     or an error string: ``"error: NotImplementedError: ..."`` for a path not
-    ported yet (the multiview fit, ROADMAP item 12), ``"skipped: ..."`` once
+    ported yet (the multiview fit, ROADMAP item 12b), ``"skipped: ..."`` once
     the budget is spent.  Any other failure
     raises.  ``on_update(partial_dict)`` is called after every entry."""
     from sdf3d_tpu_torch.fit import fit_scene_multiview
@@ -269,7 +269,7 @@ def run_extras(budget_s: float = 900.0, on_update=None, device="cuda") -> dict:
     _run("fit_fast_1080p", lambda: _via("fwd_bwd", profile="fast"))
     _run("fit_fractal_1080p", lambda: _via("fwd_bwd", scene_name="fractal"))
     # The V = 4 multiview fit step at 720p: fit_scene_multiview raises, its
-    # fit-kernel variant is not ported (ROADMAP item 12).
+    # fit kernel's view axis is not ported (ROADMAP item 12b).
     _run("fit_multiview_720p_v4", fit_scene_multiview)
     return out
 

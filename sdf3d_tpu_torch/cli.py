@@ -1,8 +1,10 @@
-"""Command-line entry point of the port: ``render``, ``fit``, ``bench`` and
-``info`` (the ports of the JAX package's ``sdf3d`` subcommands of those names).
+"""Command-line entry point of the port: ``render``, ``fit``, ``fit-view``,
+``bench`` and ``info`` (the ports of the JAX package's ``sdf3d`` subcommands
+of those names).
 
     python -m sdf3d_tpu_torch.cli render --width 1920 --height 1080 --out out.png
     python -m sdf3d_tpu_torch.cli fit --width 1920 --height 1080 --steps 100 --metrics fit.jsonl
+    python -m sdf3d_tpu_torch.cli fit-view --width 128 --height 96 --steps 200
     python -m sdf3d_tpu_torch.cli bench            # one JSON line: fwd_bwd rays/s at 1080p
     python -m sdf3d_tpu_torch.cli info
 
@@ -10,7 +12,10 @@
 ``--engine torch`` through the plain PyTorch path (which alone takes
 ``--normals autodiff``).  ``fit`` is the
 inverse-rendering demo: it renders the scene as the target, then recovers
-the sphere of a perturbed start with the fused fit-step kernel.
+the sphere of a perturbed start with the fused fit-step kernel.  ``fit-view``
+is the pose-estimation demo: it recovers a perturbed camera with the pixel L2
+and the silhouette term (its target coverage from ``march.ray_min_sdf`` at the
+true camera) and prints the position error before and after.
 ``--device`` defaults to ``cuda``; without a card the command fails rather
 than moving to the CPU (pass ``--device cpu`` to run the kernels' plain
 versions there).
@@ -143,6 +148,46 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def cmd_fit_view(args) -> int:
+    import torch
+
+    import sdf3d_tpu_torch as s
+    from sdf3d_tpu_torch.fit import FitConfig, fit_view
+    from sdf3d_tpu_torch.march import ray_min_sdf
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+    from sdf3d_tpu_torch.utils import MetricsLogger
+
+    cfg = _apply_flags(s.REFERENCE_CONFIG, args)
+    device = torch.device(args.device)
+    scene = _build_scene(args.scene).to(device)
+    light, mat = s.reference_light(device=device), s.reference_material(device=device)
+    cam_true = s.Camera.reference(device=device)
+    target = render_kernel_forward(scene, cam_true, light, mat, cfg, device=device)[0]
+    # The target coverage: sigmoid((2ε − min_s)/β) along the true camera's
+    # rays, β = ε/2.5 (JAX's diff.coverage).
+    o, d = s.camera_rays(cam_true, cfg.width, cfg.height, cfg.ray_mode)
+    with torch.no_grad():
+        min_s, _ = ray_min_sdf(scene.distance, o, d, cfg.march)
+    eps = cfg.march.epsilon
+    cov_target = torch.sigmoid((2.0 * eps - min_s) / (eps / 2.5))
+
+    def vec(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    rot = rotvec_to_matrix(args.pert * vec([0.3, 0.8, -0.3]))
+    cam0 = s.Camera(position=cam_true.position + args.pert * vec([1.0, -0.7, 1.3]),
+                    c2w=(rot[:, :, None] * cam_true.c2w[None, :, :]).sum(1), fov_deg=cam_true.fov_deg)
+    with MetricsLogger(args.metrics) as logger:
+        result = fit_view(target, scene, cam0, light, mat, cfg,
+                          FitConfig(steps=args.steps, learning_rate=args.lr, silhouette_weight=1.0),
+                          optimize=("camera",), logger=logger, target_coverage=cov_target, device=device)
+    e0 = float(torch.linalg.vector_norm(cam0.position - cam_true.position))
+    e1 = float(torch.linalg.vector_norm(result.camera.position - cam_true.position))
+    print(f"final loss {result.losses[-1]:.6f} after {result.steps_run} steps; position error {e0:.4f} -> {e1:.4f}")
+    return 0
+
+
 def cmd_bench(args) -> int:
     import json
 
@@ -202,6 +247,17 @@ def main(argv=None) -> int:
     pf.add_argument("--checkpoint-every", type=int, default=0)
     pf.add_argument("--device", default="cuda")
     pf.set_defaults(fn=cmd_fit, profile="parity", normals=None, ao=False)
+
+    pv = sub.add_parser("fit-view", help="pose-estimation demo: recover a perturbed camera")
+    pv.add_argument("--scene", default="reference")
+    pv.add_argument("--width", type=int, default=128)
+    pv.add_argument("--height", type=int, default=96)
+    pv.add_argument("--steps", type=int, default=200)
+    pv.add_argument("--lr", type=float, default=2e-3)
+    pv.add_argument("--pert", type=float, default=0.06)
+    pv.add_argument("--metrics", default=None, help="JSONL metrics file")
+    pv.add_argument("--device", default="cuda")
+    pv.set_defaults(fn=cmd_fit_view, profile="parity", normals=None, ao=False)
 
     pb = sub.add_parser("bench", help="throughput benchmark (prints one JSON line)")
     pb.add_argument("--width", type=int, default=0)

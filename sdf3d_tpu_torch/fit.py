@@ -7,11 +7,15 @@ ported) takes one of two routes, as the JAX package's ``engine="pallas"``
 does:
 
 - the fused fit step (``ops/fit_kernel.py``, one kernel launch per step)
-  when :func:`~sdf3d_tpu_torch.ops.fit_kernel.fused_l2_eligible` holds (the
-  plain L2 loss);
+  when :func:`~sdf3d_tpu_torch.ops.fit_kernel.fused_l2_eligible` holds: the
+  plain L2 loss, the multiscale pyramid whose groups fit the kernel's block
+  and tile, and the silhouette coverage term, in one launch;
 - otherwise the differentiable kernel render (``ops/render_autograd.py``:
-  forward kernel, backward kernel) and :func:`pixel_loss` under autograd
-  (the multiscale loss).
+  forward kernel, backward kernel) and :func:`pixel_loss` under autograd (a
+  multiscale pyramid deeper than the block holds).
+
+:func:`fit_view` fits the camera, light and material to an image with the
+scene fixed, on the fused fit step's uniforms' gradient.
 
 With a ``mesh`` (``parallel/``) the fused step is sharded: each rank runs
 K3 on its rows (the contiguous and interleaved layouts) or K4 on its tile
@@ -33,8 +37,10 @@ import warnings
 import numpy as np
 import torch
 
+from sdf3d_tpu_torch.camera import Camera
 from sdf3d_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.lighting import Material, PointLight
 from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_tiles, fused_l2_eligible, with_rows
 from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
 from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, pack_uniforms
@@ -95,8 +101,12 @@ class FitConfig:
     #: Steps per chunk (losses are read once per chunk); 0 = ``log_every``.
     #: Chunks also end at checkpoint boundaries.
     chunk_steps: int = 0
-    #: The soft-silhouette coverage term; only 0 is ported (ROADMAP item 12).
+    #: Weight of the soft-silhouette (coverage) term; 0 disables.  It
+    #: compares ``sigmoid((2ε − min_sdf)/β)`` along each ray with the
+    #: target's object mask (``target_coverage``, or the pixels off
+    #: ``render_config.background``).
     silhouette_weight: float = 0.0
+    #: Softness (world units) of the coverage sigmoid; None = epsilon/2.5.
     silhouette_beta: float | None = None
     #: With ``mesh``: under ``shard_layout="auto"``, shard the image as
     #: interleaved tile-height row blocks, so every rank sees a mix of sky,
@@ -129,6 +139,15 @@ class FitResult:
     rays_per_second: float
 
 
+@dataclasses.dataclass
+class ViewFitResult:
+    camera: Camera
+    light: PointLight
+    mat: Material
+    losses: list
+    steps_run: int
+
+
 def _frozen_param_slots(scene0: SDFNode, trainable) -> tuple:
     """Flat parameter-vector slots of the frozen leaves.  ``trainable`` has
     one bool per leaf of ``scene0`` (``scene_program.leaves`` order, the
@@ -158,7 +177,7 @@ def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
-def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, target_coverage, scene0) -> None:
+def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, scene0, kc: KernelConfig) -> None:
     """Raise for what the port's fit does not do yet (before any work)."""
     if has_neural(scene0):
         raise NotImplementedError("fitting a NeuralSDF scene waits for diff.py's implicit VJP (ROADMAP item 5)")
@@ -166,16 +185,20 @@ def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, t
         raise NotImplementedError("engine='xla' (diff.py's render_rays_diff) is not ported yet (ROADMAP item 5)")
     if fit_config.engine != "kernel":
         raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
-    if fit_config.silhouette_weight > 0.0 and render_config.march.relaxation != 1.0:
+    sil_w = fit_config.silhouette_weight
+    if sil_w > 0.0 and render_config.march.relaxation != 1.0:
         # JAX's min-SDF tracker marches unrelaxed (its _march_primary(track_min=True)).
         raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
-    if fit_config.silhouette_weight > 0.0 or target_coverage is not None:
-        raise NotImplementedError("the silhouette coverage term is not ported yet (ROADMAP item 12)")
     if render_config.shadow.enabled and render_config.shadow.grad != "detach":
         raise NotImplementedError(
-            f"shadow.grad == {render_config.shadow.grad!r} is not ported yet (ROADMAP item 12)")
+            f"shadow.grad == {render_config.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")
     if fit_config.loss not in ("l2", "multiscale"):
         raise ValueError(f"unknown loss {fit_config.loss!r}")
+    if sil_w > 0.0 and not fused_l2_eligible(render_config, scene0, fit_config.loss, fit_config.pyramid_levels,
+                                             sil_w, kc):
+        raise NotImplementedError(
+            "the silhouette term runs in the fused fit step; outside it (autodiff normals, a pyramid deeper than "
+            "the kernel's block) it waits for diff.py's coverage (ROADMAP item 5)")
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh()), not {type(mesh).__name__}")
@@ -184,10 +207,30 @@ def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, t
         if fit_config.shard_policy not in ("round_robin", "balanced"):
             raise ValueError(f"unknown tile policy {fit_config.shard_policy!r}")
         check_allreduce(fit_config.allreduce)
-        if not fused_l2_eligible(render_config, scene0, fit_config.loss, fit_config.silhouette_weight):
+        if fit_config.loss == "multiscale":
+            _check_multiscale_alignment(fit_config, render_config, kc, mesh.size)
+        if not fused_l2_eligible(render_config, scene0, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
             raise NotImplementedError(
-                f"sharded fits run the fused L2 fit step; loss={fit_config.loss!r} under a mesh is not ported "
-                "yet (ROADMAP item 15b)")
+                "sharded fits run the fused fit step; a configuration outside it under a mesh (the differentiable "
+                "render per rank) is not ported yet (ROADMAP item 15b)")
+
+
+def _check_multiscale_alignment(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig,
+                                n: int) -> None:
+    """JAX's gate of a sharded multiscale fit: the pyramid pools within each
+    rank's rows, so its groups are the unsharded objective's only when every
+    rank's row run starts and ends on a ``2**pyramid_levels`` boundary."""
+    layout = _resolve_layout(fit_config, render_config, kc, n)
+    H = render_config.height
+    if layout != "tiles" and H % n != 0:
+        raise ValueError(f"height {H} not divisible by mesh size {n}")
+    run = kc.tile_h if layout in ("interleaved", "tiles") else H // n
+    lv = 1 << fit_config.pyramid_levels
+    if run % lv != 0:
+        what = "tile_h" if layout in ("interleaved", "tiles") else "slab height (height/n_devices)"
+        raise ValueError(
+            f"multiscale loss under row sharding needs the {what} ({run}) divisible by 2**pyramid_levels ({lv}) so "
+            "pooled blocks align with the unsharded objective; adjust height/pyramid_levels/tile or fit unsharded")
 
 
 def _resolve_layout(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, n: int) -> str:
@@ -203,20 +246,28 @@ def _resolve_layout(fit_config: FitConfig, render_config: RenderConfig, kc: Kern
 
 
 def _sharded_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, scene, uni,
-                  target, camera, light, frozen: tuple):
+                  target, camera, light, frozen: tuple, coverage):
     """The per-step ``(loss, [g_prm])`` of a sharded fit, summed over the
     mesh, and the re-plan callable of a balanced tile queue (``None``
     otherwise).  Each rank prepares only its own share: its rows' target and
     row slots, or its work-list's tables and target stack.  The sums stay in
     float64 through the all-reduce and are rounded to float32 once, so every
-    layout and world size rounds the same totals alike."""
+    layout and world size rounds the same totals alike.  ``coverage(rgb,
+    rows)``: the coverage target of the silhouette term for the target rows
+    ``rgb`` of the absolute ``rows`` (``None`` without the term); it rides
+    beside the target as a fourth channel, through the same row layout or
+    tile gather."""
     H, W = render_config.height, render_config.width
     layout = _resolve_layout(fit_config, render_config, kc, mesh.size)
+    loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=fit_config.silhouette_weight,
+                sil_beta=fit_config.silhouette_beta)
     replan = None
     if layout == "tiles":
         if callable(target):
             raise ValueError("shard_layout='tiles' gathers tile stacks from a target array, not a row loader")
         target_planar = target.permute(2, 0, 1)
+        if coverage is not None:
+            target_planar = torch.cat([target_planar, coverage(target, np.arange(H))[None]])
         policy = fit_config.shard_policy
 
         def plan_inputs():
@@ -236,10 +287,12 @@ def _sharded_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig
 
         def vag():
             trow, tcol, stack = tiles
-            loss, g_prm, _ = fit_step_kernel_tiles(scene, scene_param_vector(scene), uni, stack, trow, tcol,
-                                                   render_config, kc, wrt_uniforms=False, frozen_slots=frozen,
-                                                   sum_dtype=torch.float64)
-            return loss, [g_prm]
+            loss_, g_prm, _ = fit_step_kernel_tiles(scene, scene_param_vector(scene), uni, stack[:3].contiguous(),
+                                                    trow, tcol, render_config, kc, wrt_uniforms=False,
+                                                    frozen_slots=frozen, sum_dtype=torch.float64,
+                                                    coverage_tiles=stack[3].contiguous() if coverage else None,
+                                                    **loss)
+            return loss_, [g_prm]
 
         if policy == "balanced" and fit_config.replan_every > 0:
             def replan():
@@ -253,13 +306,16 @@ def _sharded_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig
         slab_cfg, row0, rowstride = row_layout(render_config, mesh, interleaved, kc.tile_h)
         rows = launch.rank_rows(mesh, H, interleaved, kc.tile_h)
         rows_rgb = target(rows) if callable(target) else target[torch.from_numpy(rows).to(target.device)]
-        slab_target = torch.as_tensor(rows_rgb, dtype=torch.float32).to(mesh.device).permute(2, 0, 1).contiguous()
+        rows_rgb = torch.as_tensor(rows_rgb, dtype=torch.float32).to(mesh.device)
+        slab_target = rows_rgb.permute(2, 0, 1).contiguous()
+        slab_cov = coverage(rows_rgb, rows).contiguous() if coverage is not None else None
         slab_uni = with_rows(uni, row0, rowstride)
 
         def vag():
-            loss, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), slab_uni, slab_target, slab_cfg, kc,
-                                             wrt_uniforms=False, frozen_slots=frozen, sum_dtype=torch.float64)
-            return loss, [g_prm]
+            loss_, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), slab_uni, slab_target, slab_cfg, kc,
+                                              wrt_uniforms=False, frozen_slots=frozen, sum_dtype=torch.float64,
+                                              target_coverage=slab_cov, **loss)
+            return loss_, [g_prm]
 
     return fused_loss_and_grad_sharded(vag, mesh, fit_config.allreduce), replan
 
@@ -289,8 +345,11 @@ def fit_scene(
     the same fit setup is resumed before the first step (another setup's is
     ignored with a warning and overwritten), and snapshots are written
     every ``checkpoint_every`` steps.  ``kernel_config``: the kernels'
-    block and tile (``KernelConfig``).  ``target_coverage`` belongs to a
-    part not ported yet and raises ``NotImplementedError``.
+    block and tile (``KernelConfig``).  ``target_coverage``: the (H, W)
+    object mask in [0, 1] of the silhouette term
+    (``fit_config.silhouette_weight``); inferred from the pixels off
+    ``render_config.background`` where not given (under a row loader it may
+    be a callable of the absolute rows too).
 
     ``mesh`` (``parallel.make_mesh()``): shard the fit over its ranks, on
     ``mesh.device`` (``device`` is then not read), in the layout
@@ -300,8 +359,9 @@ def fit_scene(
     W, 3)`` so a rank loads only its rows.  Only rank 0 logs and writes
     checkpoints; on resume rank 0's state, step and losses are broadcast.
     """
-    _check_supported(fit_config, render_config, mesh, target_coverage, scene0)
     kc = kernel_config or KernelConfig()
+    _check_supported(fit_config, render_config, mesh, scene0, kc)
+    sil_w = fit_config.silhouette_weight
     device = mesh.device if mesh is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_scene: no CUDA device; pass device='cpu' to run the kernels' plain versions")
@@ -330,13 +390,16 @@ def fit_scene(
             if tr:
                 leaf.grad = g.view_as(leaf)
 
+    coverage = _coverage_rows(render_config, target_coverage, device) if sil_w > 0.0 else None
     replan = None
-    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.silhouette_weight):
+    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
         uni = pack_uniforms(camera, light, mat, render_config.ray_mode, device)
         uni[_U_K] = float(render_config.shadow.k)
+        loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
+                    sil_beta=fit_config.silhouette_beta)
         if mesh is not None:
             sharded, replan = _sharded_step(mesh, fit_config, render_config, kc, scene, uni, target, camera, light,
-                                            frozen)
+                                            frozen, coverage)
 
             def step_loss():
                 loss, (g_prm,) = sharded()
@@ -344,12 +407,14 @@ def fit_scene(
                 return loss.to(torch.float32)
         else:
             target_planar = target.permute(2, 0, 1).contiguous()
+            cov = coverage(target, np.arange(render_config.height)).contiguous() if coverage is not None else None
 
             def step_loss():
-                loss, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), uni, target_planar,
-                                                 render_config, kc, wrt_uniforms=False, frozen_slots=frozen)
+                loss_, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), uni, target_planar,
+                                                  render_config, kc, wrt_uniforms=False, frozen_slots=frozen,
+                                                  target_coverage=cov, **loss)
                 set_grads(g_prm)
-                return loss
+                return loss_
     else:
         def step_loss():
             img = render_kernel_diff(render_config, kc, scene, camera, light, mat)
@@ -421,6 +486,32 @@ def fit_scene(
                      rays_per_second=n_pixels * steps_run / max(elapsed, 1e-9))
 
 
+def _coverage_missing() -> ValueError:
+    return ValueError(
+        "silhouette_weight > 0 needs an object mask: pass target_coverage, or set render_config.background so the "
+        "mask can be inferred from non-background pixels")
+
+
+def _coverage_rows(render_config: RenderConfig, target_coverage, device):
+    """``coverage(rgb, rows)``: the silhouette term's coverage target (the
+    rows' (R, W) float32 plane on ``device``) for the target rows ``rgb``
+    (R, W, 3) of the absolute image ``rows``: ``target_coverage``'s rows (an
+    array, or a callable of the rows), else the pixels whose largest channel
+    differs from ``render_config.background`` by more than 1e-3 (JAX's
+    rule).  Raises JAX's ``ValueError`` when there is neither."""
+    if target_coverage is None:
+        if render_config.background is None:
+            raise _coverage_missing()
+        bg = torch.tensor(render_config.background, dtype=torch.float32, device=device)
+        return lambda rgb, rows: ((rgb - bg).abs().amax(-1) > 1e-3).to(torch.float32)
+    if callable(target_coverage):
+        return lambda rgb, rows: torch.as_tensor(np.asarray(target_coverage(rows), np.float32), device=device)
+    cov = target_coverage if isinstance(target_coverage, torch.Tensor) else torch.from_numpy(
+        np.array(target_coverage, np.float32))
+    cov = cov.to(device, torch.float32)
+    return lambda rgb, rows: cov[torch.from_numpy(np.asarray(rows)).to(device)]
+
+
 def _load_resume(checkpoint_dir, fingerprint: str, device):
     """``(state, step, losses)`` of the checkpoint in ``checkpoint_dir`` when
     the same fit setup wrote it, else ``None`` (with a warning for another
@@ -456,13 +547,147 @@ def _unpack_resume(packed, device):
 
 
 def fit_scene_multiview(*args, **kwargs):
-    """Fit against several views jointly: the multiview fit-kernel variant
-    is not ported yet (ROADMAP item 12)."""
-    raise NotImplementedError("fit_scene_multiview is not ported yet (ROADMAP item 12)")
+    """Fit against several views jointly: the fit kernel's view axis is not
+    ported yet (ROADMAP item 12b)."""
+    raise NotImplementedError("fit_scene_multiview is not ported yet (ROADMAP item 12b)")
 
 
-def fit_view(*args, **kwargs):
-    """Fit camera, light and material with the scene fixed: the fit kernel's
-    uniform gradients exist (``fit_step_kernel(wrt_uniforms=True)``), the
-    entry point is not ported yet (ROADMAP item 12)."""
-    raise NotImplementedError("fit_view is not ported yet (ROADMAP item 12)")
+_VIEW_GROUPS = ("camera", "fov", "light", "material")
+
+
+def fit_view(
+    target,
+    scene: SDFNode,
+    camera0: Camera,
+    light0: PointLight,
+    mat0: Material,
+    render_config: RenderConfig,
+    fit_config: FitConfig = FitConfig(),
+    optimize: tuple = ("camera",),
+    logger: MetricsLogger | None = None,
+    target_coverage=None,
+    device="cuda",
+    kernel_config: KernelConfig | None = None,
+) -> ViewFitResult:
+    """Fit the view (camera pose, field of view, light and/or material) to a
+    target image (H, W, 3) with the scene fixed (the port of JAX's
+    ``fit_view``).  ``optimize`` picks the groups:
+
+    - ``"camera"``: the eye position and a rotation vector composed onto
+      ``camera0.c2w`` (``rotvec_to_matrix(rv) @ c2w``: exactly orthonormal
+      at every step, the identity at the start);
+    - ``"fov"``: the vertical field of view (degrees);
+    - ``"light"``: the light position and ambient intensity;
+    - ``"material"``: ambient, diffuse, specular and shininess.
+
+    A pose fit wants the silhouette term (``fit_config.silhouette_weight >
+    0``, with ``target_coverage`` (H, W) or ``render_config.background`` for
+    the mask): the pixel L2 alone misses the silhouettes' motion.  Each step
+    is one launch of the fused fit step with the uniforms' gradient
+    (``wrt_uniforms=True``), pulled back to the parameters through the
+    uniforms' packing and one ``backward``; losses are read once a chunk.
+    Runs on ``device`` (the card unless ``"cpu"``: the kernels' plain
+    versions).  The non-fused route (JAX's differentiable render) waits for
+    diff.py (ROADMAP item 5) and raises."""
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+
+    groups = set(optimize)
+    unknown = groups - set(_VIEW_GROUPS)
+    if unknown:
+        raise ValueError(f"unknown optimize groups {sorted(unknown)}")
+    if not groups:
+        raise ValueError("optimize must select at least one parameter group")
+    if fit_config.engine == "xla":
+        raise NotImplementedError("engine='xla' (diff.py's render_diff) is not ported yet (ROADMAP item 5)")
+    if fit_config.engine != "kernel":
+        raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
+    kc = kernel_config or KernelConfig()
+    sil_w = fit_config.silhouette_weight
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit_view: no CUDA device; pass device='cpu' to run the kernels' plain versions")
+    if not fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
+        raise NotImplementedError(
+            "fit_view runs on the fused fit step; this configuration needs the differentiable render of diff.py "
+            "(ROADMAP item 5)")
+    scene = copy.deepcopy(scene).to(device)
+    camera0, light0, mat0 = camera0.to(device), light0.to(device), mat0.to(device)
+    if not isinstance(target, torch.Tensor):
+        target = torch.from_numpy(np.array(target, np.float32))
+    target = target.detach().to(device, torch.float32)
+    cov = None
+    if sil_w > 0.0:
+        cov = _coverage_rows(render_config, target_coverage, device)(target, np.arange(render_config.height))
+
+    def leaf(x):
+        return x.detach().clone().requires_grad_(True)
+
+    params: dict = {}
+    if "camera" in groups:
+        params["cam_pos"] = leaf(camera0.position)
+        params["cam_rotvec"] = torch.zeros(3, dtype=torch.float32, device=device, requires_grad=True)
+    if "fov" in groups:
+        params["fov_deg"] = leaf(camera0.fov_deg)
+    if "light" in groups:
+        params["light_pos"] = leaf(light0.position)
+        params["light_ambient"] = leaf(light0.ambient)
+    if "material" in groups:
+        for name in ("ambient", "diffuse", "specular", "shininess"):
+            params[f"mat_{name}"] = leaf(getattr(mat0, name))
+
+    def build_view(p: dict):
+        cam = camera0
+        if "camera" in groups:
+            rot = rotvec_to_matrix(p["cam_rotvec"])
+            # The 3×3 product written out (a matrix product may run in
+            # reduced precision on the card).
+            c2w = (rot[:, :, None] * camera0.c2w[None, :, :]).sum(1)
+            cam = Camera(position=p["cam_pos"], c2w=c2w, fov_deg=cam.fov_deg)
+        if "fov" in groups:
+            cam = dataclasses.replace(cam, fov_deg=p["fov_deg"])
+        light = light0
+        if "light" in groups:
+            light = dataclasses.replace(light, position=p["light_pos"], ambient=p["light_ambient"])
+        mat = mat0
+        if "material" in groups:
+            mat = Material(ambient=p["mat_ambient"], diffuse=p["mat_diffuse"], specular=p["mat_specular"],
+                           shininess=p["mat_shininess"])
+        return cam, light, mat
+
+    prm = scene_param_vector(scene, device)
+    target_planar = target.permute(2, 0, 1).contiguous()
+    k_slot = torch.zeros(30, dtype=torch.float32, device=device)
+    k_slot[_U_K] = float(render_config.shadow.k)
+    opt = _make_optimizer(fit_config, list(params.values()))
+    loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
+                sil_beta=fit_config.silhouette_beta, target_coverage=cov)
+
+    def step_loss():
+        with torch.enable_grad():
+            uni = pack_uniforms(*build_view(params), render_config.ray_mode, detach=False) + k_slot
+        loss_, _, g_uni = fit_step_kernel(scene, prm, uni.detach(), target_planar, render_config, kc,
+                                          wrt_uniforms=True, **loss)
+        uni.backward(g_uni)
+        return loss_
+
+    losses: list = []
+    step = 0
+    chunk_cap = fit_config.chunk_steps or max(fit_config.log_every, 1)
+    while step < fit_config.steps:
+        end = min(fit_config.steps, step + chunk_cap)
+        chunk = []
+        for _ in range(step, end):
+            opt.zero_grad(set_to_none=True)
+            chunk.append(step_loss())
+            opt.step()
+        for i, loss_val in enumerate(torch.stack(chunk).tolist()):  # one host sync per chunk
+            gstep = step + i
+            if gstep % fit_config.log_every == 0 or gstep == fit_config.steps - 1:
+                losses.append(loss_val)
+                if logger is not None:
+                    logger.log(step=gstep, loss=loss_val)
+        step = end
+    with torch.no_grad():
+        cam, light, mat = (type(o)(*(getattr(o, f.name).detach() for f in dataclasses.fields(o)))
+                           for o in build_view(params))
+    return ViewFitResult(camera=cam, light=light, mat=mat, losses=losses, steps_run=step)

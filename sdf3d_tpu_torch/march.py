@@ -117,6 +117,49 @@ def hit_mask(distance: torch.Tensor, cfg: MarchConfig) -> torch.Tensor:
     return distance <= cfg.max_distance
 
 
+def ray_min_sdf(sdf_fn: SDFFn, origins: torch.Tensor, directions: torch.Tensor, cfg: MarchConfig):
+    """Minimum SDF along each ray's march and the marched distance where it
+    occurred: ``(min_s, t_at_min)``, both shape ``(...,)``.
+
+    Hit rays give ``min_s`` near ``epsilon`` (or below); misses their
+    closest approach to any surface.  The silhouette quantity:
+    ``sigmoid((2ε − min_s)/β)`` is a coverage that moves smoothly with the
+    silhouettes.  Not differentiable (the fit step's coverage term
+    re-attaches its gradient at ``t_at_min``).  The march is the exact one
+    whatever ``cfg.relaxation`` says."""
+    shape = _batch(origins, directions)
+
+    def ev(t):
+        return sdf_fn(origins + t[..., None] * directions)
+
+    with torch.no_grad():
+        return min_sdf_along(ev, shape, cfg, origins.device, origins.dtype)
+
+
+def min_sdf_along(ev, shape, cfg: MarchConfig, device, dtype=torch.float32):
+    """``(min_s, t_at_min)`` of the exact march along rays whose distance at
+    ``t`` (a ``shape`` tensor) is ``ev(t)``: before a ray's distance moves,
+    a step whose ``s`` is below the ray's minimum so far records ``s`` and
+    the distance (JAX's ``ray_min_sdf``; the kernels' ``march_primary``
+    tracked form).  ``min_s`` starts at ``+inf`` and ``t_at_min`` at 0; a ray
+    stops as in :func:`sphere_trace`."""
+    kw = dict(dtype=dtype, device=device)
+    dist = torch.zeros(shape, **kw)
+    min_s = torch.full(shape, float("inf"), **kw)
+    t_min = torch.zeros(shape, **kw)
+    active = torch.ones(shape, dtype=torch.bool, device=device)
+    for _ in range(cfg.max_steps):
+        if not bool(active.any()):
+            break
+        s = ev(dist)
+        better = active & (s < min_s)
+        min_s = torch.where(better, s, min_s)
+        t_min = torch.where(better, dist, t_min)
+        dist = torch.where(active, dist + s, dist)
+        active = active & ~((dist > cfg.max_distance) | (s < cfg.epsilon))
+    return min_s, t_min
+
+
 def soft_shadow(
     sdf_fn: SDFFn,
     origins: torch.Tensor,

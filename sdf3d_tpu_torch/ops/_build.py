@@ -8,7 +8,8 @@ ops/scene_program.py) and the sources of its kind:
   its tile-queue form (``csrc/render_kernel.cu``, ``sdf3d_render_fwd``,
   ``sdf3d_render_tiles``), the fused fit step and its tile-queue form
   (``csrc/fit_kernel.cu``, ``sdf3d_fit_step``, ``sdf3d_fit_step_tiles``:
-  partial rows and their float64 totals in one call) and the render
+  the target planes, the silhouette term's coverage plane, weight and
+  softness, then partial rows and their float64 totals in one call) and the render
   backward (``csrc/render_bwd_kernel.cu``, ``sdf3d_render_bwd``: with or
   without the uniforms' gradient, chosen at launch, and its float64 totals
   in the same call; both totals by ``csrc/column_total.cuh``);
@@ -64,6 +65,7 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter")
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLT = ctypes.c_float
 _I64 = ctypes.c_longlong
 _U64 = ctypes.c_ulonglong
 _STR = ctypes.c_char_p
@@ -83,7 +85,8 @@ _COLL_COMMON = (
 class LibraryKind:
     """What a library of one kind is built from and exports: its file name,
     its sources under ``csrc/`` and its C entry points with their argument
-    types (pointers, then H, W, stream), and those of its host form
+    types (pointers, then H, W, stream; the fit step's silhouette weight and
+    softness as floats), and those of its host form
     (``host_entry_points``: the suffix ``_host``, no stream)."""
 
     lib_name: str
@@ -96,15 +99,15 @@ KINDS = {
     "render": LibraryKind("libsdf3d_render.so", ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu"), (
         ("sdf3d_render_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
         ("sdf3d_render_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
-        ("sdf3d_fit_step", [_PTR] * 7 + [_INT, _INT, _PTR]),
-        ("sdf3d_fit_step_tiles", [_PTR] * 9 + [_INT, _INT, _INT, _PTR]),
+        ("sdf3d_fit_step", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _PTR]),
+        ("sdf3d_fit_step_tiles", [_PTR] * 8 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_fit_columns", [_PTR]),
         ("sdf3d_render_bwd", [_PTR] * 10 + [_INT, _INT, _INT, _PTR]),
     ), host_entry_points=(
         ("sdf3d_render_fwd_host", [_PTR] * 6 + [_INT, _INT]),
         ("sdf3d_render_tiles_host", [_PTR] * 8 + [_INT, _INT, _INT]),
-        ("sdf3d_fit_step_host", [_PTR] * 7 + [_INT, _INT]),
-        ("sdf3d_fit_step_tiles_host", [_PTR] * 9 + [_INT, _INT, _INT]),
+        ("sdf3d_fit_step_host", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT]),
+        ("sdf3d_fit_step_tiles_host", [_PTR] * 8 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT]),
         ("sdf3d_fit_retrace_host", [_PTR] * 7 + [_INT, _INT]),
         ("sdf3d_fit_columns", [_PTR]),
         ("sdf3d_render_bwd_host", [_PTR] * 10 + [_INT, _INT, _INT]),

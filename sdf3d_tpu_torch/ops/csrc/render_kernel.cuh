@@ -117,6 +117,12 @@ struct PointRay {
   SDF3D_HD float eval(float t) const { return f((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz))); }
 };
 
+// A ray's minimum distance along its primary march and the distance t at
+// which it occurred (march_primary's TRACK form).
+struct MinSdf {
+  float s, t;
+};
+
 // a * b rounded once: nvcc may not contract it into a following add (an
 // FMA), so the relaxed step keeps the plain version's bits.
 SDF3D_HD float mul_rn(float a, float b) {
@@ -136,8 +142,14 @@ SDF3D_HD float mul_rn(float a, float b) {
 // omega) and sets omega = 1 for the rest of the march; a hit (!fail and s <
 // epsilon) lands with +s, like the exact march; a failed step's s < epsilon
 // does not stop the ray.
-template <class Cfg, class Ev>
-SDF3D_HD float march_primary(const Ev& ev) {
+//
+// TRACK also tracks the ray's minimum distance and where it occurred (JAX's
+// _march_primary(track_min=True), march.py::ray_min_sdf): before t moves, a
+// step whose s < ms->s sets ms->s = s and ms->t = t.  The caller starts ms
+// at (+inf, 0).  It exists for the exact march alone.
+template <class Cfg, bool TRACK = false, class Ev>
+SDF3D_HD float march_primary(const Ev& ev, MinSdf* ms = nullptr) {
+  static_assert(!TRACK || Cfg::relaxation == 1.0f, "min-SDF tracking requires march.relaxation == 1.0");
   float t = 0.0f;
   if constexpr (Cfg::relaxation != 1.0f) {
     float prev_r = 0.0f, step_len = 0.0f, om = Cfg::relaxation;
@@ -156,6 +168,12 @@ SDF3D_HD float march_primary(const Ev& ev) {
   }
   for (int i = 0; i < Cfg::march_steps; ++i) {
     const float s = ev.eval(t);
+    if constexpr (TRACK) {
+      if (s < ms->s) {
+        ms->s = s;
+        ms->t = t;
+      }
+    }
     t = t + s;
     if (t > Cfg::max_distance || s < Cfg::epsilon) break;
   }
@@ -374,9 +392,12 @@ SDF3D_HD Primal make_primal(const float* u, const float* p, float rows, float co
 
 // The primal of the pixel at absolute (rows, cols) of an H x W image: the
 // primary march, the soft shadow (marched only where N.I > 0, elsewhere
-// 1) and AO between make_primal's stages.
-template <class Cfg, class Scene, bool POW = true>
-SDF3D_HD Primal trace_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
+// 1) and AO between make_primal's stages.  TRACK: the primary march also
+// writes the ray's minimum distance to *ms (march_primary; the fit step's
+// silhouette term), which the Primal does not hold.
+template <class Cfg, class Scene, bool POW = true, bool TRACK = false>
+SDF3D_HD Primal trace_pixel(const float* u, const float* p, float rows, float cols, int H, int W,
+                            MinSdf* ms = nullptr) {
   Primal pr;
   primal_ray<Cfg>(u, rows, cols, H, W, pr);
   const float ox = u[U_CAM], oy = u[U_CAM + 1], oz = u[U_CAM + 2];
@@ -387,9 +408,9 @@ SDF3D_HD Primal trace_pixel(const float* u, const float* p, float rows, float co
   if constexpr (Cfg::ray_sdf) {
     typename Scene::Ray ray;
     ray.setup(ox, oy, oz, dx, dy, dz, p);
-    t = march_primary<Cfg>(ray);
+    t = march_primary<Cfg, TRACK>(ray, ms);
   } else {
-    t = march_primary<Cfg>(PointRay<ScenePoint<Scene>>{ScenePoint<Scene>{p}, ox, oy, oz, dx, dy, dz});
+    t = march_primary<Cfg, TRACK>(PointRay<ScenePoint<Scene>>{ScenePoint<Scene>{p}, ox, oy, oz, dx, dy, dz}, ms);
   }
   primal_surface<Cfg, Scene>(u, p, t, pr);
 

@@ -54,16 +54,25 @@ SDF3D_HD void sdf_bwd_add(float px, float py, float pz, const float* p, float g,
   gx += qx; gy += qy; gz += qz;
 }
 
-// One pixel's VJP over its primal pr: adds the adjoint of its (r, g, b) =
-// (gr, gg, gb) to dP[0..P) and, when WRT_U, to dU[0..30).  POW false
-// differentiates the power chain of spec_pow<false> (no adjoint for the
-// shininess).
+// The adjoints of a pixel's ray: its origin (the camera position) and its
+// unit direction.
+struct RayAdjoint {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The shading's part of one pixel's VJP over its primal pr: adds the
+// adjoint of its (r, g, b) = (gr, gg, gb) to dP[0..P) and, when WRT_U, to
+// the shading's own entries of dU[0..30) (light, material) and sets ray to
+// the adjoints of the pixel's ray, which ray_vjp carries into the camera's
+// entries.  Returns false, and sets nothing, for a miss that Cfg::background
+// composites out.  POW false differentiates the power chain of
+// spec_pow<false> (no adjoint for the shininess).
 template <class Cfg, class Scene, bool WRT_U, bool POW = true>
-SDF3D_HD void shade_vjp(const float* u, const float* p, const Primal& pr, float gr, float gg, float gb, float* dP,
-                        float* dU) {
+SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr, float gr, float gg, float gb,
+                                float* dP, float* dU, RayAdjoint& ray) {
   const float t0 = pr.t, shadow = pr.shadow;
   if constexpr (Cfg::background) {
-    if (t0 > Cfg::max_distance) return;  // where(miss, bg, .) passes no adjoint
+    if (t0 > Cfg::max_distance) return false;  // where(miss, bg, .) passes no adjoint
   }
   const Unit3 &d = pr.d, &n = pr.n, &li = pr.li, &w = pr.w, &hw = pr.hw;
   const float dx = d.ux, dy = d.uy, dz = d.uz;
@@ -166,24 +175,42 @@ SDF3D_HD void shade_vjp(const float* u, const float* p, const Primal& pr, float 
   if constexpr (WRT_U) {
     gox += gfx; goy += gfy; goz += gfz;
     gdx += t0 * gfx; gdy += t0 * gfy; gdz += t0 * gfz;
-    dU[U_CAM] += gox;
-    dU[U_CAM + 1] += goy;
-    dU[U_CAM + 2] += goz;
-    // ---- reverse: ray generation (d = unit(M cv), cv = unit(qx*ar, qy, fz)) ----
-    const Unit3& cv = pr.cv;
-    const float* m = u + U_C2W;
-    float gdrx = 0.0f, gdry = 0.0f, gdrz = 0.0f;
-    unit3_bwd(d, false, gdx, gdy, gdz, gdrx, gdry, gdrz);
-    dU[U_C2W] += gdrx * cv.ux; dU[U_C2W + 1] += gdrx * cv.uy; dU[U_C2W + 2] += gdrx * cv.uz;
-    dU[U_C2W + 3] += gdry * cv.ux; dU[U_C2W + 4] += gdry * cv.uy; dU[U_C2W + 5] += gdry * cv.uz;
-    dU[U_C2W + 6] += gdrz * cv.ux; dU[U_C2W + 7] += gdrz * cv.uy; dU[U_C2W + 8] += gdrz * cv.uz;
-    const float gcx = ((m[0] * gdrx) + (m[3] * gdry)) + (m[6] * gdrz);
-    const float gcy = ((m[1] * gdrx) + (m[4] * gdry)) + (m[7] * gdrz);
-    const float gcz = ((m[2] * gdrx) + (m[5] * gdry)) + (m[8] * gdrz);
-    float gvx = 0.0f, gvy = 0.0f, gvz = 0.0f;
-    unit3_bwd(cv, false, gcx, gcy, gcz, gvx, gvy, gvz);
-    dU[U_FZ] += gvz;
+    ray = RayAdjoint{gox, goy, goz, gdx, gdy, gdz};
   }
+  return true;
+}
+
+// The reverse of a pixel's ray generation (d = unit(M cv), cv = unit(qx*ar,
+// qy, fz), the origin the camera position) from its ray's adjoints: adds to
+// the camera's entries of dU.
+SDF3D_HD void ray_vjp(const float* u, const Primal& pr, const RayAdjoint& ray, float* dU) {
+  dU[U_CAM] += ray.ox;
+  dU[U_CAM + 1] += ray.oy;
+  dU[U_CAM + 2] += ray.oz;
+  const Unit3& cv = pr.cv;
+  const float* m = u + U_C2W;
+  float gdrx = 0.0f, gdry = 0.0f, gdrz = 0.0f;
+  unit3_bwd(pr.d, false, ray.dx, ray.dy, ray.dz, gdrx, gdry, gdrz);
+  dU[U_C2W] += gdrx * cv.ux; dU[U_C2W + 1] += gdrx * cv.uy; dU[U_C2W + 2] += gdrx * cv.uz;
+  dU[U_C2W + 3] += gdry * cv.ux; dU[U_C2W + 4] += gdry * cv.uy; dU[U_C2W + 5] += gdry * cv.uz;
+  dU[U_C2W + 6] += gdrz * cv.ux; dU[U_C2W + 7] += gdrz * cv.uy; dU[U_C2W + 8] += gdrz * cv.uz;
+  const float gcx = ((m[0] * gdrx) + (m[3] * gdry)) + (m[6] * gdrz);
+  const float gcy = ((m[1] * gdrx) + (m[4] * gdry)) + (m[7] * gdrz);
+  const float gcz = ((m[2] * gdrx) + (m[5] * gdry)) + (m[8] * gdrz);
+  float gvx = 0.0f, gvy = 0.0f, gvz = 0.0f;
+  unit3_bwd(cv, false, gcx, gcy, gcz, gvx, gvy, gvz);
+  dU[U_FZ] += gvz;
+}
+
+// One pixel's VJP over its primal pr: adds the adjoint of its (r, g, b) =
+// (gr, gg, gb) to dP[0..P) and, when WRT_U, to dU[0..30)
+// (shade_vjp_surface, then ray_vjp).
+template <class Cfg, class Scene, bool WRT_U, bool POW = true>
+SDF3D_HD void shade_vjp(const float* u, const float* p, const Primal& pr, float gr, float gg, float gb, float* dP,
+                        float* dU) {
+  RayAdjoint ray{};
+  if (!shade_vjp_surface<Cfg, Scene, WRT_U, POW>(u, p, pr, gr, gg, gb, dP, dU, ray)) return;
+  if constexpr (WRT_U) ray_vjp(u, pr, ray, dU);
 }
 
 // shade_vjp of the pixel at absolute (rows, cols) of an H x W image from the

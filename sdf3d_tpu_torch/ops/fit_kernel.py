@@ -1,4 +1,4 @@
-"""The fused L2 fit step (the port of ``sdf3d_tpu/ops/fit_kernel.py``).
+"""The fused fit step (the port of ``sdf3d_tpu/ops/fit_kernel.py``).
 
 One fit step of inverse rendering: the loss ``Σ (rgb − target)²`` of a
 render and its gradient with respect to the scene parameters (and, with
@@ -27,7 +27,15 @@ zeros.  A rank of a row-sharded fit runs K3 on its rows through the
 
 ``frozen_slots`` (parameter slots whose gradient reads exactly 0) and
 ``wrt_uniforms`` are static settings of the kernel, compiled into its
-generated header as they are static ``jit`` arguments in JAX.
+generated header as they are static ``jit`` arguments in JAX.  So are the
+loss's two branches, JAX's own (``loss_kind``/``levels``, ``sil_w``): the
+multiscale pyramid (``Fit::levels``: each block pools its aligned
+``2**levels`` groups, so the block and the tile must be multiples of them,
+:func:`fused_l2_eligible`) and the silhouette coverage term
+(``Fit::silhouette``: the march tracks each ray's minimum distance, the
+gradient re-attaches at its argmin).  The silhouette's weight and softness
+are launch arguments; the plain version pools with :func:`pyramid_loss` and
+takes the coverage term's envelope gradient by autograd.
 
 K9, the benchmark variants of the fit step (the port of
 ``benchmarks/exp_ad.py::make_variant``), is the same kernel function compiled
@@ -57,20 +65,41 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     kernel_library,
     pack_uniforms,
     pixel_planes,
+    primary_min_sdf_plain,
+    ray_planes,
     render_kernel_forward_plain,
     tile_pixel_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import FIT_VARIANTS, check_scene, count_params, leaves, scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import (
+    FIT_VARIANTS,
+    check_scene,
+    compile_scene,
+    count_params,
+    leaves,
+    scene_param_vector,
+)
 from sdf3d_tpu_torch.sdf.node import SDFNode
 
 
-def fused_l2_eligible(cfg: RenderConfig, scene: SDFNode, loss: str = "l2", sil_w: float = 0.0) -> bool:
-    """True when the fused fit step applies: the plain L2 loss, no
-    silhouette term, detached-shadow gradients, central or tetrahedron
-    normals, and a scene every node of which has an emitter.  (The JAX
-    package also fuses the multiscale pyramid and the coverage term; those
-    kernel variants are ROADMAP item 12.)"""
-    if loss != "l2" or sil_w > 0.0:
+def fused_l2_eligible(cfg: RenderConfig, scene: SDFNode, loss: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                      kc: KernelConfig | None = None) -> bool:
+    """True when the fused fit step applies (JAX's rules): detached-shadow
+    gradients, central or tetrahedron normals, and a scene every node of
+    which has an emitter.  The loss terms narrow it further:
+
+    - ``loss == "multiscale"``: a pyramid group of ``2**levels`` pixels a
+      side lies inside one block and one tile, so the block (``kc.block_w``,
+      ``kc.block_h``) and the tile (``kc.tile_h``, ``kc.tile_w``) are
+      multiples of it: ``levels <= 3`` at the defaults (32×8 blocks, 24×640
+      tiles), JAX's rule at its default tile;
+    - ``sil_w > 0`` (the silhouette coverage term): the min-SDF tracker
+      marches exactly, so ``march.relaxation == 1.0``."""
+    if loss == "multiscale":
+        if not _pyramid_fits(kc or KernelConfig(), levels):
+            return False
+    elif loss != "l2":
+        return False
+    if sil_w > 0.0 and cfg.march.relaxation != 1.0:
         return False
     if cfg.shadow.enabled and cfg.shadow.grad != "detach":
         return False
@@ -83,21 +112,77 @@ def fused_l2_eligible(cfg: RenderConfig, scene: SDFNode, loss: str = "l2", sil_w
     return True
 
 
+def _pyramid_fits(kc: KernelConfig, levels: int) -> bool:
+    """Whether a pyramid group of ``2**levels`` pixels a side lies inside one
+    block and one tile of ``kc``."""
+    return not any(x % (1 << levels) for x in (kc.block_w, kc.block_h, kc.tile_h, kc.tile_w))
+
+
+def _pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 mean pool of the last two axes, an odd last row or column dropped:
+    ``0.25·((a00 + a10) + (a01 + a11))``, rows first (the kernel's order and
+    that of JAX's pooling products)."""
+    x = x[..., :x.shape[-2] // 2 * 2, :x.shape[-1] // 2 * 2]
+    rows = x[..., 0::2, :] + x[..., 1::2, :]
+    return 0.25 * (rows[..., 0::2] + rows[..., 1::2])
+
+
+def pyramid_loss(res: torch.Tensor, real: torch.Tensor, levels: int) -> torch.Tensor:
+    """The multiscale pyramid's terms of the loss: for ``l = 1..levels``,
+    ``4**l · Σ valid·|mean|²`` over the 2×2-mean-pooled residual planes
+    ``res`` (3, R, C) and the pooled ``real`` mask (R, C), a pooled group
+    valid iff all its pixels are real (JAX's ``_fit_tile_kernel``: XLA
+    ``pixel_loss``'s recursive odd-edge cropping)."""
+    loss = torch.zeros((), dtype=res.dtype, device=res.device)
+    for level in range(1, levels + 1):
+        res, real = _pool2(res), _pool2(real)
+        valid = (real > 0.999).to(res.dtype)
+        loss = loss + (4.0**level) * torch.sum(valid * (res[0] * res[0] + res[1] * res[1] + res[2] * res[2]))
+    return loss
+
+
+def _check_loss(loss_kind: str, sil_w: float, coverage) -> None:
+    if loss_kind not in ("l2", "multiscale"):
+        raise ValueError(f"unknown loss {loss_kind!r}")
+    if sil_w > 0.0 and coverage is None:
+        raise ValueError("sil_w > 0 needs target_coverage")
+
+
+def _sil_beta(cfg: RenderConfig, sil_beta) -> float:
+    """The coverage sigmoid's softness: ``sil_beta``, else ``epsilon/2.5``."""
+    return cfg.march.epsilon / 2.5 if sil_beta is None else float(sil_beta)
+
+
 def _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask=None, planes=None,
-                    power=torch.pow):
+                    power=torch.pow, levels=0, coverage=None, sil_w=0.0, sil_beta=None):
     """The plain fit step on the absolute ``pixels`` planes, the residual
     times ``mask`` where given.  ``planes``: the (t, shadow, ao) planes to
-    shade, else the plain primal's; ``power``: as ``shade_planes``."""
+    shade, else the plain primal's; ``power``: as ``shade_planes``.
+    ``levels``: the multiscale pyramid's depth (0: none); ``coverage``: the
+    coverage target of the silhouette term (``sil_w``, ``sil_beta``), whose
+    gradient re-attaches at the argmin distance ``t_min`` as data
+    (``f_min − f_min.detach() + min_s``: autograd gives the envelope
+    gradient)."""
     if planes is None:
         planes = render_kernel_forward_plain(scene, prm, uni, cfg, kc, pixels)[1:]
     t, shadow, ao = planes
     prm_ = prm.detach().requires_grad_(True)
     uni_ = uni.detach().requires_grad_(wrt_uniforms)
+    real = torch.ones_like(t) if mask is None else mask
     with torch.enable_grad():
         res = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels, power) - target
         if mask is not None:
             res = res * mask
         loss = torch.sum(res * res)
+        if levels:
+            loss = loss + pyramid_loss(res, real, levels)
+        if coverage is not None:
+            min_s, t_min = primary_min_sdf_plain(scene, prm, uni, cfg, kc, pixels)
+            (ox, oy, oz), (dx, dy, dz) = ray_planes(uni_, *t.shape, cfg, pixels)
+            f_min = compile_scene(scene)(ox + t_min * dx, oy + t_min * dy, oz + t_min * dz, lambda i: prm_[i])
+            min_att = f_min - f_min.detach() + min_s
+            cov = torch.sigmoid((2.0 * cfg.march.epsilon - min_att) / _sil_beta(cfg, sil_beta))
+            loss = loss + sil_w * torch.sum(real * (cov - coverage) ** 2)
         grads = torch.autograd.grad(loss, (prm_, uni_) if wrt_uniforms else (prm_,))
     g_prm = grads[0]
     if frozen_slots:
@@ -106,27 +191,46 @@ def _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots
     return loss.detach(), g_prm, g_uni
 
 
+def _levels(loss_kind: str, levels: int) -> int:
+    """The pyramid's depth of a loss: ``levels`` for the multiscale loss, 0
+    for the plain L2."""
+    return int(levels) if loss_kind == "multiscale" else 0
+
+
 def fit_step_kernel_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                           cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
-                          frozen_slots: tuple = ()):
+                          frozen_slots: tuple = (), *, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                          sil_beta=None, target_coverage=None):
     """Plain PyTorch version of the fit step: ``(loss, g_prm (P,), g_uni
     (30,))`` for the planar target (3, H, W).  ``g_uni`` is zeros unless
-    ``wrt_uniforms``; the ``frozen_slots`` of ``g_prm`` are exactly 0."""
+    ``wrt_uniforms``; the ``frozen_slots`` of ``g_prm`` are exactly 0.
+    ``loss_kind="multiscale"`` adds the pyramid of ``levels`` levels;
+    ``sil_w > 0`` the silhouette coverage term against ``target_coverage``
+    (H, W), softness ``sil_beta`` (default ``epsilon/2.5``)."""
+    _check_loss(loss_kind, sil_w, target_coverage)
     pixels = pixel_planes(uni, cfg.height, cfg.width, kc.tile_h)
-    return _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels)
+    return _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels,
+                           levels=_levels(loss_kind, levels), coverage=target_coverage if sil_w > 0.0 else None,
+                           sil_w=sil_w, sil_beta=sil_beta)
 
 
 def fit_step_kernel_tiles_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                                 trow: torch.Tensor, tcol: torch.Tensor, cfg: RenderConfig,
                                 kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = False,
-                                frozen_slots: tuple = ()):
+                                frozen_slots: tuple = (), *, loss_kind: str = "l2", levels: int = 3,
+                                sil_w: float = 0.0, sil_beta=None, coverage_tiles=None):
     """Plain PyTorch version of the tile-queue fit step (K4): ``(loss,
     g_prm, g_uni)`` over the work-list ``trow``/``tcol`` for the target
     stack (3, T·TH, TW), the residual masked to the pixels inside the full
-    image ``cfg`` (absolute coordinates: a dummy tile adds exact zeros)."""
+    image ``cfg`` (absolute coordinates: a dummy tile adds exact zeros).
+    The loss options as :func:`fit_step_kernel_plain`, ``coverage_tiles``
+    the coverage target's stack (T·TH, TW)."""
+    _check_loss(loss_kind, sil_w, coverage_tiles)
     rows, cols = pixels = tile_pixel_planes(trow, tcol, kc.tile_h, kc.tile_w)
     mask = ((rows < cfg.height) & (cols < cfg.width)).to(torch.float32)
-    return _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask)
+    return _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, pixels, mask,
+                           levels=_levels(loss_kind, levels), coverage=coverage_tiles if sil_w > 0.0 else None,
+                           sil_w=sil_w, sil_beta=sil_beta)
 
 
 def _split_totals(totals: torch.Tensor, P: int, sum_dtype):
@@ -165,7 +269,8 @@ def _fit_buffers(lib, n_blocks: int, dev: torch.device):
     return partials, partials[:, :n_blocks].t(), totals, torch.cuda.current_stream(dev).cuda_stream
 
 
-def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
+def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full", levels=0,
+                 coverage=None, sil_w=0.0, sil_beta=0.0):
     """``(launch, partials, totals)`` of the fit kernel (K3, or a benchmark
     ``variant`` of it) on ``prm``'s card: the library loaded and the inputs
     checked once, the partial rows (one per block, the live columns; an
@@ -173,14 +278,21 @@ def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, v
     float64 totals allocated; each ``launch()`` enqueues the kernel and its
     total on the stream that was current when the launcher was made and
     returns the totals (the caller makes ``prm``'s card the current
-    device).  Raises for inputs it does not take and on any launch error;
-    never falls back."""
-    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, variant)
+    device).  ``levels``: the pyramid's depth (0: none); ``coverage``: the
+    coverage target (H, W) of the silhouette term, weight ``sil_w`` and
+    softness ``sil_beta`` (launch arguments; ``None``: no term).  Raises
+    for inputs it does not take and on any launch error; never falls
+    back."""
+    silhouette = coverage is not None
+    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, variant, levels, silhouette)
     dev = prm.device
     H, W = cfg.height, cfg.width
     check_plane("target", target, (3, H, W), dev)
+    if silhouette:
+        check_plane("target_coverage", coverage, (H, W), dev)
     partials, rows, totals, stream = _fit_buffers(lib, -(-W // kc.block_w) * -(-H // kc.block_h), dev)
     args = (uni.data_ptr(), prm.data_ptr(), target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
+            coverage.data_ptr() if silhouette else None, ctypes.c_float(sil_w), ctypes.c_float(sil_beta),
             partials.data_ptr(), totals.data_ptr(), H, W, stream)
 
     def launch():
@@ -188,36 +300,55 @@ def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, v
         if err != 0:
             raise RuntimeError(f"sdf3d_fit_step ({variant}) launch failed: CUDA error {err}")
         return totals
-    launch.inputs = (uni, prm, target, partials)  # ``args`` holds their addresses: keep them alive
+    launch.inputs = (uni, prm, target, coverage, partials)  # ``args`` holds their addresses: keep them alive
     return launch, rows, totals
 
 
-def _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full"):
-    """Launch the fit kernel once (:func:`fit_launcher`) on ``prm``'s card:
-    its float64 totals."""
+def _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full", **loss):
+    """Launch the fit kernel once (:func:`fit_launcher`, ``loss`` its loss
+    options) on ``prm``'s card: its float64 totals."""
     with torch.cuda.device(prm.device):
-        return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant)[0]()
+        return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant, **loss)[0]()
+
+
+def _launch_loss(cfg: RenderConfig, loss_kind, levels, sil_w, sil_beta, coverage) -> dict:
+    """The loss options of :func:`fit_launcher` from the wrappers' ones."""
+    on = sil_w > 0.0
+    return dict(levels=_levels(loss_kind, levels), coverage=coverage.contiguous() if on else None,
+                sil_w=float(sil_w) if on else 0.0, sil_beta=_sil_beta(cfg, sil_beta) if on else 0.0)
 
 
 def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                            cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
-                           frozen_slots: tuple = (), sum_dtype=torch.float32):
+                           frozen_slots: tuple = (), sum_dtype=torch.float32, *, loss_kind: str = "l2",
+                           levels: int = 3, sil_w: float = 0.0, sil_beta=None, target_coverage=None):
     """Launch the CUDA fit step on ``prm``'s card and return ``(loss,
-    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_split_totals`).  Raises for
-    inputs it does not take and on any launch error; never falls back."""
+    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_split_totals`); the loss
+    options as :func:`fit_step_kernel`.  Raises for inputs it does not take
+    and on any launch error; never falls back."""
+    _check_loss(loss_kind, sil_w, target_coverage)
     frozen_slots = tuple(sorted(set(frozen_slots)))
-    totals = _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots)
+    totals = _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots,
+                            **_launch_loss(cfg, loss_kind, levels, sil_w, sil_beta, target_coverage))
     fit_step_kernel.launches += 1
     return _split_totals(totals, count_params(scene), sum_dtype)
 
 
-def _check_fused(scene: SDFNode, cfg: RenderConfig) -> None:
+def _check_fused(scene: SDFNode, cfg: RenderConfig, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                 kc: KernelConfig | None = None) -> None:
     check_settings(cfg)  # autodiff normals: ValueError, as JAX's Pallas path
-    if not fused_l2_eligible(cfg, scene):
+    if sil_w > 0.0 and cfg.march.relaxation != 1.0:
+        raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
+    kc = kc or KernelConfig()
+    if loss_kind == "multiscale" and not _pyramid_fits(kc, levels):
+        raise ValueError(f"fused multiscale needs the block and tile dims divisible by 2^levels "
+                         f"(block {(kc.block_w, kc.block_h)}, tile {(kc.tile_h, kc.tile_w)} vs levels={levels})")
+    if not fused_l2_eligible(cfg, scene, loss_kind, levels, sil_w, kc):
         raise NotImplementedError(
-            "the fused fit step takes the plain L2 loss with detached-shadow gradients and central or "
-            "tetrahedron normals (the other losses and gradients are ROADMAP item 12), on scenes whose every "
-            "node has an emitter (ops/scene_program.py::check_scene names the first that has none)")
+            "the fused fit step takes detached-shadow gradients (shadow.grad == 'ad' needs a differentiable "
+            "re-march, ROADMAP item 12) and central or tetrahedron normals, on scenes whose every node has an "
+            "emitter (ops/scene_program.py::check_scene names the first that has none); the view axis of a "
+            "multi-view fit is ROADMAP 12b and per-object materials 12c")
 
 
 def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:
@@ -238,23 +369,32 @@ def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:
 
 def fit_step_kernel(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                     cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
-                    frozen_slots: tuple = (), row0=None, rowstride=None, sum_dtype=torch.float32):
+                    frozen_slots: tuple = (), row0=None, rowstride=None, sum_dtype=torch.float32, *,
+                    loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0, sil_beta=None,
+                    target_coverage=None):
     """Fused fit step: ``(loss, g_prm (P,), g_uni (30,))`` of
     ``Σ (render − target)²`` for the planar target (3, H, W), from the
     parameter vector ``prm`` and the uniforms ``uni``.  ``row0`` and
     ``rowstride`` set the row slots (:func:`with_rows`): a row slab of a
     sharded fit, ``cfg.height`` its rows and ``cfg.ndc_height`` the image's.
     ``sum_dtype``: the type of the sums (a sharded fit keeps float64 until
-    its all-reduce).  On the card it launches the CUDA kernel; on the CPU it
-    runs the kernel's plain PyTorch version.  ``fit_step_kernel.launches``
-    counts kernel launches."""
-    _check_fused(scene, cfg)
+    its all-reduce).  The loss terms of JAX's ``fit_step_kernel``:
+    ``loss_kind="multiscale"`` adds the average-pool pyramid of ``levels``
+    levels (``4**l · Σ`` over the groups whose pixels are all real),
+    ``sil_w > 0`` the silhouette term ``sil_w · Σ (σ((2ε − min_s)/β) −
+    target_coverage)²`` (``target_coverage`` (H, W), ``β = sil_beta`` or
+    ``epsilon/2.5``), both inside the one launch.  On the card it launches
+    the CUDA kernel; on the CPU it runs the kernel's plain PyTorch version.
+    ``fit_step_kernel.launches`` counts kernel launches."""
+    _check_fused(scene, cfg, loss_kind, levels, sil_w, kc)
     uni = with_rows(uni, row0, rowstride)
+    loss = dict(loss_kind=loss_kind, levels=levels, sil_w=sil_w, sil_beta=sil_beta, target_coverage=target_coverage)
     if prm.device.type == "cpu":
-        out = fit_step_kernel_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots)
+        out = fit_step_kernel_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, **loss)
         return tuple(x.to(sum_dtype) for x in out)
     if prm.device.type == "cuda":
-        return fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, sum_dtype)
+        return fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, sum_dtype,
+                                      **loss)
     raise ValueError(f"fit_step_kernel runs on 'cuda' or 'cpu', not {prm.device}")
 
 
@@ -265,22 +405,31 @@ fit_step_kernel.launches = 0
 def fit_step_kernel_tiles_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                                  trow: torch.Tensor, tcol: torch.Tensor, cfg: RenderConfig,
                                  kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = False,
-                                 frozen_slots: tuple = (), sum_dtype=torch.float32):
+                                 frozen_slots: tuple = (), sum_dtype=torch.float32, *, loss_kind: str = "l2",
+                                 levels: int = 3, sil_w: float = 0.0, sil_beta=None, coverage_tiles=None):
     """Launch K4 on ``prm``'s card over the work-list ``trow``/``tcol``
     ((T,) int32) for the target stack (3, T·TH, TW) and return ``(loss,
-    g_prm, g_uni)``, this work-list's sums in ``sum_dtype``.  Raises for
-    inputs it does not take and on any launch error; never falls back."""
+    g_prm, g_uni)``, this work-list's sums in ``sum_dtype``; the loss options
+    as :func:`fit_step_kernel_tiles`.  Raises for inputs it does not take and
+    on any launch error; never falls back."""
+    _check_loss(loss_kind, sil_w, coverage_tiles)
     frozen_slots = tuple(sorted(set(frozen_slots)))
-    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots)
+    ls = _launch_loss(cfg, loss_kind, levels, sil_w, sil_beta, coverage_tiles)
+    cov = ls["coverage"]
+    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, "full", ls["levels"], cov is not None)
     dev = prm.device
     T = check_tables(trow, tcol, dev)
     check_plane("target", target, (3, T * kc.tile_h, kc.tile_w), dev)
+    if cov is not None:
+        check_plane("coverage_tiles", cov, (T * kc.tile_h, kc.tile_w), dev)
     with torch.cuda.device(dev):
         n_blocks = T * -(-kc.tile_w // kc.block_w) * -(-kc.tile_h // kc.block_h)
         partials, _, totals, stream = _fit_buffers(lib, n_blocks, dev)
         err = lib.sdf3d_fit_step_tiles(uni.data_ptr(), prm.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
                                        target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
-                                       partials.data_ptr(), totals.data_ptr(), T, cfg.height, cfg.width, stream)
+                                       cov.data_ptr() if cov is not None else None, ctypes.c_float(ls["sil_w"]),
+                                       ctypes.c_float(ls["sil_beta"]), partials.data_ptr(), totals.data_ptr(), T,
+                                       cfg.height, cfg.width, stream)
     if err != 0:
         raise RuntimeError(f"sdf3d_fit_step_tiles launch failed: CUDA error {err}")
     fit_step_kernel_tiles.launches += 1
@@ -290,23 +439,29 @@ def fit_step_kernel_tiles_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.T
 def fit_step_kernel_tiles(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
                           trow: torch.Tensor, tcol: torch.Tensor, cfg: RenderConfig,
                           kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = False, frozen_slots: tuple = (),
-                          sum_dtype=torch.float32):
+                          sum_dtype=torch.float32, *, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                          sil_beta=None, coverage_tiles=None):
     """Tile-queue fused fit step (K4): ``(loss, g_prm (P,), g_uni (30,))`` of
     ``Σ mask·(render − target)²`` over the tiles whose absolute origins are
     ``(trow[z], tcol[z])`` ((T,) int32), for the target stack (3, T·TH, TW)
     in work-list order (``parallel.tile_queue.gather_target_tiles``).
     ``cfg`` is the full image's config: the mask keeps the pixels inside it,
     so a plan's dummy tiles add exact zeros.  These are this work-list's
-    sums (in ``sum_dtype``); a sharded fit all-reduces them.  On the card it
-    launches the CUDA kernel; on the CPU it runs the plain PyTorch version.
+    sums (in ``sum_dtype``); a sharded fit all-reduces them.  The loss terms
+    as :func:`fit_step_kernel`, ``coverage_tiles`` the coverage target's
+    stack (T·TH, TW): tile origins are multiples of the tile, so a tile's
+    pyramid groups are the whole image's.  On the card it launches the CUDA
+    kernel; on the CPU it runs the plain PyTorch version.
     ``fit_step_kernel_tiles.launches`` counts kernel launches."""
-    _check_fused(scene, cfg)
+    _check_fused(scene, cfg, loss_kind, levels, sil_w, kc)
+    loss = dict(loss_kind=loss_kind, levels=levels, sil_w=sil_w, sil_beta=sil_beta, coverage_tiles=coverage_tiles)
     if prm.device.type == "cpu":
-        out = fit_step_kernel_tiles_plain(scene, prm, uni, target, trow, tcol, cfg, kc, wrt_uniforms, frozen_slots)
+        out = fit_step_kernel_tiles_plain(scene, prm, uni, target, trow, tcol, cfg, kc, wrt_uniforms, frozen_slots,
+                                          **loss)
         return tuple(x.to(sum_dtype) for x in out)
     if prm.device.type == "cuda":
         return fit_step_kernel_tiles_launch(scene, prm, uni, target, trow, tcol, cfg, kc, wrt_uniforms,
-                                            frozen_slots, sum_dtype)
+                                            frozen_slots, sum_dtype, **loss)
     raise ValueError(f"fit_step_kernel_tiles runs on 'cuda' or 'cpu', not {prm.device}")
 
 
@@ -344,7 +499,8 @@ def _uniforms(camera, light, mat, cfg, device):
 
 def l2_loss_and_grads(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode, camera, light, mat,
                       target: torch.Tensor, row0=None, rowstride=None, wrt_uniforms: bool = True,
-                      frozen_slots: tuple = ()):
+                      frozen_slots: tuple = (), *, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                      sil_beta=None, target_coverage=None):
     """Fused ``(loss, (g_scene, g_camera, g_light, g_mat))`` in one launch.
 
     ``target`` is (H, W, 3) on the scene's device (a row slab under
@@ -353,27 +509,39 @@ def l2_loss_and_grads(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode, camer
     (``scene_program.leaves`` order, each in its leaf's shape);
     ``g_camera``, ``g_light`` and ``g_mat`` are objects of the input's class
     holding the gradients of its fields (light colour reads 0), or ``None``
-    when ``wrt_uniforms`` is false."""
+    when ``wrt_uniforms`` is false.  The loss options as
+    :func:`fit_step_kernel` (``target_coverage`` (H, W), in the rows of
+    ``target``)."""
     prm = scene_param_vector(scene)
     uni = _uniforms(camera, light, mat, cfg, prm.device)
     target_planar = target.to(torch.float32).permute(2, 0, 1).contiguous()
     loss, g_prm, g_uni = fit_step_kernel(scene, prm, uni, target_planar, cfg, kc, wrt_uniforms, frozen_slots,
-                                         row0, rowstride)
+                                         row0, rowstride, loss_kind=loss_kind, levels=levels, sil_w=sil_w,
+                                         sil_beta=sil_beta, target_coverage=_coverage(target_coverage, sil_w))
     return loss, _split_grads(scene, camera, light, mat, cfg, prm.device, g_prm, g_uni, wrt_uniforms)
+
+
+def _coverage(coverage, sil_w):
+    """A coverage target as a contiguous float32 tensor where the silhouette
+    term reads it."""
+    return coverage.to(torch.float32).contiguous() if sil_w > 0.0 and coverage is not None else None
 
 
 def l2_loss_and_grads_tiles(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode, camera, light, mat,
                             target_tiles: torch.Tensor, trow: torch.Tensor, tcol: torch.Tensor,
-                            wrt_uniforms: bool = False, frozen_slots: tuple = ()):
+                            wrt_uniforms: bool = False, frozen_slots: tuple = (), *, loss_kind: str = "l2",
+                            levels: int = 3, sil_w: float = 0.0, sil_beta=None, coverage_tiles=None):
     """Tile-queue counterpart of :func:`l2_loss_and_grads` (one launch of
     K4): ``(loss, (g_scene, g_camera, g_light, g_mat))`` over the work-list
     ``trow``/``tcol`` ((T,) int32) for the planar target stack (3, T·TH, TW);
     ``cfg`` is the full image's.  These are the work-list's sums: a sharded
-    fit all-reduces them."""
+    fit all-reduces them.  The loss options as :func:`fit_step_kernel_tiles`."""
     prm = scene_param_vector(scene)
     uni = _uniforms(camera, light, mat, cfg, prm.device)
     loss, g_prm, g_uni = fit_step_kernel_tiles(scene, prm, uni, target_tiles.to(torch.float32).contiguous(),
-                                               trow, tcol, cfg, kc, wrt_uniforms, frozen_slots)
+                                               trow, tcol, cfg, kc, wrt_uniforms, frozen_slots, loss_kind=loss_kind,
+                                               levels=levels, sil_w=sil_w, sil_beta=sil_beta,
+                                               coverage_tiles=_coverage(coverage_tiles, sil_w))
     return loss, _split_grads(scene, camera, light, mat, cfg, prm.device, g_prm, g_uni, wrt_uniforms)
 
 

@@ -1282,19 +1282,23 @@ FIT_VARIANTS = ("full", "wrt_p", "primal", "noscatter", "nopow", "shade_only", "
 
 
 def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen_slots: tuple = (),
-                      variant: str = "full") -> str:
+                      variant: str = "full", levels: int = 0, silhouette: bool = False) -> str:
     """The generated header ``sdf3d_scene.cuh`` for ``scene`` under the
     static settings ``cfg`` (RenderConfig) and ``kc`` (KernelConfig).
 
-    ``wrt_uniforms``, ``frozen_slots`` and ``variant`` are the fit kernel's
-    static settings (``struct Fit``): whether it computes the uniform
-    gradients, the parameter slots whose gradient it leaves at exactly 0,
-    and which of :data:`FIT_VARIANTS` it is (a benchmark variant takes no
-    frozen slots)."""
+    ``wrt_uniforms``, ``frozen_slots``, ``variant``, ``levels`` and
+    ``silhouette`` are the fit kernel's static settings (``struct Fit``):
+    whether it computes the uniform gradients, the parameter slots whose
+    gradient it leaves at exactly 0, which of :data:`FIT_VARIANTS` it is (a
+    benchmark variant takes no frozen slots and no loss branch), the depth of
+    the multiscale pyramid (0: the plain L2 loss) and whether it adds the
+    silhouette coverage term."""
     if variant not in FIT_VARIANTS:
         raise ValueError(f"variant must be one of {FIT_VARIANTS}, not {variant!r}")
-    if variant != "full" and frozen_slots:
-        raise ValueError(f"the fit kernel's variant {variant!r} takes no frozen slots")
+    if variant != "full" and (frozen_slots or levels or silhouette):
+        raise ValueError(f"the fit kernel's variant {variant!r} takes no frozen slots and no loss branch")
+    if silhouette and cfg.march.relaxation != 1.0:
+        raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
     check_scene(scene)
     P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
 
@@ -1379,6 +1383,10 @@ struct Scene {{
 struct Fit {{
   static constexpr bool wrt_uniforms = {b(wrt_uniforms)};
   static constexpr int variant = {FIT_VARIANTS.index(variant)};  // {variant}
+  // The multiscale pyramid's depth (0: the plain L2 loss) and the
+  // silhouette coverage term.
+  static constexpr int levels = {int(levels)};
+  static constexpr bool silhouette = {b(silhouette)};
   // Frozen parameter slots: not reduced, their gradient reads exactly 0.
   static SDF3D_HD constexpr bool is_frozen(int k) {{ return {frozen}; }}
 }};

@@ -479,3 +479,98 @@ def rounding_decided(scene, prm, uni, cfg, kc=None, pixels=None):
                     a, b = (x.clamp(max=cfg.march.max_distance) for x in (a, b))
                 moved |= _pixel_diff(a, b, channel_axis=0 if name == "rgb" else None, relative=name == "t") >= HARD
     return torch.from_numpy(moved).to(uni.device)
+
+
+def argmin_flips(scene, prm, uni, cfg, kc=None, pixels=None):
+    """The rays (H, W bool) whose silhouette quantity rounding decides: the
+    step at which the plain version's tracked march
+    (``render_kernel.primary_min_sdf_plain``) finds its minimum distance
+    moves by more than ``4·epsilon`` of ``t_min`` when each entry of the
+    camera moves by one ulp, as in :func:`rounding_decided`
+    (:data:`ROUNDING_DRAWS` draws).  On such a ray two near-equal distances
+    along the march compete for the minimum, so two implementations of the
+    same float32 arithmetic may re-attach the coverage term's gradient at
+    different points.  Arguments as for :func:`razor_edge`."""
+    import torch
+
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, primary_min_sdf_plain
+
+    kc = kc or KernelConfig()
+    gen = torch.Generator().manual_seed(0)
+    _, t_min = primary_min_sdf_plain(scene, prm, uni, cfg, kc, pixels)
+    flips = torch.zeros(t_min.shape, dtype=torch.bool, device=uni.device)
+    for _ in range(ROUNDING_DRAWS):
+        up = (torch.rand(12, generator=gen) < 0.5).to(uni.device)
+        shifted = uni.clone()
+        shifted[:12] = torch.nextafter(uni[:12], torch.where(up, torch.inf, -torch.inf).to(uni.dtype))
+        flips |= (primary_min_sdf_plain(scene, prm, shifted, cfg, kc, pixels)[1] - t_min).abs() > 4.0 * cfg.march.epsilon
+    return flips
+
+
+def loss_mass(scene, prm, uni, rgb, target, t, shadow, ao, cfg, levels: int = 0, coverage=None, sil_w: float = 0.0,
+              sil_beta=None, kc=None, pixels=None, mask=None):
+    """:func:`gradient_mass` of the fit step's whole loss, ``(P + 30,)``: the
+    pixel L2 and, with ``levels``, the multiscale pyramid (the cotangent of
+    each pixel's rgb from autograd of both, ``ops.fit_kernel.pyramid_loss``)
+    through the render backward, plus with ``coverage`` each pixel's
+    silhouette term ``g_min·∂f/∂θ`` at its argmin point (the plain version's
+    tracked march) in magnitude.  ``rgb``, ``t``, ``shadow``, ``ao``: the
+    planes the gradient is taken on; ``mask``: the real pixels (a tile
+    stack's); ``pixels`` as for :func:`conditioned`."""
+    import torch
+
+    from sdf3d_tpu_torch.ops.fit_kernel import pyramid_loss
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, primary_min_sdf_plain, ray_planes
+    from sdf3d_tpu_torch.ops.scene_program import compile_scene
+
+    kc = kc or KernelConfig()
+    real = torch.ones_like(t) if mask is None else mask
+    img = rgb.detach().requires_grad_(True)
+    with torch.enable_grad():
+        res = (img - target) * real
+        loss = torch.sum(res * res) + (pyramid_loss(res, real, levels) if levels else 0.0)
+        (g_rgb,) = torch.autograd.grad(loss, img)
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels)
+    if coverage is None:
+        return mass
+    H, W = t.shape
+    min_s, t_min = primary_min_sdf_plain(scene, prm, uni, cfg, kc, pixels)
+    eps = cfg.march.epsilon
+    beta = eps / 2.5 if sil_beta is None else sil_beta
+    cov = torch.sigmoid((2.0 * eps - min_s) / beta)
+    g_min = -2.0 * sil_w * (cov - coverage) * cov * (1.0 - cov) / beta * real
+    if pixels is None:
+        from sdf3d_tpu_torch.ops.render_kernel import pixel_planes
+
+        pixels = pixel_planes(uni, H, W, kc.tile_h)
+    mp = prm.detach()[:, None, None].expand(-1, H, W).contiguous().requires_grad_(True)
+    mu = uni.detach()[:, None, None].expand(-1, H, W).contiguous().requires_grad_(True)
+    with torch.enable_grad():
+        (ox, oy, oz), (dx, dy, dz) = ray_planes(mu, H, W, cfg, pixels)
+        f_min = compile_scene(scene)(ox + t_min * dx, oy + t_min * dy, oz + t_min * dz, lambda i: mp[i])
+        gp, gu = torch.autograd.grad(torch.sum(g_min * f_min), (mp, mu), allow_unused=True)
+    gu = torch.zeros_like(mu) if gu is None else gu
+    return mass + torch.cat([gp.abs().sum((1, 2)), gu.abs().sum((1, 2))])
+
+
+def fit_targets(base, got, want, scene, prm, uni, cfg, levels: int = 0):
+    """The targets of a fit-step comparison between a kernel and its plain
+    version, each marching its own primal: ``(target, plain_target)``, both
+    ``base`` (3, H, W) where the gradient is well conditioned and the two
+    renders ``got`` and ``want`` (``(rgb, t, shadow, ao)``) agree
+    (:func:`conditioned`, :func:`primals_agree`), and elsewhere each side's
+    own render, so that no residual there reaches either side's gradient.
+    With ``levels`` (the multiscale pyramid) a pixel keeps its residual only
+    where every pixel of its aligned ``2**levels`` group does: the pyramid
+    gives each pixel of a group the group's mean residual."""
+    import torch
+
+    keep = conditioned(scene, prm, uni, got[1], cfg) & primals_agree(got, want, cfg.march.max_distance)
+    if levels:
+        n = 1 << levels
+        H, W = keep.shape
+        pad = torch.ones((-(-H // n) * n, -(-W // n) * n), dtype=torch.bool, device=keep.device)
+        pad[:H, :W] = keep
+        whole = pad.reshape(pad.shape[0] // n, n, pad.shape[1] // n, n).all(3).all(1)
+        keep = whole.repeat_interleave(n, 0).repeat_interleave(n, 1)[:H, :W]
+    return (torch.where(keep, base, got[0]).contiguous(), torch.where(keep, base, want[0]).contiguous())

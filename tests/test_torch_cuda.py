@@ -77,8 +77,10 @@ from sdf3d_tpu_torch.utils.parity import (
     check_grads,
     check_planes,
     conditioned,
+    fit_targets,
     fixed_order_total,
     flagship_fit_start,
+    loss_mass,
     fractal_fit_start,
     gradient_mass,
     primals_agree,
@@ -197,6 +199,102 @@ def test_fit_step_matches_plain(dev, wrt_uniforms, frozen, size):
     check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=1e-3)
     assert all(float(g_prm[k]) == 0.0 for k in frozen)
     assert wrt_uniforms or float(g_uni.abs().max()) == 0.0
+
+
+# The fit step's loss branches (ROADMAP 12a), as ``fit_step_kernel``'s options.
+LOSS_BRANCHES = {"multiscale": dict(loss_kind="multiscale", levels=3), "silhouette": dict(sil_w=0.5),
+                 "both": dict(loss_kind="multiscale", levels=3, sil_w=0.5)}
+BLACK = dataclasses.replace(BASE, background=(0.0, 0.0, 0.0))
+
+
+def _branch_inputs(cfg, cam, dev):
+    """The fit demo's start, its inputs, and the target: the reference
+    scene's render on the card, with its object mask (off the black
+    background) as the coverage target."""
+    scene = _fit_scene0(dev)
+    prm, uni = _inputs(scene, cam, cfg, dev)
+    ref = tt.reference_scene().to(dev)
+    target = render_kernel_launch(ref, scene_param_vector(ref, dev), uni, cfg)[0].contiguous()
+    return scene, prm, uni, target, (target.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
+
+
+def _branch_plain(branch, cov, cfg, **kw):
+    """The plain step's loss options of ``branch`` (``_fit_step_plain``'s)."""
+    opts = LOSS_BRANCHES[branch]
+    sil = opts.get("sil_w", 0.0)
+    return dict(levels=opts.get("levels", 0), coverage=cov if sil else None, sil_w=sil, **kw)
+
+
+@pytest.mark.parametrize("branch", sorted(LOSS_BRANCHES))
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+def test_fit_loss_branches_match_plain(dev, branch, wrt_uniforms, frozen, size):
+    """K3 with the pyramid (its groups pooled in each block), the coverage
+    term (its tracked march) or both, against the plain step on K1's planes
+    (1e-5 of the whole loss's gradient mass; 1e-4 with the coverage term,
+    whose plain version tracks its own march) and against the plain
+    version marching its own primal (1e-3).  The target: the reference
+    scene's render where the gradient is well conditioned (whole pyramid
+    groups of such pixels: ``utils/parity.py::fit_targets``), each side's
+    own render elsewhere."""
+    from sdf3d_tpu_torch.ops.fit_kernel import _fit_step_plain
+
+    cfg = dataclasses.replace(BLACK, width=size[0], height=size[1])
+    scene, prm, uni, base, cov = _branch_inputs(cfg, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), dev)
+    opts = LOSS_BRANCHES[branch]
+    rgb, t, sh, ao = planes = render_kernel_launch(scene, prm, uni, cfg)
+    target, p_target = fit_targets(base, planes, render_kernel_forward_plain(scene, prm, uni, cfg), scene, prm, uni,
+                                   cfg, opts.get("levels", 0))
+    got = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen,
+                                 target_coverage=cov, **opts)
+    same = _fit_step_plain(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen,
+                           pixel_planes(uni, cfg.height, cfg.width), **_branch_plain(branch, cov, cfg, planes=(t, sh, ao)))
+    own = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen,
+                                target_coverage=cov, **opts)
+    torch.cuda.synchronize()
+    plain = _branch_plain(branch, cov, cfg)
+    mass = loss_mass(scene, prm, uni, rgb, target, t, sh, ao, cfg, plain["levels"], plain["coverage"], plain["sil_w"])
+    assert float(got[0]) == pytest.approx(float(same[0]), rel=1e-5)
+    assert float(got[0]) == pytest.approx(float(own[0]), rel=1e-5)
+    g = torch.cat(got[1:])
+    check_grads(g, torch.cat(same[1:]), mass, rtol=1e-4, mass_tol=1e-4 if plain["sil_w"] else 1e-5)
+    check_grads(g, torch.cat(own[1:]), mass, rtol=1e-4, mass_tol=1e-3)
+    assert all(float(got[1][k]) == 0.0 for k in frozen)
+    assert wrt_uniforms or float(got[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("branch", sorted(LOSS_BRANCHES))
+def test_fit_loss_branches_tiles_match_k3(dev, branch):
+    """K4 with each loss branch over a balanced 4-rank plan of 8×128 tiles:
+    each work-list against its plain version (1e-3), and the sum over the
+    plan against K3 on the whole image (loss 1e-5, gradients 1e-4 of the
+    mass); targets as ``test_fit_loss_branches_match_plain``'s."""
+    cfg = BLACK
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    scene, prm, uni, base, cov = _branch_inputs(cfg, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), dev)
+    opts = LOSS_BRANCHES[branch]
+    plan = _plan((cfg.width, cfg.height), kc, "balanced")
+    rgb, t, sh, ao = planes = render_kernel_launch(scene, prm, uni, cfg, kc)
+    target, p_target = fit_targets(base, planes, render_kernel_forward_plain(scene, prm, uni, cfg, kc), scene, prm,
+                                   uni, cfg, opts.get("levels", 0))
+    stacks, p_stacks = (gather_target_tiles(torch.cat([x, cov[None]]), plan) for x in (target, p_target))
+    plain = _branch_plain(branch, cov, cfg)
+    mass = loss_mass(scene, prm, uni, rgb, target, t, sh, ao, cfg, plain["levels"], plain["coverage"], plain["sil_w"])
+    total = None
+    for r in range(4):
+        trow, tcol = plan.tables(r, dev)
+        st, p_st = stacks[r], p_stacks[r]
+        got = fit_step_kernel_tiles_launch(scene, prm, uni, st[:3].contiguous(), trow, tcol, cfg, kc, True, FROZEN,
+                                           coverage_tiles=st[3].contiguous(), **opts)
+        want = fit_step_kernel_tiles_plain(scene, prm, uni, p_st[:3].contiguous(), trow, tcol, cfg, kc, True, FROZEN,
+                                           coverage_tiles=p_st[3].contiguous(), **opts)
+        torch.cuda.synchronize()
+        assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+        check_grads(torch.cat(got[1:]), torch.cat(want[1:]), mass, rtol=1e-4, mass_tol=1e-3, label=f"rank {r}")
+        total = got if total is None else tuple(a + b for a, b in zip(total, got))
+    w = fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, True, FROZEN, target_coverage=cov, **opts)
+    assert float(total[0]) == pytest.approx(float(w[0]), rel=1e-5)
+    check_grads(torch.cat(total[1:]), torch.cat(w[1:]), mass, rtol=1e-4, mass_tol=1e-4)
 
 
 @pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
@@ -437,15 +535,75 @@ def test_fit_parameter_change_does_not_rebuild(dev):
     assert fit_step_kernel.launches == launches + 1
 
 
-@pytest.mark.parametrize("loss,counts", [("l2", (3, 0, 0)), ("multiscale", (0, 3, 3))])
+@pytest.mark.parametrize("loss,counts", [("l2", (3, 0, 0)), ("multiscale", (3, 0, 0)), ("multiscale4", (0, 3, 3)),
+                                         ("silhouette", (3, 0, 0))])
 def test_fit_scene_launch_counters(dev, loss, counts):
+    """The plain L2, the multiscale pyramid (3 levels) and the silhouette
+    term run in the fit step once a step and nothing else; a pyramid the
+    block cannot hold (4 levels) takes the forward and backward kernels."""
     cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
-    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, BASE, device=dev)[0]
+    cfg = BLACK if loss == "silhouette" else BASE
+    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+    extra = {"l2": {}, "multiscale": dict(loss="multiscale"), "multiscale4": dict(loss="multiscale", pyramid_levels=4),
+             "silhouette": dict(silhouette_weight=0.5)}[loss]
     render_kernel_forward.launches = fit_step_kernel.launches = render_kernel_backward.launches = 0
-    res = fit_scene(target, _fit_scene0(dev), cam, light, mat, BASE, FitConfig(steps=3, log_every=1, loss=loss),
+    res = fit_scene(target, _fit_scene0(dev), cam, light, mat, cfg,
+                    FitConfig(steps=3, log_every=1, learning_rate=5e-3, **extra),
                     trainable=(False, False, True, True), device=dev)
     assert (fit_step_kernel.launches, render_kernel_forward.launches, render_kernel_backward.launches) == counts
-    assert res.losses[-1] < res.losses[0]
+    assert all(np.isfinite(res.losses))
+    # The same fit's plain version on the CPU.
+    cpu = fit_scene(target.cpu(), _fit_scene0("cpu"), cam, light, mat, cfg,
+                    FitConfig(steps=3, log_every=1, learning_rate=5e-3, **extra), trainable=(False, False, True, True),
+                    device="cpu")
+    np.testing.assert_allclose(res.losses, cpu.losses, rtol=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["tiles", "interleaved", "contiguous"])
+@pytest.mark.parametrize("branch", ["multiscale", "silhouette"])
+def test_fit_scene_mesh_loss_branches(dev, layout, branch):
+    """A multiscale or silhouette fit at world size 1 in each layout (K4 or
+    K3 once a step) gives the unsharded fit's losses."""
+    cfg = dataclasses.replace(BLACK, width=256, height=192)
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    cam, light, mat = tt.Camera.reference(), tt.reference_light(), tt.reference_material()
+    target = render_kernel_forward(tt.reference_scene().to(dev), cam, light, mat, cfg, device=dev)[0]
+    extra = dict(loss="multiscale") if branch == "multiscale" else dict(silhouette_weight=0.5)
+    fc = dict(steps=3, log_every=1, chunk_steps=2, learning_rate=5e-3, **extra)
+    ref = fit_scene(target, _fit_scene0(dev), cam, light, mat, cfg, FitConfig(**fc), trainable=(False, False, True, True),
+                    device=dev, kernel_config=kc)
+    fit_step_kernel.launches = fit_step_kernel_tiles.launches = 0
+    res = fit_scene(target, _fit_scene0(dev), cam, light, mat, cfg, FitConfig(**fc, shard_layout=layout),
+                    mesh=make_mesh(dev), trainable=(False, False, True, True), kernel_config=kc)
+    assert (fit_step_kernel.launches, fit_step_kernel_tiles.launches) == ((0, 3) if layout == "tiles" else (3, 0))
+    for a, b in zip(res.losses, ref.losses):
+        assert a == pytest.approx(b, rel=1e-5)
+
+
+def test_fit_view_on_the_card(dev):
+    """``fit_view`` of the camera with the silhouette term: the fit step
+    with the uniforms' gradient once a step, losses near the plain
+    version's on the CPU."""
+    from sdf3d_tpu_torch.fit import fit_view
+    from sdf3d_tpu_torch.march import ray_min_sdf
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+
+    cfg = dataclasses.replace(BASE, width=128, height=96)
+    light, mat = tt.reference_light(), tt.reference_material()
+    true = tt.Camera.reference()
+    target = render_kernel_forward(tt.reference_scene().to(dev), true, light, mat, cfg, device=dev)[0]
+    o, d = tt.camera_rays(true, cfg.width, cfg.height, cfg.ray_mode)
+    eps = cfg.march.epsilon
+    cov = torch.sigmoid((2.0 * eps - ray_min_sdf(tt.reference_scene().distance, o, d, cfg.march)[0]) / (eps / 2.5))
+    rot = rotvec_to_matrix(0.06 * torch.tensor([0.3, 0.8, -0.3]))
+    cam0 = tt.Camera(position=true.position + 0.06 * torch.tensor([1.0, -0.7, 1.3]),
+                     c2w=(rot[:, :, None] * true.c2w[None, :, :]).sum(1), fov_deg=true.fov_deg)
+    fc = FitConfig(steps=5, learning_rate=2e-3, log_every=1, silhouette_weight=1.0)
+    fit_step_kernel.launches = 0
+    got = fit_view(target, tt.reference_scene(), cam0, light, mat, cfg, fc, target_coverage=cov, device=dev)
+    assert fit_step_kernel.launches == 5 and all(np.isfinite(got.losses))
+    want = fit_view(target.cpu(), tt.reference_scene(), cam0, light, mat, cfg, fc, target_coverage=cov, device="cpu")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-3)
 
 
 NEURAL = dataclasses.replace(BASE, march=dataclasses.replace(BASE.march, max_steps=64),
@@ -863,8 +1021,8 @@ def test_fit_k3_and_k4_partial_rows_equal(dev):
     lib = kernel_library(scene, prm, uni, cfg, kc, False, FROZEN)
     store4, rows4, totals4, stream = _fit_buffers(lib, T * bx4 * by4, dev)
     assert lib.sdf3d_fit_step_tiles(uni.data_ptr(), prm.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
-                                    *(stack[k].data_ptr() for k in range(3)), store4.data_ptr(), totals4.data_ptr(),
-                                    T, cfg.height, cfg.width, stream) == 0
+                                    *(stack[k].data_ptr() for k in range(3)), None, 0.0, 0.0, store4.data_ptr(),
+                                    totals4.data_ptr(), T, cfg.height, cfg.width, stream) == 0
     torch.cuda.synchronize()
     gx3 = cfg.width // kc.block_w
     tr, tc = trow.cpu().tolist(), tcol.cpu().tolist()

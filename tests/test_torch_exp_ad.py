@@ -278,7 +278,7 @@ def test_host_form_matches_plain(variant):
     totals = np.zeros(fit_columns(lib)[0], np.float64)
     partials = np.zeros((-(-40 // 32) * -(-24 // 8), totals.size), np.float32)
     assert lib.sdf3d_fit_step_host(uni.numpy().ctypes.data, prm.numpy().ctypes.data,
-                                   *(target[k].numpy().ctypes.data for k in range(3)), partials.ctypes.data,
+                                   *(target[k].numpy().ctypes.data for k in range(3)), None, 0.0, 0.0, partials.ctypes.data,
                                    totals.ctypes.data, 24, 40) == 0
     out = totals.astype(np.float32)
     loss, g_prm, g_uni = fit_step_variant_plain(variant, scene, prm, uni, target, cfg)

@@ -233,8 +233,8 @@ def test_checkpoint_resume(tmp_path):
 
 
 def test_multiscale_fit_descends():
-    """The multiscale loss takes the differentiable render (forward and
-    backward kernels) with the pixel loss under autograd."""
+    """The multiscale loss runs in the fused fit step (the pyramid inside
+    the kernel) and starts at ``pixel_loss``'s value of the start's render."""
     target, scene0 = _target_and_init()
     result = fit_scene(target, scene0, *VIEW, CFG,
                        FitConfig(steps=6, learning_rate=2e-2, log_every=1, loss="multiscale"),
@@ -246,9 +246,11 @@ def test_multiscale_fit_descends():
 
 
 def test_multiscale_fit_takes_no_uniform_gradient(monkeypatch):
-    """The multiscale fit trains the scene alone: its backward asks the
-    render backward (K5's path) for the parameters' gradient without the
-    uniforms' (``wrt_uniforms=False``), once a step."""
+    """A multiscale fit whose pyramid the kernel's block cannot hold (4
+    levels: 16-pixel groups, 8-row blocks) takes the differentiable render
+    and trains the scene alone: its backward asks the render backward (K5's
+    path) for the parameters' gradient without the uniforms'
+    (``wrt_uniforms=False``), once a step."""
     from sdf3d_tpu_torch.ops import render_autograd
 
     calls = []
@@ -261,7 +263,7 @@ def test_multiscale_fit_takes_no_uniform_gradient(monkeypatch):
     monkeypatch.setattr(render_autograd, "render_kernel_backward", recording)
     target, scene0 = _target_and_init()
     result = fit_scene(target, scene0, *VIEW, CFG, FitConfig(steps=3, learning_rate=2e-2, log_every=1,
-                                                             loss="multiscale"),
+                                                             loss="multiscale", pyramid_levels=4),
                        trainable=PLANE_FROZEN, device="cpu")
     assert calls == [False, False, False]
     assert result.losses[-1] < result.losses[0]

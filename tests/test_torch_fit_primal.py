@@ -67,8 +67,8 @@ def _host_step(lib, uni, prm, target, kc, H, W):
     cols, live = fit_columns(lib)
     partials = np.zeros((-(-W // kc.block_w) * -(-H // kc.block_h), live), np.float32)
     totals = np.zeros(cols, np.float64)
-    assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), _ptr(partials), _ptr(totals),
-                                   H, W) == 0
+    assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), None, 0.0, 0.0, _ptr(partials),
+                                   _ptr(totals), H, W) == 0
     return partials, totals
 
 
@@ -186,7 +186,7 @@ def test_k3_and_k4_give_equal_rows_on_the_host():
     rows4 = np.zeros((T * bx4 * by4, rows3.shape[1]), np.float32)
     totals4 = np.zeros_like(totals3)
     assert lib.sdf3d_fit_step_tiles_host(_ptr(uni), _ptr(prm), _ptr(trow), _ptr(tcol), *(_ptr(c) for c in stack),
-                                         _ptr(rows4), _ptr(totals4), T, H, W) == 0
+                                         None, 0.0, 0.0, _ptr(rows4), _ptr(totals4), T, H, W) == 0
     gx3 = W // kc.block_w
     for z in range(T):
         for by in range(by4):

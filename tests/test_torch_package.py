@@ -199,9 +199,14 @@ FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
     "kwargs",
     [
         dict(fit_config=FitConfig(engine="xla")),
-        dict(fit_config=FitConfig(silhouette_weight=0.5)),
-        dict(target_coverage=np.ones((24, 32), np.float32)),
-        dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale")),
+        # The silhouette term outside the fused step (autodiff normals; a
+        # pyramid deeper than the block) waits for diff.py's coverage.
+        dict(fit_config=FitConfig(silhouette_weight=0.5), render_config=dataclasses.replace(CFG, normals="autodiff")),
+        dict(fit_config=FitConfig(silhouette_weight=0.5, loss="multiscale", pyramid_levels=4),
+             target_coverage=np.ones((24, 32), np.float32)),
+        # A sharded multiscale fit whose pyramid the block cannot hold.
+        dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale"),
+             kernel_config=KernelConfig(block_w=16, block_h=4)),
         dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
     ],
     ids=["xla", "silhouette", "coverage", "mesh", "shadow_ad"],
@@ -216,8 +221,10 @@ def test_fit_options_that_wait_raise(kwargs):
 
 @pytest.mark.parametrize("fn", [fit_view, fit_scene_multiview])
 def test_fit_entry_points_that_wait_raise(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        fn(*FIT_ARGS)
+    # fit_view's route outside the fused step (a pyramid deeper than the
+    # block) waits for diff.py; the multi-view fit for the view axis.
+    with pytest.raises(NotImplementedError, match="ROADMAP item (5|12b)"):
+        fn(*FIT_ARGS, fit_config=FitConfig(loss="multiscale", pyramid_levels=4), device="cpu")
 
 
 def test_fit_has_no_quiet_move_to_cpu():

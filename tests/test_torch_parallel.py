@@ -371,7 +371,7 @@ def test_tiles_kernels_on_cpu_match_plain(kc):
         partials = np.empty((n_blocks, prm.numel() + 31), np.float32)
         totals = np.empty(prm.numel() + 31, np.float64)
         assert lib.sdf3d_fit_step_tiles_host(_ptr(uni), _ptr(prm), _ptr(trow), _ptr(tcol), *(_ptr(c) for c in stack),
-                                             _ptr(partials), _ptr(totals), T, H, W) == 0
+                                             None, 0.0, 0.0, _ptr(partials), _ptr(totals), T, H, W) == 0
         out = torch.from_numpy(totals.astype(np.float32))
         loss, g_prm, g_uni = fit_step_kernel_tiles_plain(scene, prm, uni, stack, trow, tcol, cfg, kc, True, (0, 1))
         assert float(out[-1]) == pytest.approx(float(loss), rel=1e-5)
