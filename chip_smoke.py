@@ -298,6 +298,39 @@ The kernels line gives ``fit_step`` ``multiscale``, ``silhouette`` and
 ``view`` entries and ``fit_step_tiles`` ``multiscale`` and ``silhouette``
 entries.
 
+Then K3's view axis (ROADMAP 12b) and per-object materials (12c)
+(:func:`slice_phases`, runnable alone):
+
+44. build: ``materials_scene``'s libraries together (with and without the
+    uniforms' gradient, its geometry frozen, the point form), their
+    registers, spills and blocks an SM, and its ``Scene::bwd_values``;
+45. the view axis at 1280x720 with four golden-angle orbit views (the bench
+    extra's setting): the multi-view K3 (one launch) against the plain
+    reverse pass on K1's planes and against its plain version (each view's
+    own march), each view's partial rows and float64 totals equal to K3
+    launched on that view alone, bit for bit, with and without the
+    uniforms' gradient; the main path: ``multiview_loss_and_grads`` (K3 =
+    1), a 20-step ``fit_scene_multiview`` of the fit demo's start over the
+    four views (K3 = 20, the loss falling) and the bench extra
+    ``fit_multiview_720p_v4`` (a number);
+46. ``materials_scene``: K1 in both forms at 256x192 and 250x190 under two
+    cameras, K3 (three settings) and both K5 forms against their plain
+    versions at the flagship's bars (the material slots' gradients not
+    zero), K2's stacks equal to K1's planes and K4's plan summing to K3 at
+    1280x720; the main path at 1920x1080: ``render_batch`` (K1 = 4), a
+    20-step fit of its perturbed material leaves with the geometry frozen
+    (K3 = 20), 5 steps with ``pyramid_levels=4`` (K1 = K5 = 5), the same
+    20 steps in ``tiles`` (K4 = 20, the unsharded losses) and
+    ``render_sharded_kernel`` (K2 = 1, K1's image); step 0 of K3 at 1080p
+    against its plain versions;
+47. CUDA-event times: the multi-view K3 at 720p beside the single view's,
+    and ``materials_scene``'s K1, K2, K3, K4 and both K5 forms at 1080p,
+    each beside its plain version and bound.
+
+The kernels line gives ``fit_step`` a ``multiview`` entry and
+``render_fwd``, ``render_tiles``, ``fit_step``, ``fit_step_tiles`` and
+``render_bwd`` a ``materials`` entry.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -448,10 +481,13 @@ def body_ops(header: str, signature: str) -> tuple:
 def scene_costs(header: str) -> dict:
     """Operations per call of the generated scene code: the ray form's
     evaluation and setup, the point form, its reverse (``sdf_bwd``) and its
-    gradient (``sdf_grad_p``)."""
-    return {k: body_ops(header, sig) for k, sig in (
-        ("ray", "float eval(float t)"), ("setup", "void setup("), ("point", "float sdf(float px"),
-        ("bwd", "void sdf_bwd("), ("grad", "void sdf_grad_p("))}
+    gradient (``sdf_grad_p``); for a scene with Shaded tags the material
+    program (``material``) and its reverse (``material_bwd``) too."""
+    sigs = [("ray", "float eval(float t)"), ("setup", "void setup("), ("point", "float sdf(float px"),
+            ("bwd", "void sdf_bwd("), ("grad", "void sdf_grad_p(")]
+    if "has_materials" in header:
+        sigs += [("material", "float material(float px"), ("material_bwd", "void material_bwd(")]
+    return {k: body_ops(header, sig) for k, sig in sigs}
 
 
 def bound(fp: float, sfu: float, nbytes: float) -> tuple:
@@ -492,13 +528,17 @@ def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: 
     taps = 6 if cfg.normals == "central" else 4
     n = counts["pixels"]
     fp = sfu = 0.0
+    mat = [costs["material"]] if "material" in costs else []  # once a pixel at its hit
     if primal:
         terms = [(counts["primary"], costs["ray"], PRIMARY_STEP), (counts["shadow"], costs["ray"], SHADOW_STEP),
                  (n + counts["shadow_rays"], costs["setup"], (0, 0)), (n * taps, costs["point"], (0, 0))]
+        terms += [(n, m, (0, 0)) for m in mat]
         for calls, (f, s_), (lf, ls) in terms:
             fp, sfu = fp + calls * (f + lf), sfu + calls * (s_ + ls)
     if reverse:
         terms = [(n, costs["grad"]), (n * (taps + 1), costs["bwd"])] + [(n * taps, costs["point"])] * retrace
+        if mat:
+            terms += [(n, costs["material_bwd"])] + [(n, mat[0])] * retrace
         for calls, (f, s_) in terms:
             fp, sfu = fp + calls * f, sfu + calls * s_
     return fp, sfu
@@ -681,6 +721,7 @@ def main() -> int:
     scenes = scenes_13b_phases(torch, tt, card, dev)
     fractal = fractal_phases(torch, tt, card, dev)
     losses = loss_phases(torch, tt, card, dev)
+    sliced = slice_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -720,6 +761,10 @@ def main() -> int:
     check(all(k in e for e in kernels if e["name"] == "fit_step" for k in ("multiscale", "silhouette", "view")) and all(
         k in e for e in kernels if e["name"] == "fit_step_tiles" for k in ("multiscale", "silhouette")),
         "a loss branch's entry of the kernels line is missing")
+    for entry in kernels:
+        entry.update(sliced.get(entry["name"], {}))
+    check(all("multiview" in e for e in kernels if e["name"] == "fit_step") and sum(
+        "materials" in e for e in kernels) == 5, "a multiview or materials entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -780,7 +825,8 @@ class PlainCalls:
     every module-level reference to them in the package)."""
 
     NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain",
-             "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain", "fit_step_variant_plain")
+             "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain", "fit_step_variant_plain",
+             "fit_step_views_plain")
 
     def __enter__(self):
         self.calls, self._saved = {n: 0 for n in self.NAMES}, []
@@ -2401,9 +2447,8 @@ def bench_phases(torch, tt, card: str, dev) -> None:
     t0 = time.perf_counter()
     extras = bench.run_extras(budget_s=300.0)
     extras_seconds = time.perf_counter() - t0
-    for name in ("fwd_4k", "fit_4k", "fit_fast_1080p", "fit_fractal_1080p"):
+    for name in ("fwd_4k", "fit_4k", "fit_fast_1080p", "fit_fractal_1080p", "fit_multiview_720p_v4"):
         check(isinstance(extras[name], dict) and extras[name]["rays_per_second"] > 0, f"{name}: {extras[name]}")
-    check("item 12" in extras["fit_multiview_720p_v4"], f"the unported extra reads {extras}")
     uhd = dataclasses.replace(ref, width=3840, height=2160)
     for name, mode, c in (("fwd_4k", "fwd", uhd), ("fit_4k", "fwd_bwd", uhd),
                           ("fit_fast_1080p", "fwd_bwd", tt.fast_config(ref))):
@@ -4374,6 +4419,485 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
                           "plain_ms": tiles_runs[n]["plain_ms"], "bound_ms": runs[n]["bound_ms"],
                           "bound_by": runs[n]["bound_by"]}
     return {"fit_step": entry, "fit_step_tiles": tiles_entry}
+
+
+def materials_fit_start(tt, dev):
+    """``materials_scene`` with its material channels moved off the target's:
+    each colour 30% darker and 0.05 bluer, each shininess 20% lower."""
+    sc = tt.materials_scene().to(dev)
+    with __import__("torch").no_grad():
+        for n in sc.modules():
+            if isinstance(n, tt.sdf.Shaded):
+                for f in (n.ambient, n.diffuse, n.specular):
+                    f.mul_(0.7)
+                    f[2] += 0.05
+                n.shininess.mul_(0.8)
+    return sc
+
+
+def slice_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 44-47: K3's view axis (ROADMAP 12b: ``multiview_loss_and_grads``,
+    ``fit_scene_multiview``, the bench extra ``fit_multiview_720p_v4``) and
+    per-object materials (12c: ``materials_scene`` through K1/K2, K3/K4 and
+    K5).  Returns the kernels line's ``multiview`` entry of ``fit_step`` and
+    the ``materials`` entries of ``render_fwd``, ``render_tiles``,
+    ``fit_step``, ``fit_step_tiles`` and ``render_bwd``."""
+    import torch.distributed as dist
+
+    from sdf3d_tpu_torch import bench
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_scene_multiview
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import (
+        fit_launcher,
+        fit_step_kernel,
+        fit_step_kernel_launch,
+        fit_step_kernel_plain,
+        fit_step_kernel_tiles,
+        fit_step_kernel_tiles_launch,
+        fit_step_kernel_tiles_plain,
+        fit_step_views_plain,
+        multiview_loss_and_grads,
+        sum_views,
+    )
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import (
+        render_bwd_launcher,
+        render_kernel_backward,
+        render_kernel_backward_launch,
+        render_kernel_backward_plain,
+    )
+    from sdf3d_tpu_torch.ops.render_kernel import (
+        KernelConfig,
+        library_job,
+        pack_uniforms,
+        render_kernel_forward,
+        render_kernel_forward_plain,
+        render_kernel_launch,
+        render_kernel_tiles_forward,
+        render_kernel_tiles_forward_plain,
+        render_kernel_tiles_launch,
+        tile_pixel_planes,
+    )
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, leaves, scene_param_vector
+    from sdf3d_tpu_torch.parallel import launch, make_mesh, render_sharded_kernel
+    from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
+    from sdf3d_tpu_torch.utils.parity import (
+        FLAGSHIP_OWN,
+        FLAGSHIP_SAME,
+        check_grads,
+        check_planes,
+        conditioned,
+        fit_targets,
+        gradient_mass,
+        razor_edge,
+        shaded_slots,
+    )
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    W7, H7, V = 1280, 720, 4
+    c720 = dataclasses.replace(full, width=W7, height=H7)
+    small = dataclasses.replace(full, width=256, height=192)
+    ragged = dataclasses.replace(full, width=250, height=190)
+    kc, kc_point = KernelConfig(), KernelConfig(ray_sdf=False)
+    frozen, trainable = (0, 1, 2, 3), (False, False, True, True)
+    ref_cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    cams4 = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, device=dev) for i in range(V)]
+    reference = tt.reference_scene().to(dev)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_kernel_tiles_forward,
+                fit_step_kernel_tiles)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+
+    def start():  # the fit demo's start (phase 10)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def planes_stats(st):
+        return {n: {q: v[q] for q in ("over_atol", "max_abs_err", "over_hard")} for n, v in st.items()}
+
+    # ---- 44. build: materials_scene's libraries together ----
+    libs = _build.LIBRARIES
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    msc = tt.materials_scene().to(dev)
+    mslots = shaded_slots(msc)
+    geometry = tuple(k for k in range(scene_param_vector(msc).numel()) if k not in mslots)
+    # The fits train the material leaves alone (one flag a leaf).
+    m_leaves = {id(getattr(n, f)) for n in msc.modules() if isinstance(n, tt.sdf.Shaded)
+                for f in ("ambient", "diffuse", "specular", "shininess")}
+    m_trainable = tuple(id(leaf) in m_leaves for leaf in leaves(msc))
+    settings = {"uniforms": (full, kc, True, ()), "scene": (full, kc, False, ()),
+                "geometry_frozen": (full, kc, False, geometry), "point": (full, kc_point, True, ())}
+    t0 = time.perf_counter()
+    libs.load_many([library_job(msc, c, k, w, f) for c, k, w, f in settings.values()])
+    build_wall = time.perf_counter() - t0
+    ptxas = {}
+    for name, (c, k, w, f) in settings.items():
+        header = cuda_scene_source(msc, c, k, w, f)
+        ptxas[name] = {kn: {**v, "blocks_per_sm": blocks_per_sm(v["registers"])}
+                       for kn, v in ptxas_summary(libs.log(libs.key(header))).items() if "registers" in v}
+    header = cuda_scene_source(msc, full, kc, True, ())
+    values = {k: int(re.search(rf"{k} = (\d+)", header).group(1)) for k in ("bwd_values", "bwd_node_values")}
+    log("slice_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        build_wall_seconds=build_wall, libraries=len(settings), ptxas=ptxas, materials_scene=values,
+        material_slots=len(mslots))
+
+    # ---- 45. the view axis: K3 over four views at 1280x720 ----
+    errs = {k: [] for k in ("multiview", "render_fwd", "render_tiles", "fit_step", "fit_step_tiles", "render_bwd")}
+    sc = start()
+    prm = scene_param_vector(sc, dev)
+    unis = torch.stack([inputs(sc, cam, c720)[1] for cam in cams4])
+    bases = [render_kernel_launch(reference, scene_param_vector(reference, dev), u, c720)[0] for u in unis]
+    planes = [render_kernel_launch(sc, prm, u, c720) for u in unis]
+    owns = [render_kernel_forward_plain(sc, prm, u, c720) for u in unis]
+    pairs = [fit_targets(b, p, o, sc, prm, u, c720) for b, p, o, u in zip(bases, planes, owns, unis)]
+    target = torch.stack([t for t, _ in pairs], 1).contiguous().transpose(0, 1)   # (V, 3, H, W) of (3, V, H, W)
+    p_target = torch.stack([p for _, p in pairs])
+    reset()
+    got = fit_step_kernel(sc, prm, unis, target, c720, kc, False, frozen, sum_dtype=torch.float64)
+    mv_launches = launches()
+    check(mv_launches == {"fit_step_kernel": 1}, f"the multi-view step launched {mv_launches}")
+    own = sum_views(*fit_step_views_plain(sc, prm, unis, p_target, c720, kc, False, frozen), torch.float64)
+    same_prm = torch.zeros_like(prm)
+    masses = []
+    for v in range(V):
+        rgb, t, sh, ao = planes[v]
+        g_rgb = 2.0 * (rgb - target[v])
+        same_prm += render_kernel_backward_plain(sc, prm, unis[v], g_rgb, t, sh, ao, c720, wrt_uniforms=False)[0]
+        masses.append(gradient_mass(sc, prm, unis[v], g_rgb, t, sh, ao, c720))
+    same_prm[list(frozen)] = 0.0
+    torch.cuda.synchronize()
+    P = prm.numel()
+    mass = sum(m[:P] for m in masses)
+    same_loss = sum(float(((planes[v][0] - target[v]).double() ** 2).sum()) for v in range(V))
+    loss_rel = abs(float(got[0]) / same_loss - 1.0)
+    own_rel = abs(float(got[0]) / float(own[0]) - 1.0)
+    check(loss_rel <= 1e-5 and own_rel <= 1e-5, f"multi-view K3: loss off by {loss_rel:.3g} / {own_rel:.3g}")
+    check(bool(torch.isfinite(got[1]).all()) and all(float(got[1][q]) == 0.0 for q in frozen),
+          "multi-view K3: a non-finite or unfrozen gradient")
+    mv_parity = {"loss_rel_err": loss_rel, "own_march_loss_rel_err": own_rel,
+                 "same_planes": check_grads(got[1].float(), same_prm, mass, rtol=1e-4, mass_tol=1e-5,
+                                            label="multi-view K3 (same planes)"),
+                 "own_march": check_grads(got[1].float(), own[1].float(), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN,
+                                          label="multi-view K3 (own march)")}
+    errs["multiview"].append(mv_parity["own_march"]["max_abs_err"])
+    # Each view's float64 totals and partial rows against K3 on that view alone, bit for bit.
+    bits = {}
+    for wrt, fr in ((False, frozen), (True, ())):
+        lm, rows_m, tot_m = fit_launcher(sc, prm, unis, target, c720, kc, wrt, fr)
+        lm()
+        same = []
+        for v in range(V):
+            l1, rows1, tot1 = fit_launcher(sc, prm, unis[v].contiguous(), target[v].contiguous(), c720, kc, wrt, fr)
+            l1()
+            torch.cuda.synchronize()
+            same.append(bool(torch.equal(tot_m[v], tot1)) and bool(torch.equal(rows_m[v], rows1)))
+        check(all(same), f"multi-view totals differ from single-view K3's (wrt_uniforms={wrt}): {same}")
+        bits[f"wrt_uniforms={wrt}"] = {"views_bit_equal": same,
+                                       "totals_sha256": hashlib.sha256(tot_m.cpu().numpy().tobytes()).hexdigest()}
+    log("multiview_parity", size=[W7, H7], views=V, launches=mv_launches, **mv_parity, per_view_bits=bits)
+
+    # Main path: multiview_loss_and_grads, a 20-step fit_scene_multiview and the bench extra.
+    targets = [b.permute(1, 2, 0).contiguous() for b in bases]
+    step = fit_step_kernel(sc, prm, unis, torch.stack(bases, 1).contiguous().transpose(0, 1), c720, kc, False, frozen)
+    main = {}
+    with PlainCalls() as plain:
+        reset()
+        loss_mv, grads_mv = multiview_loss_and_grads(c720, kc, sc, cams4, light, mat, targets, False, frozen)
+        torch.cuda.synchronize()
+        main["multiview_loss_and_grads"] = launches()
+        reset()
+        t0 = time.perf_counter()
+        mfit = fit_scene_multiview(targets, start(), cams4, light, mat, c720,
+                                   FitConfig(steps=20, learning_rate=1e-2, log_every=1), trainable=trainable,
+                                   device=dev)
+        mfit_seconds = time.perf_counter() - t0
+        main["fit_scene_multiview"] = launches()
+        reset()
+        extra = bench._multiview_extra(dev)
+        main["bench_extra"] = launches()
+    check(sum(plain.calls.values()) == 0, f"the multi-view main path called plain versions: {plain.calls}")
+    check(main["multiview_loss_and_grads"] == {"fit_step_kernel": 1} and
+          main["fit_scene_multiview"] == {"fit_step_kernel": 20},
+          f"multi-view launches {main}, expected one K3 launch a step")
+    check(set(main["bench_extra"]) == {"fit_step_kernel"} and extra["rays_per_second"] > 0,
+          f"bench extra fit_multiview_720p_v4: {extra}, {main['bench_extra']}")
+    check(all(math.isfinite(x) for x in mfit.losses) and mfit.losses[-1] < mfit.losses[0],
+          f"fit_scene_multiview: loss {mfit.losses[0]} -> {mfit.losses[-1]}")
+    check(float(loss_mv) == float(step[0]) and torch.equal(torch.cat([g.reshape(-1) for g in grads_mv[0]]),
+                                                           step[1]), "multiview_loss_and_grads is not the step's")
+    log("multiview_main_path", launches=main, losses=mfit.losses, seconds=mfit_seconds,
+        rays_per_second=mfit.rays_per_second, fitted=scene_param_vector(mfit.scene).tolist(), bench_extra=extra)
+
+    # ---- 46. materials_scene: K1/K2, K3/K4, K5 against their plain versions, and its main path ----
+    for (cam_name, cam), c, k in itertools.product((("orbit30_15", orbit), ("reference", ref_cam)), (small, ragged),
+                                                   (kc, kc_point)):
+        p_, u_ = inputs(msc, cam, c)
+        g_ = render_kernel_launch(msc, p_, u_, c, k)
+        w_ = render_kernel_forward_plain(msc, p_, u_, c, k)
+        torch.cuda.synchronize()
+        st = check_planes(g_, w_, c.march.max_distance, f"materials K1 {cam_name} {c.width}x{c.height}",
+                          razor=razor_edge(msc, p_, u_, c, k))
+        errs["render_fwd"].append(st["rgb"]["max_abs_err"])
+        log("materials_k1_parity", camera=cam_name, size=[c.width, c.height], ray_sdf=k.ray_sdf, **planes_stats(st))
+    for c in (small, ragged):
+        for wrt, fr in ((False, ()), (True, ()), (False, geometry)):
+            label = f"materials K3 {c.width}x{c.height} wrt_uniforms={wrt} geometry_frozen={bool(fr)}"
+            p_, u_ = inputs(msc, orbit, c)
+            st = k3_against_plain(torch, msc, p_, u_, c, kc, wrt, fr, label, gen)
+            errs["fit_step"].append(st["own_march"]["max_abs_err"])
+            log("materials_k3_parity", size=[c.width, c.height], wrt_uniforms=wrt, geometry_frozen=bool(fr), **st)
+        p_, u_ = inputs(msc, orbit, c)
+        _, t, sh, ao = render_kernel_launch(msc, p_, u_, c)
+        g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
+                 * conditioned(msc, p_, u_, t, c)).contiguous()
+        mass = gradient_mass(msc, p_, u_, g_rgb, t, sh, ao, c)
+        for wrt in (True, False):
+            g5 = render_kernel_backward_launch(msc, p_, u_, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            w5 = render_kernel_backward_plain(msc, p_, u_, g_rgb, t, sh, ao, c, wrt_uniforms=wrt)
+            torch.cuda.synchronize()
+            st = check_grads(torch.cat(g5) if wrt else g5[0], torch.cat(w5) if wrt else w5[0],
+                             mass if wrt else mass[:p_.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                             label=f"materials K5 {c.width}x{c.height} wrt_uniforms={wrt}")
+            check(float(g5[0][mslots].abs().max()) > 0.0, "materials K5: the material slots' gradients are all 0")
+            errs["render_bwd"].append(st["max_abs_err"])
+            log("materials_k5_parity", size=[c.width, c.height], wrt_uniforms=wrt, **st)
+    # K2 and K4 over a balanced 4-rank plan of the default 24x640 tiles at 1280x720.
+    p_, u_ = inputs(msc, orbit, c720)
+    rgb, t, sh, ao = k1 = render_kernel_launch(msc, p_, u_, c720)
+    tgt = (rgb * 0.95).contiguous()
+    work = torch.rand((H7 // kc.tile_h, W7 // kc.tile_w), generator=torch.Generator().manual_seed(1)).numpy()
+    plan = plan_tiles(H7, W7, kc.tile_h, kc.tile_w, 4, "balanced", work)
+    whole = gather_target_tiles(torch.cat([rgb, t[None], sh[None], ao[None]]), plan)
+    stacks, total, k2_equal = gather_target_tiles(tgt, plan), None, []
+    for r in range(4):
+        trow, tcol = plan.tables(r, dev)
+        g2 = render_kernel_tiles_launch(msc, p_, u_, trow, tcol, c720, kc)
+        g4 = fit_step_kernel_tiles_launch(msc, p_, u_, stacks[r].contiguous(), trow, tcol, c720, kc, True, ())
+        torch.cuda.synchronize()
+        k2_equal.append(bool(torch.equal(torch.cat([g2[0], *(q[None] for q in g2[1:])]), whole[r])))
+        total = g4 if total is None else tuple(a + b for a, b in zip(total, g4))
+    check(all(k2_equal), f"materials K2's stacks differ from K1's planes: {k2_equal}")
+    w3 = fit_step_kernel_launch(msc, p_, u_, tgt, c720, kc, True, ())
+    torch.cuda.synchronize()
+    mass = gradient_mass(msc, p_, u_, 2.0 * (rgb - tgt), t, sh, ao, c720)
+    k4_rel = abs(float(total[0]) / float(w3[0]) - 1.0)
+    check(k4_rel <= 1e-5, f"materials K4: the plan's loss off K3's by {k4_rel:.3g}")
+    k4_vs_k3 = check_grads(torch.cat(total[1:]), torch.cat(w3[1:]), mass, rtol=1e-4, mass_tol=1e-4,
+                           label="materials K4 sum vs K3")
+    errs["fit_step_tiles"].append(k4_vs_k3["max_abs_err"])
+    log("materials_tiles_parity", k2_stacks_equal_k1=k2_equal, k4_loss_rel_err_vs_k3=k4_rel, k4_vs_k3=k4_vs_k3)
+
+    # Main path at 1920x1080.
+    target_img = render_kernel_forward(msc, ref_cam, light, mat, full, device=dev)[0]
+    m_main = {}
+    with PlainCalls() as plain, BackwardModes() as modes:
+        reset()
+        frames = tt.render_batch(msc, cams4, light, mat, full, engine="kernel")
+        torch.cuda.synchronize()
+        m_main["render_batch"] = launches()
+        reset()
+        mfit_l2 = fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
+                            FitConfig(steps=20, learning_rate=1e-2, log_every=1), trainable=m_trainable, device=dev)
+        m_main["fit_l2"] = launches()
+        reset()
+        mfit_ms4 = fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
+                             FitConfig(steps=5, learning_rate=1e-2, log_every=1, loss="multiscale", pyramid_levels=4),
+                             trainable=m_trainable, device=dev)
+        m_main["fit_multiscale_4_levels"] = launches()
+        ms_modes = list(modes.calls[-5:])
+        launch.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend() == "nccl" and mesh.size == 1, f"mesh {mesh}")
+            reset()
+            mfit_tiles = fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
+                                   FitConfig(steps=20, learning_rate=1e-2, log_every=1, shard_layout="tiles"),
+                                   mesh=mesh, trainable=m_trainable)
+            m_main["fit_mesh_tiles"] = launches()
+            reset()
+            sharded = render_sharded_kernel(msc, ref_cam, light, mat, full, mesh, kc, layout="tiles", planar=True)
+            torch.cuda.synchronize()
+            m_main["render_sharded_tiles"] = launches()
+        finally:
+            launch.shutdown()
+    check(sum(plain.calls.values()) == 0, f"the materials main path called plain versions: {plain.calls}")
+    zero = {fn.__name__: 0 for fn in counters}
+    want_counts = {"render_batch": {"render_kernel_forward": 4}, "fit_l2": {"fit_step_kernel": 20},
+                   "fit_multiscale_4_levels": {"render_kernel_forward": 5, "render_kernel_backward": 5},
+                   "fit_mesh_tiles": {"fit_step_kernel_tiles": 20},
+                   "render_sharded_tiles": {"render_kernel_tiles_forward": 1}}
+    for name, want in want_counts.items():
+        check({**zero, **m_main[name]} == {**zero, **want}, f"materials {name} launched {m_main[name]}, expected {want}")
+    check(ms_modes == [False] * 5, f"the materials 4-level fit's K5 asked for wrt_uniforms {ms_modes}")
+    check(tuple(frames.shape) == (4, H, W, 3) and bool(torch.isfinite(frames).all()), "bad materials frames")
+    for name, res in (("l2", mfit_l2), ("multiscale_4_levels", mfit_ms4), ("mesh_tiles", mfit_tiles)):
+        check(all(math.isfinite(x) for x in res.losses) and res.losses[-1] < res.losses[0],
+              f"materials {name} fit: loss {res.losses[0]} -> {res.losses[-1]}")
+        fitted = scene_param_vector(res.scene)
+        check(bool(torch.isfinite(fitted).all()) and torch.equal(fitted[list(geometry)],
+                                                                 scene_param_vector(msc)[list(geometry)]),
+              f"materials {name} fit: the geometry moved or a parameter is not finite")
+    tiles_rel = max(abs(a / b - 1.0) for a, b in zip(mfit_tiles.losses, mfit_l2.losses))
+    check(tiles_rel <= 1e-5, f"materials fit_scene(mesh, tiles): losses off the unsharded fit's by {tiles_rel:.3g}")
+    p0, u0 = inputs(msc, cams4[0], full)
+    k0 = render_kernel_launch(msc, p0, u0, full)
+    torch.testing.assert_close(k0[0].permute(1, 2, 0), frames[0], rtol=0, atol=0)
+    frame0 = check_planes(k0, render_kernel_forward_plain(msc, p0, u0, full), full.march.max_distance,
+                          "materials 1080p frame 0", razor=razor_edge(msc, p0, u0, full))
+    errs["render_fwd"].append(frame0["rgb"]["max_abs_err"])
+    pr, ur = inputs(msc, ref_cam, full)
+    k1_ref = render_kernel_launch(msc, pr, ur, full)[0]
+    torch.cuda.synchronize()
+    sharded_equal = bool(torch.equal(sharded, k1_ref))
+    check(sharded_equal, "materials render_sharded_kernel(tiles) differs from K1's image")
+    ms0 = materials_fit_start(tt, dev)
+    step0 = k3_against_plain(torch, ms0, *inputs(ms0, ref_cam, full), full, kc, False, geometry,
+                             "materials K3 1080p step 0", gen, target=target_img.permute(2, 0, 1).contiguous())
+    errs["fit_step"].append(step0["own_march"]["max_abs_err"])
+    log("materials_main_path", launches=m_main, multiscale_render_bwd_wrt_uniforms=ms_modes,
+        frame0=planes_stats(frame0), l2_losses=mfit_l2.losses, multiscale_4_levels_losses=mfit_ms4.losses,
+        mesh_tiles_losses=mfit_tiles.losses, mesh_tiles_loss_rel_err=tiles_rel,
+        mesh_tiles_losses_equal=mfit_tiles.losses == mfit_l2.losses, render_sharded_equals_k1=sharded_equal,
+        fitted_materials=scene_param_vector(mfit_l2.scene)[mslots].tolist(),
+        target_materials=scene_param_vector(msc)[mslots].tolist(), step0=step0)
+
+    # ---- 47. times (plain, kernel, kernel, plain) and bounds ----
+    runs = {}
+    # The multi-view K3 at 720p (four views, one launch, its total) beside the
+    # single view's K3 on view 0.
+    lm = fit_launcher(sc, prm, unis, target, c720, kc, False, frozen)[0]
+    l1 = fit_launcher(sc, prm, unis[0].contiguous(), target[0].contiguous(), c720, kc, False, frozen)[0]
+    mv_plain = functools.partial(fit_step_views_plain, sc, prm, unis, target, c720, kc, False, frozen)
+    p1, a1, b1, a2, b2, p2 = (time_ms(mv_plain, 1, 3), time_ms(lm), time_ms(l1), time_ms(lm), time_ms(l1),
+                              time_ms(mv_plain, 1, 3))
+    costs = scene_costs(cuda_scene_source(sc, c720, kc, False, frozen))
+    fp = sfu = 0.0
+    view_counts = []
+    for v in range(V):
+        cnt = march_counts(torch, sc, cams4[v], c720, prm, unis[v], render_kernel_forward_plain)
+        view_counts.append(cnt)
+        f_, s_ = analytic_work(costs, cnt, c720, reverse=True)
+        fp, sfu = fp + f_, sfu + s_
+    b_ms, b_by = bound(fp, sfu, 12 * W7 * H7 * V + 8 * (P + 31) * V)
+    runs["multiview"] = {"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "single_view_ms_runs": [b1, b2],
+                         "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2], "bound_ms": b_ms, "bound_by": b_by,
+                         "counts": view_counts}
+    # materials_scene at 1080p: K1, K2, K3, K4 and both K5 forms (the fit's start, the geometry frozen).
+    ms_ = materials_fit_start(tt, dev)
+    s_prm, s_uni = inputs(ms_, ref_cam, full)
+    tgt = target_img.permute(2, 0, 1).contiguous()
+    plan1 = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
+    trow, tcol = plan1.tables(0, dev)
+    stack = gather_target_tiles(tgt, plan1)[0].contiguous()
+    # K2 against its plain version at the size and on the plan the main
+    # path's render_sharded_kernel(tiles) launches it (1080p, one rank).
+    got2 = render_kernel_tiles_launch(msc, pr, ur, trow, tcol, full, kc)
+    want2 = render_kernel_tiles_forward_plain(msc, pr, ur, trow, tcol, full, kc)
+    torch.cuda.synchronize()
+    k2_pixels = tile_pixel_planes(trow, tcol, kc.tile_h, kc.tile_w)
+    k2_1080p = check_planes(got2, want2, full.march.max_distance, "materials K2 1080p",
+                            razor=lambda: razor_edge(msc, pr, ur, full, kc, k2_pixels))
+    errs["render_tiles"].append(k2_1080p["rgb"]["max_abs_err"])
+    rgb, t, sh, ao = render_kernel_launch(ms_, s_prm, s_uni, full)
+    g_rgb = (2.0 * (rgb - tgt)).contiguous()
+    k3_launch, _, k3_totals = fit_launcher(ms_, s_prm, s_uni, tgt, full, kc, False, geometry)
+    k3_launch()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k3_totals).all()), "materials K3's totals at 1080p are not finite")
+    timed = {
+        "render_fwd": (lambda: render_kernel_launch(msc, pr, ur, full),
+                       lambda: render_kernel_forward_plain(msc, pr, ur, full)),
+        "render_tiles": (lambda: render_kernel_tiles_launch(msc, pr, ur, trow, tcol, full, kc),
+                         lambda: render_kernel_tiles_forward_plain(msc, pr, ur, trow, tcol, full, kc)),
+        "fit_step": (k3_launch, lambda: fit_step_kernel_plain(ms_, s_prm, s_uni, tgt, full, kc, False, geometry)),
+        "fit_step_tiles": (lambda: fit_step_kernel_tiles_launch(ms_, s_prm, s_uni, stack, trow, tcol, full, kc, False,
+                                                                geometry),
+                           lambda: fit_step_kernel_tiles_plain(ms_, s_prm, s_uni, stack, trow, tcol, full, kc, False,
+                                                               geometry)),
+    }
+    for name, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+        k5_launch, _, k5_totals = render_bwd_launcher(ms_, s_prm, s_uni, g_rgb, t, sh, ao, full, kc, wrt)
+        k5_launch()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k5_totals).all()), f"materials {name}'s totals at 1080p are not finite")
+        timed[name] = (k5_launch, functools.partial(render_kernel_backward_plain, ms_, s_prm, s_uni, g_rgb, t, sh, ao,
+                                                    full, wrt_uniforms=wrt))
+    # K5 at the size the main path's 4-level fit launches it (1920x1080),
+    # both forms, against its plain version on the timed cotangent, zeroed
+    # where the gradient is ill-conditioned (as the flagship's phase 32).
+    g_cond = (g_rgb * conditioned(ms_, s_prm, s_uni, t, full)).contiguous()
+    mass = gradient_mass(ms_, s_prm, s_uni, g_cond, t, sh, ao, full)
+    k5_1080p = {}
+    for name, wrt in (("render_bwd", False), ("render_bwd_uniforms", True)):
+        got = render_kernel_backward_launch(ms_, s_prm, s_uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        want = render_kernel_backward_plain(ms_, s_prm, s_uni, g_cond, t, sh, ao, full, wrt_uniforms=wrt)
+        torch.cuda.synchronize()
+        k5_1080p[name] = check_grads(torch.cat(got) if wrt else got[0], torch.cat(want) if wrt else want[0],
+                                     mass if wrt else mass[:s_prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
+                                     label=f"materials K5 1080p wrt_uniforms={wrt}")
+        check(float(got[0][mslots].abs().max()) > 0.0, "materials K5 1080p: the material slots' gradients are all 0")
+        errs["render_bwd"].append(k5_1080p[name]["max_abs_err"])
+    log("materials_1080p_parity", k2=planes_stats(k2_1080p), k5=k5_1080p)
+    for name, (kern, plain_fn) in timed.items():
+        p1, k1_, k2_, p2 = time_ms(plain_fn, 1, 3), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 3)
+        runs[name] = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": (p1 + p2) / 2,
+                      "plain_ms_runs": [p1, p2]}
+    fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
+              FitConfig(steps=5, log_every=5), trainable=m_trainable, device=dev)
+    res = fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
+                    FitConfig(steps=50, log_every=50), trainable=m_trainable, device=dev)
+    fit_ms = W * H / res.rays_per_second * 1e3
+    counts = march_counts(torch, msc, ref_cam, full, pr, ur, render_kernel_forward_plain)
+    s_counts = march_counts(torch, ms_, ref_cam, full, s_prm, s_uni, render_kernel_forward_plain)
+    m_costs = scene_costs(cuda_scene_source(msc, full, kc))
+    s_costs = scene_costs(cuda_scene_source(ms_, full, kc, False, geometry))
+    Pm = s_prm.numel()
+    blocks = -(-W // kc.block_w) * -(-H // kc.block_h)
+    bounds = {
+        "render_fwd": bound(*analytic_work(m_costs, counts, full), 24 * W * H),
+        "render_tiles": bound(*analytic_work(m_costs, counts, full), 24 * W * H + 8 * plan1.tiles_per_device),
+        "fit_step": bound(*analytic_work(s_costs, s_counts, full, reverse=True), 12 * W * H + 8 * (Pm + 31)),
+        "fit_step_tiles": bound(*analytic_work(s_costs, s_counts, full, reverse=True),
+                                12 * W * H + 8 * plan1.tiles_per_device + 8 * (Pm + 31)),
+        "render_bwd": bound(*analytic_work(s_costs, s_counts, full, primal=False, reverse=True, retrace=True),
+                            24 * W * H + (8 * blocks + 8) * Pm),
+        "render_bwd_uniforms": bound(*analytic_work(s_costs, s_counts, full, primal=False, reverse=True, retrace=True),
+                                     24 * W * H + (8 * blocks + 8) * (Pm + 30)),
+    }
+    for name, b in bounds.items():
+        runs[name].update(bound_ms=b[0], bound_by=b[1])
+    log("slice_times", card=card, materials_counts=counts, materials_fit_start_counts=s_counts,
+        materials_costs=m_costs, fit_scene_ms_per_step=fit_ms, ptxas=ptxas, **runs)
+    m_launches = {"render_fwd": m_main["render_batch"]["render_kernel_forward"],
+                  "render_tiles": m_main["render_sharded_tiles"]["render_kernel_tiles_forward"],
+                  "fit_step": m_main["fit_l2"]["fit_step_kernel"],
+                  "fit_step_tiles": m_main["fit_mesh_tiles"]["fit_step_kernel_tiles"],
+                  "render_bwd": m_main["fit_multiscale_4_levels"]["render_kernel_backward"]}
+    out = {}
+    for name, n in m_launches.items():
+        out[name] = {"materials": {"launches": n, "max_abs_err": max(errs[name]), "ms": runs[name]["ms"],
+                                   "plain_ms": runs[name]["plain_ms"], "bound_ms": runs[name]["bound_ms"],
+                                   "bound_by": runs[name]["bound_by"]}}
+    out["render_bwd"]["materials"]["uniforms"] = {k: runs["render_bwd_uniforms"][k]
+                                                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    out["render_bwd"]["materials"]["max_abs_err_1080p"] = max(st["max_abs_err"] for st in k5_1080p.values())
+    out["fit_step"]["materials"]["fit_scene_ms_per_step"] = fit_ms
+    out["fit_step"]["multiview"] = {"launches": main["fit_scene_multiview"]["fit_step_kernel"],
+                                    "max_abs_err": max(errs["multiview"]), "views": V, "size": [W7, H7],
+                                    **{k: runs["multiview"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    return out
 
 
 def blocks_per_sm(registers: int, threads: int = 256) -> int:

@@ -10,12 +10,14 @@ shadows and Blinn-Phong shading: a plain PyTorch reference path
 scene structure at first use.  Inverse rendering on one card: ``fit_scene``
 on the fused fit-step kernel (the plain L2 loss, the multiscale pyramid and the
 silhouette coverage term in one launch), ``fit_view`` (camera, light and
-material against an image, on the same kernel's uniforms' gradient), and a differentiable kernel render
+material against an image, on the same kernel's uniforms' gradient), ``fit_scene_multiview`` (several
+views in one launch of that kernel a step), and a differentiable kernel render
 (``ops.render_kernel_diff``: forward kernel, backward kernel).  The neural
 SDF family (``sdf.NeuralSDF``, ``sdf.neural_sdf``, ``sdf.distill``) renders
 on its own CUDA kernel (``ops.render_neural_forward``, ``ops.render_neural``,
 ``render_batch(engine="kernel")``), or banded (``render_banded``).
-``parallel`` shards renders and fits over the ranks of a
+Per-object materials (``sdf.Shaded``, ``sdf.shaded``, ``materials_scene``)
+shade through every kernel's material program.  ``parallel`` shards renders and fits over the ranks of a
 ``torch.distributed`` process group (``fit_scene(mesh=parallel.make_mesh())``),
 in row layouts or a tile queue with its own kernels.  The
 package imports torch and numpy, never JAX and never ``sdf3d_tpu``;
@@ -33,7 +35,15 @@ from sdf3d_tpu_torch.config import (
     ShadowConfig,
     fast_config,
 )
-from sdf3d_tpu_torch.fit import FitConfig, FitResult, ViewFitResult, fit_scene, fit_view, pixel_loss
+from sdf3d_tpu_torch.fit import (
+    FitConfig,
+    FitResult,
+    ViewFitResult,
+    fit_scene,
+    fit_scene_multiview,
+    fit_view,
+    pixel_loss,
+)
 from sdf3d_tpu_torch.lighting import (
     Material,
     PointLight,
@@ -70,6 +80,7 @@ from sdf3d_tpu_torch.scenes import (
     flagship_scene,
     fractal_scene,
     lattice_scene,
+    materials_scene,
     random_blobs,
     reference_scene,
     sphere_scene,

@@ -234,18 +234,51 @@ def run_benchmark(
     }
 
 
+def _multiview_extra(device="cuda") -> dict:
+    """The V = 4 multi-view fit step at 1280×720 (JAX's ``_multiview_extra``):
+    one launch of K3 a step for the four views (its view axis), the
+    reference scene under orbit cameras ``(137.508·i) % 360`` against zero
+    targets, the scene's gradient only; each step returns its loss, so the
+    chain is live.  The slope between 4 and 16 steps."""
+    import sdf3d_tpu_torch as tt
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, multiview_inputs
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig
+    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+
+    W, H, V = 1280, 720, 4
+    device = _device(device)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    scene = tt.reference_scene().to(device)
+    light, mat = tt.reference_light(device=device), tt.reference_material(device=device)
+    cams = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, device=device) for i in range(V)]
+    uni, target, _ = multiview_inputs(cfg, cams, light, mat, torch.zeros((V, H, W, 3), device=device), device)
+
+    def make_fn(k):
+        def chunk(prm):
+            losses = []
+            for _ in range(k):
+                loss, g_prm, _ = fit_step_kernel(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms=False)
+                prm = prm - 1e-30 * g_prm
+                losses.append(loss)
+            return torch.stack(losses)
+        return chunk
+
+    sec = robust_slope_seconds_per_frame(make_fn, (scene_param_vector(scene, device),), k_small=4, k_large=16,
+                                         iters=2, min_rounds=4, max_rounds=12)
+    return {"rays_per_second": W * H * V / sec, "seconds_per_step": sec, "views": V, "resolution": f"{W}x{H}"}
+
+
 def run_extras(budget_s: float = 900.0, on_update=None, device="cuda") -> dict:
     """Secondary cells beside the headline, with a reduced protocol
     (``iters=4``, ``frames_per_dispatch=8``): ``fwd_4k``, ``fit_4k``,
     ``fit_fast_1080p``, ``fit_fractal_1080p`` and ``fit_multiview_720p_v4``.
 
-    Each entry holds either ``rays_per_second`` and ``seconds_per_frame``,
-    or an error string: ``"error: NotImplementedError: ..."`` for a path not
-    ported yet (the multiview fit, ROADMAP item 12b), ``"skipped: ..."`` once
-    the budget is spent.  Any other failure
-    raises.  ``on_update(partial_dict)`` is called after every entry."""
-    from sdf3d_tpu_torch.fit import fit_scene_multiview
-
+    Each entry holds ``rays_per_second`` and ``seconds_per_frame`` (the
+    multiview step: ``seconds_per_step``, ``views``, ``resolution``; its
+    rays are W·H·V a step), an error string ``"error:
+    NotImplementedError: ..."`` for a path not ported, or ``"skipped: ..."``
+    once the budget is spent.  Any other failure raises.
+    ``on_update(partial_dict)`` is called after every entry."""
     out: dict = {}
     deadline = time.monotonic() + budget_s
 
@@ -268,9 +301,7 @@ def run_extras(budget_s: float = 900.0, on_update=None, device="cuda") -> dict:
     _run("fit_4k", lambda: _via("fwd_bwd", width=3840, height=2160))
     _run("fit_fast_1080p", lambda: _via("fwd_bwd", profile="fast"))
     _run("fit_fractal_1080p", lambda: _via("fwd_bwd", scene_name="fractal"))
-    # The V = 4 multiview fit step at 720p: fit_scene_multiview raises, its
-    # fit kernel's view axis is not ported (ROADMAP item 12b).
-    _run("fit_multiview_720p_v4", fit_scene_multiview)
+    _run("fit_multiview_720p_v4", lambda: _multiview_extra(device))
     return out
 
 

@@ -16,6 +16,8 @@ does:
 
 :func:`fit_view` fits the camera, light and material to an image with the
 scene fixed, on the fused fit step's uniforms' gradient.
+:func:`fit_scene_multiview` fits the scene to several views at once: one
+launch of the fused fit step a step for all of them (its view axis).
 
 With a ``mesh`` (``parallel/``) the fused step is sharded: each rank runs
 K3 on its rows (the contiguous and interleaved layouts) or K4 on its tile
@@ -41,7 +43,13 @@ from sdf3d_tpu_torch.camera import Camera
 from sdf3d_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.lighting import Material, PointLight
-from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_tiles, fused_l2_eligible, with_rows
+from sdf3d_tpu_torch.ops.fit_kernel import (
+    fit_step_kernel,
+    fit_step_kernel_tiles,
+    fused_l2_eligible,
+    multiview_inputs,
+    with_rows,
+)
 from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
 from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, pack_uniforms
 from sdf3d_tpu_torch.ops.scene_program import describe, has_neural, leaves, scene_param_vector
@@ -167,6 +175,31 @@ def _frozen_param_slots(scene0: SDFNode, trainable) -> tuple:
     if len(idx) == off:
         return ()
     return tuple(idx)
+
+
+def _trainable_scene(scene0: SDFNode, trainable, fit_config: FitConfig, device):
+    """``(scene, leaves, optimizer, frozen slots, set_grads)`` of a scene
+    fit: a copy of ``scene0`` on ``device`` whose frozen leaves
+    (``trainable``) need no gradient, the optimizer over the others, and
+    ``set_grads(g_prm)``, which hands the trained leaves their slices of a
+    flat gradient."""
+    scene = copy.deepcopy(scene0).to(device)
+    leaf_list = list(leaves(scene))
+    flags = [True] * len(leaf_list) if trainable is None else [bool(x) for x in trainable]
+    frozen = _frozen_param_slots(scene0, trainable)
+    if not any(flags):
+        raise ValueError("trainable freezes every scene parameter")
+    for leaf, tr in zip(leaf_list, flags):
+        leaf.requires_grad_(tr)
+    opt = _make_optimizer(fit_config, [leaf for leaf, tr in zip(leaf_list, flags) if tr])
+    sizes = [int(leaf.numel()) for leaf in leaf_list]
+
+    def set_grads(g_prm):
+        for leaf, g, tr in zip(leaf_list, torch.split(g_prm, sizes), flags):
+            if tr:
+                leaf.grad = g.view_as(leaf)
+
+    return scene, leaf_list, opt, frozen, set_grads
 
 
 def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
@@ -367,14 +400,7 @@ def fit_scene(
         raise RuntimeError("fit_scene: no CUDA device; pass device='cpu' to run the kernels' plain versions")
     if mesh is not None and not launch.is_primary():
         logger = None  # exactly one metrics writer (checkpoint.py gates its own)
-    scene = copy.deepcopy(scene0).to(device)
-    leaf_list = list(leaves(scene))
-    flags = [True] * len(leaf_list) if trainable is None else [bool(x) for x in trainable]
-    frozen = _frozen_param_slots(scene0, trainable)
-    if not any(flags):
-        raise ValueError("trainable freezes every scene parameter")
-    for leaf, tr in zip(leaf_list, flags):
-        leaf.requires_grad_(tr)
+    scene, leaf_list, opt, frozen, set_grads = _trainable_scene(scene0, trainable, fit_config, device)
     camera, light, mat = camera.to(device), light.to(device), mat.to(device)
     if callable(target) and mesh is None:
         raise TypeError("a row-loader target (a callable) needs a mesh; pass the (H, W, 3) image")
@@ -382,13 +408,6 @@ def fit_scene(
         if not isinstance(target, torch.Tensor):
             target = torch.from_numpy(np.array(target, np.float32))
         target = target.detach().to(device, torch.float32)
-    opt = _make_optimizer(fit_config, [leaf for leaf, tr in zip(leaf_list, flags) if tr])
-    sizes = [int(leaf.numel()) for leaf in leaf_list]
-
-    def set_grads(g_prm):
-        for leaf, g, tr in zip(leaf_list, torch.split(g_prm, sizes), flags):
-            if tr:
-                leaf.grad = g.view_as(leaf)
 
     coverage = _coverage_rows(render_config, target_coverage, device) if sil_w > 0.0 else None
     replan = None
@@ -546,10 +565,113 @@ def _unpack_resume(packed, device):
     return torch.load(io.BytesIO(data), map_location=device, weights_only=True), step, losses
 
 
-def fit_scene_multiview(*args, **kwargs):
-    """Fit against several views jointly: the fit kernel's view axis is not
-    ported yet (ROADMAP item 12b)."""
-    raise NotImplementedError("fit_scene_multiview is not ported yet (ROADMAP item 12b)")
+def _run_chunks(step_loss, opt, fit_config: FitConfig, logger) -> tuple[list, int]:
+    """Run ``fit_config.steps`` optimizer steps of ``step_loss`` (which sets
+    the gradients and returns the loss on the device) in chunks, reading
+    the losses once a chunk: ``(logged losses, steps run)``."""
+    losses: list = []
+    step = 0
+    chunk_cap = fit_config.chunk_steps or max(fit_config.log_every, 1)
+    while step < fit_config.steps:
+        end = min(fit_config.steps, step + chunk_cap)
+        chunk = []
+        for _ in range(step, end):
+            opt.zero_grad(set_to_none=True)
+            chunk.append(step_loss())
+            opt.step()
+        for i, loss_val in enumerate(torch.stack(chunk).tolist()):  # one host sync per chunk
+            gstep = step + i
+            if gstep % fit_config.log_every == 0 or gstep == fit_config.steps - 1:
+                losses.append(loss_val)
+                if logger is not None:
+                    logger.log(step=gstep, loss=loss_val)
+        step = end
+    return losses, step
+
+
+def fit_scene_multiview(
+    targets,
+    scene0: SDFNode,
+    cameras,
+    light: PointLight,
+    mat: Material,
+    render_config: RenderConfig,
+    fit_config: FitConfig = FitConfig(),
+    logger: MetricsLogger | None = None,
+    trainable=None,
+    target_coverages=None,
+    device="cuda",
+    kernel_config: KernelConfig | None = None,
+) -> FitResult:
+    """Fit the scene's parameters against several views jointly (the port of
+    JAX's ``fit_scene_multiview``): the loss is the sum of the views' pixel
+    losses, so one view's depth/scale ambiguities are held by the others.
+
+    ``targets``: V (H, W, 3) images; ``cameras``: V cameras.  The fused
+    route runs one launch of the fit step a step for all V views
+    (:func:`~sdf3d_tpu_torch.ops.fit_kernel.multiview_loss_and_grads`, K3's
+    view axis); outside it (a pyramid deeper than the kernel's block) each
+    view renders through the differentiable kernel render and its
+    :func:`pixel_loss` is summed, as JAX's ``render_pallas`` route.
+    ``trainable`` freezes scene leaves as in :func:`fit_scene`.
+    ``fit_config.silhouette_weight > 0`` adds each view's coverage term
+    (fused route only): pass ``target_coverages`` (one (H, W) mask a view)
+    or set ``render_config.background``.  Runs on ``device`` (the card
+    unless ``"cpu"``: the kernels' plain versions); no checkpoints, as
+    JAX's.  ``rays_per_second`` counts W·H·V rays a step."""
+    if len(targets) != len(cameras):
+        raise ValueError(f"{len(targets)} targets vs {len(cameras)} cameras")
+    if len(targets) == 0:
+        raise ValueError("need at least one view")
+    kc = kernel_config or KernelConfig()
+    _check_supported(fit_config, render_config, None, scene0, kc)
+    sil_w = fit_config.silhouette_weight
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit_scene_multiview: no CUDA device; pass device='cpu' to run the kernels' plain versions")
+    targets = [(t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t, np.float32)))
+               .detach().to(device, torch.float32) for t in targets]
+    covs = None
+    if sil_w > 0.0:
+        if target_coverages is None:
+            rows = np.arange(render_config.height)
+            covs = [_coverage_rows(render_config, None, device)(t, rows) for t in targets]
+        else:
+            if len(target_coverages) != len(targets):
+                raise ValueError(f"{len(target_coverages)} coverage masks vs {len(targets)} targets")
+            covs = [torch.as_tensor(np.asarray(c, np.float32) if not isinstance(c, torch.Tensor) else c)
+                    .to(device, torch.float32) for c in target_coverages]
+    scene, leaf_list, opt, frozen, set_grads = _trainable_scene(scene0, trainable, fit_config, device)
+    cameras = [cam.to(device) for cam in cameras]
+    light, mat = light.to(device), mat.to(device)
+    loss_opts = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
+                     sil_beta=fit_config.silhouette_beta)
+    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
+        uni, target_planar, cov = multiview_inputs(render_config, cameras, light, mat, targets, device, covs)
+
+        def step_loss():
+            loss_, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), uni, target_planar, render_config,
+                                              kc, wrt_uniforms=False, frozen_slots=frozen, target_coverage=cov,
+                                              **loss_opts)
+            set_grads(g_prm)
+            return loss_
+    else:
+        def step_loss():
+            loss = sum(pixel_loss(render_kernel_diff(render_config, kc, scene, cam, light, mat), tgt,
+                                  fit_config.loss, fit_config.pyramid_levels)
+                       for cam, tgt in zip(cameras, targets))
+            loss.backward()
+            return loss.detach()
+
+    t0 = time.perf_counter()
+    losses, steps = _run_chunks(step_loss, opt, fit_config, logger)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.perf_counter() - t0
+    for leaf in leaf_list:
+        leaf.requires_grad_(True)
+    n_rays = render_config.width * render_config.height * len(cameras)
+    return FitResult(scene=scene, losses=losses, steps_run=steps, rays_per_second=n_rays * steps / max(elapsed, 1e-9))
 
 
 _VIEW_GROUPS = ("camera", "fov", "light", "material")
@@ -670,23 +792,7 @@ def fit_view(
         uni.backward(g_uni)
         return loss_
 
-    losses: list = []
-    step = 0
-    chunk_cap = fit_config.chunk_steps or max(fit_config.log_every, 1)
-    while step < fit_config.steps:
-        end = min(fit_config.steps, step + chunk_cap)
-        chunk = []
-        for _ in range(step, end):
-            opt.zero_grad(set_to_none=True)
-            chunk.append(step_loss())
-            opt.step()
-        for i, loss_val in enumerate(torch.stack(chunk).tolist()):  # one host sync per chunk
-            gstep = step + i
-            if gstep % fit_config.log_every == 0 or gstep == fit_config.steps - 1:
-                losses.append(loss_val)
-                if logger is not None:
-                    logger.log(step=gstep, loss=loss_val)
-        step = end
+    losses, step = _run_chunks(step_loss, opt, fit_config, logger)
     with torch.no_grad():
         cam, light, mat = (type(o)(*(getattr(o, f.name).detach() for f in dataclasses.fields(o)))
                            for o in build_view(params))

@@ -11,9 +11,11 @@ from sdf3d_tpu_torch.ops.fit_kernel import (
     fit_step_kernel_plain,
     fit_step_kernel_tiles,
     fit_step_kernel_tiles_plain,
+    fit_step_views_plain,
     fused_l2_eligible,
     l2_loss_and_grads,
     l2_loss_and_grads_tiles,
+    multiview_loss_and_grads,
 )
 from sdf3d_tpu_torch.ops.render_autograd import RenderKernelFunction, render_kernel_diff
 from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain, shade_planes
@@ -45,9 +47,11 @@ __all__ = [
     "fit_step_kernel_plain",
     "fit_step_kernel_tiles",
     "fit_step_kernel_tiles_plain",
+    "fit_step_views_plain",
     "fused_l2_eligible",
     "l2_loss_and_grads",
     "l2_loss_and_grads_tiles",
+    "multiview_loss_and_grads",
     "render_kernel_backward",
     "render_kernel_backward_plain",
     "render_kernel_diff",

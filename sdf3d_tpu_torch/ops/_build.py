@@ -86,7 +86,7 @@ class LibraryKind:
     """What a library of one kind is built from and exports: its file name,
     its sources under ``csrc/`` and its C entry points with their argument
     types (pointers, then H, W, stream; the fit step's silhouette weight and
-    softness as floats), and those of its host form
+    softness as floats, its view count V after W), and those of its host form
     (``host_entry_points``: the suffix ``_host``, no stream)."""
 
     lib_name: str
@@ -99,14 +99,14 @@ KINDS = {
     "render": LibraryKind("libsdf3d_render.so", ("render_kernel.cu", "fit_kernel.cu", "render_bwd_kernel.cu"), (
         ("sdf3d_render_fwd", [_PTR] * 6 + [_INT, _INT, _PTR]),
         ("sdf3d_render_tiles", [_PTR] * 8 + [_INT, _INT, _INT, _PTR]),
-        ("sdf3d_fit_step", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _PTR]),
+        ("sdf3d_fit_step", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_fit_step_tiles", [_PTR] * 8 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT, _PTR]),
         ("sdf3d_fit_columns", [_PTR]),
         ("sdf3d_render_bwd", [_PTR] * 10 + [_INT, _INT, _INT, _PTR]),
     ), host_entry_points=(
         ("sdf3d_render_fwd_host", [_PTR] * 6 + [_INT, _INT]),
         ("sdf3d_render_tiles_host", [_PTR] * 8 + [_INT, _INT, _INT]),
-        ("sdf3d_fit_step_host", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT]),
+        ("sdf3d_fit_step_host", [_PTR] * 6 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT]),
         ("sdf3d_fit_step_tiles_host", [_PTR] * 8 + [_FLT, _FLT] + [_PTR] * 2 + [_INT, _INT, _INT]),
         ("sdf3d_fit_retrace_host", [_PTR] * 7 + [_INT, _INT]),
         ("sdf3d_fit_columns", [_PTR]),

@@ -12,6 +12,10 @@
 // and thread index, never by arrival (utils/parity.py::fixed_order_total
 // gives the same bits in Python).
 //
+// A launch of several views (the multi-view fit step, K3 with a view axis)
+// totals each view's rows alone, in the order above: view v's rows start at
+// row v·padded_rows(rows) of each column, and its totals at v·n_totals.
+//
 // Cols maps the summed columns onto the totals:
 //   static constexpr int n_totals;      // the totals' length
 //   static int total(int c);            // the total of summed column c
@@ -35,13 +39,16 @@ struct AllColumns {
 };
 
 #ifdef __CUDACC__
-// Block c sums summed column c of the `rows` partial rows (stored by column,
-// `ld` floats apart) and writes its total; block 0 writes the zeros.
+// Block (c, v) sums summed column c of view v's `rows` partial rows (stored
+// by column, `ld` floats apart, the views padded_rows(rows) apart) and writes
+// its total; block (0, v) writes view v's zeros.
 template <class Cols>
 __global__ void __launch_bounds__(kTotalThreads)
 sdf3d_column_total_kernel(const float* __restrict__ partials, int rows, int ld, double* __restrict__ totals) {
   const int c = blockIdx.x;
-  const float4* col = reinterpret_cast<const float4*>(partials + static_cast<size_t>(c) * ld);
+  totals += static_cast<size_t>(blockIdx.y) * Cols::n_totals;
+  const float4* col = reinterpret_cast<const float4*>(partials + static_cast<size_t>(c) * ld +
+                                                      static_cast<size_t>(blockIdx.y) * padded_rows(rows));
   double s[1] = {0.0};
 #pragma unroll 4
   for (int m = threadIdx.x; 4 * m < rows; m += kTotalThreads) {
@@ -60,13 +67,15 @@ sdf3d_column_total_kernel(const float* __restrict__ partials, int rows, int ld, 
   }
 }
 
-// The totals of `rows` partial rows of N summed columns, launched after the
-// kernel that wrote them, on the same stream.  Returns cudaGetLastError().
+// The totals of `rows` partial rows of N summed columns (of each of `views`
+// views), launched after the kernel that wrote them, on the same stream.
+// Returns cudaGetLastError().
 template <int N, class Cols = AllColumns<N>>
-int launch_column_total(const float* partials, int rows, double* totals, cudaStream_t stream) {
+int launch_column_total(const float* partials, int rows, double* totals, cudaStream_t stream, int views = 1) {
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  sdf3d_column_total_kernel<Cols><<<N, kTotalThreads, 0, stream>>>(partials, rows, padded_rows(rows), totals);
+  sdf3d_column_total_kernel<Cols><<<dim3(N, views), kTotalThreads, 0, stream>>>(partials, rows,
+                                                                                views * padded_rows(rows), totals);
   return static_cast<int>(cudaGetLastError());
 }
 #else

@@ -22,6 +22,16 @@
 // Launch row r is the absolute image row abs_row(r) (render_kernel.cuh), so
 // a rank of a sharded fit runs its contiguous or interleaved rows.
 //
+// K3 takes V views in one launch (JAX's _fit_tile_kernel with multiview=True,
+// fit_scene_multiview's step): the grid's z axis is the view, V a launch
+// argument (no header setting, so the libraries of one view serve it).  A
+// block of view v reads its uniforms at uni + v·30 and its target (and
+// coverage) planes at v·H·W; its partial row lies in view v's run of rows,
+// and the column total sums each view's rows alone in K3's order, so each
+// view's totals are those of K3 launched on that view alone, bit for bit
+// (V x (P + 31) float64; the caller sums the scene and loss columns over the
+// views in view order, as JAX's per_view reduction).
+//
 // The totals are dP, dU and the loss (the loss alone for K9's loss-only
 // variants).  A block reduces only the live ones: dU only with
 // Fit::wrt_uniforms, and never a frozen parameter slot (Fit::is_frozen).
@@ -127,6 +137,8 @@ SDF3D_HD constexpr bool zero_total(int k) {
 // The loss's branches (Fit::levels, Fit::silhouette; JAX's loss_kind ==
 // "multiscale" and sil_w > 0), taken by the full fit step alone.
 constexpr int kLevels = Fit::levels;
+// Per-object materials (the scene's material program; JAX's mat_soa).
+constexpr bool kMat = sdf3d::HasMaterials<Scene>::value;
 constexpr bool kSil = Fit::silhouette;
 static_assert((kLevels == 0 && !kSil) || kV == FULL, "the loss branches take the full fit step");
 // A pyramid group of 2^levels x 2^levels pixels lies inside one block and
@@ -197,7 +209,7 @@ SDF3D_HD void fit_forward(const float* u, const float* p, const Targets& tgt, si
     acc[0] += (tgt.r[i] + tgt.g[i]) + tgt.b[i];
   } else {
     st.pr = primal(u, p, rows, cols, H, W, st);
-    acc[kAcc - 1] += residual(sdf3d::shade<Cfg>(u, st.pr), tgt.r, tgt.g, tgt.b, i, st.res);
+    acc[kAcc - 1] += residual(sdf3d::shade<Cfg, kMat>(u, st.pr), tgt.r, tgt.g, tgt.b, i, st.res);
     st.g[0] = 2.0f * st.res[0]; st.g[1] = 2.0f * st.res[1]; st.g[2] = 2.0f * st.res[2];
     if constexpr (kSil) acc[kAcc - 1] += coverage(tgt, i, st);
   }
@@ -243,8 +255,9 @@ SDF3D_HD void fit_pixel(const float* u, const float* p, const Targets& tgt, size
 
 // The pixel of thread (tx, ty) of block (bx, by, z): its absolute (rows,
 // cols) and its targets' position i, or false outside the image.  trow ==
-// nullptr is K3 (pixel (y, x) of the grid, absolute row abs_row(y)), else K4
-// (pixel (trow[z] + y, tcol[z] + x) of tile z, masked in absolute pixels).
+// nullptr is K3 (pixel (y, x) of view z's grid, absolute row abs_row(y), its
+// targets in view z's planes), else K4 (pixel (trow[z] + y, tcol[z] + x) of
+// tile z, masked in absolute pixels).
 // Both meet in the same fit_forward and fit_reverse, so a pixel's terms have
 // the same bits whichever layout launched them.
 SDF3D_HD bool block_pixel(const float* u, const int* trow, const int* tcol, int bx, int by, int z, int tx, int ty,
@@ -254,7 +267,7 @@ SDF3D_HD bool block_pixel(const float* u, const int* trow, const int* tcol, int 
   const int row = tiles ? trow[z] + y : y;
   const int col = tiles ? tcol[z] + x : x;
   if (!(row < H && col < W && (!tiles || (y < Cfg::tile_h && x < Cfg::tile_w)))) return false;
-  i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x : static_cast<size_t>(y) * W + x;
+  i = tiles ? (static_cast<size_t>(z) * Cfg::tile_h + y) * Cfg::tile_w + x : (static_cast<size_t>(z) * H + y) * W + x;
   rows = tiles ? static_cast<float>(row) : sdf3d::abs_row<Cfg>(u, y);
   cols = static_cast<float>(col);
   return true;
@@ -396,7 +409,10 @@ sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ p
                       float* __restrict__ partials, int H, int W) {
   // The uniforms and parameters from shared memory, loaded once a block
   // (faster than registers or global memory at each use; PERF.md).
+  // K3's z is the view, whose uniforms are row z of (V, 30).
   __shared__ float inputs[sdf3d::N_UNIFORMS + kP];
+  const bool views = trow == nullptr;
+  if (views) uni += static_cast<size_t>(blockIdx.z) * sdf3d::N_UNIFORMS;
   for (int k = threadIdx.y * blockDim.x + threadIdx.x; k < sdf3d::N_UNIFORMS + kP; k += kNT)
     inputs[k] = k < sdf3d::N_UNIFORMS ? __ldg(uni + k) : __ldg(prm + (k - sdf3d::N_UNIFORMS));
   __syncthreads();
@@ -432,28 +448,33 @@ sdf3d_fit_step_kernel(const float* __restrict__ uni, const float* __restrict__ p
   }
   float v[kLive];
   row_values(acc, v);
-  const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  // The partial rows: K3's views each a run of padded_rows(gx·gy) rows, K4's
+  // tiles one run.
+  const int plane = gridDim.x * gridDim.y, in_plane = blockIdx.y * gridDim.x + blockIdx.x;
+  const int block = views ? blockIdx.z * sdf3d::padded_rows(plane) + in_plane : blockIdx.z * plane + in_plane;
   sdf3d::block_sum_store<kLive, kNT>(v, partials + block,
-                                     sdf3d::padded_rows(gridDim.x * gridDim.y * gridDim.z));
+                                     views ? gridDim.z * sdf3d::padded_rows(plane)
+                                           : sdf3d::padded_rows(plane * gridDim.z));
 }
 
-// tr, tg, tb: the target planes; tc: the coverage target plane (read with
-// Fit::silhouette alone, else may be null), sil_w and sil_beta the
-// silhouette term's weight and softness.  partials: the n_blocks partial
-// rows by column, (kLive, padded_rows(n_blocks)) float32, n_blocks =
-// ceil(W/block_w) * ceil(H/block_h); totals: (kTotals,) float64 (P + 31;
-// the loss alone for the loss-only variants).  Launches the fit kernel and
-// its total on `stream`, allocates nothing, returns cudaGetLastError().
+// V views: uni (V, 30); tr, tg, tb: the target planes (V, H, W) each; tc:
+// the coverage target planes (V, H, W) (read with Fit::silhouette alone,
+// else may be null), sil_w and sil_beta the silhouette term's weight and
+// softness.  partials: each view's n_blocks partial rows by column, (kLive,
+// V · padded_rows(n_blocks)) float32, n_blocks = ceil(W/block_w) ·
+// ceil(H/block_h); totals: (V, kTotals) float64 (P + 31; the loss alone for
+// the loss-only variants), each view's own.  Launches the fit kernel and its
+// total on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int sdf3d_fit_step(const float* uni, const float* prm, const float* tr, const float* tg,
                               const float* tb, const float* tc, float sil_w, float sil_beta, float* partials,
-                              double* totals, int H, int W, void* stream) {
-  if (H <= 0 || W <= 0) return 0;
+                              double* totals, int H, int W, int V, void* stream) {
+  if (H <= 0 || W <= 0 || V <= 0) return 0;
   const dim3 block(Cfg::block_w, Cfg::block_h);
-  const dim3 grid((W + Cfg::block_w - 1) / Cfg::block_w, (H + Cfg::block_h - 1) / Cfg::block_h);
+  const dim3 grid((W + Cfg::block_w - 1) / Cfg::block_w, (H + Cfg::block_h - 1) / Cfg::block_h, V);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   sdf3d_fit_step_kernel<<<grid, block, 0, s>>>(uni, prm, nullptr, nullptr, tr, tg, tb, tc, sil_w, sil_beta, partials,
                                                H, W);
-  return sdf3d::launch_column_total<kLive, FitColumns>(partials, grid.x * grid.y, totals, s);
+  return sdf3d::launch_column_total<kLive, FitColumns>(partials, grid.x * grid.y, totals, s, V);
 }
 
 // K4 over T tiles (int32 origin tables) of an H x W image; target planes
@@ -484,9 +505,11 @@ namespace {
 // threads one after another through fit_forward, then the pyramid's levels
 // (every thread's group at a level before the next level), then
 // fit_reverse; each block's partial row in the card's order
-// (block_sum_host), then fixed_order_total.
+// (block_sum_host), then fixed_order_total (of each view alone for K3,
+// whose z is the view).
 void run_grid(const float* uni, const float* prm, const int* trow, const int* tcol, const Targets& tgt, int gx,
               int gy, int gz, int H, int W, float* partials, double* totals) {
+  const bool views = trow == nullptr;
   struct Sums {
     float a[kAcc];
   };
@@ -498,13 +521,14 @@ void run_grid(const float* uni, const float* prm, const int* trow, const int* tc
   for (int z = 0; z < gz; ++z)
     for (int by = 0; by < gy; ++by)
       for (int bx = 0; bx < gx; ++bx) {
+        const float* u = views ? uni + static_cast<size_t>(z) * sdf3d::N_UNIFORMS : uni;
         for (int t = 0; t < kNT; ++t) {
           float* a = acc[t].a;
           for (int k = 0; k < kAcc; ++k) a[k] = 0.0f;
           size_t i;
           float rows, cols;
-          live[t] = block_pixel(uni, trow, tcol, bx, by, z, t % Cfg::block_w, t / Cfg::block_w, H, W, i, rows, cols);
-          if (live[t]) fit_forward(uni, prm, tgt, i, rows, cols, H, W, st[t], a);
+          live[t] = block_pixel(u, trow, tcol, bx, by, z, t % Cfg::block_w, t / Cfg::block_w, H, W, i, rows, cols);
+          if (live[t]) fit_forward(u, prm, tgt, i, rows, cols, H, W, st[t], a);
           if constexpr (kLevels > 0) pyramid_store(py, t, live[t], st[t]);
         }
         for (int l = 1; l <= kLevels; ++l)
@@ -512,26 +536,32 @@ void run_grid(const float* uni, const float* prm, const int* trow, const int* tc
         for (int t = 0; t < kNT; ++t) {
           if (live[t]) {
             if constexpr (kLevels > 0) pyramid_cotangent(py, t % Cfg::block_w, t / Cfg::block_w, st[t]);
-            fit_reverse(uni, prm, st[t], acc[t].a);
+            fit_reverse(u, prm, st[t], acc[t].a);
           }
           row_values(acc[t].a, v[t]);
         }
         const size_t block = (static_cast<size_t>(z) * gy + by) * gx + bx;
         sdf3d::block_sum_host<kLive, kNT>(v, partials + block * kLive);
       }
-  sdf3d::column_total_host<kLive, FitColumns>(partials, gx * gy * gz, totals);
+  if (views) {
+    for (int z = 0; z < gz; ++z)
+      sdf3d::column_total_host<kLive, FitColumns>(partials + static_cast<size_t>(z) * gx * gy * kLive, gx * gy,
+                                                  totals + static_cast<size_t>(z) * kTotals);
+  } else {
+    sdf3d::column_total_host<kLive, FitColumns>(partials, gx * gy * gz, totals);
+  }
 }
 }  // namespace
 
-// partials: the n_blocks partial rows row by row, (n_blocks, kLive) (the
-// card stores them by column); the other arguments and totals as
-// sdf3d_fit_step.
+// partials: each view's n_blocks partial rows row by row, (V · n_blocks,
+// kLive) (the card stores them by column); the other arguments and totals
+// as sdf3d_fit_step.
 extern "C" int sdf3d_fit_step_host(const float* uni, const float* prm, const float* tr, const float* tg,
                                    const float* tb, const float* tc, float sil_w, float sil_beta, float* partials,
-                                   double* totals, int H, int W) {
-  if (H <= 0 || W <= 0) return 0;
+                                   double* totals, int H, int W, int V) {
+  if (H <= 0 || W <= 0 || V <= 0) return 0;
   run_grid(uni, prm, nullptr, nullptr, Targets{tr, tg, tb, tc, sil_w, sil_beta}, (W + Cfg::block_w - 1) / Cfg::block_w,
-           (H + Cfg::block_h - 1) / Cfg::block_h, 1, H, W, partials, totals);
+           (H + Cfg::block_h - 1) / Cfg::block_h, V, H, W, partials, totals);
   return 0;
 }
 
@@ -570,7 +600,7 @@ extern "C" int sdf3d_fit_retrace_host(const float* uni, const float* prm, const 
           PixelState st;
           const sdf3d::Primal pr = primal(uni, prm, rows, cols, H, W, st);
           float res[3];
-          b[kAcc - 1] += residual(sdf3d::shade<Cfg>(uni, pr), tr, tg, tb, i, res);
+          b[kAcc - 1] += residual(sdf3d::shade<Cfg, kMat>(uni, pr), tr, tg, tb, i, res);
           sdf3d::shade_vjp_planes<Cfg, Scene, kGradU, kV != NOPOW>(uni, prm, rows, cols, H, W, pr.t, pr.shadow,
                                                                    pr.ao, 2.0f * res[0], 2.0f * res[1],
                                                                    2.0f * res[2], b, kGradU ? b + kP : nullptr);

@@ -101,6 +101,22 @@ constexpr int reverse_blocks(int base, int values, int node_values, int half_abo
        : values > kHugeReverseValues ? 1 : (values > half_above ? (base + 1) / 2 : base);
 }
 
+// Whether the generated Scene has per-object materials (Shaded tags): it
+// then defines has_materials, material() and material_bwd() (the material
+// program, ops/scene_program.py::_material_source), and the shading reads
+// its 10 channels (ambient rgb, diffuse rgb, specular rgb, shininess) at the
+// hit point instead of the uniform material u[U_MAT_AMB .. U_SHN] (JAX's
+// mat_soa branch).  A scene without tags has no such members.
+template <class S, class = void>
+struct HasMaterials {
+  static constexpr bool value = false;
+};
+template <class S>
+struct HasMaterials<S, decltype(void(S::has_materials))> {
+  static constexpr bool value = S::has_materials;
+};
+constexpr int N_MAT = 10;
+
 // The scene's point form as a distance functor f(x, y, z).
 template <class Scene>
 struct ScenePoint {
@@ -241,7 +257,20 @@ struct Primal {
   Unit3 n;                // the normal taps' sums (x, y, z) and the unit normal
   Unit3 li, w, hw;        // unit light, view and half vectors
   float ndoti, ndoth_arg, ndoth, spec;
+  float mch[N_MAT];       // the material program's channels at h (MAT scenes alone)
 };
+
+// The material channels a pixel shades with: the Primal's (MAT: the scene's
+// material program at the hit) or the uniform material, slots 17..26 in the
+// channels' order.
+template <bool MAT>
+SDF3D_HD const float* channels(const float* u, const Primal& pr) {
+  if constexpr (MAT) {
+    return pr.mch;
+  } else {
+    return u + U_MAT_AMB;
+  }
+}
 
 // Ray direction of the pixel at absolute (rows, cols) (NDC over the logical
 // extent, Cfg::ndc_h x ndc_w, else H x W): d = unit(M cv), cv = unit(qx*ar,
@@ -328,8 +357,9 @@ SDF3D_HD float spec_pow(float x, float s) {
 }
 
 // The shading's vectors (after primal_surface): the view vector to the
-// camera, the half vector, N.H and the specular term (POW: spec_pow).
-template <class Cfg, bool POW = true>
+// camera, the half vector, N.H and the specular term (POW: spec_pow; MAT: the
+// shininess of the channels in pr.mch).
+template <class Cfg, bool POW = true, bool MAT = false>
 SDF3D_HD void primal_shading(const float* u, float shadow, float ao, Primal& pr) {
   pr.shadow = shadow;
   pr.ao = ao;
@@ -337,22 +367,31 @@ SDF3D_HD void primal_shading(const float* u, float shadow, float ao, Primal& pr)
   pr.hw = unit3(pr.li.ux + pr.w.ux, pr.li.uy + pr.w.uy, pr.li.uz + pr.w.uz, true);
   pr.ndoth_arg = ((pr.n.ux * pr.hw.ux) + (pr.n.uy * pr.hw.uy)) + (pr.n.uz * pr.hw.uz);
   pr.ndoth = fmaxf(pr.ndoth_arg, 0.0f);
-  pr.spec = Cfg::blinn_phong ? spec_pow<POW>(pr.ndoth, u[U_SHN]) : 0.0f;
+  pr.spec = Cfg::blinn_phong ? spec_pow<POW>(pr.ndoth, channels<MAT>(u, pr)[9]) : 0.0f;
+}
+
+// The material program's channels at the hit (after primal_surface), for a
+// scene with Shaded tags; nothing for one without.
+template <class Scene>
+SDF3D_HD void primal_material(const float* u, const float* p, Primal& pr) {
+  if constexpr (HasMaterials<Scene>::value) Scene::material(pr.hx, pr.hy, pr.hz, p, u, pr.mch);
 }
 
 // Blinn-Phong / Lambert shading of a pixel's primal, with the shadow and AO
-// factors, and the background composite of misses (t > max_distance).
-template <class Cfg>
+// factors, and the background composite of misses (t > max_distance).  MAT:
+// the material program's channels (channels<MAT>).
+template <class Cfg, bool MAT = false>
 SDF3D_HD Pixel shade(const float* u, const Primal& pr) {
+  const float* mc = channels<MAT>(u, pr);
   const float dif = fminf(fmaxf(pr.ndoti, 0.0f), 1.0f) * pr.shadow;
   const float amb = Cfg::ao_enabled ? u[U_AMB] * pr.ao : u[U_AMB];
-  float r = (amb * u[U_MAT_AMB]) + (dif * u[U_MAT_DIF]);
-  float g = (amb * u[U_MAT_AMB + 1]) + (dif * u[U_MAT_DIF + 1]);
-  float b = (amb * u[U_MAT_AMB + 2]) + (dif * u[U_MAT_DIF + 2]);
+  float r = (amb * mc[0]) + (dif * mc[3]);
+  float g = (amb * mc[1]) + (dif * mc[4]);
+  float b = (amb * mc[2]) + (dif * mc[5]);
   if constexpr (Cfg::blinn_phong) {
-    r = r + (pr.spec * u[U_MAT_REF]);
-    g = g + (pr.spec * u[U_MAT_REF + 1]);
-    b = b + (pr.spec * u[U_MAT_REF + 2]);
+    r = r + (pr.spec * mc[6]);
+    g = g + (pr.spec * mc[7]);
+    b = b + (pr.spec * mc[8]);
   }
   if constexpr (Cfg::background) {
     if (pr.t > Cfg::max_distance) {
@@ -386,7 +425,8 @@ SDF3D_HD Primal make_primal(const float* u, const float* p, float rows, float co
   Primal pr;
   primal_ray<Cfg>(u, rows, cols, H, W, pr);
   primal_surface<Cfg, Scene>(u, p, t, pr);
-  primal_shading<Cfg, POW>(u, shadow, ao, pr);
+  primal_material<Scene>(u, p, pr);
+  primal_shading<Cfg, POW, HasMaterials<Scene>::value>(u, shadow, ao, pr);
   return pr;
 }
 
@@ -434,14 +474,15 @@ SDF3D_HD Primal trace_pixel(const float* u, const float* p, float rows, float co
   // ---- ambient occlusion ----
   float ao = 1.0f;
   if constexpr (Cfg::ao_enabled) ao = Scene::ao(pr.hx, pr.hy, pr.hz, pr.n.ux, pr.n.uy, pr.n.uz, p);
-  primal_shading<Cfg, POW>(u, shadow, ao, pr);
+  primal_material<Scene>(u, p, pr);
+  primal_shading<Cfg, POW, HasMaterials<Scene>::value>(u, shadow, ao, pr);
   return pr;
 }
 
 // One pixel at absolute (rows, cols) of an H x W image (POW: spec_pow).
 template <class Cfg, class Scene, bool POW = true>
 SDF3D_HD Pixel render_pixel(const float* u, const float* p, float rows, float cols, int H, int W) {
-  return shade<Cfg>(u, trace_pixel<Cfg, Scene, POW>(u, p, rows, cols, H, W));
+  return shade<Cfg, HasMaterials<Scene>::value>(u, trace_pixel<Cfg, Scene, POW>(u, p, rows, cols, H, W));
 }
 
 }  // namespace sdf3d

@@ -18,6 +18,15 @@
 // A miss is still shaded and carries adjoint through its normals and light
 // terms, unless Cfg::background composites it out.
 //
+// A scene with Shaded tags (HasMaterials) shades with the material program's
+// channels at the hit point (JAX's mat_soa branch): their adjoints (the
+// shininess's g_spec·log(N.H)·spec among them) go through the program's
+// reverse, Scene::material_bwd, into the Shaded parameters' slots of dP and,
+// with WRT_U, into the uniform material's slots of dU for untagged
+// subtrees; its adjoint with respect to the hit point (the smooth blends'
+// weights depend on it) joins the hit point's, and so reaches t's
+// implicit-function term, as JAX's AD through (hx, hy, hz) does.
+//
 // K3 hands shade_vjp the Primal its own forward built (trace_pixel), so it
 // traces the primal once.  K5 has only the forward's (t, shadow, ao) planes:
 // shade_vjp_planes rebuilds the Primal from them with make_primal, the same
@@ -66,7 +75,9 @@ struct RayAdjoint {
 // the adjoints of the pixel's ray, which ray_vjp carries into the camera's
 // entries.  Returns false, and sets nothing, for a miss that Cfg::background
 // composites out.  POW false differentiates the power chain of
-// spec_pow<false> (no adjoint for the shininess).
+// spec_pow<false> (no adjoint for the shininess, neither the uniform's nor a
+// Shaded node's: the fit kernel's benchmark variant nopow, K9, which is on
+// no fit's path).
 template <class Cfg, class Scene, bool WRT_U, bool POW = true>
 SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr, float gr, float gg, float gb,
                                 float* dP, float* dU, RayAdjoint& ray) {
@@ -74,6 +85,8 @@ SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr
   if constexpr (Cfg::background) {
     if (t0 > Cfg::max_distance) return false;  // where(miss, bg, .) passes no adjoint
   }
+  constexpr bool MAT = HasMaterials<Scene>::value;
+  const float* mc = channels<MAT>(u, pr);
   const Unit3 &d = pr.d, &n = pr.n, &li = pr.li, &w = pr.w, &hw = pr.hw;
   const float dx = d.ux, dy = d.uy, dz = d.uz;
   const float hx = pr.hx, hy = pr.hy, hz = pr.hz;
@@ -89,12 +102,14 @@ SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr
   const float dif = fminf(fmaxf(ndoti, 0.0f), 1.0f) * shadow;
 
   // ---- reverse: channels -> ambient, diffuse, specular ----
-  const float g_amb = ((gr * u[U_MAT_AMB]) + (gg * u[U_MAT_AMB + 1])) + (gb * u[U_MAT_AMB + 2]);
-  const float g_dif = ((gr * u[U_MAT_DIF]) + (gg * u[U_MAT_DIF + 1])) + (gb * u[U_MAT_DIF + 2]);
+  const float g_amb = ((gr * mc[0]) + (gg * mc[1])) + (gb * mc[2]);
+  const float g_dif = ((gr * mc[3]) + (gg * mc[4])) + (gb * mc[5]);
   float g_ndoth = 0.0f;
+  // The material channels' adjoints (MAT), in the channels' order.
+  [[maybe_unused]] float gch[N_MAT] = {};
   if constexpr (Cfg::blinn_phong) {
-    const float shn = u[U_SHN], ndoth = pr.ndoth, spec = pr.spec;
-    const float g_spec = ((gr * u[U_MAT_REF]) + (gg * u[U_MAT_REF + 1])) + (gb * u[U_MAT_REF + 2]);
+    const float shn = mc[9], ndoth = pr.ndoth, spec = pr.spec;
+    const float g_spec = ((gr * mc[6]) + (gg * mc[7])) + (gb * mc[8]);
     if constexpr (POW) {
       g_ndoth = shn == 0.0f ? 0.0f : g_spec * (shn * powf(ndoth, shn - 1.0f));
     } else {
@@ -103,7 +118,12 @@ SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr
       const float g_x3 = 4.0f * ((g_spec * x6) * x3);
       g_ndoth = (g_x3 * x2) + (2.0f * ((g_x3 * ndoth) * ndoth));
     }
-    if constexpr (WRT_U) {
+    if constexpr (MAT) {
+      gch[6] = gr * spec;
+      gch[7] = gg * spec;
+      gch[8] = gb * spec;
+      if constexpr (POW) gch[9] = ndoth == 0.0f ? 0.0f : g_spec * (logf(ndoth) * spec);
+    } else if constexpr (WRT_U) {
       dU[U_MAT_REF] += gr * spec;
       dU[U_MAT_REF + 1] += gg * spec;
       dU[U_MAT_REF + 2] += gb * spec;
@@ -111,7 +131,16 @@ SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr
       if constexpr (POW) dU[U_SHN] += ndoth == 0.0f ? 0.0f : g_spec * (logf(ndoth) * spec);
     }
   }
-  if constexpr (WRT_U) {
+  if constexpr (MAT) {
+    const float amb = Cfg::ao_enabled ? u[U_AMB] * pr.ao : u[U_AMB];
+    gch[0] = gr * amb;
+    gch[1] = gg * amb;
+    gch[2] = gb * amb;
+    gch[3] = gr * dif;
+    gch[4] = gg * dif;
+    gch[5] = gb * dif;
+    if constexpr (WRT_U) dU[U_AMB] += Cfg::ao_enabled ? g_amb * pr.ao : g_amb;
+  } else if constexpr (WRT_U) {
     const float amb = Cfg::ao_enabled ? u[U_AMB] * pr.ao : u[U_AMB];
     dU[U_MAT_AMB] += gr * amb;
     dU[U_MAT_AMB + 1] += gg * amb;
@@ -137,6 +166,13 @@ SDF3D_HD bool shade_vjp_surface(const float* u, const float* p, const Primal& pr
   unit3_bwd(w, true, ghwx, ghwy, ghwz, gwx, gwy, gwz);
   float gox = gwx, goy = gwy, goz = gwz;     // w = o - h
   float ghx = -gwx, ghy = -gwy, ghz = -gwz;  // adjoint of the hit point
+  if constexpr (MAT) {
+    // The default channels' adjoints: dU's uniform material with WRT_U.
+    float dd[N_MAT] = {};
+    float gmx = 0.0f, gmy = 0.0f, gmz = 0.0f;
+    Scene::material_bwd(hx, hy, hz, p, u, gch, dP, WRT_U ? dU + U_MAT_AMB : dd, gmx, gmy, gmz);
+    ghx += gmx; ghy += gmy; ghz += gmz;
+  }
   if constexpr (Cfg::ao_enabled) {
     Scene::ao_bwd(hx, hy, hz, n.ux, n.uy, n.uz, p, g_amb * u[U_AMB], dP, ghx, ghy, ghz, gnx, gny, gnz);
   }

@@ -37,6 +37,16 @@ gradient re-attaches at its argmin).  The silhouette's weight and softness
 are launch arguments; the plain version pools with :func:`pyramid_loss` and
 takes the coverage term's envelope gradient by autograd.
 
+The multi-view fit step (JAX's ``multiview=True``, the hot path of
+``fit_scene_multiview``) is the same K3 over V views in one launch: given
+a (V, 30) ``uni`` and a (V, 3, H, W) target, :func:`fit_step_kernel`
+launches a grid whose third axis is the view (V a launch argument, so the
+libraries of one view serve it), each view's float64 totals summed in K3's
+order for that view alone; the loss and the scene gradient are then summed
+over the views in view order, the uniforms' gradient stays per view
+(:func:`multiview_loss_and_grads`).  Its plain version is the single view's
+in a loop over the views (:func:`fit_step_views_plain`).
+
 K9, the benchmark variants of the fit step (the port of
 ``benchmarks/exp_ad.py::make_variant``), is the same kernel function compiled
 with another ``Fit::variant`` (:data:`VARIANTS`, :func:`fit_step_variant`,
@@ -191,6 +201,35 @@ def _fit_step_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots
     return loss.detach(), g_prm, g_uni
 
 
+def fit_step_views_plain(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target: torch.Tensor,
+                         cfg: RenderConfig, kc: KernelConfig = KernelConfig(), wrt_uniforms: bool = True,
+                         frozen_slots: tuple = (), *, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
+                         sil_beta=None, target_coverage=None):
+    """Plain PyTorch version of the multi-view fit step: each view's
+    ``(loss, g_prm, g_uni)`` (:func:`fit_step_kernel_plain` on its uniforms
+    ``uni[v]``, target ``target[v]`` and coverage ``target_coverage[v]``),
+    as float64 tensors of shapes (V,), (V, P) and (V, 30): the kernel's
+    per-view totals."""
+    views = []
+    for v in range(uni.shape[0]):
+        cov = target_coverage[v] if sil_w > 0.0 and target_coverage is not None else None
+        views.append(fit_step_kernel_plain(scene, prm, uni[v], target[v], cfg, kc, wrt_uniforms, frozen_slots,
+                                           loss_kind=loss_kind, levels=levels, sil_w=sil_w, sil_beta=sil_beta,
+                                           target_coverage=cov))
+    return tuple(torch.stack([x[k].to(torch.float64) for x in views]) for k in range(3))
+
+
+def sum_views(loss: torch.Tensor, g_prm: torch.Tensor, g_uni: torch.Tensor, sum_dtype=torch.float32):
+    """``(loss, g_prm (P,), g_uni (V, 30))`` in ``sum_dtype`` from per-view
+    float64 values (V,), (V, P), (V, 30): the loss and the scene gradient
+    summed over the views in view order, in float64 (JAX's ``per_view``
+    reduction); the uniforms' gradient stays per view."""
+    total_loss, total_prm = loss[0], g_prm[0]
+    for v in range(1, loss.shape[0]):
+        total_loss, total_prm = total_loss + loss[v], total_prm + g_prm[v]
+    return total_loss.to(sum_dtype), total_prm.to(sum_dtype), g_uni.to(sum_dtype)
+
+
 def _levels(loss_kind: str, levels: int) -> int:
     """The pyramid's depth of a loss: ``levels`` for the multiscale loss, 0
     for the plain L2."""
@@ -257,16 +296,23 @@ def fit_columns(lib) -> tuple:
     return cols
 
 
-def _fit_buffers(lib, n_blocks: int, dev: torch.device):
+def _fit_buffers(lib, n_blocks: int, dev: torch.device, views: int = 0):
     """``(partials, rows, totals, stream)`` of a launch on ``dev``'s current
     stream: the partial rows as the kernel stores them, by column
     (``(live, n_blocks)`` padded to a multiple of 4 rows, float32), the
     same rows as an ``(n_blocks, live)`` view, and the totals
-    (``(columns,)`` float64; :func:`fit_columns`)."""
+    (``(columns,)`` float64; :func:`fit_columns`).  ``views > 0``: a
+    multi-view launch, each view's rows padded and its totals a row:
+    ``(views, n_blocks, live)`` rows, ``(views, columns)`` totals."""
     cols, live = fit_columns(lib)
-    partials = torch.empty((live, -(-n_blocks // 4) * 4), dtype=torch.float32, device=dev)
+    ld = -(-n_blocks // 4) * 4
+    partials = torch.empty((live, max(views, 1) * ld), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if views:
+        totals = torch.empty((views, cols), dtype=torch.float64, device=dev)
+        return partials, partials.view(live, views, ld)[:, :, :n_blocks].permute(1, 2, 0), totals, stream
     totals = torch.empty((cols,), dtype=torch.float64, device=dev)
-    return partials, partials[:, :n_blocks].t(), totals, torch.cuda.current_stream(dev).cuda_stream
+    return partials, partials[:, :n_blocks].t(), totals, stream
 
 
 def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, variant="full", levels=0,
@@ -280,20 +326,35 @@ def fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, v
     returns the totals (the caller makes ``prm``'s card the current
     device).  ``levels``: the pyramid's depth (0: none); ``coverage``: the
     coverage target (H, W) of the silhouette term, weight ``sil_w`` and
-    softness ``sil_beta`` (launch arguments; ``None``: no term).  Raises
-    for inputs it does not take and on any launch error; never falls
-    back."""
+    softness ``sil_beta`` (launch arguments; ``None``: no term).  A (V, 30)
+    ``uni`` launches the V views at once (K3's view axis): ``target`` (V,
+    3, H, W) (stored as (3, V, H, W): a transposed view of such a tensor
+    is read in place, anything else copied once), ``coverage`` (V, H, W),
+    partial rows ``(V, n_blocks, live)`` and totals ``(V, P + 31)``, each
+    view's own.  Raises for inputs it does not take and on any launch
+    error; never falls back."""
     silhouette = coverage is not None
-    lib = kernel_library(scene, prm, uni, cfg, kc, wrt_uniforms, frozen_slots, variant, levels, silhouette)
+    views = int(uni.shape[0]) if uni.dim() == 2 else 0
     dev = prm.device
+    if views:
+        check_plane("uni", uni, (views, N_UNIFORMS), dev)
+    lib = kernel_library(scene, prm, uni[0] if views else uni, cfg, kc, wrt_uniforms, frozen_slots, variant,
+                         levels, silhouette)
     H, W = cfg.height, cfg.width
-    check_plane("target", target, (3, H, W), dev)
+    lead = (views,) if views else ()
+    if views:
+        if tuple(target.shape) != (views, 3, H, W):
+            raise ValueError(f"target must be of shape {(views, 3, H, W)} for {views} views; got {tuple(target.shape)}")
+        target = target.transpose(0, 1).contiguous()
+        check_plane("target", target, (3, views, H, W), dev)
+    else:
+        check_plane("target", target, (3, H, W), dev)
     if silhouette:
-        check_plane("target_coverage", coverage, (H, W), dev)
-    partials, rows, totals, stream = _fit_buffers(lib, -(-W // kc.block_w) * -(-H // kc.block_h), dev)
+        check_plane("target_coverage", coverage, lead + (H, W), dev)
+    partials, rows, totals, stream = _fit_buffers(lib, -(-W // kc.block_w) * -(-H // kc.block_h), dev, views)
     args = (uni.data_ptr(), prm.data_ptr(), target[0].data_ptr(), target[1].data_ptr(), target[2].data_ptr(),
             coverage.data_ptr() if silhouette else None, ctypes.c_float(sil_w), ctypes.c_float(sil_beta),
-            partials.data_ptr(), totals.data_ptr(), H, W, stream)
+            partials.data_ptr(), totals.data_ptr(), H, W, max(views, 1), stream)
 
     def launch():
         err = lib.sdf3d_fit_step(*args)
@@ -323,15 +384,19 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
                            frozen_slots: tuple = (), sum_dtype=torch.float32, *, loss_kind: str = "l2",
                            levels: int = 3, sil_w: float = 0.0, sil_beta=None, target_coverage=None):
     """Launch the CUDA fit step on ``prm``'s card and return ``(loss,
-    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_split_totals`); the loss
-    options as :func:`fit_step_kernel`.  Raises for inputs it does not take
-    and on any launch error; never falls back."""
+    g_prm, g_uni)`` in ``sum_dtype`` (:func:`_split_totals`; for V views
+    :func:`sum_views` of the per-view totals); the loss options as
+    :func:`fit_step_kernel`.  Raises for inputs it does not take and on any
+    launch error; never falls back."""
     _check_loss(loss_kind, sil_w, target_coverage)
     frozen_slots = tuple(sorted(set(frozen_slots)))
     totals = _launch_totals(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots,
                             **_launch_loss(cfg, loss_kind, levels, sil_w, sil_beta, target_coverage))
     fit_step_kernel.launches += 1
-    return _split_totals(totals, count_params(scene), sum_dtype)
+    P = count_params(scene)
+    if uni.dim() == 2:
+        return sum_views(totals[:, -1], totals[:, :P], totals[:, P:P + N_UNIFORMS], sum_dtype)
+    return _split_totals(totals, P, sum_dtype)
 
 
 def _check_fused(scene: SDFNode, cfg: RenderConfig, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
@@ -347,8 +412,7 @@ def _check_fused(scene: SDFNode, cfg: RenderConfig, loss_kind: str = "l2", level
         raise NotImplementedError(
             "the fused fit step takes detached-shadow gradients (shadow.grad == 'ad' needs a differentiable "
             "re-march, ROADMAP item 12) and central or tetrahedron normals, on scenes whose every node has an "
-            "emitter (ops/scene_program.py::check_scene names the first that has none); the view axis of a "
-            "multi-view fit is ROADMAP 12b and per-object materials 12c")
+            "emitter (ops/scene_program.py::check_scene names the first that has none)")
 
 
 def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:
@@ -361,9 +425,9 @@ def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:
         return uni
     uni = uni.clone()
     if row0 is not None:
-        uni[_U_ROW0] = float(row0)
+        uni[..., _U_ROW0] = float(row0)
     if rowstride is not None:
-        uni[_U_ROWSTRIDE] = float(rowstride)
+        uni[..., _U_ROWSTRIDE] = float(rowstride)
     return uni
 
 
@@ -383,13 +447,19 @@ def fit_step_kernel(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, target
     levels (``4**l · Σ`` over the groups whose pixels are all real),
     ``sil_w > 0`` the silhouette term ``sil_w · Σ (σ((2ε − min_s)/β) −
     target_coverage)²`` (``target_coverage`` (H, W), ``β = sil_beta`` or
-    ``epsilon/2.5``), both inside the one launch.  On the card it launches
-    the CUDA kernel; on the CPU it runs the kernel's plain PyTorch version.
-    ``fit_step_kernel.launches`` counts kernel launches."""
+    ``epsilon/2.5``), both inside the one launch.  A (V, 30) ``uni`` with a
+    (V, 3, H, W) target (and a (V, H, W) ``target_coverage``) is the
+    multi-view step, V views in one launch: ``g_uni`` is then (V, 30), the
+    loss and ``g_prm`` summed over the views (:func:`sum_views`).  On the
+    card it launches the CUDA kernel; on the CPU it runs the kernel's plain
+    PyTorch version.  ``fit_step_kernel.launches`` counts kernel launches."""
     _check_fused(scene, cfg, loss_kind, levels, sil_w, kc)
     uni = with_rows(uni, row0, rowstride)
     loss = dict(loss_kind=loss_kind, levels=levels, sil_w=sil_w, sil_beta=sil_beta, target_coverage=target_coverage)
     if prm.device.type == "cpu":
+        if uni.dim() == 2:
+            return sum_views(*fit_step_views_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots,
+                                                   **loss), sum_dtype)
         out = fit_step_kernel_plain(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots, **loss)
         return tuple(x.to(sum_dtype) for x in out)
     if prm.device.type == "cuda":
@@ -543,6 +613,59 @@ def l2_loss_and_grads_tiles(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode,
                                                levels=levels, sil_w=sil_w, sil_beta=sil_beta,
                                                coverage_tiles=_coverage(coverage_tiles, sil_w))
     return loss, _split_grads(scene, camera, light, mat, cfg, prm.device, g_prm, g_uni, wrt_uniforms)
+
+
+def _grad_sum(a, b):
+    """The field-by-field sum of two gradient objects of one class."""
+    return type(a)(*(getattr(a, f.name) + getattr(b, f.name) for f in dataclasses.fields(a)))
+
+
+def multiview_inputs(cfg: RenderConfig, cameras, light, mat, targets, device, target_coverages=None):
+    """The multi-view fit step's inputs for V cameras and their (H, W, 3)
+    ``targets`` (images or a stacked (V, H, W, 3) tensor), on ``device``:
+    ``(uni (V, 30), target (V, 3, H, W), coverage (V, H, W) or None)``.
+    ``target`` is the (V, 3, H, W) view of a contiguous (3, V, H, W)
+    tensor, the layout K3 reads in place; ``coverage`` stacks the V (H, W)
+    ``target_coverages`` where given."""
+    uni = torch.stack([_uniforms(cam, light, mat, cfg, device) for cam in cameras])
+    planar = torch.stack([torch.as_tensor(t).to(device, torch.float32).permute(2, 0, 1) for t in targets], 1)
+    cov = None
+    if target_coverages is not None:
+        cov = torch.stack([torch.as_tensor(c).to(device, torch.float32) for c in target_coverages]).contiguous()
+    return uni, planar.contiguous().transpose(0, 1), cov
+
+
+def multiview_loss_and_grads(cfg: RenderConfig, kc: KernelConfig, scene: SDFNode, cameras, light, mat, targets,
+                             wrt_uniforms: bool = False, frozen_slots: tuple = (), *, loss_kind: str = "l2",
+                             levels: int = 3, sil_w: float = 0.0, sil_beta=None, target_coverages=None):
+    """Fused multi-view ``(loss, (g_scene, g_cameras, g_light, g_mat))``:
+    one launch of K3 for all V views (JAX's ``multiview_loss_and_grads``).
+
+    ``cameras``: V cameras; ``targets``: V (H, W, 3) images or a stacked
+    (V, H, W, 3) tensor on the scene's device; ``target_coverages``: V
+    (H, W) masks of the silhouette term.  The loss and ``g_scene`` are
+    summed over the views; ``g_cameras`` lists each view's camera gradient,
+    ``g_light`` and ``g_mat`` are summed over the views (in view order), all
+    three ``None`` when ``wrt_uniforms`` is false.  The loss options as
+    :func:`fit_step_kernel`."""
+    V = len(cameras)
+    prm = scene_param_vector(scene)
+    uni, target, covs = multiview_inputs(cfg, cameras, light, mat, targets, prm.device,
+                                         target_coverages if sil_w > 0.0 else None)
+    loss, g_prm, g_uni = fit_step_kernel(scene, prm, uni, target, cfg, kc, wrt_uniforms, frozen_slots,
+                                         loss_kind=loss_kind, levels=levels, sil_w=sil_w, sil_beta=sil_beta,
+                                         target_coverage=covs)
+    g_scene = _split_grads(scene, None, None, None, cfg, prm.device, g_prm, None, False)[0]
+    if not wrt_uniforms:
+        return loss, (g_scene, None, None, None)
+    g_cams, g_light, g_mat = [], None, None
+    for v in range(V):
+        _, g_cam, g_light_v, g_mat_v = _split_grads(scene, cameras[v], light, mat, cfg, prm.device, g_prm, g_uni[v],
+                                                    True)
+        g_cams.append(g_cam)
+        g_light = g_light_v if g_light is None else _grad_sum(g_light, g_light_v)
+        g_mat = g_mat_v if g_mat is None else _grad_sum(g_mat, g_mat_v)
+    return loss, (g_scene, g_cams, g_light, g_mat)
 
 
 # ---------------------------------------------------------------------------

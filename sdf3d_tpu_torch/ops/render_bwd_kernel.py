@@ -29,15 +29,12 @@ from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_AMB,
     _U_LIGHT,
-    _U_MAT_AMB,
-    _U_MAT_DIF,
-    _U_MAT_REF,
-    _U_SHN,
     N_UNIFORMS,
     KernelConfig,
     check_plane,
     check_settings,
     kernel_library,
+    material_channels,
     ray_planes,
 )
 from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params
@@ -165,12 +162,16 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     ndoth = _floor(nx * hwx + ny * hwy + nz * hwz, 0.0)
     dif = _clip01(nx * ix + ny * iy + nz * iz) * shadow
     amb = u[_U_AMB] * ao if cfg.ao.enabled else u[_U_AMB]
-    spec = power(ndoth, u[_U_SHN])
+    # The material channels at the hit (JAX's mat_soa): the material
+    # program's for a scene with Shaded tags, differentiable in its
+    # parameters and the hit point, else the uniform material.
+    mch = material_channels(scene, lambda i: prm[i], u, hx, hy, hz)
+    spec = power(ndoth, mch[9])
     chans = []
     for c in range(3):
-        v = amb * u[_U_MAT_AMB + c] + dif * u[_U_MAT_DIF + c]
+        v = amb * mch[c] + dif * mch[3 + c]
         if cfg.shading == "blinn_phong":
-            v = v + spec * u[_U_MAT_REF + c]
+            v = v + spec * mch[6 + c]
         if cfg.background is not None:
             v = torch.where(t0 > mc.max_distance, float(cfg.background[c]), v)
         chans.append(v.expand(H, W))

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from sdf3d_tpu_torch.sdf import csg, primitives, transforms
+from sdf3d_tpu_torch.sdf.materials import Shaded, scene_has_materials
 from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
@@ -73,7 +74,8 @@ GetP = Callable[[int], object]
 
 def leaves(node: SDFNode):
     """Every numeric leaf of the scene, in ``tree_flatten`` order (fields in
-    declaration order, depth first; a tuple field's items in order; static
+    declaration order, depth first; a tuple field's items in order, a
+    dataclass field's (a ``Shaded`` node's material) fields in order; static
     fields are no leaves)."""
     for name in node.fields:
         v = getattr(node, name)
@@ -81,6 +83,8 @@ def leaves(node: SDFNode):
             yield from leaves(v)
         elif name in node.tuples:
             yield from v
+        elif dataclasses.is_dataclass(v):  # a Shaded node's Material
+            yield from (getattr(v, f.name) for f in dataclasses.fields(v))
         elif name not in node.static:
             yield v
 
@@ -227,6 +231,14 @@ class _TorchOps:
         return a > b
 
     @staticmethod
+    def less_equal(a, b):
+        return a <= b
+
+    @staticmethod
+    def greater_equal(a, b):
+        return a >= b
+
+    @staticmethod
     def where(c, a, b):
         # torch.where's adjoint is a select: a true 0 to the operand not taken.
         return torch.where(c, a, b)
@@ -364,6 +376,14 @@ class _COps:
     @staticmethod
     def greater(a, b):
         return CExpr(f"({_c(a)} > {_c(b)})")
+
+    @staticmethod
+    def less_equal(a, b):
+        return CExpr(f"({_c(a)} <= {_c(b)})")
+
+    @staticmethod
+    def greater_equal(a, b):
+        return CExpr(f"({_c(a)} >= {_c(b)})")
 
     @staticmethod
     def where(c, a, b):
@@ -573,6 +593,12 @@ def _repeat(n, px, py, pz, getp, off, m):
     return _emit(n.child, qx, qy, qz, getp, off, m)
 
 
+def _shaded(n, px, py, pz, getp, off, m):
+    # Distance-transparent: the child's parameters sit at off, the 10
+    # material channels after them, read by the material program alone.
+    return _emit(n.child, px, py, pz, getp, off, m)
+
+
 def _binary(op):
     def h(n, px, py, pz, getp, off, m):
         da = _emit(n.a, px, py, pz, getp, off, m)
@@ -620,6 +646,7 @@ def _subtraction_op(m, a, b):
 
 
 _HANDLERS = {
+    Shaded: _shaded,
     primitives.Sphere: _sphere,
     primitives.Plane: _plane,
     primitives.Box: _box,
@@ -657,7 +684,7 @@ def _no_emitter(node):
         f"no render-kernel emitter for scene node {type(node).__name__}; the port supports the primitives "
         "Sphere, Plane, Box, RoundBox, Torus, Capsule, Cylinder, Ellipsoid and Mandelbulb, the hard and smooth "
         "Union, Intersection and Subtraction, the transforms Translate, Rotate, Scale, Round, Onion, Elongate and "
-        "RepeatInfinite, and NeuralSDF so far: VoxelGrid is ROADMAP item 14 "
+        "RepeatInfinite, Shaded, and NeuralSDF so far: VoxelGrid is ROADMAP item 14 "
         "(sdf3d_tpu_torch/ops/scene_program.py)"
     )
 
@@ -806,6 +833,12 @@ class _Tape:
     def greater(self, a, b):
         return self.op(">", a, b)
 
+    def less_equal(self, a, b):
+        return self.op("<=", a, b)
+
+    def greater_equal(self, a, b):
+        return self.op(">=", a, b)
+
     def where(self, c, a, b):
         return self.op("select", c, a, b)
 
@@ -816,7 +849,8 @@ class _Tape:
 
 # Operations with no adjoint: rint's derivative is 0 (lax.round's), and a
 # comparison gives a boolean.  No adjoint flows through them.
-_NO_ADJOINT = ("rint", "<", ">")
+_NO_ADJOINT = ("rint", "<", ">", "<=", ">=")
+_COMPARISONS = ("<", ">", "<=", ">=")
 # C forms of the recorded operations (the forward values of the reverse pass).
 _C_CALLS = {"sqrt": "sqrtf", "abs": "fabsf", "sin": "sinf", "cos": "cosf", "rint": "rintf", "log": "logf"}
 
@@ -862,6 +896,21 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> tuple[str, int]:
     tape = _Tape()
     root = _emit(scene, tape.leaf("px"), tape.leaf("py"), tape.leaf("pz"),
                  lambda i: tape.leaf(f"p[{i}]"), 0, tape).i
+    return _tape_reverse(tape, [(root, "g")], with_params)
+
+
+def _tape_reverse(tape: _Tape, seeds: list, with_params: bool, ancestors_only: bool = False) -> tuple[str, int]:
+    """C statements for the reverse pass of the ``tape``'s straight-line
+    code from the adjoints of its outputs, ``seeds`` ((node index, C name of
+    its adjoint), ...): the position adjoints ``(dpx, dpy, dpz)``, ``dp[k]
+    +=`` the parameters' with ``with_params``, and ``dd[k] +=`` those of the
+    leaves ``u[17 + k]`` (the material program's default channels); and the
+    most forward values the pass keeps from one primitive.  One seed named
+    ``g`` starts its node's adjoint at ``g`` (the point form's pass, whose
+    text is as it was); several start at 0 and add theirs.
+    ``ancestors_only``: differentiate only the nodes some seed depends on
+    (the material program also computes distances that reach no output,
+    whose zero adjoint times an infinite value would be NaN)."""
     nodes = tape.nodes
     wanted = {"px", "py", "pz"}
 
@@ -871,13 +920,24 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> tuple[str, int]:
     def val(x):
         return f"v{x}" if is_var(x) else c_float(x)
 
-    # Nodes whose adjoint matters: those that depend on a wanted leaf.
+    # Nodes whose adjoint matters: those that depend on a wanted leaf (and,
+    # with ancestors_only, that a seed depends on).
     reach = []
     for op, *args in nodes:
         if op == "leaf":
-            reach.append(args[0] in wanted or (with_params and args[0].startswith("p[")))
+            reach.append(args[0] in wanted or args[0].startswith("u[") or (with_params and args[0].startswith("p[")))
         else:
             reach.append(op not in _NO_ADJOINT and any(is_var(x) and reach[x] for x in args))
+    if ancestors_only:
+        live = [False] * len(nodes)
+        for i, _ in seeds:
+            live[i] = True
+        for i in range(len(nodes) - 1, -1, -1):
+            if live[i] and nodes[i][0] != "leaf" and nodes[i][0] not in _NO_ADJOINT:
+                for x in nodes[i][1:]:
+                    if is_var(x):
+                        live[x] = True
+        reach = [r and lv for r, lv in zip(reach, live)]
 
     rev = []
     for i in range(len(nodes) - 1, -1, -1):
@@ -915,17 +975,22 @@ def _reverse_source(scene: SDFNode, with_params: bool) -> tuple[str, int]:
             expr = f"sdf3d::select({', '.join(val(x) for x in args)})"
         else:
             expr = f"({val(args[0])} {op} {val(args[1])})"
-            kind = "bool" if op in ("<", ">") else kind
+            kind = "bool" if op in _COMPARISONS else kind
         fwd.append(f"const {kind} v{i} = {expr};")
 
-    node_values = max((sum(1 for i in range(a, b) if i in needed and nodes[i][0] not in ("leaf", "<", ">"))
+    node_values = max((sum(1 for i in range(a, b) if i in needed and nodes[i][0] not in ("leaf",) + _COMPARISONS)
                        for a, b in tape.spans), default=0)
-    decl = [f"float a{i} = {'g' if i == root else '0.0f'};" for i in range(len(nodes)) if reach[i]]
+    single = len(seeds) == 1 and seeds[0][1] == "g"
+    decl = [f"float a{i} = {'g' if single and i == seeds[0][0] else '0.0f'};" for i in range(len(nodes)) if reach[i]]
+    if not single:
+        decl += [f"a{i} += {g};" for i, g in seeds if reach[i]]
     out = []
     for name, var in tape.named.items():
         a = f"a{var.i}" if reach[var.i] else "0.0f"
         if name in wanted:
             out.append(f"d{name} = {a};")
+        elif name.startswith("u[") and reach[var.i]:
+            out.append(f"dd[{int(name[2:-1]) - _U_MAT}] += {a};")
         elif with_params and reach[var.i]:
             out.append(f"dp[{name[2:-1]}] += {a};")
     return "\n".join("    " + s for s in fwd + decl + rev + out), node_values
@@ -1121,6 +1186,10 @@ def _ray_fallback(node, ox, oy, oz, dx, dy, dz, getp, off, m):
     return lambda t: _emit(node, ox + t * dx, oy + t * dy, oz + t * dz, hoisted, off, m)
 
 
+def _ray_shaded(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    return _ray_emit(n.child, ox, oy, oz, dx, dy, dz, getp, off, m)
+
+
 def _ray_binary(op):
     def h(n, ox, oy, oz, dx, dy, dz, getp, off, m):
         ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
@@ -1149,6 +1218,7 @@ def _ray_smooth(sign: float, neg_b: bool = False):
 
 
 _RAY_HANDLERS = {
+    Shaded: _ray_shaded,
     primitives.Sphere: _ray_sphere,
     primitives.Plane: _ray_plane,
     primitives.Box: _ray_box,
@@ -1189,6 +1259,129 @@ def compile_scene_ray(scene: SDFNode):
         return _ray_emit(scene, o[0], o[1], o[2], d[0], d[1], d[2], getp, 0, _TorchOps)
 
     return setup
+
+
+# ---------------------------------------------------------------------------
+# The material program (JAX's ``_emit_mat``): per-object material channels.
+# The same fold as ``sdf/materials.py``, in scene-program form: 10 channels
+# (ambient rgb, diffuse rgb, specular rgb, shininess) carried beside the
+# distance; hard CSG selects the winning side's channels (``<=`` for a union,
+# ``>=`` for an intersection), smooth CSG lerps them with the smooth-min's
+# ``h``, a subtraction keeps ``a``'s, transforms pass them through, and
+# untagged subtrees take the ``default`` channels (the render call's
+# material: uniforms 17..26).  The kernels evaluate it once a pixel at the
+# hit point; its reverse form comes from the same emitter on the tape.
+# ---------------------------------------------------------------------------
+
+#: The material channels, and the uniform slot of the first (the uniform
+#: material's ambient, diffuse, specular and shininess are slots 17..26).
+N_MAT_CHANNELS = 10
+_U_MAT = 17
+
+
+def _mat_select(m, cond, ca, cb):
+    return tuple(m.let(m.where(cond, a, b)) for a, b in zip(ca, cb))
+
+
+def _mat_lerp(m, h, ca, cb):
+    return tuple(m.let(b + (a - b) * h) for a, b in zip(ca, cb))
+
+
+def _emit_mat(node, px, py, pz, getp: GetP, off: int, default: tuple, m):
+    """``(distance, channels)`` of ``node`` at (px, py, pz): the material
+    program.  ``default``: the 10 channels of untagged subtrees."""
+    if not scene_has_materials(node):
+        return _emit(node, px, py, pz, getp, off, m), default
+    t = type(node)
+    if t is Shaded:
+        nc = count_params(node.child)
+        own = tuple(getp(off + nc + i) for i in range(N_MAT_CHANNELS))
+        return _emit_mat(node.child, px, py, pz, getp, off, own, m)
+    if t in (csg.Union, csg.Intersection):
+        da, ca = _emit_mat(node.a, px, py, pz, getp, off, default, m)
+        db, cb = _emit_mat(node.b, px, py, pz, getp, off + count_params(node.a), default, m)
+        da, db = _name_operand(node.a, da, m), _name_operand(node.b, db, m)
+        if t is csg.Union:
+            return m.minimum(da, db), _mat_select(m, m.less_equal(da, db), ca, cb)
+        return m.maximum(da, db), _mat_select(m, m.greater_equal(da, db), ca, cb)
+    if t is csg.Subtraction:
+        # The carve shows a's inside: b's material is never taken.
+        da, ca = _emit_mat(node.a, px, py, pz, getp, off, default, m)
+        db = _emit(node.b, px, py, pz, getp, off + count_params(node.a), m)
+        return m.maximum(da, -db), ca
+    if t in (csg.SmoothUnion, csg.SmoothIntersection, csg.SmoothSubtraction):
+        na, nb = count_params(node.a), count_params(node.b)
+        sign = 1.0 if t is csg.SmoothUnion else -1.0
+        da, ca = _emit_mat(node.a, px, py, pz, getp, off, default, m)
+        da = _name_operand(node.a, da, m)
+        if t is csg.SmoothSubtraction:
+            db, cb = -_name_operand(node.b, _emit(node.b, px, py, pz, getp, off + na, m), m), ca
+        else:
+            db, cb = _emit_mat(node.b, px, py, pz, getp, off + na, default, m)
+            db = _name_operand(node.b, db, m)
+        k = m.maximum(getp(off + na + nb), 1e-6)
+        h = m.let(m.clip(0.5 + 0.5 * sign * (db - da) / k, 0.0, 1.0))
+        return _smooth_mix(da, db, k, sign, m), _mat_lerp(m, h, ca, cb)
+    nc = count_params(node.child) if hasattr(node, "child") else 0
+    if t is transforms.Translate:
+        ox, oy, oz = (getp(off + nc + i) for i in range(3))
+        return _emit_mat(node.child, px - ox, py - oy, pz - oz, getp, off, default, m)
+    if t is transforms.Rotate:
+        r = tuple(m.let(v) for v in _rodrigues_scalars(*(getp(off + nc + i) for i in range(3)), m))
+        qx, qy, qz = (m.let(v) for v in _rotate_query(px, py, pz, r))
+        return _emit_mat(node.child, qx, qy, qz, getp, off, default, m)
+    if t is transforms.Scale:
+        sc = m.maximum(getp(off + nc), 1e-12)
+        d, ch = _emit_mat(node.child, px / sc, py / sc, pz / sc, getp, off, default, m)
+        return d * sc, ch
+    if t is transforms.Round:
+        d, ch = _emit_mat(node.child, px, py, pz, getp, off, default, m)
+        return d - getp(off + nc), ch
+    if t is transforms.Onion:
+        d, ch = _emit_mat(node.child, px, py, pz, getp, off, default, m)
+        return m.abs(d) - getp(off + nc), ch
+    if t is transforms.Elongate:
+        ax, ay, az = (getp(off + nc + i) for i in range(3))
+        return _emit_mat(node.child, px - m.clip(px, -ax, ax), py - m.clip(py, -ay, ay), pz - m.clip(pz, -az, az),
+                         getp, off, default, m)
+    if t is transforms.RepeatInfinite:
+        def fold(v, period):
+            on = m.greater(period, 0.0)
+            return m.where(on, v - period * m.round(v / m.where(on, period, 1.0)), v)
+
+        qx, qy, qz = (fold(v, getp(off + nc + i)) for i, v in enumerate((px, py, pz)))
+        return _emit_mat(node.child, qx, qy, qz, getp, off, default, m)
+    raise _no_emitter(node)
+
+
+def compile_scene_material(scene: SDFNode):
+    """``mat_fn(px, py, pz, getp, default) -> (distance, channels)`` over
+    tensors: the material program (JAX's ``compile_scene_material``),
+    ``default`` the 10 channels of untagged subtrees (the uniform material),
+    ``channels`` a 10-tuple of planes or scalars."""
+    check_scene(scene)
+
+    def mat_fn(px, py, pz, getp: GetP, default):
+        return _emit_mat(scene, px, py, pz, getp, 0, tuple(default), _TorchOps)
+
+    return mat_fn
+
+
+def _material_source(scene: SDFNode) -> tuple[str, str, int, int]:
+    """``(forward body, reverse body, kept values, most kept by one
+    primitive)`` of the generated ``Scene::material`` and
+    ``Scene::material_bwd``."""
+    P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
+    m = _COps(in_eval=True)
+    d, ch = _emit_mat(scene, CExpr("px"), CExpr("py"), CExpr("pz"), P, 0,
+                      tuple(CExpr(f"u[{_U_MAT + k}]") for k in range(N_MAT_CHANNELS)), m)
+    fwd = "\n".join("    " + x for x in m.lets + [f"ch[{k}] = {_c(c)};" for k, c in enumerate(ch)]
+                    + [f"return {_c(d)};"])
+    tape = _Tape()
+    _, tch = _emit_mat(scene, tape.leaf("px"), tape.leaf("py"), tape.leaf("pz"), lambda i: tape.leaf(f"p[{i}]"), 0,
+                       tuple(tape.leaf(f"u[{_U_MAT + k}]") for k in range(N_MAT_CHANNELS)), tape)
+    bwd, node_values = _tape_reverse(tape, [(c.i, f"g[{k}]") for k, c in enumerate(tch)], True, ancestors_only=True)
+    return fwd, bwd, bwd.count("const float v"), node_values
 
 
 # ---------------------------------------------------------------------------
@@ -1327,6 +1520,31 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
         raise ValueError(f"frozen_slots {frozen_slots} out of range for {n_params} parameters")
     frozen = " || ".join(f"k == {k}" for k in sorted(set(frozen_slots))) or "false"
     bwd, node_values = _reverse_source(scene, with_params=True)
+    bwd_values = bwd.count("const float v")
+    material = ""
+    if scene_has_materials(scene):
+        mat_fwd, mat_bwd, mat_values, mat_node_values = _material_source(scene)
+        # The two passes run one after the other: the larger sets the caps.
+        bwd_values = max(bwd_values, mat_values)
+        node_values = max(node_values, mat_node_values)
+        material = f"""
+  // The material program (Shaded tags): the 10 channels at (px, py, pz) into
+  // ch (ambient rgb, diffuse rgb, specular rgb, shininess), untagged subtrees
+  // taking the uniform material u[17..26]; returns the distance.  bwd_values
+  // above is the larger of sdf_bwd's and material_bwd's kept values.
+  static constexpr bool has_materials = true;
+  static SDF3D_HD float material(float px, float py, float pz, const float* p, const float* u, float* ch) {{
+{mat_fwd}
+  }}
+
+  // Its reverse with the channels' adjoints g[0..10): dp[k] += the
+  // parameters', dd[k] += the default channels' (uniform 17 + k), and
+  // (dpx, dpy, dpz) the position's.
+  static SDF3D_HD void material_bwd(float px, float py, float pz, const float* p, const float* u, const float* g,
+                                    float* dp, float* dd, float& dpx, float& dpy, float& dpz) {{
+{mat_bwd}
+  }}
+"""
     return f"""// Generated by sdf3d_tpu_torch/ops/scene_program.py::cuda_scene_source.
 // Scene: {describe(scene)}, {count_params(scene)} parameters.
 #pragma once
@@ -1338,7 +1556,7 @@ struct Scene {{
   static constexpr int n_params = {count_params(scene)};
   // Forward values sdf_bwd keeps for its adjoints (the register caps of the
   // fit step and the render backward read it).
-  static constexpr int bwd_values = {bwd.count("const float v")};
+  static constexpr int bwd_values = {bwd_values};
   // The most of them one primitive keeps (a Mandelbulb's iterations).
   static constexpr int bwd_node_values = {node_values};
 
@@ -1377,7 +1595,7 @@ struct Scene {{
     const float g = 1.0f;
 {_reverse_source(scene, with_params=False)[0]}
   }}
-{ao_bwd}}};
+{ao_bwd}{material}}};
 
 // Static settings of the fit kernel.
 struct Fit {{

@@ -22,6 +22,7 @@ from sdf3d_tpu_torch.camera import Camera, camera_rays
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.lighting import Material, PointLight
 from sdf3d_tpu_torch.march import ambient_occlusion, estimate_normals, hit_mask, soft_shadow, sphere_trace
+from sdf3d_tpu_torch.sdf.materials import material_at, scene_has_materials
 from sdf3d_tpu_torch.sdf.node import SDFNode, vnormalize
 from sdf3d_tpu_torch.shade import blinn_phong, lambert
 
@@ -45,6 +46,11 @@ def shade_pixels(
     sdf_fn = scene.distance
     p = origins + distances[..., None] * directions
     n = estimate_normals(sdf_fn, p, config.normals, config.march.epsilon)
+    # Per-object materials: the Shaded tags resolve each hit's material
+    # (sdf/materials.py), ``mat`` serving the untagged subtrees; a scene
+    # without tags skips the fold.
+    if scene_has_materials(scene):
+        mat = material_at(scene, p, mat)
     if shadow_override is not None:
         shadow = shadow_override
     elif config.shadow.enabled:

@@ -43,6 +43,28 @@ def flagship_scene() -> SDFNode:
     return union(ground_plane(), blob, ring)
 
 
+def materials_scene() -> SDFNode:
+    """The flagship's geometry with per-object materials (``Shaded``): a
+    gold blob, a red rounded box, a teal torus and a warm grey floor, the
+    blob and the box blended by the smooth union, so their seam shades with
+    a blended material.  61 parameters: the flagship's 21 and 10 material
+    channels for each of the four tags."""
+    from sdf3d_tpu_torch.lighting import material
+    from sdf3d_tpu_torch.sdf.materials import shaded
+
+    floor = shaded(ground_plane(),
+                   material(ambient=(0.12, 0.11, 0.10), diffuse=(0.45, 0.42, 0.38), specular=(0.1, 0.1, 0.1)))
+    blob = shaded(sphere(center=(-0.25, 0.4, 0.0), radius=0.22),
+                  material(ambient=(0.2, 0.15, 0.02), diffuse=(0.85, 0.65, 0.13), specular=(0.9, 0.8, 0.4),
+                           shininess=48.0))
+    cube = shaded(round_box(half_extents=(0.2, 0.2, 0.2), corner_radius=0.03, center=(0.25, 0.3, 0.0)),
+                  material(ambient=(0.2, 0.02, 0.02), diffuse=(0.8, 0.1, 0.1)))
+    ring = shaded(torus(major=0.45, minor=0.06, center=(0.0, 0.12, 0.35)),
+                  material(ambient=(0.02, 0.15, 0.15), diffuse=(0.1, 0.7, 0.7), specular=(0.6, 0.6, 0.6),
+                           shininess=24.0))
+    return union(floor, smooth_union(blob, cube, k=0.15), ring)
+
+
 def sphere_scene() -> SDFNode:
     """Single sphere."""
     return sphere(center=(0.0, 0.4, 0.0), radius=0.2)

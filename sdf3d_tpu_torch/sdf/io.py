@@ -32,13 +32,14 @@ def registry() -> dict:
     from sdf3d_tpu_torch.config import AOConfig, MarchConfig, RenderConfig, ShadowConfig
     from sdf3d_tpu_torch.lighting import Material, PointLight
     from sdf3d_tpu_torch.sdf import csg, primitives, transforms
+    from sdf3d_tpu_torch.sdf.materials import Shaded
     from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 
     classes = (primitives.Sphere, primitives.Plane, primitives.Box, primitives.RoundBox, primitives.Torus,
                primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid, primitives.Mandelbulb,
                csg.Union, csg.Intersection, csg.Subtraction, csg.SmoothUnion, csg.SmoothIntersection,
                csg.SmoothSubtraction, transforms.Translate, transforms.Rotate, transforms.Scale, transforms.Round,
-               transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, NeuralSDF, Camera, PointLight,
+               transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, Shaded, NeuralSDF, Camera, PointLight,
                Material, RenderConfig, MarchConfig, ShadowConfig, AOConfig)
     return {cls.__name__: cls for cls in classes}
 

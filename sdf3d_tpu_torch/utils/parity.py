@@ -93,6 +93,22 @@ def flagship_fit_start(device=None):
     return union(ground_plane(), blob, torus(major=0.47, minor=0.065, center=(0.02, 0.12, 0.33))).to(device)
 
 
+def shaded_slots(scene) -> list:
+    """The parameter-vector slots of every ``Shaded`` node's 10 material
+    channels (its material's leaves: ambient, diffuse, specular,
+    shininess), in ``scene_param_vector`` order."""
+    from sdf3d_tpu_torch.ops.scene_program import leaves
+    from sdf3d_tpu_torch.sdf import Shaded
+
+    mats = {id(n.ambient) for n in scene.modules() if isinstance(n, Shaded)}
+    slots, off = [], 0
+    for leaf in leaves(scene):
+        if id(leaf) in mats:
+            slots.extend(range(off, off + 10))
+        off += int(leaf.numel())
+    return slots
+
+
 def csg_sampler(device=None):
     """Every node of the flagship's family in one scene: a hard Subtraction
     and Intersection, a SmoothIntersection and SmoothSubtraction, a bare Box

@@ -169,7 +169,8 @@ def test_unported_cells_raise(kwargs, match):
 
 def _fake_cells(monkeypatch, error=None):
     """``run_benchmark`` answering every cell at once (nothing runs at 4K or
-    1080p here); the fractal's cell is ported since ROADMAP 13c."""
+    1080p here); the fractal's cell is ported since ROADMAP 13c.  The
+    multiview step's slope (ported since ROADMAP 12b) reads 0.5 s a step."""
 
     def fake(**kw):
         if error is not None:
@@ -177,6 +178,7 @@ def _fake_cells(monkeypatch, error=None):
         return {"value": 3e9, "seconds_per_frame": float(kw.get("width", 1920))}
 
     monkeypatch.setattr(bench, "run_benchmark", fake)
+    monkeypatch.setattr(bench, "robust_slope_seconds_per_frame", lambda *a, **kw: 0.5)
 
 
 def test_extras_name_the_unported_items(monkeypatch):
@@ -187,8 +189,8 @@ def test_extras_name_the_unported_items(monkeypatch):
     assert out["fwd_4k"] == out["fit_4k"] == {"rays_per_second": 3e9, "seconds_per_frame": 3840.0}
     assert out["fit_fast_1080p"] == {"rays_per_second": 3e9, "seconds_per_frame": 1920.0}
     assert out["fit_fractal_1080p"] == {"rays_per_second": 3e9, "seconds_per_frame": 1920.0}
-    assert out["fit_multiview_720p_v4"].startswith("error: NotImplementedError")
-    assert "item 12" in out["fit_multiview_720p_v4"]
+    assert out["fit_multiview_720p_v4"] == {"rays_per_second": 1280 * 720 * 4 / 0.5, "seconds_per_step": 0.5,
+                                            "views": 4, "resolution": "1280x720"}
     assert len(seen) == 5 and seen[-1] == out
     json.dumps(out)
 

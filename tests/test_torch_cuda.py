@@ -87,6 +87,7 @@ from sdf3d_tpu_torch.utils.parity import (
     razor_edge,
     rounding_decided,
     scenes_13b,
+    shaded_slots,
     transform_sampler,
 )
 
@@ -1192,3 +1193,175 @@ def test_fractal_totals_finite_at_1080p(dev):
         got = render_kernel_backward_launch(scene, prm, uni, (2.0 * (rgb - target)).contiguous(), t, sh, ao, cfg,
                                             wrt_uniforms=wrt)
         assert all(bool(torch.isfinite(g).all()) for g in got if g is not None)
+
+
+# ---------------------------------------------------------------------------
+# K3's view axis (ROADMAP 12b) and per-object materials (ROADMAP 12c).
+# ---------------------------------------------------------------------------
+
+VIEW_CAMS = (tt.Camera.reference, lambda: tt.Camera.orbit(azimuth_deg=40.0, elevation_deg=10.0),
+             lambda: tt.Camera.orbit(azimuth_deg=200.0, elevation_deg=20.0))
+
+
+def _views(cfg, dev, opts):
+    """The fit demo's start under three cameras: its (3, 30) uniforms, the
+    reference scene's renders as the (3, 3, H, W) target (stored as (3, V, H,
+    W)) and their object masks (off the black background) as the coverage."""
+    scene = _fit_scene0(dev)
+    ref = tt.reference_scene().to(dev)
+    unis = torch.stack([_inputs(scene, cam(), cfg, dev)[1] for cam in VIEW_CAMS])
+    target = torch.stack([render_kernel_launch(ref, scene_param_vector(ref, dev), u, cfg)[0] for u in unis], 1)
+    cov = (target.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
+    loss = dict(opts)
+    if loss.get("sil_w"):
+        loss["coverage"] = cov
+        loss["sil_beta"] = cfg.march.epsilon / 2.5
+    loss["levels"] = loss.pop("levels", 0) if loss.pop("loss_kind", "l2") == "multiscale" else 0
+    return scene, scene_param_vector(scene, dev), unis, target.contiguous().transpose(0, 1), cov, loss
+
+
+@pytest.mark.parametrize("branch", ["l2"] + sorted(LOSS_BRANCHES))
+def test_multiview_totals_equal_single_view_launches(dev, branch):
+    """K3 over three views in one launch gives each view the partial rows and
+    float64 totals of K3 launched on that view alone, bit for bit (250×190,
+    ragged blocks), with each loss branch."""
+    cfg = dataclasses.replace(BLACK, width=250, height=190)
+    opts = LOSS_BRANCHES.get(branch, {})
+    scene, prm, unis, target, cov, loss = _views(cfg, dev, opts)
+    launch, rows, totals = fit_launcher(scene, prm, unis, target, cfg, KernelConfig(), True, (), **loss)
+    launch()
+    for v in range(3):
+        one = dict(loss, coverage=cov[v].contiguous()) if "coverage" in loss else loss
+        l1, rows1, totals1 = fit_launcher(scene, prm, unis[v].contiguous(), target[v].contiguous(), cfg,
+                                          KernelConfig(), True, (), **one)
+        l1()
+        torch.cuda.synchronize()
+        assert torch.equal(rows[v], rows1) and torch.equal(totals[v], totals1), f"view {v}"
+    assert bool(torch.isfinite(totals).all())
+
+
+def test_multiview_fit_step_matches_plain(dev):
+    """The multi-view step (K3's view axis) against its plain version (the
+    single view's in a loop), each marching its own primal, each view's
+    target the reference scene's render where the gradient is well
+    conditioned and the primals agree (``fit_targets``), each side's own
+    render elsewhere: the loss to 1e-5, the scene gradient and each view's
+    uniforms' gradient at 1e-3 of their mass; the wrapper counts one launch
+    for the three views."""
+    cfg = dataclasses.replace(BASE, width=256, height=192)
+    scene, prm, unis, base, _, _ = _views(cfg, dev, {})
+    planes = [render_kernel_launch(scene, prm, u.contiguous(), cfg) for u in unis]
+    pairs = [fit_targets(base[v], planes[v], render_kernel_forward_plain(scene, prm, unis[v], cfg), scene, prm,
+                         unis[v], cfg) for v in range(3)]
+    target = torch.stack([t for t, _ in pairs], 1).contiguous().transpose(0, 1)
+    p_target = torch.stack([p for _, p in pairs])
+    fit_step_kernel.launches = 0
+    loss, g_prm, g_uni = fit_step_kernel(scene, prm, unis, target, cfg, KernelConfig(), True)
+    assert fit_step_kernel.launches == 1 and g_uni.shape == (3, 30)
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_views_plain, sum_views
+
+    p_loss, p_prm, p_uni = sum_views(*fit_step_views_plain(scene, prm, unis, p_target, cfg, KernelConfig(), True))
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    masses = []
+    for v in range(3):
+        rgb, t, sh, ao = planes[v]
+        masses.append(gradient_mass(scene, prm, unis[v], 2.0 * (rgb - target[v]), t, sh, ao, cfg))
+    P = prm.numel()
+    check_grads(g_prm, p_prm, sum(m[:P] for m in masses), rtol=1e-4, mass_tol=1e-3, label="scene")
+    for v in range(3):
+        check_grads(g_uni[v], p_uni[v], masses[v][P:], rtol=1e-4, mass_tol=1e-3, label=f"view {v}")
+
+
+def _materials(cfg, dev, cam=None):
+    scene = tt.materials_scene().to(dev)
+    prm, uni = _inputs(scene, cam or tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg, dev)
+    return scene, prm, uni
+
+
+@pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+def test_materials_kernel_matches_plain(dev, ray_sdf, size):
+    """K1 on ``materials_scene`` (the material program at each hit) against
+    its plain version at the flagship's image bar."""
+    cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
+    _compare(tt.materials_scene().to(dev), tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg,
+             KernelConfig(ray_sdf=ray_sdf), dev, razor=True)
+
+
+@pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
+def test_materials_fit_step_matches_plain(dev, wrt_uniforms, frozen):
+    """K3 on ``materials_scene`` against the plain reverse pass on K1's planes
+    (``FLAGSHIP_SAME``) and the plain step marching its own primal
+    (``FLAGSHIP_OWN``); the Shaded slots' gradients are not zero."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene, prm, uni = _materials(cfg, dev)
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    own = render_kernel_forward_plain(scene, prm, uni, cfg)
+    keep = conditioned(scene, prm, uni, t, cfg) & primals_agree((rgb, t, sh, ao), own, cfg.march.max_distance)
+    noisy = rgb + torch.rand(rgb.shape, generator=gen, device=dev) * 0.2 - 0.1
+    target, p_target = (torch.where(keep, noisy, x).contiguous() for x in (rgb, own[0]))
+    loss, g_prm, g_uni = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    p_loss, p_prm, p_uni = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen)
+    s_prm, s_uni = render_kernel_backward_plain(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    s_prm[list(frozen)] = 0.0
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(((rgb - target).double() ** 2).sum()), rel=1e-5)
+    assert float(loss) == pytest.approx(float(p_loss), rel=1e-5)
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    got = torch.cat([g_prm, g_uni])
+    check_grads(got, torch.cat([s_prm, s_uni if wrt_uniforms else torch.zeros_like(s_uni)]), mass, rtol=1e-4,
+                mass_tol=FLAGSHIP_SAME)
+    check_grads(got, torch.cat([p_prm, p_uni]), mass, rtol=1e-4, mass_tol=FLAGSHIP_OWN)
+    assert float(g_prm[shaded_slots(scene)].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("wrt_uniforms", [True, False], ids=["uniforms", "params"])
+def test_materials_render_backward_matches_plain(dev, wrt_uniforms):
+    """Both K5 forms on ``materials_scene`` against the plain version at
+    ``FLAGSHIP_SAME``."""
+    cfg = dataclasses.replace(BASE, width=250, height=190)
+    scene, prm, uni = _materials(cfg, dev)
+    _, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    g_rgb = (torch.randn((3, cfg.height, cfg.width), generator=gen, device=dev)
+             * conditioned(scene, prm, uni, t, cfg)).contiguous()
+    got = render_kernel_backward_launch(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    want = render_kernel_backward_plain(scene, prm, uni, g_rgb, t, sh, ao, cfg, wrt_uniforms=wrt_uniforms)
+    torch.cuda.synchronize()
+    mass = gradient_mass(scene, prm, uni, g_rgb, t, sh, ao, cfg)
+    if wrt_uniforms:
+        check_grads(torch.cat(got), torch.cat(want), mass, rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    else:
+        check_grads(got[0], want[0], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME)
+    assert float(got[0][shaded_slots(scene)].abs().max()) > 0.0
+
+
+def test_materials_tiles_equal_the_grid(dev):
+    """K2 over a balanced 4-rank plan of 8×128 tiles gives K1's planes on
+    ``materials_scene``, and K4's work-lists sum to K3 (loss 1e-5, gradients
+    1e-4 of the mass)."""
+    cfg = BASE
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    scene, prm, uni = _materials(cfg, dev)
+    plan = _plan((cfg.width, cfg.height), kc, "balanced")
+    rgb, t, sh, ao = render_kernel_launch(scene, prm, uni, cfg, kc)
+    target = (rgb * 0.95).contiguous()
+    stacks = gather_target_tiles(target, plan)
+    total = None
+    for r in range(4):
+        trow, tcol = plan.tables(r, dev)
+        planes = render_kernel_tiles_launch(scene, prm, uni, trow, tcol, cfg, kc)
+        whole = gather_target_tiles(torch.cat([rgb, t[None], sh[None], ao[None]]), plan)[r]
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([planes[0], *(p[None] for p in planes[1:])]), whole)
+        got = fit_step_kernel_tiles_launch(scene, prm, uni, stacks[r].contiguous(), trow, tcol, cfg, kc, True, ())
+        total = got if total is None else tuple(a + b for a, b in zip(total, got))
+    w = fit_step_kernel_launch(scene, prm, uni, target, cfg, kc, True, ())
+    torch.cuda.synchronize()
+    mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
+    assert float(total[0]) == pytest.approx(float(w[0]), rel=1e-5)
+    check_grads(torch.cat(total[1:]), torch.cat(w[1:]), mass, rtol=1e-4, mass_tol=1e-4)

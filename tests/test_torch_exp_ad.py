@@ -279,7 +279,7 @@ def test_host_form_matches_plain(variant):
     partials = np.zeros((-(-40 // 32) * -(-24 // 8), totals.size), np.float32)
     assert lib.sdf3d_fit_step_host(uni.numpy().ctypes.data, prm.numpy().ctypes.data,
                                    *(target[k].numpy().ctypes.data for k in range(3)), None, 0.0, 0.0, partials.ctypes.data,
-                                   totals.ctypes.data, 24, 40) == 0
+                                   totals.ctypes.data, 24, 40, 1) == 0
     out = totals.astype(np.float32)
     loss, g_prm, g_uni = fit_step_variant_plain(variant, scene, prm, uni, target, cfg)
     if variant in ("empty", "empty_noin"):

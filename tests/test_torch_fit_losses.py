@@ -236,7 +236,7 @@ def test_host_fit_step_matches_plain(branch):
     totals = np.zeros(cols, np.float64)
     beta = cfg.march.epsilon / 2.5
     assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), _ptr(cov) if sil else None,
-                                   SIL_W if sil else 0.0, beta, _ptr(partials), _ptr(totals), H, W) == 0
+                                   SIL_W if sil else 0.0, beta, _ptr(partials), _ptr(totals), H, W, 1) == 0
     got = torch.from_numpy(totals.astype(np.float32))
     loss, g_prm, g_uni = fit_step_kernel_plain(scene, prm, uni, target, cfg, kc, wrt, frozen,
                                                loss_kind="multiscale" if levels else "l2", levels=levels,
@@ -265,7 +265,7 @@ def test_host_k4_rows_equal_k3(branch):
     rows3 = np.zeros(((W // kc.block_w) * (H // kc.block_h), live), np.float32)
     totals3 = np.zeros(cols, np.float64)
     assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), _ptr(cov) if sil else None,
-                                   *extra, _ptr(rows3), _ptr(totals3), H, W) == 0
+                                   *extra, _ptr(rows3), _ptr(totals3), H, W, 1) == 0
     work = np.random.default_rng(5).exponential(size=(H // kc.tile_h, W // kc.tile_w))
     plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1, "balanced", work)
     trow, tcol = plan.tables(0, "cpu")

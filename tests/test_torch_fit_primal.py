@@ -68,7 +68,7 @@ def _host_step(lib, uni, prm, target, kc, H, W):
     partials = np.zeros((-(-W // kc.block_w) * -(-H // kc.block_h), live), np.float32)
     totals = np.zeros(cols, np.float64)
     assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), None, 0.0, 0.0, _ptr(partials),
-                                   _ptr(totals), H, W) == 0
+                                   _ptr(totals), H, W, 1) == 0
     return partials, totals
 
 

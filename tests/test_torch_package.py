@@ -222,9 +222,14 @@ def test_fit_options_that_wait_raise(kwargs):
 @pytest.mark.parametrize("fn", [fit_view, fit_scene_multiview])
 def test_fit_entry_points_that_wait_raise(fn):
     # fit_view's route outside the fused step (a pyramid deeper than the
-    # block) waits for diff.py; the multi-view fit for the view axis.
-    with pytest.raises(NotImplementedError, match="ROADMAP item (5|12b)"):
-        fn(*FIT_ARGS, fit_config=FitConfig(loss="multiscale", pyramid_levels=4), device="cpu")
+    # block) waits for diff.py; so does the multi-view fit's engine="xla"
+    # (its view axis is ported since ROADMAP 12b).
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+        if fn is fit_view:
+            fn(*FIT_ARGS, fit_config=FitConfig(loss="multiscale", pyramid_levels=4), device="cpu")
+        else:
+            target, scene, camera, light, mat, cfg = FIT_ARGS
+            fn([target], scene, [camera], light, mat, cfg, fit_config=FitConfig(engine="xla"), device="cpu")
 
 
 def test_fit_has_no_quiet_move_to_cpu():

@@ -141,7 +141,7 @@ def test_relaxed_host_forms_match_plain(scene_name):
     partials = torch.empty((-(-W // 32) * -(-H // 8), P + 31))
     totals = torch.empty(P + 31, dtype=torch.float64)
     assert lib.sdf3d_fit_step_host(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), None, 0.0, 0.0, _ptr(partials),
-                                   _ptr(totals), H, W) == 0
+                                   _ptr(totals), H, W, 1) == 0
     loss, g_prm, _ = fit_step_kernel_plain(scene, prm, uni, target, cfg, KernelConfig(), False, (0, 1, 2, 3))
     got = totals.to(torch.float32)
     assert float(got[-1]) == pytest.approx(float(loss), rel=1e-5)

@@ -336,7 +336,7 @@ def test_generated_fit_step_on_cpu_matches_plain(case, wrt_uniforms, frozen, tmp
     header = cuda_scene_source(scene, cfg, KernelConfig(), wrt_uniforms, frozen)
     lib = _build_host_library(header, tmp_path, "fit_kernel.cu")
     fn = lib.sdf3d_fit_step_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     keep = conditioned(scene, prm, uni, t, cfg)
     noise = torch.from_numpy(np.random.default_rng(4).uniform(-0.1, 0.1, rgb.shape).astype(np.float32))
@@ -346,7 +346,7 @@ def test_generated_fit_step_on_cpu_matches_plain(case, wrt_uniforms, frozen, tmp
     partials = torch.empty((-(-t.shape[1] // kc.block_w) * -(-t.shape[0] // kc.block_h), P + 31))
     totals = torch.empty(P + 31, dtype=torch.float64)
     assert fn(_ptr(uni), _ptr(prm), *(_ptr(c) for c in target), None, 0.0, 0.0, _ptr(partials), _ptr(totals),
-              *t.shape) == 0
+              *t.shape, 1) == 0
     out = totals.to(torch.float32)
 
     loss, g_prm, g_uni = fit_step_kernel_plain(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen)
