@@ -331,6 +331,44 @@ The kernels line gives ``fit_step`` a ``multiview`` entry and
 ``render_fwd``, ``render_tiles``, ``fit_step``, ``fit_step_tiles`` and
 ``render_bwd`` a ``materials`` entry.
 
+Then ``diff.py`` (ROADMAP item 5: the implicit-function gradients through the
+torch march) and the fits that wait for it (:func:`diff_phases`, runnable
+alone):
+
+48. at 1920x1080 on the reference scene: ``render_diff``'s image equal to
+    ``render_batch(engine="torch")``'s bit for bit, it and ``depth_implicit``
+    against K1's image and t plane at the pixel budget (razor-edge rays
+    exempt past the hard limit); the gradient of a seeded cotangent through
+    ``render_diff`` for the scene, camera, light and material against
+    ``render_kernel_diff``'s (K1, K5 in its P + 30 form), each on its own
+    march, at 1e-3 of the mass on the pixels where the primals agree and the
+    gradient is conditioned; the torch engine's loss with ``diff.coverage``
+    against K3's fused silhouette loss at the fit demo's start (1e-5);
+49. main path at 1920x1080: ``fit_scene(engine="torch")`` (5 steps, step 0
+    within 1e-4 of the kernel engine's, no kernel launched), ``fit_view`` on
+    the torch engine (5), ``fit_view`` outside the fused step (a 4-level
+    pyramid and the silhouette term: K1 = K5 = 5, K5 in its P + 30 form),
+    ``fit_scene`` with the silhouette term and a 4-level pyramid (K1 = K5 = 5,
+    the P form), ``fit_scene_multiview(engine="torch")`` over two 720p views
+    (3); each fit's ms a step (:class:`StepClock`: the first step left out);
+50. item 17a at 1920x1080: ``ground_plane() | neural_sdf(hidden=64)``
+    distilled as in phase 15, fitted 5 Adam steps (lr 1e-4) to the blobs'
+    render: K6 = 5 and nothing else, the planar backward once a step, a finite
+    non-zero MLP gradient, step 0 within 1e-3 of the torch engine's; ms a step,
+    K6's share and both engines' peak memory;
+51. item 17b: two processes on the card (gloo) fit the same scene 3 steps
+    with ``allreduce`` ``"psum"``, ``"pallas_ring"`` (K8 by size: 4483
+    values) and ``"pallas_rs_ag"``, each rank's rows through
+    ``render_rays_banded(..., inner=render_rays_diff)``: the launches counted,
+    the losses within 1e-5 and the MLP within 1e-4 plus 1e-6 of the unsharded
+    torch-engine fit, step 0 within 1e-3 of the K6 fit's; then
+    ``fit_scene(mesh, engine="torch")`` on the fit demo against the unsharded
+    torch-engine fit.
+
+The kernels line gives ``render_fwd`` and ``render_bwd`` a
+``fit_view_nonfused`` entry, ``neural_fwd`` a ``fit`` entry and
+``ring_allreduce`` and ``rs_ag_allreduce`` a ``neural_fit`` entry.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -722,6 +760,7 @@ def main() -> int:
     fractal = fractal_phases(torch, tt, card, dev)
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
+    diffed = diff_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -765,6 +804,10 @@ def main() -> int:
         entry.update(sliced.get(entry["name"], {}))
     check(all("multiview" in e for e in kernels if e["name"] == "fit_step") and sum(
         "materials" in e for e in kernels) == 5, "a multiview or materials entry of the kernels line is missing")
+    for entry in kernels:
+        entry.update(diffed.get(entry["name"], {}))
+    check(sum(k in e for e in kernels for k in ("fit_view_nonfused", "fit", "neural_fit")) == 5,
+          "a diff.py entry (fit_view_nonfused, fit, neural_fit) of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4898,6 +4941,448 @@ def slice_phases(torch, tt, card: str, dev) -> dict:
                                     "max_abs_err": max(errs["multiview"]), "views": V, "size": [W7, H7],
                                     **{k: runs["multiview"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     return out
+
+
+class StepClock:
+    """A fit's logger that keeps the host time of each logged step.  With
+    ``log_every=1`` a chunk is one step whose loss is read at its end, so
+    the steps after the first give the steady ms a step, the first call's
+    set-up (lazy module loads, allocations, a build) left out."""
+
+    def __init__(self):
+        self.times = []
+
+    def log(self, **fields) -> None:
+        self.times.append(time.perf_counter())
+
+    def ms_per_step(self) -> float:
+        return (self.times[-1] - self.times[0]) / (len(self.times) - 1) * 1e3
+
+
+NEURAL_FIT = r"""
+import json, os, sys, time
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import dataclasses
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel
+from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
+from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward
+from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.parallel import launch, make_mesh, ring_kernel
+from chip_smoke import StepClock
+
+spec = json.load(open(os.path.join(outdir, "spec.json")))
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)  # two ranks, one card: gloo
+mesh = make_mesh()
+dev = mesh.device
+ref = tt.REFERENCE_CONFIG
+W, H = spec["size"]
+ncfg = dataclasses.replace(ref, width=W, height=H, march=dataclasses.replace(ref.march, max_steps=64),
+                           shadow=dataclasses.replace(ref.shadow, max_steps=32))
+rcfg = dataclasses.replace(ref, width=W, height=H)
+cam, light, mat = tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev)
+nscene = torch.load(spec["scene"], map_location=dev, weights_only=False)
+ntarget, rtarget = (torch.load(spec[k], map_location=dev) for k in ("neural_target", "reference_target"))
+calls = {"all_reduce": 0, "plain": 0}
+
+def counted(fn, key):
+    def wrapper(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+dist.all_reduce = counted(dist.all_reduce, "all_reduce")
+for name in ("ring_allreduce_plain", "rs_ag_plain"):
+    setattr(ring_kernel, name, counted(getattr(ring_kernel, name), "plain"))
+counters = (ring_kernel.ring_allreduce, ring_kernel.rs_ag_allreduce, render_neural_forward, render_kernel_forward,
+            fit_step_kernel, render_kernel_backward)
+runs = {}
+for allreduce in spec["allreduces"]:
+    for fn in counters:
+        fn.launches = 0
+    calls.update(all_reduce=0, plain=0)
+    t0, clock = time.perf_counter(), StepClock()
+    res = fit_scene(ntarget, nscene, cam, light, mat, ncfg,
+                    FitConfig(steps=spec["steps"], learning_rate=spec["lr"], log_every=1, allreduce=allreduce),
+                    mesh=mesh, trainable=tuple(spec["trainable"]), logger=clock)
+    runs[allreduce] = {"seconds": time.perf_counter() - t0, "ms_per_step": clock.ms_per_step() if rank == 0 else None,
+                       "losses": res.losses, "params": scene_param_vector(res.scene).tolist(),
+                       "launches": {fn.__name__: fn.launches for fn in counters},
+                       "all_reduce_calls": calls["all_reduce"], "plain_calls": calls["plain"]}
+start = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+for fn in counters:
+    fn.launches = 0
+t0, clock = time.perf_counter(), StepClock()
+res = fit_scene(rtarget, start, cam, light, mat, rcfg,
+                FitConfig(steps=spec["steps"], learning_rate=1e-2, log_every=1, engine="torch"), mesh=mesh,
+                trainable=(False, False, True, True), logger=clock)
+runs["torch_engine"] = {"seconds": time.perf_counter() - t0, "ms_per_step": clock.ms_per_step() if rank == 0 else None,
+                        "losses": res.losses, "params": scene_param_vector(res.scene).tolist(),
+                        "launches": {fn.__name__: fn.launches for fn in counters}}
+with open(os.path.join(outdir, f"out_r{rank}.json"), "w") as f:
+    json.dump({"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "runs": runs}, f)
+launch.shutdown()
+"""
+
+
+def diff_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 48-51: ``diff.py`` (ROADMAP item 5: the implicit-function
+    gradients through the torch march) and the fits that wait for it: the
+    torch engine of ``fit_scene``, ``fit_view`` and ``fit_scene_multiview``,
+    the silhouette term outside the fused step on K1 + K5, the NeuralSDF fit
+    on K6 (17a) and the sharded NeuralSDF fit on the ring all-reduces (17b).
+    Returns the kernels line's ``fit_view_nonfused`` entries of
+    ``render_fwd`` and ``render_bwd``, the ``fit`` entry of ``neural_fwd``
+    and the ``neural_fit`` entries of ``ring_allreduce`` and
+    ``rs_ag_allreduce``."""
+    import copy
+
+    from sdf3d_tpu_torch.diff import coverage, depth_implicit, render_diff
+    from sdf3d_tpu_torch.camera import focal_z
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_scene_multiview, fit_view
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel
+    from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, render_neural_forward, render_neural_launch
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_forward, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import leaves, scene_param_vector
+    from sdf3d_tpu_torch.parallel import ring_kernel
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+    from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass, primals_agree, \
+        razor_edge
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    black = dataclasses.replace(full, background=(0.0, 0.0, 0.0))
+    kc = KernelConfig()
+    ref_cam = tt.Camera.reference(device=dev)
+    reference = tt.reference_scene().to(dev)
+    frozen, trainable = (0, 1, 2, 3), (False, False, True, True)
+    counters = (render_kernel_forward, fit_step_kernel, render_kernel_backward, render_neural_forward,
+                ring_kernel.ring_allreduce, ring_kernel.rs_ag_allreduce)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+
+    def start():  # the fit demo's start (phase 10)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def view_leaves():
+        """The reference camera, light and material, every tensor a leaf
+        that takes a gradient."""
+        objs = (tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev))
+        for obj in objs:
+            for f in dataclasses.fields(obj):
+                getattr(obj, f.name).requires_grad_(True)
+        return objs
+
+    def object_grads(sc, cam_, light_, mat_):
+        """The gradients in the uniforms' order: the scene's leaves, then the
+        camera's position, rotation and field of view, the light's position
+        and ambient, the material's four fields (the light's colour reaches
+        no pixel)."""
+        tensors = [*leaves(sc), cam_.position, cam_.c2w, cam_.fov_deg, light_.position, light_.ambient,
+                   *(getattr(mat_, f.name) for f in dataclasses.fields(mat_))]
+        return torch.cat([(x.grad if x.grad is not None else torch.zeros_like(x)).reshape(-1) for x in tensors])
+
+    def ms_step(res, n_px=W * H):
+        return n_px / res.rays_per_second * 1e3
+
+    # ---- 48. diff.py on the card at 1920x1080 ----
+    t_phase = time.perf_counter()
+    prm, uni = inputs(reference, ref_cam, full)
+    k1 = render_kernel_launch(reference, prm, uni, full)
+    with torch.no_grad():
+        img = render_diff(reference, ref_cam, light, mat, full)
+        depth = depth_implicit(reference, ref_cam, full)
+    frame = tt.render_batch(reference, [ref_cam], light, mat, full, engine="torch", device=dev)[0]
+    torch.cuda.synchronize()
+    check(torch.equal(img, frame), "render_diff's image is not render_batch(engine='torch')'s bit for bit")
+    # The image and the t plane against K1's; K1 marches no shadow where
+    # N·I ≤ 0 (its plane reads 1 there), so its shadow and AO planes stand in
+    # for the torch path's: the image holds the shadow's effect.
+    torch_planes = (img.permute(2, 0, 1), depth, k1[2], k1[3])
+    vs_k1 = check_planes(torch_planes, k1, full.march.max_distance, "render_diff and depth_implicit vs K1 1080p",
+                         razor=lambda: razor_edge(reference, prm, uni, full))
+    # The gradient of a seeded cotangent through render_diff against the
+    # differentiable kernel render (K1, K5 in its P + 30 form), each on its
+    # own march: on the pixels where the primals agree and the gradient is
+    # conditioned.
+    keep = primals_agree(k1, torch_planes, full.march.max_distance) & conditioned(reference, prm, uni, k1[1], full)
+    g_rgb = (torch.randn((3, H, W), generator=gen, device=dev) * keep).contiguous()
+    sc_k, view_k = copy.deepcopy(reference), view_leaves()
+    reset()
+    with BackwardModes() as modes:
+        (render_kernel_diff(full, kc, sc_k, *view_k) * g_rgb.permute(1, 2, 0)).sum().backward()
+    torch.cuda.synchronize()
+    grad_launches, grad_modes = launches(), list(modes.calls)
+    check(grad_launches == {"render_kernel_forward": 1, "render_kernel_backward": 1} and grad_modes == [True],
+          f"render_kernel_diff launched {grad_launches}, K5 forms {grad_modes}")
+    sc_d, view_d = copy.deepcopy(reference), view_leaves()
+    reset()
+    (render_diff(sc_d, *view_d, full) * g_rgb.permute(1, 2, 0)).sum().backward()
+    torch.cuda.synchronize()
+    check(launches() == {}, f"render_diff launched {launches()}")
+    P = prm.numel()
+    mass = gradient_mass(reference, prm, uni, g_rgb, k1[1], k1[2], k1[3], full)
+    fov = torch.tensor(60.0, device=dev, requires_grad=True)
+    focal_z(fov, full.ray_mode).backward()
+    mass_obj = mass[:P + 27].clone()
+    mass_obj[P + 12] *= fov.grad.abs()  # the field of view's chain factor into the focal slot
+    got_d, want_k = object_grads(sc_d, *view_d), object_grads(sc_k, *view_k)
+    grads48 = check_grads(got_d, want_k, mass_obj, rtol=1e-4, mass_tol=1e-3, label="render_diff vs K1 + K5 1080p")
+    check(float(got_d[:P].abs().max()) > 0.0 and float(got_d[P:].abs().max()) > 0.0, "render_diff: zero gradients")
+    # Coverage against K3's silhouette term at the fit demo's start: the
+    # fused step's loss (L2 + 0.5·Σ(coverage − mask)²) against the same sum
+    # through render_diff and diff.coverage.
+    target_black = render_kernel_forward(reference, ref_cam, light, mat, black, device=dev)[0]
+    cov_t = (target_black.abs().amax(-1) > 1e-3).to(torch.float32).contiguous()
+    sc = start()
+    prm_s, uni_s = inputs(sc, ref_cam, black)
+    tb_planar = target_black.permute(2, 0, 1).contiguous()
+    k3 = fit_step_kernel(sc, prm_s, uni_s, tb_planar, black, kc, False, frozen, sum_dtype=torch.float64, sil_w=0.5,
+                         target_coverage=cov_t)
+    k3_l2 = fit_step_kernel(sc, prm_s, uni_s, tb_planar, black, kc, False, frozen, sum_dtype=torch.float64)
+    o, d = tt.camera_rays(ref_cam, W, H, black.ray_mode)
+    with torch.no_grad():
+        cov = coverage(black.march, sc, o, d)
+        sil = 0.5 * ((cov - cov_t).double() ** 2).sum()
+        torch_loss = ((render_diff(sc, ref_cam, light, mat, black) - target_black).double() ** 2).sum() + sil
+    loss_rel = abs(float(torch_loss) / float(k3[0]) - 1.0)
+    sil_rel = abs(float(sil) / float(k3[0] - k3_l2[0]) - 1.0)
+    check(loss_rel <= 1e-5, f"coverage: the torch engine's loss off K3's silhouette loss by {loss_rel:.3g}")
+    log("diff_parity_1080p", card=card, render_batch_equal=True, vs_k1={n: {q: v[q] for q in ("over_atol",
+        "max_abs_err", "over_hard")} for n, v in vs_k1.items()}, grad_launches=grad_launches,
+        grad_pixels=int(keep.sum()), grads=grads48, coverage_loss_rel_err=loss_rel,
+        coverage_term_rel_err=sil_rel, coverage_term=float(sil), phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 49. main path at 1920x1080: the fit demo on the torch engine, and
+    # the silhouette term outside the fused step on K1 + K5 ----
+    t_phase = time.perf_counter()
+    target_full = render_kernel_forward(reference, ref_cam, light, mat, full, device=dev)[0]
+    pert = 0.06
+    rot = rotvec_to_matrix(pert * torch.tensor([0.3, 0.8, -0.3], device=dev))
+    cam0 = tt.Camera(position=ref_cam.position + pert * torch.tensor([1.0, -0.7, 1.3], device=dev),
+                     c2w=(rot[:, :, None] * ref_cam.c2w[None, :, :]).sum(1), fov_deg=ref_cam.fov_deg)
+    with torch.no_grad():
+        cov_true = coverage(full.march, reference, o, d)
+    cams2 = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0, device=dev) for i in range(2)]
+    c720 = dataclasses.replace(full, width=1280, height=720)
+    targets2 = [render_kernel_forward(reference, c, light, mat, c720, device=dev)[0] for c in cams2]
+    fc = dict(learning_rate=1e-2, log_every=1)
+    view_fc = dict(learning_rate=2e-3, log_every=1, silhouette_weight=1.0)
+    main, fits, secs = {}, {}, {}
+    # Each run logs every step to a StepClock: its ms a step leaves the first
+    # step (set-up) out.
+    runs = {
+        "fit_scene_torch": lambda lg: fit_scene(target_full, start(), ref_cam, light, mat, full,
+                                                FitConfig(steps=5, engine="torch", **fc), trainable=trainable,
+                                                device=dev, logger=lg),
+        "fit_scene_kernel_step0": lambda lg: fit_scene(target_full, start(), ref_cam, light, mat, full,
+                                                       FitConfig(steps=1, **fc), trainable=trainable, device=dev),
+        "fit_view_torch": lambda lg: fit_view(target_full, reference, cam0, light, mat, full,
+                                              FitConfig(steps=5, engine="torch", **view_fc), target_coverage=cov_true,
+                                              device=dev, logger=lg),
+        "fit_view_nonfused": lambda lg: fit_view(target_full, reference, cam0, light, mat, full,
+                                                 FitConfig(steps=5, loss="multiscale", pyramid_levels=4, **view_fc),
+                                                 target_coverage=cov_true, device=dev, logger=lg),
+        "fit_scene_silhouette_nonfused": lambda lg: fit_scene(
+            target_black, start(), ref_cam, light, mat, black,
+            FitConfig(steps=5, loss="multiscale", pyramid_levels=4, silhouette_weight=0.5, **fc), trainable=trainable,
+            device=dev, logger=lg),
+        "fit_scene_multiview_torch": lambda lg: fit_scene_multiview(
+            targets2, start(), cams2, light, mat, c720, FitConfig(steps=3, engine="torch", **fc), trainable=trainable,
+            device=dev, logger=lg),
+    }
+    clocks = {}
+    with PlainCalls() as plain, BackwardModes() as modes:
+        for name, run in runs.items():
+            mark = len(modes.calls)
+            reset()
+            clocks[name] = StepClock()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[name] = run(clocks[name])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            main[name] = {"launches": launches(), "render_bwd_wrt_uniforms": modes.calls[mark:]}
+    check(sum(plain.calls.values()) == 0, f"the torch engine's main path called plain versions: {plain.calls}")
+    want_counts = {"fit_scene_torch": {}, "fit_scene_kernel_step0": {"fit_step_kernel": 1}, "fit_view_torch": {},
+                   "fit_view_nonfused": {"render_kernel_forward": 5, "render_kernel_backward": 5},
+                   "fit_scene_silhouette_nonfused": {"render_kernel_forward": 5, "render_kernel_backward": 5},
+                   "fit_scene_multiview_torch": {}}
+    for name, want in want_counts.items():
+        check(main[name]["launches"] == want, f"{name} launched {main[name]['launches']}, expected {want}")
+    check(main["fit_view_nonfused"]["render_bwd_wrt_uniforms"] == [True] * 5 and
+          main["fit_scene_silhouette_nonfused"]["render_bwd_wrt_uniforms"] == [False] * 5,
+          f"K5's forms: {main}")
+    for name, res in fits.items():
+        check(all(math.isfinite(v) for v in res.losses), f"{name}: a non-finite loss")
+        check(len(res.losses) < 2 or res.losses[-1] < res.losses[0],
+              f"{name}: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
+    step0_rel = abs(fits["fit_scene_torch"].losses[0] / fits["fit_scene_kernel_step0"].losses[0] - 1.0)
+    check(step0_rel <= 1e-4, f"fit_scene(engine='torch') step 0 off the kernel engine's by {step0_rel:.3g}")
+    ms49 = {n: c.ms_per_step() for n, c in clocks.items() if len(c.times) > 1}
+    # The device's time in a torch-engine step (torch.profiler: the render's
+    # forward and backward); the rest of the step's host-clock ms is the
+    # host's (the marches read their active masks once a march step).
+    sc_t = start()
+    params_t = [q for q in sc_t.parameters() if q.requires_grad]
+
+    def torch_step():
+        loss = ((render_diff(sc_t, ref_cam, light, mat, full) - target_full) ** 2).sum()
+        torch.autograd.grad(loss, params_t)
+
+    prof = device_us(torch, torch_step, calls=2)
+    busy_ms = prof["total_us"] / 1e3
+    top = sorted(prof["kernels_us"].items(), key=lambda kv: -kv[1])[:5]
+    log("diff_main_path", card=card, launches=main, losses={n: r.losses for n, r in fits.items()},
+        ms_per_step=ms49, seconds=secs, step0_rel_err_vs_kernel=step0_rel,
+        torch_engine_device_busy_ms=busy_ms, torch_engine_idle_share=1.0 - busy_ms / ms49["fit_scene_torch"],
+        torch_engine_top_kernels_us=top, phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 50. item 17a: the NeuralSDF fit at 1920x1080 on K6 ----
+    t_phase = time.perf_counter()
+    ref = tt.REFERENCE_CONFIG
+    ncfg = dataclasses.replace(ref, width=W, height=H, march=dataclasses.replace(ref.march, max_steps=64),
+                               shadow=dataclasses.replace(ref.shadow, max_steps=32))
+    blobs = tt.sdf.smooth_union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18), tt.sdf.sphere((0.15, 0.48, 0.0), 0.14), k=0.08)
+    ngen = torch.Generator(device=dev)
+    ngen.manual_seed(0)
+    model, _ = tt.sdf.distill(tt.sdf.neural_sdf(ngen, hidden=64, depth=3, radius=0.3), blobs.to(dev), 1, steps=400,
+                              batch=4096, lo=(-0.6, -0.2, -0.6), hi=(0.6, 1.0, 0.6))
+    nscene = tt.sdf.ground_plane().to(dev) | model
+    ntarget = tt.render((tt.sdf.ground_plane() | blobs).to(dev), ref_cam, light, mat, ncfg)
+    n_trainable = (False, False) + (True,) * (len(list(leaves(nscene))) - 2)
+    nfc = dict(learning_rate=1e-4, log_every=1)
+    # One step's gradient (and the library's build) first: finite, every
+    # weight tensor's non-zero.
+    sc = copy.deepcopy(nscene)
+    reset()
+    img = render_kernel_diff(ncfg, kc, sc, ref_cam, light, mat)
+    ((img - ntarget) ** 2).sum().backward()
+    grad_launches = launches()
+    mlp_grads = [w.grad for w in sc.b.weights] + [b.grad for b in sc.b.biases] + [sc.b.beta.grad]
+    check(grad_launches == {"render_neural_forward": 1}, f"render_kernel_diff (neural) launched {grad_launches}")
+    check(all(g is not None and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in mlp_grads[:3]),
+          "the neural fit's MLP gradient is missing, non-finite or zero")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with PlainCalls() as plain:
+        reset()
+        k_clock = StepClock()
+        kfit = fit_scene(ntarget, nscene, ref_cam, light, mat, ncfg, FitConfig(steps=5, **nfc), trainable=n_trainable,
+                         device=dev, logger=k_clock)
+        k_launches = launches()
+    k_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(k_launches == {"render_neural_forward": 5}, f"the neural fit launched {k_launches}, expected K6 = 5")
+    # The neural family's backward is the planar shade re-traced (no backward
+    # kernel, as JAX's): one plain reverse pass a step, nothing else plain.
+    check(plain.calls["render_kernel_backward_plain"] == 5 and sum(plain.calls.values()) == 5,
+          f"the neural fit called plain versions {plain.calls}")
+    fitted = scene_param_vector(kfit.scene)
+    check(bool(torch.isfinite(fitted).all()) and not torch.equal(fitted, scene_param_vector(nscene)) and
+          kfit.losses[-1] < kfit.losses[0], f"the neural fit: losses {kfit.losses}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    t_clock = StepClock()
+    tfit = fit_scene(ntarget, nscene, ref_cam, light, mat, ncfg, FitConfig(steps=2, engine="torch", **nfc),
+                     trainable=n_trainable, device=dev, logger=t_clock)
+    t_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(launches() == {}, f"the torch engine's neural step launched {launches()}")
+    n_rel = abs(kfit.losses[0] / tfit.losses[0] - 1.0)
+    check(n_rel <= 1e-3, f"the neural fit's step 0 off the torch engine's by {n_rel:.3g} (NEURAL_BAR class: 1e-3)")
+    nprm, nuni = inputs(nscene, ref_cam, ncfg)
+    k6_ms = time_ms(lambda: render_neural_launch(nscene, nprm, nuni, ncfg, NeuralRenderConfig()), 1, 5)
+    n_ms = k_clock.ms_per_step()
+    log("neural_fit_main_path", card=card, launches=k_launches, losses=kfit.losses, torch_engine_losses=tfit.losses,
+        step0_rel_err_vs_torch_engine=n_rel, ms_per_step=n_ms, k6_ms=k6_ms, k6_share=k6_ms / n_ms,
+        torch_engine_ms_per_step=t_clock.ms_per_step(), peak_gib={"kernel_engine": k_peak, "torch_engine": t_peak},
+        grad_abs_max=[float(g.abs().max()) for g in mlp_grads], phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 51. item 17b: two processes on the card, the sharded NeuralSDF fit
+    # and the torch engine's sharded fit ----
+    t_phase = time.perf_counter()
+    ring_kernel.collectives_library()  # built here, before the ranks start
+    steps, allreduces = 3, ("psum", "pallas_ring", "pallas_rs_ag")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: os.path.join(tmp, f"{k}.pt") for k in ("scene", "neural_target", "reference_target")}
+        torch.save(copy.deepcopy(nscene).cpu(), files["scene"])
+        torch.save(ntarget.cpu(), files["neural_target"])
+        torch.save(target_full.cpu(), files["reference_target"])
+        pair = spawn_ranks(NEURAL_FIT, 2, {**files, "size": [W, H], "allreduces": list(allreduces), "steps": steps,
+                                           "lr": nfc["learning_rate"], "trainable": list(n_trainable)})
+    # The unsharded references: the torch engine, whose march the ranks' bands run.
+    reset()
+    nref = fit_scene(ntarget, nscene, ref_cam, light, mat, ncfg, FitConfig(steps=steps, engine="torch", **nfc),
+                     trainable=n_trainable, device=dev)
+    rref = fit_scene(target_full, start(), ref_cam, light, mat, full, FitConfig(steps=steps, engine="torch", **fc),
+                     trainable=trainable, device=dev)
+    check(launches() == {}, f"the torch engine's references launched {launches()}")
+    nref_p, rref_p = scene_param_vector(nref.scene).cpu(), scene_param_vector(rref.scene).cpu()
+    want_launches = {"psum": (0, 0), "pallas_ring": (0, steps), "pallas_rs_ag": (0, steps)}
+    diffs = {}
+    for r in pair:
+        check(r["backend"] == "gloo" and r["size"] == 2, f"rank {r['rank']}: {r['backend']}, size {r['size']}")
+        for name in allreduces:
+            run = r["runs"][name]
+            ring_n, rs_ag_n = run["launches"]["ring_allreduce"], run["launches"]["rs_ag_allreduce"]
+            check((ring_n, rs_ag_n) == want_launches[name] and run["launches"]["render_neural_forward"] == 0,
+                  f"rank {r['rank']} {name}: launches {run['launches']}")
+            check(run["all_reduce_calls"] == (steps if name == "psum" else 0) and run["plain_calls"] == 0,
+                  f"rank {r['rank']} {name}: {run['all_reduce_calls']} dist.all_reduce, {run['plain_calls']} plain")
+        check(sum(r["runs"]["torch_engine"]["launches"].values()) == 0, "the sharded torch engine launched a kernel")
+    for name in (*allreduces, "torch_engine"):
+        a, b = (r["runs"][name] for r in pair)
+        check(a["losses"] == b["losses"] and a["params"] == b["params"], f"{name}: the two ranks differ")
+        want_l, want_p = (nref.losses, nref_p) if name != "torch_engine" else (rref.losses, rref_p)
+        got_p = torch.tensor(a["params"])
+        loss_rel = max(abs(x / y - 1.0) for x, y in zip(a["losses"], want_l))
+        p_over = float(((got_p - want_p).abs() - 1e-4 * want_p.abs()).max())
+        diffs[name] = {"loss_rel_err": loss_rel, "params_max_abs_err": float((got_p - want_p).abs().max()),
+                       "params_over_rtol": p_over}
+        check(loss_rel <= 1e-5 and p_over <= 1e-6, f"{name}: off the unsharded fit by {diffs[name]}")
+    k6_rel = abs(pair[0]["runs"]["pallas_ring"]["losses"][0] / kfit.losses[0] - 1.0)
+    check(k6_rel <= 1e-3, f"the sharded neural fit's step 0 off the K6 fit's by {k6_rel:.3g}")
+    log("neural_fit_sharded", card=card, note="two processes sharing one card over gloo; times claim nothing",
+        launches={n: [r["runs"][n]["launches"] for r in pair] for n in (*allreduces, "torch_engine")},
+        vs_unsharded=diffs, step0_rel_err_vs_k6_fit=k6_rel,
+        ms_per_step={n: pair[0]["runs"][n]["ms_per_step"] for n in (*allreduces, "torch_engine")},
+        peak_gib=[r["peak_gib"] for r in pair], losses={n: pair[0]["runs"][n]["losses"] for n in pair[0]["runs"]},
+        phase_seconds=time.perf_counter() - t_phase)
+    return {
+        "render_fwd": {"fit_view_nonfused": {"launches": main["fit_view_nonfused"]["launches"]["render_kernel_forward"],
+                                             "ms_per_step": ms49["fit_view_nonfused"]}},
+        "render_bwd": {"fit_view_nonfused": {"launches": main["fit_view_nonfused"]["launches"]["render_kernel_backward"],
+                                             "wrt_uniforms": True, "max_abs_err": grads48["max_abs_err"],
+                                             "ms_per_step": ms49["fit_view_nonfused"]}},
+        "neural_fwd": {"fit": {"launches": k_launches["render_neural_forward"], "ms_per_step": n_ms, "ms": k6_ms,
+                               "k6_share": k6_ms / n_ms, "step0_rel_err_vs_torch_engine": n_rel}},
+        "ring_allreduce": {"neural_fit": {"launches": pair[0]["runs"]["pallas_ring"]["launches"]["ring_allreduce"]}},
+        "rs_ag_allreduce": {"neural_fit": {
+            "launches": pair[0]["runs"]["pallas_ring"]["launches"]["rs_ag_allreduce"],
+            "launches_forced": pair[0]["runs"]["pallas_rs_ag"]["launches"]["rs_ag_allreduce"],
+            "ms_per_step": pair[0]["runs"]["pallas_ring"]["ms_per_step"]}},
+    }
 
 
 def blocks_per_sm(registers: int, threads: int = 256) -> int:

@@ -12,10 +12,13 @@ on the fused fit-step kernel (the plain L2 loss, the multiscale pyramid and the
 silhouette coverage term in one launch), ``fit_view`` (camera, light and
 material against an image, on the same kernel's uniforms' gradient), ``fit_scene_multiview`` (several
 views in one launch of that kernel a step), and a differentiable kernel render
-(``ops.render_kernel_diff``: forward kernel, backward kernel).  The neural
+(``ops.render_kernel_diff``: forward kernel, backward kernel); the same fits
+on ``engine="torch"`` through ``diff.py``'s implicit-function render
+(``render_diff``, ``sphere_trace_implicit``, ``coverage``).  The neural
 SDF family (``sdf.NeuralSDF``, ``sdf.neural_sdf``, ``sdf.distill``) renders
 on its own CUDA kernel (``ops.render_neural_forward``, ``ops.render_neural``,
-``render_batch(engine="kernel")``), or banded (``render_banded``).
+``render_batch(engine="kernel")``), or banded (``render_banded``), and fits
+on either engine.
 Per-object materials (``sdf.Shaded``, ``sdf.shaded``, ``materials_scene``)
 shade through every kernel's material program.  ``parallel`` shards renders and fits over the ranks of a
 ``torch.distributed`` process group (``fit_scene(mesh=parallel.make_mesh())``),
@@ -34,6 +37,14 @@ from sdf3d_tpu_torch.config import (
     RenderConfig,
     ShadowConfig,
     fast_config,
+)
+from sdf3d_tpu_torch.diff import (
+    coverage,
+    depth_implicit,
+    ray_min_sdf_diff,
+    render_diff,
+    render_rays_diff,
+    sphere_trace_implicit,
 )
 from sdf3d_tpu_torch.fit import (
     FitConfig,

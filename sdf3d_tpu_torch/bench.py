@@ -135,11 +135,15 @@ def make_workload(width: int = 1920, height: int = 1080, engine: str = "kernel",
       cameras made outside the timed window; each frame the mean of the
       rendered image (``render_kernel_forward`` for ``engine="kernel"``,
       ``render`` for ``"torch"``).
-    - ``fwd_bwd``: a K-step fit chunk on the fused fit step
-      (``fit_step_kernel``, ``wrt_uniforms=False``) against a zero target,
-      each step ``prm − 1e-30·g_prm`` on the device: the steps depend on one
-      another without moving the scene; the values are the K losses.
-      Nothing in a chunk reads a value back to the host.
+    - ``fwd_bwd``: a K-step fit chunk against a zero target, on the fused
+      fit step (``fit_step_kernel``, ``wrt_uniforms=False``) for
+      ``engine="kernel"``, each step ``prm − 1e-30·g_prm`` on the device;
+      for ``"torch"`` the gradient of ``diff.render_diff``'s L2 loss, each
+      step the scene's parameters moved by ``−1e-30·g`` in place (JAX's
+      ``"xla"`` cell): the steps depend on one another without moving the
+      scene; the values are the K losses.
+      Nothing in a kernel chunk reads a value back to the host (the torch
+      march reads its active mask once a step).
     """
     import sdf3d_tpu_torch as tt
     from sdf3d_tpu_torch.ops.fit_kernel import _uniforms, fit_step_kernel
@@ -176,8 +180,25 @@ def make_workload(width: int = 1920, height: int = 1080, engine: str = "kernel",
         return make_fn, (scene,)
 
     if engine == "torch":
-        raise NotImplementedError("the torch engine's fit step renders through diff.py, which is not ported yet "
-                                  "(ROADMAP item 5)")
+        from sdf3d_tpu_torch.diff import render_diff
+
+        target_hw = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+
+        def make_fn(k):
+            def chunk(sc):
+                params, losses = list(sc.parameters()), []
+                for _ in range(k):
+                    loss = torch.sum((render_diff(sc, cam, light, mat, cfg) - target_hw) ** 2)
+                    grads = torch.autograd.grad(loss, params, allow_unused=True)
+                    with torch.no_grad():
+                        for p, g in zip(params, grads):
+                            if g is not None:
+                                p.sub_(1e-30 * g)
+                    losses.append(loss.detach())
+                return torch.stack(losses)
+            return chunk
+
+        return make_fn, (scene,)
     uni = _uniforms(cam, light, mat, cfg, device)
     target = torch.zeros((3, height, width), dtype=torch.float32, device=device)
 

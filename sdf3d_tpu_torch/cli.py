@@ -14,7 +14,7 @@ of those names).
 inverse-rendering demo: it renders the scene as the target, then recovers
 the sphere of a perturbed start with the fused fit-step kernel.  ``fit-view``
 is the pose-estimation demo: it recovers a perturbed camera with the pixel L2
-and the silhouette term (its target coverage from ``march.ray_min_sdf`` at the
+and the silhouette term (its target coverage from ``diff.coverage`` at the
 true camera) and prints the position error before and after.
 ``--device`` defaults to ``cuda``; without a card the command fails rather
 than moving to the CPU (pass ``--device cpu`` to run the kernels' plain
@@ -153,7 +153,7 @@ def cmd_fit_view(args) -> int:
 
     import sdf3d_tpu_torch as s
     from sdf3d_tpu_torch.fit import FitConfig, fit_view
-    from sdf3d_tpu_torch.march import ray_min_sdf
+    from sdf3d_tpu_torch.diff import coverage
     from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward
     from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
     from sdf3d_tpu_torch.utils import MetricsLogger
@@ -164,13 +164,9 @@ def cmd_fit_view(args) -> int:
     light, mat = s.reference_light(device=device), s.reference_material(device=device)
     cam_true = s.Camera.reference(device=device)
     target = render_kernel_forward(scene, cam_true, light, mat, cfg, device=device)[0]
-    # The target coverage: sigmoid((2ε − min_s)/β) along the true camera's
-    # rays, β = ε/2.5 (JAX's diff.coverage).
     o, d = s.camera_rays(cam_true, cfg.width, cfg.height, cfg.ray_mode)
     with torch.no_grad():
-        min_s, _ = ray_min_sdf(scene.distance, o, d, cfg.march)
-    eps = cfg.march.epsilon
-    cov_target = torch.sigmoid((2.0 * eps - min_s) / (eps / 2.5))
+        cov_target = coverage(cfg.march, scene, o, d)
 
     def vec(v):
         return torch.tensor(v, dtype=torch.float32, device=device)

@@ -7,7 +7,8 @@ every array leaf with ``np.asarray(leaf, np.float32)``, so it never imports
 JAX and works on JAX arrays and numpy leaves alike.  The registry is closed:
 a class the port does not have raises ``TypeError``.
 
-A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and drops the
+A ``FitConfig`` maps ``engine="pallas"`` to ``"kernel"`` and ``"xla"``
+(``diff.py``'s implicit-function render) to ``"torch"``, and drops the
 TPU-only ``pallas_interpret`` and ``pallas_tile``; its sharding fields
 (``shard_*``, ``replan_every``, ``allreduce``, the ring all-reduces
 included) carry over.  A
@@ -31,6 +32,7 @@ def from_jax(obj):
 
 
 _TPU_ONLY = ("pallas_interpret", "pallas_tile")
+_ENGINES = {"pallas": "kernel", "xla": "torch"}
 
 
 def _fit_config(v):
@@ -45,7 +47,7 @@ def _fit_config(v):
         if f.name == "allreduce":
             check_allreduce(value)  # an unknown value raises here, not at the fit
         if f.name in ported:
-            fields[f.name] = {"pallas": "kernel"}.get(value, value) if f.name == "engine" else value
+            fields[f.name] = _ENGINES.get(value, value) if f.name == "engine" else value
         elif f.name not in _TPU_ONLY and value != getattr(defaults, f.name):
             raise NotImplementedError(f"FitConfig.{f.name}={value!r} has no counterpart in the port")
     return FitConfig(**fields)

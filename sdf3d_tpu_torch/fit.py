@@ -2,27 +2,33 @@
 ``sdf3d_tpu/fit.py``).
 
 Each step renders, takes the pixel loss and its gradient, and updates the
-scene with a ``torch.optim`` optimizer.  ``engine="kernel"`` (the only one
-ported) takes one of two routes, as the JAX package's ``engine="pallas"``
-does:
+scene with a ``torch.optim`` optimizer.  Two engines:
 
-- the fused fit step (``ops/fit_kernel.py``, one kernel launch per step)
-  when :func:`~sdf3d_tpu_torch.ops.fit_kernel.fused_l2_eligible` holds: the
-  plain L2 loss, the multiscale pyramid whose groups fit the kernel's block
-  and tile, and the silhouette coverage term, in one launch;
-- otherwise the differentiable kernel render (``ops/render_autograd.py``:
-  forward kernel, backward kernel) and :func:`pixel_loss` under autograd (a
-  multiscale pyramid deeper than the block holds).
+- ``engine="kernel"`` (JAX's ``"pallas"``) takes one of two routes: the
+  fused fit step (``ops/fit_kernel.py``, one kernel launch per step) when
+  :func:`~sdf3d_tpu_torch.ops.fit_kernel.fused_l2_eligible` holds (the plain
+  L2 loss, the multiscale pyramid whose groups fit the kernel's block and
+  tile, and the silhouette coverage term, in one launch); otherwise the
+  differentiable kernel render (``ops/render_autograd.py``: forward kernel,
+  backward kernel; for a neural scene the neural kernel forward) and
+  :func:`pixel_loss` under autograd, plus the silhouette term of
+  ``diff.coverage`` on the camera's rays;
+- ``engine="torch"`` (JAX's ``"xla"``): ``diff.py``'s implicit-function
+  render (the torch march, its gradient one distance evaluation), the pixel
+  loss and the coverage term under autograd.
 
 :func:`fit_view` fits the camera, light and material to an image with the
-scene fixed, on the fused fit step's uniforms' gradient.
+scene fixed, on the fused fit step's uniforms' gradient where it applies.
 :func:`fit_scene_multiview` fits the scene to several views at once: one
 launch of the fused fit step a step for all of them (its view axis).
 
 With a ``mesh`` (``parallel/``) the fused step is sharded: each rank runs
 K3 on its rows (the contiguous and interleaved layouts) or K4 on its tile
 work-list (the tile queue), loss and gradients are all-reduced once a step,
-and the optimizer runs replicated on every rank.
+and the optimizer runs replicated on every rank.  A scene without emitters
+(a NeuralSDF) on the kernel engine, and every scene on the torch engine,
+render each rank's rows through ``diff.render_rays_diff`` instead
+(``parallel.loss_and_grad_sharded``).
 
 On a CPU device the kernels' plain PyTorch versions run.  Steps run in
 chunks; the losses stay on the device and are read once per chunk.
@@ -39,9 +45,10 @@ import warnings
 import numpy as np
 import torch
 
-from sdf3d_tpu_torch.camera import Camera
+from sdf3d_tpu_torch.camera import Camera, camera_rays, camera_rays_for_rows
 from sdf3d_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.diff import coverage, render_diff, render_rays_diff
 from sdf3d_tpu_torch.lighting import Material, PointLight
 from sdf3d_tpu_torch.ops.fit_kernel import (
     fit_step_kernel,
@@ -51,13 +58,19 @@ from sdf3d_tpu_torch.ops.fit_kernel import (
     with_rows,
 )
 from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
-from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, pack_uniforms
-from sdf3d_tpu_torch.ops.scene_program import describe, has_neural, leaves, scene_param_vector
+from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, check_settings, pack_uniforms
+from sdf3d_tpu_torch.ops.scene_program import check_scene, describe, leaves, scene_param_vector
 from sdf3d_tpu_torch.parallel import launch
 from sdf3d_tpu_torch.parallel.collectives import broadcast_object, check_allreduce
 from sdf3d_tpu_torch.parallel.mesh import Mesh
-from sdf3d_tpu_torch.parallel.shard_render import LAYOUTS, fused_loss_and_grad_sharded, row_layout
+from sdf3d_tpu_torch.parallel.shard_render import (
+    LAYOUTS,
+    fused_loss_and_grad_sharded,
+    loss_and_grad_sharded,
+    row_layout,
+)
 from sdf3d_tpu_torch.parallel.tile_queue import estimate_tile_work, gather_target_tiles, plan_tiles, pool_work_to_tiles
+from sdf3d_tpu_torch.render import render_rays_banded
 from sdf3d_tpu_torch.sdf.node import SDFNode
 from sdf3d_tpu_torch.utils.logging import MetricsLogger
 
@@ -99,9 +112,9 @@ class FitConfig:
     log_every: int = 10
     checkpoint_every: int = 0  # 0 disables
     checkpoint_dir: str | None = None
-    #: "kernel": the CUDA kernels (their plain versions on a CPU device).
-    #: "xla" (the JAX package's implicit-VJP ray renderer, ``diff.py``) is
-    #: not ported yet and raises ``NotImplementedError``.
+    #: "kernel": the CUDA kernels (their plain versions on a CPU device);
+    #: JAX's "pallas".  "torch": ``diff.py``'s implicit-function render on
+    #: the torch march; JAX's "xla" (``convert.from_jax`` maps the names).
     engine: str = "kernel"
     #: "l2", or "multiscale": L2 summed over an average-pool pyramid.
     loss: str = "l2"
@@ -210,28 +223,33 @@ def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
+def _check_engine(fit_config: FitConfig, render_config: RenderConfig) -> None:
+    """Raise for an unknown engine, and for what the kernel engine does not
+    take: autodiff normals (JAX's ``ValueError``) and a differentiated
+    shadow march (ROADMAP item 12); the torch engine takes both."""
+    if fit_config.engine not in ("kernel", "torch"):
+        raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel' or 'torch'")
+    if fit_config.engine == "kernel":
+        check_settings(render_config)
+        if render_config.shadow.enabled and render_config.shadow.grad != "detach":
+            raise NotImplementedError(
+                f"shadow.grad == {render_config.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")
+
+
+def _has_emitters(scene: SDFNode) -> bool:
+    """True when every node of ``scene`` has an emitter (the kernels take it)."""
+    try:
+        check_scene(scene)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, scene0, kc: KernelConfig) -> None:
     """Raise for what the port's fit does not do yet (before any work)."""
-    if has_neural(scene0):
-        raise NotImplementedError("fitting a NeuralSDF scene waits for diff.py's implicit VJP (ROADMAP item 5)")
-    if fit_config.engine == "xla":
-        raise NotImplementedError("engine='xla' (diff.py's render_rays_diff) is not ported yet (ROADMAP item 5)")
-    if fit_config.engine != "kernel":
-        raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
-    sil_w = fit_config.silhouette_weight
-    if sil_w > 0.0 and render_config.march.relaxation != 1.0:
-        # JAX's min-SDF tracker marches unrelaxed (its _march_primary(track_min=True)).
-        raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
-    if render_config.shadow.enabled and render_config.shadow.grad != "detach":
-        raise NotImplementedError(
-            f"shadow.grad == {render_config.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")
+    _check_engine(fit_config, render_config)
     if fit_config.loss not in ("l2", "multiscale"):
         raise ValueError(f"unknown loss {fit_config.loss!r}")
-    if sil_w > 0.0 and not fused_l2_eligible(render_config, scene0, fit_config.loss, fit_config.pyramid_levels,
-                                             sil_w, kc):
-        raise NotImplementedError(
-            "the silhouette term runs in the fused fit step; outside it (autodiff normals, a pyramid deeper than "
-            "the kernel's block) it waits for diff.py's coverage (ROADMAP item 5)")
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh()), not {type(mesh).__name__}")
@@ -240,20 +258,31 @@ def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, s
         if fit_config.shard_policy not in ("round_robin", "balanced"):
             raise ValueError(f"unknown tile policy {fit_config.shard_policy!r}")
         check_allreduce(fit_config.allreduce)
+        fused = _fused(fit_config, render_config, scene0, kc)
+        layout = _sharded_layout(fit_config, render_config, kc, mesh.size, fused)
         if fit_config.loss == "multiscale":
-            _check_multiscale_alignment(fit_config, render_config, kc, mesh.size)
-        if not fused_l2_eligible(render_config, scene0, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
-            raise NotImplementedError(
-                "sharded fits run the fused fit step; a configuration outside it under a mesh (the differentiable "
-                "render per rank) is not ported yet (ROADMAP item 15b)")
+            _check_multiscale_alignment(fit_config, render_config, kc, mesh.size, layout)
+        if fit_config.engine == "kernel" and not fused:
+            if _has_emitters(scene0):
+                raise NotImplementedError(
+                    "sharded fits run the fused fit step; a configuration outside it under a mesh (the "
+                    "differentiable kernel render per rank) is not ported yet (ROADMAP item 15b)")
+            if layout == "tiles":
+                raise ValueError("shard_layout='tiles' needs the fused fit kernel (fused_l2_eligible); use a row "
+                                 "layout for this config")
+
+
+def _fused(fit_config: FitConfig, render_config: RenderConfig, scene, kc: KernelConfig) -> bool:
+    """Whether a kernel-engine fit of ``scene`` runs on the fused fit step."""
+    return fit_config.engine == "kernel" and fused_l2_eligible(
+        render_config, scene, fit_config.loss, fit_config.pyramid_levels, fit_config.silhouette_weight, kc)
 
 
 def _check_multiscale_alignment(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig,
-                                n: int) -> None:
+                                n: int, layout: str) -> None:
     """JAX's gate of a sharded multiscale fit: the pyramid pools within each
     rank's rows, so its groups are the unsharded objective's only when every
     rank's row run starts and ends on a ``2**pyramid_levels`` boundary."""
-    layout = _resolve_layout(fit_config, render_config, kc, n)
     H = render_config.height
     if layout != "tiles" and H % n != 0:
         raise ValueError(f"height {H} not divisible by mesh size {n}")
@@ -266,16 +295,28 @@ def _check_multiscale_alignment(fit_config: FitConfig, render_config: RenderConf
             "pooled blocks align with the unsharded objective; adjust height/pyramid_levels/tile or fit unsharded")
 
 
-def _resolve_layout(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, n: int) -> str:
-    """The layout of a sharded fit (JAX's ``fit.py::_resolve_layout``)."""
+def _resolve_layout(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, n: int,
+                    tiles_ok: bool = True) -> str:
+    """The layout of a sharded fit (JAX's ``fit.py::_resolve_layout``):
+    ``tiles_ok`` says whether the fused fit step applies."""
     layout = fit_config.shard_layout
     if layout != "auto":
         return layout
     if fit_config.shard_interleaved:
         return "interleaved"
-    if n >= 16 and render_config.height % kc.tile_h == 0 and render_config.width % kc.tile_w == 0:
+    if n >= 16 and tiles_ok and render_config.height % kc.tile_h == 0 and render_config.width % kc.tile_w == 0:
         return "tiles"
     return "contiguous"
+
+
+def _sharded_layout(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, n: int,
+                    fused: bool) -> str:
+    """The layout a sharded fit runs in (``fused``: on the fused fit step):
+    the torch engine's ranks hold contiguous row slabs whatever
+    ``shard_layout`` says (JAX's ``"xla"`` engine has no layout)."""
+    if fit_config.engine == "torch":
+        return "contiguous"
+    return _resolve_layout(fit_config, render_config, kc, n, fused)
 
 
 def _sharded_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, scene, uni,
@@ -353,6 +394,54 @@ def _sharded_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig
     return fused_loss_and_grad_sharded(vag, mesh, fit_config.allreduce), replan
 
 
+def _diff_render(fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, scene, camera, light, mat):
+    """The differentiable image (H, W, 3) of a fit outside the fused step:
+    ``diff.render_diff`` on the torch engine, the kernels'
+    ``render_kernel_diff`` on the kernel engine."""
+    if fit_config.engine == "torch":
+        return render_diff(scene, camera, light, mat, render_config)
+    return render_kernel_diff(render_config, kc, scene, camera, light, mat)
+
+
+def _sil_term(fit_config: FitConfig, render_config: RenderConfig, scene, origins, directions, cov_target):
+    """The silhouette term outside the fused step (JAX's ``_sil_term``):
+    ``silhouette_weight · Σ (coverage − cov_target)²`` over the rays, with
+    ``diff.coverage``'s gradient; 0 without a coverage target."""
+    if cov_target is None:
+        return 0.0
+    cov = coverage(render_config.march, scene, origins, directions, fit_config.silhouette_beta)
+    return fit_config.silhouette_weight * torch.sum((cov - cov_target) ** 2)
+
+
+def _sharded_diff_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, target,
+                       camera, light, mat, cov_rows):
+    """The per-step ``sharded(params, scene) -> (loss, grads)`` of a sharded
+    fit outside the fused step (JAX's ``loss_and_grad_sharded`` route): each
+    rank renders its rows' rays through ``diff.render_rays_diff`` (in bands
+    of rows on the kernel engine, whose scene has no emitter: JAX's
+    ``render_rays_banded(..., inner=render_rays_diff)``), adds the
+    silhouette term on them, and the summed loss and the parameters'
+    gradients are all-reduced once a step."""
+    H, W = render_config.height, render_config.width
+    interleaved = _sharded_layout(fit_config, render_config, kc, mesh.size, False) == "interleaved"
+    row_layout(render_config, mesh, interleaved, kc.tile_h)  # JAX's divisibility errors
+    rows = launch.rank_rows(mesh, H, interleaved, kc.tile_h)
+    rows_rgb = target(rows) if callable(target) else target[torch.from_numpy(rows).to(target.device)]
+    rows_rgb = torch.as_tensor(rows_rgb, dtype=torch.float32).to(mesh.device)
+    cov = cov_rows(rows_rgb, rows) if cov_rows is not None else None
+    o, d = camera_rays_for_rows(camera, W, H, rows, render_config.ray_mode)
+
+    def slab_loss(scene):
+        if fit_config.engine == "torch":
+            img = render_rays_diff(scene, o, d, light, mat, render_config)
+        else:
+            img = render_rays_banded(scene, o, d, light, mat, render_config, inner=render_rays_diff)
+        loss = pixel_loss(img, rows_rgb, fit_config.loss, fit_config.pyramid_levels)
+        return loss + _sil_term(fit_config, render_config, scene, o, d, cov)
+
+    return loss_and_grad_sharded(slab_loss, mesh, fit_config.allreduce)
+
+
 def fit_scene(
     target,
     scene0: SDFNode,
@@ -409,16 +498,16 @@ def fit_scene(
             target = torch.from_numpy(np.array(target, np.float32))
         target = target.detach().to(device, torch.float32)
 
-    coverage = _coverage_rows(render_config, target_coverage, device) if sil_w > 0.0 else None
+    cov_rows = _coverage_rows(render_config, target_coverage, device) if sil_w > 0.0 else None
     replan = None
-    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
+    if _fused(fit_config, render_config, scene, kc):
         uni = pack_uniforms(camera, light, mat, render_config.ray_mode, device)
         uni[_U_K] = float(render_config.shadow.k)
         loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
                     sil_beta=fit_config.silhouette_beta)
         if mesh is not None:
             sharded, replan = _sharded_step(mesh, fit_config, render_config, kc, scene, uni, target, camera, light,
-                                            frozen, coverage)
+                                            frozen, cov_rows)
 
             def step_loss():
                 loss, (g_prm,) = sharded()
@@ -426,7 +515,7 @@ def fit_scene(
                 return loss.to(torch.float32)
         else:
             target_planar = target.permute(2, 0, 1).contiguous()
-            cov = coverage(target, np.arange(render_config.height)).contiguous() if coverage is not None else None
+            cov = cov_rows(target, np.arange(render_config.height)).contiguous() if cov_rows is not None else None
 
             def step_loss():
                 loss_, g_prm, _ = fit_step_kernel(scene, scene_param_vector(scene), uni, target_planar,
@@ -434,10 +523,25 @@ def fit_scene(
                                                   target_coverage=cov, **loss)
                 set_grads(g_prm)
                 return loss_
-    else:
+    elif mesh is not None:
+        sharded = _sharded_diff_step(mesh, fit_config, render_config, kc, target, camera, light, mat, cov_rows)
+        trained = [leaf for leaf in leaf_list if leaf.requires_grad]
+
         def step_loss():
-            img = render_kernel_diff(render_config, kc, scene, camera, light, mat)
+            loss, grads = sharded(trained, scene)
+            for leaf, g in zip(trained, grads):
+                leaf.grad = g
+            return loss
+    else:
+        # The differentiable render (the kernels' or diff.py's) and the
+        # silhouette term on the camera's rays, under autograd.
+        o, d = camera_rays(camera, render_config.width, render_config.height, render_config.ray_mode)
+        cov = cov_rows(target, np.arange(render_config.height)) if cov_rows is not None else None
+
+        def step_loss():
+            img = _diff_render(fit_config, render_config, kc, scene, camera, light, mat)
             loss = pixel_loss(img, target, fit_config.loss, fit_config.pyramid_levels)
+            loss = loss + _sil_term(fit_config, render_config, scene, o, d, cov)
             loss.backward()
             return loss.detach()
 
@@ -610,15 +714,17 @@ def fit_scene_multiview(
     ``targets``: V (H, W, 3) images; ``cameras``: V cameras.  The fused
     route runs one launch of the fit step a step for all V views
     (:func:`~sdf3d_tpu_torch.ops.fit_kernel.multiview_loss_and_grads`, K3's
-    view axis); outside it (a pyramid deeper than the kernel's block) each
-    view renders through the differentiable kernel render and its
-    :func:`pixel_loss` is summed, as JAX's ``render_pallas`` route.
-    ``trainable`` freezes scene leaves as in :func:`fit_scene`.
+    view axis); outside it (a pyramid deeper than the kernel's block, a
+    neural scene) each view renders through the differentiable kernel
+    render and its :func:`pixel_loss` is summed, as JAX's ``render_pallas``
+    route; ``engine="torch"`` sums ``diff.render_diff``'s.  ``trainable``
+    freezes scene leaves as in :func:`fit_scene`.
     ``fit_config.silhouette_weight > 0`` adds each view's coverage term
-    (fused route only): pass ``target_coverages`` (one (H, W) mask a view)
-    or set ``render_config.background``.  Runs on ``device`` (the card
-    unless ``"cpu"``: the kernels' plain versions); no checkpoints, as
-    JAX's.  ``rays_per_second`` counts W·H·V rays a step."""
+    (``diff.coverage`` on each view's rays outside the fused step): pass
+    ``target_coverages`` (one (H, W) mask a view) or set
+    ``render_config.background``.  Runs on ``device`` (the card unless
+    ``"cpu"``: the kernels' plain versions); no checkpoints, as JAX's.
+    ``rays_per_second`` counts W·H·V rays a step."""
     if len(targets) != len(cameras):
         raise ValueError(f"{len(targets)} targets vs {len(cameras)} cameras")
     if len(targets) == 0:
@@ -646,7 +752,7 @@ def fit_scene_multiview(
     light, mat = light.to(device), mat.to(device)
     loss_opts = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
                      sil_beta=fit_config.silhouette_beta)
-    if fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
+    if _fused(fit_config, render_config, scene, kc):
         uni, target_planar, cov = multiview_inputs(render_config, cameras, light, mat, targets, device, covs)
 
         def step_loss():
@@ -656,10 +762,16 @@ def fit_scene_multiview(
             set_grads(g_prm)
             return loss_
     else:
+        rays = [camera_rays(cam, render_config.width, render_config.height, render_config.ray_mode)
+                for cam in cameras] if covs is not None else None
+
         def step_loss():
-            loss = sum(pixel_loss(render_kernel_diff(render_config, kc, scene, cam, light, mat), tgt,
+            loss = sum(pixel_loss(_diff_render(fit_config, render_config, kc, scene, cam, light, mat), tgt,
                                   fit_config.loss, fit_config.pyramid_levels)
                        for cam, tgt in zip(cameras, targets))
+            if covs is not None:
+                loss = loss + sum(_sil_term(fit_config, render_config, scene, o, d, cov)
+                                  for (o, d), cov in zip(rays, covs))
             loss.backward()
             return loss.detach()
 
@@ -704,13 +816,16 @@ def fit_view(
 
     A pose fit wants the silhouette term (``fit_config.silhouette_weight >
     0``, with ``target_coverage`` (H, W) or ``render_config.background`` for
-    the mask): the pixel L2 alone misses the silhouettes' motion.  Each step
-    is one launch of the fused fit step with the uniforms' gradient
-    (``wrt_uniforms=True``), pulled back to the parameters through the
-    uniforms' packing and one ``backward``; losses are read once a chunk.
-    Runs on ``device`` (the card unless ``"cpu"``: the kernels' plain
-    versions).  The non-fused route (JAX's differentiable render) waits for
-    diff.py (ROADMAP item 5) and raises."""
+    the mask): the pixel L2 alone misses the silhouettes' motion.  Where the
+    fused fit step applies, each step is one launch of it with the uniforms'
+    gradient (``wrt_uniforms=True``), pulled back to the parameters through
+    the uniforms' packing and one ``backward``.  Elsewhere (a pyramid deeper
+    than the kernel's block, say) the kernel engine renders through the
+    differentiable kernel render (the render backward in its uniforms' form)
+    and ``engine="torch"`` through ``diff.render_diff``, each plus
+    ``diff.coverage``'s silhouette term on the view's rays, under autograd
+    (JAX's route).  Losses are read once a chunk.  Runs on ``device`` (the
+    card unless ``"cpu"``: the kernels' plain versions)."""
     from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
 
     groups = set(optimize)
@@ -719,20 +834,13 @@ def fit_view(
         raise ValueError(f"unknown optimize groups {sorted(unknown)}")
     if not groups:
         raise ValueError("optimize must select at least one parameter group")
-    if fit_config.engine == "xla":
-        raise NotImplementedError("engine='xla' (diff.py's render_diff) is not ported yet (ROADMAP item 5)")
-    if fit_config.engine != "kernel":
-        raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel'")
+    _check_engine(fit_config, render_config)
     kc = kernel_config or KernelConfig()
     sil_w = fit_config.silhouette_weight
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit_view: no CUDA device; pass device='cpu' to run the kernels' plain versions")
-    if not fused_l2_eligible(render_config, scene, fit_config.loss, fit_config.pyramid_levels, sil_w, kc):
-        raise NotImplementedError(
-            "fit_view runs on the fused fit step; this configuration needs the differentiable render of diff.py "
-            "(ROADMAP item 5)")
-    scene = copy.deepcopy(scene).to(device)
+    scene = copy.deepcopy(scene).to(device).requires_grad_(False)
     camera0, light0, mat0 = camera0.to(device), light0.to(device), mat0.to(device)
     if not isinstance(target, torch.Tensor):
         target = torch.from_numpy(np.array(target, np.float32))
@@ -776,21 +884,32 @@ def fit_view(
                            shininess=p["mat_shininess"])
         return cam, light, mat
 
-    prm = scene_param_vector(scene, device)
-    target_planar = target.permute(2, 0, 1).contiguous()
-    k_slot = torch.zeros(30, dtype=torch.float32, device=device)
-    k_slot[_U_K] = float(render_config.shadow.k)
     opt = _make_optimizer(fit_config, list(params.values()))
-    loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
-                sil_beta=fit_config.silhouette_beta, target_coverage=cov)
+    if _fused(fit_config, render_config, scene, kc):
+        prm = scene_param_vector(scene, device)
+        target_planar = target.permute(2, 0, 1).contiguous()
+        k_slot = torch.zeros(30, dtype=torch.float32, device=device)
+        k_slot[_U_K] = float(render_config.shadow.k)
+        loss = dict(loss_kind=fit_config.loss, levels=fit_config.pyramid_levels, sil_w=sil_w,
+                    sil_beta=fit_config.silhouette_beta, target_coverage=cov)
 
-    def step_loss():
-        with torch.enable_grad():
-            uni = pack_uniforms(*build_view(params), render_config.ray_mode, detach=False) + k_slot
-        loss_, _, g_uni = fit_step_kernel(scene, prm, uni.detach(), target_planar, render_config, kc,
-                                          wrt_uniforms=True, **loss)
-        uni.backward(g_uni)
-        return loss_
+        def step_loss():
+            with torch.enable_grad():
+                uni = pack_uniforms(*build_view(params), render_config.ray_mode, detach=False) + k_slot
+            loss_, _, g_uni = fit_step_kernel(scene, prm, uni.detach(), target_planar, render_config, kc,
+                                              wrt_uniforms=True, **loss)
+            uni.backward(g_uni)
+            return loss_
+    else:
+        def step_loss():
+            cam, light, mat = build_view(params)
+            img = _diff_render(fit_config, render_config, kc, scene, cam, light, mat)
+            loss_ = pixel_loss(img, target, fit_config.loss, fit_config.pyramid_levels)
+            if cov is not None:
+                o, d = camera_rays(cam, render_config.width, render_config.height, render_config.ray_mode)
+                loss_ = loss_ + _sil_term(fit_config, render_config, scene, o, d, cov)
+            loss_.backward()
+            return loss_.detach()
 
     losses, step = _run_chunks(step_loss, opt, fit_config, logger)
     with torch.no_grad():

@@ -40,7 +40,7 @@
 
 namespace sdf3d {
 
-constexpr float DENOM_FLOOR = 1e-4f;  // sdf3d_tpu/diff.py::_DENOM_FLOOR
+constexpr float DENOM_FLOOR = 1e-4f;  // sdf3d_tpu_torch/diff.py::DENOM_FLOOR
 
 // Adds to (gx, gy, gz) the adjoint of v given the adjoint of v * r
 // (lax.rsqrt: dr/dq = -0.5 * r / q).

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from sdf3d_tpu_torch.config import RenderConfig
+from sdf3d_tpu_torch.diff import DENOM_FLOOR
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_AMB,
     _U_LIGHT,
@@ -39,10 +40,6 @@ from sdf3d_tpu_torch.ops.render_kernel import (
 )
 from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params
 from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
-
-#: Smallest usable |grad f . d| for the implicit-function ``t`` (``sdf3d_tpu/diff.py``).
-DENOM_FLOOR = 1e-4
-
 
 def _rsqrt(x):
     return 1.0 / sqrt_rn(x)

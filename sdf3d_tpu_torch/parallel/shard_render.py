@@ -13,7 +13,9 @@ layouts:
 
 A forward render gathers the ranks' pieces (``dist.all_gather``); a fit
 all-reduces loss and gradients once a step (one flat vector, through one
-``dist.all_reduce`` or one ring kernel), and the optimizer runs replicated.
+``dist.all_reduce`` or one ring kernel), and the optimizer runs replicated:
+the fused fit kernels' gradients (:func:`fused_loss_and_grad_sharded`) or
+autograd's of a per-rank loss (:func:`loss_and_grad_sharded`).
 """
 
 from __future__ import annotations
@@ -143,3 +145,24 @@ def fused_loss_and_grad_sharded(vag_fn: Callable[..., tuple], mesh: Mesh, allred
         return loss, grads
 
     return sharded
+
+
+def loss_and_grad_sharded(loss_fn: Callable[..., torch.Tensor], mesh: Mesh, allreduce: str = "psum"):
+    """Mesh-parallelize a per-rank loss (the counterpart of JAX's
+    ``loss_and_grad_sharded``).
+
+    ``loss_fn(*args)`` returns the **sum** of its rows' pixel losses (a sum,
+    so the sum over the mesh is the whole image's loss), recorded by
+    autograd.  The returned ``sharded(params, *args)`` gives ``(loss,
+    grads)``: the loss and its gradients with respect to ``params`` (tensors
+    that require grad; one that the loss does not reach gets zeros), both
+    summed over the mesh through :func:`fused_loss_and_grad_sharded`'s one
+    flat all-reduce, so every rank holds the same values."""
+
+    def vag_fn(params, *args):
+        params = list(params)
+        loss = loss_fn(*args)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    return fused_loss_and_grad_sharded(vag_fn, mesh, allreduce)

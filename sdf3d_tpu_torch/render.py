@@ -9,12 +9,15 @@ package's engine for neural scenes).  ``render_batch`` renders several
 cameras with either ``render`` (``engine="torch"``) or a CUDA kernel
 (``engine="kernel"``, one launch per frame: the neural kernel for a neural
 scene, the render kernel for an analytic one).  Nothing here records an
-autograd graph (``ops.render_kernel_diff`` is the differentiable render).
+autograd graph but :func:`shade_pixels` and :func:`render_rays_banded` when
+a caller differentiates through them (``diff.py``'s ``render_diff`` and
+``ops.render_kernel_diff`` are the differentiable renders).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import torch
 
@@ -42,7 +45,9 @@ def shade_pixels(
     point ``origin + d·ray`` is shaded even for misses unless
     ``config.background`` composites them out.  ``shadow_override`` /
     ``ao_override`` substitute factors already computed for the secondary
-    marches (``render_aux_banded``)."""
+    marches (``render_aux_banded``).  Differentiable where autograd records
+    (``diff.render_rays_diff``): the soft shadow's march is recorded only
+    under ``config.shadow.grad == "ad"``."""
     sdf_fn = scene.distance
     p = origins + distances[..., None] * directions
     n = estimate_normals(sdf_fn, p, config.normals, config.march.epsilon)
@@ -54,8 +59,11 @@ def shade_pixels(
     if shadow_override is not None:
         shadow = shadow_override
     elif config.shadow.enabled:
-        shadow = soft_shadow(sdf_fn, p + n * (2.0 * config.march.epsilon), vnormalize(light.position - p),
-                             config.shadow, config.march)
+        # Under "detach" the shadow is a constant factor (JAX's
+        # stop_gradient): autograd records none of its march.
+        with torch.set_grad_enabled(torch.is_grad_enabled() and config.shadow.grad != "detach"):
+            shadow = soft_shadow(sdf_fn, p + n * (2.0 * config.march.epsilon), vnormalize(light.position - p),
+                                 config.shadow, config.march)
     else:
         shadow = torch.ones_like(distances)
     if ao_override is not None:
@@ -118,17 +126,31 @@ def render_aa(
     ``factor × factor`` block, in JAX's reshape order.  No reference
     counterpart.  ``engine``: ``"kernel"`` (JAX's ``"pallas"``) or
     ``"torch"`` (JAX's ``"xla"``), through :func:`render_batch` on
-    ``device``; JAX's ``"diff"`` engine is ``diff.py``'s, not ported yet
-    (ROADMAP item 5)."""
-    import dataclasses
-
-    if engine == "diff":
-        raise NotImplementedError("render_aa(engine='diff') renders through diff.py, which is not ported yet "
-                                  "(ROADMAP item 5)")
+    ``device``, or ``"diff"``: ``diff.render_diff``, differentiable end to
+    end when the inputs are on ``device`` already (copies are made there
+    otherwise)."""
     big = dataclasses.replace(config, width=config.width * factor, height=config.height * factor)
-    img = render_batch(scene, [camera], light, mat, big, engine=engine, device=device)[0]
+    if engine == "diff":
+        from sdf3d_tpu_torch.diff import render_diff
+
+        device = torch.device(device)
+        img = render_diff(_on(scene, device), _on(camera, device), _on(light, device), _on(mat, device), big)
+    else:
+        img = render_batch(scene, [camera], light, mat, big, engine=engine, device=device)[0]
     h, w = config.height, config.width
     return img.reshape(h, factor, w, factor, 3).mean(dim=(1, 3))
+
+
+def _on(obj, device: torch.device):
+    """``obj`` (a scene, camera, light or material) itself when its tensors
+    are on ``device``, else a copy there (detached)."""
+    if isinstance(obj, SDFNode):
+        here = next(obj.parameters()).device
+    else:
+        here = getattr(obj, dataclasses.fields(obj)[0].name).device
+    if here.type == device.type and (device.index is None or here.index == device.index):
+        return obj
+    return copy.deepcopy(obj).to(device) if isinstance(obj, SDFNode) else obj.to(device)
 
 
 @torch.no_grad()
@@ -150,7 +172,6 @@ def _bands(x: torch.Tensor, band_rows: int) -> torch.Tensor:
     return x.reshape(Hp // band_rows, band_rows, *x.shape[1:])
 
 
-@torch.no_grad()
 def render_rays_banded(
     scene: SDFNode,
     origins: torch.Tensor,
@@ -164,7 +185,9 @@ def render_rays_banded(
     """:func:`render_rays` over bands of ``band_rows`` rows of a ray bundle
     (H, W, 3) × 2 → RGB (H, W, 3): each band's marches stop when its own rays
     have, not the image's.  Per-ray values are those of the unbanded render.
-    ``inner`` defaults to :func:`render_rays`."""
+    ``inner`` defaults to :func:`render_rays` (no graph); with
+    ``inner=diff.render_rays_diff`` the bands record one graph, as the
+    sharded neural fit's slabs do."""
     fn = inner or render_rays
     H = origins.shape[0]
     band_rows = min(band_rows, H)

@@ -1,7 +1,8 @@
 """The CUDA kernels (forward render, fit step, render backward, neural render,
 the tile-queue forward and fit step, the ring all-reduces, and the fit
-step's benchmark variants) against their plain PyTorch versions, and the
-bench, on the card.
+step's benchmark variants) against their plain PyTorch versions, the bench,
+and the torch engine (``diff.py``) against the kernels' differentiable
+render and the neural fits' launches, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports JAX) run:
@@ -1365,3 +1366,166 @@ def test_materials_tiles_equal_the_grid(dev):
     mass = gradient_mass(scene, prm, uni, 2.0 * (rgb - target), t, sh, ao, cfg)
     assert float(total[0]) == pytest.approx(float(w[0]), rel=1e-5)
     check_grads(torch.cat(total[1:]), torch.cat(w[1:]), mass, rtol=1e-4, mass_tol=1e-4)
+
+
+# ---- diff.py (ROADMAP item 5) and the neural fits (17a, 17b) on the card ----
+
+
+def _view_leaves(dev, azimuth):
+    """The orbit camera at ``azimuth`` (the reference camera at 0), the
+    reference light and material, every tensor a leaf that takes a gradient."""
+    cam = tt.Camera.orbit(azimuth_deg=azimuth, elevation_deg=15.0, device=dev) if azimuth else \
+        tt.Camera.reference(device=dev)
+    objs = (cam, tt.reference_light(device=dev), tt.reference_material(device=dev))
+    for obj in objs:
+        for f in dataclasses.fields(obj):
+            getattr(obj, f.name).requires_grad_(True)
+    return objs
+
+
+def _object_grads(sc, cam, light, mat):
+    """Gradients in the uniforms' order (the light's colour reaches no pixel)."""
+    from sdf3d_tpu_torch.ops.scene_program import leaves
+
+    tensors = [*leaves(sc), cam.position, cam.c2w, cam.fov_deg, light.position, light.ambient,
+               *(getattr(mat, f.name) for f in dataclasses.fields(mat))]
+    return torch.cat([(x.grad if x.grad is not None else torch.zeros_like(x)).reshape(-1) for x in tensors])
+
+
+@pytest.mark.parametrize("azimuth", [0.0, 30.0])
+def test_torch_engine_gradients_match_kernel_route(dev, azimuth):
+    """``diff.render_diff`` (the torch march, its implicit-function
+    gradient) against ``render_kernel_diff`` (K1 forward, K5 in its P + 30
+    form) on the reference scene: the image at the pixel budget, the depth
+    at the t bar, the gradients of a seeded cotangent for the scene, camera,
+    light and material at the own-march bar (1e-3 of the mass) on the pixels
+    where the primals agree and the gradient is conditioned."""
+    import copy
+
+    from sdf3d_tpu_torch.camera import focal_z
+    from sdf3d_tpu_torch.diff import depth_implicit, render_diff
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+
+    cam, light, mat = _view_leaves(dev, azimuth)
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, cam, BASE, dev)
+    k1 = render_kernel_launch(scene, prm, uni, BASE)
+    with torch.no_grad():
+        planes = (render_diff(scene, cam, light, mat, BASE).permute(2, 0, 1), depth_implicit(scene, cam, BASE),
+                  k1[2], k1[3])
+    check_planes(planes, k1, BASE.march.max_distance, razor=lambda: razor_edge(scene, prm, uni, BASE))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(48)
+    keep = primals_agree(k1, planes, BASE.march.max_distance) & conditioned(scene, prm, uni, k1[1], BASE)
+    g_rgb = (torch.randn((3, BASE.height, BASE.width), generator=gen, device=dev) * keep).contiguous()
+    got, want = [], []
+    for fn, out in ((lambda *a: render_diff(*a, BASE), got),
+                    (lambda sc, *v: render_kernel_diff(BASE, KernelConfig(), sc, *v), want)):
+        sc, view = copy.deepcopy(scene), _view_leaves(dev, azimuth)
+        (fn(sc, *view) * g_rgb.permute(1, 2, 0)).sum().backward()
+        out.append(_object_grads(sc, *view))
+    P = prm.numel()
+    mass = gradient_mass(scene, prm, uni, g_rgb, k1[1], k1[2], k1[3], BASE)[:P + 27].clone()
+    fov = torch.tensor(60.0, device=dev, requires_grad=True)
+    focal_z(fov, BASE.ray_mode).backward()
+    mass[P + 12] *= fov.grad.abs()
+    check_grads(got[0], want[0], mass, rtol=1e-4, mass_tol=1e-3)
+
+
+def _neural_scene(dev, hidden=64):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return tt.sdf.ground_plane().to(dev) | tt.sdf.neural_sdf(gen, hidden=hidden, depth=3, radius=0.3)
+
+
+def test_neural_fit_launches_k6_once_a_step(dev):
+    """``fit_scene`` of ``ground_plane() | neural_sdf(hidden=64)`` on the
+    kernel engine (ROADMAP 17a): one K6 launch a step and no other kernel,
+    finite weights that move, step 0 within 1e-3 of the torch engine's (the
+    neural kernel's own bar class, ``NEURAL_BAR``)."""
+    cfg = dataclasses.replace(BASE, march=dataclasses.replace(BASE.march, max_steps=64),
+                              shadow=dataclasses.replace(BASE.shadow, max_steps=32))
+    scene = _neural_scene(dev)
+    target = tt.render(tt.reference_scene().to(dev), tt.Camera.reference(device=dev), tt.reference_light(device=dev),
+                       tt.reference_material(device=dev), cfg)
+    view = (tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev))
+    trainable = (False, False) + (True,) * 7
+    render_neural_forward.launches = render_kernel_forward.launches = render_kernel_backward.launches = 0
+    kfit = fit_scene(target, scene, *view, cfg, FitConfig(steps=3, learning_rate=1e-4, log_every=1),
+                     trainable=trainable, device=dev)
+    assert (render_neural_forward.launches, render_kernel_forward.launches, render_kernel_backward.launches) == \
+        (3, 0, 0)
+    fitted = scene_param_vector(kfit.scene)
+    assert bool(torch.isfinite(fitted).all()) and not torch.equal(fitted, scene_param_vector(scene))
+    tfit = fit_scene(target, scene, *view, cfg, FitConfig(steps=1, learning_rate=1e-4, engine="torch"),
+                     trainable=trainable, device=dev)
+    assert abs(kfit.losses[0] / tfit.losses[0] - 1.0) <= 1e-3
+
+
+NEURAL_FIT_WORKER = r"""
+import dataclasses, json, os, sys
+import torch
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+torch.backends.cuda.matmul.allow_tf32 = False
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+from sdf3d_tpu_torch.parallel import launch, make_mesh, ring_kernel
+
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+mesh = make_mesh()
+cfg = torch.load(os.path.join(outdir, "cfg.pt"), weights_only=False)
+scene = torch.load(os.path.join(outdir, "scene.pt"), map_location=mesh.device, weights_only=False)
+target = torch.load(os.path.join(outdir, "target.pt"), map_location=mesh.device)
+view = (tt.Camera.reference(device=mesh.device), tt.reference_light(device=mesh.device),
+        tt.reference_material(device=mesh.device))
+ring_kernel.ring_allreduce.launches = ring_kernel.rs_ag_allreduce.launches = 0
+res = fit_scene(target, scene, *view, cfg, FitConfig(steps=2, learning_rate=1e-4, log_every=1,
+                allreduce="pallas_ring"), mesh=mesh, trainable=(False, False) + (True,) * 7)
+json.dump({"losses": res.losses, "params": scene_param_vector(res.scene).tolist(),
+           "launches": [ring_kernel.ring_allreduce.launches, ring_kernel.rs_ag_allreduce.launches]},
+          open(os.path.join(outdir, f"out_r{rank}.json"), "w"))
+launch.shutdown()
+"""
+
+
+def test_sharded_neural_fit_takes_rs_ag(dev, tmp_path):
+    """Two processes on the card fit ``ground_plane() | neural_sdf(hidden=64)``
+    (ROADMAP 17b): each renders its rows through ``diff.render_rays_diff``
+    in bands, and ``allreduce="pallas_ring"`` sends the 4483-value step
+    (the loss and the MLP's gradient; the plane frozen) through K8, not K7,
+    once a step; the losses and
+    parameters those of the unsharded torch-engine fit (JAX's bars: 1e-5,
+    1e-4 plus 1e-6)."""
+    from sdf3d_tpu_torch.parallel import ring_kernel
+
+    ring_kernel.collectives_library()  # built here, before the ranks start
+    cfg = dataclasses.replace(BASE, march=dataclasses.replace(BASE.march, max_steps=64),
+                              shadow=dataclasses.replace(BASE.shadow, enabled=False))
+    scene = _neural_scene(dev)
+    view = (tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev))
+    target = tt.render(tt.reference_scene().to(dev), *view, cfg)
+    torch.save(cfg, tmp_path / "cfg.pt")
+    torch.save(scene, tmp_path / "scene.pt")
+    torch.save(target, tmp_path / "target.pt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen([sys.executable, "-c", NEURAL_FIT_WORKER, str(port), str(r), str(tmp_path), str(repo)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    outs = [json.loads((tmp_path / f"out_r{r}.json").read_text()) for r in range(2)]
+    assert outs[0] == outs[1] and outs[0]["launches"] == [0, 2]
+    ref = fit_scene(target, scene, *view, cfg, FitConfig(steps=2, learning_rate=1e-4, log_every=1, engine="torch"),
+                    trainable=(False, False) + (True,) * 7, device=dev)
+    np.testing.assert_allclose(outs[0]["losses"], ref.losses, rtol=1e-5)
+    np.testing.assert_allclose(outs[0]["params"], scene_param_vector(ref.scene).cpu().numpy(), rtol=1e-4, atol=1e-6)

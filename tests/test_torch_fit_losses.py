@@ -388,7 +388,7 @@ def test_fit_scene_branches_take_the_fused_step(monkeypatch):
     """``fit_scene`` with the pyramid and the silhouette term runs the fused
     step (never the differentiable render), the silhouette fits descending;
     a pyramid deeper than the block (levels 4) takes the differentiable
-    render."""
+    render, with the silhouette term beside it (``diff.coverage``)."""
     from sdf3d_tpu_torch import fit as fit_module
 
     calls = []
@@ -405,9 +405,9 @@ def test_fit_scene_branches_take_the_fused_step(monkeypatch):
     fit_scene(target, scene0, *VIEW, cfg, FitConfig(steps=2, log_every=1, loss="multiscale", pyramid_levels=4),
               trainable=(False, False, True, True), device="cpu")
     assert calls == [1, 1]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fit_scene(target, scene0, *VIEW, cfg, FitConfig(steps=1, loss="multiscale", pyramid_levels=4,
-                                                        silhouette_weight=0.5), device="cpu")
+    res = fit_scene(target, scene0, *VIEW, cfg, FitConfig(steps=1, loss="multiscale", pyramid_levels=4,
+                                                          silhouette_weight=0.5), device="cpu")
+    assert calls == [1, 1, 1] and all(np.isfinite(res.losses))
 
 
 # ---- sharded fits on two CPU ranks (gloo) ----

@@ -97,8 +97,9 @@ VIEW_ARGS = dict(device="cpu")
 @pytest.mark.parametrize("case", ["unknown", "empty", "no_mask", "not_fused"])
 def test_fit_view_validation_errors(setup, case):
     """JAX's errors: an unknown or empty group, a silhouette term without a
-    mask or a background; and the route outside the fused step, which waits
-    for diff.py (ROADMAP item 5)."""
+    mask or a background; and autodiff normals outside the fused step,
+    which the kernel engine's differentiable render does not take (JAX's
+    ``ValueError``; the torch engine takes them)."""
     _, (cfg, scene, cam0, light0, mat) = setup
     target = torch.zeros((H, W, 3))
     args = (target, scene, cam0, light0, mat, cfg)
@@ -112,7 +113,7 @@ def test_fit_view_validation_errors(setup, case):
         with pytest.raises(ValueError, match="needs an object mask"):
             fit_view(*args, FitConfig(steps=1, silhouette_weight=1.0), **VIEW_ARGS)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+        with pytest.raises(ValueError, match="central/tetrahedron normals"):
             fit_view(*args[:-1], dataclasses.replace(cfg, normals="autodiff"), FitConfig(steps=1), **VIEW_ARGS)
 
 

@@ -220,6 +220,12 @@ def test_render_rays_banded_is_per_ray():
 
 
 def test_neural_fit_waits_for_item_5():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        fit_scene(np.zeros((H, W, 3), np.float32), convert.from_jax(_jax_neural_scene()),
-                  *(convert.from_jax(o) for o in VIEW), convert.from_jax(JCFG), FitConfig(steps=1), device="cpu")
+    """ROADMAP item 5 has landed, and with it item 17a: a NeuralSDF scene
+    fits on the kernel engine (the neural kernel forward, the planar shade
+    re-traced as backward; ``tests/test_torch_neural_fit.py`` holds it to
+    JAX), every weight tensor trained."""
+    res = fit_scene(np.zeros((H, W, 3), np.float32), convert.from_jax(_jax_neural_scene()),
+                    *(convert.from_jax(o) for o in VIEW), convert.from_jax(JCFG), FitConfig(steps=2, log_every=1),
+                    device="cpu")
+    assert res.steps_run == 2 and all(np.isfinite(res.losses)) and res.losses[1] < res.losses[0]
+    assert isinstance(res.scene.b, tt.sdf.NeuralSDF)

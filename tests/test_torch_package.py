@@ -186,6 +186,7 @@ def test_fit_config_from_jax():
     got = convert.from_jax(JaxFitConfig(engine="pallas", **sharded))
     assert got == FitConfig(**sharded)
     assert {k: getattr(got, k) for k in sharded} == sharded
+    assert convert.from_jax(JaxFitConfig(steps=3)) == FitConfig(steps=3, engine="torch")  # JAX's default "xla"
     for ring in ("pallas_ring", "pallas_rs_ag", "pallas_ring_interpret", "pallas_rs_ag_interpret"):
         assert convert.from_jax(JaxFitConfig(engine="pallas", allreduce=ring)) == FitConfig(allreduce=ring)
     with pytest.raises(ValueError, match="allreduce"):
@@ -196,40 +197,55 @@ FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,raises",
     [
-        dict(fit_config=FitConfig(engine="xla")),
-        # The silhouette term outside the fused step (autodiff normals; a
-        # pyramid deeper than the block) waits for diff.py's coverage.
-        dict(fit_config=FitConfig(silhouette_weight=0.5), render_config=dataclasses.replace(CFG, normals="autodiff")),
-        dict(fit_config=FitConfig(silhouette_weight=0.5, loss="multiscale", pyramid_levels=4),
-             target_coverage=np.ones((24, 32), np.float32)),
+        # JAX's "xla" engine is the port's "torch" (diff.py), which runs;
+        # the name "xla" is an unknown engine.
+        (dict(fit_config=FitConfig(steps=2, engine="torch")), None),
+        # The silhouette term outside the fused step runs on diff.coverage;
+        # with autodiff normals the kernel engine raises JAX's ValueError.
+        (dict(fit_config=FitConfig(silhouette_weight=0.5), render_config=dataclasses.replace(CFG, normals="autodiff")),
+         (ValueError, "central/tetrahedron normals")),
+        (dict(fit_config=FitConfig(steps=2, silhouette_weight=0.5, loss="multiscale", pyramid_levels=4),
+              target_coverage=np.ones((24, 32), np.float32)), None),
         # A sharded multiscale fit whose pyramid the block cannot hold.
-        dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale"),
-             kernel_config=KernelConfig(block_w=16, block_h=4)),
-        dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
+        (dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale"),
+              kernel_config=KernelConfig(block_w=16, block_h=4)), (NotImplementedError, "ROADMAP item 15b")),
+        (dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
+         (NotImplementedError, "ROADMAP item 12")),
     ],
     ids=["xla", "silhouette", "coverage", "mesh", "shadow_ad"],
 )
-def test_fit_options_that_wait_raise(kwargs):
+def test_fit_options_that_wait_raise(kwargs, raises):
+    """The fit options that wait for a later item raise naming it, before
+    any work; those of ROADMAP item 5 (diff.py) run, or raise as JAX's do."""
     args = list(FIT_ARGS)
     if "render_config" in kwargs:
         args[-1] = kwargs.pop("render_config")
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    if raises is None:
+        res = fit_scene(*args, **kwargs, device="cpu")
+        assert res.steps_run == 2 and all(np.isfinite(res.losses))
+        if kwargs["fit_config"].engine == "torch":
+            with pytest.raises(ValueError, match="unknown engine 'xla'; choose 'kernel' or 'torch'"):
+                fit_scene(*args, FitConfig(engine="xla"), device="cpu")
+        return
+    with pytest.raises(raises[0], match=raises[1]):
         fit_scene(*args, **kwargs, device="cpu")
 
 
 @pytest.mark.parametrize("fn", [fit_view, fit_scene_multiview])
 def test_fit_entry_points_that_wait_raise(fn):
-    # fit_view's route outside the fused step (a pyramid deeper than the
-    # block) waits for diff.py; so does the multi-view fit's engine="xla"
-    # (its view axis is ported since ROADMAP 12b).
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        if fn is fit_view:
-            fn(*FIT_ARGS, fit_config=FitConfig(loss="multiscale", pyramid_levels=4), device="cpu")
-        else:
-            target, scene, camera, light, mat, cfg = FIT_ARGS
-            fn([target], scene, [camera], light, mat, cfg, fit_config=FitConfig(engine="xla"), device="cpu")
+    """The routes that waited for diff.py (ROADMAP item 5) run: fit_view
+    outside the fused step (a pyramid deeper than the block: the
+    differentiable kernel render) and the multi-view fit on the torch
+    engine (JAX's "xla")."""
+    if fn is fit_view:
+        res = fn(*FIT_ARGS, fit_config=FitConfig(steps=2, loss="multiscale", pyramid_levels=4), device="cpu")
+    else:
+        target, scene, camera, light, mat, cfg = FIT_ARGS
+        res = fn([target], scene, [camera], light, mat, cfg, fit_config=FitConfig(steps=2, engine="torch"),
+                 device="cpu")
+    assert res.steps_run == 2 and all(np.isfinite(res.losses))
 
 
 def test_fit_has_no_quiet_move_to_cpu():

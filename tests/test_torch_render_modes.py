@@ -203,8 +203,8 @@ def test_autodiff_normals_render_and_kernels_raise():
 def test_render_aa_matches_jax(engine):
     """``render_aa`` (factor 2, 32×24 out of 64×48) in both engines against
     JAX's ``render_aa`` (its XLA engine; its Pallas engine runs compiled
-    only), at the image budget; JAX's ``"diff"`` engine raises naming item
-    5."""
+    only), at the image budget; and the ``"diff"`` engine (``diff.py``)
+    against JAX's, differentiable."""
     jcfg = dataclasses.replace(s.REFERENCE_CONFIG, width=32, height=24)
     js, jcam = s.flagship_scene(), s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
     want = np.asarray(s.render_aa(js, jcam, s.reference_light(), s.reference_material(), jcfg, factor=2))
@@ -213,8 +213,12 @@ def test_render_aa_matches_jax(engine):
     got = tt.render_aa(scene, cam, light, mat, cfg, factor=2, engine=engine, device="cpu")
     assert got.shape == (24, 32, 3)
     check_pixel_budget(got, want, "rgb", channel_axis=-1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.render_aa(scene, cam, light, mat, cfg, engine="diff", device="cpu")
+    if engine == "torch":
+        want = np.asarray(s.render_aa(js, jcam, s.reference_light(), s.reference_material(), jcfg, factor=2,
+                                      engine="diff"))
+        got = tt.render_aa(scene, cam, light, mat, cfg, factor=2, engine="diff", device="cpu")
+        assert got.shape == (24, 32, 3) and got.requires_grad
+        check_pixel_budget(got.detach(), want, "rgb", channel_axis=-1)
 
 
 @pytest.mark.parametrize("omega", [1.0, OMEGA])
