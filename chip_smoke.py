@@ -369,6 +369,45 @@ The kernels line gives ``render_fwd`` and ``render_bwd`` a
 ``fit_view_nonfused`` entry, ``neural_fwd`` a ``fit`` entry and
 ``ring_allreduce`` and ``rs_ag_allreduce`` a ``neural_fit`` entry.
 
+Then the rest of the differentiable render (ROADMAP items 12, 15b, 14 and
+part of 16; :func:`slice17_phases`, runnable alone):
+
+52. ``shadow.grad == "ad"`` at 1920x1080 on the reference scene:
+    ``render_kernel_diff`` forward and backward (K1 = 1, K5 = 0, one
+    ``planar_vjp``; the primal K1's image bit for bit), its gradient against
+    the torch engine's ``render_diff`` under "ad", each on its own march, at
+    1e-3 of the mass (the re-march's terms counted) where the primals agree,
+    the light's gradient off the detached one; the fit demo (5 steps, K1 = 5,
+    step 0 the fused step's loss within 1e-5) and the pose fit (5, K1 = 5)
+    under "ad": ms a step and peak memory;
+53. the neural render under "ad" at 960x540 (the re-march records the MLP at
+    each of 32 shadow steps, 107-112 kB a pixel measured at 320x180, so
+    about 54 GiB here and 215 GiB at 1080p): K6 = 1, the primal K6's
+    image bit for bit, the gradient against the same re-trace on the CPU
+    from K6's planes (1e-4 of its largest component), a 3-step fit (K6 = 3);
+54. the row route: two processes on the card fit the fit demo at 1080p under
+    "ad" in the contiguous layout (the default tiles: 540-row slabs, a partial
+    last tile row) and the interleaved one (tile rows of 12), each rank's slab
+    on K1 + K5 (3 each a rank), the losses and parameters within 1e-5 of the
+    unsharded fused fit under "detach" (K3; the row route's semantics, as
+    JAX's); ``render_sharded`` plain and differentiable: the unsharded
+    ``render`` bit for bit, the ranks' summed gradients within 1e-5 of the
+    mass of ``render_diff``'s;
+55. a ``VoxelGrid`` baked at 128³ from a sphere beside the analytic ground
+    plane: ``render_batch(engine="torch")`` and ``render_kernel_diff`` (the
+    banded route) bit for bit, within JAX's bar of the analytic scene's K1
+    render (under 2% of the pixels off by 0.05), ``render_batch(engine=
+    "kernel")`` raising, a 5-step fit of the samples (no kernel launched);
+56. ``render_stereo(engine="kernel")`` (K1 = 2, ``"sbs"`` two K1 renders bit
+    for bit, each eye within the pixel budget of the plain version at its
+    toed-in camera, razor-edge rays past the hard limit), ``cli render
+    --depth`` at 1080p (no kernel), and
+    ``debug.checked_render`` and ``validate_scene`` on the flagship.
+
+The kernels line gives ``render_fwd`` a ``shadow_ad``, a ``rows`` and a
+``stereo`` entry, ``render_bwd`` a ``rows`` entry and ``neural_fwd`` a
+``shadow_ad`` entry.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -761,6 +800,7 @@ def main() -> int:
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
     diffed = diff_phases(torch, tt, card, dev)
+    rest = slice17_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -808,6 +848,12 @@ def main() -> int:
         entry.update(diffed.get(entry["name"], {}))
     check(sum(k in e for e in kernels for k in ("fit_view_nonfused", "fit", "neural_fit")) == 5,
           "a diff.py entry (fit_view_nonfused, fit, neural_fit) of the kernels line is missing")
+    for entry in kernels:
+        entry.update(rest.get(entry["name"], {}))
+    want17 = {"render_fwd": ("shadow_ad", "rows", "stereo"), "render_bwd": ("rows",), "neural_fwd": ("shadow_ad",)}
+    check(all(k in e for e in kernels for k in want17.get(e["name"], ())) and
+          sum(k in e for e in kernels for k in ("shadow_ad", "rows", "stereo")) == 5,
+          "a shadow_ad, rows or stereo entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -865,11 +911,14 @@ def ptxas_summary(log: str) -> dict:
 
 class PlainCalls:
     """Counts calls of the kernels' plain versions while active (wrapping
-    every module-level reference to them in the package)."""
+    every module-level reference to them in the package), and of
+    ``planar_vjp``, the planar re-trace's VJP: K5's plain version runs it,
+    and so do the backwards that have no kernel (the neural family's, and
+    any under ``shadow.grad == "ad"``)."""
 
     NAMES = ("render_kernel_forward_plain", "fit_step_kernel_plain", "render_kernel_backward_plain",
              "render_kernel_tiles_forward_plain", "fit_step_kernel_tiles_plain", "fit_step_variant_plain",
-             "fit_step_views_plain")
+             "fit_step_views_plain", "planar_vjp")
 
     def __enter__(self):
         self.calls, self._saved = {n: 0 for n in self.NAMES}, []
@@ -5296,7 +5345,7 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
     check(k_launches == {"render_neural_forward": 5}, f"the neural fit launched {k_launches}, expected K6 = 5")
     # The neural family's backward is the planar shade re-traced (no backward
     # kernel, as JAX's): one plain reverse pass a step, nothing else plain.
-    check(plain.calls["render_kernel_backward_plain"] == 5 and sum(plain.calls.values()) == 5,
+    check(plain.calls["planar_vjp"] == 5 and sum(plain.calls.values()) == 5,
           f"the neural fit called plain versions {plain.calls}")
     fitted = scene_param_vector(kfit.scene)
     check(bool(torch.isfinite(fitted).all()) and not torch.equal(fitted, scene_param_vector(nscene)) and
@@ -5382,6 +5431,497 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
             "launches": pair[0]["runs"]["pallas_ring"]["launches"]["rs_ag_allreduce"],
             "launches_forced": pair[0]["runs"]["pallas_rs_ag"]["launches"]["rs_ag_allreduce"],
             "ms_per_step": pair[0]["runs"]["pallas_ring"]["ms_per_step"]}},
+    }
+
+
+ROWS_FIT = r"""
+import json, os, sys, time
+port, rank, outdir, repo = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, repo)
+import dataclasses
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import sdf3d_tpu_torch as tt
+from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel
+from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
+from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, render_kernel_forward
+from sdf3d_tpu_torch.ops.scene_program import leaves, scene_param_vector
+from sdf3d_tpu_torch.parallel import allreduce_tree, launch, make_mesh, render_sharded
+from chip_smoke import StepClock
+
+spec = json.load(open(os.path.join(outdir, "spec.json")))
+launch.initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)  # two ranks, one card: gloo
+mesh = make_mesh()
+dev = mesh.device
+W, H = spec["size"]
+full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+ad = dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, grad="ad"))
+cam, light, mat = tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev)
+target = torch.load(spec["target"], map_location=dev)
+counters = (render_kernel_forward, render_kernel_backward, fit_step_kernel)
+runs = {}
+for layout in spec["layouts"]:
+    for fn in counters:
+        fn.launches = 0
+    start = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = fit_scene(target, start, cam, light, mat, ad, FitConfig(steps=spec["steps"], learning_rate=1e-2, log_every=1,
+                    shard_layout=layout), mesh=mesh, trainable=(False, False, True, True), logger=clock,
+                    kernel_config=KernelConfig(tile_h=spec["tile_h"][layout]))
+    runs[layout] = {"losses": res.losses, "params": scene_param_vector(res.scene).tolist(),
+                    "launches": {fn.__name__: fn.launches for fn in counters},
+                    "ms_per_step": clock.ms_per_step() if rank == 0 else None,
+                    "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+for fn in counters:
+    fn.launches = 0
+scene = tt.reference_scene().to(dev)
+t0 = time.perf_counter()
+img = render_sharded(scene, cam, light, mat, full, mesh)
+torch.cuda.synchronize()
+plain_s = time.perf_counter() - t0
+g = torch.load(spec["cotangent"], map_location=dev)
+t0 = time.perf_counter()
+img_d = render_sharded(scene, cam, light, mat, full, mesh, differentiable=True)
+(img_d * g).sum().backward()
+grads = allreduce_tree([x.grad.reshape(-1) for x in leaves(scene)], "psum", mesh)
+torch.cuda.synchronize()
+diff_s = time.perf_counter() - t0
+if rank == 0:
+    torch.save({"plain": img.cpu(), "differentiable": img_d.detach().cpu()}, spec["images"])
+with open(os.path.join(outdir, f"out_r{rank}.json"), "w") as f:
+    json.dump({"rank": mesh.rank, "size": mesh.size, "backend": torch.distributed.get_backend(), "runs": runs,
+               "render_sharded_launches": {fn.__name__: fn.launches for fn in counters},
+               "render_sharded_seconds": {"plain": plain_s, "differentiable": diff_s},
+               "render_sharded_grad": torch.cat(grads).tolist()}, f)
+launch.shutdown()
+"""
+
+
+def slice17_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 52-56: the rest of the differentiable render (ROADMAP 12, 15b,
+    14, part of 16), on the kernels K1, K5 and K6 and on torch: the
+    ``shadow.grad == "ad"`` route (K1 forward, the planar re-trace with the
+    shadow re-marched as backward), the neural render under it (K6), the
+    row-slab render of sharded fits outside the fused step (K1 + K5 per
+    rank) and ``render_sharded``, a ``VoxelGrid``, stereo, depth and the
+    debug checks.  Returns the kernels line's ``shadow_ad``, ``rows`` and
+    ``stereo`` entries of ``render_fwd``, ``rows`` of ``render_bwd`` and
+    ``shadow_ad`` of ``neural_fwd``.  Runnable alone (after
+    ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    import copy
+
+    from sdf3d_tpu_torch import cli, debug
+    from sdf3d_tpu_torch.camera import focal_z
+    from sdf3d_tpu_torch.diff import depth_implicit, render_diff
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene, fit_view
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel
+    from sdf3d_tpu_torch.ops.neural_kernel import (
+        NeuralRenderConfig,
+        neural_distance,
+        render_neural,
+        render_neural_forward,
+        render_neural_launch,
+    )
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import planar_vjp, render_kernel_backward
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, kernel_library, pack_uniforms, pixel_planes, \
+        render_kernel_forward, render_kernel_forward_plain, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import leaves, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass, primals_agree, \
+        razor_edge
+
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    ad = dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, grad="ad"))
+    kc = KernelConfig()
+    ref_cam = tt.Camera.reference(device=dev)
+    reference = tt.reference_scene().to(dev)
+    trainable = (False, False, True, True)
+    counters = (render_kernel_forward, render_kernel_backward, fit_step_kernel, render_neural_forward)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+
+    def start():  # the fit demo's start (phase 10)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25)).to(dev)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def view_leaves():
+        objs = (tt.Camera.reference(device=dev), tt.reference_light(device=dev), tt.reference_material(device=dev))
+        for obj in objs:
+            for f in dataclasses.fields(obj):
+                getattr(obj, f.name).requires_grad_(True)
+        return objs
+
+    def object_grads(sc, cam_, light_, mat_):
+        tensors = [*leaves(sc), cam_.position, cam_.c2w, cam_.fov_deg, light_.position, light_.ambient,
+                   *(getattr(mat_, f.name) for f in dataclasses.fields(mat_))]
+        return torch.cat([(x.grad if x.grad is not None else torch.zeros_like(x)).reshape(-1) for x in tensors])
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30
+
+    def fresh_peak():
+        # The peak of allocated memory from here; the cache is kept (a timed
+        # call after an emptied cache would time cudaMalloc's).
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- 52. shadow.grad == "ad" at 1920x1080 on the reference scene ----
+    t_phase = time.perf_counter()
+    prm, uni = inputs(reference, ref_cam, full)
+    k1 = render_kernel_launch(reference, prm, uni, full)
+    with torch.no_grad():
+        torch_planes = (render_diff(reference, ref_cam, light, mat, ad).permute(2, 0, 1),
+                        depth_implicit(reference, ref_cam, ad), k1[2], k1[3])
+    keep = primals_agree(k1, torch_planes, full.march.max_distance) & conditioned(reference, prm, uni, k1[1], full)
+    g_rgb = (torch.randn((3, H, W), generator=gen, device=dev) * keep).contiguous()
+    sc_k, view_k = copy.deepcopy(reference), view_leaves()
+    # One call first (the lazy set-up of the re-march's elementwise kernels),
+    # then the counted and timed one.
+    (render_kernel_diff(ad, kc, copy.deepcopy(reference), *view_leaves()) * g_rgb.permute(1, 2, 0)).sum().backward()
+    fresh_peak()
+    reset()
+    with PlainCalls() as plain, BackwardModes() as modes:
+        t0 = time.perf_counter()
+        img_k = render_kernel_diff(ad, kc, sc_k, *view_k)
+        (img_k * g_rgb.permute(1, 2, 0)).sum().backward()
+        torch.cuda.synchronize()
+        ad_ms = (time.perf_counter() - t0) * 1e3
+    ad_peak, ad_launches, ad_plain = peak_gib(), launches(), dict(plain.calls)
+    check(ad_launches == {"render_kernel_forward": 1} and modes.calls == [],
+          f"render_kernel_diff under 'ad' launched {ad_launches}, K5 forms {modes.calls}")
+    check(ad_plain["planar_vjp"] == 1 and sum(ad_plain.values()) == 1, f"the 'ad' route's plain calls {ad_plain}")
+    check(torch.equal(img_k.detach().permute(2, 0, 1), k1[0]), "the 'ad' primal is not K1's image bit for bit")
+    got_k = object_grads(sc_k, *view_k)
+    del img_k
+    # The torch engine under "ad" (diff.py records the shadow's march), each
+    # on its own march, at the own-march bar where the primals agree.
+    sc_d, view_d = copy.deepcopy(reference), view_leaves()
+    fresh_peak()
+    (render_diff(sc_d, *view_d, ad) * g_rgb.permute(1, 2, 0)).sum().backward()
+    torch_peak = peak_gib()
+    got_d = object_grads(sc_d, *view_d)
+    fresh_peak()
+    P = prm.numel()
+    mass = gradient_mass(reference, prm, uni, g_rgb, k1[1], k1[2], k1[3], full, remarch_shadow=True)
+    mass_peak = peak_gib()
+    fov = torch.tensor(60.0, device=dev, requires_grad=True)
+    focal_z(fov, full.ray_mode).backward()
+    mass_obj = mass[:P + 27].clone()
+    mass_obj[P + 12] *= fov.grad.abs()
+    grads52 = check_grads(got_k, got_d, mass_obj, rtol=1e-4, mass_tol=1e-3, label="'ad' route vs the torch engine 1080p")
+    # The re-march's share: the light's gradient under "detach" (K1 + K5) differs.
+    sc_0, view_0 = copy.deepcopy(reference), view_leaves()
+    (render_kernel_diff(full, kc, sc_0, *view_0) * g_rgb.permute(1, 2, 0)).sum().backward()
+    share = float((view_0[1].position.grad - view_k[1].position.grad).abs().max()
+                  / view_k[1].position.grad.abs().max())
+    check(share > 1e-3, f"the 'ad' light gradient equals the detached one within {share:.3g}")
+    # Main path: the fit demo and the pose fit under "ad".
+    target_full = render_kernel_forward(reference, ref_cam, light, mat, full, device=dev)[0]
+    cam0 = tt.Camera(position=ref_cam.position + 0.06 * torch.tensor([1.0, -0.7, 1.3], device=dev), c2w=ref_cam.c2w,
+                     fov_deg=ref_cam.fov_deg)
+    fits, main52, clocks, peaks = {}, {}, {}, {}
+    runs = {
+        "fit_scene_ad": lambda lg: fit_scene(target_full, start(), ref_cam, light, mat, ad,
+                                             FitConfig(steps=5, learning_rate=1e-2, log_every=1), trainable=trainable,
+                                             device=dev, logger=lg),
+        "fit_scene_detach_step0": lambda lg: fit_scene(target_full, start(), ref_cam, light, mat, full,
+                                                       FitConfig(steps=1, learning_rate=1e-2), trainable=trainable,
+                                                       device=dev),
+        "fit_view_ad": lambda lg: fit_view(target_full, reference, cam0, light, mat, ad,
+                                           FitConfig(steps=5, learning_rate=2e-3, log_every=1), device=dev,
+                                           logger=lg),
+    }
+    with PlainCalls() as plain:
+        for name, run in runs.items():
+            mark = dict(plain.calls)
+            fresh_peak()
+            reset()
+            clocks[name] = StepClock()
+            fits[name] = run(clocks[name])
+            torch.cuda.synchronize()
+            peaks[name] = peak_gib()
+            main52[name] = {"launches": launches(), "planar_vjp": plain.calls["planar_vjp"] - mark["planar_vjp"]}
+    want52 = {"fit_scene_ad": {"render_kernel_forward": 5}, "fit_scene_detach_step0": {"fit_step_kernel": 1},
+              "fit_view_ad": {"render_kernel_forward": 5}}
+    for name, want in want52.items():
+        check(main52[name]["launches"] == want, f"{name} launched {main52[name]['launches']}, expected {want}")
+    check(main52["fit_scene_ad"]["planar_vjp"] == 5 and main52["fit_view_ad"]["planar_vjp"] == 5,
+          f"the 'ad' fits' backwards: {main52}")
+    for name in ("fit_scene_ad", "fit_view_ad"):
+        res = fits[name]
+        check(all(math.isfinite(v) for v in res.losses) and res.losses[-1] < res.losses[0],
+              f"{name}: losses {res.losses}")
+    step0_rel = abs(fits["fit_scene_ad"].losses[0] / fits["fit_scene_detach_step0"].losses[0] - 1.0)
+    check(step0_rel <= 1e-5, f"the 'ad' fit's step 0 off the fused step's loss by {step0_rel:.3g}")
+    ms52 = {n: c.ms_per_step() for n, c in clocks.items() if len(c.times) > 1}
+    log("shadow_ad_1080p", card=card, launches=ad_launches, plain_calls=ad_plain, grad_pixels=int(keep.sum()),
+        grads_vs_torch_engine=grads52, light_share_vs_detach=share, fwd_bwd_ms=ad_ms,
+        peak_gib={"kernel_route": ad_peak, "torch_engine": torch_peak, "gradient_mass": mass_peak, **peaks},
+        fits={n: {"launches": main52[n]["launches"], "losses": fits[n].losses} for n in fits},
+        ms_per_step=ms52, step0_rel_err_vs_fused=step0_rel, phase_seconds=time.perf_counter() - t_phase)
+    del mass, got_d, got_k, sc_k, sc_d, sc_0
+
+    # ---- 53. the neural render under "ad" at 960x540 (the re-march records
+    # the MLP at every shadow step: 107-112 kB a pixel, about 54 GiB here) ----
+    t_phase = time.perf_counter()
+    nw, nh = 960, 540
+    ref = tt.REFERENCE_CONFIG
+    ncfg = dataclasses.replace(ref, width=nw, height=nh, march=dataclasses.replace(ref.march, max_steps=64),
+                               shadow=dataclasses.replace(ref.shadow, max_steps=32, grad="ad"))
+    ngen = torch.Generator(device=dev)
+    ngen.manual_seed(0)
+    nscene = tt.sdf.ground_plane().to(dev) | tt.sdf.neural_sdf(ngen, hidden=64, depth=3, radius=0.3)
+    nprm, nuni = inputs(nscene, ref_cam, ncfg)
+    k6 = render_neural_launch(nscene, nprm, nuni, ncfg, NeuralRenderConfig())
+    ng = torch.randn((3, nh, nw), generator=gen, device=dev)
+    sc_n = copy.deepcopy(nscene)
+    (render_neural(ncfg, NeuralRenderConfig(), copy.deepcopy(nscene), ref_cam, light, mat) * ng.permute(1, 2, 0))\
+        .sum().backward()  # the first call's set-up, untimed
+    fresh_peak()
+    reset()
+    t0 = time.perf_counter()
+    img_n = render_neural(ncfg, NeuralRenderConfig(), sc_n, ref_cam, light, mat)
+    (img_n * ng.permute(1, 2, 0)).sum().backward()
+    torch.cuda.synchronize()
+    n_ms, n_peak, n_launches = (time.perf_counter() - t0) * 1e3, peak_gib(), launches()
+    check(n_launches == {"render_neural_forward": 1}, f"render_neural under 'ad' launched {n_launches}")
+    check(torch.equal(img_n.detach().permute(2, 0, 1), k6[0]), "the neural 'ad' primal is not K6's image")
+    got_n = torch.cat([x.grad.reshape(-1) for x in leaves(sc_n)])
+    check(bool(torch.isfinite(got_n).all()) and float(got_n.abs().max()) > 0, "the neural 'ad' gradient")
+    # The same re-trace on the CPU from K6's planes, on a 45x80 crop around
+    # the median pixel of the penumbra's hits (same function, same planes, the MLP's
+    # products in float32 on both).
+    pen = ((k6[2] > 0.05) & (k6[2] < 0.8) & (k6[1] < ncfg.march.max_distance)).nonzero().float().median(0)\
+        .values.long().tolist()
+    r0, c0 = min(max(pen[0] - 22, 0), nh - 45), min(max(pen[1] - 40, 0), nw - 80)
+    r1, c1 = r0 + 45, c0 + 80
+    rows, cols = pixel_planes(nuni, nh, nw)
+    crop = [x[..., r0:r1, c0:c1].contiguous() for x in (ng, *k6[1:], rows, cols)]
+
+    def crop_vjp(scene_, dev_, remarch):
+        args = [x.to(dev_) for x in crop]
+        return planar_vjp(neural_distance(scene_), nprm.to(dev_), nuni.to(dev_), *args[:4], ncfg, pixels=args[4:],
+                          wrt_uniforms=False, remarch_shadow=remarch)[0].cpu()
+
+    cpu_scene = copy.deepcopy(nscene).to("cpu")
+    got_c, want_c = crop_vjp(nscene, dev, True), crop_vjp(cpu_scene, "cpu", True)
+    n_err = float((got_c - want_c).abs().max())
+    n_rel = n_err / float(want_c.abs().max())
+    check(n_rel <= 1e-4, f"the neural 'ad' gradient off the CPU re-trace by {n_rel:.3g} of its largest component")
+    n_share = float((crop_vjp(nscene, dev, False) - want_c).abs().max() / want_c.abs().max())
+    check(n_share > 1e-3, f"the neural 'ad' gradient equals the detached one within {n_share:.3g}")
+    del img_n, sc_n
+    blobs = tt.sdf.smooth_union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18), tt.sdf.sphere((0.15, 0.48, 0.0), 0.14),
+                                k=0.08)
+    ntarget = tt.render((tt.sdf.ground_plane() | blobs).to(dev), ref_cam, light, mat, ncfg)
+    n_trainable = (False, False) + (True,) * (len(list(leaves(nscene))) - 2)
+    fresh_peak()
+    reset()
+    n_clock = StepClock()
+    nfit = fit_scene(ntarget, nscene, ref_cam, light, mat, ncfg, FitConfig(steps=3, learning_rate=1e-4, log_every=1),
+                     trainable=n_trainable, device=dev, logger=n_clock)
+    nfit_launches, nfit_peak = launches(), peak_gib()
+    check(nfit_launches == {"render_neural_forward": 3}, f"the neural 'ad' fit launched {nfit_launches}")
+    check(all(math.isfinite(v) for v in nfit.losses), f"the neural 'ad' fit: losses {nfit.losses}")
+    k6_ms = time_ms(lambda: render_neural_launch(nscene, nprm, nuni, ncfg, NeuralRenderConfig()), 1, 5)
+    log(f"neural_shadow_ad_{nw}x{nh}", card=card, launches=n_launches, fwd_bwd_ms=n_ms, peak_gib=n_peak,
+        crop=[r0, r1, c0, c1], grad_max_abs_err_vs_cpu=n_err, grad_rel_err_vs_cpu=n_rel, share_vs_detach=n_share,
+        fit_launches=nfit_launches, fit_losses=nfit.losses, fit_ms_per_step=n_clock.ms_per_step(),
+        fit_peak_gib=nfit_peak, k6_ms=k6_ms, phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 54. the row route: two processes on the card fit the fit demo at
+    # 1080p under "ad" outside the fused step (K1 + K5 per rank's slab), and
+    # render_sharded ----
+    t_phase = time.perf_counter()
+    # Contiguous slabs take the default tiles (540 rows: a partial last tile
+    # row, fit_scene(mesh)'s own choice at 1080p); two ranks interleave tile
+    # rows of 12 (1080 = 2·12·45; the default 24 would need 1080 divisible by 48).
+    steps, tile_h = 3, {"contiguous": kc.tile_h, "interleaved": 12}
+    slab = dataclasses.replace(full, height=H // 2, ndc_height=H)
+    for th in sorted(set(tile_h.values())):  # the slabs' libraries, built before the ranks start
+        kernel_library(reference, prm, uni, slab, KernelConfig(tile_h=th))
+    torch.cuda.empty_cache()
+    g_img = torch.randn((H, W, 3), generator=gen, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: os.path.join(tmp, f"{k}.pt") for k in ("target", "cotangent", "images")}
+        torch.save(target_full.cpu(), files["target"])
+        torch.save(g_img.cpu(), files["cotangent"])
+        pair = spawn_ranks(ROWS_FIT, 2, {**files, "size": [W, H], "steps": steps, "tile_h": tile_h,
+                                         "layouts": ["contiguous", "interleaved"]})
+        images = torch.load(files["images"])
+    reset()
+    ref_fit = fit_scene(target_full, start(), ref_cam, light, mat, full,
+                        FitConfig(steps=steps, learning_rate=1e-2, log_every=1), trainable=trainable, device=dev)
+    check(launches() == {"fit_step_kernel": steps}, f"the unsharded 'detach' fit launched {launches()}")
+    ref_p = scene_param_vector(ref_fit.scene).cpu()
+    rows54 = {}
+    for r in pair:
+        check(r["backend"] == "gloo" and r["size"] == 2, f"rank {r['rank']}: {r['backend']}, size {r['size']}")
+        for layout, run in r["runs"].items():
+            want = {"render_kernel_forward": steps, "render_kernel_backward": steps, "fit_step_kernel": 0}
+            check(run["launches"] == want, f"rank {r['rank']} {layout}: launches {run['launches']}")
+        check(sum(r["render_sharded_launches"].values()) == 0, "render_sharded launched a kernel")
+    for layout in pair[0]["runs"]:
+        a, b = (r["runs"][layout] for r in pair)
+        check(a["losses"] == b["losses"] and a["params"] == b["params"], f"{layout}: the two ranks differ")
+        loss_rel = max(abs(x / y - 1.0) for x, y in zip(a["losses"], ref_fit.losses))
+        p_err = float((torch.tensor(a["params"]) - ref_p).abs().max())
+        check(loss_rel <= 1e-5 and p_err <= 1e-5, f"{layout}: off the unsharded 'detach' fit by {loss_rel:.3g}, "
+              f"params {p_err:.3g}")
+        rows54[layout] = {"tile_h": tile_h[layout], "loss_rel_err": loss_rel, "params_max_abs_err": p_err, "ms_per_step": a["ms_per_step"],
+                          "peak_gib": [r["runs"][layout]["peak_gib"] for r in pair]}
+    frame = tt.render(reference, ref_cam, light, mat, full).cpu()
+    check(torch.equal(images["plain"], frame) and torch.equal(images["differentiable"], frame),
+          "render_sharded's image is not render's bit for bit")
+    sc_r = copy.deepcopy(reference)
+    (render_diff(sc_r, ref_cam, light, mat, full) * g_img).sum().backward()
+    want_g = torch.cat([x.grad.reshape(-1) for x in leaves(sc_r)])
+    mass_r = gradient_mass(reference, prm, uni, g_img.permute(2, 0, 1).contiguous(), *k1[1:], full)[:P]
+    grads54 = check_grads(torch.tensor(pair[0]["render_sharded_grad"]), want_g.cpu(), mass_r.cpu(), rtol=1e-5,
+                          mass_tol=1e-5, label="render_sharded's summed gradients vs render_diff 1080p")
+    log("rows_1080p", card=card, note="two processes sharing one card over gloo; times claim nothing",
+        launches={layout: pair[0]["runs"][layout]["launches"] for layout in pair[0]["runs"]}, vs_unsharded=rows54,
+        render_sharded_seconds=pair[0]["render_sharded_seconds"], render_sharded_grads=grads54,
+        phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 55. a VoxelGrid: a 128³ bake of a bounded scene beside the analytic
+    # ground plane, rendered and fitted at 1080p on the banded route ----
+    t_phase = time.perf_counter()
+    sphere = tt.sdf.sphere((0.0, 0.4, 0.0), 0.2).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = tt.sdf.voxelize(sphere, 128, lo=(-0.5, -0.1, -0.5), hi=(0.5, 0.9, 0.5))
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    gscene = tt.sdf.ground_plane().to(dev) | grid
+    reset()
+    t0 = time.perf_counter()
+    img_t = tt.render_batch(gscene, [ref_cam], light, mat, full, engine="torch", device=dev)[0]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    with torch.no_grad():
+        img_b = render_kernel_diff(full, kc, gscene, ref_cam, light, mat)
+    check(launches() == {}, f"the grid's renders launched {launches()}")
+    check(torch.equal(img_t, img_b), "the grid's banded image is not render_batch(engine='torch')'s bit for bit")
+    analytic = render_kernel_forward(tt.sdf.ground_plane().to(dev) | sphere, ref_cam, light, mat, full, device=dev)[0]
+    off = float(((img_t - analytic).abs().amax(-1) > 0.05).float().mean())
+    check(off < 0.02, f"the grid's image is off the analytic scene's K1 render on {off:.3%} of pixels")
+    try:
+        tt.render_batch(gscene, [ref_cam], light, mat, full, engine="kernel", device=dev)
+        raised = False
+    except NotImplementedError as exc:
+        raised = "VoxelGrid has no kernel" in str(exc)
+    check(raised, "render_batch(engine='kernel') did not raise for the grid")
+    gtarget = render_kernel_forward(tt.sdf.ground_plane().to(dev) | tt.sdf.sphere((0.0, 0.42, 0.0), 0.21).to(dev),
+                                    ref_cam, light, mat, full, device=dev)[0]
+    fresh_peak()
+    reset()
+    g_clock = StepClock()
+    gfit = fit_scene(gtarget, gscene, ref_cam, light, mat, full, FitConfig(steps=5, learning_rate=1e-3, log_every=1),
+                     trainable=(False, False, True, False, False), device=dev, logger=g_clock)
+    gfit_peak, gfit_launches = peak_gib(), launches()
+    check(gfit_launches == {}, f"the grid fit launched {gfit_launches}")
+    check(all(math.isfinite(v) for v in gfit.losses) and not torch.equal(gfit.scene.b.values, grid.values),
+          f"the grid fit: losses {gfit.losses}")
+    # Where a step's device time goes (torch.profiler): the render's forward
+    # and the re-trace's backward into the samples.
+    gs = copy.deepcopy(gscene)
+
+    def grid_step():
+        loss = ((render_kernel_diff(full, kc, gs, ref_cam, light, mat) - gtarget) ** 2).sum()
+        torch.autograd.grad(loss, [gs.b.values])
+
+    gprof = device_us(torch, grid_step, calls=1)
+    gtop = sorted(gprof["kernels_us"].items(), key=lambda kv: -kv[1])[:6]
+    log("voxel_grid_1080p", card=card, samples=list(grid.values.shape), bake_seconds=bake_s,
+        render_batch_torch_seconds=render_s, pixels_off_analytic_over_0_05=off, fit_losses=gfit.losses,
+        fit_ms_per_step=g_clock.ms_per_step(), fit_peak_gib=gfit_peak, step_device_ms=gprof["total_us"] / 1e3,
+        step_top_kernels_us=gtop, phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 56. stereo, depth and the debug checks at 1080p ----
+    t_phase = time.perf_counter()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sbs = tt.render_stereo(reference, ref_cam, light, mat, full, mode="sbs", baseline=0.065, convergence=2.0,
+                           device=dev)
+    torch.cuda.synchronize()
+    stereo_ms = (time.perf_counter() - t0) * 1e3
+    stereo_launches = launches()
+    check(stereo_launches == {"render_kernel_forward": 2}, f"render_stereo launched {stereo_launches}")
+    eyes = tt.stereo_cameras(ref_cam, 0.065, 2.0)
+    frames = [render_kernel_forward(reference, cam, light, mat, full, device=dev)[0] for cam in eyes]
+    check(tuple(sbs.shape) == (H, 2 * W, 3) and torch.equal(sbs, torch.cat(frames, dim=1)),
+          "render_stereo's sbs is not two K1 renders bit for bit")
+    # Each eye of sbs against the plain version at that eye's toed-in camera,
+    # at the pixel budget (razor-edge rays past the hard limit, as phase 47).
+    stereo_st = []
+    for half, cam in zip(sbs.split(W, dim=1), eyes):
+        p_e, u_e = inputs(reference, cam, full)
+        want_e = render_kernel_forward_plain(reference, p_e, u_e, full)
+        stereo_st.append(check_planes((half.permute(2, 0, 1),), want_e[:1], full.march.max_distance,
+                                      f"render_stereo sbs {len(stereo_st)} vs plain",
+                                      razor=lambda p_e=p_e, u_e=u_e: razor_edge(reference, p_e, u_e, full))["rgb"])
+    stereo_err = max(st["max_abs_err"] for st in stereo_st)
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "depth.png")
+        t0 = time.perf_counter()
+        check(cli.main(["render", "--depth", "--width", str(W), "--height", str(H), "--out", png]) == 0,
+              "cli render --depth failed")
+        depth_s = time.perf_counter() - t0
+        with open(png, "rb") as f:
+            head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[16:24] == W.to_bytes(4, "big") + H.to_bytes(4, "big"),
+          "cli render --depth did not write a 1920x1080 PNG")
+    check(launches() == {}, f"cli render --depth launched {launches()}")
+    flagship = tt.flagship_scene().to(dev)
+    t0 = time.perf_counter()
+    err, img_f = debug.checked_render(flagship, ref_cam, light, mat, full)
+    checked_s = time.perf_counter() - t0
+    problems = debug.validate_scene(flagship)
+    check(err.get() is None and problems == [] and bool(torch.isfinite(img_f).all()),
+          f"the flagship's debug checks: {err.get()}, {problems}")
+    log("stereo_depth_debug_1080p", card=card, stereo_launches=stereo_launches, stereo_ms=stereo_ms,
+        stereo_vs_plain=[{q: st[q] for q in ("over_atol", "max_abs_err")} for st in stereo_st],
+        cli_depth_seconds=depth_s, checked_render_seconds=checked_s, validate_scene=problems,
+        phase_seconds=time.perf_counter() - t_phase)
+
+    return {
+        "render_fwd": {
+            "shadow_ad": {"launches": main52["fit_scene_ad"]["launches"]["render_kernel_forward"],
+                          "fit_view_launches": main52["fit_view_ad"]["launches"]["render_kernel_forward"],
+                          "ms_per_step": ms52["fit_scene_ad"], "fwd_bwd_ms": ad_ms, "peak_gib": ad_peak,
+                          "grad_err_over_mass": grads52["err_over_mass"]},
+            "rows": {"launches": pair[0]["runs"]["contiguous"]["launches"]["render_kernel_forward"],
+                     "ms_per_step": rows54["contiguous"]["ms_per_step"],
+                     "loss_rel_err": max(v["loss_rel_err"] for v in rows54.values())},
+            "stereo": {"launches": stereo_launches["render_kernel_forward"], "ms": stereo_ms, "max_abs_err": stereo_err},
+        },
+        "render_bwd": {
+            "rows": {"launches": pair[0]["runs"]["contiguous"]["launches"]["render_kernel_backward"],
+                     "ms_per_step": rows54["contiguous"]["ms_per_step"],
+                     "params_max_abs_err": max(v["params_max_abs_err"] for v in rows54.values())},
+        },
+        "neural_fwd": {
+            "shadow_ad": {"launches": nfit_launches["render_neural_forward"], "size": [nw, nh], "ms": k6_ms,
+                          "fwd_bwd_ms": n_ms, "ms_per_step": n_clock.ms_per_step(), "peak_gib": n_peak,
+                          "grad_rel_err_vs_cpu": n_rel},
+        },
     }
 
 

@@ -25,10 +25,15 @@ shade through every kernel's material program.  ``parallel`` shards renders and 
 in row layouts or a tile queue with its own kernels.  The
 package imports torch and numpy, never JAX and never ``sdf3d_tpu``;
 ``convert.from_jax`` and ``sdf.load_setup`` carry scenes and settings over
-from the JAX package.
+from the JAX package.  Under ``shadow.grad == "ad"`` the kernel engine's
+gradient re-marches the shadow ray (``ops.render_kernel_diff``); a scene
+without emitters (``sdf.VoxelGrid``) renders and fits on the torch paths and
+through ``render_kernel_diff``'s banded route.  ``render_stereo``,
+``viz.turbo`` and ``debug`` carry the JAX package's tools.
 """
 
 from sdf3d_tpu_torch import sdf
+from sdf3d_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from sdf3d_tpu_torch.camera import Camera, camera_rays, focal_z, generate_rays, pixel_grid
 from sdf3d_tpu_torch.config import (
     REFERENCE_CONFIG,
@@ -96,5 +101,6 @@ from sdf3d_tpu_torch.scenes import (
     reference_scene,
     sphere_scene,
 )
+from sdf3d_tpu_torch.stereo import render_stereo, stereo_cameras
 
 __version__ = "0.1.0"

@@ -10,7 +10,8 @@ of those names).
 
 ``render --engine kernel`` (default) renders through the CUDA render kernel,
 ``--engine torch`` through the plain PyTorch path (which alone takes
-``--normals autodiff``).  ``fit`` is the
+``--normals autodiff``); ``--depth`` writes the marched distance
+(``render_depth``, the torch march) through the turbo colormap instead.  ``fit`` is the
 inverse-rendering demo: it renders the scene as the target, then recovers
 the sphere of a perturbed start with the fused fit-step kernel.  ``fit-view``
 is the pose-estimation demo: it recovers a perturbed camera with the pixel L2
@@ -24,6 +25,7 @@ versions there).
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import sys
 import warnings
@@ -117,7 +119,15 @@ def cmd_render(args) -> int:
             cam = s.Camera.reference()
         light, mat = s.reference_light(), s.reference_material()
 
-    img = s.render_batch(scene, [cam], light, mat, cfg, engine=args.engine, device=args.device)[0]
+    if args.depth:
+        # JAX's depth view: the marched distance over 5 units through turbo.
+        from sdf3d_tpu_torch.viz import turbo
+
+        dev = torch.device(args.device)
+        d = s.render_depth(copy.deepcopy(scene).to(dev), cam.to(dev), cfg)
+        img = turbo(torch.clamp(d / 5.0, 0.0, 1.0))
+    else:
+        img = s.render_batch(scene, [cam], light, mat, cfg, engine=args.engine, device=args.device)[0]
     write_png(args.out, img.to(torch.device("cpu")).numpy())
     print(f"wrote {cfg.width}x{cfg.height} -> {args.out}")
     return 0
@@ -226,6 +236,8 @@ def main(argv=None) -> int:
     pr.add_argument("--normals", choices=["central", "tetrahedron", "autodiff"], default=None,
                     help="'autodiff' takes --engine torch (the kernels raise, as JAX's Pallas path)")
     pr.add_argument("--ao", action="store_true")
+    pr.add_argument("--depth", action="store_true",
+                    help="write the turbo-mapped marched distance (render_depth / 5) instead of RGB")
     pr.add_argument("--profile", choices=["parity", "fast"], default="parity",
                     help="'fast' = config.fast_config (non-parity)")
     pr.add_argument("--engine", choices=["kernel", "torch"], default="kernel")

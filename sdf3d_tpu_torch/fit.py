@@ -25,10 +25,12 @@ launch of the fused fit step a step for all of them (its view axis).
 With a ``mesh`` (``parallel/``) the fused step is sharded: each rank runs
 K3 on its rows (the contiguous and interleaved layouts) or K4 on its tile
 work-list (the tile queue), loss and gradients are all-reduced once a step,
-and the optimizer runs replicated on every rank.  A scene without emitters
-(a NeuralSDF) on the kernel engine, and every scene on the torch engine,
-render each rank's rows through ``diff.render_rays_diff`` instead
-(``parallel.loss_and_grad_sharded``).
+and the optimizer runs replicated on every rank.  Outside the fused step
+each rank renders its rows differentiably and autograd's gradients are
+all-reduced (``parallel.loss_and_grad_sharded``): on the kernel engine
+through ``ops.render_kernel_rows`` (K1 and K5 on its row slab) for a scene
+whose every node has an emitter, else (a NeuralSDF, a VoxelGrid, and every
+scene on the torch engine) through ``diff.render_rays_diff``.
 
 On a CPU device the kernels' plain PyTorch versions run.  Steps run in
 chunks; the losses stay on the device and are read once per chunk.
@@ -57,9 +59,9 @@ from sdf3d_tpu_torch.ops.fit_kernel import (
     multiview_inputs,
     with_rows,
 )
-from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff, render_kernel_rows
 from sdf3d_tpu_torch.ops.render_kernel import _U_K, KernelConfig, check_settings, pack_uniforms
-from sdf3d_tpu_torch.ops.scene_program import check_scene, describe, leaves, scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import describe, has_emitters, leaves, scene_param_vector
 from sdf3d_tpu_torch.parallel import launch
 from sdf3d_tpu_torch.parallel.collectives import broadcast_object, check_allreduce
 from sdf3d_tpu_torch.parallel.mesh import Mesh
@@ -225,28 +227,16 @@ def _make_optimizer(cfg: FitConfig, params) -> torch.optim.Optimizer:
 
 def _check_engine(fit_config: FitConfig, render_config: RenderConfig) -> None:
     """Raise for an unknown engine, and for what the kernel engine does not
-    take: autodiff normals (JAX's ``ValueError``) and a differentiated
-    shadow march (ROADMAP item 12); the torch engine takes both."""
+    take: autodiff normals (JAX's ``ValueError``); the torch engine takes
+    them.  A shadow under ``shadow.grad == "ad"`` runs on both engines."""
     if fit_config.engine not in ("kernel", "torch"):
         raise ValueError(f"unknown engine {fit_config.engine!r}; choose 'kernel' or 'torch'")
     if fit_config.engine == "kernel":
         check_settings(render_config)
-        if render_config.shadow.enabled and render_config.shadow.grad != "detach":
-            raise NotImplementedError(
-                f"shadow.grad == {render_config.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")
-
-
-def _has_emitters(scene: SDFNode) -> bool:
-    """True when every node of ``scene`` has an emitter (the kernels take it)."""
-    try:
-        check_scene(scene)
-    except NotImplementedError:
-        return False
-    return True
 
 
 def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, scene0, kc: KernelConfig) -> None:
-    """Raise for what the port's fit does not do yet (before any work)."""
+    """Raise for what the fit does not take (before any work)."""
     _check_engine(fit_config, render_config)
     if fit_config.loss not in ("l2", "multiscale"):
         raise ValueError(f"unknown loss {fit_config.loss!r}")
@@ -262,14 +252,9 @@ def _check_supported(fit_config: FitConfig, render_config: RenderConfig, mesh, s
         layout = _sharded_layout(fit_config, render_config, kc, mesh.size, fused)
         if fit_config.loss == "multiscale":
             _check_multiscale_alignment(fit_config, render_config, kc, mesh.size, layout)
-        if fit_config.engine == "kernel" and not fused:
-            if _has_emitters(scene0):
-                raise NotImplementedError(
-                    "sharded fits run the fused fit step; a configuration outside it under a mesh (the "
-                    "differentiable kernel render per rank) is not ported yet (ROADMAP item 15b)")
-            if layout == "tiles":
-                raise ValueError("shard_layout='tiles' needs the fused fit kernel (fused_l2_eligible); use a row "
-                                 "layout for this config")
+        if fit_config.engine == "kernel" and not fused and layout == "tiles":
+            raise ValueError("shard_layout='tiles' needs the fused fit kernel (fused_l2_eligible); use a row "
+                             "layout for this config")
 
 
 def _fused(fit_config: FitConfig, render_config: RenderConfig, scene, kc: KernelConfig) -> bool:
@@ -414,17 +399,21 @@ def _sil_term(fit_config: FitConfig, render_config: RenderConfig, scene, origins
 
 
 def _sharded_diff_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderConfig, kc: KernelConfig, target,
-                       camera, light, mat, cov_rows):
+                       camera, light, mat, cov_rows, rows_on_kernels: bool):
     """The per-step ``sharded(params, scene) -> (loss, grads)`` of a sharded
     fit outside the fused step (JAX's ``loss_and_grad_sharded`` route): each
-    rank renders its rows' rays through ``diff.render_rays_diff`` (in bands
-    of rows on the kernel engine, whose scene has no emitter: JAX's
-    ``render_rays_banded(..., inner=render_rays_diff)``), adds the
-    silhouette term on them, and the summed loss and the parameters'
-    gradients are all-reduced once a step."""
+    rank renders its rows, adds the silhouette term on their rays, and the
+    summed loss and the parameters' gradients are all-reduced once a step.
+    A rank renders its rows with ``ops.render_kernel_rows`` (K1 forward, K5
+    backward on its slab: the row uniforms of the contiguous or interleaved
+    layout) where ``rows_on_kernels`` (the kernel engine on a scene whose
+    every node has an emitter: JAX's ``render_pallas_rows``), else through
+    ``diff.render_rays_diff``, in bands of rows on the kernel engine (a
+    scene without emitters: JAX's ``render_rays_banded(...,
+    inner=render_rays_diff)``)."""
     H, W = render_config.height, render_config.width
     interleaved = _sharded_layout(fit_config, render_config, kc, mesh.size, False) == "interleaved"
-    row_layout(render_config, mesh, interleaved, kc.tile_h)  # JAX's divisibility errors
+    slab_cfg, row0, rowstride = row_layout(render_config, mesh, interleaved, kc.tile_h)
     rows = launch.rank_rows(mesh, H, interleaved, kc.tile_h)
     rows_rgb = target(rows) if callable(target) else target[torch.from_numpy(rows).to(target.device)]
     rows_rgb = torch.as_tensor(rows_rgb, dtype=torch.float32).to(mesh.device)
@@ -434,6 +423,8 @@ def _sharded_diff_step(mesh: Mesh, fit_config: FitConfig, render_config: RenderC
     def slab_loss(scene):
         if fit_config.engine == "torch":
             img = render_rays_diff(scene, o, d, light, mat, render_config)
+        elif rows_on_kernels:
+            img = render_kernel_rows(scene, camera, light, mat, slab_cfg, kc, row0, rowstride)
         else:
             img = render_rays_banded(scene, o, d, light, mat, render_config, inner=render_rays_diff)
         loss = pixel_loss(img, rows_rgb, fit_config.loss, fit_config.pyramid_levels)
@@ -524,7 +515,8 @@ def fit_scene(
                 set_grads(g_prm)
                 return loss_
     elif mesh is not None:
-        sharded = _sharded_diff_step(mesh, fit_config, render_config, kc, target, camera, light, mat, cov_rows)
+        sharded = _sharded_diff_step(mesh, fit_config, render_config, kc, target, camera, light, mat, cov_rows,
+                                     fit_config.engine == "kernel" and has_emitters(scene0))
         trained = [leaf for leaf in leaf_list if leaf.requires_grad]
 
         def step_loss():

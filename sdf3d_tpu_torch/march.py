@@ -25,6 +25,24 @@ _TINY = 1e-30
 _INTER_CAP = 1e15
 
 
+class _SqrtGradSafe(torch.autograd.Function):
+    """:func:`sqrt_rn` with JAX's ``_sqrt_grad_safe`` derivative: ``g·0.5/
+    max(r, 1e-20)`` where ``x > 0`` and 0 at ``x = 0``, where a shadow step
+    that marches straight away from a plane (``d2 = 0`` exactly) would
+    otherwise give ``0·inf = NaN``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = sqrt_rn(x.detach())
+        ctx.save_for_backward(x, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r = ctx.saved_tensors
+        return torch.where(x > 0, 0.5 / torch.clamp(r, min=1e-20), torch.zeros_like(r)) * g
+
+
 def _batch(origins, directions):
     return torch.broadcast_shapes(origins.shape[:-1], directions.shape[:-1])
 
@@ -194,7 +212,7 @@ def soft_shadow(
             inter = s * s / (2.0 * torch.where(prev == 0.0, _TINY, prev))
         inter = torch.clamp(inter, -_INTER_CAP, _INTER_CAP)
         d2 = s * s - inter * inter
-        d_est = sqrt_rn(torch.clamp(d2, min=0.0))
+        d_est = _SqrtGradSafe.apply(torch.clamp(d2, min=0.0))
         denom = dist - inter
         valid = (denom > 0.0) & (d2 >= 0.0)
         atten = torch.where(valid, cfg.k * d_est / torch.where(valid, denom, 1.0), _NO_DARKEN)

@@ -85,6 +85,7 @@ from sdf3d_tpu_torch.ops.scene_program import (
     check_scene,
     compile_scene,
     count_params,
+    has_emitters,
     leaves,
     scene_param_vector,
 )
@@ -113,13 +114,7 @@ def fused_l2_eligible(cfg: RenderConfig, scene: SDFNode, loss: str = "l2", level
         return False
     if cfg.shadow.enabled and cfg.shadow.grad != "detach":
         return False
-    if cfg.normals not in ("central", "tetrahedron"):
-        return False
-    try:
-        check_scene(scene)
-    except NotImplementedError:
-        return False
-    return True
+    return cfg.normals in ("central", "tetrahedron") and has_emitters(scene)
 
 
 def _pyramid_fits(kc: KernelConfig, levels: int) -> bool:
@@ -401,6 +396,7 @@ def fit_step_kernel_launch(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
 
 def _check_fused(scene: SDFNode, cfg: RenderConfig, loss_kind: str = "l2", levels: int = 3, sil_w: float = 0.0,
                  kc: KernelConfig | None = None) -> None:
+    check_scene(scene)  # a node without an emitter (a VoxelGrid): named
     check_settings(cfg)  # autodiff normals: ValueError, as JAX's Pallas path
     if sil_w > 0.0 and cfg.march.relaxation != 1.0:
         raise ValueError("min-SDF tracking requires march.relaxation == 1.0")
@@ -410,9 +406,10 @@ def _check_fused(scene: SDFNode, cfg: RenderConfig, loss_kind: str = "l2", level
                          f"(block {(kc.block_w, kc.block_h)}, tile {(kc.tile_h, kc.tile_w)} vs levels={levels})")
     if not fused_l2_eligible(cfg, scene, loss_kind, levels, sil_w, kc):
         raise NotImplementedError(
-            "the fused fit step takes detached-shadow gradients (shadow.grad == 'ad' needs a differentiable "
-            "re-march, ROADMAP item 12) and central or tetrahedron normals, on scenes whose every node has an "
-            "emitter (ops/scene_program.py::check_scene names the first that has none)")
+            "the fused fit step takes detached-shadow gradients and central or tetrahedron normals, on scenes "
+            "whose every node has an emitter (ops/scene_program.py::check_scene names the first that has none); "
+            "shadow.grad == 'ad' re-marches the shadow in the differentiable render (ops.render_kernel_diff), "
+            "which fit_scene, fit_view and fit_scene_multiview take for it")
 
 
 def with_rows(uni: torch.Tensor, row0=None, rowstride=None) -> torch.Tensor:

@@ -37,7 +37,7 @@ import torch
 
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.ops import _build
-from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+from sdf3d_tpu_torch.ops.render_bwd_kernel import planar_vjp, shadow_ad
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_K,
     N_UNIFORMS,
@@ -294,8 +294,8 @@ class NeuralRenderFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgb):
         prm, uni, t, shadow, ao = ctx.saved_tensors
-        g_prm, g_uni = render_kernel_backward_plain(neural_distance(ctx.scene), prm, uni, g_rgb, t, shadow, ao,
-                                                    ctx.cfg)
+        g_prm, g_uni = planar_vjp(neural_distance(ctx.scene), prm, uni, g_rgb, t, shadow, ao, ctx.cfg,
+                                  remarch_shadow=shadow_ad(ctx.cfg))
         return g_prm, g_uni, None, None, None
 
 
@@ -304,10 +304,9 @@ def render_neural(cfg: RenderConfig, nc: NeuralRenderConfig, scene: SDFNode, cam
     scene's parameters (camera, light and material must be there too):
     gradients reach the MLP's weights, biases and β, the analytic subtree's
     parameters, and every camera, light and material tensor that requires
-    grad.  The shadow is a detached factor, as in the JAX package."""
-    if cfg.shadow.enabled and cfg.shadow.grad != "detach":
-        raise NotImplementedError(
-            f"shadow.grad == {cfg.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12)")
+    grad.  The shadow is a detached factor, or under ``shadow.grad == "ad"``
+    re-marched differentiably in the backward (the MLP evaluated at every
+    step of the shadow ray), as in the JAX package."""
     split_neural(scene)
     prm = scene_param_vector(scene, detach=False)
     uni = pack_uniforms(camera, light, mat, cfg.ray_mode, prm.device, detach=False)

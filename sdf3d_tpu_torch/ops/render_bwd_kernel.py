@@ -18,15 +18,24 @@ implementations of the same function:
 - :func:`render_kernel_backward_plain`, autograd through
   :func:`shade_planes`, which the wrapper runs for tensors on the CPU and
   which the tests and ``chip_smoke.py`` hold the kernel against.
+
+:func:`planar_vjp` is the same VJP with the choice the kernel does not
+have: ``remarch_shadow=True`` re-marches the shadow ray differentiably inside
+the re-trace (``shadow.grad == "ad"``, JAX's ``_planar_shade`` branch), the
+backward of ``render_kernel_diff`` and ``render_neural`` under that mode on
+the CPU and the card alike.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.diff import DENOM_FLOOR
+from sdf3d_tpu_torch.march import soft_shadow
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_AMB,
     _U_LIGHT,
@@ -36,9 +45,11 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     check_settings,
     kernel_library,
     material_channels,
+    pixel_planes,
     ray_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params
+from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params, leaves
+from sdf3d_tpu_torch.sdf.materials import scene_has_materials
 from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
 def _rsqrt(x):
@@ -70,6 +81,28 @@ def planar_distance(sdf):
     return lambda px, py, pz, prm: soa(px, py, pz, lambda i: prm[i])
 
 
+def scene_distance(scene: SDFNode):
+    """The distance ``(px, py, pz, prm) -> planes`` of any scene through its
+    own ``distance`` (``torch.func.functional_call``), its leaves read from
+    the flat parameter vector ``prm`` (P,) in ``scene_param_vector``'s
+    order: the re-trace of a scene without emitters (a ``VoxelGrid``), JAX's
+    generic branch of ``_planar_shade``.  Per-object materials need the
+    material program, which such a scene has not: they raise."""
+    if scene_has_materials(scene):
+        raise NotImplementedError("per-object materials (Shaded) on a scene without emitters have no planar re-trace")
+    names = {id(p): n for n, p in scene.named_parameters(remove_duplicate=False)}
+    slots, off = [], 0
+    for leaf in leaves(scene):
+        slots.append((names[id(leaf)], off, leaf.shape))
+        off += leaf.numel()
+
+    def dist(px, py, pz, prm):
+        subs = {name: prm[o:o + max(1, int(np.prod(shape)))].reshape(shape) for name, o, shape in slots}
+        return torch.func.functional_call(scene, subs, (torch.stack([px, py, pz], dim=-1),))
+
+    return dist
+
+
 def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
                          cfg: RenderConfig, pixels=None) -> torch.Tensor:
     """``∇ₚf(o + t0·d)·d`` per pixel (H, W), detached, for a scene or
@@ -86,8 +119,15 @@ def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Te
     return gq[0] * d[0] + gq[1] * d[1] + gq[2] * d[2]
 
 
+def shadow_ad(cfg: RenderConfig) -> bool:
+    """True when ``cfg`` asks for the shadow's own gradient: an enabled
+    shadow under ``shadow.grad == "ad"`` (penumbra-shape gradients through a
+    re-marched shadow ray)."""
+    return cfg.shadow.enabled and cfg.shadow.grad == "ad"
+
+
 def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
-                 scene, cfg: RenderConfig, pixels=None, power=torch.pow) -> torch.Tensor:
+                 scene, cfg: RenderConfig, pixels=None, power=torch.pow, remarch_shadow: bool = False) -> torch.Tensor:
     """The shading re-traced from the forward's planes, planar RGB (3, H, W),
     differentiable in ``prm`` (P,) and ``uni`` (30,), for a scene or distance
     ``scene`` (:func:`planar_distance`).  ``t0``, ``shadow`` and ``ao`` (H, W)
@@ -98,7 +138,12 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     scene, of ``render_pallas.py::_planar_shade``'s generic branch).
     ``pixels``: the planes' absolute ``(rows, cols)``
     (``render_kernel.ray_planes``).  ``power(x, s)`` is the specular power
-    (the fit kernel's variant ``nopow`` passes its chain)."""
+    (the fit kernel's variant ``nopow`` passes its chain).  With
+    ``remarch_shadow`` (and an enabled shadow) the shadow ray is marched
+    again from ``h + 2ε·n`` towards the light, differentiably and without
+    the early exit, and its gradient replaces the detached factor's zero
+    while the plane ``shadow`` stays the primal (JAX's ``_planar_shade``
+    under ``shadow.grad == "ad"``)."""
     check_settings(cfg)
     dist = planar_distance(scene)
     H, W = t0.shape
@@ -135,10 +180,17 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     ninv = _rsqrt(_floor(nx * nx + ny * ny + nz * nz, 1e-24))
     nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
 
-    # ---- incident light, shadow (detached), AO (flows, the plane is its value) ----
+    # ---- incident light, shadow (detached or re-marched), AO (flows, the plane is its value) ----
     ix, iy, iz = u[_U_LIGHT] - hx, u[_U_LIGHT + 1] - hy, u[_U_LIGHT + 2] - hz
     iinv = _rsqrt(_floor(ix * ix + iy * iy + iz * iz, 1e-24))
     ix, iy, iz = ix * iinv, iy * iinv, iz * iinv
+    if remarch_shadow and cfg.shadow.enabled:
+        # A fixed trip count (no early exit), so every step is recorded; the
+        # kernel's plane is the value, the re-march's the gradient.
+        origin = torch.stack([hx + 2.0 * e * nx, hy + 2.0 * e * ny, hz + 2.0 * e * nz], dim=-1)
+        sh_ad = soft_shadow(lambda p: sdf(p[..., 0], p[..., 1], p[..., 2]), origin, torch.stack([ix, iy, iz], dim=-1),
+                            cfg.shadow, dataclasses.replace(mc, early_exit=False))
+        shadow = sh_ad - sh_ad.detach() + shadow
     if cfg.ao.enabled:
         occ = torch.zeros_like(t0)
         weight = 1.0
@@ -175,21 +227,30 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     return torch.stack(chans)
 
 
-def render_kernel_backward_plain(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
-                                 t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
-                                 pixels=None, wrt_uniforms: bool = True):
-    """Plain PyTorch version of the render backward: ``(g_prm (P,), g_uni
-    (30,))``, the VJP of :func:`shade_planes` with the cotangent ``g_rgb``
-    (3, H, W), for a scene or distance ``scene`` (:func:`planar_distance`;
-    the neural render's backward passes ``neural_distance``).  Without
-    ``wrt_uniforms`` it takes the gradient of ``prm`` alone and ``g_uni`` is
-    None.  ``pixels`` as for :func:`shade_planes`."""
+def planar_vjp(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor, t: torch.Tensor,
+               shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig, pixels=None, wrt_uniforms: bool = True,
+               remarch_shadow: bool = False):
+    """``(g_prm (P,), g_uni (30,))``: the VJP of :func:`shade_planes` with
+    the cotangent ``g_rgb`` (3, H, W), for a scene or distance ``scene``
+    (:func:`planar_distance`; the neural render's backward passes
+    ``neural_distance``), the shadow re-marched where ``remarch_shadow``
+    says.  Without ``wrt_uniforms`` it takes the gradient of ``prm`` alone
+    and ``g_uni`` is None.  ``pixels`` as for :func:`shade_planes`."""
     prm_ = prm.detach().requires_grad_(True)
     uni_ = uni.detach().requires_grad_(wrt_uniforms)
     with torch.enable_grad():
-        rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels)
+        rgb = shade_planes(prm_, uni_, t, shadow, ao, scene, cfg, pixels, remarch_shadow=remarch_shadow)
         grads = torch.autograd.grad(rgb, (prm_, uni_) if wrt_uniforms else (prm_,), grad_outputs=g_rgb)
     return grads[0], grads[1] if wrt_uniforms else None
+
+
+def render_kernel_backward_plain(scene, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
+                                 t: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor, cfg: RenderConfig,
+                                 pixels=None, wrt_uniforms: bool = True):
+    """Plain PyTorch version of the render backward: :func:`planar_vjp` with
+    the shadow a detached factor, whatever ``cfg.shadow.grad`` says (the
+    kernel's semantics)."""
+    return planar_vjp(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels, wrt_uniforms)
 
 
 def render_bwd_launcher(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor, g_rgb: torch.Tensor,
@@ -250,13 +311,15 @@ def render_kernel_backward(scene: SDFNode, prm: torch.Tensor, uni: torch.Tensor,
     ``wrt_uniforms`` the parameters' gradient alone (``g_uni`` None, and the
     kernel computes and sums only the P columns).  On the card it launches
     the CUDA kernel; on the CPU it runs the kernel's plain PyTorch version.
-    ``render_kernel_backward.launches`` counts kernel launches."""
-    if cfg.shadow.enabled and cfg.shadow.grad != "detach":
-        raise NotImplementedError(
-            f"shadow.grad == {cfg.shadow.grad!r} needs a differentiable re-march (ROADMAP item 12); "
-            "the render backward treats the shadow as a detached factor")
+    ``render_kernel_backward.launches`` counts kernel launches.  The kernel
+    treats the shadow as a detached factor: ``shadow.grad == "ad"`` raises
+    here (:func:`planar_vjp` re-marches it)."""
+    if shadow_ad(cfg):
+        raise ValueError("the render backward treats the shadow as a detached factor; shadow.grad == 'ad' takes "
+                         "planar_vjp(..., remarch_shadow=True) (render_kernel_diff routes it there)")
     if prm.device.type == "cpu":
-        return render_kernel_backward_plain(scene, prm, uni, g_rgb, t, shadow, ao, cfg, wrt_uniforms=wrt_uniforms)
+        return render_kernel_backward_plain(scene, prm, uni, g_rgb, t, shadow, ao, cfg,
+                                            pixel_planes(uni, cfg.height, cfg.width, kc.tile_h), wrt_uniforms)
     if prm.device.type == "cuda":
         return render_kernel_backward_launch(scene, prm, uni, g_rgb, t, shadow, ao, cfg, kc, wrt_uniforms)
     raise ValueError(f"render_kernel_backward runs on 'cuda' or 'cpu', not {prm.device}")

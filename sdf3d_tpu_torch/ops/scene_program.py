@@ -684,8 +684,9 @@ def _no_emitter(node):
         f"no render-kernel emitter for scene node {type(node).__name__}; the port supports the primitives "
         "Sphere, Plane, Box, RoundBox, Torus, Capsule, Cylinder, Ellipsoid and Mandelbulb, the hard and smooth "
         "Union, Intersection and Subtraction, the transforms Translate, Rotate, Scale, Round, Onion, Elongate and "
-        "RepeatInfinite, Shaded, and NeuralSDF so far: VoxelGrid is ROADMAP item 14 "
-        "(sdf3d_tpu_torch/ops/scene_program.py)"
+        "RepeatInfinite, Shaded, and NeuralSDF.  A VoxelGrid has no kernel (its trilinear gather is torch "
+        "indexing, as it is XLA in the JAX package): render it with render, render_banded or "
+        "render_batch(engine='torch'), and differentiate it with render_kernel_diff or diff.render_diff"
     )
 
 
@@ -707,6 +708,12 @@ def check_scene(scene: SDFNode) -> None:
     for node in walk_nodes(scene):
         if type(node) not in _HANDLERS:
             raise _no_emitter(node)
+
+
+def has_emitters(scene: SDFNode) -> bool:
+    """True when every node of ``scene`` has an emitter (the analytic
+    kernels take it; JAX's ``_scene_compiles``)."""
+    return all(type(node) in _HANDLERS for node in walk_nodes(scene))
 
 
 def compile_scene(scene: SDFNode):

@@ -11,7 +11,9 @@ layouts:
   rows (``row0 = d·TH``, ``rowstride = n·TH`` in the uniforms);
 - ``tiles``: a tile-queue work-list per rank (``tile_queue.py``).
 
-A forward render gathers the ranks' pieces (``dist.all_gather``); a fit
+A forward render gathers the ranks' pieces (``dist.all_gather``): the
+kernels' (:func:`render_sharded_kernel`) or the torch engine's
+(:func:`render_sharded`); a fit
 all-reduces loss and gradients once a step (one flat vector, through one
 ``dist.all_reduce`` or one ring kernel), and the optimizer runs replicated:
 the fused fit kernels' gradients (:func:`fused_loss_and_grad_sharded`) or
@@ -89,6 +91,30 @@ def row_layout(config, mesh: Mesh, interleaved: bool, tile_h: int):
     if interleaved:
         return slab_cfg, mesh.rank * tile_h, n * tile_h
     return slab_cfg, mesh.rank * slab, tile_h
+
+
+def render_sharded(scene, camera, light, mat, config, mesh: Mesh, differentiable: bool = False) -> torch.Tensor:
+    """Torch-engine sharded render (the port of JAX's ``render_sharded``):
+    ``(H, W, 3)`` on every rank.  Rank ``d`` marches and shades the
+    contiguous row slab ``[d·H/n, (d+1)·H/n)`` with ``render.render_rays``
+    (``diff.render_rays_diff`` when ``differentiable``) and the slabs are
+    gathered in rank order.  The scene, camera, light and material are on
+    ``mesh.device``.  With ``differentiable`` this rank's slab keeps its
+    graph and the other ranks' are constants, so the gradient of a loss of
+    the image reaches this rank's pixels only: the sum over the mesh of the
+    ranks' gradients (``collectives.allreduce_tree``) is the whole image's,
+    as in :func:`loss_and_grad_sharded`."""
+    from sdf3d_tpu_torch.camera import camera_rays_for_rows
+    from sdf3d_tpu_torch.diff import render_rays_diff
+    from sdf3d_tpu_torch.parallel.launch import rank_rows
+    from sdf3d_tpu_torch.render import render_rays
+
+    rows = rank_rows(mesh, config.height)
+    o, d = camera_rays_for_rows(camera, config.width, config.height, rows, config.ray_mode)
+    slab = (render_rays_diff if differentiable else render_rays)(scene, o, d, light, mat, config)
+    parts = list(all_gather_stacks(slab.detach()[None], mesh)[0].split(len(rows)))
+    parts[mesh.rank] = slab
+    return torch.cat(parts)
 
 
 def render_sharded_kernel(scene, camera, light, mat, config, mesh: Mesh, kc=None, interleaved: bool = False,

@@ -32,6 +32,7 @@ def registry() -> dict:
     from sdf3d_tpu_torch.config import AOConfig, MarchConfig, RenderConfig, ShadowConfig
     from sdf3d_tpu_torch.lighting import Material, PointLight
     from sdf3d_tpu_torch.sdf import csg, primitives, transforms
+    from sdf3d_tpu_torch.sdf.grid import VoxelGrid
     from sdf3d_tpu_torch.sdf.materials import Shaded
     from sdf3d_tpu_torch.sdf.neural import NeuralSDF
 
@@ -39,7 +40,8 @@ def registry() -> dict:
                primitives.Capsule, primitives.Cylinder, primitives.Ellipsoid, primitives.Mandelbulb,
                csg.Union, csg.Intersection, csg.Subtraction, csg.SmoothUnion, csg.SmoothIntersection,
                csg.SmoothSubtraction, transforms.Translate, transforms.Rotate, transforms.Scale, transforms.Round,
-               transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, Shaded, NeuralSDF, Camera, PointLight,
+               transforms.Onion, transforms.Elongate, transforms.RepeatInfinite, Shaded, VoxelGrid, NeuralSDF, Camera,
+               PointLight,
                Material, RenderConfig, MarchConfig, ShadowConfig, AOConfig)
     return {cls.__name__: cls for cls in classes}
 
@@ -114,6 +116,20 @@ def scene_from_json(text: str):
     if isinstance(root, dict) and "__type__" not in root and "__seq__" not in root and not root.get("__array__"):
         return {k: _decode(v, classes) for k, v in root.items()}
     return _decode(root, classes)
+
+
+def save_scene(path, scene: SDFNode) -> None:
+    """Write a scene tree to ``path`` as editable JSON."""
+    pathlib.Path(path).write_text(scene_to_json(scene))
+
+
+def load_scene(path) -> SDFNode:
+    """Load a scene written by :func:`save_scene` (of either package) or by
+    hand."""
+    obj = scene_from_json(pathlib.Path(path).read_text())
+    if not isinstance(obj, SDFNode):
+        raise ValueError(f"{path} does not contain a scene node (got {type(obj).__name__})")
+    return obj
 
 
 def save_setup(path, scene, camera=None, light=None, material=None, config=None) -> None:

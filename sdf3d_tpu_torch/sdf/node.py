@@ -66,6 +66,17 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return _Sqrt.apply(x)
 
 
+def linspace_f32(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
+    """``jnp.linspace(lo, hi, n)`` in float32 as XLA computes it: ``lo·(1 −
+    s) + hi·s`` with ``s = i·(1/(n − 1))`` (a division by a constant becomes
+    a product with its float32 reciprocal), the last point ``hi`` itself; 0-d
+    ``lo`` and ``hi`` on one device."""
+    if n == 1:
+        return lo.reshape(1)
+    step = torch.arange(n - 1, dtype=torch.float32, device=lo.device) * float(np.float32(1.0) / np.float32(n - 1))
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])
+
+
 def vlength(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis (GLSL ``length``)."""
     return sqrt_rn(torch.sum(v * v, dim=-1))

@@ -294,7 +294,7 @@ def conditioned(scene, prm, uni, t, cfg, floor: float = COND_FLOOR, pixels=None)
     return (den.abs() >= floor) | (t > cfg.march.max_distance)
 
 
-def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels=None):
+def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels=None, remarch_shadow: bool = False):
     """Per component of the render backward's ``(g_prm, g_uni)``, the sum
     over pixels of the magnitude of each pixel's term, ``(P + 30,)``.
 
@@ -303,17 +303,20 @@ def gradient_mass(scene, prm, uni, g_rgb, t, shadow, ao, cfg, pixels=None):
     hit) that cancel.  It runs the plain backward with the parameters and
     uniforms expanded to one copy per pixel, which gives each pixel's term.
     ``scene`` is a scene or a distance callable, and ``pixels`` the planes'
-    absolute positions, as for :func:`conditioned`."""
+    absolute positions, as for :func:`conditioned`.  ``remarch_shadow``: the
+    backward of ``shadow.grad == "ad"`` (``render_bwd_kernel.planar_vjp``),
+    whose terms include the re-marched shadow's."""
     import torch
 
-    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward_plain
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import planar_vjp
 
     H, W = t.shape
 
     def planes(v):
         return v[:, None, None].expand(-1, H, W).contiguous()
 
-    mp, mu = render_kernel_backward_plain(scene, planes(prm), planes(uni), g_rgb, t, shadow, ao, cfg, pixels)
+    mp, mu = planar_vjp(scene, planes(prm), planes(uni), g_rgb, t, shadow, ao, cfg, pixels,
+                        remarch_shadow=remarch_shadow)
     return torch.cat([mp.abs().sum((1, 2)), mu.abs().sum((1, 2))])
 
 

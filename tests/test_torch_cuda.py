@@ -1529,3 +1529,100 @@ def test_sharded_neural_fit_takes_rs_ag(dev, tmp_path):
                     trainable=(False, False) + (True,) * 7, device=dev)
     np.testing.assert_allclose(outs[0]["losses"], ref.losses, rtol=1e-5)
     np.testing.assert_allclose(outs[0]["params"], scene_param_vector(ref.scene).cpu().numpy(), rtol=1e-4, atol=1e-6)
+
+
+# ---- the rest of the differentiable render (ROADMAP 12, 15b): the "ad"
+# shadow and the row slabs on the card ----
+
+
+def _ad(cfg):
+    return dataclasses.replace(cfg, shadow=dataclasses.replace(cfg.shadow, grad="ad"))
+
+
+@pytest.mark.parametrize("azimuth", [0.0, 30.0])
+def test_shadow_ad_route_matches_cpu(dev, azimuth):
+    """``render_kernel_diff`` under ``shadow.grad == "ad"`` on the card (K1
+    forward, the planar re-trace with the shadow re-marched on CUDA tensors)
+    against the same route on the CPU (the plain K1): K1 launched once and
+    K5 never, the primal the "detach" render's bit for bit, the image at the
+    pixel budget, and the gradients of a seeded cotangent for the scene,
+    camera, light and material at the own-march bar (1e-3 of the mass, the
+    re-march's terms counted) where the primals agree and the gradient is
+    conditioned."""
+    import copy
+
+    from sdf3d_tpu_torch.camera import focal_z
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
+
+    cfg = _ad(BASE)
+    cam, light, mat = _view_leaves(dev, azimuth)
+    scene = tt.reference_scene().to(dev)
+    prm, uni = _inputs(scene, cam, BASE, dev)
+    k1 = render_kernel_launch(scene, prm, uni, BASE)
+    plain = render_kernel_forward_plain(scene, prm, uni, BASE)
+    keep = primals_agree(k1, plain, BASE.march.max_distance) & conditioned(scene, prm, uni, k1[1], BASE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    g_rgb = (torch.randn((3, BASE.height, BASE.width), generator=gen, device=dev) * keep).contiguous()
+    render_kernel_forward.launches = render_kernel_backward.launches = 0
+    sc_k = copy.deepcopy(scene)
+    img = render_kernel_diff(cfg, KernelConfig(), sc_k, cam, light, mat)
+    (img * g_rgb.permute(1, 2, 0)).sum().backward()
+    torch.cuda.synchronize()
+    assert (render_kernel_forward.launches, render_kernel_backward.launches) == (1, 0)
+    torch.testing.assert_close(img.detach().permute(2, 0, 1), k1[0], rtol=0, atol=0)
+    got = _object_grads(sc_k, cam, light, mat).cpu()
+    cpu_view = [type(o)(*(getattr(o, f.name).detach().cpu().requires_grad_(True) for f in dataclasses.fields(o)))
+                for o in (cam, light, mat)]
+    sc_c = copy.deepcopy(scene).to("cpu")
+    img_c = render_kernel_diff(cfg, KernelConfig(), sc_c, *cpu_view)
+    check_planes((img.detach().permute(2, 0, 1), *k1[1:]), plain, BASE.march.max_distance)
+    (img_c * g_rgb.cpu().permute(1, 2, 0)).sum().backward()
+    want = _object_grads(sc_c, *cpu_view)
+    mass = gradient_mass(scene, prm, uni, g_rgb, *k1[1:], BASE, remarch_shadow=True).cpu()
+    P = prm.numel()
+    fov = cpu_view[0].fov_deg.detach().clone().requires_grad_(True)
+    focal_z(fov, BASE.ray_mode).backward()
+    mass_obj = mass[:P + 27].clone()
+    mass_obj[P + 12] *= fov.grad.abs()
+    check_grads(got, want, mass_obj, rtol=1e-4, mass_tol=1e-3, label=f"'ad' route, card vs CPU, azimuth {azimuth}")
+
+
+@pytest.mark.parametrize("interleaved", [False, True], ids=["contiguous", "interleaved"])
+def test_row_slabs_match_the_full_launch(dev, interleaved):
+    """K1 on each rank's row slab (the row uniforms of a 4-rank layout) gives
+    the full launch's rows bit for bit, and K5 on the slabs sums to the full
+    launch's gradient within 1e-5 of the mass (the partial rows group the
+    pixels otherwise); under "ad" the slabs take K5 all the same (JAX's row
+    route)."""
+    from sdf3d_tpu_torch.ops.render_autograd import render_kernel_rows
+    from sdf3d_tpu_torch.ops.scene_program import leaves
+    from sdf3d_tpu_torch.parallel import launch
+    from sdf3d_tpu_torch.parallel.mesh import Mesh
+    from sdf3d_tpu_torch.parallel.shard_render import row_layout
+
+    kc = KernelConfig(tile_h=8, tile_w=128)
+    scene = tt.reference_scene().to(dev)
+    cam = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    view = (cam, tt.reference_light(device=dev), tt.reference_material(device=dev))
+    prm, uni = _inputs(scene, cam, BASE, dev)
+    full = render_kernel_launch(scene, prm, uni, BASE, kc)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    g = torch.randn((BASE.height, BASE.width, 3), generator=gen, device=dev)
+    g_full = render_kernel_backward(scene, prm, uni, g.permute(2, 0, 1).contiguous(), *full[1:], BASE, kc,
+                                    wrt_uniforms=False)[0]
+    n = 4
+    render_kernel_forward.launches = render_kernel_backward.launches = 0
+    sc = tt.reference_scene().to(dev)
+    for r in range(n):
+        slab_cfg, row0, stride = row_layout(_ad(BASE), Mesh(n, r, dev), interleaved, kc.tile_h)
+        rows = torch.from_numpy(launch.rank_rows(Mesh(n, r, dev), BASE.height, interleaved, kc.tile_h)).to(dev)
+        slab = render_kernel_rows(sc, *view, slab_cfg, kc, row0, stride)
+        torch.testing.assert_close(slab.detach(), full[0].permute(1, 2, 0)[rows], rtol=0, atol=0)
+        (slab * g[rows]).sum().backward()
+    torch.cuda.synchronize()
+    assert (render_kernel_forward.launches, render_kernel_backward.launches) == (n, n)
+    got = torch.cat([x.grad.reshape(-1) for x in leaves(sc)])
+    mass = gradient_mass(scene, prm, uni, g.permute(2, 0, 1), *full[1:], BASE)[:prm.numel()]
+    check_grads(got.cpu(), g_full.cpu(), mass.cpu(), rtol=1e-5, mass_tol=1e-5, label="K5 on row slabs")

@@ -198,7 +198,7 @@ def test_kernel_paths_raise_for_unsupported_scenes():
         render_kernel_forward(tt.sdf.ground_plane() | n, *view, cfg)
     with pytest.raises(NotImplementedError, match="render_banded"):
         tt.render_batch(n | n, [view[0]], *view[1:], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(NotImplementedError, match="no render-kernel emitter for scene node _Box"):
         tt.render_batch(tt.sdf.Union(tt.sdf.ground_plane(), _Box()), [view[0]], *view[1:], cfg, device="cpu")
     with pytest.raises(ValueError, match="Union"):
         render_neural_forward(n | n, *view, cfg)

@@ -109,9 +109,16 @@ def test_reference_scene_param_vector():
 
 
 def test_unknown_jax_class_raises():
-    # VoxelGrid is ROADMAP item 14: the port has no such class yet.
-    with pytest.raises(TypeError, match="VoxelGrid"):
-        convert.from_jax(s.sdf.voxel_grid(np.zeros((2, 2, 2), np.float32)))
+    # Every node class of the JAX package has a counterpart now (VoxelGrid
+    # since ROADMAP item 14), so the case is a node class of its own.
+    import flax.struct
+
+    @flax.struct.dataclass
+    class Gyroid(s.sdf.SDFNode):
+        scale: object
+
+    with pytest.raises(TypeError, match="Gyroid"):
+        convert.from_jax(Gyroid(scale=np.float32(1.0)))
 
 
 class Box(SDFNode):
@@ -131,7 +138,7 @@ def test_kernel_path_raises_for_unsupported_node():
         cuda_scene_source(scene, CFG, KernelConfig())
     with pytest.raises(NotImplementedError, match="Box"):
         render_kernel_forward(scene, *VIEW, CFG)
-    with pytest.raises(NotImplementedError, match="VoxelGrid is ROADMAP item 14"):
+    with pytest.raises(NotImplementedError, match="A VoxelGrid has no kernel"):
         render_kernel_forward(scene, *VIEW, CFG)
 
 
@@ -208,17 +215,21 @@ FIT_ARGS = (np.zeros((24, 32, 3), np.float32), tt.reference_scene(), *VIEW, CFG)
          (ValueError, "central/tetrahedron normals")),
         (dict(fit_config=FitConfig(steps=2, silhouette_weight=0.5, loss="multiscale", pyramid_levels=4),
               target_coverage=np.ones((24, 32), np.float32)), None),
-        # A sharded multiscale fit whose pyramid the block cannot hold.
-        (dict(mesh=make_mesh("cpu"), fit_config=FitConfig(loss="multiscale"),
-              kernel_config=KernelConfig(block_w=16, block_h=4)), (NotImplementedError, "ROADMAP item 15b")),
-        (dict(render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))),
-         (NotImplementedError, "ROADMAP item 12")),
+        # A sharded multiscale fit whose pyramid the block cannot hold: each
+        # rank's rows on K1 + K5 (the row route, ROADMAP item 15b).
+        (dict(mesh=make_mesh("cpu"), fit_config=FitConfig(steps=2, loss="multiscale"),
+              kernel_config=KernelConfig(block_w=16, block_h=4)), None),
+        # The shadow re-marched in the backward (ROADMAP item 12).
+        (dict(fit_config=FitConfig(steps=2),
+              render_config=dataclasses.replace(CFG, shadow=dataclasses.replace(CFG.shadow, grad="ad"))), None),
     ],
     ids=["xla", "silhouette", "coverage", "mesh", "shadow_ad"],
 )
 def test_fit_options_that_wait_raise(kwargs, raises):
-    """The fit options that wait for a later item raise naming it, before
-    any work; those of ROADMAP item 5 (diff.py) run, or raise as JAX's do."""
+    """The fit options that waited for a later item run now, or raise as
+    JAX's do: those of ROADMAP item 5 (diff.py), a sharded fit outside the
+    fused step (item 15b) and ``shadow.grad == "ad"`` on the kernel engine
+    (item 12)."""
     args = list(FIT_ARGS)
     if "render_config" in kwargs:
         args[-1] = kwargs.pop("render_config")
@@ -253,6 +264,21 @@ def test_fit_has_no_quiet_move_to_cpu():
         pytest.skip("a card is present; the cuda-marked tests cover this path")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit_scene(*FIT_ARGS, FitConfig(steps=1))
+
+
+@pytest.mark.parametrize("module", ["sdf3d_tpu", "sdf3d_tpu.sdf"])
+def test_exports_carry_every_jax_name(module):
+    """Every name the JAX package exports (``__all__`` of the package and of
+    ``sdf``) resolves in the port under the same name; ROADMAP's "Do not
+    port these" list leaves none of them out."""
+    import importlib
+
+    jax_mod = importlib.import_module(module)
+    port_mod = importlib.import_module(module.replace("sdf3d_tpu", "sdf3d_tpu_torch"))
+    missing = [n for n in jax_mod.__all__ if not hasattr(port_mod, n)]
+    assert not missing, missing
+    if module == "sdf3d_tpu.sdf":
+        assert not [n for n in jax_mod.__all__ if n not in port_mod.__all__]
 
 
 def test_13b_exports_carry_the_jax_names():
