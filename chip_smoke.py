@@ -46,6 +46,15 @@ Then the training path, ``fit_scene`` on the reference scene at 1920×1080
     point with its total, then its wrapper; each beside its plain version;
     ``fit_scene`` ms/step and fwd_bwd rays/s).
 
+In the whole smoke phase 34's libraries build in another thread while
+phase 31 runs, and phase 37's while phase 35 runs (checks that time
+nothing); each waits for its thread before the next phase.
+
+In the times of phases 6 and 12 the plain version runs 1 warm-up frame and
+3 timed on each side of the kernel's runs, in those of phases 33, 43 and 47
+one frame without a warm-up (it builds nothing; its frames take 0.01-0.6 s
+at 1080p, and its time is there to compare, not to tune).
+
 Gradient comparisons use the bars of ``utils/parity.py::check_grads`` with
 the cotangent (or residual) zero on grazing rays (``conditioned``): 1e-5 of
 the gradient mass where both sides differentiate the same primal planes,
@@ -72,8 +81,10 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
     orbit cameras at 1080p (12 K6 launches, no K1), frame 0 against the plain
     version, and ``render_kernel_diff`` at 256×192 (one K6 launch, finite
     gradients for every weight tensor and the plane);
-16. times (plain, kernel, kernel, plain) at hidden 64, 128 and 256, at 720p
-    and 1080p with 64/32 steps, and hidden 64 at 1080p with 100/100; one
+16. times at hidden 64, 128 and 256, at 720p and 1080p with 64/32 steps,
+    and hidden 64 at 1080p with 100/100 (plain, kernel, kernel, plain on the
+    kernels line's cell, hidden 64 at 1080p; kernel, kernel, plain on the
+    others, the plain version's one frame without a warm-up); one
     frame of the banded reference path (``render_banded``) at each width;
     K6's bound on the hidden 64 1080p cell as the largest of four pipes
     (tensor cores, FP32 cores, special-function units, bytes), with the
@@ -215,8 +226,9 @@ and the transform sampler (``utils/parity.py::transform_sampler``: every
     plane frozen (K3 = 20; step 0 against the plain version), 5 multiscale
     steps (K3 = 5) and 5 with ``pyramid_levels=4`` (K1 = K5 = 5, K5's P
     form), ``suite --scene-cost`` (K1 = 24);
-    then CUDA-event times (plain, kernel, kernel, plain) of K1, K3 and both
-    K5 forms per scene with their bounds and the marches' mean steps, and
+    then CUDA-event times (kernel, kernel, then one frame of the plain
+    version) of K1, K3 and both K5 forms per scene with their bounds and the
+    marches' mean steps, and
     both K5 forms at 1080p against their plain version on each scene with
     finite gradients (the multiscale fit launches K5 at that size).
 
@@ -397,7 +409,7 @@ part of 16; :func:`slice17_phases`, runnable alone):
     plane: ``render_batch(engine="torch")`` and ``render_kernel_diff`` (the
     banded route) bit for bit, within JAX's bar of the analytic scene's K1
     render (under 2% of the pixels off by 0.05), ``render_batch(engine=
-    "kernel")`` raising, a 5-step fit of the samples (no kernel launched);
+    "kernel")`` raising, a 3-step fit of the samples (no kernel launched);
 56. ``render_stereo(engine="kernel")`` (K1 = 2, ``"sbs"`` two K1 renders bit
     for bit, each eye within the pixel budget of the plain version at its
     toed-in camera, razor-edge rays past the hard limit), ``cli render
@@ -407,6 +419,41 @@ part of 16; :func:`slice17_phases`, runnable alone):
 The kernels line gives ``render_fwd`` a ``shadow_ad``, a ``rows`` and a
 ``stereo`` entry, ``render_bwd`` a ``rows`` entry and ``neural_fwd`` a
 ``shadow_ad`` entry.
+
+Then the interactive runtime (ROADMAP item 16: ``sdf3d_tpu_torch/interact``
+and ``examples/``), the last four labs and ``suite --scaling`` (15b)
+(:func:`slice18_phases`, runnable alone):
+
+57. at 1920x1080 on the reference scene: the native navigation controller
+    (``interact/native_src/navigation.cpp``, built by the C++ compiler,
+    ``is_native``), an ``InteractiveSession`` replaying 24 frames of drags,
+    a pan, a scroll, gamepad sticks and keys (``apply_key``): one K1 launch
+    a frame and nothing else, every gesture moves the frame, the frames
+    after the orbit and after the pan against the plain version at their
+    cameras at the pixel budget (razor-edge rays past the hard limit); a
+    frame's time split into K1 (CUDA events), the device window of the
+    render call, the copy back (into reused and into fresh host memory) and
+    the pose math; a ``LiveViewer`` on a free local port (``GET /``, two
+    ``POST /event`` drags that move the pose, ``GET /frame.png`` equal to the
+    frame ``step()`` rendered, ``GET /stats``, the first part of ``/stream``
+    a PNG; ms a frame with the PNG encode); ``render_turntable`` (12 frames,
+    K1 = 12);
+58. subprocesses of this checkout, all started together once the fit step
+    of the scaling model is measured and their libraries are built at once:
+    ``examples.live_view --frames 3`` (3 K1 frames served), ``perf_lab``'s
+    stages and full cases (K1 = 128, K3 = 32, K5 = 32), ``fast_profile
+    --quick`` (both scenes' deltas, four throughput rows), ``scaling_report``
+    at 1080p (75 records, the card in each basis, written to ``--out``
+    only), ``collectives_lab --run --num 2`` (K7 and K8 bit for bit against
+    their plain versions, 18 launches each);
+59. ``suite --scaling --world-sizes 1 2`` at 1080p: ``render_sharded``'s
+    rays/s at world size 1 and two ranks sharing the card over gloo
+    (``shared_card``).
+
+The kernels line gives ``render_fwd`` an ``interact`` entry and
+``ring_allreduce`` and ``rs_ag_allreduce`` a ``collectives_lab`` entry.
+Phases 57-59 took 49 s of the whole smoke's 981 s on an NVIDIA H100 80GB
+HBM3 at 700.00 W (the host's speed moves the whole by about 15%).
 
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
@@ -440,12 +487,14 @@ the flag (``--register-line fractal_scene``) time those scenes alone.
 from __future__ import annotations
 
 import ast
+import concurrent.futures
 import dataclasses
 import functools
 import hashlib
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import socket
@@ -453,6 +502,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -766,10 +816,10 @@ def main() -> int:
     kern = lambda: render_kernel_launch(scene, prm, uni, cfg)  # noqa: E731
     plain = lambda: render_kernel_forward_plain(scene, prm, uni, cfg)  # noqa: E731
     wrapper = lambda: render_kernel_forward(scene, tt.Camera.reference(), light, mat, cfg, device=dev)  # noqa: E731
-    p1 = time_ms(plain)
+    p1 = time_ms(plain, 1, 3)
     k1 = time_ms(kern)
     k2 = time_ms(kern)
-    p2 = time_ms(plain)
+    p2 = time_ms(plain, 1, 3)
     w1 = time_ms(wrapper)
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     log("times_1080p", card=card, kernel_ms=kernel_ms, kernel_ms_runs=[k1, k2],
@@ -794,13 +844,14 @@ def main() -> int:
     ring_kernels = ring_phases(torch, tt, card)
     variant_kernel = variant_phases(torch, tt, card, dev)
     bench_phases(torch, tt, card, dev)
-    flagship = flagship_phases(torch, tt, card, dev)
-    scenes = scenes_13b_phases(torch, tt, card, dev)
+    flagship = flagship_phases(torch, tt, card, dev, background=scenes_13b_jobs(tt, dev))
+    scenes = scenes_13b_phases(torch, tt, card, dev, background=fractal_jobs(tt))
     fractal = fractal_phases(torch, tt, card, dev)
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
     diffed = diff_phases(torch, tt, card, dev)
     rest = slice17_phases(torch, tt, card, dev)
+    runtime = slice18_phases(torch, tt, card, dev)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -854,6 +905,11 @@ def main() -> int:
     check(all(k in e for e in kernels for k in want17.get(e["name"], ())) and
           sum(k in e for e in kernels for k in ("shadow_ad", "rows", "stereo")) == 5,
           "a shadow_ad, rows or stereo entry of the kernels line is missing")
+    for entry in kernels:
+        entry.update(runtime.get(entry["name"], {}))
+    check(sum("interact" in e for e in kernels) == 1 and all("interact" in e for e in kernels
+                                                             if e["name"] == "render_fwd") and
+          sum("collectives_lab" in e for e in kernels) == 2, "an interact or collectives_lab entry is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1163,7 +1219,7 @@ def fit_phases(torch, tt, card: str, dev) -> list:
                                         wrt_uniforms=wrt)))
     runs = {}
     for name, kern, plain_fn in timed:
-        p1, k1, k2, p2 = time_ms(plain_fn), time_ms(kern), time_ms(kern), time_ms(plain_fn)
+        p1, k1, k2, p2 = time_ms(plain_fn, 1, 3), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 3)
         runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
     bwd_mass = gradient_mass(sc, prm, uni, g_rgb, t, sh, ao, cfg)
     bwd_st = {}
@@ -1374,20 +1430,25 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
                       "weights": [float(w.grad.abs().max()) for w in diff_scene.b.weights]})
 
     # ---- 16. times (plain, kernel, kernel, plain) ----
-    def timed(sc, c, frames_k, frames_p, warmup):
+    def timed(sc, c, frames_k, frames_p, warmup, headline=False):
+        """K6 twice by CUDA events; its plain version on each side of them
+        for the kernels line's cell (``headline``), else once after them
+        without a warm-up (the plain version builds nothing; one frame of
+        it at hidden 256 and 1080p takes about 4 s)."""
         prm, uni = inputs(sc, tt.Camera.reference(device=dev), c)
         kern = lambda: render_neural_launch(sc, prm, uni, c, nc)  # noqa: E731
         plain = lambda: render_neural_forward_plain(sc, prm, uni, c)  # noqa: E731
-        p1 = time_ms(plain, warmup, frames_p)
+        p_runs = [time_ms(plain, warmup, frames_p)] if headline else []
         k1, k2 = time_ms(kern, warmup, frames_k), time_ms(kern, warmup, frames_k)
-        p2 = time_ms(plain, warmup, frames_p)
-        return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-                "frames": frames_k, "plain_frames": frames_p, "warmup": warmup}
+        p_runs.append(time_ms(plain, warmup if headline else 0, frames_p))
+        return {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": sum(p_runs) / len(p_runs),
+                "plain_ms_runs": p_runs, "frames": frames_k, "plain_frames": frames_p, "warmup": warmup}
 
     runs = {}
     for hidden, sc, (fk, fp, warm) in ((64, u64, (10, 2, 1)), (128, u128, (4, 1, 1)), (256, u256, (1, 1, 0))):
         for w, h in ((1280, 720), (W, H)):
-            runs[f"hidden{hidden}_{w}x{h}"] = timed(sc, config(w, h), fk, fp, warm)
+            runs[f"hidden{hidden}_{w}x{h}"] = timed(sc, config(w, h), fk, fp, warm,
+                                                    headline=(hidden, w) == (64, W))
     runs[f"hidden64_{W}x{H}_100_100"] = timed(u64, config(W, H, 100, 100), 5, 1, 1)
     # The banded reference path (render_banded, one frame each): the engine the
     # JAX package serves neural scenes with on the TPU.
@@ -2280,13 +2341,19 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     check(cuda_scene_source(scene, ref, kc, True, (), "full") == k3_header, "full's header is not K3's")
     check(loaded[len(FIT_VARIANTS) + FIT_VARIANTS.index("full")] is k3_lib, "full did not load K3's library")
     check(libs.builds - builds0 <= len(jobs) - 1, f"{libs.builds - builds0} builds for {len(jobs) - 1} new libraries")
-    report = {}
-    for cname, c in configs.items():
-        for v in FIT_VARIANTS:
-            key = libs.key(cuda_scene_source(scene, c, kc, True, (), v))
-            sass = sass_instructions(str(libs.build_dir / key / _build.KINDS["render"].lib_name))
-            report[f"{cname} {v}"] = {"ptxas": ptxas_summary(libs.log(key)),
-                                      "sass_fit_step": next(n for k, n in sass.items() if "fit_step" in k)}
+    report, keys = {}, {f"{cname} {v}": libs.key(cuda_scene_source(scene, c, kc, True, (), v))
+                        for cname, c in configs.items() for v in FIT_VARIANTS}
+    # The libraries' SASS counted in parallel processes (``cuobjdump`` and the
+    # parse of its listing, a few seconds a library).
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                                                mp_context=multiprocessing.get_context("spawn")) as pool:
+        counted = pool.map(sass_instructions, [str(libs.build_dir / key / _build.KINDS["render"].lib_name)
+                                               for key in keys.values()])
+        for (name, key), sass in zip(keys.items(), counted):
+            report[name] = {"ptxas": ptxas_summary(libs.log(key)),
+                            "sass_fit_step": next(n for k, n in sass.items() if "fit_step" in k)}
+    sass_wall = time.perf_counter() - t0
     # That the variant plumbing left K1's and K3's registers alone is shown
     # by ``--time-kernels`` on the parent and the change (ptxas and digests).
     for cname in configs:
@@ -2294,7 +2361,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
         check(abs(ns - fu) < abs(ns - pr), f"{cname}: noscatter's {ns} instructions are nearer primal's {pr} than "
                                            f"full's {fu}: its reverse pass was deleted")
     log("variants_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
-        build_wall_seconds=build_wall, libraries=len(jobs), variants=report)
+        build_wall_seconds=build_wall, sass_wall_seconds=sass_wall, libraries=len(jobs), variants=report)
 
     # ---- 27. every variant against its plain version: at 1080p, the lab's
     # shape (the kernels line's max_abs_err), then 256x192 and 250x190 ----
@@ -2638,13 +2705,15 @@ def k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target=Non
                                      label=label)}
 
 
-def flagship_phases(torch, tt, card: str, dev) -> dict:
+def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
     """Phases 30-33: the flagship scene (``flagship_scene``: a sphere and a
     rounded box smooth-blended, a torus, the ground plane; 21 parameters)
     and an every-node CSG sampler on K1-K5.  Returns, per kernel entry of
     the kernels line (``render_fwd``, ``render_tiles``, ``fit_step``,
     ``fit_step_tiles``, ``render_bwd``), the flagship's launches, times,
-    bound and error."""
+    bound and error.  ``background``: library jobs of later phases, built
+    in another thread while phase 31's checks run (it times nothing) and
+    finished before phase 32."""
     import torch.distributed as dist
 
     from sdf3d_tpu_torch import bench, cli
@@ -2769,6 +2838,9 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
         sampler_header_bytes=len(cuda_scene_source(sampler, full, kc)), costs=scene_costs(header), ptxas=ptxas)
 
     # ---- 31. K1-K5 vs their plain versions, flagship and sampler ----
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    t_background = time.perf_counter()
+    pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "render_tiles": [], "fit_step_tiles": []}
     for sname, sc in scenes.items():
         bar = CREASE_BAR if sname == "sampler" else {}
@@ -2869,6 +2941,13 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
                             label=f"{sname} K4 sum vs K3")
         log("flagship_tiles_parity", scene=sname, tiles_per_rank=plan.tiles_per_device, k2=planes_stats(st2), k4=ranks,
             sum_vs_k3={"loss_rel_err": abs(float(total[0]) / float(whole[0]) - 1.0), **vs_k3})
+
+    if pending is not None:
+        t0 = time.perf_counter()
+        pending.result()
+        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
+            waited_seconds=time.perf_counter() - t0)
+    pool.shutdown()
 
     # ---- 32. main path at 1920x1080 ----
     trainable = (False, False) + (True,) * 9  # the plane's normal and offset frozen
@@ -3010,7 +3089,7 @@ def flagship_phases(torch, tt, card: str, dev) -> dict:
                                                     full, wrt_uniforms=wrt))
     runs = {}
     for name, (kern, plain_fn) in timed.items():
-        p1, k1, k2, p2 = time_ms(plain_fn, 1, 3), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 3)
+        p1, k1, k2, p2 = time_ms(plain_fn, 0, 1), time_ms(kern), time_ms(kern), time_ms(plain_fn, 0, 1)
         runs[name] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2]}
     runs["fit_step"]["wrapper_ms"] = time_ms(lambda: fit_step_kernel_launch(sc, s_prm, s_uni, tgt, full, kc, False,
                                                                             frozen))
@@ -3225,7 +3304,25 @@ def register_line(rounds: int = 5, names=SWEEP_SCENES) -> dict:
     return out
 
 
-def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
+def scenes_13b_jobs(tt, dev) -> list:
+    """The library jobs of phase 34: each 13b scene's K1 in both forms and
+    K3 with the plane frozen, ``random_blobs``' for the scene-cost sweep,
+    the capsule chain's multiscale K3."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.utils.parity import capsule_chain_fit_start, scenes_13b
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    kc, kc_point, frozen = KernelConfig(), KernelConfig(ray_sdf=False), (0, 1, 2, 3)
+    jobs = []
+    for sc, _ in scenes_13b(dev).values():
+        jobs += [library_job(sc, full, kc), library_job(sc, full, kc_point), library_job(sc, full, kc, False, frozen)]
+    jobs += [library_job(tt.random_blobs(n=n), full, kc, False, frozen) for n in (2, 3)]
+    jobs += [library_job(tt.random_blobs(n=n), full, kc) for n in (2, 4, 16)]
+    jobs += [library_job(capsule_chain_fit_start(dev), full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
+    return jobs
+
+
+def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     """Phases 34-36: the scenes of ROADMAP item 13b (``csg_showcase``,
     ``lattice_scene``, ``capsule_chain``, ``random_blobs``) and the transform
     sampler (``utils/parity.py::transform_sampler``: every 13b node) on
@@ -3304,15 +3401,11 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
     def bwd_values(header):
         return int(header.split("bwd_values = ")[1].split(";")[0])
 
-    # ---- 34. build: the 13b scenes' libraries together ----
+    # ---- 34. build: the 13b scenes' libraries together (in the whole smoke
+    # built already, in the background of phase 31) ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
-    jobs = []
-    for sc, _ in shared.values():
-        jobs += [library_job(sc, full, kc), library_job(sc, full, kc_point), library_job(sc, full, kc, False, frozen)]
-    jobs += [library_job(blobs[n], full, kc, False, frozen) for n in (2, 3)]
-    jobs += [library_job(blobs[n], full, kc) for n in (2, 4, 16)]
-    jobs += [library_job(capsule_chain_fit_start(dev), full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
+    jobs = scenes_13b_jobs(tt, dev)
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -3362,7 +3455,12 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
         build_wall_seconds=build_wall, libraries=len(jobs), scenes=built, scene_cost_render_fwd_ptxas=scene_cost_k1,
         transform_sampler_k1_loops=loops)
 
-    # ---- 35. K1-K5 vs their plain versions on the 13b scenes ----
+    # ---- 35. K1-K5 vs their plain versions on the 13b scenes (later phases'
+    # libraries, ``background``, build in another thread meanwhile: these
+    # checks time nothing) ----
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    t_background = time.perf_counter()
+    pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": []}
     for name, (sc, cam) in shared.items():
         bar = SCENE_BARS.get(name, {})
@@ -3455,6 +3553,13 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
     log("scenes_13b_special", csg_showcase_nonfinite_param_slots=showcase_nan, csg_showcase_params=showcase_params,
         capsule_chain_k2_tiles=plan.tiles_per_device, capsule_chain_k2_vs_k1=planes_stats(k2_st),
         capsule_chain_k2_vs_k1_differing_values=k2_vs_k1)
+
+    if pending is not None:
+        t0 = time.perf_counter()
+        pending.result()
+        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
+            waited_seconds=time.perf_counter() - t0)
+    pool.shutdown()
 
     # ---- 36. main path at 1920x1080 ----
     gallery = {n: v for n, v in shared.items() if n != "transform_sampler"}
@@ -3568,10 +3673,12 @@ def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
         for kname, (kern, plain_fn) in timed.items():
             kern()
             torch.cuda.synchronize()
-            p1, k1_, k2_, p2 = time_ms(plain_fn, 1, 2), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 2)
+            # Kernel, kernel, then one frame of the plain version without a
+            # warm-up (0.05-1.1 s a frame at 1080p; it builds nothing).
+            k1_, k2_, p1 = time_ms(kern), time_ms(kern), time_ms(plain_fn, 0, 1)
             px = {"render_fwd": render_ptxas, "fit_step": ptxas["fit_step"], "render_bwd": ptxas["render_bwd_params"],
                   "render_bwd_uniforms": ptxas["render_bwd"]}[kname]
-            row = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+            row = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": p1, "plain_ms_runs": [p1],
                    "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "registers": px["registers"],
                    "spill_stores": px.get("spill_stores"), "spill_loads": px.get("spill_loads"),
                    "blocks_per_sm": blocks_per_sm(px["registers"])}
@@ -3622,6 +3729,24 @@ OMEGA = 1.6
 #: compare, an abs, an add, a compare), the hit test, the step's two
 #: products and selects, omega's select, t's add and the stop compare.
 RELAXED_STEP = (12, 0)
+
+
+def fractal_jobs(tt) -> list:
+    """The library jobs of phase 37: the fractal's K1 in both forms, K3 with
+    the plane frozen and its multiscale K3, and the relaxed march's K1-K4 on
+    the reference scene and K1 on the fractal."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    relaxed = dataclasses.replace(full, march=dataclasses.replace(full.march, relaxation=OMEGA))
+    kc, kc_point, kc_tiles, frozen = KernelConfig(), KernelConfig(ray_sdf=False), KernelConfig(tile_h=8, tile_w=128), \
+        (0, 1, 2, 3)
+    fractal, reference = tt.fractal_scene(), tt.reference_scene()
+    return [library_job(fractal, full, kc), library_job(fractal, full, kc_point),
+            library_job(fractal, full, kc, False, frozen), library_job(reference, relaxed, kc),
+            library_job(reference, relaxed, kc_tiles), library_job(reference, relaxed, kc, False, frozen),
+            library_job(reference, relaxed, kc_tiles, False, ()), library_job(fractal, relaxed, kc),
+            library_job(fractal, full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
 
 
 def fractal_phases(torch, tt, card: str, dev) -> dict:
@@ -3733,14 +3858,11 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
             raise
         return {**planes_stats(st), **getattr(witness, "counts", {})}
 
-    # ---- 37. build: the fractal's and the relaxed march's libraries together ----
+    # ---- 37. build: the fractal's and the relaxed march's libraries together
+    # (in the whole smoke built already, in the background of phase 35) ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
-    jobs = [library_job(fractal, full, kc), library_job(fractal, full, kc_point),
-            library_job(fractal, full, kc, False, frozen), library_job(reference, relaxed(full), kc),
-            library_job(reference, relaxed(full), kc_tiles), library_job(reference, relaxed(full), kc, False, frozen),
-            library_job(reference, relaxed(full), kc_tiles, False, ()), library_job(fractal, relaxed(full), kc),
-            library_job(fractal, full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
+    jobs = fractal_jobs(tt)
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -4406,13 +4528,13 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
     runs = {n: {"ms_runs": [], "plain_ms_runs": []} for n in forms}
     for n, f in forms.items():
         runs[n]["plain_ms_runs"].append(time_ms(functools.partial(fit_step_kernel_plain, *f[:5], kc, f[5], f[6], **f[8]),
-                                                1, 3))
+                                                0, 1))
     for order in (list(forms), list(reversed(forms))):
         for n in order:
             runs[n]["ms_runs"].append(time_ms(kern[n]))
     for n, f in forms.items():
         runs[n]["plain_ms_runs"].append(time_ms(functools.partial(fit_step_kernel_plain, *f[:5], kc, f[5], f[6], **f[8]),
-                                                1, 3))
+                                                0, 1))
         runs[n].update(ms=sum(runs[n]["ms_runs"]) / 2, plain_ms=sum(runs[n]["plain_ms_runs"]) / 2)
     # K4 with each branch over the 135-tile plan beside K3 (both through
     # their wrappers, as phase 21), in turns.
@@ -4872,8 +4994,8 @@ def slice_phases(torch, tt, card: str, dev) -> dict:
     lm = fit_launcher(sc, prm, unis, target, c720, kc, False, frozen)[0]
     l1 = fit_launcher(sc, prm, unis[0].contiguous(), target[0].contiguous(), c720, kc, False, frozen)[0]
     mv_plain = functools.partial(fit_step_views_plain, sc, prm, unis, target, c720, kc, False, frozen)
-    p1, a1, b1, a2, b2, p2 = (time_ms(mv_plain, 1, 3), time_ms(lm), time_ms(l1), time_ms(lm), time_ms(l1),
-                              time_ms(mv_plain, 1, 3))
+    p1, a1, b1, a2, b2, p2 = (time_ms(mv_plain, 0, 1), time_ms(lm), time_ms(l1), time_ms(lm), time_ms(l1),
+                              time_ms(mv_plain, 0, 1))
     costs = scene_costs(cuda_scene_source(sc, c720, kc, False, frozen))
     fp = sfu = 0.0
     view_counts = []
@@ -4943,7 +5065,7 @@ def slice_phases(torch, tt, card: str, dev) -> dict:
         errs["render_bwd"].append(k5_1080p[name]["max_abs_err"])
     log("materials_1080p_parity", k2=planes_stats(k2_1080p), k5=k5_1080p)
     for name, (kern, plain_fn) in timed.items():
-        p1, k1_, k2_, p2 = time_ms(plain_fn, 1, 3), time_ms(kern), time_ms(kern), time_ms(plain_fn, 1, 3)
+        p1, k1_, k2_, p2 = time_ms(plain_fn, 0, 1), time_ms(kern), time_ms(kern), time_ms(plain_fn, 0, 1)
         runs[name] = {"ms": (k1_ + k2_) / 2, "ms_runs": [k1_, k2_], "plain_ms": (p1 + p2) / 2,
                       "plain_ms_runs": [p1, p2]}
     fit_scene(target_img, materials_fit_start(tt, dev), ref_cam, light, mat, full,
@@ -5831,7 +5953,7 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     fresh_peak()
     reset()
     g_clock = StepClock()
-    gfit = fit_scene(gtarget, gscene, ref_cam, light, mat, full, FitConfig(steps=5, learning_rate=1e-3, log_every=1),
+    gfit = fit_scene(gtarget, gscene, ref_cam, light, mat, full, FitConfig(steps=3, learning_rate=1e-3, log_every=1),
                      trainable=(False, False, True, False, False), device=dev, logger=g_clock)
     gfit_peak, gfit_launches = peak_gib(), launches()
     check(gfit_launches == {}, f"the grid fit launched {gfit_launches}")
@@ -5922,6 +6044,395 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
                           "fwd_bwd_ms": n_ms, "ms_per_step": n_clock.ms_per_step(), "peak_gib": n_peak,
                           "grad_rel_err_vs_cpu": n_rel},
         },
+    }
+
+
+def decode_png(png: bytes):
+    """An 8-bit RGB PNG of ``utils/image_io.encode_png`` (filter 0 rows) as
+    an (H, W, 3) uint8 array."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        body = png[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not raw[:, 0].any(), "a PNG row with a filter")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def http(url: str, data: bytes | None = None) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST" if data is not None else "GET")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def first_stream_part(url: str, out: dict) -> None:
+    """The first part of a ``multipart/x-mixed-replace`` stream: its
+    content type and the part's bytes, into ``out``."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        out["content_type"] = r.headers.get("Content-Type", "")
+        head = b""
+        while b"\r\n\r\n" not in head:
+            head += r.read(1)
+        out["head"] = head
+        out["body"] = r.read(int(re.search(rb"Content-Length: (\d+)", head).group(1)))
+
+
+def start_lab(args: list, log_path: str):
+    """A lab as a subprocess of this checkout, its output into ``log_path``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    f = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-m", *map(str, args)], cwd=REPO, env=env, stdout=f,
+                            stderr=subprocess.STDOUT, text=True), f
+
+
+def wait_labs(running: dict, timeout: float = 600) -> dict:
+    """Wait for every lab of ``running`` (name -> (process, log file, log
+    path, start time)), then fail naming each one that exited non-zero.
+    Returns name -> (its output, its seconds from its start)."""
+    t0 = time.perf_counter()
+    ends = {}
+    try:
+        while len(ends) < len(running) and time.perf_counter() - t0 < timeout:
+            for name, (proc, _, _, start) in running.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - start
+            time.sleep(0.05)
+    finally:
+        for proc, f, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    out = {name: (open(path).read(), ends.get(name)) for name, (_, _, path, _) in running.items()}
+    failed = [f"{name} (exit {running[name][0].returncode}):\n{text[-3000:]}" for name, (text, _) in out.items()
+              if running[name][0].returncode != 0]
+    check(not failed, "labs failed: " + "\n".join(failed))
+    return out
+
+
+def last_json(text: str):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def finite_leaves(obj) -> bool:
+    """True when every number in a JSON value is finite."""
+    if isinstance(obj, dict):
+        return all(finite_leaves(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_leaves(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def slice18_phases(torch, tt, card: str, dev) -> dict:
+    """Phases 57-59: the interactive runtime (ROADMAP 16: the native
+    navigation controller, ``InteractiveSession``, ``LiveViewer``,
+    ``render_turntable`` and ``examples/live_view.py`` on K1 at 1080p), the
+    last four labs and ``suite --scaling`` (15b), the labs and the suite as
+    subprocesses started together.  Returns the kernels line's ``interact``
+    entry of ``render_fwd`` and the ``collectives_lab`` entries of
+    ``ring_allreduce`` and ``rs_ag_allreduce``.  Runnable alone."""
+    import numpy as np
+
+    from sdf3d_tpu_torch.benchmarks import scaling_report
+    from sdf3d_tpu_torch.interact import InteractiveSession, NavigationController, apply_key, navigation_available, \
+        render_turntable
+    from sdf3d_tpu_torch.interact.controller import navigation_error
+    from sdf3d_tpu_torch.interact.viewer import LiveViewer
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_tiles, fit_step_variant
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+    from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job, pack_uniforms, render_kernel_forward, \
+        render_kernel_forward_plain, render_kernel_launch, render_kernel_tiles_forward
+    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+    from sdf3d_tpu_torch.parallel.ring_kernel import ring_allreduce, rs_ag_allreduce
+    from sdf3d_tpu_torch.utils.image_io import encode_png, to_uint8
+    from sdf3d_tpu_torch.utils.parity import check_planes, razor_edge
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    reference = tt.reference_scene().to(dev)
+    counters = (render_kernel_forward, render_kernel_tiles_forward, fit_step_kernel, fit_step_kernel_tiles,
+                render_kernel_backward, render_neural_forward, ring_allreduce, rs_ag_allreduce, fit_step_variant)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    # ---- 57. the interactive path at 1920x1080 on K1 ----
+    t_phase = time.perf_counter()
+    check(navigation_available(), f"the native navigation controller did not build: {navigation_error()}")
+    nav = NavigationController().configure()
+    check(nav.is_native, "the session's controller is not the native one")
+    render_kernel_forward(reference, tt.Camera.reference(device=dev), light, mat, full, device=dev)  # library
+    torch.cuda.synchronize()
+    windows, cams = [], []
+
+    def render(cam):  # the session's renderer: K1, with CUDA events around the call
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = render_kernel_forward(reference, cam, light, mat, full, device=dev)[0]
+        end.record()
+        windows.append((start, end))
+        cams.append(cam)
+        return img
+
+    session = InteractiveSession(render, full, nav=nav, device=dev)
+    drag, pan = (lambda n: n.mouse_drag(0.05, 0.01)), (lambda n: n.mouse_drag(0.02, -0.01, pan=True))
+    script = ([drag] * 4 + [None] * 2                                   # frames 0-5: orbit
+              + [pan] * 3 + [None]                                      # 6-9: pan
+              + [lambda n: n.scroll(0.5), None, None]                   # 10-12: zoom
+              + [lambda n: n.gamepad(0.8, 0.0, 0.0, 0.6, 0.4)] * 3      # 13-15: gamepad sticks
+              + [lambda n: n.gamepad(), None]                           # 16-17: sticks released
+              + [lambda n, k=k: apply_key(n, k) for k in ("d", "w", "arrowleft", "+")] + [None, None])  # 18-23
+    poses = []
+    reset()
+    frames = session.run([(lambda n, e=e: (e(n) if e else None, poses.append(n.pose()))) for e in script])
+    torch.cuda.synchronize()
+    session_launches = launches()
+    check(session_launches == {"render_kernel_forward": len(script)},
+          f"the session's {len(script)} frames launched {session_launches}")
+    check(all(f.shape == (H, W, 3) and f.dtype == np.float32 and np.isfinite(f).all() for f in frames),
+          "a session frame is not a finite (H, W, 3) float32 image")
+    moved = {name: float(np.abs(frames[a] - frames[b]).max())
+             for name, a, b in (("orbit", 0, 5), ("pan", 5, 9), ("zoom", 9, 12), ("gamepad", 12, 17), ("keys", 17, 23))}
+    check(all(v > 1e-3 for v in moved.values()), f"a gesture did not move the frame: {moved}")
+    # Two frames against the plain version at their cameras: after the orbit
+    # and after the pan (razor-edge rays past the hard limit, as phase 47).
+    parity = {}
+    for k in (5, 9):
+        uni = pack_uniforms(cams[k], light, mat, full.ray_mode, dev)
+        uni[27] = float(full.shadow.k)
+        prm = scene_param_vector(reference, dev)
+        want = render_kernel_forward_plain(reference, prm, uni, full)
+        got = torch.from_numpy(frames[k]).to(dev).permute(2, 0, 1)
+        parity[k] = check_planes((got,), want[:1], full.march.max_distance, f"session frame {k} vs plain",
+                                 razor=lambda prm=prm, uni=uni: razor_edge(reference, prm, uni, full))["rgb"]
+    interact_err = max(st["max_abs_err"] for st in parity.values())
+    # Where a frame's time goes: FrameStats (pose math to image on the host),
+    # the device's window around the render call, K1 alone by CUDA events,
+    # the copy back and the host's pose math alone.
+    frame_ms = statistics.median(s.seconds for s in session.stats[1:]) * 1e3
+    window_ms = statistics.median(a.elapsed_time(b) for a, b in windows[1:])
+    prm0 = scene_param_vector(reference, dev)
+    uni0 = pack_uniforms(cams[-1], light, mat, full.ray_mode, dev)
+    uni0[27] = float(full.shadow.k)
+    k1_ms = time_ms(lambda: render_kernel_launch(reference, prm0, uni0, full))
+    img_dev = render_kernel_forward(reference, cams[-1], light, mat, full, device=dev)[0]
+    copies = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_dev.detach().cpu().numpy()
+        copies.append(time.perf_counter() - t0)
+    copy_ms = statistics.median(copies) * 1e3
+    kept = []  # each copy kept, as the session's frames are: fresh host pages every time
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept.append(img_dev.detach().cpu().numpy())
+        copies.append(time.perf_counter() - t0)
+    copy_fresh_ms = statistics.median(copies[10:]) * 1e3
+    del kept
+    t0 = time.perf_counter()
+    for _ in range(50):
+        session.nav.step(1 / 60)
+        session.camera()
+    pose_ms = (time.perf_counter() - t0) / 50 * 1e3
+    # The copy's cost depends on whether the image lands on pages the
+    # process has used before (the allocator's state), so both are logged
+    # and no remainder is derived from either.
+    split = {"frame_ms": frame_ms, "k1_ms": k1_ms, "render_window_ms": window_ms, "copy_back_ms": copy_ms,
+             "copy_back_fresh_ms": copy_fresh_ms, "pose_ms": pose_ms,
+             "rays_per_s": W * H / (frame_ms / 1e3),
+             "k1_share": k1_ms / frame_ms, "rays_per_s_stats": statistics.median(s.rays_per_second
+                                                                              for s in session.stats[1:])}
+    log("interact_session_1080p", card=card, native=nav.is_native, frames=len(frames), launches=session_launches,
+        moved_max_abs=moved, vs_plain={k: {q: st[q] for q in ("over_atol", "max_abs_err", "over_hard")}
+                                       for k, st in parity.items()}, pose_first=poses[0], pose_last=poses[-1], **split)
+
+    # The live viewer on a free local port: the page, two drags by POST, the
+    # served frame, the stats, the stream's first part; ms a frame with the
+    # PNG encode.
+    view_session = InteractiveSession(
+        lambda cam: render_kernel_forward(reference, cam, light, mat, full, device=dev)[0], full, device=dev)
+    port = free_port()
+    viewer = LiveViewer(view_session, host="127.0.0.1", port=port)
+    viewer.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        page = http(base + "/").decode()
+        check("/stream" in page and "mousedown" in page, "GET / did not return the viewer's page")
+        viewer.step()
+        pose0 = view_session.nav.pose()
+        for ev in ({"type": "drag", "dx": 0.3, "dy": 0.05}, {"type": "drag", "dx": 0.1, "dy": -0.02}):
+            http(base + "/event", json.dumps(ev).encode())
+        img = viewer.step()
+        check(view_session.nav.pose() != pose0, "the POSTed drags did not move the controller's pose")
+        served = decode_png(http(base + "/frame.png"))
+        check(np.array_equal(served, to_uint8(img)), "GET /frame.png is not the frame step() rendered")
+        stats = json.loads(http(base + "/stats"))
+        check(stats["frame"] == view_session.frame_count - 1 == 1, f"GET /stats counted {stats['frame']}")
+        part = {}
+        reader = threading.Thread(target=first_stream_part, args=(base + "/stream", part), daemon=True)
+        reader.start()
+        for _ in range(20):
+            viewer.step()
+            reader.join(timeout=0.2)
+            if not reader.is_alive():
+                break
+        check("multipart/x-mixed-replace" in part.get("content_type", "") and b"image/png" in part.get("head", b"")
+              and part.get("body", b"")[:8] == b"\x89PNG\r\n\x1a\n", "/stream's first part is not a PNG")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            viewer.step()
+        viewer_ms = (time.perf_counter() - t0) / 4 * 1e3
+        t0 = time.perf_counter()
+        png_bytes = len(encode_png(img, compress_level=viewer.compress_level))
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        viewer.stop()
+    log("interact_viewer_1080p", card=card, port=port, frames=view_session.frame_count, viewer_ms=viewer_ms,
+        encode_png_ms=encode_ms, png_bytes=png_bytes, stream_part_bytes=len(part["body"]),
+        served_frame_equal=True)
+
+    # render_turntable at 1080p: 12 orbit frames, 12 K1 launches.
+    reset()
+    t0 = time.perf_counter()
+    turn = render_turntable(lambda cam: render_kernel_forward(reference, cam, light, mat, full, device=dev)[0],
+                            full, n_frames=12, device=dev)
+    turn_ms = (time.perf_counter() - t0) / 12 * 1e3
+    turn_launches = launches()
+    check(turn_launches == {"render_kernel_forward": 12}, f"the turntable launched {turn_launches}")
+    check(len(turn) == 12 and all(np.isfinite(f).all() for f in turn) and
+          float(np.abs(turn[0] - turn[6]).max()) > 1e-3, "the turntable's frames")
+    log("interact_turntable_1080p", card=card, frames=len(turn), launches=turn_launches, ms_per_frame=turn_ms,
+        phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 58-59. the labs, suite --scaling and the live_view entry point, as
+    # subprocesses that run together (their times share the card and the
+    # host: they check the paths, and claim nothing) ----
+    t_phase = time.perf_counter()
+    # The fit step of scaling_report's communication model, measured first
+    # by the lab's own function, while this process has the card alone.
+    t0 = time.perf_counter()
+    step_s = scaling_report.measure_step_seconds(W, H, dev)
+    step_measure_s = time.perf_counter() - t0
+    from sdf3d_tpu_torch.parallel.ring_kernel import collectives_library
+
+    collectives_library()  # built before collectives_lab's ranks start
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    scaling_out = os.path.join(out_dir, "scaling_report.jsonl")
+    if os.path.exists(scaling_out):
+        os.unlink(scaling_out)
+    pkg = "sdf3d_tpu_torch"
+    running = {}
+
+    def launch(name, *args):
+        path = os.path.join(out_dir, f"{name}.log")
+        running[name] = (*start_lab(args, path), path, time.perf_counter())
+
+    # Every library the labs load, built here at once (the labs would each
+    # build their own, on the host's cores the others need), then every lab
+    # starts.
+    ref, flag = tt.reference_scene(), tt.flagship_scene()
+    fast, kc = tt.fast_config(full), KernelConfig()
+    jobs = [library_job(ref, fast, kc), library_job(flag, fast, kc), library_job(flag, full, kc),
+            library_job(ref, dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, enabled=False)), kc),
+            library_job(ref, fast, kc, wrt_uniforms=False)]
+    builds0 = _build.LIBRARIES.builds
+    t0 = time.perf_counter()
+    _build.LIBRARIES.load_many(jobs)
+    build_s, builds = time.perf_counter() - t0, _build.LIBRARIES.builds - builds0
+    launch("suite_scaling", f"{pkg}.benchmarks.suite", "--scaling", "--world-sizes", 1, 2, "--iters", 3)
+    launch("collectives_lab", f"{pkg}.benchmarks.collectives_lab", "--run", "--num", 2)
+    launch("scaling_report", f"{pkg}.benchmarks.scaling_report", "--step-ms", step_s * 1e3, "--step-card", card,
+           "--out", scaling_out)
+    launch("fast_profile", f"{pkg}.benchmarks.fast_profile", "--quick")
+    launch("perf_lab", f"{pkg}.benchmarks.perf_lab", "stages", "fit_stages", "--cases", "fwd", "fwd_noshadow",
+           "fwd_bwd", "fit_full", "fwd_full", "--rounds", 1, "--iters", 2)
+    launch("live_view", f"{pkg}.examples.live_view", "--frames", 3, "--port", free_port())
+    done = wait_labs(running)
+    labs_s = time.perf_counter() - t_phase
+    log("labs_seconds", builds=builds, build_seconds=build_s, step_seconds=step_measure_s, labs_seconds=labs_s,
+        lab_seconds={name: end for name, (_, end) in done.items()})
+
+    # live_view: three frames on K1, served on its port.
+    text = done["live_view"][0]
+    m = re.search(r"frames (\d+), last ([\d.]+) ms, launches (\d+)", text)
+    check("live viewer: http://127.0.0.1:" in text and m is not None and m.group(1) == "3" and m.group(3) == "3",
+          f"live_view did not render 3 frames on K1:\n{text[-2000:]}")
+    # perf_lab: stages (K1; K1 + K5) and fit_stages' full cases (K3; K1 in
+    # series), 32 frames a case.
+    pl = last_json(done["perf_lab"][0])
+    want_pl = {"stages": {"fwd", "fwd_noshadow", "fwd_bwd"}, "fit_stages": {"fit_full", "fwd_full"}}
+    check({k: set(v) for k, v in pl["suites"].items()} == want_pl and finite_leaves(pl) and all(
+        c["ms"] > 0 for v in pl["suites"].values() for c in v.values()), f"perf_lab's JSON: {pl}")
+    check(pl["launches"] == {"render_kernel_forward": 4 * 32, "fit_step_kernel": 32, "render_kernel_backward": 32},
+          f"perf_lab launched {pl['launches']}")
+    # fast_profile: the deltas on both scenes, four throughput rows.
+    fp = last_json(done["fast_profile"][0])
+    check([d["scene"] for d in fp["deltas"]] == ["reference", "flagship"] and finite_leaves(fp) and
+          all(d["psnr_db"] > 20 and 0 <= d["pixels_changed_gt_1pct"] < 1 for d in fp["deltas"]) and
+          [(r["profile"], r["mode"]) for r in fp["throughput"]] == [(p, m_) for p in ("parity", "fast")
+                                                                  for m_ in ("fwd", "fwd_bwd")] and
+          all(r["rays_per_s"] > 0 and r["backend"] == "cuda" for r in fp["throughput"]), f"fast_profile's JSON: {fp}")
+    # scaling_report: 3 scenes x 5 sizes x 5 layouts (interleaved at tile
+    # heights 24 and 8), the card in the basis, written only to --out.
+    sc_text = done["scaling_report"][0]
+    records = [json.loads(ln) for ln in sc_text.splitlines() if ln.startswith("{")]
+    check(len(records) == 75 and finite_leaves(records) and all(
+        0 < r["value"] <= 1 and 0 < r["comm_factor"] <= 1 and card.split(",")[0] in r["basis"] and
+        torch.cuda.get_device_name(0) in r["basis"] for r in records), f"scaling_report's records: {records[:2]}")
+    check(open(scaling_out).read() == "".join(json.dumps(r) + "\n" for r in records),
+          "scaling_report's --out is not its stdout")
+    # collectives_lab --run --num 2: K7 and K8 bit for bit against their plain
+    # versions, 18 launches each (3 sizes, one checked and 5 timed calls).
+    cl = last_json(done["collectives_lab"][0])
+    run = cl["run"]
+    check(run["device"] == "cuda" and all(c["bit_equal"] and c["same_as_last_call"] for c in run["cases"]) and
+          len(run["cases"]) == 6 and finite_leaves(cl) and
+          run["launches"] == {"ring_allreduce": 18, "rs_ag_allreduce": 18}, f"collectives_lab's run: {run}")
+    # suite --scaling: world sizes 1 and 2, the second sharing the card.
+    sv = [json.loads(ln) for ln in done["suite_scaling"][0].splitlines() if ln.startswith("{")]
+    check([r["n_devices"] for r in sv] == [1, 2] and [r["shared_card"] for r in sv] == [False, True] and
+          finite_leaves(sv) and all(r["value"] > 0 for r in sv) and sv[1]["backend"] == "gloo",
+          f"suite --scaling's records: {sv}")
+    log("labs", card=card, fit_step_ms=step_s * 1e3,
+        live_view_last_frame_ms=float(m.group(2)), perf_lab={k: {c: v["ms"] for c, v in s_.items()}
+                                                            for k, s_ in pl["suites"].items()},
+        perf_lab_launches=pl["launches"], fast_profile=fp, scaling_examples=[
+            {k: r[k] for k in ("scene", "n_devices", "layout", "value", "value_with_comm")}
+            for r in records if r["n_devices"] == 32], scaling_basis=records[0]["basis"],
+        collectives=run["cases"], collectives_launches=run["launches"], phase_seconds=time.perf_counter() - t_phase)
+    log("suite_scaling", card=card, records=sv, note="two ranks sharing one card over gloo: the plumbing, not a speed")
+    return {
+        "render_fwd": {"interact": {"launches": session_launches["render_kernel_forward"],
+                                    "turntable_launches": turn_launches["render_kernel_forward"],
+                                    "max_abs_err": interact_err, "ms": k1_ms, "frame_ms": frame_ms,
+                                    "viewer_ms": viewer_ms, "turntable_ms": turn_ms}},
+        "ring_allreduce": {"collectives_lab": {"launches": run["launches"]["ring_allreduce"], "bit_equal": True}},
+        "rs_ag_allreduce": {"collectives_lab": {"launches": run["launches"]["rs_ag_allreduce"], "bit_equal": True}},
     }
 
 

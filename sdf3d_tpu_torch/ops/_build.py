@@ -37,6 +37,10 @@ directory: the first rename wins, a later one finds the directory there and
 discards its own copy.  ``KernelLibraries(host=True)`` builds the host
 forms of the same sources with the C++ compiler (entry points with the
 suffix ``_host``, no stream argument), the route of the CPU tests.
+
+:func:`load_native` builds a host-only C++ source with a plain C interface
+(the navigation controller of ``interact/``) with the C++ compiler into the
+same build directory, keyed by a hash of the source and the flags.
 """
 
 from __future__ import annotations
@@ -61,6 +65,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: The C++ compiler's flags of :func:`load_native`: those of the JAX package's
+#: loader (``sdf3d_tpu/_native.py``), so both packages' builds of one source
+#: give the same floats.
+NATIVE_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 #: The C++ compiler's flags for the host forms (``KernelLibraries(host=True)``).
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-fPIC", "-Wall", "-Werror", "-Wno-unused-parameter")
 _PTR = ctypes.c_void_p
@@ -302,3 +310,30 @@ class KernelLibraries:
 
 #: The process's library cache.
 LIBRARIES = KernelLibraries()
+
+
+def load_native(src: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR) -> ctypes.CDLL:
+    """Load the shared library of the host C++ source ``src`` (a plain C
+    interface), building it at first use: one ``find_cxx()`` call with
+    :data:`NATIVE_FLAGS` into ``build_dir/native/<stem>_<hash>.so``, the
+    hash over the source and the flags.  The library is written under a
+    private name and renamed into place, so processes that build it at once
+    never load a partial file.  Raises on a failed build."""
+    src = pathlib.Path(src)
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NATIVE_FLAGS).encode())
+    out_dir = pathlib.Path(build_dir) / "native"
+    path = out_dir / f"{src.stem}_{h.hexdigest()[:16]}.so"
+    if not path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=path.name + ".", dir=out_dir)
+        os.close(fd)
+        try:
+            proc = subprocess.run([find_cxx(), *NATIVE_FLAGS, str(src), "-o", tmp], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the build of {src} failed:\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(path))

@@ -64,6 +64,26 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_no_jax_import_in_the_port_or_the_smoke():
+    """No module of the port (the interactive runtime, its examples and the
+    labs among them) and not ``chip_smoke.py`` imports ``jax`` or the JAX
+    package, at module level or inside a function; the walk of
+    :func:`test_import_leaves_jax_out` reaches the new modules."""
+    import pkgutil
+    import re
+
+    names = {m.name for m in pkgutil.walk_packages(tt.__path__, "sdf3d_tpu_torch.")}
+    assert {"sdf3d_tpu_torch.interact.app", "sdf3d_tpu_torch.interact.controller", "sdf3d_tpu_torch.interact.devices",
+            "sdf3d_tpu_torch.interact.viewer", "sdf3d_tpu_torch.examples.live_view",
+            "sdf3d_tpu_torch.examples.turntable", "sdf3d_tpu_torch.benchmarks.perf_lab",
+            "sdf3d_tpu_torch.benchmarks.fast_profile", "sdf3d_tpu_torch.benchmarks.scaling_report",
+            "sdf3d_tpu_torch.benchmarks.collectives_lab"} <= names
+    bad = re.compile(r"^\s*(import|from) (jax|sdf3d_tpu)(\.| |$)", re.M)
+    files = sorted((REPO / "sdf3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 60
+    assert not [str(f) for f in files if bad.search(f.read_text())]
+
+
 @pytest.mark.parametrize("route", ["from_jax", "load_setup"])
 def test_objects_carried_over_bit_exact(route, tmp_path):
     scene, cam, light, mat, cfg = _random_jax_setup()
@@ -266,19 +286,23 @@ def test_fit_has_no_quiet_move_to_cpu():
         fit_scene(*FIT_ARGS, FitConfig(steps=1))
 
 
-@pytest.mark.parametrize("module", ["sdf3d_tpu", "sdf3d_tpu.sdf"])
+@pytest.mark.parametrize("module", ["sdf3d_tpu", "sdf3d_tpu.sdf", "sdf3d_tpu.interact"])
 def test_exports_carry_every_jax_name(module):
-    """Every name the JAX package exports (``__all__`` of the package and of
-    ``sdf``) resolves in the port under the same name; ROADMAP's "Do not
-    port these" list leaves none of them out."""
+    """Every name the JAX package exports (``__all__`` of the package, of
+    ``sdf`` and of ``interact``) resolves in the port under the same name;
+    ROADMAP's "Do not port these" list leaves none of them out."""
     import importlib
 
     jax_mod = importlib.import_module(module)
     port_mod = importlib.import_module(module.replace("sdf3d_tpu", "sdf3d_tpu_torch"))
     missing = [n for n in jax_mod.__all__ if not hasattr(port_mod, n)]
     assert not missing, missing
-    if module == "sdf3d_tpu.sdf":
+    if module != "sdf3d_tpu":
         assert not [n for n in jax_mod.__all__ if n not in port_mod.__all__]
+    if module == "sdf3d_tpu.interact":
+        star = {}
+        exec("from sdf3d_tpu_torch.interact import *", star)
+        assert set(jax_mod.__all__) <= set(star)
 
 
 def test_13b_exports_carry_the_jax_names():
