@@ -48,7 +48,8 @@ Then the training path, ``fit_scene`` on the reference scene at 1920×1080
 
 In the whole smoke phase 34's libraries build in another thread while
 phase 31 runs, and phase 37's while phase 35 runs (checks that time
-nothing); each waits for its thread before the next phase.
+nothing); each waits for its thread before the next phase.  Phase 60's
+build in a thread while phases 52-59 run.
 
 In the times of phases 6 and 12 the plain version runs 1 warm-up frame and
 3 timed on each side of the kernel's runs, in those of phases 33, 43 and 47
@@ -455,6 +456,43 @@ The kernels line gives ``render_fwd`` an ``interact`` entry and
 Phases 57-59 took 49 s of the whole smoke's 981 s on an NVIDIA H100 80GB
 HBM3 at 700.00 W (the host's speed moves the whole by about 15%).
 
+Then the last six example scripts (ROADMAP item 16b:
+``sdf3d_tpu_torch/examples/``; :func:`slice19_phases`, runnable alone):
+
+60. their libraries (:func:`slice19_jobs`: K1 with AO on the gallery's seven
+    scenes, K3 with the pyramid and the silhouette term together and its
+    one-branch forms, K2 on (8, 128) tiles, ``grid_fit``'s target,
+    ``neural_sdf``'s K6), built in a thread while phases 52-59 run; the
+    ``ptxas`` registers, spills and blocks an SM of each K3 form and K1 with
+    AO;
+61. K3 with the pyramid and the silhouette term in one launch
+    (``inverse_fit``'s loss, ``sil_w = 1``) against its plain versions at
+    256x192 (two cameras), a ragged 250x190, ``inverse_fit``'s 96x64 start
+    and 1080p step 0 (``check_grads``: 1e-4 of the mass on K1's planes, 1e-3
+    on its own march), ``fit_view``'s form at ``pose_fit``'s 128x96 start;
+    its CUDA-event ms at 1080p in turns beside the multiscale-only,
+    silhouette-only and L2 forms, its bound (:func:`branch_work`); a 20-step
+    ``fit_scene(loss="multiscale", silhouette_weight=1.0)`` at 1080p: K3 = 20
+    and nothing else, the loss falling;
+62. the scripts at the JAX scripts' defaults: ``inverse_fit`` (K1 = 3, K3 =
+    200; checkpoints at 50, 100, 150 and 200, a metrics line every 10 steps,
+    the radius toward 0.2), ``pose_fit`` (K1 = 3, K3 = 300, the position
+    error falling), ``render_gallery`` (K1 = 7 with AO, each frame against
+    K1's plain version at its ``SCENE_BARS`` bar, razor-edge and
+    rounding-decided pixels past the hard limit), ``neural_sdf`` (K6 = 12 on
+    the freshly distilled model, frame 0 against K6's plain version at
+    ``NEURAL_BAR``), ``grid_fit`` (cut to 60 of its 300 steps; K1 = 1 for the
+    analytic target, the grid on the torch paths, the image error falling) in
+    this process, and
+    ``sharded_render`` as a subprocess over two ranks sharing the card over
+    gloo (K1 = K2 = 1 a rank, ``render_sharded`` equal to ``render`` and K2's
+    image K1's, bit for bit); then K1 with AO at 1080p on each gallery scene
+    beside K1 without it, in turns.
+
+The kernels line gives ``render_fwd``, ``render_tiles``, ``fit_step`` and
+``neural_fwd`` an ``examples`` entry and ``fit_step`` a
+``multiscale_silhouette`` entry.
+
 Every kernel's bound is the larger of its bytes over the card's memory rate
 and its operations over the FP32 and special-function rates (and, for K6,
 the tensor cores' TF32 rate), counted from
@@ -497,6 +535,7 @@ import math
 import multiprocessing
 import os
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -850,8 +889,14 @@ def main() -> int:
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
     diffed = diff_phases(torch, tt, card, dev)
+    # Phase 60's libraries build in a thread while phases 52-59 run; phase 60
+    # waits for it.
+    pool19 = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    pending19 = (pool19.submit(_build.LIBRARIES.load_many, slice19_jobs(tt)), time.perf_counter())
     rest = slice17_phases(torch, tt, card, dev)
     runtime = slice18_phases(torch, tt, card, dev)
+    examples = slice19_phases(torch, tt, card, dev, background=pending19)
+    pool19.shutdown()
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -910,6 +955,13 @@ def main() -> int:
     check(sum("interact" in e for e in kernels) == 1 and all("interact" in e for e in kernels
                                                              if e["name"] == "render_fwd") and
           sum("collectives_lab" in e for e in kernels) == 2, "an interact or collectives_lab entry is missing")
+    for entry in kernels:
+        entry.update(examples.get(entry["name"], {}))
+    check(all("examples" in e for e in kernels if e["name"] in ("render_fwd", "render_tiles", "fit_step", "neural_fwd"))
+          and sum("examples" in e for e in kernels) == 4 and all(
+              "multiscale_silhouette" in e for e in kernels if e["name"] == "fit_step") and
+          sum("multiscale_silhouette" in e for e in kernels) == 1,
+          "an examples or multiscale_silhouette entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4220,6 +4272,49 @@ def branch_work(costs: dict, counts: dict, levels: int, silhouette: bool) -> tup
     return fp, sfu
 
 
+def branch_plain_opts(opts: dict, cov) -> dict:
+    """``_fit_step_plain``'s loss options of ``fit_step_kernel``'s ``opts``."""
+    sil_w = opts.get("sil_w", 0.0)
+    return dict(levels=opts.get("levels", 0), coverage=cov if sil_w else None, sil_w=sil_w)
+
+
+def k3_branch_vs_plain(torch, opts, sc, prm, uni, c, kc, wrt, fr, label, base, cov, same_tol=None,
+                       own_tol=1e-3) -> dict:
+    """K3 with the loss options ``opts`` against the plain step on K1's
+    planes (1e-5 of the whole loss's gradient mass; 1e-4 with the coverage
+    term, whose plain version tracks its own march) and the plain version
+    marching its own primal (1e-3); the losses 1e-5 relative.  The target:
+    ``base`` where the gradient is well conditioned (whole pyramid groups of
+    such pixels; ``utils/parity.py::fit_targets``), each side's own render
+    elsewhere."""
+    from sdf3d_tpu_torch.ops.fit_kernel import _fit_step_plain, fit_step_kernel_launch, fit_step_kernel_plain
+    from sdf3d_tpu_torch.ops.render_kernel import pixel_planes, render_kernel_forward_plain, render_kernel_launch
+    from sdf3d_tpu_torch.utils.parity import check_grads, fit_targets, loss_mass
+
+    rgb, t, sh, ao = planes = render_kernel_launch(sc, prm, uni, c)
+    own_planes = render_kernel_forward_plain(sc, prm, uni, c)
+    target, p_target = fit_targets(base, planes, own_planes, sc, prm, uni, c, opts.get("levels", 0))
+    got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr, target_coverage=cov, **opts)
+    po = branch_plain_opts(opts, cov)
+    same = _fit_step_plain(sc, prm, uni, target, c, kc, wrt, fr, pixel_planes(uni, c.height, c.width),
+                           planes=(t, sh, ao), **po)
+    own = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr, target_coverage=cov, **opts)
+    torch.cuda.synchronize()
+    mass = loss_mass(sc, prm, uni, rgb, target, t, sh, ao, c, po["levels"], po["coverage"], po["sil_w"])
+    g = torch.cat(got[1:])
+    check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
+    rel = abs(float(got[0]) / float(same[0]) - 1.0)
+    own_rel = abs(float(got[0]) / float(own[0]) - 1.0)
+    check(rel <= 1e-5 and own_rel <= 1e-5, f"{label}: loss off the plain step's by {rel:.3g} / {own_rel:.3g}")
+    check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
+    check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
+    return {"loss_rel_err": rel, "own_march_loss_rel_err": own_rel,
+            "pixels_left_out": int((target != p_target).any(0).sum()),
+            "same_planes": check_grads(g, torch.cat(same[1:]), mass, rtol=1e-4,
+                                       mass_tol=same_tol or (1e-4 if po["sil_w"] else 1e-5), label=f"{label} (same)"),
+            "own_march": check_grads(g, torch.cat(own[1:]), mass, rtol=1e-4, mass_tol=own_tol, label=label)}
+
+
 def loss_phases(torch, tt, card: str, dev) -> dict:
     """Phases 40-43: the fit kernel's loss branches (ROADMAP 12a) in K3 and
     K4, the multiscale pyramid and the silhouette coverage term, and the
@@ -4237,7 +4332,6 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
     from sdf3d_tpu_torch.march import ray_min_sdf
     from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.fit_kernel import (
-        _fit_step_plain,
         fit_launcher,
         fit_step_kernel,
         fit_step_kernel_launch,
@@ -4251,7 +4345,6 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
         KernelConfig,
         library_job,
         pack_uniforms,
-        pixel_planes,
         render_kernel_forward,
         render_kernel_forward_plain,
         render_kernel_launch,
@@ -4310,44 +4403,9 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
         rgb = render_kernel_launch(scene_true, prm, uni, c)[0].contiguous()
         return rgb, (rgb.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
 
-    def plain_opts(opts, cov):
-        """``_fit_step_plain``'s loss options of ``fit_step_kernel``'s ``opts``."""
-        sil_w = opts.get("sil_w", 0.0)
-        return dict(levels=opts.get("levels", 0), coverage=cov if sil_w else None, sil_w=sil_w)
-
     def k3_vs_plain(opts, sc, cam, c, wrt, fr, label, base, cov, same_tol=None, own_tol=1e-3):
-        """K3 with the loss options ``opts`` against the plain step on K1's
-        planes (1e-5 of the whole loss's gradient mass; 1e-4 with the
-        coverage term, whose plain version tracks its own march) and the
-        plain version marching its own primal (1e-3); the losses 1e-5
-        relative.  The target: ``base`` where the gradient is well
-        conditioned (whole pyramid groups of such pixels;
-        ``utils/parity.py::fit_targets``), each side's own render
-        elsewhere."""
         prm, uni = inputs(sc, cam, c)
-        rgb, t, sh, ao = planes = render_kernel_launch(sc, prm, uni, c)
-        own_planes = render_kernel_forward_plain(sc, prm, uni, c)
-        target, p_target = fit_targets(base, planes, own_planes, sc, prm, uni, c, opts.get("levels", 0))
-        got = fit_step_kernel_launch(sc, prm, uni, target, c, kc, wrt, fr, target_coverage=cov, **opts)
-        po = plain_opts(opts, cov)
-        same = _fit_step_plain(sc, prm, uni, target, c, kc, wrt, fr, pixel_planes(uni, c.height, c.width),
-                               planes=(t, sh, ao), **po)
-        own = fit_step_kernel_plain(sc, prm, uni, p_target, c, kc, wrt, fr, target_coverage=cov, **opts)
-        torch.cuda.synchronize()
-        mass = loss_mass(sc, prm, uni, rgb, target, t, sh, ao, c, po["levels"], po["coverage"], po["sil_w"])
-        g = torch.cat(got[1:])
-        check(bool(torch.isfinite(g).all()) and math.isfinite(float(got[0])), f"{label}: a non-finite total")
-        rel = abs(float(got[0]) / float(same[0]) - 1.0)
-        own_rel = abs(float(got[0]) / float(own[0]) - 1.0)
-        check(rel <= 1e-5 and own_rel <= 1e-5, f"{label}: loss off the plain step's by {rel:.3g} / {own_rel:.3g}")
-        check(all(float(got[1][q]) == 0.0 for q in fr), f"{label}: a frozen slot's gradient is not 0")
-        check(wrt or float(got[2].abs().max()) == 0.0, f"{label}: uniform gradients without wrt_uniforms")
-        return {"loss_rel_err": rel, "own_march_loss_rel_err": own_rel,
-                "pixels_left_out": int((target != p_target).any(0).sum()),
-                "same_planes": check_grads(g, torch.cat(same[1:]), mass, rtol=1e-4,
-                                           mass_tol=same_tol or (1e-4 if po["sil_w"] else 1e-5),
-                                           label=f"{label} (same)"),
-                "own_march": check_grads(g, torch.cat(own[1:]), mass, rtol=1e-4, mass_tol=own_tol, label=label)}
+        return k3_branch_vs_plain(torch, opts, sc, prm, uni, c, kc, wrt, fr, label, base, cov, same_tol, own_tol)
 
     # ---- 40. build: the loss branches' libraries together ----
     libs = _build.LIBRARIES
@@ -4398,7 +4456,7 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
         target, p_target = fit_targets(base, planes, render_kernel_forward_plain(sc, prm, uni, c, kc_tiles), sc, prm,
                                        uni, c, opts.get("levels", 0))
         stacks, p_stacks = (gather_target_tiles(torch.cat([x, cov[None]]), plan) for x in (target, p_target))
-        po = plain_opts(opts, cov)
+        po = branch_plain_opts(opts, cov)
         mass = loss_mass(sc, prm, uni, rgb, target, t, sh, ao, c, po["levels"], po["coverage"], po["sil_w"])
         total, ranks = None, []
         for r in range(4):
@@ -6434,6 +6492,401 @@ def slice18_phases(torch, tt, card: str, dev) -> dict:
         "ring_allreduce": {"collectives_lab": {"launches": run["launches"]["ring_allreduce"], "bit_equal": True}},
         "rs_ag_allreduce": {"collectives_lab": {"launches": run["launches"]["rs_ag_allreduce"], "bit_equal": True}},
     }
+
+
+#: ``examples/inverse_fit.py``'s loss: the pyramid and the silhouette term in
+#: one K3 launch (``fit_step_kernel``'s options).
+INVERSE_FIT_LOSS = dict(loss_kind="multiscale", levels=3, sil_w=1.0)
+
+
+def slice19_jobs(tt) -> list:
+    """The library jobs of phase 60: K1 with ambient occlusion on the
+    gallery's seven scenes; K3 with the pyramid and the silhouette term
+    together, with and without the uniforms' gradient, and its one-branch
+    and L2 forms, on the black background (the fit demo's start and
+    ``inverse_fit``'s share a structure); K2 on (8, 128) tiles on the
+    flagship; and the examples' other libraries (K1 on the black background,
+    ``grid_fit``'s target with the shadow off, ``pose_fit``'s K3,
+    ``neural_sdf``'s K6, K1 without AO on the gallery's scenes)."""
+    from sdf3d_tpu_torch.config import AOConfig
+    from sdf3d_tpu_torch.examples.neural_sdf import render_config
+    from sdf3d_tpu_torch.examples.render_gallery import gallery_scenes
+    from sdf3d_tpu_torch.ops.neural_kernel import NeuralRenderConfig, neural_structure
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.ops.scene_program import cuda_neural_source
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    gallery = dataclasses.replace(full, ao=AOConfig(enabled=True))
+    black = dataclasses.replace(full, background=(0.0, 0.0, 0.0))
+    no_shadow = dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, enabled=False))
+    kc, frozen = KernelConfig(), (0, 1, 2, 3)
+    start = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.05, 0.45, 0.0), 0.25))
+    peanut = tt.sdf.ground_plane() | tt.sdf.smooth_union(tt.sdf.sphere((-0.12, 0.4, 0.0), 0.18),
+                                                         tt.sdf.sphere((0.15, 0.48, 0.0), 0.14), k=0.08)
+    jobs = [library_job(sc, gallery, kc) for sc, _ in gallery_scenes().values()]
+    jobs += [library_job(start, black, kc, wrt, fr, "full", 3, True) for wrt, fr in ((False, frozen), (True, ()))]
+    jobs += [library_job(start, black, kc, False, frozen, "full", lv, sil) for lv, sil in ((3, False), (0, True),
+                                                                                          (0, False))]
+    jobs += [library_job(tt.flagship_scene(), full, KernelConfig(tile_h=8, tile_w=128)), library_job(start, black, kc),
+             library_job(peanut, no_shadow, kc), library_job(start, full, kc, True, (), "full", 0, True)]
+    # K1 without AO on the gallery's scenes (the AO timing's baseline; the
+    # flagship's also sharded_render's single image): built by phases 2, 30,
+    # 34 and 37 in the whole smoke.
+    jobs += [library_job(sc, full, kc) for sc, _ in gallery_scenes().values()]
+    neural = tt.sdf.ground_plane() | tt.sdf.neural_sdf(0, hidden=64, depth=3, radius=0.3)
+    ncfg, nc = render_config(256), NeuralRenderConfig()
+    jobs.append((neural_structure(neural, ncfg, nc), lambda: cuda_neural_source(neural, ncfg, nc), "neural"))
+    return jobs
+
+
+def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
+    """Phases 60-62: the last six example scripts (ROADMAP 16b) on the card.
+    60 waits for their libraries (``background``: ``(future, start time)``
+    of a thread that builds :func:`slice19_jobs` during earlier phases; run
+    alone, it builds them here); 61 holds K3 with the pyramid and the
+    silhouette term in one launch (``inverse_fit``'s fit) to its plain
+    versions, times it beside its one-branch forms at 1080p and runs a
+    20-step fit with it; 62 runs the six scripts at the JAX scripts'
+    defaults (``sharded_render`` as a subprocess over two ranks on the card,
+    the others in this process), their launches counted, their outputs
+    checked and held to the kernels' plain versions.  Returns the kernels
+    line's ``examples`` entries of ``render_fwd``, ``render_tiles``,
+    ``fit_step`` and ``neural_fwd`` and ``fit_step``'s
+    ``multiscale_silhouette`` entry.  Runnable alone."""
+    import shutil
+
+    from sdf3d_tpu_torch.config import AOConfig
+    from sdf3d_tpu_torch.examples import render_gallery
+    from sdf3d_tpu_torch.fit import FitConfig, fit_scene
+    from sdf3d_tpu_torch.march import ray_min_sdf
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.fit_kernel import fit_launcher, fit_step_kernel, fit_step_kernel_plain
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_forward, \
+        render_kernel_forward_plain, render_kernel_launch, render_kernel_tiles_forward
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.sdf.transforms import rotvec_to_matrix
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    black = dataclasses.replace(full, background=(0.0, 0.0, 0.0))
+    light, mat = tt.reference_light(device=dev), tt.reference_material(device=dev)
+    kc, frozen = KernelConfig(), (0, 1, 2, 3)
+    beta = full.march.epsilon / 2.5
+    ref_cam = tt.Camera.reference(device=dev)
+    orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
+    reference = tt.reference_scene().to(dev)
+    counters = (render_kernel_forward, render_kernel_tiles_forward, fit_step_kernel, render_neural_forward)
+    libs = _build.LIBRARIES
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    def inputs(sc, cam, c):
+        uni = pack_uniforms(cam, light, mat, c.ray_mode, dev)
+        uni[27] = float(c.shadow.k)
+        return scene_param_vector(sc, dev), uni
+
+    def start(center=(0.05, 0.45, 0.0), radius=0.25):  # the fit demo's start (inverse_fit's: (0.08, 0.45, 0), 0.27)
+        return tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=center, radius=radius)).to(dev)
+
+    def reference_target(cam, c):
+        """The reference scene's render (planar, on the card) and its object
+        mask off the black background."""
+        prm, uni = inputs(reference, cam, c)
+        rgb = render_kernel_launch(reference, prm, uni, c)[0].contiguous()
+        return rgb, (rgb.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
+
+    # ---- 60. the libraries, built in a thread during phases 52-59 ----
+    t_phase = time.perf_counter()
+    builds0, seconds0 = libs.builds, libs.build_seconds
+    jobs = slice19_jobs(tt)
+    if background is None:
+        libs.load_many(jobs)
+        background_s = waited_s = time.perf_counter() - t_phase
+    else:
+        pending, t_start = background
+        pending.result()
+        background_s, waited_s = time.perf_counter() - t_start, time.perf_counter() - t_phase
+    sc0 = start()
+    forms = {  # name: (wrt_uniforms, frozen, levels, silhouette)
+        "multiscale_silhouette": (False, frozen, 3, True), "multiscale_silhouette_uniforms": (True, (), 3, True),
+        "multiscale": (False, frozen, 3, False), "silhouette": (False, frozen, 0, True), "l2": (False, frozen, 0, False)}
+    ptxas = {}
+    for name, (wrt, fr, lv, sil) in forms.items():
+        p = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc0, black, kc, wrt, fr, "full", lv, sil))))["fit_step"]
+        ptxas[name] = {**p, "blocks_per_sm": blocks_per_sm(p["registers"])}
+    gallery_full = dataclasses.replace(full, ao=AOConfig(enabled=True))
+    ao_ptxas = {}
+    for name, (sc, _) in render_gallery.gallery_scenes().items():
+        p = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc, gallery_full, kc))))["render_fwd"]
+        ao_ptxas[name] = {**p, "blocks_per_sm": blocks_per_sm(p["registers"])}
+    log("examples_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
+        libraries=len(jobs), in_background=background is not None, background_seconds=background_s,
+        waited_seconds=waited_s, fit_step_ptxas=ptxas, render_fwd_ao_ptxas=ao_ptxas)
+
+    # ---- 61. K3 with the pyramid and the silhouette term in one launch ----
+    t_phase = time.perf_counter()
+    small = dataclasses.replace(black, width=256, height=192)
+    ragged = dataclasses.replace(black, width=250, height=190)
+    at96 = dataclasses.replace(black, width=96, height=64)
+    errs, parity = [], []
+    cases = [(small, "orbit30_15", orbit, start()), (small, "reference", ref_cam, start()),
+             (ragged, "orbit30_15", orbit, start()), (at96, "inverse_fit", ref_cam, start((0.08, 0.45, 0.0), 0.27))]
+    for c, cam_name, cam, sc in cases:
+        base, cov = reference_target(cam, c)
+        for wrt, fr in ((False, frozen), (True, ())):
+            label = f"K3 multiscale+silhouette {c.width}x{c.height} {cam_name} wrt_uniforms={wrt}"
+            prm, uni = inputs(sc, cam, c)
+            st = k3_branch_vs_plain(torch, INVERSE_FIT_LOSS, sc, prm, uni, c, kc, wrt, fr, label, base, cov)
+            errs.append(st["own_march"]["max_abs_err"])
+            parity.append({"size": [c.width, c.height], "camera": cam_name, "wrt_uniforms": wrt, **st})
+    # pose_fit's form (the uniforms' gradient and the coverage term) at its
+    # 128x96 on its perturbed start.
+    pose = dataclasses.replace(full, width=128, height=96)
+    rot = rotvec_to_matrix(0.06 * torch.tensor([0.3, 0.8, -0.3], device=dev))
+    cam0 = tt.Camera(position=ref_cam.position + 0.06 * torch.tensor([1.0, -0.7, 1.3], device=dev),
+                     c2w=(rot[:, :, None] * ref_cam.c2w[None, :, :]).sum(1), fov_deg=ref_cam.fov_deg)
+    o, d = tt.camera_rays(ref_cam, pose.width, pose.height, pose.ray_mode)
+    cov_pose = torch.sigmoid((2.0 * pose.march.epsilon - ray_min_sdf(reference.distance, o, d, pose.march)[0])
+                             / beta).contiguous()
+    prm, uni = inputs(reference, cam0, pose)
+    view_st = k3_branch_vs_plain(torch, dict(sil_w=1.0), reference, prm, uni, pose, kc, True, (), "K3 pose_fit 128x96",
+                                 reference_target(ref_cam, pose)[0], cov_pose)
+    view_errs = [view_st["own_march"]["max_abs_err"]]
+    # Step 0 at 1080p on the fit demo's start (the silhouette phase's black
+    # background), the main path's size.
+    target_black, cov_black = reference_target(ref_cam, black)
+    prm, uni = inputs(sc0, ref_cam, black)
+    step0 = k3_branch_vs_plain(torch, INVERSE_FIT_LOSS, sc0, prm, uni, black, kc, False, frozen,
+                               "K3 multiscale+silhouette 1080p step 0", target_black, cov_black)
+    errs.append(step0["own_march"]["max_abs_err"])
+    log("examples_k3_parity", cases=parity, pose_fit=view_st, step0_1080p=step0)
+    # Times at 1080p, in turns: the combined form beside each branch alone
+    # and the L2 form (kernel and total, fit_launcher), the plain version one
+    # frame without a warm-up.
+    opts = {"multiscale_silhouette": dict(levels=3, coverage=cov_black, sil_w=1.0, sil_beta=beta),
+            "multiscale": dict(levels=3), "silhouette": dict(coverage=cov_black, sil_w=1.0, sil_beta=beta), "l2": {}}
+    kern = {n: fit_launcher(sc0, prm, uni, target_black, black, kc, False, frozen, "full", **o)[0]
+            for n, o in opts.items()}
+    runs = {n: [] for n in kern}
+    for order in (list(kern), list(reversed(kern))):
+        for n in order:
+            runs[n].append(time_ms(kern[n]))
+    plain_ms = time_ms(functools.partial(fit_step_kernel_plain, sc0, prm, uni, target_black, black, kc, False, frozen,
+                                         target_coverage=cov_black, **INVERSE_FIT_LOSS), 0, 1)
+    costs = scene_costs(cuda_scene_source(sc0, black, kc, False, frozen))
+    counts = march_counts(torch, sc0, ref_cam, black, prm, uni, render_kernel_forward_plain)
+    fp, sfu = analytic_work(costs, counts, black, primal=True, reverse=True)
+    bf, bs = branch_work(costs, counts, 3, True)
+    bound_ms, bound_by = bound(fp + bf, sfu + bs, 16 * W * H + 8 * (prm.numel() + 31))
+    # The main path: a 20-step fit with both terms at 1080p, one K3 a step.
+    with PlainCalls() as plain:
+        reset()
+        t0 = time.perf_counter()
+        fit = fit_scene(target_black.permute(1, 2, 0), start(), ref_cam, light, mat, black,
+                        FitConfig(steps=20, learning_rate=1e-2, log_every=1, loss="multiscale", silhouette_weight=1.0),
+                        trainable=(False, False, True, True), device=dev)
+        fit_seconds = time.perf_counter() - t0
+        fit_launches = launches()
+    check(fit_launches == {"fit_step_kernel": 20} and sum(plain.calls.values()) == 0,
+          f"the 20-step fit launched {fit_launches}, plain versions {plain.calls}")
+    check(all(math.isfinite(v) for v in fit.losses) and fit.losses[-1] < fit.losses[0],
+          f"the multiscale+silhouette fit's loss did not fall: {fit.losses}")
+    times = {n: {"ms": sum(r) / 2, "ms_runs": r} for n, r in runs.items()}
+    log("examples_k3_1080p", card=card, times=times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        counts=counts, fit_losses=fit.losses, fit_seconds=fit_seconds, fit_ms_per_step=W * H / fit.rays_per_second * 1e3,
+        fit_launches=fit_launches, ptxas=ptxas, phase_seconds=time.perf_counter() - t_phase)
+
+    # ---- 62. the six scripts at the JAX scripts' defaults ----
+    t_phase = time.perf_counter()
+    out_root = os.path.join(REPO, "build", "chip_smoke", "examples")
+    shutil.rmtree(out_root, ignore_errors=True)  # no stale checkpoint to resume
+    os.makedirs(out_root)
+    # sharded_render starts first, in a session of its own, so that a failed
+    # check here stops it and its ranks together.
+    sharded_log = os.path.join(out_root, "sharded_render.log")
+    log_file = open(sharded_log, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "sdf3d_tpu_torch.examples.sharded_render", "--out",
+                             os.path.join(out_root, "sharded_render")], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                            stdout=log_file, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    running = {"sharded_render": (proc, log_file, sharded_log, time.perf_counter())}
+    try:
+        out = _slice19_scripts(torch, tt, dev, out_root, reset, launches, inputs)
+    except BaseException:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        log_file.close()
+        raise
+    (seconds, ex_launches, plain_calls, lines, saved, center, radius, e0, e1, gallery, gallery_err, neural_st) = out
+    # sharded_render: two ranks sharing the card over gloo, K1 and K2 once
+    # a rank, both of the JAX script's asserts, K2's image K1's bit for bit.
+    done = wait_labs(running)
+    sh_text = done["sharded_render"][0]
+    ranks = last_json(sh_text)["ranks"]
+    check(len(ranks) == 2 and all(
+        r["backend"] == "gloo" and r["sharded_equal"] and r["tiles_over_1e-3"] == 0 and r["tiles_mean_abs_err"] < 1e-5
+        and r["tiles_equal_kernel"] and r["launches"] == {"render_kernel_forward": 1, "render_kernel_tiles_forward": 1}
+        for r in ranks) and {"mesh: {'tiles': 2}", "sharded == single-device: True", "output shape: (192, 256, 3)"}
+        <= set(sh_text.splitlines()), f"sharded_render: {sh_text[-3000:]}")
+    seconds["sharded_render"] = done["sharded_render"][1]
+    log("examples", card=card, seconds=seconds, launches=ex_launches, plain_calls=plain_calls, printed=lines,
+        inverse_fit={"checkpoints": saved, "center": center, "radius": radius},
+        pose_fit_position_error=[e0, e1], gallery_vs_plain=gallery, neural_vs_plain={
+            k: neural_st[k] for k in ("over_atol", "max_abs_err")}, sharded_render=ranks)
+    # K1 with AO on the gallery's scenes at 1080p under their cameras, beside
+    # the same render without AO (phases 30, 34 and 37 built those), in turns.
+    ao_ms = {}
+    for name, (sc, cam) in render_gallery.gallery_scenes().items():
+        sc, cam = sc.to(dev), cam.to(dev)
+        prm, uni = inputs(sc, cam, full)
+        ao = functools.partial(render_kernel_launch, sc, prm, uni, gallery_full)
+        no_ao = functools.partial(render_kernel_launch, sc, prm, uni, full)
+        r = {"ao": [], "no_ao": []}
+        for f in (ao, no_ao, no_ao, ao):
+            r["ao" if f is ao else "no_ao"].append(time_ms(f, 2, 10))
+        ao_ms[name] = {"ms": sum(r["ao"]) / 2, "no_ao_ms": sum(r["no_ao"]) / 2, "ms_runs": r["ao"],
+                       "no_ao_ms_runs": r["no_ao"], "ptxas": ao_ptxas[name]}
+    log("examples_gallery_ao_1080p", card=card, render_fwd=ao_ms, phase_seconds=time.perf_counter() - t_phase)
+    k1_total = sum(ex_launches[n].get("render_kernel_forward", 0) for n in ex_launches)
+    return {
+        "render_fwd": {"examples": {"launches": k1_total, "sharded_render_launches_a_rank": 1,
+                                    "max_abs_err": max(gallery_err), "gallery_ao_1080p_ms": {
+                                        n: v["ms"] for n, v in ao_ms.items()}}},
+        "render_tiles": {"examples": {"launches": sum(r["launches"]["render_kernel_tiles_forward"] for r in ranks),
+                                      "max_abs_err": max(r["tiles_max_abs_err"] for r in ranks), "tile": [8, 128]}},
+        "fit_step": {
+            "examples": {"launches": ex_launches["inverse_fit"]["fit_step_kernel"]
+                         + ex_launches["pose_fit"]["fit_step_kernel"], "max_abs_err": max(errs + view_errs)},
+            "multiscale_silhouette": {"launches": fit_launches["fit_step_kernel"], "max_abs_err": max(errs),
+                                      "ms": times["multiscale_silhouette"]["ms"], "plain_ms": plain_ms,
+                                      "bound_ms": bound_ms, "bound_by": bound_by,
+                                      "registers": ptxas["multiscale_silhouette"]["registers"],
+                                      "spill_stores": ptxas["multiscale_silhouette"].get("spill_stores"),
+                                      "blocks_per_sm": ptxas["multiscale_silhouette"]["blocks_per_sm"]}},
+        "neural_fwd": {"examples": {"launches": ex_launches["neural_sdf"]["render_neural_forward"],
+                                    "max_abs_err": neural_st["max_abs_err"]}},
+    }
+
+
+def _slice19_scripts(torch, tt, dev, out_root: str, reset, launches, inputs) -> tuple:
+    """Phase 62's scripts run in this process (all but ``sharded_render``)
+    at the JAX scripts' defaults, their launches counted and their outputs
+    checked (:func:`slice19_phases`)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    import sdf3d_tpu_torch.fit as fit_module
+    import sdf3d_tpu_torch.utils as utils_module
+    from sdf3d_tpu_torch.config import AOConfig
+    from sdf3d_tpu_torch.examples import grid_fit, inverse_fit, neural_sdf, pose_fit, render_gallery
+    from sdf3d_tpu_torch.ops.neural_kernel import _inputs as neural_inputs
+    from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward_plain
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward_plain
+    from sdf3d_tpu_torch.utils.parity import NEURAL_BAR, SCENE_BARS, check_planes, razor_edge, rounding_decided
+
+    shots, saved, models, current = {}, [], [], {}
+    orig_png, orig_ckpt, orig_distill = utils_module.write_png, fit_module.save_checkpoint, neural_sdf.distill_blob
+
+    def png(path, img):
+        shots[(current["name"], os.path.basename(str(path)))] = np.array(img, np.float32)
+        orig_png(path, img)
+
+    def ckpt(path, state, step, meta=None):
+        saved.append(step)
+        orig_ckpt(path, state, step, meta)
+
+    def distill(*args, **kwargs):
+        models.append(orig_distill(*args, **kwargs))
+        return models[-1]
+
+    # grid_fit cut to 60 of its 300 steps: the banded route's torch march is
+    # host-bound, 0.2-0.3 s a step (300 steps took 94 s beside
+    # sharded_render's ranks; PERF.md).
+    scripts = {"inverse_fit": (inverse_fit, []), "pose_fit": (pose_fit, []), "render_gallery": (render_gallery, []),
+               "neural_sdf": (neural_sdf, []), "grid_fit": (grid_fit, ["--steps", "60"])}
+    texts, ex_launches, seconds = {}, {}, {}
+    utils_module.write_png, fit_module.save_checkpoint, neural_sdf.distill_blob = png, ckpt, distill
+    try:
+        with PlainCalls() as plain:
+            for name, (module, argv) in scripts.items():
+                current["name"] = name
+                reset()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        check(module.main([*argv, "--out", os.path.join(out_root, name)]) == 0, f"{name} failed")
+                except BaseException:
+                    print(buf.getvalue()[-3000:], file=sys.stderr)
+                    raise
+                torch.cuda.synchronize()
+                seconds[name], texts[name], ex_launches[name] = time.perf_counter() - t0, buf.getvalue(), launches()
+    finally:
+        utils_module.write_png, fit_module.save_checkpoint, neural_sdf.distill_blob = orig_png, orig_ckpt, orig_distill
+    kernel_plain = {k: v for k, v in plain.calls.items() if k != "planar_vjp"}
+    check(sum(kernel_plain.values()) == 0, f"the examples called a kernel's plain version: {plain.calls}")
+    want = {"inverse_fit": {"render_kernel_forward": 3, "fit_step_kernel": 200},
+            "pose_fit": {"render_kernel_forward": 3, "fit_step_kernel": 300},
+            "render_gallery": {"render_kernel_forward": 7}, "neural_sdf": {"render_neural_forward": 12},
+            "grid_fit": {"render_kernel_forward": 1}}
+    for name, w in want.items():
+        check(ex_launches[name] == w, f"{name} launched {ex_launches[name]}, expected {w}")
+    lines = {n: [ln for ln in t.splitlines() if not ln.startswith("{")] for n, t in texts.items()}
+    # inverse_fit: the checkpoints every 50 steps, a metrics line every 10
+    # steps and the last, the radius toward 0.2, the loss down.
+    metrics = [json.loads(ln) for ln in open(os.path.join(out_root, "inverse_fit", "metrics.jsonl"))]
+    check(saved == [50, 100, 150, 200] and [m["step"] for m in metrics] == list(range(0, 200, 10)) + [199] and
+          all(math.isfinite(m["loss"]) for m in metrics), f"inverse_fit: checkpoints {saved}, metrics {metrics[:3]}")
+    m = re.match(r"fitted : center \[(.+)\]  radius ([\d.]+)$", lines["inverse_fit"][1])
+    center, radius = [float(x) for x in m.group(1).split(",")], float(m.group(2))
+    m2 = re.match(r"loss ([\d.]+) -> ([\d.]+)  \(", lines["inverse_fit"][2])
+    check(lines["inverse_fit"][0] == "true   : center (0, 0.4, 0)  radius 0.2" and abs(radius - 0.2) < 0.07 and
+          float(m2.group(2)) < float(m2.group(1)), f"inverse_fit: {lines['inverse_fit']}")
+    # pose_fit: the position error falls.
+    e0, e1 = (float(x) for x in re.search(r"position error ([\d.]+) -> ([\d.]+)", lines["pose_fit"][1]).groups())
+    check(e1 < e0, f"pose_fit: {lines['pose_fit']}")
+    # render_gallery: each frame against K1's plain version at its bar; past
+    # the hard limit only razor-edge rays and pixels rounding decides.
+    gcfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=320, height=240, ao=AOConfig(enabled=True))
+    names = list(render_gallery.gallery_scenes())
+    check(lines["render_gallery"] == [f"{n}.png" for n in names] + ["aov_{depth,normals,shadow,ao}.png",
+                                                                     f"gallery -> {os.path.join(out_root, 'render_gallery')}"]
+          and all(np.isfinite(v).all() for (s_, _), v in shots.items() if s_ == "render_gallery"),
+          f"render_gallery: {lines['render_gallery']}")
+    gallery, gallery_err = {}, []
+    for name, (sc, cam) in render_gallery.gallery_scenes().items():
+        sc, cam = sc.to(dev), cam.to(dev)
+        prm, uni = inputs(sc, cam, gcfg)
+        want_planes = render_kernel_forward_plain(sc, prm, uni, gcfg)
+        got = torch.from_numpy(shots[("render_gallery", f"{name}.png")]).to(dev).permute(2, 0, 1)
+        witness = Witness(razor_edge, rounding_decided, sc, prm, uni, gcfg)
+        st = check_planes((got,), want_planes[:1], gcfg.march.max_distance, f"gallery {name} vs plain", razor=witness,
+                          **SCENE_BARS.get("lattice_scene" if name == "lattice" else name, {}))["rgb"]
+        gallery[name] = {"over_atol": st["over_atol"], "max_abs_err": st["max_abs_err"],
+                         "over_hard": st.get("over_hard", 0), **witness.counts}
+        gallery_err.append(st["max_abs_err"])
+    # neural_sdf: the distillation's loss falls; frame 0 against K6's plain
+    # version at NEURAL_BAR.
+    d0, d1 = (float(x) for x in re.search(r"distill loss ([\d.]+) -> ([\d.]+)", lines["neural_sdf"][0]).groups())
+    check(d1 < d0 and len(models) == 1, f"neural_sdf: {lines['neural_sdf']}")
+    ncfg = neural_sdf.render_config(256)
+    nscene = tt.sdf.ground_plane().to(dev) | models[0][0]
+    nprm, nuni = neural_inputs(nscene, tt.Camera.orbit(azimuth_deg=0.0, elevation_deg=18.0), tt.reference_light(),
+                               tt.reference_material(), ncfg, dev)
+    n_want = render_neural_forward_plain(nscene, nprm, nuni, ncfg)[0]
+    n_got = torch.from_numpy(shots[("neural_sdf", "frame_00000.png")]).to(dev).permute(2, 0, 1)
+    neural_st = check_planes((n_got,), (n_want,), ncfg.march.max_distance, "neural_sdf frame 0 vs plain",
+                             **NEURAL_BAR)["rgb"]
+    # grid_fit: the image error falls (the script asserts it too).
+    g0, g1 = (float(x) for x in re.search(r"initial ([\d.]+) -> fitted ([\d.]+)", lines["grid_fit"][1]).groups())
+    check(g1 < g0, f"grid_fit: {lines['grid_fit']}")
+    return (seconds, ex_launches, plain.calls, lines, saved, center, radius, e0, e1, gallery, gallery_err, neural_st)
 
 
 def blocks_per_sm(registers: int, threads: int = 256) -> int:

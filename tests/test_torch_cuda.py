@@ -209,27 +209,34 @@ LOSS_BRANCHES = {"multiscale": dict(loss_kind="multiscale", levels=3), "silhouet
 BLACK = dataclasses.replace(BASE, background=(0.0, 0.0, 0.0))
 
 
-def _branch_inputs(cfg, cam, dev):
-    """The fit demo's start, its inputs, and the target: the reference
-    scene's render on the card, with its object mask (off the black
-    background) as the coverage target."""
-    scene = _fit_scene0(dev)
+def _branch_inputs(cfg, cam, dev, scene=None):
+    """The fit demo's start (or ``scene``), its inputs, and the target: the
+    reference scene's render on the card, with its object mask (off the
+    black background) as the coverage target."""
+    scene = _fit_scene0(dev) if scene is None else scene
     prm, uni = _inputs(scene, cam, cfg, dev)
     ref = tt.reference_scene().to(dev)
     target = render_kernel_launch(ref, scene_param_vector(ref, dev), uni, cfg)[0].contiguous()
     return scene, prm, uni, target, (target.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
 
 
-def _branch_plain(branch, cov, cfg, **kw):
-    """The plain step's loss options of ``branch`` (``_fit_step_plain``'s)."""
-    opts = LOSS_BRANCHES[branch]
+def _branch_plain(branch, cov, cfg, opts=None, **kw):
+    """The plain step's loss options of ``branch`` (``_fit_step_plain``'s),
+    or of the kernel's options ``opts``."""
+    opts = LOSS_BRANCHES[branch] if opts is None else opts
     sil = opts.get("sil_w", 0.0)
     return dict(levels=opts.get("levels", 0), coverage=cov if sil else None, sil_w=sil, **kw)
 
 
+#: ``examples/inverse_fit.py``'s fit: its start under the reference camera
+#: at 96×64 (every 32×8 block whole, every 24×640 tile ragged), ``sil_w = 1``.
+INVERSE_FIT = "inverse_fit"
+
+
 @pytest.mark.parametrize("branch", sorted(LOSS_BRANCHES))
 @pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])
-@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190), (96, 64, INVERSE_FIT)],
+                         ids=["256x192", "ragged", "inverse_fit_96x64"])
 def test_fit_loss_branches_match_plain(dev, branch, wrt_uniforms, frozen, size):
     """K3 with the pyramid (its groups pooled in each block), the coverage
     term (its tracked march) or both, against the plain step on K1's planes
@@ -238,23 +245,31 @@ def test_fit_loss_branches_match_plain(dev, branch, wrt_uniforms, frozen, size):
     version marching its own primal (1e-3).  The target: the reference
     scene's render where the gradient is well conditioned (whole pyramid
     groups of such pixels: ``utils/parity.py::fit_targets``), each side's
-    own render elsewhere."""
+    own render elsewhere.  On the fit demo's start under orbit 30/15 at
+    ``sil_w = 0.5``, and on ``inverse_fit``'s start and view at its size
+    and ``sil_w = 1``."""
     from sdf3d_tpu_torch.ops.fit_kernel import _fit_step_plain
 
     cfg = dataclasses.replace(BLACK, width=size[0], height=size[1])
-    scene, prm, uni, base, cov = _branch_inputs(cfg, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), dev)
     opts = LOSS_BRANCHES[branch]
+    if size[2:] == (INVERSE_FIT,):
+        start = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere((0.08, 0.45, 0.0), 0.27)).to(dev)
+        scene, prm, uni, base, cov = _branch_inputs(cfg, tt.Camera.reference(), dev, start)
+        opts = {**opts, "sil_w": 1.0} if "sil_w" in opts else opts
+    else:
+        scene, prm, uni, base, cov = _branch_inputs(cfg, tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), dev)
     rgb, t, sh, ao = planes = render_kernel_launch(scene, prm, uni, cfg)
     target, p_target = fit_targets(base, planes, render_kernel_forward_plain(scene, prm, uni, cfg), scene, prm, uni,
                                    cfg, opts.get("levels", 0))
     got = fit_step_kernel_launch(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen,
                                  target_coverage=cov, **opts)
     same = _fit_step_plain(scene, prm, uni, target, cfg, KernelConfig(), wrt_uniforms, frozen,
-                           pixel_planes(uni, cfg.height, cfg.width), **_branch_plain(branch, cov, cfg, planes=(t, sh, ao)))
+                           pixel_planes(uni, cfg.height, cfg.width),
+                           **_branch_plain(branch, cov, cfg, opts, planes=(t, sh, ao)))
     own = fit_step_kernel_plain(scene, prm, uni, p_target, cfg, KernelConfig(), wrt_uniforms, frozen,
                                 target_coverage=cov, **opts)
     torch.cuda.synchronize()
-    plain = _branch_plain(branch, cov, cfg)
+    plain = _branch_plain(branch, cov, cfg, opts)
     mass = loss_mass(scene, prm, uni, rgb, target, t, sh, ao, cfg, plain["levels"], plain["coverage"], plain["sil_w"])
     assert float(got[0]) == pytest.approx(float(same[0]), rel=1e-5)
     assert float(got[0]) == pytest.approx(float(own[0]), rel=1e-5)

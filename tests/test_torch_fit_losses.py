@@ -11,10 +11,10 @@ Tolerances, each beside the error measured here: losses 1e-5 relative
 mass, ``loss_mass``): 1e-5 of it on the same planes (the port's
 differentiable render and the plain K4 summed over a plan: 0, every
 component within its ``rtol``), 1e-4 where each side marches its own primal
-(JAX: 6.9e-7 multiscale, 9.1e-6 silhouette, 6.3e-6 the camera's; the host
-forms: 0).  No ray's argmin flips under one ulp of the camera in the
-silhouette cases (``argmin_flips``: 0, recorded per test).  About 60 s on
-one worker."""
+(JAX: 6.9e-7 multiscale, 9.1e-6 silhouette, 6.3e-6 the camera's, 0 for
+both terms together at 96×64; the host forms: 0).  No ray's argmin flips
+under one ulp of the camera in the silhouette cases (``argmin_flips``: 0,
+recorded per test).  About 70 s on one worker."""
 
 import dataclasses
 import json
@@ -69,10 +69,16 @@ BG = (0.0, 0.0, 0.0)
 # JAX's cases: the multiscale pyramid at 100×70 (padded tiles, odd edges),
 # the silhouette at 128×96 with a black background; the fit's start
 # against a render of the reference scene.
+# Both terms together (``examples/inverse_fit.py``'s fit, the pyramid and
+# the coverage term in one launch): at its 96×64 on its start, and on the
+# fit demo's start at a ragged 100×70.
 CASES = {
     "multiscale": dict(size=(100, 70), loss_kind="multiscale", levels=3),
     "silhouette": dict(size=(128, 96), background=BG, sil_w=SIL_W),
     "camera": dict(size=(128, 96), background=BG, sil_w=SIL_W),
+    "inverse_fit": dict(size=(96, 64), background=BG, loss_kind="multiscale", levels=3, sil_w=1.0,
+                        start=((0.08, 0.45, 0.0), 0.27)),
+    "both_ragged": dict(size=(100, 70), background=BG, loss_kind="multiscale", levels=3, sil_w=SIL_W),
 }
 
 
@@ -88,7 +94,8 @@ def _jax_view(case):
 def _jax_scene(case):
     if case == "camera":
         return s.sdf.union(s.sdf.ground_plane(), s.sdf.sphere(center=(0.0, 0.4, 0.0), radius=0.2))
-    return s.sdf.union(s.sdf.ground_plane(), s.sdf.sphere(center=(0.0, 0.4, 0.0), radius=0.25))
+    center, radius = CASES[case].get("start", ((0.0, 0.4, 0.0), 0.25))
+    return s.sdf.union(s.sdf.ground_plane(), s.sdf.sphere(center=center, radius=radius))
 
 
 def _setup(case):
@@ -114,7 +121,8 @@ def jax_steps():
     """JAX's interpret-mode fit step of each case (and both uniform modes of
     the multiscale one), computed once for the module."""
     out = {}
-    for case, wrt in (("multiscale", False), ("multiscale", True), ("silhouette", False), ("camera", True)):
+    for case, wrt in (("multiscale", False), ("multiscale", True), ("silhouette", False), ("camera", True),
+                      ("inverse_fit", False), ("both_ragged", False)):
         jcfg, jscene, view, target, cov, *_ = _setup(case)
         jleaves, treedef = jax.tree_util.tree_flatten(jscene)
         juni = jax_pack_uniforms(*view, jcfg.ray_mode).at[27].set(jcfg.shadow.k)
@@ -168,11 +176,13 @@ def test_plain_multiscale_matches_render_kernel_diff():
     check_grads(g_prm, torch.cat([g.reshape(-1) for g in grads]), mass[:g_prm.numel()], rtol=1e-4, mass_tol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["silhouette", "camera"])
+@pytest.mark.parametrize("case", ["silhouette", "camera", "inverse_fit", "both_ragged"])
 def test_plain_silhouette_matches_jax(jax_steps, case, record_property):
     """The plain K3's coverage term (``sil_w = 0.7``) against JAX's: the
     scene's gradients on the fit's start, and the uniforms' (the camera's)
-    on a perturbed pose (JAX's cases, tests/test_pallas.py:442-510).  Rays
+    on a perturbed pose (JAX's cases, tests/test_pallas.py:442-510); with
+    the pyramid too (``inverse_fit``'s ``sil_w = 1`` on its start at 96×64,
+    and at a ragged 100×70).  Rays
     whose argmin step one ulp of the camera moves (``argmin_flips``) are
     counted and reported; none is left out."""
     wrt = case == "camera"

@@ -77,7 +77,10 @@ def test_no_jax_import_in_the_port_or_the_smoke():
             "sdf3d_tpu_torch.interact.viewer", "sdf3d_tpu_torch.examples.live_view",
             "sdf3d_tpu_torch.examples.turntable", "sdf3d_tpu_torch.benchmarks.perf_lab",
             "sdf3d_tpu_torch.benchmarks.fast_profile", "sdf3d_tpu_torch.benchmarks.scaling_report",
-            "sdf3d_tpu_torch.benchmarks.collectives_lab"} <= names
+            "sdf3d_tpu_torch.benchmarks.collectives_lab", "sdf3d_tpu_torch.examples.inverse_fit",
+            "sdf3d_tpu_torch.examples.pose_fit", "sdf3d_tpu_torch.examples.render_gallery",
+            "sdf3d_tpu_torch.examples.neural_sdf", "sdf3d_tpu_torch.examples.grid_fit",
+            "sdf3d_tpu_torch.examples.sharded_render"} <= names
     bad = re.compile(r"^\s*(import|from) (jax|sdf3d_tpu)(\.| |$)", re.M)
     files = sorted((REPO / "sdf3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 60
