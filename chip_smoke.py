@@ -18,10 +18,14 @@ sources in this checkout.  Phases, one line each:
    version at 1080p;
 5. CLI: ``python -m sdf3d_tpu_torch.cli render`` at 1080p writes a PNG;
 6. times at 1080p with CUDA events (3 warm-up frames, 20 timed; plain,
-   kernel, kernel, plain); K1's bound, and its issue floor: the warp
-   instructions of its SASS (``cuobjdump -sass``: the primary march's and
-   the shadow's loop per step, the rest once a warp) on this run's marches
-   over the card's issue rate (:func:`issue_floor`).
+   kernel, kernel, plain; the kernel by its entry point alone,
+   :func:`render_alone`); K1's bound (its union skips counted: the plain
+   version's ``WarpSkips``), and its issue floor: the warp instructions of
+   its SASS (``cuobjdump -sass``: the primary march's and the shadow's loop
+   per step, a skip block at the share of warp-steps that run it, the rest
+   once a warp) on this run's marches over the card's issue rate
+   (:func:`issue_floor`); its SASS by opcode class (:func:`sass_split`), the
+   skip shares and the slow-path operands of the marches.
 
 Then the training path, ``fit_scene`` on the reference scene at 1920×1080
 (the JAX CLI's fit demo: a perturbed sphere, the plane frozen, Adam):
@@ -69,9 +73,9 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
 13. build: the library of ``ground_plane() | neural_sdf(hidden=64)`` (the
     first frame's time, ``ptxas`` registers and spills per width); other
     weights reuse it, a bare NeuralSDF and hidden 256 build their own; the
-    other libraries of phases 14 and 16 build together; the libraries of
-    hidden 64, 128 and 256 hold tensor-core (HMMA) instructions
-    (``cuobjdump -sass``; their share of the SASS logged);
+    other libraries of phases 14 and 16 build together; the library of
+    hidden 64 holds tensor-core (HMMA) instructions (``cuobjdump -sass``;
+    their share of the SASS logged);
 14. K6 vs its plain version at 256×192: two cameras, both scene shapes,
     hidden 64 and 256, the 64/32 and the reference 100/100 steps,
     tetrahedron normals with AO and a background, all four planes within
@@ -82,11 +86,11 @@ JAX package's crossover sweep (``benchmarks/neural_crossover.py``: hidden 64,
     orbit cameras at 1080p (12 K6 launches, no K1), frame 0 against the plain
     version, and ``render_kernel_diff`` at 256×192 (one K6 launch, finite
     gradients for every weight tensor and the plane);
-16. times at hidden 64, 128 and 256, at 720p and 1080p with 64/32 steps,
-    and hidden 64 at 1080p with 100/100 (plain, kernel, kernel, plain on the
-    kernels line's cell, hidden 64 at 1080p; kernel, kernel, plain on the
-    others, the plain version's one frame without a warm-up); one
-    frame of the banded reference path (``render_banded``) at each width;
+16. times at hidden 64 at 1080p with 64/32 steps and with 100/100
+    (plain, kernel, kernel, plain on the kernels line's cell, 64/32 steps;
+    kernel, kernel, plain with 100/100, the plain version's one frame
+    without a warm-up); one frame of the banded reference path
+    (``render_banded``);
     K6's bound on the hidden 64 1080p cell as the largest of four pipes
     (tensor cores, FP32 cores, special-function units, bytes), with the
     FP32-only count of a per-thread MLP beside it.
@@ -109,17 +113,18 @@ Then the sharded path (``parallel/``) on its tile-queue kernels, K2
     (NCCL), 20 Adam steps, in the layouts ``tiles`` (round robin), ``tiles``
     (balanced, re-planned every 5 steps) and ``interleaved``, against the
     unsharded ``fit_scene``; two processes on the one card over gloo in the
-    ``tiles`` layout against world size 1, one checkpoint writer;
+    ``tiles`` layout against world size 1, one checkpoint writer (started
+    after phase 17, they run while phases 18-20 run in this process);
     ``render_sharded_kernel(layout="tiles")`` (one K2 launch) against K1;
 21. times at 1080p with CUDA events (plain, kernel, kernel, plain): K2 over
     the 135-tile plan beside K1, K4 beside K3, and ``fit_scene(mesh)`` ms/step
     beside the unsharded fit.
 
-Then the ring all-reduces K7 (``sdf3d_ring_allreduce``, the latency ring)
-and K8 (``sdf3d_rs_ag``, reduce-scatter + all-gather) between processes on
-the one card, over device memory shared by CUDA IPC and flags in shared
-host memory (a call is a few segment kernels, each launched once the host
-has seen the flags it needs):
+Then (run after phase 29) the ring all-reduces K7 (``sdf3d_ring_allreduce``,
+the latency ring) and K8 (``sdf3d_rs_ag``, reduce-scatter + all-gather)
+between processes on the one card, over device memory shared by CUDA IPC
+and flags in shared host memory (a call is a few segment kernels, each
+launched once the host has seen the flags it needs):
 
 22. build: ``libsdf3d_collectives.so`` in this process, before any rank
     starts, with the segment kernels' ``ptxas`` registers and spills;
@@ -135,7 +140,9 @@ has seen the flags it needs):
     ``"pallas_ring"`` (K7 20 launches a rank) and ``"pallas_rs_ag"`` (K8
     20), each after a 3-step warm-up, no ``dist.all_reduce`` call in the
     ring fits, the ranks' losses equal and within 1e-5 of the psum run's
-    (the exact difference and each fit's ms per step beside psum's logged);
+    (the exact difference and each fit's ms per step beside psum's logged;
+    the ranks start after phase 25 and run while phases 30-31, which time
+    nothing, run in this process);
 25. times with CUDA events at N = 2 and 4 for 9 and 70001 float64 values
     (plain, kernel, kernel, plain), beside gloo's ``dist.all_reduce`` and an
     empty payload, each kernel's ratio to gloo logged: processes sharing one
@@ -146,23 +153,23 @@ has seen the flags it needs):
 Then K9, the fit step's benchmark variants (K3's kernel function compiled
 with ``Fit::variant``: ``ops.fit_kernel.fit_step_variant``), and the bench:
 
-26. build: the variants' libraries under the one-step and the reference
-    config in one ``load_many``; ``full`` is K3's header and library (no
-    build); ``ptxas`` registers and spills and the SASS instruction count of
-    each, ``noscatter``'s against ``full``'s and ``primal``'s;
-27. every variant against its plain version at 256×192 and a ragged 250×190
-    under both configs: ``full`` and ``tgt3`` equal K3 bit for bit,
+26. build: the variants' libraries under the one-step config (the lab's
+    cell) in one ``load_many``; ``full`` is K3's header and library;
+    ``ptxas`` registers and spills of each, and the SASS
+    instruction count of ``noscatter`` against ``full``'s and ``primal``'s;
+27. every variant against its plain version at 1080p, 256×192 and a
+    ragged 250×190: ``full`` and ``tgt3`` equal K3 bit for bit,
     ``noscatter``'s loss ``full``'s, ``nopow`` ``full`` within the gradient
     bar, ``empty`` the target's sum and ``empty_noin`` H·W exactly;
-28. main path: ``python -m sdf3d_tpu_torch.benchmarks.exp_ad`` at 1080p, one-step
-    and reference config; CUDA-event times of eight variants (plain, kernel,
+28. main path: ``python -m sdf3d_tpu_torch.benchmarks.exp_ad short`` at 1080p;
+    CUDA-event times of eight variants (plain, kernel,
     kernel, plain), the wrapper's kernels on the card (the fit kernel, the
     second kernel its C call launches, ``sdf3d_column_total_kernel``, which
     sums the partial rows in float64 one block a live column in an order
     fixed by row and thread index, and the cast); K9's bounds;
 29. the bench at 1080p: ``bench.run_benchmark`` in ``fwd`` and ``fwd_bwd``
-    (a reduced protocol), ``python -m sdf3d_tpu_torch.cli bench`` and
-    ``cli info``, ``bench.run_extras``; beside each cell the kernel's
+    (a reduced protocol), the CLI's ``bench`` and ``info`` (``cli.main``,
+    in this process), ``bench.run_extras``; beside each cell the kernel's
     CUDA-event time per frame and the device's idle share.
 
 Then the flagship scene (``flagship_scene``: a sphere and a rounded box
@@ -173,11 +180,12 @@ CSG sampler (``utils/parity.py::csg_sampler``) on K1-K5 (:func:`flagship_phases`
     gradient and frozen slots, the point form) and the sampler's, together,
     with the ``ptxas`` registers, spills and blocks an SM of K1, K3 and both
     forms of K5 beside the reference scene's and the fit demo's;
-31. at 256x192 (two cameras) and a ragged 250x190: K1 in ray and point
-    form (all four planes), K3 (``wrt_uniforms`` and frozen slots both
-    ways; on the fit's perturbed start) and K5 in both forms against their
-    plain versions, and K2 and K4 on a 4-rank balanced plan, on both
-    scenes; gradients at the flagship's bars (1e-4 of the mass on the same
+31. at 256x192 (the reference camera) and a ragged 250x190 (orbit 30/15):
+    K1 in ray and point form (all four planes), K3 (one case a camera,
+    ``wrt_uniforms`` and frozen slots both ways; on the
+    fit's perturbed start) and K5 in both forms against their
+    plain versions on both scenes, and K2 and K4 on a 4-rank balanced plan
+    on the flagship; gradients at the flagship's bars (1e-4 of the mass on the same
     planes, 1e-3 where the plain version marches its own: ROADMAP Queue 3);
 32. main path at 1920x1080: ``render_batch(engine="kernel")`` over 4 orbit
     cameras (K1 = 4, nothing else; frame 0 against the plain version),
@@ -207,15 +215,13 @@ and the transform sampler (``utils/parity.py::transform_sampler``: every
 13b node) under the reference camera (:func:`scenes_13b_phases`):
 
 34. build: the five scenes' libraries (K1 ray and point form, K3 with the
-    plane frozen; K5 in each) and ``random_blobs(2/3/4/16)``'s, together,
+    plane frozen; K5 in each) and ``random_blobs(2/4/16)``'s K1, together,
     with each scene's ``Scene::bwd_values``, ``ptxas`` registers, spills
-    and blocks an SM, K1's registers for n = 2, 4, 8, 16, and the SASS
-    opcodes of the sampler's K1 march loops in both forms (whether the
-    point form's rotation stays in the loop); a changed rotation vector and
-    period reuse the library;
-35. at 256x192 (the scene's camera and orbit 30/15) and a ragged 250x190:
-    K1 in both forms on each scene (``csg_showcase`` at
-    ``utils/parity.py::SCENE_BARS``); K3 and both K5 forms on the sampler
+    and blocks an SM, K1's registers for n = 2, 4, 8, 16; a changed
+    rotation vector and period reuse the library;
+35. at 256x192 under the scene's camera (K5 also orbit 30/15 at a ragged
+    250x190): K1 in both forms on each scene (``csg_showcase`` at
+    ``utils/parity.py::SCENE_BARS``); K3 (the plane frozen) and both K5 forms on the sampler
     and the capsule chain's fit start at the flagship's bars; on
     ``csg_showcase`` K3's and K5's totals non-finite exactly where the plain
     versions' are; K2 over the 135-tile plan at 1080p on the capsule chain
@@ -230,8 +236,8 @@ and the transform sampler (``utils/parity.py::transform_sampler``: every
     then CUDA-event times (kernel, kernel, then one frame of the plain
     version) of K1, K3 and both K5 forms per scene with their bounds and the
     marches' mean steps, and
-    both K5 forms at 1080p against their plain version on each scene with
-    finite gradients (the multiscale fit launches K5 at that size).
+    both K5 forms at 1080p against their plain version on the capsule
+    chain (its multiscale fit launches K5 at that size).
 
 In phases 35 and 36 an image of a 13b scene may pass the hard limit only on
 a razor-edge ray or a pixel rounding decides
@@ -252,7 +258,8 @@ that K1-K4 share) (:func:`fractal_phases`):
     fractal (the ray form: one template serves both), together, with ``Scene::bwd_values``, the header's
     size and ``ptxas`` registers, spills and blocks an SM; a moved
     Mandelbulb reuses the library;
-38. at 256x192 (reference camera and orbit 30/15) and a ragged 250x190:
+38. at 256x192 (the reference camera; K1 relaxed on the reference scene
+    also orbit 30/15 at a ragged 250x190, K3 on the fractal also that size):
     K1 on the fractal in both forms, and relaxed, and on the reference
     scene relaxed (the fractal's images past the hard limit only on
     razor-edge rays or pixels rounding decides); K3 on the fractal's fit
@@ -290,7 +297,8 @@ function compiled with ``Fit::levels`` and ``Fit::silhouette``)
     an SM of each beside the plain-L2 K3's;
 41. at 256x192 (two cameras) and a ragged 250x190: K3 with the pyramid
     and with the coverage term (``background=(0, 0, 0)``, ``sil_w = 0.5``),
-    ``wrt_uniforms`` and frozen slots both ways, against the plain step on
+    ``wrt_uniforms`` and frozen slots both ways (three cases a branch),
+    against the plain step on
     K1's planes and the plain version; K4 with each on a balanced 4-rank
     plan against its plain version, its sum against K3;
 42. main path at 1920x1080: ``fit_scene(loss="multiscale")`` and the
@@ -326,8 +334,9 @@ Then K3's view axis (ROADMAP 12b) and per-object materials (12c)
     1), a 20-step ``fit_scene_multiview`` of the fit demo's start over the
     four views (K3 = 20, the loss falling) and the bench extra
     ``fit_multiview_720p_v4`` (a number);
-46. ``materials_scene``: K1 in both forms at 256x192 and 250x190 under two
-    cameras, K3 (three settings) and both K5 forms against their plain
+46. ``materials_scene``: K1 in both forms at 256x192 (orbit 30/15) and
+    250x190 (the reference camera), K3 (three settings, the sizes in turn)
+    and both K5 forms against their plain
     versions at the flagship's bars (the material slots' gradients not
     zero), K2's stacks equal to K1's planes and K4's plan summing to K3 at
     1280x720; the main path at 1920x1080: ``render_batch`` (K1 = 4), a
@@ -447,7 +456,7 @@ and ``examples/``), the last four labs and ``suite --scaling`` (15b)
     at 1080p (75 records, the card in each basis, written to ``--out``
     only), ``collectives_lab --run --num 2`` (K7 and K8 bit for bit against
     their plain versions, 18 launches each);
-59. ``suite --scaling --world-sizes 1 2`` at 1080p: ``render_sharded``'s
+59. ``suite --scaling --quick --world-sizes 1 2`` (256×192): ``render_sharded``'s
     rays/s at world size 1 and two ranks sharing the card over gloo
     (``shared_card``).
 
@@ -525,11 +534,11 @@ the flag (``--register-line fractal_scene``) time those scenes alone.
 from __future__ import annotations
 
 import ast
+import atexit
 import concurrent.futures
 import dataclasses
 import functools
 import hashlib
-import itertools
 import json
 import math
 import multiprocessing
@@ -624,19 +633,24 @@ def expr_ops(expr: str) -> tuple:
     return fp, sfu
 
 
-def body_ops(header: str, signature: str) -> tuple:
-    """The operations of the body of the function ``signature`` of a
-    generated header: the sum over its statements' expressions."""
+def function_body(header: str, signature: str) -> str:
+    """The text between the braces of the function ``signature`` of a
+    generated header."""
     i = header.index(signature)
     j = k = header.index("{", i)
     depth = 0
     while True:
         depth += {"{": 1, "}": -1}.get(header[k], 0)
         if depth == 0:
-            break
+            return header[j + 1:k]
         k += 1
+
+
+def body_ops(header: str, signature: str) -> tuple:
+    """The operations of the body of the function ``signature`` of a
+    generated header: the sum over its statements' expressions."""
     fp = sfu = 0
-    for stmt in header[j + 1:k].split(";"):
+    for stmt in function_body(header, signature).split(";"):
         m = re.search(r"(?:return|[+\-*]?=)\s*(.+)$", stmt.strip(), re.S)
         if m and m.group(1).strip():
             a, b = expr_ops(m.group(1).strip())
@@ -644,16 +658,45 @@ def body_ops(header: str, signature: str) -> tuple:
     return fp, sfu
 
 
+def ray_block_ops(header: str) -> tuple:
+    """``(base, blocks)``: the operations of the ray form's step
+    (``Scene::Ray::eval``) outside its guarded blocks, the skip tests
+    included, and each guarded block's own (a union's skipped operand,
+    ``ops/scene_program.py::_ray_union``), in the order of the text, each
+    ``(FP32, special-function)`` summed over statements (:func:`expr_ops`)."""
+    base, blocks, stack = [0, 0], [], []
+    for line in function_body(header, "float eval(float t)").splitlines():
+        line = line.strip().rstrip(";")
+        level = blocks[stack[-1]] if stack else base
+        if line.startswith("if (") and line.endswith(") {"):
+            fp, sfu = expr_ops(line[len("if ("):-len(") {")].lstrip("!"))
+            level[0], level[1] = level[0] + fp, level[1] + sfu
+            blocks.append([0, 0])
+            stack.append(len(blocks) - 1)
+        elif line == "}":
+            stack.pop()
+        else:
+            m = re.search(r"(?:return|[+\-*]?=)\s*(.+)$", line)
+            if m and m.group(1).strip():
+                fp, sfu = expr_ops(m.group(1).strip())
+                level[0], level[1] = level[0] + fp, level[1] + sfu
+    return tuple(base), [tuple(b) for b in blocks]
+
+
 def scene_costs(header: str) -> dict:
     """Operations per call of the generated scene code: the ray form's
-    evaluation and setup, the point form, its reverse (``sdf_bwd``) and its
-    gradient (``sdf_grad_p``); for a scene with Shaded tags the material
-    program (``material``) and its reverse (``material_bwd``) too."""
-    sigs = [("ray", "float eval(float t)"), ("setup", "void setup("), ("point", "float sdf(float px"),
-            ("bwd", "void sdf_bwd("), ("grad", "void sdf_grad_p(")]
+    evaluation (``ray``: every block evaluated; ``ray_base`` and
+    ``ray_blocks``: :func:`ray_block_ops`) and setup, the point form, its
+    reverse (``sdf_bwd``) and its gradient (``sdf_grad_p``); for a scene
+    with Shaded tags the material program (``material``) and its reverse
+    (``material_bwd``) too."""
+    sigs = [("setup", "void setup("), ("point", "float sdf(float px"), ("bwd", "void sdf_bwd("),
+            ("grad", "void sdf_grad_p(")]
     if "has_materials" in header:
         sigs += [("material", "float material(float px"), ("material_bwd", "void material_bwd(")]
-    return {k: body_ops(header, sig) for k, sig in sigs}
+    base, blocks = ray_block_ops(header)
+    ray = (base[0] + sum(b[0] for b in blocks), base[1] + sum(b[1] for b in blocks))
+    return {"ray": ray, "ray_base": base, "ray_blocks": blocks, **{k: body_ops(header, sig) for k, sig in sigs}}
 
 
 def bound(fp: float, sfu: float, nbytes: float) -> tuple:
@@ -665,21 +708,49 @@ def bound(fp: float, sfu: float, nbytes: float) -> tuple:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def march_counts(torch, scene, cam, cfg, prm, uni, plain) -> dict:
-    """Distance evaluations of the kernels' marches on this run's data: the
-    primary march's steps summed over the image from ``march_step_map``, the
-    shadow march's from the plain version's counter (``plain(..., steps=)``,
-    the kernel's loop), and the rays that march a shadow."""
-    from sdf3d_tpu_torch.camera import camera_rays
-    from sdf3d_tpu_torch.march import march_step_map
+def warp_steps(torch, plane) -> float:
+    """The warp-steps of a march from its per-pixel evaluation counts: the
+    sum over the kernels' warps (32 pixels of a row of a 32×8 block, the
+    default ``KernelConfig``) of their rays' most, since a warp steps while
+    one of its rays does."""
+    H, W = plane.shape
+    padded = torch.nn.functional.pad(plane, (0, -W % 32))
+    return float(padded.reshape(H, -1, 32).amax(dim=2).sum())
 
+
+def march_counts(torch, scene, cam, cfg, prm, uni, plain) -> dict:
+    """Distance evaluations of the kernels' marches on this run's data (the
+    camera ``cam`` that ``uni`` packs): both marches' steps summed over the
+    image from the plain version's counters (``plain(..., steps=)``, the
+    kernel's loops; ``primary`` and ``plain_primary`` the same count), the
+    rays that march a shadow, each march's warp-steps (:func:`warp_steps`)
+    and, where the plain version counts them
+    (``ops/render_kernel.py::WarpSkips``), its union skips by ray and by
+    warp (``primary_skips``, ``shadow_skips``)."""
     with torch.no_grad():
-        o, d = camera_rays(cam, cfg.width, cfg.height, cfg.ray_mode)
-        primary = float(march_step_map(scene.distance, o, d, cfg.march)[1].sum())
         steps = {}
         plain(scene, prm, uni, cfg, steps=steps)
+    primary = float(steps["primary"].sum())
     return {"pixels": cfg.width * cfg.height, "primary": primary, "shadow": float(steps["shadow"].sum()),
-            "shadow_rays": float((steps["shadow"] > 0).sum()), "plain_primary": float(steps["primary"].sum())}
+            "shadow_rays": float((steps["shadow"] > 0).sum()), "plain_primary": primary,
+            "primary_warp_steps": warp_steps(torch, steps["primary"]),
+            "shadow_warp_steps": warp_steps(torch, steps["shadow"]),
+            **{k: steps[k].as_dict() for k in ("primary_skips", "shadow_skips") if k in steps}}
+
+
+def ray_step_ops(costs: dict, counts: dict, march: str) -> tuple:
+    """``(FP32, special-function)`` operations of one step of ``march``
+    (``primary`` or ``shadow``) of the ray form on ``counts``' data: its
+    guarded blocks at the share of the march's ray-steps that run them
+    (``counts[march + "_skips"]``); every block where the count has none."""
+    skips = counts.get(f"{march}_skips") or {}
+    runs, lane = skips.get("lane_runs", []), skips.get("lane_steps")
+    if not lane or len(runs) != len(costs.get("ray_blocks", ())):
+        return costs["ray"]
+    fp, sfu = costs["ray_base"]
+    for (bf, bs), r in zip(costs["ray_blocks"], runs):
+        fp, sfu = fp + bf * r / lane, sfu + bs * r / lane
+    return fp, sfu
 
 
 def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: bool = False,
@@ -696,7 +767,8 @@ def analytic_work(costs: dict, counts: dict, cfg, primal: bool = True, reverse: 
     fp = sfu = 0.0
     mat = [costs["material"]] if "material" in costs else []  # once a pixel at its hit
     if primal:
-        terms = [(counts["primary"], costs["ray"], PRIMARY_STEP), (counts["shadow"], costs["ray"], SHADOW_STEP),
+        terms = [(counts["primary"], ray_step_ops(costs, counts, "primary"), PRIMARY_STEP),
+                 (counts["shadow"], ray_step_ops(costs, counts, "shadow"), SHADOW_STEP),
                  (n + counts["shadow_rays"], costs["setup"], (0, 0)), (n * taps, costs["point"], (0, 0))]
         terms += [(n, m, (0, 0)) for m in mat]
         for calls, (f, s_), (lf, ls) in terms:
@@ -851,8 +923,12 @@ def main() -> int:
                                             for n, st in parity.items()})
 
     # ---- 6. times at 1080p (plain, kernel, kernel, plain) ----
+    # The kernel's time is its entry point's alone (render_alone): at about
+    # 0.12 ms a frame, back-to-back render_kernel_launch calls can time the
+    # host's lookup and allocations instead (launch_ms beside it).
     prm, uni = inputs(scene, tt.Camera.reference(), cfg)
-    kern = lambda: render_kernel_launch(scene, prm, uni, cfg)  # noqa: E731
+    kern = render_alone(torch, scene, prm, uni, cfg)
+    launch = lambda: render_kernel_launch(scene, prm, uni, cfg)  # noqa: E731
     plain = lambda: render_kernel_forward_plain(scene, prm, uni, cfg)  # noqa: E731
     wrapper = lambda: render_kernel_forward(scene, tt.Camera.reference(), light, mat, cfg, device=dev)  # noqa: E731
     p1 = time_ms(plain, 1, 3)
@@ -861,7 +937,7 @@ def main() -> int:
     p2 = time_ms(plain, 1, 3)
     w1 = time_ms(wrapper)
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    log("times_1080p", card=card, kernel_ms=kernel_ms, kernel_ms_runs=[k1, k2],
+    log("times_1080p", card=card, kernel_ms=kernel_ms, kernel_ms_runs=[k1, k2], launch_ms=time_ms(launch),
         kernel_rays_per_s=W * H / (kernel_ms / 1e3), wrapper_ms=w1, plain_ms=plain_ms, plain_ms_runs=[p1, p2],
         plain_rays_per_s=W * H / (plain_ms / 1e3), build_seconds=libs.build_seconds)
 
@@ -874,18 +950,25 @@ def main() -> int:
                    / _build.KINDS["render"].lib_name)
     k1_sass = next(v for k, v in sass_listing(lib_path).items() if "sdf3d_render_fwd_kernel" in k)
     floor = issue_floor(k1_sass, counts)
+    # The split of its SASS by opcode class, and the union skips' shares.
     log("bound_render_fwd", counts=counts, fp32_ops=fp, sfu_ops=sfu, bound_ms=bound_ms, bound_by=bound_by,
-        issue_floor=floor, kernel_ms_over_issue_floor=kernel_ms / floor["issue_floor_ms"])
+        issue_floor=floor, kernel_ms_over_issue_floor=kernel_ms / floor["issue_floor_ms"],
+        sass_split=sass_split(k1_sass), skip_share={k: counts[f"{k}_skips"]["warp_skip_share"]
+                                                    for k in ("primary", "shadow")})
 
     fit_kernels = fit_phases(torch, tt, card, dev)
     neural_kernel = neural_phases(torch, tt, card, dev)
     tiles_kernels = tiles_phases(torch, tt, card, dev, {"render_fwd": kernel_ms})
-    ring_kernels = ring_phases(torch, tt, card)
     variant_kernel = variant_phases(torch, tt, card, dev)
     bench_phases(torch, tt, card, dev)
-    flagship = flagship_phases(torch, tt, card, dev, background=scenes_13b_jobs(tt, dev))
+    # Phase 24's two ranks run while phases 30-31 (which time nothing) run
+    # here; the flagship's phases call ring_finish there.
+    ring_finish, ring_out = ring_phases(torch, tt, card), {}
+    flagship = flagship_phases(torch, tt, card, dev, background=scenes_13b_jobs(tt, dev),
+                               then=lambda: ring_out.update(kernels=ring_finish()))
+    ring_kernels = ring_out["kernels"]
     scenes = scenes_13b_phases(torch, tt, card, dev, background=fractal_jobs(tt))
-    fractal = fractal_phases(torch, tt, card, dev)
+    fractal = fractal_phases(torch, tt, card, dev, background=loss_slice_jobs(tt))
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
     diffed = diff_phases(torch, tt, card, dev)
@@ -1165,7 +1248,9 @@ def fit_phases(torch, tt, card: str, dev) -> list:
     # ---- 8. fit step vs plain at 256x192, and ragged 250x190 ----
     cams = (("reference", tt.Camera.reference(device=dev)),
             ("orbit30_15", tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)))
-    for (cam_name, cam), wrt, fr in itertools.product(cams, (False, True), ((), frozen)):
+    # Each (wrt_uniforms, frozen slots) combination once, the cameras in turn.
+    for (cam_name, cam), wrt, fr in ((cams[0], False, ()), (cams[0], True, frozen), (cams[1], False, frozen),
+                                     (cams[1], True, ())):
         st = k3_vs_plain(sc, cam, small, wrt, fr, f"fit step {cam_name} wrt_uniforms={wrt} frozen={fr}")
         log("fit_step_256x192", camera=cam_name, wrt_uniforms=wrt, frozen=list(fr), **st)
     ragged = dataclasses.replace(cfg, width=250, height=190)
@@ -1394,10 +1479,10 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
     parallel_s = time.perf_counter() - t0
     check(libs.loaded == loaded0 + 6, f"expected six neural libraries, got {libs.loaded - loaded0}")
     check(libs.builds - builds0 <= 6, f"{libs.builds - builds0} neural builds")
-    # The MLP runs on the tensor cores: each width's library holds HMMA
+    # The MLP runs on the tensor cores: hidden 64's library holds HMMA
     # instructions (cuobjdump -sass), their share of the kernel's SASS logged.
     sass = {}
-    for name, sc in (("hidden64_union", u64), ("hidden128_union", u128), ("hidden256_union", u256)):
+    for name, sc in (("hidden64_union", u64),):
         key = libs.key(cuda_neural_source(sc, small, nc), "neural")
         ops = {}
         for fn_ops in sass_opcodes(str(libs.build_dir / key / _build.KINDS["neural"].lib_name)).values():
@@ -1497,14 +1582,11 @@ def neural_phases(torch, tt, card: str, dev) -> dict:
                 "plain_ms_runs": p_runs, "frames": frames_k, "plain_frames": frames_p, "warmup": warmup}
 
     runs = {}
-    for hidden, sc, (fk, fp, warm) in ((64, u64, (10, 2, 1)), (128, u128, (4, 1, 1)), (256, u256, (1, 1, 0))):
-        for w, h in ((1280, 720), (W, H)):
-            runs[f"hidden{hidden}_{w}x{h}"] = timed(sc, config(w, h), fk, fp, warm,
-                                                    headline=(hidden, w) == (64, W))
+    runs[f"hidden64_{W}x{H}"] = timed(u64, config(W, H), 10, 1, 1, headline=True)
     runs[f"hidden64_{W}x{H}_100_100"] = timed(u64, config(W, H, 100, 100), 5, 1, 1)
-    # The banded reference path (render_banded, one frame each): the engine the
+    # The banded reference path (render_banded, one frame): the engine the
     # JAX package serves neural scenes with on the TPU.
-    for hidden, sc in ((64, u64), (128, u128), (256, u256)):
+    for hidden, sc in ((64, u64),):
         cam, c = tt.Camera.reference(device=dev), config(W, H)
         runs[f"hidden{hidden}_{W}x{H}"]["banded_ms"] = time_ms(
             lambda: tt.render_banded(sc, cam, light, mat, c), 0, 1)
@@ -1678,6 +1760,9 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     check({"render_fwd", "fit_step"} <= set(ptxas), f"ptxas reported {sorted(ptxas)}")
     log("tiles_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
         build_wall_seconds=build_wall, libraries=libs.loaded, ptxas=ptxas)
+    # Phase 20's two ranks (the libraries they load built above) start here
+    # and run while phases 18-20 run in this process.
+    two_started = start_ranks(TWO_RANKS, 2)
 
     # ---- 18. K2 vs its plain version, 4-rank plans, reassembled vs K1 ----
     plans, k2_errs = {}, []
@@ -1796,22 +1881,10 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
                              "render_sharded_kernel(tiles) vs K1")
 
     # Two ranks on the one card over gloo, in the tiles layout.
-    with tempfile.TemporaryDirectory() as outdir:
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=REPO)
-        procs = [subprocess.Popen([sys.executable, "-c", TWO_RANKS, str(port), str(r), outdir, REPO], env=env,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        try:
-            outs = [p.communicate(timeout=400)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
-        for p, out in zip(procs, outs):
-            check(p.returncode == 0, f"a rank failed:\n{out[-4000:]}")
-        ranks = [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(2)]
-        one_writer = (os.path.exists(os.path.join(outdir, "ckpt_r0", "state.pt")),
-                      os.path.exists(os.path.join(outdir, "ckpt_r1")))
+    writers = []
+    ranks = finish_ranks(two_started, inspect=lambda outdir: writers.extend([
+        os.path.exists(os.path.join(outdir, "ckpt_r0", "state.pt")), os.path.exists(os.path.join(outdir, "ckpt_r1"))]))
+    one_writer = tuple(writers)
     check(one_writer == (True, False), f"checkpoint writers (rank 0, rank 1) = {one_writer}")
     check(all(r["backend"] == "gloo" and r["size"] == 2 and r["launches"] == 20 for r in ranks), f"ranks {ranks}")
     check(ranks[0]["losses"] == ranks[1]["losses"], "the two ranks' losses differ")
@@ -2055,26 +2128,60 @@ launch.shutdown()
 """
 
 
-def spawn_ranks(script: str, world: int, spec: dict | None = None, timeout: int = 400) -> list:
-    """Run ``script`` in ``world`` processes on the card (their rendezvous on
-    a free local port) and return each rank's JSON output."""
-    with tempfile.TemporaryDirectory() as outdir:
-        if spec is not None:
-            with open(os.path.join(outdir, "spec.json"), "w") as f:
-                json.dump(spec, f)
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=REPO)
-        procs = [subprocess.Popen([sys.executable, "-c", script, str(port), str(r), outdir, REPO], env=env,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+def kill_running(procs) -> None:
+    """Kill each process of ``procs`` that still runs."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def start_ranks(script: str, world: int, spec: dict | None = None) -> tuple:
+    """Start ``script`` in ``world`` processes on the card (their rendezvous
+    on a free local port), each writing its output to a file; :func:`finish_ranks`
+    waits for them, and any still running when this script exits is killed."""
+    tmp = tempfile.TemporaryDirectory()
+    outdir = tmp.name
+    if spec is not None:
+        with open(os.path.join(outdir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    logs = [open(os.path.join(outdir, f"log_r{r}.txt"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(port), str(r), outdir, REPO], env=env,
+                              stdout=f, stderr=subprocess.STDOUT, text=True) for r, f in enumerate(logs)]
+    atexit.register(kill_running, procs)
+    return tmp, procs, logs
+
+
+def finish_ranks(started: tuple, timeout: int = 400, inspect=None) -> list:
+    """Wait for the ranks of :func:`start_ranks` (killed past ``timeout``
+    seconds) and return each rank's JSON output; ``inspect(outdir)``, where
+    given, is called on their directory before it is removed."""
+    tmp, procs, logs = started
+    with tmp as outdir:
+        deadline = time.perf_counter() + timeout
         try:
-            outs = [p.communicate(timeout=timeout)[0] for p in procs]
-        finally:
             for p in procs:
-                p.kill()
+                p.wait(timeout=max(deadline - time.perf_counter(), 0.0))
+        finally:
+            kill_running(procs)
+            for p in procs:
                 p.wait()
-        for p, out in zip(procs, outs):
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            with open(os.path.join(outdir, f"log_r{r}.txt")) as f:
+                out = f.read()
             check(p.returncode == 0, f"a rank failed:\n{out[-4000:]}")
-        return [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(world)]
+        if inspect is not None:
+            inspect(outdir)
+        return [json.load(open(os.path.join(outdir, f"out_r{r}.json"))) for r in range(len(procs))]
+
+
+def spawn_ranks(script: str, world: int, spec: dict | None = None, timeout: int = 400) -> list:
+    """Run ``script`` in ``world`` processes on the card and return each
+    rank's JSON output."""
+    return finish_ranks(start_ranks(script, world, spec), timeout)
 
 
 def one_process_pair(torch, kind: str, n: int, calls: int = 200, reps: int = 5) -> dict:
@@ -2108,9 +2215,10 @@ def one_process_pair(torch, kind: str, n: int, calls: int = 200, reps: int = 5) 
     return {"ms": statistics.median(runs), "ms_runs": runs, "calls": calls}
 
 
-def ring_phases(torch, tt, card: str) -> list:
-    """Phases 22-25: the ring all-reduces K7 and K8.  Returns their entries
-    of the kernels line."""
+def ring_phases(torch, tt, card: str):
+    """Phases 22-25: the ring all-reduces K7 and K8, phase 24's two ranks
+    last.  Returns ``finish``, which waits for those ranks and returns K7's
+    and K8's entries of the kernels line."""
     from sdf3d_tpu_torch.ops import _build
     from sdf3d_tpu_torch.ops.scene_program import count_params
     from sdf3d_tpu_torch.parallel import ring_kernel
@@ -2154,41 +2262,6 @@ def ring_phases(torch, tt, card: str) -> list:
         float64_rel_err_vs_numpy=rel, checks=checks, timeout_message=timeout,
         timeout_seconds=ranks[0]["timeout_seconds"], four_process_seconds=four_s)
 
-    # ---- 24. main path: fit_scene(mesh) with two ranks on the card, 1080p ----
-    t0 = time.perf_counter()
-    pair = spawn_ranks(RING_FIT, 2)
-    pair_s = time.perf_counter() - t0
-    want = {"psum": {"ring_allreduce": 0, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
-            "pallas_ring": {"ring_allreduce": 20, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
-            "pallas_rs_ag": {"ring_allreduce": 0, "rs_ag_allreduce": 20, "fit_step_tiles": 20}}
-    for r in pair:
-        check(r["backend"] == "gloo" and r["size"] == 2, f"rank {r['rank']}: {r['backend']}, size {r['size']}")
-        for name, run in r["runs"].items():
-            check(run["launches"] == want[name], f"rank {r['rank']} {name}: launches {run['launches']}")
-            check(run["all_reduce_calls"] == (20 if name == "psum" else 0),
-                  f"rank {r['rank']} {name}: {run['all_reduce_calls']} dist.all_reduce calls")
-            check(run["plain_calls"] == 0, f"rank {r['rank']} {name}: the plain versions ran")
-            check(run["losses"][-1] < run["losses"][0], f"{name}: the loss did not fall")
-    diffs = {}
-    for name in ("pallas_ring", "pallas_rs_ag"):
-        a, b = (r["runs"][name]["losses"] for r in pair)
-        check(a == b, f"{name}: the two ranks' losses differ")
-        psum = pair[0]["runs"]["psum"]["losses"]
-        diffs[name] = max(abs(x / y - 1.0) for x, y in zip(a, psum))
-        check(diffs[name] <= 1e-5, f"{name}: losses off the psum run's by {diffs[name]:.3g}")
-    abs_diffs = {name: max(abs(x - y) for x, y in zip(pair[0]["runs"][name]["losses"],
-                                                      pair[0]["runs"]["psum"]["losses"]))
-                 for name in ("pallas_ring", "pallas_rs_ag")}
-    ms_step = {n: [r["runs"][n]["ms_per_step"] for r in pair] for n in want}
-    log("ring_main_path", card=card, launches_per_rank={n: [r["runs"][n]["launches"] for r in pair] for n in want},
-        all_reduce_calls={n: [r["runs"][n]["all_reduce_calls"] for r in pair] for n in want},
-        max_rel_loss_diff_vs_psum=diffs, max_abs_loss_diff_vs_psum=abs_diffs,
-        ms_per_step=ms_step, ms_per_step_vs_psum={n: [a / b for a, b in zip(ms_step[n], ms_step["psum"])]
-                                                  for n in want},
-        losses={n: pair[0]["runs"][n]["losses"] for n in want},
-        radius={n: pair[0]["runs"][n]["radius"] for n in want},
-        fit_seconds={n: [r["runs"][n]["seconds"] for r in pair] for n in want}, pair_seconds=pair_s)
-
     # ---- 25. times, ranks sharing one card ----
     timing = [r["timing"] for r in ranks]
     # The bound: every rank reads its vector once and writes its sum once,
@@ -2204,25 +2277,74 @@ def ring_phases(torch, tt, card: str) -> list:
     main = timing[0]["N2_n9"]
     check(all(main[alg]["ms"] < main["gloo_all_reduce_ms"] for alg in ("ring", "rs_ag")),
           f"two processes, N = 2, 9 values: a ring kernel is not faster than gloo's dist.all_reduce: {vs_gloo}")
-    return [
-        {"name": name, "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/collectives.cu",
-         "replaces": f"sdf3d_tpu/parallel/collectives.py:{line}",
-         "launches": pair[0]["runs"][fit]["launches"][name], "max_abs_err": max_err, "ms": main[alg]["ms"],
-         "plain_ms": main[alg]["plain_ms"], "bound_ms": bounds["N2_n9"][0], "bound_by": bounds["N2_n9"][1],
-         "library_ms": main["gloo_all_reduce_ms"]}
-        for name, alg, fit, line in (("ring_allreduce", "ring", "pallas_ring", 93),
-                                     ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
+
+    # ---- 24. main path: fit_scene(mesh) with two ranks on the card, 1080p.
+    # The ranks start here, after this process's times; the caller runs
+    # phases that time nothing meanwhile, then ``finish()`` waits for them,
+    # checks them and returns K7's and K8's entries of the kernels line.
+    t0 = time.perf_counter()
+    started = start_ranks(RING_FIT, 2)
+
+    def finish() -> list:
+        pair = finish_ranks(started)
+        pair_s = time.perf_counter() - t0
+        want = {"psum": {"ring_allreduce": 0, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
+                "pallas_ring": {"ring_allreduce": 20, "rs_ag_allreduce": 0, "fit_step_tiles": 20},
+                "pallas_rs_ag": {"ring_allreduce": 0, "rs_ag_allreduce": 20, "fit_step_tiles": 20}}
+        for r in pair:
+            check(r["backend"] == "gloo" and r["size"] == 2, f"rank {r['rank']}: {r['backend']}, size {r['size']}")
+            for name, run in r["runs"].items():
+                check(run["launches"] == want[name], f"rank {r['rank']} {name}: launches {run['launches']}")
+                check(run["all_reduce_calls"] == (20 if name == "psum" else 0),
+                      f"rank {r['rank']} {name}: {run['all_reduce_calls']} dist.all_reduce calls")
+                check(run["plain_calls"] == 0, f"rank {r['rank']} {name}: the plain versions ran")
+                check(run["losses"][-1] < run["losses"][0], f"{name}: the loss did not fall")
+        diffs = {}
+        for name in ("pallas_ring", "pallas_rs_ag"):
+            a, b = (r["runs"][name]["losses"] for r in pair)
+            check(a == b, f"{name}: the two ranks' losses differ")
+            psum = pair[0]["runs"]["psum"]["losses"]
+            diffs[name] = max(abs(x / y - 1.0) for x, y in zip(a, psum))
+            check(diffs[name] <= 1e-5, f"{name}: losses off the psum run's by {diffs[name]:.3g}")
+        abs_diffs = {name: max(abs(x - y) for x, y in zip(pair[0]["runs"][name]["losses"],
+                                                          pair[0]["runs"]["psum"]["losses"]))
+                     for name in ("pallas_ring", "pallas_rs_ag")}
+        ms_step = {n: [r["runs"][n]["ms_per_step"] for r in pair] for n in want}
+        log("ring_main_path", card=card, launches_per_rank={n: [r["runs"][n]["launches"] for r in pair] for n in want},
+            all_reduce_calls={n: [r["runs"][n]["all_reduce_calls"] for r in pair] for n in want},
+            max_rel_loss_diff_vs_psum=diffs, max_abs_loss_diff_vs_psum=abs_diffs,
+            ms_per_step=ms_step, ms_per_step_vs_psum={n: [a / b for a, b in zip(ms_step[n], ms_step["psum"])]
+                                                      for n in want},
+            losses={n: pair[0]["runs"][n]["losses"] for n in want},
+            radius={n: pair[0]["runs"][n]["radius"] for n in want},
+            fit_seconds={n: [r["runs"][n]["seconds"] for r in pair] for n in want}, pair_seconds=pair_s)
+
+        return [
+            {"name": name, "route": "cuda", "source": "sdf3d_tpu_torch/ops/csrc/collectives.cu",
+             "replaces": f"sdf3d_tpu/parallel/collectives.py:{line}",
+             "launches": pair[0]["runs"][fit]["launches"][name], "max_abs_err": max_err, "ms": main[alg]["ms"],
+             "plain_ms": main[alg]["plain_ms"], "bound_ms": bounds["N2_n9"][0], "bound_by": bounds["N2_n9"][1],
+             "library_ms": main["gloo_all_reduce_ms"]}
+            for name, alg, fit, line in (("ring_allreduce", "ring", "pallas_ring", 93),
+                                         ("rs_ag_allreduce", "rs_ag", "pallas_rs_ag", 215))]
+
+    return finish
 
 
 def sass_listing(path: str) -> dict:
     """The SASS of each kernel function of a built library, from the
-    toolkit's ``cuobjdump -sass``: ``[(address, opcode with its modifiers,
-    branch or call target address or None), ...]`` in address order, NOPs
-    left out."""
+    toolkit's ``cuobjdump -sass`` (:func:`parse_sass`)."""
     from sdf3d_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120, check=True).stdout
+    return parse_sass(subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120,
+                                     check=True).stdout)
+
+
+def parse_sass(out: str) -> dict:
+    """``cuobjdump -sass`` text by kernel function: ``[(address, opcode with
+    its modifiers, branch or call target address or None), ...]`` in address
+    order, NOPs left out."""
     funcs, labels, name, pending = {}, {}, None, []
     for ln in out.splitlines():
         m = re.search(r"Function : (\S+)", ln)
@@ -2263,9 +2385,11 @@ def sass_opcodes(path: str) -> dict:
 
 def sass_loops(listing: list) -> list:
     """The loops of one kernel function's SASS (:func:`sass_listing`): each
-    backward branch's span, merged by start, with its instructions and its
-    exits (forward branches out of the span and ``BREAK``s).  An unrolled
-    loop holds a copy of its step, with its exit test, per exit."""
+    backward branch's span, merged by start, with its instructions, its
+    exits (forward branches out of the span and ``BREAK``s), its copies of
+    the step and its skip blocks (:func:`sass_blocks`).  nvcc's loop leaves
+    by a forward branch from each copy of its step but the last, whose exit
+    test the back branch takes (``@P0 BRA P1, start``): copies = exits + 1."""
     spans = {}
     for addr, op, target in listing:
         if op.startswith("BRA") and target is not None and target <= addr:
@@ -2275,45 +2399,165 @@ def sass_loops(listing: list) -> list:
         body = [(a, op, t) for a, op, t in listing if start <= a <= end]
         exits = sum(1 for a, op, t in body
                     if (op.startswith("BRA") and t is not None and t > end) or op.startswith("BREAK"))
-        loops.append({"start": hex(start), "end": hex(end), "instructions": len(body), "exits": exits})
+        loops.append({"start": hex(start), "end": hex(end), "instructions": len(body), "exits": exits,
+                      "copies": exits + 1, "blocks": sass_blocks(body)})
     return loops
+
+
+def sass_blocks(body: list) -> list:
+    """The skip blocks of a loop's body (:func:`sass_listing` entries): the
+    spans that a forward branch inside the loop jumps over and that hold a
+    square root's ``MUFU.RSQ`` (every bounded union operand takes one; the
+    slow-path branches of an IEEE square root or division jump over a
+    ``CALL`` and a few moves, the shadow's ``valid`` select over a
+    division's ``MUFU.RCP``, and the exit tests leave the loop), in address
+    order: the branch's and target's addresses, the instructions between
+    them, those of the blocks directly inside left out (``own``), and the
+    depth (0 outermost).  A block that the compiler moved out of line ends
+    the loop's span at the branch back into it, so such a layout shows no
+    block."""
+    end = body[-1][0] if body else -1
+    spans = []
+    for addr, op, target in body:
+        if op.startswith("BRA") and target is not None and addr < target <= end:
+            inside = [o for a, o, _ in body if addr < a < target]
+            if any(o.startswith("MUFU.RSQ") for o in inside):
+                spans.append((addr, target, len(inside)))
+
+    def within(a, b, c, d):  # (a, b) strictly inside (c, d)
+        return c <= a and b <= d and (a, b) != (c, d)
+
+    blocks = []
+    for lo, hi, n in spans:
+        inner = [(a, b, k) for a, b, k in spans if within(a, b, lo, hi)]
+        direct = [(a, b, k) for a, b, k in inner if not any(within(a, b, c, d) for c, d, _ in inner)]
+        blocks.append({"start": hex(lo), "end": hex(hi), "instructions": n,
+                       "own": n - sum(1 + k for _, _, k in direct),
+                       "depth": sum(1 for a, b, _ in spans if within(lo, hi, a, b))})
+    return blocks
+
+
+#: SASS opcode classes of the split that phase 6 and ``--time-kernels`` log.
+SASS_CLASSES = (
+    ("MUFU", ("MUFU",)),
+    ("FFMA/FMUL/FADD", ("FFMA", "FMUL", "FADD", "FFMA32I", "FMUL32I", "FADD32I")),
+    ("FSETP/FSEL/FMNMX", ("FSETP", "FSEL", "FMNMX", "FSET")),
+    ("FCHK", ("FCHK",)),
+    ("BSSY/BSYNC", ("BSSY", "BSYNC")),
+    ("branch", ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BREAK", "WARPSYNC", "BMOV", "YIELD",
+                "NANOSLEEP")),
+    ("load/store", ("LD", "LDG", "LDS", "LDC", "LDL", "ULDC", "ST", "STG", "STS", "STL", "ATOM", "ATOMG", "ATOMS",
+                    "RED")),
+    ("fp64", ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")),
+    ("convert", ("F2F", "F2I", "I2F", "FRND", "I2FP", "F2IP")),
+)
+
+
+def sass_class(op: str) -> str:
+    """The class of a SASS opcode (:data:`SASS_CLASSES`); ``integer`` for
+    the rest of the integer and predicate datapath (``IADD3``, ``IMAD``,
+    ``ISETP``, ``LOP3``, ``SHF``, ``LEA``, ``SEL``, ``MOV``, ``PLOP3``,
+    ``S2R``, the uniform ``U…`` forms), ``other`` else."""
+    base = op.split(".")[0]
+    for name, ops in SASS_CLASSES:
+        if base in ops:
+            return name
+    if base.startswith(("I", "U", "LOP", "SHF", "LEA", "SEL", "MOV", "PRMT", "S2R", "CS2R", "S2UR", "P2R", "R2P",
+                        "PLOP", "VOTE", "POPC", "FLO", "BMSK", "SGXT", "R2UR")):
+        return "integer"
+    return "other"
+
+
+def march_loops(listing: list) -> tuple:
+    """``(loops, march, body_end)``: :func:`sass_loops` of a K1 listing, its
+    two march loops (the first two that hold a ``MUFU``: the primary
+    march's square root, the shadow's divisions) and the address where its
+    subroutines (the IEEE slow paths) start."""
+    loops = sass_loops(listing)
+    march = [lp for lp in loops if any(op.startswith("MUFU") for a, op, _ in listing
+                                       if int(lp["start"], 16) <= a <= int(lp["end"], 16))][:2]
+    calls = [t for _, op, t in listing if op.startswith("CALL") and t is not None]
+    return loops, march, min(calls, default=listing[-1][0] + 1)
+
+
+def sass_split(listing: list) -> dict:
+    """K1's SASS by opcode class (:func:`sass_class`): each march loop's
+    instructions outside its skip blocks, each skip block's own, and the
+    rest of the function before its subroutines outside every loop (the
+    body run once a pixel)."""
+    loops, march, body_end = march_loops(listing)
+
+    def split(lo, hi, holes=()):
+        counts = {}
+        for a, op, _ in listing:
+            if lo <= a <= hi and not any(x < a < y for x, y in holes):
+                counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
+        return counts
+
+    out = {}
+    for name, lp in zip(("primary", "shadow"), march):
+        spans = [(int(b["start"], 16), int(b["end"], 16), b["depth"]) for b in lp["blocks"]]
+        out[name] = {"instructions": lp["instructions"], "copies": lp["copies"],
+                     "outside_blocks": split(int(lp["start"], 16), int(lp["end"], 16),
+                                             [(x, y) for x, y, dp in spans if dp == 0]),
+                     "blocks": [{**b, "split": split(x + 1, y - 1, [(c, d) for c, d, e in spans
+                                                                    if e == dp + 1 and x < c and d <= y])}
+                                for b, (x, y, dp) in zip(lp["blocks"], spans)]}
+    out["body"] = split(0, body_end - 1, [(int(lp["start"], 16) - 1, int(lp["end"], 16) + 1) for lp in loops])
+    return out
 
 
 def issue_floor(listing: list, counts: dict) -> dict:
     """K1's issue floor on ``counts``' data (:func:`march_counts`): the warp
     instructions it issues over the card's issue rate, one warp instruction
-    a clock on each of an SM's four schedulers.  From its SASS: the first two
-    loops that hold a special-function instruction (``MUFU``: the primary
-    march's square root, the shadow's divisions) are the marches, a step
-    each an iteration; the rest of the function before its first subroutine
-    (the slow paths of the IEEE square roots and divisions, which the rays
-    of this scene do not take) runs once a warp, other loops left out; a
-    ``CALL`` of a slow path and the branch past it are not counted.  Warps
-    march as far as their rays (warp efficiency 1): an estimate of the
-    least issue, not a measurement."""
-    loops = sass_loops(listing)
-
-    def ops(lo, hi):
-        return [op for a, op, _ in listing if lo <= a <= hi]
-
-    march = [lp for lp in loops if any(op.startswith("MUFU") for op in ops(int(lp["start"], 16),
-                                                                          int(lp["end"], 16)))][:2]
+    a clock on each of an SM's four schedulers.  From its SASS
+    (:func:`march_loops`): a march step is its loop's instructions over the
+    loop's copies of the step (:func:`sass_loops`), with each skip block (a union operand that a warp can skip,
+    :func:`sass_blocks`) counted at the share of the march's warp-steps in
+    which some ray of the warp runs it (the plain version's count,
+    ``counts["<march>_skips"]["warp_runs"]``: the loop's block k for the
+    generated step's block k mod J, where the loop holds J a copy; their
+    mean otherwise); the rest of the function before its subroutines (the
+    slow paths of the IEEE square roots and divisions, which the rays of
+    these scenes do not take) runs once a warp, other loops left out; a
+    ``CALL`` of a slow path and the branch past it are not counted.  A
+    march issues a step per warp-step (a warp steps while one of its rays
+    does; its ray-steps over 32 where the count has no warps): an estimate
+    of the least issue, not a measurement."""
+    loops, march, body_end = march_loops(listing)
     check(len(march) == 2, f"expected the two march loops in K1's SASS, found {loops}")
-    calls = [t for _, op, t in listing if op.startswith("CALL") and t is not None]
-    body_end = min(calls, default=listing[-1][0] + 1)
 
     def issued(lo, hi):  # instructions less two for each slow-path CALL
-        span = ops(lo, hi)
+        span = [op for a, op, _ in listing if lo <= a <= hi]
         return len(span) - 2 * sum(op.startswith("CALL") for op in span)
 
-    per_step = [issued(int(lp["start"], 16), int(lp["end"], 16)) for lp in march]
+    per_step, marches = {}, {}
+    for name, lp in zip(("primary", "shadow"), march):
+        copies = lp["copies"]
+        skips = counts.get(f"{name}_skips") or {}
+        warp_steps = skips.get("warp_steps") or counts.get(f"{name}_warp_steps") or counts[name] / 32
+        runs = [r / warp_steps for r in skips.get("warp_runs", [])] if warp_steps else []
+        blocks = [(int(b["start"], 16), int(b["end"], 16), b["depth"]) for b in lp["blocks"]]
+        inside = [issued(x + 1, y - 1) for x, y, _ in blocks]
+        own = [n - sum(inside[j] + 1 for j, (c, d, e) in enumerate(blocks) if e == dp + 1 and x < c and d <= y)
+               for n, (x, y, dp) in zip(inside, blocks)]
+        J = len(runs)
+        share = ([runs[k % J] for k in range(len(blocks))] if J and len(blocks) == copies * J
+                 else [sum(runs) / J if J else 1.0] * len(blocks))
+        outside = issued(int(lp["start"], 16), int(lp["end"], 16)) - sum(
+            n for n, (_, _, dp) in zip(inside, blocks) if dp == 0)
+        per_step[name] = (outside + sum(o * f for o, f in zip(own, share))) / copies
+        marches[name] = {"warp_steps": warp_steps, "copies": copies, "outside_blocks": outside, "block_own": own,
+                         "block_run_share": share,
+                         "step_unskipped": issued(int(lp["start"], 16), int(lp["end"], 16)) / copies}
     in_loops = sum(issued(int(lp["start"], 16), int(lp["end"], 16)) for lp in loops
                    if int(lp["start"], 16) < body_end)
     rest = issued(0, body_end - 1) - in_loops
-    warp_instructions = (counts["primary"] * per_step[0] + counts["shadow"] * per_step[1]
-                         + counts["pixels"] * rest) / 32
-    return {"loops": loops, "primary_step_instructions": per_step[0], "shadow_step_instructions": per_step[1],
-            "rest_instructions": rest, "warp_instructions": warp_instructions, "counts": counts,
+    warp_instructions = (marches["primary"]["warp_steps"] * per_step["primary"]
+                         + marches["shadow"]["warp_steps"] * per_step["shadow"] + counts["pixels"] / 32 * rest)
+    return {"loops": loops, "primary_step_instructions": per_step["primary"],
+            "shadow_step_instructions": per_step["shadow"], "rest_instructions": rest, "marches": marches,
+            "warp_instructions": warp_instructions, "counts": counts,
             "issue_floor_ms": warp_instructions / ISSUE_RATE * 1e3}
 
 
@@ -2330,6 +2574,25 @@ def fit_kernel_alone(scene, prm, uni, target, cfg, kc, variant="full", wrt_unifo
     from sdf3d_tpu_torch.ops.fit_kernel import _header_variant, fit_launcher
 
     return fit_launcher(scene, prm, uni, target, cfg, kc, wrt_uniforms, (), _header_variant(variant))
+
+
+def render_alone(torch, scene, prm, uni, cfg, kc=None):
+    """K1's entry point alone (``sdf3d_render_fwd``) on preallocated planes,
+    no wrapper: a launch costs the host one ctypes call, so back-to-back
+    launches time the kernel where the wrapper's lookup and allocations
+    (``render_kernel_launch``) would time the host.  Returns ``launch``."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, kernel_library
+
+    kc = kc or KernelConfig()
+    lib = kernel_library(scene, prm, uni, cfg, kc)
+    H, W = cfg.height, cfg.width
+    out = [torch.empty((3, H, W), device=prm.device)] + [torch.empty((H, W), device=prm.device) for _ in range(3)]
+    args = [uni.data_ptr(), prm.data_ptr()] + [x.data_ptr() for x in out]
+    stream = torch.cuda.current_stream(prm.device).cuda_stream
+
+    def launch():
+        check(lib.sdf3d_render_fwd(*args, H, W, stream) == 0, "sdf3d_render_fwd failed")
+    return launch
 
 
 def device_us(torch, fn, calls: int = 20) -> dict:
@@ -2371,7 +2634,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
 
     kc = KernelConfig()
     ref = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
-    configs = {"short": exp_ad.short_config(ref), "reference": ref}
+    configs = {"short": exp_ad.short_config(ref)}  # the lab's cell
     scene = tt.reference_scene().to(dev)
     cam = tt.Camera.reference(device=dev)
     orbit = tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0, device=dev)
@@ -2380,31 +2643,42 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261018)
 
-    # ---- 26. build: every variant under both configs, in one load_many ----
+    # ---- 26. build: every variant under the one-step config, in one load_many ----
     libs = _build.LIBRARIES
     prm = scene_param_vector(scene, dev)
-    k3_lib = kernel_library(scene, prm, _uniforms(cam, light, mat, ref, dev), ref, kc, True, ())
+    short = configs["short"]
     builds0, seconds0 = libs.builds, libs.build_seconds
     jobs = [library_job(scene, c, kc, True, (), v) for c in configs.values() for v in FIT_VARIANTS]
+    # Two libraries of phase 29's extras, built with these: the fit step of
+    # the fast profile and of the fractal (the bench's fwd_bwd cells).
+    extra = [library_job(scene, tt.fast_config(ref), kc, False, ()),
+             library_job(tt.fractal_scene(), ref, kc, False, ())]
     t0 = time.perf_counter()
-    loaded = libs.load_many(jobs)
+    loaded = libs.load_many(jobs + extra)[:len(jobs)]
     build_wall = time.perf_counter() - t0
-    k3_header = cuda_scene_source(scene, ref, kc, True, ())
-    check(cuda_scene_source(scene, ref, kc, True, (), "full") == k3_header, "full's header is not K3's")
-    check(loaded[len(FIT_VARIANTS) + FIT_VARIANTS.index("full")] is k3_lib, "full did not load K3's library")
-    check(libs.builds - builds0 <= len(jobs) - 1, f"{libs.builds - builds0} builds for {len(jobs) - 1} new libraries")
+    check(libs.builds - builds0 <= len(jobs) + len(extra),
+          f"{libs.builds - builds0} builds for {len(jobs) + len(extra)} libraries")
+    before = libs.builds
+    k3_lib = kernel_library(scene, prm, _uniforms(cam, light, mat, short, dev), short, kc, True, ())
+    k3_header = cuda_scene_source(scene, short, kc, True, ())
+    check(cuda_scene_source(scene, short, kc, True, (), "full") == k3_header, "full's header is not K3's")
+    check(libs.builds == before and loaded[FIT_VARIANTS.index("full")] is k3_lib, "full did not load K3's library")
     report, keys = {}, {f"{cname} {v}": libs.key(cuda_scene_source(scene, c, kc, True, (), v))
                         for cname, c in configs.items() for v in FIT_VARIANTS}
-    # The libraries' SASS counted in parallel processes (``cuobjdump`` and the
-    # parse of its listing, a few seconds a library).
+    # The SASS of the three variants the check below compares, counted in
+    # parallel processes (``cuobjdump`` and the parse of its listing, a few
+    # seconds a library); the others' ptxas report.
+    counted_names = [n for n in keys if n.split()[1] in ("noscatter", "full", "primal")]
     t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                                                 mp_context=multiprocessing.get_context("spawn")) as pool:
-        counted = pool.map(sass_instructions, [str(libs.build_dir / key / _build.KINDS["render"].lib_name)
-                                               for key in keys.values()])
-        for (name, key), sass in zip(keys.items(), counted):
-            report[name] = {"ptxas": ptxas_summary(libs.log(key)),
-                            "sass_fit_step": next(n for k, n in sass.items() if "fit_step" in k)}
+        counted = dict(zip(counted_names, pool.map(
+            sass_instructions, [str(libs.build_dir / keys[n] / _build.KINDS["render"].lib_name)
+                                for n in counted_names])))
+    for name, key in keys.items():
+        report[name] = {"ptxas": ptxas_summary(libs.log(key))}
+        if name in counted:
+            report[name]["sass_fit_step"] = next(n for k, n in counted[name].items() if "fit_step" in k)
     sass_wall = time.perf_counter() - t0
     # That the variant plumbing left K1's and K3's registers alone is shown
     # by ``--time-kernels`` on the parent and the change (ptxas and digests).
@@ -2495,7 +2769,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
 
     lab = {}
     env = dict(os.environ, PYTHONPATH=REPO)
-    for arg in ("short", "full"):
+    for arg in ("short",):
         fit_step_variant.launches = 0
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.benchmarks.exp_ad", arg], cwd=REPO, env=env,
@@ -2536,8 +2810,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     sums = {"rows": list(full_partials.shape),
             "wrapper_device": device_us(torch, lambda: fit_step_variant_launch("full", scene, prm, uni, zero,
                                                                                configs["short"], kc)),
-            "wrapper_minus_kernel_ms": {k: times[k]["wrapper_ms"] - times[k]["ms"]
-                                        for k in ("short full", "reference full")}}
+            "wrapper_minus_kernel_ms": {k: times[k]["wrapper_ms"] - times[k]["ms"] for k in ("short full",)}}
 
     # K9's bounds at 1080p under the one-step config (the lab's cell): the
     # marches' steps of this run's data, the normal taps and, for the
@@ -2573,7 +2846,10 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
 def bench_phases(torch, tt, card: str, dev) -> None:
     """Phase 29: the bench (``sdf3d_tpu_torch/bench.py``) at 1080p, its CLI,
     and the extras, each cell beside its kernel's CUDA-event time."""
-    from sdf3d_tpu_torch import bench
+    import contextlib
+    import io
+
+    from sdf3d_tpu_torch import bench, cli
     from sdf3d_tpu_torch.ops.fit_kernel import _uniforms, fit_step_kernel
     from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, render_kernel_forward, render_kernel_launch
     from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
@@ -2641,19 +2917,21 @@ def bench_phases(torch, tt, card: str, dev) -> None:
                            "frame_ms_readings": frames_ms, "launches": launches[0], "seconds": seconds}
     check(sum(plain.calls.values()) == 0, f"the bench called plain versions: {plain.calls}")
 
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # The CLI's bench and info in this process (``cli.main``, what
+    # ``python -m sdf3d_tpu_torch.cli`` runs), their standard output read.
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.cli", "bench"], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=600)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(["bench"])
     cli_seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"cli bench failed:\n{proc.stderr[-4000:]}")
-    lines = proc.stdout.strip().splitlines()
+    check(rc == 0, f"cli bench returned {rc}")
+    lines = out.getvalue().strip().splitlines()
     cli_bench = json.loads(lines[-1])
     check(len(lines) == 1 and set(cli_bench) == keys and cli_bench["metric"] == "rays_per_second_1080p_fwd_bwd_kernel",
-          f"cli bench printed {proc.stdout!r}")
-    info = subprocess.run([sys.executable, "-m", "sdf3d_tpu_torch.cli", "info"], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    check(info.returncode == 0 and torch.cuda.get_device_name(0) in info.stdout, f"cli info printed {info.stdout!r}")
+          f"cli bench printed {out.getvalue()!r}")
+    with contextlib.redirect_stdout(io.StringIO()) as info_out:
+        rc = cli.main(["info"])
+    info_text = info_out.getvalue()
+    check(rc == 0 and torch.cuda.get_device_name(0) in info_text, f"cli info printed {info_text!r}")
 
     t0 = time.perf_counter()
     extras = bench.run_extras(budget_s=300.0)
@@ -2665,7 +2943,7 @@ def bench_phases(torch, tt, card: str, dev) -> None:
                           ("fit_fast_1080p", "fwd_bwd", tt.fast_config(ref))):
         extras[name].update(beside(extras[name], kernel_ms(mode, c)))
     log("bench", card=card, cells=cells, cli_bench=cli_bench, cli_bench_seconds=cli_seconds,
-        cli_info=info.stdout.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
+        cli_info=info_text.strip().splitlines(), extras=extras, extras_seconds=extras_seconds)
 
 
 class Witness:
@@ -2720,13 +2998,14 @@ def k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target=Non
 
     rgb, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
     own = render_kernel_forward_plain(sc, prm, uni, c)
-    razor = Witness(razor_edge, rounding_decided, sc, prm, uni, c) if rounding else razor_edge(sc, prm, uni, c)
+    razor = (Witness(razor_edge, rounding_decided, sc, prm, uni, c) if rounding
+             else functools.partial(razor_edge, sc, prm, uni, c))  # built only if a pixel passes the hard limit
     try:
         primal = check_planes((rgb, t, sh, ao), own, c.march.max_distance, f"{label} primal", razor=razor,
                               **(bar or {}))
     except AssertionError:
-        log("k3_primal_failed", label=label, worst=worst_pixels(torch, (rgb, t, sh, ao), own,
-                                                                razor() if rounding else razor, c.march.max_distance))
+        log("k3_primal_failed", label=label, worst=worst_pixels(torch, (rgb, t, sh, ao), own, razor(),
+                                                                c.march.max_distance))
         raise
     keep = conditioned(sc, prm, uni, t, c) & primals_agree((rgb, t, sh, ao), own, c.march.max_distance)
     if target is None:
@@ -2757,7 +3036,7 @@ def k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target=Non
                                      label=label)}
 
 
-def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
+def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict:
     """Phases 30-33: the flagship scene (``flagship_scene``: a sphere and a
     rounded box smooth-blended, a torus, the ground plane; 21 parameters)
     and an every-node CSG sampler on K1-K5.  Returns, per kernel entry of
@@ -2765,7 +3044,8 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
     ``fit_step_tiles``, ``render_bwd``), the flagship's launches, times,
     bound and error.  ``background``: library jobs of later phases, built
     in another thread while phase 31's checks run (it times nothing) and
-    finished before phase 32."""
+    finished before phase 32; ``then``, where given, is called there too
+    (the ring's two ranks, started before phase 30, waited for)."""
     import torch.distributed as dist
 
     from sdf3d_tpu_torch import bench, cli
@@ -2863,7 +3143,7 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
     combos = [(kc, True, ()), (kc, False, frozen), (kc, False, ()), (kc, True, frozen), (kc_point, True, ()),
               (kc_tiles, True, ()), (kc_tiles, False, frozen)]
     jobs = [library_job(flagship, full, k, wrt, fr) for k, wrt, fr in combos]
-    jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4, 5, 6)]]
+    jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4)]]
     jobs += [library_job(flagship, full, kc, False, frozen, "full", 3),  # the multiscale fit's K3
              library_job(flagship, dataclasses.replace(full, background=(0.0, 0.0, 0.0)), kc, False, frozen, "full", 0,
                          True)]  # the silhouette K3 (phase 43)
@@ -2894,9 +3174,12 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
     t_background = time.perf_counter()
     pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "render_tiles": [], "fit_step_tiles": []}
+    # Each camera at one size: the reference camera at 256x192, orbit 30/15
+    # at the ragged 250x190.
+    cam_sizes = ((cams[0], small), (cams[1], ragged))
     for sname, sc in scenes.items():
         bar = CREASE_BAR if sname == "sampler" else {}
-        for (cam_name, cam), c in itertools.product(cams, (small, ragged)):
+        for (cam_name, cam), c in cam_sizes:
             for ray_sdf in (True, False):
                 prm, uni = inputs(sc, cam, c)
                 k = kc if ray_sdf else kc_point
@@ -2904,22 +3187,22 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
                 torch.cuda.synchronize()
                 # Past the hard limit only razor-edge rays (utils/parity.py).
                 st = check_planes(got, want, c.march.max_distance, f"{sname} K1 {cam_name} {c.width}x{c.height}",
-                                  razor=razor_edge(sc, prm, uni, c, k), **bar)
+                                  razor=functools.partial(razor_edge, sc, prm, uni, c, k), **bar)
                 errs["render_fwd"].append(st["rgb"]["max_abs_err"])
                 log("flagship_k1_parity", scene=sname, camera=cam_name, size=[c.width, c.height], ray_sdf=ray_sdf,
                     **planes_stats(st))
-        fit_cases = list(itertools.product(cams, (False, True), ((), frozen)))
+        # Each camera at one size, wrt_uniforms and frozen slots both ways
+        # (every combination on the reference scene in phase 8).
+        fit_cases = [(cams[0], small, False, frozen), (cams[1], ragged, True, ())]
         if sname == "sampler":
-            fit_cases = [(cams[1], False, frozen), (cams[1], True, ())]
-        for (cam_name, cam), wrt, fr in fit_cases:
-            for c in (small, ragged):
-                label = f"{sname} K3 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt} frozen={list(fr)}"
-                st = k3_vs_plain(flagship_fit_start(dev) if sname == "flagship" else sc, cam, c, wrt, fr, label,
-                                 bar=bar)
-                errs["fit_step"].append(st["own_march"]["max_abs_err"])
-                log("flagship_k3_parity", scene=sname, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
-                    frozen=list(fr), **st)
-        for (cam_name, cam), c in itertools.product(cams, (small, ragged)):
+            fit_cases = [(cams[1], small, False, frozen)]
+        for (cam_name, cam), c, wrt, fr in fit_cases:
+            label = f"{sname} K3 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt} frozen={list(fr)}"
+            st = k3_vs_plain(flagship_fit_start(dev) if sname == "flagship" else sc, cam, c, wrt, fr, label, bar=bar)
+            errs["fit_step"].append(st["own_march"]["max_abs_err"])
+            log("flagship_k3_parity", scene=sname, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
+                frozen=list(fr), **st)
+        for (cam_name, cam), c in cam_sizes:
             prm, uni = inputs(sc, cam, c)
             _, t, sh, ao = render_kernel_launch(sc, prm, uni, c)
             g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
@@ -2935,8 +3218,11 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
                 errs["render_bwd"].append(st["max_abs_err"])
                 log("flagship_k5_parity", scene=sname, camera=cam_name, size=[c.width, c.height], wrt_uniforms=wrt,
                     **st)
-        # K2 and K4 on a 4-rank balanced plan at 256x192 (phase 18's tile).
-        sc4 = flagship_fit_start(dev) if sname == "flagship" else sc
+        # K2 and K4 on a 4-rank balanced plan at 256x192 (phase 18's tile),
+        # on the flagship (the sampler's nodes are K1's and K3's above).
+        if sname != "flagship":
+            continue
+        sc4 = flagship_fit_start(dev)
         prm, uni = inputs(sc4, orbit, small)
         work = pool_work_to_tiles(estimate_tile_work(sc4, orbit, small, light), small.height, small.width,
                                   kc_tiles.tile_h, kc_tiles.tile_w)
@@ -2966,7 +3252,7 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
                                                     small, pixels)
             s_prm[list(frozen)] = 0.0
             torch.cuda.synchronize()
-            k2_stacks.append((got2, want2, razor_edge(sc4, prm, uni, small, kc_tiles, pixels)))
+            k2_stacks.append((got2, want2, functools.partial(razor_edge, sc4, prm, uni, small, kc_tiles, pixels)))
             label = f"{sname} K4 rank {r}"
             same_loss = float((((got2[0] - stack) * inside).double() ** 2).sum())
             loss_rel = abs(float(got4[0]) / same_loss - 1.0)
@@ -2986,7 +3272,7 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
         got2s = [torch.cat([k[0][q] for k in k2_stacks], dim=-2) for q in range(4)]
         want2s = [torch.cat([k[1][q] for k in k2_stacks], dim=-2) for q in range(4)]
         st2 = check_planes(got2s, want2s, small.march.max_distance, f"{sname} K2, 4 ranks",
-                           razor=torch.cat([k[2] for k in k2_stacks], dim=-2), **bar)
+                           razor=lambda: torch.cat([k[2]() for k in k2_stacks], dim=-2), **bar)
         errs["render_tiles"].append(st2["rgb"]["max_abs_err"])
         whole = fit_step_kernel_launch(sc4, prm, uni, target, small, kc_tiles, False, frozen)
         vs_k3 = check_grads(total[1], whole[1], mass[:prm.numel()], rtol=1e-4, mass_tol=FLAGSHIP_SAME,
@@ -3000,6 +3286,8 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
         log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
             waited_seconds=time.perf_counter() - t0)
     pool.shutdown()
+    if then is not None:
+        then()
 
     # ---- 32. main path at 1920x1080 ----
     trainable = (False, False) + (True,) * 9  # the plane's normal and offset frozen
@@ -3092,12 +3380,12 @@ def flagship_phases(torch, tt, card: str, dev, background=()) -> dict:
     k0 = render_kernel_launch(flagship, prm0, uni0, full)
     torch.testing.assert_close(k0[0].permute(1, 2, 0), frames[0], rtol=0, atol=0)
     frame0 = check_planes(k0, render_kernel_forward_plain(flagship, prm0, uni0, full), full.march.max_distance,
-                          "flagship 1080p frame 0", razor=razor_edge(flagship, prm0, uni0, full))
+                          "flagship 1080p frame 0", razor=functools.partial(razor_edge, flagship, prm0, uni0, full))
     # K2's image (the 135-tile plan) against K1's.
     ref_prm, ref_uni = inputs(flagship, ref_cam, full)
     k1_ref = render_kernel_launch(flagship, ref_prm, ref_uni, full)
     sharded_st = check_planes((sharded,), k1_ref[:1], full.march.max_distance, "flagship render_sharded_kernel vs K1",
-                              razor=razor_edge(flagship, ref_prm, ref_uni, full))
+                              razor=functools.partial(razor_edge, flagship, ref_prm, ref_uni, full))
     sharded_st["rgb"]["pixels_differing_bits"] = int((sharded != k1_ref[0]).any(0).sum())
     step0 = k3_vs_plain(flagship_fit_start(dev), ref_cam, full, False, frozen, "flagship K3 1080p step 0", tgt)
     log("flagship_main_path", launches=main, multiscale_render_bwd_wrt_uniforms=ms_modes,
@@ -3358,7 +3646,7 @@ def register_line(rounds: int = 5, names=SWEEP_SCENES) -> dict:
 
 def scenes_13b_jobs(tt, dev) -> list:
     """The library jobs of phase 34: each 13b scene's K1 in both forms and
-    K3 with the plane frozen, ``random_blobs``' for the scene-cost sweep,
+    K3 with the plane frozen, ``random_blobs``' K1 for the scene-cost sweep,
     the capsule chain's multiscale K3."""
     from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
     from sdf3d_tpu_torch.utils.parity import capsule_chain_fit_start, scenes_13b
@@ -3368,7 +3656,6 @@ def scenes_13b_jobs(tt, dev) -> list:
     jobs = []
     for sc, _ in scenes_13b(dev).values():
         jobs += [library_job(sc, full, kc), library_job(sc, full, kc_point), library_job(sc, full, kc, False, frozen)]
-    jobs += [library_job(tt.random_blobs(n=n), full, kc, False, frozen) for n in (2, 3)]
     jobs += [library_job(tt.random_blobs(n=n), full, kc) for n in (2, 4, 16)]
     jobs += [library_job(capsule_chain_fit_start(dev), full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
     return jobs
@@ -3462,7 +3749,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
     built = {}
-    for name, sc in [(n, sc) for n, (sc, _) in shared.items()] + [(f"random_blobs_{n}", blobs[n]) for n in (2, 3)]:
+    for name, (sc, _) in shared.items():
         header = cuda_scene_source(sc, full, kc, False, frozen)
         kernels = ptxas_summary(libs.log(libs.key(header)))
         check(set(kernels) >= {"render_fwd", "fit_step", "render_bwd", "render_bwd_params"},
@@ -3473,21 +3760,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
                        "header_bytes": len(header), "ptxas": kernels}
     scene_cost_k1 = {n: ptxas_summary(libs.log(libs.key(cuda_scene_source(blobs[n], full, kc))))["render_fwd"]
                      for n in (2, 4, 8, 16)}
-    # The rotation in the point form: the sampler's K1 march loops and the
-    # opcodes of the range reduction and slow paths of sinf/cosf there.
     sampler = shared["transform_sampler"][0]
-    loops = {}
-    for form, k in (("ray", kc), ("point", kc_point)):
-        path = str(libs.build_dir / libs.key(cuda_scene_source(sampler, full, k)) / _build.KINDS["render"].lib_name)
-        listing = next(v for key, v in sass_listing(path).items() if "sdf3d_render_fwd_kernel" in key)
-        found = []
-        for lp in sass_loops(listing)[:4]:
-            lo, hi = int(lp["start"], 16), int(lp["end"], 16)
-            ops = [op for a, op, _ in listing if lo <= a <= hi]
-            found.append({**lp, "MUFU": sum(op.startswith("MUFU") for op in ops),
-                          "I2F": sum(op.startswith("I2F") for op in ops), "F2I": sum(op.startswith("F2I") for op in ops),
-                          "CALL": sum(op.startswith("CALL") for op in ops)})
-        loops[form] = found
     # A changed rotation (across the series' threshold) and period reuse the
     # library: the selects are run-time.
     before = libs.builds
@@ -3504,8 +3777,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     check(libs.builds == before, f"a changed rotation or period rebuilt a library ({libs.builds - before})")
     check(bool((a != b).any()), "moving the rotations and the period did not change the image")
     log("scenes_13b_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
-        build_wall_seconds=build_wall, libraries=len(jobs), scenes=built, scene_cost_render_fwd_ptxas=scene_cost_k1,
-        transform_sampler_k1_loops=loops)
+        build_wall_seconds=build_wall, libraries=len(jobs), scenes=built, scene_cost_render_fwd_ptxas=scene_cost_k1)
 
     # ---- 35. K1-K5 vs their plain versions on the 13b scenes (later phases'
     # libraries, ``background``, build in another thread meanwhile: these
@@ -3517,8 +3789,9 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     for name, (sc, cam) in shared.items():
         bar = SCENE_BARS.get(name, {})
         cams = (("scene", cam), ("orbit30_15", orbit))
-        for (cam_name, cm), c, ray_sdf in [(cm, c, r) for cm in cams for c in (small,) for r in (True, False)] + [
-                (cams[0], ragged, r) for r in (True, False)]:
+        # Both forms under the scene's camera at 256x192 (the ragged size and
+        # orbit 30/15 on the reference scene, the flagship and the sampler).
+        for (cam_name, cm), c, ray_sdf in ((cams[0], small, True), (cams[0], small, False)):
             k = kc if ray_sdf else kc_point
             prm, uni = inputs(sc, cm, c)
             got, want = render_kernel_launch(sc, prm, uni, c, k), render_kernel_forward_plain(sc, prm, uni, c, k)
@@ -3543,8 +3816,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
         # rounded cylinder's edge is seen from below at grazing:
         # tests/test_torch_fit_kernel.py), the chain under its camera too.
         k3_cams = [("orbit30_15", orbit)] + ([("scene", shared[name][1])] if name == "capsule_chain" else [])
-        for (cam_name, cm), c, wrt, fr in [(k3_cams[-1], small, False, frozen), (k3_cams[0], small, True, ()),
-                                           (k3_cams[0], ragged, False, frozen)]:
+        for (cam_name, cm), c, wrt, fr in [(k3_cams[-1], small, False, frozen)]:
             label = f"{name} K3 {cam_name} {c.width}x{c.height} wrt_uniforms={wrt}"
             prm, uni = inputs(sc, cm, c)
             st = k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, rounding=True)
@@ -3738,11 +4010,10 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
                 times["render_bwd"][name]["uniforms"] = row
             else:
                 times[kname][name] = row
-        # K5 at the size the multiscale fit launches it (1920x1080), both
-        # forms, against its plain version on the timed cotangent, zeroed
-        # where the gradient is ill-conditioned (csg_showcase's totals are
-        # non-finite in both: phase 35).
-        if name != "csg_showcase":
+        # K5 at the size the capsule chain's multiscale fit launches it
+        # (1920x1080), both forms, against its plain version on the timed
+        # cotangent, zeroed where the gradient is ill-conditioned.
+        if name == "capsule_chain":
             g_cond = (g_rgb * conditioned(sc, prm, uni, t, full)).contiguous()
             mass = gradient_mass(sc, prm, uni, g_cond, t, sh, ao, full)
             for wrt in (False, True):
@@ -3801,14 +4072,42 @@ def fractal_jobs(tt) -> list:
             library_job(fractal, full, kc, False, frozen, "full", 3)]  # the multiscale fit's K3
 
 
-def fractal_phases(torch, tt, card: str, dev) -> dict:
+def loss_slice_jobs(tt) -> list:
+    """The library jobs of phases 40-46: the fit demo's K3 with each loss
+    branch and K4 at 8×128 tiles (phase 40's), its K1 under the black
+    background and at those tiles (phase 41's), ``materials_scene``'s four
+    (phase 44's)."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import shaded_slots
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    black = dataclasses.replace(full, background=(0.0, 0.0, 0.0))
+    kc, kc_point, kc_tiles = KernelConfig(), KernelConfig(ray_sdf=False), KernelConfig(tile_h=8, tile_w=128)
+    frozen = (0, 1, 2, 3)
+    sc0 = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25))
+    jobs = [library_job(sc0, c, k, w, f, "full", lv, sil) for c, k, w, f, lv, sil in (
+        (full, kc, False, frozen, 3, False), (full, kc, True, (), 3, False), (black, kc, False, frozen, 0, True),
+        (black, kc, True, (), 0, True), (full, kc, True, (), 0, True), (full, kc_tiles, True, frozen, 3, False),
+        (black, kc_tiles, True, frozen, 0, True))]
+    jobs += [library_job(sc0, black, kc), library_job(sc0, full, kc_tiles), library_job(sc0, black, kc_tiles)]
+    msc = tt.materials_scene()
+    mslots = shaded_slots(msc)
+    geometry = tuple(k for k in range(scene_param_vector(msc).numel()) if k not in mslots)
+    return jobs + [library_job(msc, full, kc, True, ()), library_job(msc, full, kc, False, ()),
+                   library_job(msc, full, kc, False, geometry), library_job(msc, full, kc_point, True, ())]
+
+
+def fractal_phases(torch, tt, card: str, dev, background=()) -> dict:
     """Phases 37-39: the fractal (ROADMAP 13c: ``fractal_scene()``, a power-8
     Mandelbulb of six iterations on the ground plane) on K1, K3 and K5, and
     the over-relaxed march (ω = 1.6) on K1-K4, on the reference scene and
     the fractal.  Returns, per kernel entry of the kernels line
     (``render_fwd``, ``render_tiles``, ``fit_step``, ``fit_step_tiles``,
     ``render_bwd``), the fractal's and the relaxed march's launches, times,
-    bound and error."""
+    bound and error.  ``background``: library jobs of later phases, built in
+    another thread during phases 38 and 39's checks and fits, finished
+    before phase 39's times."""
     import torch.distributed as dist
 
     from sdf3d_tpu_torch import bench, cli
@@ -3940,15 +4239,20 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         ptxas=ptxas, render_fwd_ptxas=render_ptxas, relaxed_render_fwd_ptxas=relaxed_ptxas)
 
     # ---- 38. K1-K5 on the fractal, K1-K4 relaxed, against their plain versions ----
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    t_background = time.perf_counter()
+    pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "relaxed": [], "render_tiles": [],
             "fit_step_tiles": []}
     # The relaxed branch is one template for both forms: the ray form alone.
+    # The fractal in both forms under the reference camera at 256x192 and
+    # relaxed; the reference scene relaxed (exact: phase 3) under each
+    # camera, at 256x192 and the ragged 250x190.
+    cases = {"fractal": [(("reference", ref_cam), small, kc), (("reference", ref_cam), small, kc_point),
+                         (("reference", ref_cam), relaxed(small), kc)],
+             "reference": [(("reference", ref_cam), relaxed(small), kc), (("orbit30_15", orbit), relaxed(ragged), kc)]}
     for sc_name, sc in (("fractal", fractal), ("reference", reference)):
-        for (cam_name, cm), c, k in [((n, cm), c, k) for n, cm in (("reference", ref_cam), ("orbit30_15", orbit))
-                                     for c in (small, relaxed(small)) for k in (kc, kc_point)] + [
-                (("reference", ref_cam), ragged, kc), (("reference", ref_cam), relaxed(ragged), kc)]:
-            if (sc is reference and c.march.relaxation == 1.0) or (c.march.relaxation != 1.0 and not k.ray_sdf):
-                continue  # phase 3; one form
+        for (cam_name, cm), c, k in cases[sc_name]:
             prm, uni = inputs(sc, cm, c)
             label = f"{sc_name} K1 {cam_name} {c.width}x{c.height} ray_sdf={k.ray_sdf} relaxation={c.march.relaxation}"
             st = k1_check(sc, prm, uni, c, k, label, rounding=sc is fractal)
@@ -3958,8 +4262,7 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
     # K3 on the fractal's fit start (its own march against the plain version's,
     # and the plain reverse pass on K1's planes), K3 relaxed on the reference.
     for sc_name, sc, c, cm, wrt, fr in (("fractal", fractal_fit_start(dev), small, ref_cam, False, frozen),
-                                       ("fractal", fractal_fit_start(dev), small, orbit, False, frozen),
-                                       ("fractal", fractal_fit_start(dev), ragged, ref_cam, False, frozen),
+                                       ("fractal", fractal_fit_start(dev), ragged, orbit, False, frozen),
                                        ("reference", start(), relaxed(small), orbit, False, frozen)):
         prm, uni = inputs(sc, cm, c)
         label = f"{sc_name} K3 {c.width}x{c.height} wrt_uniforms={wrt} relaxation={c.march.relaxation}"
@@ -4008,7 +4311,7 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         torch.cuda.synchronize()
         pixels = tile_pixel_planes(trow, tcol, kc_tiles.tile_h, kc_tiles.tile_w)
         st2 = check_planes(k2, p2, c.march.max_distance, f"relaxed K2 rank {rank}",
-                           razor=razor_edge(sc, prm, uni, c, kc_tiles, pixels))
+                           razor=functools.partial(razor_edge, sc, prm, uni, c, kc_tiles, pixels))
         rel = abs(float(k4[0]) / float(p4[0]) - 1.0)
         check(rel <= 1e-5, f"relaxed K4 rank {rank}: loss off the plain version's by {rel:.3g}")
         g_err = float((k4[1] - p4[1]).abs().max())
@@ -4112,16 +4415,20 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
     tiles_rel = max(abs(a / b - 1.0) for a, b in zip(tiles.losses, rl2.losses))
     check(tiles_rel <= 1e-5, f"relaxed fit_scene(mesh, tiles): losses off the unsharded fit's by {tiles_rel:.3g}")
     frame0 = {}
+    # Frame 0 of the fractal's batch and of the relaxed reference scene's,
+    # each K1's launch bit for bit; the relaxed reference frame against its
+    # plain version (the fractal's K1 at 1080p is held to its plain version
+    # in step 0's primal below, the relaxed fractal in phase 38).
     for name, sc, c, fr in (("fractal", fractal, full, frames[0]),
-                            ("reference_relaxed", reference, relaxed(full), frames_relaxed["reference"][0]),
-                            ("fractal_relaxed", fractal, relaxed(full), frames_relaxed["fractal"][0])):
+                            ("reference_relaxed", reference, relaxed(full), frames_relaxed["reference"][0])):
         prm0, uni0 = inputs(sc, orbit4[0], c)
-        frame0[name] = k1_check(sc, prm0, uni0, c, kc, f"{name} 1080p frame 0", rounding=sc is fractal)
+        if sc is not fractal:
+            frame0[name] = k1_check(sc, prm0, uni0, c, kc, f"{name} 1080p frame 0", rounding=False)
         torch.testing.assert_close(render_kernel_launch(sc, prm0, uni0, c)[0].permute(1, 2, 0), fr, rtol=0, atol=0)
     ref_prm, ref_uni = inputs(reference, ref_cam, relaxed(full))
     k1_ref = render_kernel_launch(reference, ref_prm, ref_uni, relaxed(full))
     sharded_st = check_planes((sharded,), k1_ref[:1], full.march.max_distance, "relaxed render_sharded_kernel vs K1",
-                              razor=razor_edge(reference, ref_prm, ref_uni, relaxed(full)))
+                              razor=functools.partial(razor_edge, reference, ref_prm, ref_uni, relaxed(full)))
     # JAX's reverse pass of the Mandelbulb is NaN near its escape boundaries,
     # where the escape selects' untaken branch overflows; the port's clamp
     # (sdf/primitives.py::mandelbulb_de) keeps the fit start's gradient
@@ -4140,6 +4447,13 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         relaxed_l2_losses=rl2.losses,
         relaxed_mesh_tiles_losses_equal=tiles.losses == rl2.losses, relaxed_mesh_tiles_loss_rel_err=tiles_rel,
         relaxed_render_sharded_vs_k1=sharded_st["rgb"], step0=step0, bench=cells)
+
+    if pending is not None:
+        t0 = time.perf_counter()
+        pending.result()
+        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
+            waited_seconds=time.perf_counter() - t0)
+    pool.shutdown()
 
     # Times at 1080p, the reference camera (plain, kernel, kernel, plain): the
     # fractal's K1, K3 (the plane frozen) and both K5 forms against its
@@ -4205,9 +4519,10 @@ def fractal_phases(torch, tt, card: str, dev) -> dict:
         relax()
         torch.cuda.synchronize()
         e1, r1, r2, e2 = time_ms(exact), time_ms(relax), time_ms(relax), time_ms(exact)
-        ec = march_counts(torch, sc, ref_cam, full, prm_r, uni_r, render_kernel_forward_plain)
+        # The fractal's exact marches are the bounds' above (the same inputs).
+        ec = counts if sc is fractal else march_counts(torch, sc, ref_cam, full, prm_r, uni_r,
+                                                       render_kernel_forward_plain)
         rc = march_counts(torch, sc, ref_cam, relaxed(full), prm_r, uni_r, render_kernel_forward_plain)
-        rc["primary"] = rc["plain_primary"]  # the relaxed march's own steps
         fp, sfu = analytic_work(scene_costs(cuda_scene_source(sc, relaxed(full), kc)), rc, full)
         rbound = bound(fp + rc["primary"] * (RELAXED_STEP[0] - PRIMARY_STEP[0]), sfu, 24 * W * H)
         pr = time_ms(lambda: render_kernel_forward_plain(sc, prm_r, uni_r, relaxed(full)), 0, 1)
@@ -4435,14 +4750,15 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
     ragged = dataclasses.replace(full, width=250, height=190)
     errs = {"multiscale": [], "silhouette": [], "view": [], "multiscale_tiles": [], "silhouette_tiles": []}
     for branch in LOSS_BRANCHES:
-        for c0, cam_name, cam in ((small, "orbit30_15", orbit), (small, "reference", ref_cam), (ragged, "orbit30_15", orbit)):
+        for c0, cam_name, cam, wrt, fr in ((small, "orbit30_15", orbit, False, frozen),
+                                           (small, "reference", ref_cam, True, ()),
+                                           (ragged, "orbit30_15", orbit, True, ())):
             c = cfg_of(branch, c0)
             target, cov = reference_target(cam, c)
-            for wrt, fr in ((False, frozen), (True, ())):
-                label = f"K3 {branch} {c.width}x{c.height} {cam_name} wrt_uniforms={wrt}"
-                st = k3_vs_plain(LOSS_BRANCHES[branch], start(), cam, c, wrt, fr, label, target, cov)
-                errs[branch].append(st["own_march"]["max_abs_err"])
-                log("loss_k3_small", branch=branch, size=[c.width, c.height], camera=cam_name, wrt_uniforms=wrt, **st)
+            label = f"K3 {branch} {c.width}x{c.height} {cam_name} wrt_uniforms={wrt}"
+            st = k3_vs_plain(LOSS_BRANCHES[branch], start(), cam, c, wrt, fr, label, target, cov)
+            errs[branch].append(st["own_march"]["max_abs_err"])
+            log("loss_k3_small", branch=branch, size=[c.width, c.height], camera=cam_name, wrt_uniforms=wrt, **st)
         # K4 over a balanced 4-rank plan of 8x128 tiles: each work-list
         # against its plain version, the sum against K3.
         c = cfg_of(branch, small)
@@ -4590,10 +4906,8 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
     for order in (list(forms), list(reversed(forms))):
         for n in order:
             runs[n]["ms_runs"].append(time_ms(kern[n]))
-    for n, f in forms.items():
-        runs[n]["plain_ms_runs"].append(time_ms(functools.partial(fit_step_kernel_plain, *f[:5], kc, f[5], f[6], **f[8]),
-                                                0, 1))
-        runs[n].update(ms=sum(runs[n]["ms_runs"]) / 2, plain_ms=sum(runs[n]["plain_ms_runs"]) / 2)
+    for n in forms:
+        runs[n].update(ms=sum(runs[n]["ms_runs"]) / 2, plain_ms=runs[n]["plain_ms_runs"][0])
     # K4 with each branch over the 135-tile plan beside K3 (both through
     # their wrappers, as phase 21), in turns.
     plan = plan_tiles(H, W, kc.tile_h, kc.tile_w, 1)
@@ -4612,12 +4926,11 @@ def loss_phases(torch, tt, card: str, dev) -> dict:
         got4, got3 = k4(), k3()
         rel = abs(float(got4[0]) / float(got3[0]) - 1.0)
         check(rel <= 1e-5, f"K4 {n} 1080p: loss off K3's by {rel:.3g}")
-        p1 = time_ms(k4_plain, 1, 3)
+        p1 = time_ms(k4_plain, 0, 1)
         a1, b1 = time_ms(k4), time_ms(k3)
         a2, b2 = time_ms(k4), time_ms(k3)
-        p2 = time_ms(k4_plain, 1, 3)
         tiles_runs[n] = {"ms": (a1 + a2) / 2, "ms_runs": [a1, a2], "k3_wrapper_ms_runs": [b1, b2],
-                         "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2], "loss_rel_err_vs_k3": rel}
+                         "plain_ms": p1, "plain_ms_runs": [p1], "loss_rel_err_vs_k3": rel}
     # fit_scene's ms a step with the pyramid (phase 12's L2 beside it).
     fit_ms = {}
     for n, tg, c, extra in (("l2", target_full, full, {}), ("multiscale", target_full, full, dict(loss="multiscale")),
@@ -4913,23 +5226,26 @@ def slice_phases(torch, tt, card: str, dev) -> dict:
         rays_per_second=mfit.rays_per_second, fitted=scene_param_vector(mfit.scene).tolist(), bench_extra=extra)
 
     # ---- 46. materials_scene: K1/K2, K3/K4, K5 against their plain versions, and its main path ----
-    for (cam_name, cam), c, k in itertools.product((("orbit30_15", orbit), ("reference", ref_cam)), (small, ragged),
-                                                   (kc, kc_point)):
+    # Each camera at one size (orbit 30/15 at 256x192, the reference camera
+    # at the ragged 250x190), both forms.
+    cam_sizes = ((("orbit30_15", orbit), small), (("reference", ref_cam), ragged))
+    for (cam_name, cam), c, k in [(cm, c, k) for cm, c in cam_sizes for k in (kc, kc_point)]:
         p_, u_ = inputs(msc, cam, c)
         g_ = render_kernel_launch(msc, p_, u_, c, k)
         w_ = render_kernel_forward_plain(msc, p_, u_, c, k)
         torch.cuda.synchronize()
         st = check_planes(g_, w_, c.march.max_distance, f"materials K1 {cam_name} {c.width}x{c.height}",
-                          razor=razor_edge(msc, p_, u_, c, k))
+                          razor=functools.partial(razor_edge, msc, p_, u_, c, k))
         errs["render_fwd"].append(st["rgb"]["max_abs_err"])
         log("materials_k1_parity", camera=cam_name, size=[c.width, c.height], ray_sdf=k.ray_sdf, **planes_stats(st))
+    # K3's three forms, the sizes in turn.
+    for c, wrt, fr in ((small, False, ()), (ragged, True, ()), (small, False, geometry)):
+        label = f"materials K3 {c.width}x{c.height} wrt_uniforms={wrt} geometry_frozen={bool(fr)}"
+        p_, u_ = inputs(msc, orbit, c)
+        st = k3_against_plain(torch, msc, p_, u_, c, kc, wrt, fr, label, gen)
+        errs["fit_step"].append(st["own_march"]["max_abs_err"])
+        log("materials_k3_parity", size=[c.width, c.height], wrt_uniforms=wrt, geometry_frozen=bool(fr), **st)
     for c in (small, ragged):
-        for wrt, fr in ((False, ()), (True, ()), (False, geometry)):
-            label = f"materials K3 {c.width}x{c.height} wrt_uniforms={wrt} geometry_frozen={bool(fr)}"
-            p_, u_ = inputs(msc, orbit, c)
-            st = k3_against_plain(torch, msc, p_, u_, c, kc, wrt, fr, label, gen)
-            errs["fit_step"].append(st["own_march"]["max_abs_err"])
-            log("materials_k3_parity", size=[c.width, c.height], wrt_uniforms=wrt, geometry_frozen=bool(fr), **st)
         p_, u_ = inputs(msc, orbit, c)
         _, t, sh, ao = render_kernel_launch(msc, p_, u_, c)
         g_rgb = (torch.randn((3, c.height, c.width), generator=gen, device=dev)
@@ -5027,7 +5343,7 @@ def slice_phases(torch, tt, card: str, dev) -> dict:
     k0 = render_kernel_launch(msc, p0, u0, full)
     torch.testing.assert_close(k0[0].permute(1, 2, 0), frames[0], rtol=0, atol=0)
     frame0 = check_planes(k0, render_kernel_forward_plain(msc, p0, u0, full), full.march.max_distance,
-                          "materials 1080p frame 0", razor=razor_edge(msc, p0, u0, full))
+                          "materials 1080p frame 0", razor=functools.partial(razor_edge, msc, p0, u0, full))
     errs["render_fwd"].append(frame0["rgb"]["max_abs_err"])
     pr, ur = inputs(msc, ref_cam, full)
     k1_ref = render_kernel_launch(msc, pr, ur, full)[0]
@@ -5706,7 +6022,8 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     )
     from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
     from sdf3d_tpu_torch.ops.render_bwd_kernel import planar_vjp, render_kernel_backward
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, kernel_library, pack_uniforms, pixel_planes, \
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job, pack_uniforms, pixel_planes, \
         render_kernel_forward, render_kernel_forward_plain, render_kernel_launch
     from sdf3d_tpu_torch.ops.scene_program import leaves, scene_param_vector
     from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass, primals_agree, \
@@ -5932,21 +6249,29 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     # rows of 12 (1080 = 2·12·45; the default 24 would need 1080 divisible by 48).
     steps, tile_h = 3, {"contiguous": kc.tile_h, "interleaved": 12}
     slab = dataclasses.replace(full, height=H // 2, ndc_height=H)
-    for th in sorted(set(tile_h.values())):  # the slabs' libraries, built before the ranks start
-        kernel_library(reference, prm, uni, slab, KernelConfig(tile_h=th))
+    # The slabs' libraries, built together before the ranks start.
+    _build.LIBRARIES.load_many([library_job(reference, slab, KernelConfig(tile_h=th))
+                                for th in sorted(set(tile_h.values()))])
     torch.cuda.empty_cache()
     g_img = torch.randn((H, W, 3), generator=gen, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         files = {k: os.path.join(tmp, f"{k}.pt") for k in ("target", "cotangent", "images")}
         torch.save(target_full.cpu(), files["target"])
         torch.save(g_img.cpu(), files["cotangent"])
-        pair = spawn_ranks(ROWS_FIT, 2, {**files, "size": [W, H], "steps": steps, "tile_h": tile_h,
-                                         "layouts": ["contiguous", "interleaved"]})
+        started = start_ranks(ROWS_FIT, 2, {**files, "size": [W, H], "steps": steps, "tile_h": tile_h,
+                                            "layouts": ["contiguous", "interleaved"]})
+        # The unsharded references, in this process while the ranks run.
+        reset()
+        ref_fit = fit_scene(target_full, start(), ref_cam, light, mat, full,
+                            FitConfig(steps=steps, learning_rate=1e-2, log_every=1), trainable=trainable, device=dev)
+        check(launches() == {"fit_step_kernel": steps}, f"the unsharded 'detach' fit launched {launches()}")
+        frame = tt.render(reference, ref_cam, light, mat, full).cpu()
+        sc_r = copy.deepcopy(reference)
+        (render_diff(sc_r, ref_cam, light, mat, full) * g_img).sum().backward()
+        want_g = torch.cat([x.grad.reshape(-1) for x in leaves(sc_r)])
+        mass_r = gradient_mass(reference, prm, uni, g_img.permute(2, 0, 1).contiguous(), *k1[1:], full)[:P]
+        pair = finish_ranks(started)
         images = torch.load(files["images"])
-    reset()
-    ref_fit = fit_scene(target_full, start(), ref_cam, light, mat, full,
-                        FitConfig(steps=steps, learning_rate=1e-2, log_every=1), trainable=trainable, device=dev)
-    check(launches() == {"fit_step_kernel": steps}, f"the unsharded 'detach' fit launched {launches()}")
     ref_p = scene_param_vector(ref_fit.scene).cpu()
     rows54 = {}
     for r in pair:
@@ -5964,13 +6289,8 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
               f"params {p_err:.3g}")
         rows54[layout] = {"tile_h": tile_h[layout], "loss_rel_err": loss_rel, "params_max_abs_err": p_err, "ms_per_step": a["ms_per_step"],
                           "peak_gib": [r["runs"][layout]["peak_gib"] for r in pair]}
-    frame = tt.render(reference, ref_cam, light, mat, full).cpu()
     check(torch.equal(images["plain"], frame) and torch.equal(images["differentiable"], frame),
           "render_sharded's image is not render's bit for bit")
-    sc_r = copy.deepcopy(reference)
-    (render_diff(sc_r, ref_cam, light, mat, full) * g_img).sum().backward()
-    want_g = torch.cat([x.grad.reshape(-1) for x in leaves(sc_r)])
-    mass_r = gradient_mass(reference, prm, uni, g_img.permute(2, 0, 1).contiguous(), *k1[1:], full)[:P]
     grads54 = check_grads(torch.tensor(pair[0]["render_sharded_grad"]), want_g.cpu(), mass_r.cpu(), rtol=1e-5,
                           mass_tol=1e-5, label="render_sharded's summed gradients vs render_diff 1080p")
     log("rows_1080p", card=card, note="two processes sharing one card over gloo; times claim nothing",
@@ -6017,20 +6337,9 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     check(gfit_launches == {}, f"the grid fit launched {gfit_launches}")
     check(all(math.isfinite(v) for v in gfit.losses) and not torch.equal(gfit.scene.b.values, grid.values),
           f"the grid fit: losses {gfit.losses}")
-    # Where a step's device time goes (torch.profiler): the render's forward
-    # and the re-trace's backward into the samples.
-    gs = copy.deepcopy(gscene)
-
-    def grid_step():
-        loss = ((render_kernel_diff(full, kc, gs, ref_cam, light, mat) - gtarget) ** 2).sum()
-        torch.autograd.grad(loss, [gs.b.values])
-
-    gprof = device_us(torch, grid_step, calls=1)
-    gtop = sorted(gprof["kernels_us"].items(), key=lambda kv: -kv[1])[:6]
     log("voxel_grid_1080p", card=card, samples=list(grid.values.shape), bake_seconds=bake_s,
         render_batch_torch_seconds=render_s, pixels_off_analytic_over_0_05=off, fit_losses=gfit.losses,
-        fit_ms_per_step=g_clock.ms_per_step(), fit_peak_gib=gfit_peak, step_device_ms=gprof["total_us"] / 1e3,
-        step_top_kernels_us=gtop, phase_seconds=time.perf_counter() - t_phase)
+        fit_ms_per_step=g_clock.ms_per_step(), fit_peak_gib=gfit_peak, phase_seconds=time.perf_counter() - t_phase)
 
     # ---- 56. stereo, depth and the debug checks at 1080p ----
     t_phase = time.perf_counter()
@@ -6422,7 +6731,7 @@ def slice18_phases(torch, tt, card: str, dev) -> dict:
     t0 = time.perf_counter()
     _build.LIBRARIES.load_many(jobs)
     build_s, builds = time.perf_counter() - t0, _build.LIBRARIES.builds - builds0
-    launch("suite_scaling", f"{pkg}.benchmarks.suite", "--scaling", "--world-sizes", 1, 2, "--iters", 3)
+    launch("suite_scaling", f"{pkg}.benchmarks.suite", "--scaling", "--quick", "--world-sizes", 1, 2, "--iters", 3)
     launch("collectives_lab", f"{pkg}.benchmarks.collectives_lab", "--run", "--num", 2)
     launch("scaling_report", f"{pkg}.benchmarks.scaling_report", "--step-ms", step_s * 1e3, "--step-card", card,
            "--out", scaling_out)
@@ -6964,7 +7273,7 @@ def _time_root(root: str) -> dict:
     k2 = lambda: render_kernel_tiles_launch(ref, prm, uni, trow, tcol, cfg, kc)  # noqa: E731
     stacks = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k2())
     result = {"root": root, "card": card_name_and_power(), "ptxas": ptxas,
-              "render_fwd_issue_floor": issue_floor(k1_sass, counts),
+              "render_fwd_issue_floor": issue_floor(k1_sass, counts), "render_fwd_sass_split": sass_split(k1_sass),
               "render_fwd_sha256": hashlib.sha256(planes).hexdigest(),
               "render_tiles_sha256": hashlib.sha256(stacks).hexdigest(),
               "render_tiles": plan.tiles_per_device,
@@ -6974,6 +7283,7 @@ def _time_root(root: str) -> dict:
               "fit_totals": fit_totals.tolist(),
               "fit_totals_sha256": hashlib.sha256(fit_totals.tobytes()).hexdigest(),
               "render_fwd_ms": [time_ms(k1, 5, 50) for _ in range(3)],
+              "render_fwd_alone_ms": [time_ms(render_alone(torch, ref, prm, uni, cfg), 5, 50) for _ in range(3)],
               "fit_step_ms": [time_ms(launcher[0], 5, 50) for _ in range(3)],
               "fit_step_wrapper_ms": [time_ms(k3, 5, 50) for _ in range(3)],
               "fit_step_wrapper_device_us": device_us(torch, k3),
@@ -6994,7 +7304,37 @@ def _time_root(root: str) -> dict:
         result[f"neural_fwd_hidden{hidden}_ms"] = [time_ms(k6, 1, frames) for _ in range(3)]
     if hasattr(tt, "flagship_scene"):
         result["flagship"] = _time_flagship(torch, tt, uni, cfg, kc)
+        result["flagship"].update(_time_k1(torch, tt.flagship_scene().to(dev), cam, uni, cfg, kc))
+    result["random_blobs8"] = _time_k1(torch, tt.random_blobs(n=8).to(dev), cam, uni, cfg, kc)
+    result["fractal"] = _time_k1(torch, tt.fractal_scene().to(dev), cam, uni, cfg, kc, floor=False)
     return result
+
+
+def _time_k1(torch, scene, cam, uni, cfg, kc, floor: bool = True) -> dict:
+    """K1 on ``scene`` at 1080p for ``--time-kernels``, on the checkout
+    imported: three runs of its entry point alone (:func:`render_alone`),
+    the SHA-256 of its four planes,
+    its registers and, with ``floor``, its issue floor and SASS split
+    (:func:`issue_floor`, :func:`sass_split`)."""
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.render_kernel import render_kernel_forward_plain, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+
+    prm = scene_param_vector(scene, uni.device)
+    k1 = lambda: render_kernel_launch(scene, prm, uni, cfg, kc)  # noqa: E731
+    planes = b"".join(x.contiguous().cpu().numpy().tobytes() for x in k1())
+    libs = _build.LIBRARIES
+    key = libs.key(cuda_scene_source(scene, cfg, kc))
+    alone = render_alone(torch, scene, prm, uni, cfg, kc)
+    out = {"k1_sha256": hashlib.sha256(planes).hexdigest(), "k1_ms": [time_ms(alone, 5, 50) for _ in range(3)],
+           "k1_registers": ptxas_summary(libs.log(key))["render_fwd"]["registers"]}
+    if floor:
+        listing = next(v for k, v in sass_listing(str(libs.build_dir / key / _build.KINDS["render"].lib_name)).items()
+                       if "sdf3d_render_fwd_kernel" in k)
+        counts = march_counts(torch, scene, cam, cfg, prm, uni, render_kernel_forward_plain)
+        out["k1_issue_floor"] = issue_floor(listing, counts)
+        out["k1_sass_split"] = sass_split(listing)
+    return out
 
 
 def _time_flagship(torch, tt, uni, cfg, kc) -> dict:
@@ -7103,7 +7443,8 @@ def max_rel_diff(a, b) -> float:
 
 def time_kernels(roots: list) -> int:
     """``--time-kernels ROOT [ROOT ...]``: for each checkout in turn, in a
-    process of its own (the packages share a name), K1, K2 over the 135-tile
+    process of its own (the packages share a name), K1 (through its launch
+    and by its entry point alone, :func:`render_alone`), K2 over the 135-tile
     plan and K3 at 1080p (the reference scene, the fit demo's main path),
     K5 on the fit demo's start in each form (:func:`_time_render_bwd`) and
     K6 on phase 16's cell, three runs each by CUDA events; SHA-256 digests
@@ -7111,11 +7452,15 @@ def time_kernels(roots: list) -> int:
     live columns in one layout for every checkout), its float64 totals (the
     gradient and the loss) and K5's parameter columns of its partial rows;
     ptxas registers, spills and resident blocks per SM of K1, K3 and both
-    forms of K5; K1's issue floor (:func:`issue_floor`).  One JSON line per
-    checkout, then one comparing them: whether the digests agree bit for
-    bit, the registers, the totals' largest relative difference from the
-    first checkout's, and the times.  Give the parent and the change in
-    turns (parent, change, change, parent) to compare them on one card."""
+    forms of K5; K1's issue floor (:func:`issue_floor`) and its SASS by
+    opcode class (:func:`sass_split`); K1 on the flagship, ``random_blobs(8)``
+    and the fractal under the reference camera (:func:`_time_k1`: times,
+    digests, registers, and on the first two the issue floor and the split).
+    One JSON line per checkout, then one comparing them: whether the digests
+    agree bit for bit, the registers, the totals' largest relative
+    difference from the first checkout's, and the times.  Give the parent
+    and the change in turns (parent, change, change, parent) to compare them
+    on one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7141,6 +7486,7 @@ def time_kernels(roots: list) -> int:
                       for k in ("render_fwd", "fit_step", "render_bwd", "render_bwd_params")},
         "fit_totals_max_rel_diff": [max_rel_diff(r["fit_totals"], first["fit_totals"]) for r in results],
         "render_fwd_ms": [r["render_fwd_ms"] for r in results],
+        "render_fwd_alone_ms": [r["render_fwd_alone_ms"] for r in results],
         "render_fwd_issue_floor_ms": [r["render_fwd_issue_floor"]["issue_floor_ms"] for r in results],
         "render_tiles_ms": [r["render_tiles_ms"] for r in results],
         "fit_step_ms": [r["fit_step_ms"] for r in results],
@@ -7148,6 +7494,12 @@ def time_kernels(roots: list) -> int:
         "render_bwd_ms": [{f: v["ms"] for f, v in r["render_bwd"].items()} for r in results],
         "render_bwd_wrapper_ms": [{f: v["wrapper_ms"] for f, v in r["render_bwd"].items()} for r in results],
         "neural_fwd_hidden64_ms": [r["neural_fwd_hidden64_ms"] for r in results],
+        **{name: {"k1_sha256_equal": len({r[name]["k1_sha256"] for r in results if name in r}) == 1,
+                  "k1_ms": [r.get(name, {}).get("k1_ms") for r in results],
+                  "k1_registers": [r.get(name, {}).get("k1_registers") for r in results],
+                  "k1_issue_floor_ms": [r.get(name, {}).get("k1_issue_floor", {}).get("issue_floor_ms")
+                                        for r in results]}
+           for name in ("random_blobs8", "fractal")},
         "flagship": {
             "render_fwd_sha256_equal": len({r["flagship"]["render_fwd_sha256"] for r in results if "flagship" in r}) == 1,
             "fit_totals_sha256_equal": len({r["flagship"]["fit_totals_sha256"] for r in results if "flagship" in r}) == 1,
@@ -7157,6 +7509,8 @@ def time_kernels(roots: list) -> int:
                               for r in results] for k in ("render_fwd", "fit_step", "render_bwd", "render_bwd_params")},
             "finite": [r["flagship"]["finite"] if "flagship" in r else None for r in results],
             "render_fwd_ms": [r.get("flagship", {}).get("render_fwd_ms") for r in results],
+            "k1_issue_floor_ms": [r.get("flagship", {}).get("k1_issue_floor", {}).get("issue_floor_ms")
+                                  for r in results],
             "fit_step_ms": [r.get("flagship", {}).get("fit_step_ms") for r in results],
             "render_bwd_ms": [r.get("flagship", {}).get("render_bwd_ms") for r in results],
             "render_bwd_uniforms_ms": [r.get("flagship", {}).get("render_bwd_uniforms_ms") for r in results]}}),
@@ -7164,9 +7518,73 @@ def time_kernels(roots: list) -> int:
     return 0
 
 
+def _time_scenes_root(root: str) -> dict:
+    """K1 at 1080p on the 13b scenes (their gallery cameras), the flagship and
+    ``materials_scene`` (the reference camera) for ``--time-scenes``, on the
+    checkout at ``root``: three runs of its entry point alone
+    (:func:`render_alone`), its registers and the SHA-256 of its planes."""
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import sdf3d_tpu_torch as tt
+    from sdf3d_tpu_torch.ops import _build
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, render_kernel_launch
+    from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
+    from sdf3d_tpu_torch.utils.parity import scenes_13b
+
+    check(tt.__file__.startswith(root), f"imported {tt.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    scenes = dict(scenes_13b(dev))
+    scenes["flagship"] = (tt.flagship_scene().to(dev), tt.Camera.reference(device=dev))
+    scenes["materials"] = (tt.materials_scene().to(dev), tt.Camera.reference(device=dev))
+    out = {"root": root, "card": card_name_and_power()}
+    for name, (sc, cam) in scenes.items():
+        uni = pack_uniforms(cam, tt.reference_light(device=dev), tt.reference_material(device=dev), cfg.ray_mode, dev)
+        uni[27] = float(cfg.shadow.k)
+        prm = scene_param_vector(sc, dev)
+        planes = b"".join(x.contiguous().cpu().numpy().tobytes() for x in render_kernel_launch(sc, prm, uni, cfg))
+        key = _build.LIBRARIES.key(cuda_scene_source(sc, cfg, KernelConfig()))
+        out[name] = {"ms": [time_ms(render_alone(torch, sc, prm, uni, cfg), 5, 30) for _ in range(3)],
+                     "registers": ptxas_summary(_build.LIBRARIES.log(key))["render_fwd"]["registers"],
+                     "sha256": hashlib.sha256(planes).hexdigest()}
+    return out
+
+
+def time_scenes(roots: list) -> int:
+    """``--time-scenes ROOT [ROOT ...]``: :func:`_time_scenes_root` for each
+    checkout in turn, in a process of its own; one JSON line per checkout,
+    then one comparing them per scene: whether the planes agree bit for
+    bit, the median ms and the registers.  Give the parent and the change
+    (in turns) to compare them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    results = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-scenes-root", root],
+                              capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"--time-scenes {root} failed:\n{proc.stderr[-4000:]}")
+        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(results[-1]), flush=True)
+    names = [k for k in results[0] if k not in ("root", "card")]
+    print(json.dumps({n: {"sha256_equal": len({r[n]["sha256"] for r in results}) == 1,
+                          "ms": [statistics.median(r[n]["ms"]) for r in results],
+                          "registers": [r[n]["registers"] for r in results]} for n in names}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-kernels"]:
         sys.exit(time_kernels(sys.argv[2:]))
+    if sys.argv[1:2] == ["--time-scenes"]:
+        sys.exit(time_scenes(sys.argv[2:]))
+    if sys.argv[1:2] == ["--time-scenes-root"]:
+        print(json.dumps(_time_scenes_root(sys.argv[2])), flush=True)
+        sys.exit(0)
     if sys.argv[1:2] == ["--time-root"]:
         print(json.dumps(_time_root(sys.argv[2])), flush=True)
         sys.exit(0)

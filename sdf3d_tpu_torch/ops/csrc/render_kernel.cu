@@ -24,15 +24,23 @@
 // other and never gathered.  The tiles of a work-list are independent, so
 // the blocks run in any order on the 132 SMs.
 //
-// What bounds both: instruction issue.  On the reference scene at 1080p K1
-// runs within about 7% of its issue floor (the warp instructions of its
-// SASS on the run's marches over four per clock per SM: chip_smoke.py
-// phase 6, issue_floor): a primary-march step is about 22 instructions (an
-// IEEE sqrtf), a shadow step about 61 (a sqrtf and two IEEE divisions),
-// and each depends on the one before.  Warp divergence costs under 3%;
-// more resident warps (a register cap for 6 or 8 blocks an SM) and the
-// inputs in shared memory gained nothing (PERF.md): fewer instructions a
-// step is what would make it faster.  Not memory: they read 30 uniforms
+// What bounds both: instruction issue (the warp instructions of its SASS on
+// the run's marches over four per clock per SM: chip_smoke.py phase 6,
+// issue_floor).  Each march step depends on the one before; more resident
+// warps (a register cap for 6 or 8 blocks an SM) and the inputs in shared
+// memory gained nothing (PERF.md).  So a step issues as few instructions as
+// keep every bit: a hard union branches past an operand that cannot win
+// (the generated Scene::Ray, ops/scene_program.py::_ray_union: a warp whose
+// 32 rays all skip issues none of it), the shadow march past a division
+// that cannot lower its factor (render_kernel.cuh::march_shadow), and a
+// short step is unrolled into two copies a trip (Scene::Ray::unroll).  On
+// the reference scene at 1080p on an NVIDIA H100 80GB HBM3 at 700 W, a
+// primary step went from 22 SASS instructions (an IEEE sqrtf) to 13.5 as
+// issued (89% of its warp-steps skip the sphere) and a shadow step from 61
+// (a sqrtf and two IEEE divisions) to about 58; K1 from 0.146 to 0.122 ms
+// (PERF.md §6).  The NDC aspect ratio's double division, per pixel, stays:
+// once a launch it gained 1.7% (under the 2% a lever must win).
+// Not memory: they read 30 uniforms
 // and the scene parameters once per thread (broadcast, cached), K2 two
 // table entries per block, and write 24 B per pixel (about 50 MB at
 // 1920x1080, 15 us at 3.35 TB/s).  wgmma and TMA have no role in them.

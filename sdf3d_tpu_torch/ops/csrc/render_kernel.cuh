@@ -29,6 +29,21 @@
 
 #define SDF3D_HD __host__ __device__ __forceinline__
 
+// The march loops' unroll, Ev::unroll copies of a step a trip (the
+// evaluator Ev in scope), each with its own exit test, so a copy issues no
+// loop counter and back branch of its own.  The generated Scene::Ray asks
+// for 2 where its step is short (ops/scene_program.py::RAY_UNROLL_OPS), 1
+// elsewhere: on an NVIDIA H100 80GB HBM3 at 700 W two copies took the
+// reference scene's K1 from 0.1403 to 0.1303 ms, and the flagship's from
+// 0.2897 to 0.3039, random_blobs(8)'s from 0.8401 to 0.8477 and the
+// fractal's from 2.226 to 2.642 (chip_smoke.py --time-kernels, PERF.md §6).
+// nvcc; a C++ compiler's loops are left as they are.
+#ifdef __CUDACC__
+#define SDF3D_MARCH_UNROLL _Pragma("unroll (Ev::unroll)")
+#else
+#define SDF3D_MARCH_UNROLL
+#endif
+
 namespace sdf3d {
 
 // Uniform vector layout (ops/render_kernel.py, same slots as the JAX kernel).
@@ -128,6 +143,7 @@ struct ScenePoint {
 // (the render kernel's ray_sdf == false, and the neural kernel).
 template <class F>
 struct PointRay {
+  static constexpr int unroll = 1;
   F f;
   float ox, oy, oz, dx, dy, dz;
   SDF3D_HD float eval(float t) const { return f((ox + (t * dx)), (oy + (t * dy)), (oz + (t * dz))); }
@@ -169,6 +185,7 @@ SDF3D_HD float march_primary(const Ev& ev, MinSdf* ms = nullptr) {
   float t = 0.0f;
   if constexpr (Cfg::relaxation != 1.0f) {
     float prev_r = 0.0f, step_len = 0.0f, om = Cfg::relaxation;
+    SDF3D_MARCH_UNROLL
     for (int i = 0; i < Cfg::march_steps; ++i) {
       const float s = ev.eval(t);
       const bool fail = om > 1.0f && fabsf(s) + prev_r < step_len;
@@ -182,6 +199,7 @@ SDF3D_HD float march_primary(const Ev& ev, MinSdf* ms = nullptr) {
     }
     return t;
   }
+  SDF3D_MARCH_UNROLL
   for (int i = 0; i < Cfg::march_steps; ++i) {
     const float s = ev.eval(t);
     if constexpr (TRACK) {
@@ -198,19 +216,27 @@ SDF3D_HD float march_primary(const Ev& ev, MinSdf* ms = nullptr) {
 
 // Soft shadow in the squared domain: sh2 = min(sh2, k²·d²/denom²), one sqrt
 // at the end.  prev starts at +inf, so the first intersection term is 0.
+// A step's term lowers sh2 only where it is valid and below sh2; it is
+// valid-and-below only where sh2·denom² − k²·d² (fmaf: one rounding, which
+// keeps the sign of the exact value and is negative only where the exact
+// value is) is not negative, so elsewhere the division is skipped, by a
+// branch: there the quotient rounds to sh2 or above and fminf would keep
+// sh2, and an invalid step's 1e30 never lowers sh2 <= 1.
 template <class Cfg, class Ev>
 SDF3D_HD float march_shadow(const Ev& ev, float k) {
   const float k2 = k * k;
   float dist = 0.0f, prev = INFINITY, sh2 = 1.0f;
+  SDF3D_MARCH_UNROLL
   for (int i = 0; i < Cfg::shadow_steps; ++i) {
     const float s = ev.eval(dist);
     const float s2 = s * s;
     const float inter = s2 / (2.0f * (prev == 0.0f ? 1e-30f : prev));
     const float d2 = s2 - (inter * inter);
     const float denom = dist - inter;
-    const bool valid = (denom > 0.0f) && (d2 >= 0.0f);
-    const float att2 = valid ? ((k2 * fmaxf(d2, 0.0f)) / (denom * denom)) : 1e30f;
-    sh2 = fminf(sh2, att2);
+    if ((denom > 0.0f) && (d2 >= 0.0f)) {
+      const float num = k2 * fmaxf(d2, 0.0f), den = denom * denom;
+      if (!(fmaf(sh2, den, -num) < 0.0f)) sh2 = fminf(sh2, num / den);
+    }
     dist = dist + s;
     prev = s;
     if (dist > Cfg::max_distance || sh2 < Cfg::epsilon2) break;

@@ -305,6 +305,14 @@ def _c(x) -> str:
     return x.s if isinstance(x, CExpr) else c_float(x)
 
 
+_T_PRODUCT = re.compile(r"\(t \* (h\d+)\)|\((h\d+) \* t\)")
+
+
+def _t_products(text: str) -> set:
+    """The setup values (``hN``) that C text multiplies ``t`` by."""
+    return {a or b for a, b in _T_PRODUCT.findall(text)}
+
+
 class _COps:
     """Symbolic backend: C expressions.  ``hoist`` turns a per-ray setup
     value of the ray form into a field of ``Scene::Ray`` assigned in
@@ -317,6 +325,10 @@ class _COps:
     ``return``.  A scene without such values gives the one ``return``
     line."""
 
+    #: The ray form's hard unions skip an operand that cannot win
+    #: (:func:`_ray_union`): the C backend emits the skip as a branch.
+    bounds = True
+
     def __init__(self, in_eval: bool = False):
         self.fields: list[str] = []
         self.setup: list[str] = []
@@ -324,6 +336,10 @@ class _COps:
         self.in_eval = in_eval
         self.lets: list[str] = []
         self._named: dict[str, str] = {}
+        self._depth = 0
+        self._path: list = []  # the open guarded blocks (their first statement's index)
+        self._paths: list = []  # each statement's open blocks
+        self.guards: list[bool] = []
 
     @staticmethod
     def sqrt(x):
@@ -404,9 +420,47 @@ class _COps:
         expr = _c(x)
         if expr not in self._named:
             name = f"e{len(self.lets)}"
-            self.lets.append(f"const float {name} = {expr};")
+            self._add([f"{'  ' * self._depth}const float {name} = {expr};"])
             self._named[expr] = name
         return CExpr(self._named[expr])
+
+    @staticmethod
+    def not_less(a, b):
+        return CExpr(f"!({_c(a)} < {_c(b)})")
+
+
+    def guarded(self, cond, value, default, plain):
+        """``value()`` evaluated in a block of the step that runs where
+        ``cond`` holds, named; ``default`` elsewhere.  A branch, not a
+        select: a warp whose lanes all skip issues none of the block.  The
+        values the block names stay inside it.  Where the block would read a
+        product of ``t`` and a setup value that the code before it (the
+        enclosing blocks' statements, ``cond``) also computes, nvcc would
+        hand the block that product rounded and not contract it into the
+        block's add: then ``plain()`` in place of the block, so the step
+        keeps its bits.  ``guards`` records each decision."""
+        start, pad = len(self.lets), "  " * self._depth
+        name = f"e{start}"
+        before = "\n".join(s for s, path in zip(self.lets, self._paths) if path == tuple(self._path[:len(path)]))
+        self._add([f"{pad}float {name} = {_c(default)};", f"{pad}if ({_c(cond)}) {{"])
+        named, self._depth = dict(self._named), self._depth + 1
+        self._path.append(start)
+        v = value()
+        self._add([f"{pad}  {name} = {_c(v)};"])
+        self._path.pop()
+        self._named, self._depth = named, self._depth - 1
+        inner = "\n".join(self.lets[start + 2:])
+        if _t_products(inner) & _t_products(before + _c(cond)):
+            del self.lets[start:], self._paths[start:]
+            self.guards.append(False)
+            return plain()
+        self._add([f"{pad}}}"])
+        self.guards.append(True)
+        return CExpr(name)
+
+    def _add(self, lines):
+        self.lets += lines
+        self._paths += [tuple(self._path)] * len(lines)
 
     def body(self, value, indent: str = "    ") -> str:
         return "\n".join(indent + s for s in self.lets + [f"return {_c(value)};"])
@@ -1017,14 +1071,20 @@ def _quad_coeffs(ax, ay, az, bx, by, bz):
     return qa, qb, qc
 
 
-def _ray_sphere(n, ox, oy, oz, dx, dy, dz, getp, off, m):
-    cx, cy, cz, r = (getp(off + i) for i in range(4))
-    qa, qb, qc = _quad_coeffs(ox - cx, oy - cy, oz - cz, dx, dy, dz)
+def _sphere_coeffs(ox, oy, oz, dx, dy, dz, c, m):
+    """``(A, B, C, inv_qa)`` of ``|o − c + t·d| = A·sqrt((t + B)² + C)``,
+    hoisted (the sphere's ray form and the bounds of the union's skips)."""
+    qa, qb, qc = _quad_coeffs(ox - c[0], oy - c[1], oz - c[2], dx, dy, dz)
     inv_qa = m.hoist(1.0 / m.maximum(qa, 1e-24))
     A = m.hoist(m.sqrt(qa))
     B = m.hoist(qb * inv_qa)
     C = m.hoist(m.maximum(qc * inv_qa - B * B, 0.0))
-    r = m.hoist(r)
+    return A, B, C, inv_qa
+
+
+def _ray_sphere(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    A, B, C, _ = _sphere_coeffs(ox, oy, oz, dx, dy, dz, [getp(off + i) for i in range(3)], m)
+    r = m.hoist(getp(off + 3))
 
     def ev(t):
         u = t + B
@@ -1224,6 +1284,223 @@ def _ray_smooth(sign: float, neg_b: bool = False):
     return h
 
 
+# ---------------------------------------------------------------------------
+# Skips of hard-union operands that cannot win (the C backend's ray form).
+#
+# ``Union(a, b)`` evaluates ``a``, then ``b`` and ``fminf(va, vb)`` only where
+# ``!(va < lb_b(t))``; elsewhere the union is ``va``, which is ``fminf(va,
+# +inf)`` bit for bit.  ``lb_b(t)`` is a lower bound of the value
+# that ``b``'s generated code computes at ``t`` (rounded as the kernel
+# rounds it), not of the true distance: a skip needs ``va < lb_b <= vb``,
+# so ``fminf(va, vb) = va`` and the union keeps every bit.  A NaN ``va``
+# never skips, and a NaN ``vb`` loses to any ``va`` in ``fminf`` already;
+# equal values (±0 included) never skip.  The skip is a branch, so a warp
+# whose 32 rays all skip issues none of ``b``'s instructions.  A product of
+# ``t`` and a setup value that ``b`` shares with the code before the branch
+# would reach the block rounded (nvcc contracts a product into an add as an
+# FMA within one block only), so there the union stays a plain ``fminf``
+# (``_COps.guarded``; ``csg_showcase``'s cylinder shares ``t·dy`` with its
+# boxes).  Where only
+# ``a`` has a bound, ``b`` is evaluated first and ``a`` is the one skipped
+# (``fminf(va, vb)`` keeps its operand order).
+#
+# Notation: u_r = 2^-24, the unit roundoff of float32 rounded to nearest;
+# every claim holds whether or not the compiler contracts a product and an
+# add into one FMA, since each is argued for the value before the last
+# rounding, and rounding to nearest is monotone.  The marches evaluate at
+# 0 <= t <= Cfg::max_distance.
+#
+# Each bounded node gives ``lb(t)`` and a magnitude bound ``|v| <= a·|t| + c``
+# (``a`` and ``c`` hoisted: the smooth union's margin reads them):
+#
+# - Sphere, ``v = A·sqrt(u² + C) − r`` with ``u = t + B`` the very value the
+#   step computes, ``C >= 0``: ``lb = Ak·|u| − r``, ``Ak = A·(1 − δ)``, δ =
+#   2^-20, hoisted as 0 unless ``A >= 2^-76`` and ``C >= 2^-100``.  Where
+#   ``Ak > 0``, ``u² + C`` is rounded (once or twice) to at least
+#   ``u²(1 − u_r)²`` (``C >= 2^-100`` keeps a subnormal ``u·u`` from
+#   losing more than ``C`` covers), its ``sqrtf`` (correctly rounded) to at
+#   least ``|u|(1 − u_r)³``, and ``A·sqrtf`` to at least ``A|u|(1 − u_r)⁴``
+#   before ``− r`` (a normal number: ``A|u|`` is at least ``2^-126`` or the
+#   square root's ``sqrt(C)`` term dominates); the bound's product is at
+#   most ``A(1 − δ)(1 + u_r)·|u|(1 + u_r)``.  Since ``(1 − 2^-20)(1 +
+#   u_r)² < (1 − u_r)⁴``, the bound's value before its last rounding is at
+#   most the step's, and so is the rounded one.  ``Ak = 0`` gives ``−r``,
+#   at most ``v`` since ``A·sqrtf(·) >= 0``.  No margin beyond δ.
+# - Box, RoundBox, Torus, Capsule, Cylinder: the bounding sphere of centre
+#   ``e`` and radius ``R`` (the half diagonal ``|h|`` (+ ``r``), ``|major| +
+#   minor``, ``|b − a|/2 + r`` about the segment's middle, ``sqrt(r² + hh²)``):
+#   each node's exact distance is at least ``|p − e| − R``, and ``|o − e +
+#   t·d| >= A·|t + B|``.  The step's rounded value differs from the exact
+#   distance at ``o + t·d`` by at most a few u_r times ``S = |o| + |e| + |o −
+#   e| + |R| + A·|t|`` (the operands' magnitudes) for the box, round box and
+#   capsule, and by at most ``sqrt(20·u_r)·S`` for the torus and cylinder,
+#   whose radial length is the square root of a quadratic in ``t`` that may
+#   cancel; the bound's own rounding is a few u_r times ``S``.  So
+#   ``lb = A(1 − δ)|t + B| − (κA·|t| + R + κ·M)``, ``M >= |o| + |e| + |o − e|
+#   + |R|``, with κ = 2^-14 (linear) or 2^-7 (radial): over 200 times the
+#   linear error and about 15 times the radial one.
+# - Translate and Shaded: their child's, on the moved ray.
+# - Union of bounded nodes: ``fminf(lb_a, lb_b)`` (a NaN operand's other
+#   side is what ``fminf`` returns).
+# - SmoothUnion of bounded nodes: the mix ``db + (da − db)·h − k·h·(1 − h)``
+#   with ``h`` in [0, 1] is at least ``min(da, db) − k/4`` before rounding,
+#   and its six roundings move it by at most ``6·u_r·(|da| + |db| + k)``:
+#   ``lb = fminf(lb_a, lb_b) − k/4 − κ_s·(mag_a + mag_b + k)``, κ_s = 2^-14.
+#   A NaN operand makes the mix NaN.
+# Every other node kind (Plane, Ellipsoid, Mandelbulb, the other CSG nodes
+# and transforms) has no bound and is always evaluated.
+#
+# The torch backend keeps its plain minimum; :func:`compile_scene_ray_probes`
+# evaluates the same bounds in torch to count the skips a run would take
+# (``chip_smoke.py``'s issue floor).
+# ---------------------------------------------------------------------------
+
+#: The sphere bound's factor 1 − δ, δ = 2^-20, and its guards.
+_SHRINK = 1.0 - 2.0 ** -20
+_MIN_A, _MIN_C = 2.0 ** -76, 2.0 ** -100
+#: The margins κ of the bounding-sphere bounds and of the smooth union.
+_KAPPA_LINEAR, _KAPPA_RADIAL, _KAPPA_SMOOTH = 2.0 ** -14, 2.0 ** -7, 2.0 ** -14
+
+
+@dataclasses.dataclass
+class _Bound:
+    """``lb(t)``, a lower bound of a node's computed ray-form value, and
+    ``|value| <= a·|t| + c`` (``a``, ``c`` hoisted)."""
+
+    lb: Callable
+    a: object
+    c: object
+
+
+def _bound_sphere(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    A, B, C, _ = _sphere_coeffs(ox, oy, oz, dx, dy, dz, [getp(off + i) for i in range(3)], m)
+    r = m.hoist(getp(off + 3))
+    ak = m.hoist(m.where(m.greater_equal(A, _MIN_A), m.where(m.greater_equal(C, _MIN_C), A * _SHRINK, 0.0), 0.0))
+    # |v| <= A·|t| + A·(|B| + sqrt(C)) + |r|, and A·(|B| + sqrt(C)) <= √2·|o − c|:
+    # 1.5·|o − c|₁ covers it and its rounding without a square root.
+    c = m.hoist(1.5 * (m.abs(ox - getp(off)) + m.abs(oy - getp(off + 1)) + m.abs(oz - getp(off + 2))) + m.abs(r))
+    return _Bound(lambda t: ak * m.abs(t + B) - r, A, c)
+
+
+def _norm3(x, y, z, m):
+    return m.sqrt(x * x + y * y + z * z)
+
+
+def _envelope(ox, oy, oz, dx, dy, dz, e, R, kappa, m):
+    """The bounding-sphere bound of a node whose exact distance is at
+    least ``|p − e| − R`` (block comment above)."""
+    qa, qb, _ = _quad_coeffs(ox - e[0], oy - e[1], oz - e[2], dx, dy, dz)
+    A = m.hoist(m.sqrt(qa))
+    B = m.hoist(qb * m.hoist(1.0 / m.maximum(qa, 1e-24)))
+    ak = m.hoist(m.where(m.greater_equal(qa, 1e-24), A * _SHRINK, 0.0))
+    big = (m.abs(ox) + m.abs(oy) + m.abs(oz)) + (m.abs(e[0]) + m.abs(e[1]) + m.abs(e[2]))
+    c = m.hoist(m.abs(R) + 2.0 * big)  # >= |o| + |e| + |o − e| + |R|, no square root
+    et = m.hoist(kappa * A)
+    ec = m.hoist(R + kappa * c)
+    return _Bound(lambda t: ak * m.abs(t + B) - (et * m.abs(t) + ec), A, c)
+
+
+def _bound_box(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    e = [getp(off + i) for i in range(3)]
+    R = _norm3(getp(off + 3), getp(off + 4), getp(off + 5), m)
+    if isinstance(n, primitives.RoundBox):
+        R = R + getp(off + 6)
+    return _envelope(ox, oy, oz, dx, dy, dz, e, R, _KAPPA_LINEAR, m)
+
+
+def _bound_torus(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    e = [getp(off + i) for i in range(3)]
+    return _envelope(ox, oy, oz, dx, dy, dz, e, m.abs(getp(off + 3)) + getp(off + 4), _KAPPA_RADIAL, m)
+
+
+def _bound_capsule(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    a, b = [getp(off + i) for i in range(3)], [getp(off + 3 + i) for i in range(3)]
+    e = [(a[i] + b[i]) * 0.5 for i in range(3)]
+    R = _norm3(b[0] - a[0], b[1] - a[1], b[2] - a[2], m) * 0.5 + getp(off + 6)
+    return _envelope(ox, oy, oz, dx, dy, dz, e, R, _KAPPA_LINEAR, m)
+
+
+def _bound_cylinder(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    e = [getp(off + i) for i in range(3)]
+    r, hh = getp(off + 3), getp(off + 4)
+    return _envelope(ox, oy, oz, dx, dy, dz, e, m.sqrt(r * r + hh * hh), _KAPPA_RADIAL, m)
+
+
+def _bound_translate(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    nc = count_params(n.child)
+    tx, ty, tz = (getp(off + nc + i) for i in range(3))
+    return _ray_bound(n.child, ox - tx, oy - ty, oz - tz, dx, dy, dz, getp, off, m)
+
+
+def _bound_shaded(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    return _ray_bound(n.child, ox, oy, oz, dx, dy, dz, getp, off, m)
+
+
+def _bound_union(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    ba = _ray_bound(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+    bb = _ray_bound(n.b, ox, oy, oz, dx, dy, dz, getp, off + count_params(n.a), m)
+    if ba is None or bb is None:
+        return None
+    return _Bound(lambda t: m.minimum(ba.lb(t), bb.lb(t)), m.hoist(m.maximum(ba.a, bb.a)),
+                  m.hoist(m.maximum(ba.c, bb.c)))
+
+
+def _bound_smooth_union(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    na, nb = count_params(n.a), count_params(n.b)
+    ba = _ray_bound(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+    bb = _ray_bound(n.b, ox, oy, oz, dx, dy, dz, getp, off + na, m)
+    if ba is None or bb is None:
+        return None
+    k = m.hoist(m.maximum(getp(off + na + nb), 1e-6))
+    et = m.hoist(_KAPPA_SMOOTH * (ba.a + bb.a))
+    ec = m.hoist(k * 0.25 + _KAPPA_SMOOTH * ((ba.c + bb.c) + k))
+    return _Bound(lambda t: m.minimum(ba.lb(t), bb.lb(t)) - (et * m.abs(t) + ec), m.hoist(m.maximum(ba.a, bb.a)),
+                  m.hoist(m.maximum(ba.c, bb.c) + k))
+
+
+_BOUNDS = {
+    Shaded: _bound_shaded,
+    primitives.Sphere: _bound_sphere,
+    primitives.Box: _bound_box,
+    primitives.RoundBox: _bound_box,
+    primitives.Torus: _bound_torus,
+    primitives.Capsule: _bound_capsule,
+    primitives.Cylinder: _bound_cylinder,
+    csg.Union: _bound_union,
+    csg.SmoothUnion: _bound_smooth_union,
+    transforms.Translate: _bound_translate,
+}
+
+
+def _ray_bound(node, ox, oy, oz, dx, dy, dz, getp: GetP, off: int, m):
+    """The node's :class:`_Bound` on the ray, or None for a node kind
+    without one."""
+    h = _BOUNDS.get(type(node))
+    return None if h is None else h(node, ox, oy, oz, dx, dy, dz, getp, off, m)
+
+
+def _ray_union(n, ox, oy, oz, dx, dy, dz, getp, off, m):
+    nb_off = off + count_params(n.a)
+    ea = _ray_emit(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+    eb = _ray_emit(n.b, ox, oy, oz, dx, dy, dz, getp, nb_off, m)
+    if getattr(m, "bounds", False):
+        bb = _ray_bound(n.b, ox, oy, oz, dx, dy, dz, getp, nb_off, m)
+        if bb is not None:
+            def ev(t):
+                va = m.let(ea(t))
+                return m.guarded(m.not_less(va, bb.lb(t)), lambda: m.minimum(va, eb(t)), va,
+                                 lambda: m.minimum(va, eb(t)))
+            return ev
+        ba = _ray_bound(n.a, ox, oy, oz, dx, dy, dz, getp, off, m)
+        if ba is not None:
+            def ev(t):
+                vb = m.let(eb(t))
+                return m.guarded(m.not_less(vb, ba.lb(t)), lambda: m.minimum(ea(t), vb), vb,
+                                 lambda: m.minimum(ea(t), vb))
+            return ev
+    return lambda t: m.minimum(ea(t), eb(t))
+
+
 _RAY_HANDLERS = {
     Shaded: _ray_shaded,
     primitives.Sphere: _ray_sphere,
@@ -1234,7 +1511,7 @@ _RAY_HANDLERS = {
     primitives.Capsule: _ray_capsule,
     primitives.Cylinder: _ray_cylinder,
     primitives.Ellipsoid: _ray_ellipsoid,
-    csg.Union: _ray_binary(_union_op),
+    csg.Union: _ray_union,
     csg.Intersection: _ray_binary(_intersection_op),
     csg.Subtraction: _ray_binary(_subtraction_op),
     csg.SmoothUnion: _ray_smooth(+1.0),
@@ -1264,6 +1541,75 @@ def compile_scene_ray(scene: SDFNode):
 
     def setup(o, d, getp: GetP):
         return _ray_emit(scene, o[0], o[1], o[2], d[0], d[1], d[2], getp, 0, _TorchOps)
+
+    return setup
+
+
+class _SkipProbe(_TorchOps):
+    """The torch backend with the C backend's union skips counted: each
+    guarded block of the step records the rays that run it (its enclosing
+    blocks' included) and evaluates its value everywhere, so the values are
+    the plain backend's; each square root records its operand and the rays
+    that take it (None: all)."""
+
+    bounds = True
+
+    def __init__(self, guards: list):
+        self.runs: list = []
+        self.roots: list = []
+        self._mask = None
+        self.guards, self._next = guards, 0
+
+    def sqrt(self, x):
+        self.roots.append((x, self._mask))
+        return sqrt_rn(x)
+
+    @staticmethod
+    def not_less(a, b):
+        return ~(a < b)
+
+    def guarded(self, cond, value, default, plain):
+        keep = self.guards[self._next % len(self.guards)]
+        self._next += 1
+        if not keep:
+            return plain()
+        run = cond if self._mask is None else cond & self._mask
+        self.runs.append(run)
+        outer, self._mask = self._mask, run
+        try:
+            return value()
+        finally:
+            self._mask = outer
+
+
+def compile_scene_ray_probes(scene: SDFNode):
+    """:func:`compile_scene_ray` with the work of the kernels' step counted:
+    ``setup(o, d, getp) -> (eval, take)``; after each ``eval(t)``, ``take()``
+    returns ``(runs, roots)``: one bool plane per guarded block of the
+    generated ``Scene::Ray::eval``, in the order of its text (an inner
+    block's rays are within its outer block's), the rays that run that block
+    at ``t``; and each square root of the step as ``(operand, rays)``, the
+    rays those of its block (None: every ray).  The values are
+    :func:`compile_scene_ray`'s."""
+    check_scene(scene)
+
+    c = _COps()
+    ev_c = _ray_emit(scene, *(CExpr(v) for v in ("ox", "oy", "oz", "dx", "dy", "dz")), lambda i: CExpr(f"p[{i}]"), 0,
+                     c)
+    c.in_eval = True
+    ev_c(CExpr("t"))  # the C step's guards: which unions branch
+
+    def setup(o, d, getp: GetP):
+        probe = _SkipProbe(c.guards)
+        ev = _ray_emit(scene, o[0], o[1], o[2], d[0], d[1], d[2], getp, 0, probe)
+        probe.roots = []  # the setup's, once a ray
+
+        def take():
+            out = (probe.runs, probe.roots)
+            probe.runs, probe.roots = [], []
+            return out
+
+        return ev, take
 
     return setup
 
@@ -1475,6 +1821,12 @@ def _cfg_struct(cfg, **launch) -> str:
 }};"""
 
 
+#: The marches unroll a ray-form step of at most this many operations (its
+#: C text's parentheses: each operation is parenthesised) into two copies a
+#: trip (``Scene::Ray::unroll``, ``csrc/render_kernel.cuh``): the reference
+#: scene's step (20) gains, the flagship's (377) and larger ones lose.
+RAY_UNROLL_OPS = 32
+
 #: The fit kernel's variants (``struct Fit``'s ``variant``, in the order of
 #: ``csrc/fit_kernel.cu``): ``full`` is K3, the others are the benchmark
 #: variants of K9 (``ops/fit_kernel.py::fit_step_variant``).
@@ -1503,12 +1855,16 @@ def cuda_scene_source(scene: SDFNode, cfg, kc, wrt_uniforms: bool = True, frozen
     P = lambda i: CExpr(f"p[{i}]")  # noqa: E731
 
     ray = _COps()
-    ev = _ray_emit(scene, *(CExpr(v) for v in ("ox", "oy", "oz", "dx", "dy", "dz")), P, 0, ray)
+    ray_args = [CExpr(v) for v in ("ox", "oy", "oz", "dx", "dy", "dz")]
+    ev = _ray_emit(scene, *ray_args, P, 0, ray)
+    root = _ray_bound(scene, *ray_args, P, 0, ray)
     ray.in_eval = True
     body = ray.body(ev(CExpr("t")), "      ")
-    if re.search(r"p\[|\b[od][xyz]\b", body):
+    lower = f"      return {_c(root.lb(CExpr('t')))};" if root is not None else "      return -INFINITY;"
+    if re.search(r"p\[|\b[od][xyz]\b", body + lower):
         raise AssertionError(f"ray-form eval reads a setup value that was not hoisted: {body}")
 
+    unroll = 2 if body.count("(") <= RAY_UNROLL_OPS else 1
     b = _c_bool
     fields = "\n".join(f"    float {f};" for f in ray.fields)
     setup = "\n".join(f"      {s}" for s in ray.setup)
@@ -1572,8 +1928,10 @@ struct Scene {{
 {_c_point_body(scene)}
   }}
 
-  // Ray form: distance at o + t*d, per-ray constants hoisted in setup().
+  // Ray form: distance at o + t*d, per-ray constants hoisted in setup();
+  // the marches' copies of a step a trip (render_kernel.cuh).
   struct Ray {{
+    static constexpr int unroll = {unroll};
 {fields}
 
     SDF3D_HD void setup(float ox, float oy, float oz, float dx, float dy, float dz, const float* p) {{
@@ -1581,6 +1939,13 @@ struct Scene {{
     }}
     SDF3D_HD float eval(float t) const {{
 {body}
+    }}
+    // A lower bound of eval(t) at 0 <= t <= Cfg::max_distance: the bound by
+    // which a union skips an operand (ops/scene_program.py::_ray_union) of
+    // the whole scene, -INFINITY for a scene without one.  The kernels do
+    // not call it; the tests hold it below eval(t).
+    SDF3D_HD float lower(float t) const {{
+{lower}
     }}
   }};
 

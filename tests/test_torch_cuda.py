@@ -338,7 +338,7 @@ def test_render_backward_matches_plain(dev, normals, wrt_uniforms):
 
 
 @pytest.mark.parametrize("ray_sdf", [True, False], ids=["ray", "point"])
-@pytest.mark.parametrize("size", [(256, 192), (250, 190)], ids=["256x192", "ragged"])
+@pytest.mark.parametrize("size", [(256, 192), (250, 190), (1920, 1080)], ids=["256x192", "ragged", "1080p"])
 def test_flagship_kernel_matches_plain(dev, ray_sdf, size):
     cfg = dataclasses.replace(BASE, width=size[0], height=size[1])
     _compare(tt.flagship_scene().to(dev), tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0), cfg,
@@ -428,6 +428,27 @@ def test_13b_scene_kernel_matches_plain(dev, name, ray_sdf):
     cfg = dataclasses.replace(BASE, width=256, height=192)
     _compare(scene, cam, cfg, KernelConfig(ray_sdf=ray_sdf), dev, razor=True, rounding=True,
              **SCENE_BARS.get(name, {}))
+
+
+#: K1's scenes with bounded union operands (``ops/scene_program.py::_ray_union``
+#: skips them where they cannot win) beside the flagship's (its own test):
+#: ``(scene, camera, _compare's options)``, the 13b scenes' options for
+#: ``random_blobs`` (at 1080p the reference scene has razor-edge rays too: its
+#: K1 planes are the parent's bit for bit, ``chip_smoke.py --time-kernels``).
+SKIP_SCENES = {
+    "reference": lambda dev: (tt.reference_scene(), tt.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0),
+                              {"razor": True}),
+    "random_blobs": lambda dev: (*scenes_13b(dev)["random_blobs"], {"razor": True, "rounding": True}),
+}
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (250, 190)], ids=["1080p", "ragged"])
+@pytest.mark.parametrize("name", sorted(SKIP_SCENES))
+def test_kernel_with_union_skips_matches_plain(dev, name, size):
+    """K1, whose ray form skips a union's bounded operand, against its plain
+    version (which evaluates every operand) at 1080p and at a ragged 250x190."""
+    scene, cam, opts = SKIP_SCENES[name](dev)
+    _compare(scene, cam, dataclasses.replace(BASE, width=size[0], height=size[1]), KernelConfig(), dev, **opts)
 
 
 @pytest.mark.parametrize("wrt_uniforms,frozen", [(False, FROZEN), (True, ())], ids=["scene-frozen", "uniforms"])

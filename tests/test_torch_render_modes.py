@@ -250,13 +250,22 @@ def test_plain_sqrt_is_rounded_to_nearest():
     assert torch.equal(xt.grad, 0.5 / y.detach())
 
 
-@pytest.mark.parametrize("scene_name", ["reference", "flagship"])
+#: The scenes of the host-form bit check beside ``SCENES``'s: the union's
+#: skips of a bounded operand (``ops/scene_program.py::_ray_union``) on a
+#: smooth chain of spheres and of capsules, and on an operand without a
+#: bound (the lattice's ``RepeatInfinite``).
+BIT_SCENES = {"lattice_scene": s.lattice_scene, "capsule_chain": s.capsule_chain,
+              "random_blobs": lambda: s.random_blobs(n=8)}
+
+
+@pytest.mark.parametrize("scene_name", ["reference", "flagship", "lattice_scene", "capsule_chain", "random_blobs"])
 def test_host_render_keeps_the_plain_bits(scene_name):
     """With the square root rounded to nearest on both sides, the g++ build
     of K1 gives the plain version's t, shadow and AO planes bit for bit (the
-    shading's ``powf`` moves rgb by an ulp), the exact march included."""
-    scene, cfg, prm, uni = _port_inputs(SCENES[scene_name](), s.Camera.orbit(azimuth_deg=25.0, elevation_deg=10.0),
-                                        _cfg(1.0))
+    shading's ``powf`` moves rgb by an ulp), the exact march included; the
+    ray form's union skips keep them too."""
+    scene, cfg, prm, uni = _port_inputs({**SCENES, **BIT_SCENES}[scene_name](),
+                                        s.Camera.orbit(azimuth_deg=25.0, elevation_deg=10.0), _cfg(1.0))
     lib = _host(cuda_scene_source(scene, cfg, KernelConfig()))
     out = [torch.empty((3, H, W))] + [torch.empty((H, W)) for _ in range(3)]
     assert lib.sdf3d_render_fwd_host(_ptr(uni), _ptr(prm), *(_ptr(o) for o in out), H, W) == 0
