@@ -7,7 +7,8 @@ Drives the port's forward render through the entry points a user calls, at
 1920×1080 on the reference scene, with the CUDA render kernel built from the
 sources in this checkout.  Phases, one line each:
 
-1. device: the card's name and power limit (``nvidia-smi``);
+1. device: the card's name and power limit (``nvidia-smi``) and the host's
+   speed (:func:`host_witness`);
 2. build: the reference scene's kernel library is built once; a second frame
    with another sphere radius reuses it (parameters are run-time inputs);
 3. kernel vs its plain PyTorch version on the card at 256×192, two cameras,
@@ -50,10 +51,14 @@ Then the training path, ``fit_scene`` on the reference scene at 1920×1080
     point with its total, then its wrapper; each beside its plain version;
     ``fit_scene`` ms/step and fwd_bwd rays/s).
 
-In the whole smoke phase 34's libraries build in another thread while
-phase 31 runs, and phase 37's while phase 35 runs (checks that time
-nothing); each waits for its thread before the next phase.  Phase 60's
-build in a thread while phases 52-59 run.
+From phase 3 on, every later library known up front (:func:`prefetch_jobs`;
+all but the neural phase 13's) builds in the background, two at a time, in
+the order the phases load them (``_build.LIBRARIES.prefetch``); a phase
+that loads one still building waits for it, so a phase's ``builds`` count
+only what it built itself.  Phase 1 logs the host's speed
+(:func:`host_witness`); every line ``phase_seconds``, the time since the
+line before it; the line before the last (``[summary]``) the total
+``wall_s``, the witness and the ten longest phases.
 
 In the times of phases 6 and 12 the plain version runs 1 warm-up frame and
 3 timed on each side of the kernel's runs, in those of phases 33, 43 and 47
@@ -420,6 +425,13 @@ part of 16; :func:`slice17_phases`, runnable alone):
     banded route) bit for bit, within JAX's bar of the analytic scene's K1
     render (under 2% of the pixels off by 0.05), ``render_batch(engine=
     "kernel")`` raising, a 3-step fit of the samples (no kernel launched);
+    the grid tagged with a material of its own (``shaded``, not the
+    reference material): one forward and backward of ``render_kernel_diff``
+    (no kernel launched, every gradient finite, each of the tag's material
+    channels' gradient nonzero), its image within the same bar of K1's
+    material branch on ``ground_plane() | shaded(sphere, material)``, and
+    the grid tagged with the global material bit for bit the untagged
+    grid's image;
 56. ``render_stereo(engine="kernel")`` (K1 = 2, ``"sbs"`` two K1 renders bit
     for bit, each eye within the pixel budget of the plain version at its
     toed-in camera, razor-edge rays past the hard limit), ``cli render
@@ -448,7 +460,8 @@ and ``examples/``), the last four labs and ``suite --scaling`` (15b)
     frame ``step()`` rendered, ``GET /stats``, the first part of ``/stream``
     a PNG; ms a frame with the PNG encode); ``render_turntable`` (12 frames,
     K1 = 12);
-58. subprocesses of this checkout, all started together once the fit step
+58. subprocesses of this checkout, all started together (in the whole smoke
+    when phase 62's scripts start, which they run beside) once the fit step
     of the scaling model is measured and their libraries are built at once:
     ``examples.live_view --frames 3`` (3 K1 frames served), ``perf_lab``'s
     stages and full cases (K1 = 128, K3 = 32, K5 = 32), ``fast_profile
@@ -463,7 +476,8 @@ and ``examples/``), the last four labs and ``suite --scaling`` (15b)
 The kernels line gives ``render_fwd`` an ``interact`` entry and
 ``ring_allreduce`` and ``rs_ag_allreduce`` a ``collectives_lab`` entry.
 Phases 57-59 took 49 s of the whole smoke's 981 s on an NVIDIA H100 80GB
-HBM3 at 700.00 W (the host's speed moves the whole by about 15%).
+HBM3 at 700.00 W before the labs ran beside phase 62 (the host's speed
+moves the whole by about 15%).
 
 Then the last six example scripts (ROADMAP item 16b:
 ``sdf3d_tpu_torch/examples/``; :func:`slice19_phases`, runnable alone):
@@ -471,7 +485,7 @@ Then the last six example scripts (ROADMAP item 16b:
 60. their libraries (:func:`slice19_jobs`: K1 with AO on the gallery's seven
     scenes, K3 with the pyramid and the silhouette term together and its
     one-branch forms, K2 on (8, 128) tiles, ``grid_fit``'s target,
-    ``neural_sdf``'s K6), built in a thread while phases 52-59 run; the
+    ``neural_sdf``'s K6), built by the queue of phase 3; the
     ``ptxas`` registers, spills and blocks an SM of each K3 form and K1 with
     AO;
 61. K3 with the pyramid and the silhouette term in one launch
@@ -558,9 +572,65 @@ W, H = 1920, 1080
 _T0 = time.perf_counter()
 
 
+#: Seconds of the foreground thread between one log line and the next, summed
+#: by the phase that logged the later line; ``[_T0]`` when the last line was.
+PHASE_SECONDS: dict = {}
+_LAST_LINE = [_T0]
+_LOG_LOCK = threading.Lock()
+
+
 def log(phase: str, **fields) -> None:
-    """One phase's line; ``wall_s``: seconds since the script started."""
-    print(f"[{phase}] " + json.dumps({**fields, "wall_s": time.perf_counter() - _T0}, sort_keys=True), flush=True)
+    """One phase's line; ``wall_s``: seconds since the script started;
+    ``phase_seconds``: since the line before it (added to
+    :data:`PHASE_SECONDS` under ``phase``)."""
+    with _LOG_LOCK:
+        now = time.perf_counter()
+        spent, _LAST_LINE[0] = now - _LAST_LINE[0], now
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + spent
+    print(f"[{phase}] " + json.dumps({**fields, "phase_seconds": spent, "wall_s": now - _T0}, sort_keys=True),
+          flush=True)
+
+
+def longest_phases(n: int = 10) -> list:
+    """The ``n`` phases of :data:`PHASE_SECONDS` that took longest, as
+    ``[name, seconds]``, longest first."""
+    return [[k, v] for k, v in sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def host_witness(torch) -> dict:
+    """The host's speed on fixed work, each part timed on its own: a
+    pure-Python loop (``python_s``), numpy (``numpy_s``: a sort of 2^21
+    seeded floats and 20 products of 256×256 matrices), and 2000 launches of
+    an empty kernel (``torch.cuda._sleep(0)``) with one synchronize
+    (``launch_us``, µs a launch).  A run's phase times read against another
+    run's through these: the smoke's plain versions are launch-bound host
+    loops."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(3_000_000):
+        acc += i * i % 7
+    python_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    x, m = rng.random(1 << 21), rng.random((256, 256))
+    t0 = time.perf_counter()
+    np.sort(x)
+    for _ in range(20):
+        m = m @ m
+        m /= np.abs(m).max()
+    numpy_s = time.perf_counter() - t0
+    n = 2000
+    torch.cuda.synchronize()
+    torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    launch_us = (time.perf_counter() - t0) / n * 1e6
+    return {"python_s": python_s, "numpy_s": numpy_s, "launch_us": launch_us, "launches": n,
+            "python_check": acc}
 
 
 def check(cond: bool, what: str) -> None:
@@ -610,6 +680,10 @@ ISSUE_RATE = 132 * 4 * 1.98e9
 PRIMARY_STEP = (3, 0)
 SHADOW_STEP = (19, 2)
 NEURAL_SHADOW_STEP = (15, 2)
+#: Phase 55's material of the shaded grid and its analytic twin (not the
+#: reference material).
+SHADED_MATERIAL = {"ambient": (0.3, 0.1, 0.05), "diffuse": (0.9, 0.3, 0.1), "specular": (0.2, 0.6, 0.4),
+                   "shininess": 20.0}
 
 
 def expr_ops(expr: str) -> tuple:
@@ -820,8 +894,9 @@ def main() -> int:
 
     # ---- 1. device ----
     card = card_name_and_power()
+    witness = host_witness(torch)
     log("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
-        kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+        kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), witness=witness)
     print(card, flush=True)
 
     import sdf3d_tpu_torch as tt
@@ -879,6 +954,10 @@ def main() -> int:
             log("parity_256x192", camera=cam_name, ray_sdf=ray_sdf,
                 **{n: {k: st[k] for k in ("over_atol", "max_abs_err")} for n, st in stats.items()})
     check(libs.loaded == 2, f"expected two libraries (ray and point form), got {libs.loaded}")
+    # Every later library known now builds from here on in the background,
+    # two at a time, in the order the phases load them; a phase that loads
+    # one still building waits for it.
+    queue = libs.prefetch(prefetch_jobs(tt, dev), workers=2)
 
     # ---- 4. main path: render_batch over 4 orbit cameras ----
     cams = [tt.Camera.orbit(azimuth_deg=(137.508 * i) % 360.0) for i in range(4)]
@@ -964,22 +1043,19 @@ def main() -> int:
     # Phase 24's two ranks run while phases 30-31 (which time nothing) run
     # here; the flagship's phases call ring_finish there.
     ring_finish, ring_out = ring_phases(torch, tt, card), {}
-    flagship = flagship_phases(torch, tt, card, dev, background=scenes_13b_jobs(tt, dev),
-                               then=lambda: ring_out.update(kernels=ring_finish()))
+    flagship = flagship_phases(torch, tt, card, dev, then=lambda: ring_out.update(kernels=ring_finish()))
     ring_kernels = ring_out["kernels"]
-    scenes = scenes_13b_phases(torch, tt, card, dev, background=fractal_jobs(tt))
-    fractal = fractal_phases(torch, tt, card, dev, background=loss_slice_jobs(tt))
+    scenes = scenes_13b_phases(torch, tt, card, dev)
+    fractal = fractal_phases(torch, tt, card, dev)
     losses = loss_phases(torch, tt, card, dev)
     sliced = slice_phases(torch, tt, card, dev)
     diffed = diff_phases(torch, tt, card, dev)
-    # Phase 60's libraries build in a thread while phases 52-59 run; phase 60
-    # waits for it.
-    pool19 = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    pending19 = (pool19.submit(_build.LIBRARIES.load_many, slice19_jobs(tt)), time.perf_counter())
     rest = slice17_phases(torch, tt, card, dev)
-    runtime = slice18_phases(torch, tt, card, dev)
-    examples = slice19_phases(torch, tt, card, dev, background=pending19)
-    pool19.shutdown()
+    # Phases 58-59's labs run beside phase 62's scripts (neither times
+    # anything); phase 62 waits for them before K1 with AO is timed.
+    runtime, labs = slice18_phases(torch, tt, card, dev, defer_labs=True)
+    examples = slice19_phases(torch, tt, card, dev, alongside=labs)
+    runtime.update(labs.entries)
     kernels = [{
         "name": "render_fwd",
         "route": "cuda",
@@ -1046,6 +1122,8 @@ def main() -> int:
           sum("multiscale_silhouette" in e for e in kernels) == 1,
           "an examples or multiscale_silhouette entry of the kernels line is missing")
     print(json.dumps({"kernels": kernels}), flush=True)
+    log("summary", card=card, witness=witness, longest_phases=longest_phases(), prefetched=queue.result(),
+        prefetch_seconds=libs.prefetch_seconds, foreground_builds=libs.builds, foreground_build_seconds=libs.build_seconds)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
@@ -1687,7 +1765,6 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward, render_kernel_backward_plain
     from sdf3d_tpu_torch.ops.render_kernel import (
         KernelConfig,
-        library_job,
         pack_uniforms,
         render_kernel_forward,
         render_kernel_forward_plain,
@@ -1699,7 +1776,6 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     )
     from sdf3d_tpu_torch.ops.scene_program import cuda_scene_source, scene_param_vector
     from sdf3d_tpu_torch.parallel import launch, make_mesh, render_sharded_kernel
-    from sdf3d_tpu_torch.parallel.shard_render import row_layout
     from sdf3d_tpu_torch.parallel.tile_queue import estimate_tile_work, gather_target_tiles, plan_tiles, pool_work_to_tiles
     from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass
 
@@ -1748,11 +1824,8 @@ def tiles_phases(torch, tt, card: str, dev, times: dict) -> list:
     # ---- 17. build: the libraries of phases 18-21, together ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
-    slab_cfg = row_layout(full, make_mesh(dev), True, kc.tile_h)[0]  # the interleaved rank's config
-    jobs = [library_job(ref_scene, c, k, wrt, fr) for c, k in list(small.values()) + [(full, kc)]
-            for wrt, fr in ((True, ()), (False, frozen))] + [library_job(ref_scene, slab_cfg, kc, False, frozen)]
     t0 = time.perf_counter()
-    libs.load_many(jobs)
+    libs.load_many(tiles_jobs(tt, dev))
     build_wall = time.perf_counter() - t0
     header = cuda_scene_source(scene0(), full, kc, False, frozen)
     ptxas = ptxas_summary(libs.log(libs.key(header)))
@@ -2624,7 +2697,6 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     from sdf3d_tpu_torch.ops.render_kernel import (
         KernelConfig,
         kernel_library,
-        library_job,
         pixel_planes,
         render_kernel_forward_plain,
         render_kernel_launch,
@@ -2648,11 +2720,7 @@ def variant_phases(torch, tt, card: str, dev) -> dict:
     prm = scene_param_vector(scene, dev)
     short = configs["short"]
     builds0, seconds0 = libs.builds, libs.build_seconds
-    jobs = [library_job(scene, c, kc, True, (), v) for c in configs.values() for v in FIT_VARIANTS]
-    # Two libraries of phase 29's extras, built with these: the fit step of
-    # the fast profile and of the fractal (the bench's fwd_bwd cells).
-    extra = [library_job(scene, tt.fast_config(ref), kc, False, ()),
-             library_job(tt.fractal_scene(), ref, kc, False, ())]
+    jobs, extra = variant_jobs(tt)
     t0 = time.perf_counter()
     loaded = libs.load_many(jobs + extra)[:len(jobs)]
     build_wall = time.perf_counter() - t0
@@ -3036,16 +3104,15 @@ def k3_against_plain(torch, sc, prm, uni, c, kc, wrt, fr, label, gen, target=Non
                                      label=label)}
 
 
-def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict:
+def flagship_phases(torch, tt, card: str, dev, then=None) -> dict:
     """Phases 30-33: the flagship scene (``flagship_scene``: a sphere and a
     rounded box smooth-blended, a torus, the ground plane; 21 parameters)
     and an every-node CSG sampler on K1-K5.  Returns, per kernel entry of
     the kernels line (``render_fwd``, ``render_tiles``, ``fit_step``,
     ``fit_step_tiles``, ``render_bwd``), the flagship's launches, times,
-    bound and error.  ``background``: library jobs of later phases, built
-    in another thread while phase 31's checks run (it times nothing) and
-    finished before phase 32; ``then``, where given, is called there too
-    (the ring's two ranks, started before phase 30, waited for)."""
+    bound and error.  ``then``, where given, is called after phase 31's
+    checks, which time nothing (the ring's two ranks, started before phase
+    30, waited for)."""
     import torch.distributed as dist
 
     from sdf3d_tpu_torch import bench, cli
@@ -3069,7 +3136,6 @@ def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict
     )
     from sdf3d_tpu_torch.ops.render_kernel import (
         KernelConfig,
-        library_job,
         pack_uniforms,
         render_kernel_forward,
         render_kernel_forward_plain,
@@ -3140,13 +3206,7 @@ def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict
     # ---- 30. build: the flagship's and the sampler's libraries ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
-    combos = [(kc, True, ()), (kc, False, frozen), (kc, False, ()), (kc, True, frozen), (kc_point, True, ()),
-              (kc_tiles, True, ()), (kc_tiles, False, frozen)]
-    jobs = [library_job(flagship, full, k, wrt, fr) for k, wrt, fr in combos]
-    jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4)]]
-    jobs += [library_job(flagship, full, kc, False, frozen, "full", 3),  # the multiscale fit's K3
-             library_job(flagship, dataclasses.replace(full, background=(0.0, 0.0, 0.0)), kc, False, frozen, "full", 0,
-                         True)]  # the silhouette K3 (phase 43)
+    jobs = flagship_jobs(tt, dev)
     t0 = time.perf_counter()
     libs.load_many(jobs)
     build_wall = time.perf_counter() - t0
@@ -3170,9 +3230,6 @@ def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict
         sampler_header_bytes=len(cuda_scene_source(sampler, full, kc)), costs=scene_costs(header), ptxas=ptxas)
 
     # ---- 31. K1-K5 vs their plain versions, flagship and sampler ----
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    t_background = time.perf_counter()
-    pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "render_tiles": [], "fit_step_tiles": []}
     # Each camera at one size: the reference camera at 256x192, orbit 30/15
     # at the ragged 250x190.
@@ -3280,12 +3337,6 @@ def flagship_phases(torch, tt, card: str, dev, background=(), then=None) -> dict
         log("flagship_tiles_parity", scene=sname, tiles_per_rank=plan.tiles_per_device, k2=planes_stats(st2), k4=ranks,
             sum_vs_k3={"loss_rel_err": abs(float(total[0]) / float(whole[0]) - 1.0), **vs_k3})
 
-    if pending is not None:
-        t0 = time.perf_counter()
-        pending.result()
-        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
-            waited_seconds=time.perf_counter() - t0)
-    pool.shutdown()
     if then is not None:
         then()
 
@@ -3644,6 +3695,114 @@ def register_line(rounds: int = 5, names=SWEEP_SCENES) -> dict:
     return out
 
 
+def fit_jobs(tt) -> list:
+    """The library jobs of phase 7: the fit demo's K3 with the plane frozen
+    and K5 with the uniforms' gradient."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    start = tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.sphere(center=(0.05, 0.45, 0.0), radius=0.25))
+    return [library_job(start, full, KernelConfig(), wrt, fr) for wrt, fr in ((False, (0, 1, 2, 3)), (True, ()))]
+
+
+def tiles_jobs(tt, dev) -> list:
+    """The library jobs of phase 17: K1-K4 on the reference scene at phase
+    18's tiles and the 1080p tile, in both fit forms, and the interleaved
+    rank's row slab."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.parallel import make_mesh
+    from sdf3d_tpu_torch.parallel.shard_render import row_layout
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    kc, frozen, ref_scene = KernelConfig(), (0, 1, 2, 3), tt.reference_scene()
+    small = [(dataclasses.replace(full, width=256, height=192), KernelConfig(tile_h=8, tile_w=128)),
+             (dataclasses.replace(full, width=248, height=184), KernelConfig(block_w=8, block_h=8, tile_h=8, tile_w=8))]
+    slab_cfg = row_layout(full, make_mesh(dev), True, kc.tile_h)[0]  # the interleaved rank's config
+    return [library_job(ref_scene, c, k, wrt, fr) for c, k in small + [(full, kc)]
+            for wrt, fr in ((True, ()), (False, frozen))] + [library_job(ref_scene, slab_cfg, kc, False, frozen)]
+
+
+def variant_jobs(tt) -> tuple:
+    """``(jobs, extra)`` of phase 26: every K9 variant under the one-step
+    config, and two libraries of phase 29's extras built with them (the fit
+    step of the fast profile and of the fractal, the bench's fwd_bwd
+    cells)."""
+    from sdf3d_tpu_torch.benchmarks import exp_ad
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.ops.scene_program import FIT_VARIANTS
+
+    kc, scene = KernelConfig(), tt.reference_scene()
+    ref = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    jobs = [library_job(scene, exp_ad.short_config(ref), kc, True, (), v) for v in FIT_VARIANTS]
+    return jobs, [library_job(scene, tt.fast_config(ref), kc, False, ()),
+                  library_job(tt.fractal_scene(), ref, kc, False, ())]
+
+
+def flagship_jobs(tt, dev) -> list:
+    """The library jobs of phase 30: the flagship's and the CSG sampler's
+    K1-K5 forms, the flagship's multiscale and silhouette K3."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+    from sdf3d_tpu_torch.utils.parity import csg_sampler
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    kc, kc_point, kc_tiles, frozen = KernelConfig(), KernelConfig(ray_sdf=False), KernelConfig(tile_h=8, tile_w=128), \
+        (0, 1, 2, 3)
+    flagship, sampler = tt.flagship_scene(), csg_sampler(dev)
+    combos = [(kc, True, ()), (kc, False, frozen), (kc, False, ()), (kc, True, frozen), (kc_point, True, ()),
+              (kc_tiles, True, ()), (kc_tiles, False, frozen)]
+    jobs = [library_job(flagship, full, k, wrt, fr) for k, wrt, fr in combos]
+    jobs += [library_job(sampler, full, k, wrt, fr) for k, wrt, fr in [combos[i] for i in (0, 1, 4)]]
+    return jobs + [library_job(flagship, full, kc, False, frozen, "full", 3),  # the multiscale fit's K3
+                   library_job(flagship, dataclasses.replace(full, background=(0.0, 0.0, 0.0)), kc, False, frozen,
+                               "full", 0, True)]  # the silhouette K3 (phase 43)
+
+
+def rows_jobs(tt) -> list:
+    """The library jobs of phase 54: K1 + K5 on the two ranks' row slabs
+    (contiguous: the default tiles; interleaved: tile rows of 12)."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    slab = dataclasses.replace(full, height=H // 2, ndc_height=H)
+    return [library_job(tt.reference_scene(), slab, KernelConfig(tile_h=th))
+            for th in sorted({KernelConfig().tile_h, 12})]
+
+
+def shaded_jobs(tt) -> list:
+    """The library job of phase 55's analytic twin of the shaded grid: K1's
+    material branch on ``ground_plane() | shaded(sphere, material)``."""
+    from sdf3d_tpu_torch.ops.render_kernel import library_job
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    return [library_job(tt.sdf.ground_plane() | tt.sdf.shaded(tt.sdf.sphere((0.0, 0.4, 0.0), 0.2), **SHADED_MATERIAL),
+                        full)]
+
+
+def labs_jobs(tt) -> list:
+    """The library jobs of phases 58-59: every library the labs load (the
+    labs would each build their own, on the host's cores the others need)."""
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job
+
+    full = dataclasses.replace(tt.REFERENCE_CONFIG, width=W, height=H)
+    ref, flag = tt.reference_scene(), tt.flagship_scene()
+    fast, kc = tt.fast_config(full), KernelConfig()
+    return [library_job(ref, fast, kc), library_job(flag, fast, kc), library_job(flag, full, kc),
+            library_job(ref, dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, enabled=False)), kc),
+            library_job(ref, fast, kc, wrt_uniforms=False)]
+
+
+def prefetch_jobs(tt, dev) -> list:
+    """Every library that the phases after phase 3 load and that is known
+    before they run, in the order they load them: the queue that
+    ``_build.LIBRARIES.prefetch`` builds in the background from phase 3 on.
+    The neural phase 13 builds its own (its first frame's time includes its
+    build)."""
+    variants, extra = variant_jobs(tt)
+    return (fit_jobs(tt) + tiles_jobs(tt, dev) + variants + extra + [((), lambda: "", "collectives")] +
+            flagship_jobs(tt, dev) + scenes_13b_jobs(tt, dev) + fractal_jobs(tt) + loss_slice_jobs(tt) +
+            rows_jobs(tt) + shaded_jobs(tt) + labs_jobs(tt) + slice19_jobs(tt))
+
+
 def scenes_13b_jobs(tt, dev) -> list:
     """The library jobs of phase 34: each 13b scene's K1 in both forms and
     K3 with the plane frozen, ``random_blobs``' K1 for the scene-cost sweep,
@@ -3661,7 +3820,7 @@ def scenes_13b_jobs(tt, dev) -> list:
     return jobs
 
 
-def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
+def scenes_13b_phases(torch, tt, card: str, dev) -> dict:
     """Phases 34-36: the scenes of ROADMAP item 13b (``csg_showcase``,
     ``lattice_scene``, ``capsule_chain``, ``random_blobs``) and the transform
     sampler (``utils/parity.py::transform_sampler``: every 13b node) on
@@ -3741,7 +3900,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
         return int(header.split("bwd_values = ")[1].split(";")[0])
 
     # ---- 34. build: the 13b scenes' libraries together (in the whole smoke
-    # built already, in the background of phase 31) ----
+    # built already by the queue of phase 3) ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
     jobs = scenes_13b_jobs(tt, dev)
@@ -3779,12 +3938,7 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     log("scenes_13b_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
         build_wall_seconds=build_wall, libraries=len(jobs), scenes=built, scene_cost_render_fwd_ptxas=scene_cost_k1)
 
-    # ---- 35. K1-K5 vs their plain versions on the 13b scenes (later phases'
-    # libraries, ``background``, build in another thread meanwhile: these
-    # checks time nothing) ----
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    t_background = time.perf_counter()
-    pending = pool.submit(libs.load_many, list(background)) if background else None
+    # ---- 35. K1-K5 vs their plain versions on the 13b scenes ----
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": []}
     for name, (sc, cam) in shared.items():
         bar = SCENE_BARS.get(name, {})
@@ -3877,13 +4031,6 @@ def scenes_13b_phases(torch, tt, card: str, dev, background=()) -> dict:
     log("scenes_13b_special", csg_showcase_nonfinite_param_slots=showcase_nan, csg_showcase_params=showcase_params,
         capsule_chain_k2_tiles=plan.tiles_per_device, capsule_chain_k2_vs_k1=planes_stats(k2_st),
         capsule_chain_k2_vs_k1_differing_values=k2_vs_k1)
-
-    if pending is not None:
-        t0 = time.perf_counter()
-        pending.result()
-        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
-            waited_seconds=time.perf_counter() - t0)
-    pool.shutdown()
 
     # ---- 36. main path at 1920x1080 ----
     gallery = {n: v for n, v in shared.items() if n != "transform_sampler"}
@@ -4098,7 +4245,7 @@ def loss_slice_jobs(tt) -> list:
                    library_job(msc, full, kc, False, geometry), library_job(msc, full, kc_point, True, ())]
 
 
-def fractal_phases(torch, tt, card: str, dev, background=()) -> dict:
+def fractal_phases(torch, tt, card: str, dev) -> dict:
     """Phases 37-39: the fractal (ROADMAP 13c: ``fractal_scene()``, a power-8
     Mandelbulb of six iterations on the ground plane) on K1, K3 and K5, and
     the over-relaxed march (ω = 1.6) on K1-K4, on the reference scene and
@@ -4210,7 +4357,7 @@ def fractal_phases(torch, tt, card: str, dev, background=()) -> dict:
         return {**planes_stats(st), **getattr(witness, "counts", {})}
 
     # ---- 37. build: the fractal's and the relaxed march's libraries together
-    # (in the whole smoke built already, in the background of phase 35) ----
+    # (in the whole smoke built already by the queue of phase 3) ----
     libs = _build.LIBRARIES
     builds0, seconds0 = libs.builds, libs.build_seconds
     jobs = fractal_jobs(tt)
@@ -4239,9 +4386,6 @@ def fractal_phases(torch, tt, card: str, dev, background=()) -> dict:
         ptxas=ptxas, render_fwd_ptxas=render_ptxas, relaxed_render_fwd_ptxas=relaxed_ptxas)
 
     # ---- 38. K1-K5 on the fractal, K1-K4 relaxed, against their plain versions ----
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    t_background = time.perf_counter()
-    pending = pool.submit(libs.load_many, list(background)) if background else None
     errs = {"render_fwd": [], "fit_step": [], "render_bwd": [], "relaxed": [], "render_tiles": [],
             "fit_step_tiles": []}
     # The relaxed branch is one template for both forms: the ray form alone.
@@ -4447,13 +4591,6 @@ def fractal_phases(torch, tt, card: str, dev, background=()) -> dict:
         relaxed_l2_losses=rl2.losses,
         relaxed_mesh_tiles_losses_equal=tiles.losses == rl2.losses, relaxed_mesh_tiles_loss_rel_err=tiles_rel,
         relaxed_render_sharded_vs_k1=sharded_st["rgb"], step0=step0, bench=cells)
-
-    if pending is not None:
-        t0 = time.perf_counter()
-        pending.result()
-        log("background_build", libraries=len(background), seconds=time.perf_counter() - t_background,
-            waited_seconds=time.perf_counter() - t0)
-    pool.shutdown()
 
     # Times at 1080p, the reference camera (plain, kernel, kernel, plain): the
     # fractal's K1, K3 (the plane frozen) and both K5 forms against its
@@ -5652,7 +5789,6 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
         return n_px / res.rays_per_second * 1e3
 
     # ---- 48. diff.py on the card at 1920x1080 ----
-    t_phase = time.perf_counter()
     prm, uni = inputs(reference, ref_cam, full)
     k1 = render_kernel_launch(reference, prm, uni, full)
     with torch.no_grad():
@@ -5717,11 +5853,10 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
     log("diff_parity_1080p", card=card, render_batch_equal=True, vs_k1={n: {q: v[q] for q in ("over_atol",
         "max_abs_err", "over_hard")} for n, v in vs_k1.items()}, grad_launches=grad_launches,
         grad_pixels=int(keep.sum()), grads=grads48, coverage_loss_rel_err=loss_rel,
-        coverage_term_rel_err=sil_rel, coverage_term=float(sil), phase_seconds=time.perf_counter() - t_phase)
+        coverage_term_rel_err=sil_rel, coverage_term=float(sil))
 
     # ---- 49. main path at 1920x1080: the fit demo on the torch engine, and
     # the silhouette term outside the fused step on K1 + K5 ----
-    t_phase = time.perf_counter()
     target_full = render_kernel_forward(reference, ref_cam, light, mat, full, device=dev)[0]
     pert = 0.06
     rot = rotvec_to_matrix(pert * torch.tensor([0.3, 0.8, -0.3], device=dev))
@@ -5802,10 +5937,9 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
     log("diff_main_path", card=card, launches=main, losses={n: r.losses for n, r in fits.items()},
         ms_per_step=ms49, seconds=secs, step0_rel_err_vs_kernel=step0_rel,
         torch_engine_device_busy_ms=busy_ms, torch_engine_idle_share=1.0 - busy_ms / ms49["fit_scene_torch"],
-        torch_engine_top_kernels_us=top, phase_seconds=time.perf_counter() - t_phase)
+        torch_engine_top_kernels_us=top)
 
     # ---- 50. item 17a: the NeuralSDF fit at 1920x1080 on K6 ----
-    t_phase = time.perf_counter()
     ref = tt.REFERENCE_CONFIG
     ncfg = dataclasses.replace(ref, width=W, height=H, march=dataclasses.replace(ref.march, max_steps=64),
                                shadow=dataclasses.replace(ref.shadow, max_steps=32))
@@ -5861,11 +5995,10 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
     log("neural_fit_main_path", card=card, launches=k_launches, losses=kfit.losses, torch_engine_losses=tfit.losses,
         step0_rel_err_vs_torch_engine=n_rel, ms_per_step=n_ms, k6_ms=k6_ms, k6_share=k6_ms / n_ms,
         torch_engine_ms_per_step=t_clock.ms_per_step(), peak_gib={"kernel_engine": k_peak, "torch_engine": t_peak},
-        grad_abs_max=[float(g.abs().max()) for g in mlp_grads], phase_seconds=time.perf_counter() - t_phase)
+        grad_abs_max=[float(g.abs().max()) for g in mlp_grads])
 
     # ---- 51. item 17b: two processes on the card, the sharded NeuralSDF fit
     # and the torch engine's sharded fit ----
-    t_phase = time.perf_counter()
     ring_kernel.collectives_library()  # built here, before the ranks start
     steps, allreduces = 3, ("psum", "pallas_ring", "pallas_rs_ag")
     torch.cuda.empty_cache()
@@ -5912,8 +6045,7 @@ def diff_phases(torch, tt, card: str, dev) -> dict:
         launches={n: [r["runs"][n]["launches"] for r in pair] for n in (*allreduces, "torch_engine")},
         vs_unsharded=diffs, step0_rel_err_vs_k6_fit=k6_rel,
         ms_per_step={n: pair[0]["runs"][n]["ms_per_step"] for n in (*allreduces, "torch_engine")},
-        peak_gib=[r["peak_gib"] for r in pair], losses={n: pair[0]["runs"][n]["losses"] for n in pair[0]["runs"]},
-        phase_seconds=time.perf_counter() - t_phase)
+        peak_gib=[r["peak_gib"] for r in pair], losses={n: pair[0]["runs"][n]["losses"] for n in pair[0]["runs"]})
     return {
         "render_fwd": {"fit_view_nonfused": {"launches": main["fit_view_nonfused"]["launches"]["render_kernel_forward"],
                                              "ms_per_step": ms49["fit_view_nonfused"]}},
@@ -6023,7 +6155,7 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     from sdf3d_tpu_torch.ops.render_autograd import render_kernel_diff
     from sdf3d_tpu_torch.ops.render_bwd_kernel import planar_vjp, render_kernel_backward
     from sdf3d_tpu_torch.ops import _build
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job, pack_uniforms, pixel_planes, \
+    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, pack_uniforms, pixel_planes, \
         render_kernel_forward, render_kernel_forward_plain, render_kernel_launch
     from sdf3d_tpu_torch.ops.scene_program import leaves, scene_param_vector
     from sdf3d_tpu_torch.utils.parity import check_grads, check_planes, conditioned, gradient_mass, primals_agree, \
@@ -6077,7 +6209,6 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
 
     # ---- 52. shadow.grad == "ad" at 1920x1080 on the reference scene ----
-    t_phase = time.perf_counter()
     prm, uni = inputs(reference, ref_cam, full)
     k1 = render_kernel_launch(reference, prm, uni, full)
     with torch.no_grad():
@@ -6169,12 +6300,11 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
         grads_vs_torch_engine=grads52, light_share_vs_detach=share, fwd_bwd_ms=ad_ms,
         peak_gib={"kernel_route": ad_peak, "torch_engine": torch_peak, "gradient_mass": mass_peak, **peaks},
         fits={n: {"launches": main52[n]["launches"], "losses": fits[n].losses} for n in fits},
-        ms_per_step=ms52, step0_rel_err_vs_fused=step0_rel, phase_seconds=time.perf_counter() - t_phase)
+        ms_per_step=ms52, step0_rel_err_vs_fused=step0_rel)
     del mass, got_d, got_k, sc_k, sc_d, sc_0
 
     # ---- 53. the neural render under "ad" at 960x540 (the re-march records
     # the MLP at every shadow step: 107-112 kB a pixel, about 54 GiB here) ----
-    t_phase = time.perf_counter()
     nw, nh = 960, 540
     ref = tt.REFERENCE_CONFIG
     ncfg = dataclasses.replace(ref, width=nw, height=nh, march=dataclasses.replace(ref.march, max_steps=64),
@@ -6238,20 +6368,17 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
     log(f"neural_shadow_ad_{nw}x{nh}", card=card, launches=n_launches, fwd_bwd_ms=n_ms, peak_gib=n_peak,
         crop=[r0, r1, c0, c1], grad_max_abs_err_vs_cpu=n_err, grad_rel_err_vs_cpu=n_rel, share_vs_detach=n_share,
         fit_launches=nfit_launches, fit_losses=nfit.losses, fit_ms_per_step=n_clock.ms_per_step(),
-        fit_peak_gib=nfit_peak, k6_ms=k6_ms, phase_seconds=time.perf_counter() - t_phase)
+        fit_peak_gib=nfit_peak, k6_ms=k6_ms)
 
     # ---- 54. the row route: two processes on the card fit the fit demo at
     # 1080p under "ad" outside the fused step (K1 + K5 per rank's slab), and
     # render_sharded ----
-    t_phase = time.perf_counter()
     # Contiguous slabs take the default tiles (540 rows: a partial last tile
     # row, fit_scene(mesh)'s own choice at 1080p); two ranks interleave tile
     # rows of 12 (1080 = 2·12·45; the default 24 would need 1080 divisible by 48).
     steps, tile_h = 3, {"contiguous": kc.tile_h, "interleaved": 12}
-    slab = dataclasses.replace(full, height=H // 2, ndc_height=H)
     # The slabs' libraries, built together before the ranks start.
-    _build.LIBRARIES.load_many([library_job(reference, slab, KernelConfig(tile_h=th))
-                                for th in sorted(set(tile_h.values()))])
+    _build.LIBRARIES.load_many(rows_jobs(tt))
     torch.cuda.empty_cache()
     g_img = torch.randn((H, W, 3), generator=gen, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -6295,12 +6422,10 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
                           mass_tol=1e-5, label="render_sharded's summed gradients vs render_diff 1080p")
     log("rows_1080p", card=card, note="two processes sharing one card over gloo; times claim nothing",
         launches={layout: pair[0]["runs"][layout]["launches"] for layout in pair[0]["runs"]}, vs_unsharded=rows54,
-        render_sharded_seconds=pair[0]["render_sharded_seconds"], render_sharded_grads=grads54,
-        phase_seconds=time.perf_counter() - t_phase)
+        render_sharded_seconds=pair[0]["render_sharded_seconds"], render_sharded_grads=grads54)
 
     # ---- 55. a VoxelGrid: a 128³ bake of a bounded scene beside the analytic
     # ground plane, rendered and fitted at 1080p on the banded route ----
-    t_phase = time.perf_counter()
     sphere = tt.sdf.sphere((0.0, 0.4, 0.0), 0.2).to(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6339,10 +6464,41 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
           f"the grid fit: losses {gfit.losses}")
     log("voxel_grid_1080p", card=card, samples=list(grid.values.shape), bake_seconds=bake_s,
         render_batch_torch_seconds=render_s, pixels_off_analytic_over_0_05=off, fit_losses=gfit.losses,
-        fit_ms_per_step=g_clock.ms_per_step(), fit_peak_gib=gfit_peak, phase_seconds=time.perf_counter() - t_phase)
+        fit_ms_per_step=g_clock.ms_per_step(), fit_peak_gib=gfit_peak)
+
+    # The grid tagged with a material of its own (ROADMAP 30): one forward
+    # and backward of the differentiable render on the banded route, no
+    # kernel; its image against K1's material branch on the analytic twin;
+    # tagged with the global material, the untagged grid's image bit for bit.
+    smat = tt.material(**SHADED_MATERIAL, device=dev)
+    sscene = tt.sdf.ground_plane().to(dev) | tt.sdf.shaded(grid, smat)
+    g_rgb = torch.randn((H, W, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset()
+    img_s = render_kernel_diff(full, kc, sscene, ref_cam, light, mat)
+    (img_s * g_rgb).sum().backward()
+    torch.cuda.synchronize()
+    shaded_s, shaded_launches = time.perf_counter() - t0, launches()
+    check(shaded_launches == {}, f"the shaded grid's render and backward launched {shaded_launches}")
+    check(all(bool(torch.isfinite(x.grad).all()) for x in leaves(sscene)), "the shaded grid's gradients are not finite")
+    tag = sscene.b
+    tag_grad = {f.name: getattr(tag, f.name).grad.reshape(-1).tolist() for f in dataclasses.fields(smat)}
+    check(all(any(v != 0.0 for v in g) for g in tag_grad.values()), f"a Shaded material's gradient is 0: {tag_grad}")
+    reset()
+    analytic_s = render_kernel_forward(tt.sdf.ground_plane().to(dev) | tt.sdf.shaded(sphere, smat), ref_cam, light,
+                                       mat, full, device=dev)[0]
+    check(launches() == {"render_kernel_forward": 1}, f"K1's material branch launched {launches()}")
+    off_s = float(((img_s.detach() - analytic_s).abs().amax(-1) > 0.05).float().mean())
+    check(off_s < 0.02, f"the shaded grid's image is off K1's material branch on {off_s:.3%} of pixels")
+    with torch.no_grad():
+        img_g = render_kernel_diff(full, kc, tt.sdf.ground_plane().to(dev) | tt.sdf.shaded(grid, mat), ref_cam,
+                                   light, mat)
+    check(torch.equal(img_g, img_b), "a grid tagged with the global material is not the untagged grid's image")
+    log("shaded_grid_1080p", card=card, forward_backward_seconds=shaded_s, launches=shaded_launches,
+        shaded_material_grad=tag_grad, pixels_off_k1_material_over_0_05=off_s, global_tag_bit_equal=True)
 
     # ---- 56. stereo, depth and the debug checks at 1080p ----
-    t_phase = time.perf_counter()
     reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6387,8 +6543,7 @@ def slice17_phases(torch, tt, card: str, dev) -> dict:
           f"the flagship's debug checks: {err.get()}, {problems}")
     log("stereo_depth_debug_1080p", card=card, stereo_launches=stereo_launches, stereo_ms=stereo_ms,
         stereo_vs_plain=[{q: st[q] for q in ("over_atol", "max_abs_err")} for st in stereo_st],
-        cli_depth_seconds=depth_s, checked_render_seconds=checked_s, validate_scene=problems,
-        phase_seconds=time.perf_counter() - t_phase)
+        cli_depth_seconds=depth_s, checked_render_seconds=checked_s, validate_scene=problems)
 
     return {
         "render_fwd": {
@@ -6463,8 +6618,10 @@ def start_lab(args: list, log_path: str):
     """A lab as a subprocess of this checkout, its output into ``log_path``."""
     env = dict(os.environ, PYTHONPATH=REPO)
     f = open(log_path, "w")
-    return subprocess.Popen([sys.executable, "-m", *map(str, args)], cwd=REPO, env=env, stdout=f,
-                            stderr=subprocess.STDOUT, text=True), f
+    proc = subprocess.Popen([sys.executable, "-m", *map(str, args)], cwd=REPO, env=env, stdout=f,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(kill_running, [proc])
+    return proc, f
 
 
 def wait_labs(running: dict, timeout: float = 600) -> dict:
@@ -6505,14 +6662,33 @@ def finite_leaves(obj) -> bool:
     return not isinstance(obj, float) or math.isfinite(obj)
 
 
-def slice18_phases(torch, tt, card: str, dev) -> dict:
+class Labs:
+    """Phases 58-59's subprocesses: :meth:`start` launches them together,
+    :meth:`finish` waits for them, checks their outputs and returns (and
+    keeps, ``entries``) the kernels line's ``collectives_lab`` entries.
+    Between the two, this process may run work that times nothing."""
+
+    def __init__(self, start, wait):
+        self._start, self._wait, self.entries = start, wait, None
+
+    def start(self) -> None:
+        self._start()
+
+    def finish(self) -> dict:
+        self.entries = self._wait()
+        return self.entries
+
+
+def slice18_phases(torch, tt, card: str, dev, defer_labs: bool = False):
     """Phases 57-59: the interactive runtime (ROADMAP 16: the native
     navigation controller, ``InteractiveSession``, ``LiveViewer``,
     ``render_turntable`` and ``examples/live_view.py`` on K1 at 1080p), the
     last four labs and ``suite --scaling`` (15b), the labs and the suite as
     subprocesses started together.  Returns the kernels line's ``interact``
     entry of ``render_fwd`` and the ``collectives_lab`` entries of
-    ``ring_allreduce`` and ``rs_ag_allreduce``.  Runnable alone."""
+    ``ring_allreduce`` and ``rs_ag_allreduce``; with ``defer_labs`` it
+    returns ``(the interact entry, Labs)`` before the labs start.  Runnable
+    alone."""
     import numpy as np
 
     from sdf3d_tpu_torch.benchmarks import scaling_report
@@ -6524,7 +6700,7 @@ def slice18_phases(torch, tt, card: str, dev) -> dict:
     from sdf3d_tpu_torch.ops.fit_kernel import fit_step_kernel, fit_step_kernel_tiles, fit_step_variant
     from sdf3d_tpu_torch.ops.neural_kernel import render_neural_forward
     from sdf3d_tpu_torch.ops.render_bwd_kernel import render_kernel_backward
-    from sdf3d_tpu_torch.ops.render_kernel import KernelConfig, library_job, pack_uniforms, render_kernel_forward, \
+    from sdf3d_tpu_torch.ops.render_kernel import pack_uniforms, render_kernel_forward, \
         render_kernel_forward_plain, render_kernel_launch, render_kernel_tiles_forward
     from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
     from sdf3d_tpu_torch.parallel.ring_kernel import ring_allreduce, rs_ag_allreduce
@@ -6692,13 +6868,11 @@ def slice18_phases(torch, tt, card: str, dev) -> dict:
     check(turn_launches == {"render_kernel_forward": 12}, f"the turntable launched {turn_launches}")
     check(len(turn) == 12 and all(np.isfinite(f).all() for f in turn) and
           float(np.abs(turn[0] - turn[6]).max()) > 1e-3, "the turntable's frames")
-    log("interact_turntable_1080p", card=card, frames=len(turn), launches=turn_launches, ms_per_frame=turn_ms,
-        phase_seconds=time.perf_counter() - t_phase)
+    log("interact_turntable_1080p", card=card, frames=len(turn), launches=turn_launches, ms_per_frame=turn_ms)
 
     # ---- 58-59. the labs, suite --scaling and the live_view entry point, as
     # subprocesses that run together (their times share the card and the
     # host: they check the paths, and claim nothing) ----
-    t_phase = time.perf_counter()
     # The fit step of scaling_report's communication model, measured first
     # by the lab's own function, while this process has the card alone.
     t0 = time.perf_counter()
@@ -6722,85 +6896,93 @@ def slice18_phases(torch, tt, card: str, dev) -> dict:
     # Every library the labs load, built here at once (the labs would each
     # build their own, on the host's cores the others need), then every lab
     # starts.
-    ref, flag = tt.reference_scene(), tt.flagship_scene()
-    fast, kc = tt.fast_config(full), KernelConfig()
-    jobs = [library_job(ref, fast, kc), library_job(flag, fast, kc), library_job(flag, full, kc),
-            library_job(ref, dataclasses.replace(full, shadow=dataclasses.replace(full.shadow, enabled=False)), kc),
-            library_job(ref, fast, kc, wrt_uniforms=False)]
     builds0 = _build.LIBRARIES.builds
     t0 = time.perf_counter()
-    _build.LIBRARIES.load_many(jobs)
+    _build.LIBRARIES.load_many(labs_jobs(tt))
     build_s, builds = time.perf_counter() - t0, _build.LIBRARIES.builds - builds0
-    launch("suite_scaling", f"{pkg}.benchmarks.suite", "--scaling", "--quick", "--world-sizes", 1, 2, "--iters", 3)
-    launch("collectives_lab", f"{pkg}.benchmarks.collectives_lab", "--run", "--num", 2)
-    launch("scaling_report", f"{pkg}.benchmarks.scaling_report", "--step-ms", step_s * 1e3, "--step-card", card,
-           "--out", scaling_out)
-    launch("fast_profile", f"{pkg}.benchmarks.fast_profile", "--quick")
-    launch("perf_lab", f"{pkg}.benchmarks.perf_lab", "stages", "fit_stages", "--cases", "fwd", "fwd_noshadow",
-           "fwd_bwd", "fit_full", "fwd_full", "--rounds", 1, "--iters", 2)
-    launch("live_view", f"{pkg}.examples.live_view", "--frames", 3, "--port", free_port())
-    done = wait_labs(running)
-    labs_s = time.perf_counter() - t_phase
-    log("labs_seconds", builds=builds, build_seconds=build_s, step_seconds=step_measure_s, labs_seconds=labs_s,
-        lab_seconds={name: end for name, (_, end) in done.items()})
+    t_labs = []
 
-    # live_view: three frames on K1, served on its port.
-    text = done["live_view"][0]
-    m = re.search(r"frames (\d+), last ([\d.]+) ms, launches (\d+)", text)
-    check("live viewer: http://127.0.0.1:" in text and m is not None and m.group(1) == "3" and m.group(3) == "3",
-          f"live_view did not render 3 frames on K1:\n{text[-2000:]}")
-    # perf_lab: stages (K1; K1 + K5) and fit_stages' full cases (K3; K1 in
-    # series), 32 frames a case.
-    pl = last_json(done["perf_lab"][0])
-    want_pl = {"stages": {"fwd", "fwd_noshadow", "fwd_bwd"}, "fit_stages": {"fit_full", "fwd_full"}}
-    check({k: set(v) for k, v in pl["suites"].items()} == want_pl and finite_leaves(pl) and all(
-        c["ms"] > 0 for v in pl["suites"].values() for c in v.values()), f"perf_lab's JSON: {pl}")
-    check(pl["launches"] == {"render_kernel_forward": 4 * 32, "fit_step_kernel": 32, "render_kernel_backward": 32},
-          f"perf_lab launched {pl['launches']}")
-    # fast_profile: the deltas on both scenes, four throughput rows.
-    fp = last_json(done["fast_profile"][0])
-    check([d["scene"] for d in fp["deltas"]] == ["reference", "flagship"] and finite_leaves(fp) and
-          all(d["psnr_db"] > 20 and 0 <= d["pixels_changed_gt_1pct"] < 1 for d in fp["deltas"]) and
-          [(r["profile"], r["mode"]) for r in fp["throughput"]] == [(p, m_) for p in ("parity", "fast")
-                                                                  for m_ in ("fwd", "fwd_bwd")] and
-          all(r["rays_per_s"] > 0 and r["backend"] == "cuda" for r in fp["throughput"]), f"fast_profile's JSON: {fp}")
-    # scaling_report: 3 scenes x 5 sizes x 5 layouts (interleaved at tile
-    # heights 24 and 8), the card in the basis, written only to --out.
-    sc_text = done["scaling_report"][0]
-    records = [json.loads(ln) for ln in sc_text.splitlines() if ln.startswith("{")]
-    check(len(records) == 75 and finite_leaves(records) and all(
-        0 < r["value"] <= 1 and 0 < r["comm_factor"] <= 1 and card.split(",")[0] in r["basis"] and
-        torch.cuda.get_device_name(0) in r["basis"] for r in records), f"scaling_report's records: {records[:2]}")
-    check(open(scaling_out).read() == "".join(json.dumps(r) + "\n" for r in records),
-          "scaling_report's --out is not its stdout")
-    # collectives_lab --run --num 2: K7 and K8 bit for bit against their plain
-    # versions, 18 launches each (3 sizes, one checked and 5 timed calls).
-    cl = last_json(done["collectives_lab"][0])
-    run = cl["run"]
-    check(run["device"] == "cuda" and all(c["bit_equal"] and c["same_as_last_call"] for c in run["cases"]) and
-          len(run["cases"]) == 6 and finite_leaves(cl) and
-          run["launches"] == {"ring_allreduce": 18, "rs_ag_allreduce": 18}, f"collectives_lab's run: {run}")
-    # suite --scaling: world sizes 1 and 2, the second sharing the card.
-    sv = [json.loads(ln) for ln in done["suite_scaling"][0].splitlines() if ln.startswith("{")]
-    check([r["n_devices"] for r in sv] == [1, 2] and [r["shared_card"] for r in sv] == [False, True] and
-          finite_leaves(sv) and all(r["value"] > 0 for r in sv) and sv[1]["backend"] == "gloo",
-          f"suite --scaling's records: {sv}")
-    log("labs", card=card, fit_step_ms=step_s * 1e3,
-        live_view_last_frame_ms=float(m.group(2)), perf_lab={k: {c: v["ms"] for c, v in s_.items()}
-                                                            for k, s_ in pl["suites"].items()},
-        perf_lab_launches=pl["launches"], fast_profile=fp, scaling_examples=[
-            {k: r[k] for k in ("scene", "n_devices", "layout", "value", "value_with_comm")}
-            for r in records if r["n_devices"] == 32], scaling_basis=records[0]["basis"],
-        collectives=run["cases"], collectives_launches=run["launches"], phase_seconds=time.perf_counter() - t_phase)
-    log("suite_scaling", card=card, records=sv, note="two ranks sharing one card over gloo: the plumbing, not a speed")
-    return {
-        "render_fwd": {"interact": {"launches": session_launches["render_kernel_forward"],
-                                    "turntable_launches": turn_launches["render_kernel_forward"],
-                                    "max_abs_err": interact_err, "ms": k1_ms, "frame_ms": frame_ms,
-                                    "viewer_ms": viewer_ms, "turntable_ms": turn_ms}},
-        "ring_allreduce": {"collectives_lab": {"launches": run["launches"]["ring_allreduce"], "bit_equal": True}},
-        "rs_ag_allreduce": {"collectives_lab": {"launches": run["launches"]["rs_ag_allreduce"], "bit_equal": True}},
-    }
+    def start_labs():
+        t_labs.append(time.perf_counter())
+        launch("suite_scaling", f"{pkg}.benchmarks.suite", "--scaling", "--quick", "--world-sizes", 1, 2, "--iters",
+               3)
+        launch("collectives_lab", f"{pkg}.benchmarks.collectives_lab", "--run", "--num", 2)
+        launch("scaling_report", f"{pkg}.benchmarks.scaling_report", "--step-ms", step_s * 1e3, "--step-card", card,
+               "--out", scaling_out)
+        launch("fast_profile", f"{pkg}.benchmarks.fast_profile", "--quick")
+        launch("perf_lab", f"{pkg}.benchmarks.perf_lab", "stages", "fit_stages", "--cases", "fwd", "fwd_noshadow",
+               "fwd_bwd", "fit_full", "fwd_full", "--rounds", 1, "--iters", 2)
+        launch("live_view", f"{pkg}.examples.live_view", "--frames", 3, "--port", free_port())
+
+    def finish_labs(done):
+        labs_s = time.perf_counter() - t_labs[0]
+        log("labs_seconds", builds=builds, build_seconds=build_s, step_seconds=step_measure_s, labs_seconds=labs_s,
+            lab_seconds={name: end for name, (_, end) in done.items()})
+        # live_view: three frames on K1, served on its port.
+        text = done["live_view"][0]
+        m = re.search(r"frames (\d+), last ([\d.]+) ms, launches (\d+)", text)
+        check("live viewer: http://127.0.0.1:" in text and m is not None and m.group(1) == "3" and m.group(3) == "3",
+              f"live_view did not render 3 frames on K1:\n{text[-2000:]}")
+        # perf_lab: stages (K1; K1 + K5) and fit_stages' full cases (K3; K1 in
+        # series), 32 frames a case.
+        pl = last_json(done["perf_lab"][0])
+        want_pl = {"stages": {"fwd", "fwd_noshadow", "fwd_bwd"}, "fit_stages": {"fit_full", "fwd_full"}}
+        check({k: set(v) for k, v in pl["suites"].items()} == want_pl and finite_leaves(pl) and all(
+            c["ms"] > 0 for v in pl["suites"].values() for c in v.values()), f"perf_lab's JSON: {pl}")
+        check(pl["launches"] == {"render_kernel_forward": 4 * 32, "fit_step_kernel": 32, "render_kernel_backward": 32},
+              f"perf_lab launched {pl['launches']}")
+        # fast_profile: the deltas on both scenes, four throughput rows.
+        fp = last_json(done["fast_profile"][0])
+        check([d["scene"] for d in fp["deltas"]] == ["reference", "flagship"] and finite_leaves(fp) and
+              all(d["psnr_db"] > 20 and 0 <= d["pixels_changed_gt_1pct"] < 1 for d in fp["deltas"]) and
+              [(r["profile"], r["mode"]) for r in fp["throughput"]] == [(p, m_) for p in ("parity", "fast")
+                                                                      for m_ in ("fwd", "fwd_bwd")] and
+              all(r["rays_per_s"] > 0 and r["backend"] == "cuda" for r in fp["throughput"]),
+              f"fast_profile's JSON: {fp}")
+        # scaling_report: 3 scenes x 5 sizes x 5 layouts (interleaved at tile
+        # heights 24 and 8), the card in the basis, written only to --out.
+        sc_text = done["scaling_report"][0]
+        records = [json.loads(ln) for ln in sc_text.splitlines() if ln.startswith("{")]
+        check(len(records) == 75 and finite_leaves(records) and all(
+            0 < r["value"] <= 1 and 0 < r["comm_factor"] <= 1 and card.split(",")[0] in r["basis"] and
+            torch.cuda.get_device_name(0) in r["basis"] for r in records), f"scaling_report's records: {records[:2]}")
+        check(open(scaling_out).read() == "".join(json.dumps(r) + "\n" for r in records),
+              "scaling_report's --out is not its stdout")
+        # collectives_lab --run --num 2: K7 and K8 bit for bit against their plain
+        # versions, 18 launches each (3 sizes, one checked and 5 timed calls).
+        cl = last_json(done["collectives_lab"][0])
+        run = cl["run"]
+        check(run["device"] == "cuda" and all(c["bit_equal"] and c["same_as_last_call"] for c in run["cases"]) and
+              len(run["cases"]) == 6 and finite_leaves(cl) and
+              run["launches"] == {"ring_allreduce": 18, "rs_ag_allreduce": 18}, f"collectives_lab's run: {run}")
+        # suite --scaling: world sizes 1 and 2, the second sharing the card.
+        sv = [json.loads(ln) for ln in done["suite_scaling"][0].splitlines() if ln.startswith("{")]
+        check([r["n_devices"] for r in sv] == [1, 2] and [r["shared_card"] for r in sv] == [False, True] and
+              finite_leaves(sv) and all(r["value"] > 0 for r in sv) and sv[1]["backend"] == "gloo",
+              f"suite --scaling's records: {sv}")
+        log("labs", card=card, fit_step_ms=step_s * 1e3,
+            live_view_last_frame_ms=float(m.group(2)), perf_lab={k: {c: v["ms"] for c, v in s_.items()}
+                                                                for k, s_ in pl["suites"].items()},
+            perf_lab_launches=pl["launches"], fast_profile=fp, scaling_examples=[
+                {k: r[k] for k in ("scene", "n_devices", "layout", "value", "value_with_comm")}
+                for r in records if r["n_devices"] == 32], scaling_basis=records[0]["basis"],
+            collectives=run["cases"], collectives_launches=run["launches"])
+        log("suite_scaling", card=card, records=sv,
+            note="two ranks sharing one card over gloo: the plumbing, not a speed")
+        return {
+            "ring_allreduce": {"collectives_lab": {"launches": run["launches"]["ring_allreduce"], "bit_equal": True}},
+            "rs_ag_allreduce": {"collectives_lab": {"launches": run["launches"]["rs_ag_allreduce"], "bit_equal": True}},
+        }
+
+    labs = Labs(start_labs, lambda: finish_labs(wait_labs(running)))
+    interact = {"interact": {"launches": session_launches["render_kernel_forward"],
+                             "turntable_launches": turn_launches["render_kernel_forward"],
+                             "max_abs_err": interact_err, "ms": k1_ms, "frame_ms": frame_ms,
+                             "viewer_ms": viewer_ms, "turntable_ms": turn_ms}}
+    if defer_labs:
+        return {"render_fwd": interact}, labs
+    labs.start()
+    return {"render_fwd": interact, **labs.finish()}
 
 
 #: ``examples/inverse_fit.py``'s loss: the pyramid and the silhouette term in
@@ -6848,11 +7030,10 @@ def slice19_jobs(tt) -> list:
     return jobs
 
 
-def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
+def slice19_phases(torch, tt, card: str, dev, alongside: Labs | None = None) -> dict:
     """Phases 60-62: the last six example scripts (ROADMAP 16b) on the card.
-    60 waits for their libraries (``background``: ``(future, start time)``
-    of a thread that builds :func:`slice19_jobs` during earlier phases; run
-    alone, it builds them here); 61 holds K3 with the pyramid and the
+    60 loads their libraries (:func:`slice19_jobs`; in the whole smoke
+    built already by the queue of phase 3, run alone built here); 61 holds K3 with the pyramid and the
     silhouette term in one launch (``inverse_fit``'s fit) to its plain
     versions, times it beside its one-branch forms at 1080p and runs a
     20-step fit with it; 62 runs the six scripts at the JAX scripts'
@@ -6861,7 +7042,10 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
     checked and held to the kernels' plain versions.  Returns the kernels
     line's ``examples`` entries of ``render_fwd``, ``render_tiles``,
     ``fit_step`` and ``neural_fwd`` and ``fit_step``'s
-    ``multiscale_silhouette`` entry.  Runnable alone."""
+    ``multiscale_silhouette`` entry.  ``alongside``: phases 58-59's labs
+    (:class:`Labs`), started before phase 62's scripts and finished after
+    them (the scripts' seconds then share the card and the host with them),
+    before the times of K1 with AO.  Runnable alone."""
     import shutil
 
     from sdf3d_tpu_torch.config import AOConfig
@@ -6909,17 +7093,13 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
         rgb = render_kernel_launch(reference, prm, uni, c)[0].contiguous()
         return rgb, (rgb.abs().amax(0) > 1e-3).to(torch.float32).contiguous()
 
-    # ---- 60. the libraries, built in a thread during phases 52-59 ----
+    # ---- 60. the libraries (in the whole smoke built already by the queue of
+    # phase 3) ----
     t_phase = time.perf_counter()
     builds0, seconds0 = libs.builds, libs.build_seconds
     jobs = slice19_jobs(tt)
-    if background is None:
-        libs.load_many(jobs)
-        background_s = waited_s = time.perf_counter() - t_phase
-    else:
-        pending, t_start = background
-        pending.result()
-        background_s, waited_s = time.perf_counter() - t_start, time.perf_counter() - t_phase
+    libs.load_many(jobs)
+    waited_s = time.perf_counter() - t_phase
     sc0 = start()
     forms = {  # name: (wrt_uniforms, frozen, levels, silhouette)
         "multiscale_silhouette": (False, frozen, 3, True), "multiscale_silhouette_uniforms": (True, (), 3, True),
@@ -6934,8 +7114,7 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
         p = ptxas_summary(libs.log(libs.key(cuda_scene_source(sc, gallery_full, kc))))["render_fwd"]
         ao_ptxas[name] = {**p, "blocks_per_sm": blocks_per_sm(p["registers"])}
     log("examples_build", builds=libs.builds - builds0, build_seconds=libs.build_seconds - seconds0,
-        libraries=len(jobs), in_background=background is not None, background_seconds=background_s,
-        waited_seconds=waited_s, fit_step_ptxas=ptxas, render_fwd_ao_ptxas=ao_ptxas)
+        libraries=len(jobs), waited_seconds=waited_s, fit_step_ptxas=ptxas, render_fwd_ao_ptxas=ao_ptxas)
 
     # ---- 61. K3 with the pyramid and the silhouette term in one launch ----
     t_phase = time.perf_counter()
@@ -7008,9 +7187,12 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
     times = {n: {"ms": sum(r) / 2, "ms_runs": r} for n, r in runs.items()}
     log("examples_k3_1080p", card=card, times=times, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         counts=counts, fit_losses=fit.losses, fit_seconds=fit_seconds, fit_ms_per_step=W * H / fit.rays_per_second * 1e3,
-        fit_launches=fit_launches, ptxas=ptxas, phase_seconds=time.perf_counter() - t_phase)
+        fit_launches=fit_launches, ptxas=ptxas)
 
-    # ---- 62. the six scripts at the JAX scripts' defaults ----
+    # ---- 62. the six scripts at the JAX scripts' defaults (beside the labs,
+    # where given) ----
+    if alongside is not None:
+        alongside.start()
     t_phase = time.perf_counter()
     out_root = os.path.join(REPO, "build", "chip_smoke", "examples")
     shutil.rmtree(out_root, ignore_errors=True)  # no stale checkpoint to resume
@@ -7046,6 +7228,8 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
         inverse_fit={"checkpoints": saved, "center": center, "radius": radius},
         pose_fit_position_error=[e0, e1], gallery_vs_plain=gallery, neural_vs_plain={
             k: neural_st[k] for k in ("over_atol", "max_abs_err")}, sharded_render=ranks)
+    if alongside is not None:
+        alongside.finish()
     # K1 with AO on the gallery's scenes at 1080p under their cameras, beside
     # the same render without AO (phases 30, 34 and 37 built those), in turns.
     ao_ms = {}
@@ -7059,7 +7243,7 @@ def slice19_phases(torch, tt, card: str, dev, background=None) -> dict:
             r["ao" if f is ao else "no_ao"].append(time_ms(f, 2, 10))
         ao_ms[name] = {"ms": sum(r["ao"]) / 2, "no_ao_ms": sum(r["no_ao"]) / 2, "ms_runs": r["ao"],
                        "no_ao_ms_runs": r["no_ao"], "ptxas": ao_ptxas[name]}
-    log("examples_gallery_ao_1080p", card=card, render_fwd=ao_ms, phase_seconds=time.perf_counter() - t_phase)
+    log("examples_gallery_ao_1080p", card=card, render_fwd=ao_ms)
     k1_total = sum(ex_launches[n].get("render_kernel_forward", 0) for n in ex_launches)
     return {
         "render_fwd": {"examples": {"launches": k1_total, "sharded_render_launches_a_rank": 1,

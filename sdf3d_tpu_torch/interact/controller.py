@@ -2,10 +2,12 @@
 ``sdf3d_tpu/interact/controller.py``).
 
 ``native_src/navigation.cpp`` is the JAX package's source, copied byte for
-byte, built at first use with the C++ compiler by the port's own loader
-(``ops/_build.py::load_native``: the JAX loader's flags, the port's build
-directory, keyed by the source's hash), so both packages' controllers give
-the same floats.  ``prefer_native=False`` (or a failed build, which
+byte, loaded by the port's own loader (``ops/_build.py::load_native``): the
+CMake tree's ``libsdf3d_navigation.so`` from ``$SDF3D_NATIVE_DIR`` where it
+is there, as the JAX package's loader takes it, else built at first use with
+the C++ compiler (the JAX loader's flags, the port's build directory, keyed
+by the source's hash), so both packages' controllers give the same floats.
+``prefer_native=False`` (or a failed build, which
 :func:`navigation_available` reports) selects the pure-Python controller of
 the same filter semantics.  The controller is host code: it turns input
 events into a 4×4 view matrix that the session turns into a camera.
@@ -31,7 +33,7 @@ def _load():
     try:
         from sdf3d_tpu_torch.ops._build import load_native
 
-        lib = load_native(_SRC)
+        lib = load_native(_SRC, prebuilt_name="libsdf3d_navigation.so")
         f = ctypes.c_float
         fp = ctypes.POINTER(f)
         vp = ctypes.c_void_p

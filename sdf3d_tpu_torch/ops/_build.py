@@ -40,7 +40,14 @@ suffix ``_host``, no stream argument), the route of the CPU tests.
 
 :func:`load_native` builds a host-only C++ source with a plain C interface
 (the navigation controller of ``interact/``) with the C++ compiler into the
-same build directory, keyed by a hash of the source and the flags.
+same build directory, keyed by a hash of the source and the flags, unless a
+prebuilt library of the given name is in ``$SDF3D_NATIVE_DIR`` (the CMake
+tree, as the JAX package's loader reads it).
+
+``KernelLibraries.prefetch`` builds a queue of libraries on background
+threads ahead of their first load (``chip_smoke.py`` queues every library it
+knows up front); a load of a key in the queue waits for its build, or takes
+it out of the queue if it has not started.
 """
 
 from __future__ import annotations
@@ -175,6 +182,8 @@ class KernelLibraries:
     directory).  ``log(key)`` returns a build's compiler output (with
     ``-Xptxas -v``: registers, spills and shared memory per kernel).
     ``load_many`` builds several libraries at once, one thread each.
+    ``prefetch`` builds libraries ahead of their first load on background
+    threads (counted apart: ``prefetched``, ``prefetch_seconds``).
     ``host=True``: the host forms, built by the C++ compiler (module
     docstring).  ``csrc``: the sources' directory (a copy with a constant
     changed builds libraries of its own keys, loadable beside this one's).
@@ -186,6 +195,10 @@ class KernelLibraries:
         self.csrc = pathlib.Path(csrc)
         self.builds = 0
         self.build_seconds = 0.0
+        self.prefetched = 0
+        self.prefetch_seconds = 0.0
+        self._pending: dict[str, concurrent.futures.Future] = {}
+        self._planning: list[threading.Event] = []
         self._loaded: dict[str, ctypes.CDLL] = {}
         self._by_structure: dict = {}
         self._csrc: tuple[str, ...] | None = None
@@ -231,14 +244,69 @@ class KernelLibraries:
             futures = [pool.submit(self.load_for, *job) for job in jobs]
             return [f.result() for f in futures]
 
+    def prefetch(self, jobs, workers: int = 2) -> concurrent.futures.Future:
+        """Build the libraries of ``jobs`` (``load_for``'s ``(structure,
+        make_header, kind)``) ahead of their first :meth:`load`, in the order
+        given, ``workers`` at a time on background threads: each is compiled
+        into the build directory and not loaded.  A :meth:`load` of a key
+        the queue is building waits for that build; a key still waiting its
+        turn is taken out of the queue and built by the load itself.  The
+        queue's builds count in ``prefetched`` and ``prefetch_seconds``, not
+        in ``builds``.  Returns a future of the whole queue (the number of
+        libraries it built), which raises the first failed build.  The
+        queue's headers are generated first, on one thread: until they are,
+        a :meth:`load` waits for them too."""
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+        planned = threading.Event()
+        self._planning.append(planned)
+
+        def plan():
+            futures = []
+            try:
+                for _, make_header, kind in jobs:
+                    header = make_header()
+                    key = self.key(header, kind)
+                    with self._lock:
+                        if key in self._pending or key in self._loaded:
+                            continue
+                        self._pending[key] = future = pool.submit(self._prefetch_one, key, header, KINDS[kind])
+                    futures.append(future)
+            finally:
+                planned.set()
+            return sum(f.result() for f in futures if not f.cancelled())
+
+        planner = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        done = planner.submit(plan)
+        done.add_done_callback(lambda _: (pool.shutdown(wait=False), planner.shutdown(wait=False)))
+        return done
+
+    def _prefetch_one(self, key: str, scene_header: str, spec: LibraryKind) -> int:
+        path = self.build_dir / key / spec.lib_name
+        if path.exists():
+            return 0
+        seconds = self._compile(path.parent, scene_header, spec)
+        with self._lock:
+            self.prefetched += 1
+            self.prefetch_seconds += seconds
+        return 1
+
     def load(self, scene_header: str, kind: str = "render") -> ctypes.CDLL:
         spec = KINDS[kind]
         key = self.key(scene_header, kind)
         lib = self._loaded.get(key)
         if lib is None:
             path = self.build_dir / key / spec.lib_name
+            for planned in self._planning:
+                planned.wait()
+            with self._lock:
+                pending = self._pending.get(key)
+            if pending is not None and not pending.cancel():
+                concurrent.futures.wait([pending])  # a failed prefetch is built (and raised) here
             if not path.exists():
-                self._compile(path.parent, scene_header, spec)
+                seconds = self._compile(path.parent, scene_header, spec)
+                with self._lock:
+                    self.builds += 1
+                    self.build_seconds += seconds
             lib = ctypes.CDLL(str(path))
             for name, argtypes in spec.host_entry_points if self.host else spec.entry_points:
                 fn = getattr(lib, name)
@@ -265,9 +333,9 @@ class KernelLibraries:
                     for src, obj in zip(spec.sources, objs)]
         return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out), *map(str, objs)]
 
-    def _compile(self, out_dir: pathlib.Path, scene_header: str, spec: LibraryKind) -> None:
+    def _compile(self, out_dir: pathlib.Path, scene_header: str, spec: LibraryKind) -> float:
         """Build into a private temporary directory, then rename it to
-        ``out_dir`` (module docstring)."""
+        ``out_dir`` (module docstring); returns the build's seconds."""
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = pathlib.Path(tempfile.mkdtemp(prefix=out_dir.name + ".", dir=self.build_dir))
         try:
@@ -303,22 +371,29 @@ class KernelLibraries:
                     os.rename(tmp, out_dir)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        with self._lock:
-            self.builds += 1
-            self.build_seconds += seconds
+        return seconds
 
 
 #: The process's library cache.
 LIBRARIES = KernelLibraries()
 
 
-def load_native(src: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR) -> ctypes.CDLL:
+def load_native(src: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR,
+                prebuilt_name: str | None = None) -> ctypes.CDLL:
     """Load the shared library of the host C++ source ``src`` (a plain C
-    interface), building it at first use: one ``find_cxx()`` call with
-    :data:`NATIVE_FLAGS` into ``build_dir/native/<stem>_<hash>.so``, the
-    hash over the source and the flags.  The library is written under a
+    interface).  In the JAX package's loader's order: a prebuilt library
+    ``$SDF3D_NATIVE_DIR/<prebuilt_name>`` (the CMake build tree's, e.g.
+    ``libsdf3d_navigation.so``) where the variable and that file exist;
+    else the cached build ``build_dir/native/<stem>_<hash>.so``, the hash
+    over the source and the flags; else one ``find_cxx()`` call with
+    :data:`NATIVE_FLAGS` builds it there.  The library is written under a
     private name and renamed into place, so processes that build it at once
     never load a partial file.  Raises on a failed build."""
+    prebuilt_dir = os.environ.get("SDF3D_NATIVE_DIR")
+    if prebuilt_name and prebuilt_dir:
+        candidate = pathlib.Path(prebuilt_dir) / prebuilt_name
+        if candidate.exists():
+            return ctypes.CDLL(str(candidate))
     src = pathlib.Path(src)
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NATIVE_FLAGS).encode())

@@ -80,8 +80,9 @@ class RenderKernelFunction(torch.autograd.Function):
 class BandedRenderFunction(torch.autograd.Function):
     """``rgb (3, H, W) = render(prm, uni)`` of a scene without emitters:
     ``render.render_aux_banded`` forward (the torch march, no graph), the planar re-trace on the scene's own distance backward
-    (``render_bwd_kernel.scene_distance``), the shadow re-marched under
-    ``shadow.grad == "ad"`` and a detached factor otherwise."""
+    (``render_bwd_kernel.scene_distance``, its ``Shaded`` tags resolved at
+    the hit), the shadow re-marched under ``shadow.grad == "ad"`` and a
+    detached factor otherwise."""
 
     @staticmethod
     def forward(ctx, prm, uni, scene: SDFNode, cfg: RenderConfig, view: tuple):

@@ -32,13 +32,17 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from sdf3d_tpu_torch.config import RenderConfig
 from sdf3d_tpu_torch.diff import DENOM_FLOOR
+from sdf3d_tpu_torch.lighting import Material
 from sdf3d_tpu_torch.march import soft_shadow
 from sdf3d_tpu_torch.ops.render_kernel import (
     _U_AMB,
     _U_LIGHT,
+    _U_MAT_AMB,
+    N_MAT_CHANNELS,
     N_UNIFORMS,
     KernelConfig,
     check_plane,
@@ -49,7 +53,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     ray_planes,
 )
 from sdf3d_tpu_torch.ops.scene_program import check_scene, compile_scene, count_params, leaves
-from sdf3d_tpu_torch.sdf.materials import scene_has_materials
+from sdf3d_tpu_torch.sdf.materials import material_at, scene_has_materials
 from sdf3d_tpu_torch.sdf.node import SDFNode, sqrt_rn
 
 def _rsqrt(x):
@@ -81,26 +85,59 @@ def planar_distance(sdf):
     return lambda px, py, pz, prm: soa(px, py, pz, lambda i: prm[i])
 
 
-def scene_distance(scene: SDFNode):
+class _MaterialProbe(nn.Module):
+    """``material_at`` of ``scene`` as a module's forward, so that
+    ``torch.func.functional_call`` substitutes the scene's leaves in it."""
+
+    def __init__(self, scene: SDFNode):
+        super().__init__()
+        self.scene = scene
+
+    def forward(self, p: torch.Tensor, default: Material) -> Material:
+        return material_at(self.scene, p, default)
+
+
+class SceneDistance:
     """The distance ``(px, py, pz, prm) -> planes`` of any scene through its
     own ``distance`` (``torch.func.functional_call``), its leaves read from
     the flat parameter vector ``prm`` (P,) in ``scene_param_vector``'s
     order: the re-trace of a scene without emitters (a ``VoxelGrid``), JAX's
-    generic branch of ``_planar_shade``.  Per-object materials need the
-    material program, which such a scene has not: they raise."""
-    if scene_has_materials(scene):
-        raise NotImplementedError("per-object materials (Shaded) on a scene without emitters have no planar re-trace")
-    names = {id(p): n for n, p in scene.named_parameters(remove_duplicate=False)}
-    slots, off = [], 0
-    for leaf in leaves(scene):
-        slots.append((names[id(leaf)], off, leaf.shape))
-        off += leaf.numel()
+    generic branch of ``_planar_shade``.  :meth:`materials` resolves the
+    scene's ``Shaded`` tags at the hit by the same substitution."""
 
-    def dist(px, py, pz, prm):
-        subs = {name: prm[o:o + max(1, int(np.prod(shape)))].reshape(shape) for name, o, shape in slots}
-        return torch.func.functional_call(scene, subs, (torch.stack([px, py, pz], dim=-1),))
+    def __init__(self, scene: SDFNode):
+        self.scene = scene
+        self.tagged = scene_has_materials(scene)
+        names = {id(p): n for n, p in scene.named_parameters(remove_duplicate=False)}
+        self.slots, off = [], 0
+        for leaf in leaves(scene):
+            self.slots.append((names[id(leaf)], off, leaf.shape))
+            off += leaf.numel()
 
-    return dist
+    def _leaves(self, prm: torch.Tensor, prefix: str = "") -> dict:
+        return {prefix + name: prm[o:o + max(1, int(np.prod(shape)))].reshape(shape) for name, o, shape in self.slots}
+
+    def __call__(self, px, py, pz, prm):
+        return torch.func.functional_call(self.scene, self._leaves(prm), (torch.stack([px, py, pz], dim=-1),))
+
+    def materials(self, hx, hy, hz, prm, u) -> tuple:
+        """The 10 material channels at the hit planes (``material_channels``'
+        order): ``sdf/materials.py::material_at`` with the uniform material
+        ``u[17..26]`` serving the untagged subtrees, as JAX's
+        ``_planar_shade`` resolves them, differentiable in each ``Shaded``
+        node's slots of ``prm``, in the uniforms and in the hit point."""
+        default = tuple(u[_U_MAT_AMB + k] for k in range(N_MAT_CHANNELS))
+        if not self.tagged:
+            return default
+        mat = Material(torch.stack(default[0:3]), torch.stack(default[3:6]), torch.stack(default[6:9]), default[9])
+        m = torch.func.functional_call(_MaterialProbe(self.scene), self._leaves(prm, "scene."),
+                                       (torch.stack([hx, hy, hz], dim=-1), mat))
+        return (*m.ambient.unbind(-1), *m.diffuse.unbind(-1), *m.specular.unbind(-1), m.shininess)
+
+
+def scene_distance(scene: SDFNode) -> SceneDistance:
+    """:class:`SceneDistance` of ``scene``."""
+    return SceneDistance(scene)
 
 
 def implicit_denominator(sdf, prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor,
@@ -212,9 +249,13 @@ def shade_planes(prm: torch.Tensor, uni: torch.Tensor, t0: torch.Tensor, shadow:
     dif = _clip01(nx * ix + ny * iy + nz * iz) * shadow
     amb = u[_U_AMB] * ao if cfg.ao.enabled else u[_U_AMB]
     # The material channels at the hit (JAX's mat_soa): the material
-    # program's for a scene with Shaded tags, differentiable in its
-    # parameters and the hit point, else the uniform material.
-    mch = material_channels(scene, lambda i: prm[i], u, hx, hy, hz)
+    # program's for a scene with Shaded tags (``material_at`` on a scene's own
+    # distance), differentiable in its parameters and the hit point, else
+    # the uniform material.
+    if isinstance(scene, SceneDistance):
+        mch = scene.materials(hx, hy, hz, prm, u)
+    else:
+        mch = material_channels(scene, lambda i: prm[i], u, hx, hy, hz)
     spec = power(ndoth, mch[9])
     chans = []
     for c in range(3):

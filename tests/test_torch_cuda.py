@@ -10,6 +10,7 @@ card and without JAX (``tests/conftest.py`` imports JAX) run:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -67,7 +68,7 @@ from sdf3d_tpu_torch.ops.render_kernel import (
     render_kernel_tiles_launch,
     tile_pixel_planes,
 )
-from sdf3d_tpu_torch.ops.scene_program import count_params, scene_param_vector
+from sdf3d_tpu_torch.ops.scene_program import count_params, cuda_scene_source, scene_param_vector
 from sdf3d_tpu_torch.parallel import make_mesh, render_sharded_kernel
 from sdf3d_tpu_torch.parallel.tile_queue import gather_target_tiles, plan_tiles
 from sdf3d_tpu_torch.utils.parity import (
@@ -1662,3 +1663,81 @@ def test_row_slabs_match_the_full_launch(dev, interleaved):
     got = torch.cat([x.grad.reshape(-1) for x in leaves(sc)])
     mass = gradient_mass(scene, prm, uni, g.permute(2, 0, 1), *full[1:], BASE)[:prm.numel()]
     check_grads(got.cpu(), g_full.cpu(), mass.cpu(), rtol=1e-5, mass_tol=1e-5, label="K5 on row slabs")
+
+
+# The union bounds as the card computes them: the g++ probe of
+# tests/test_torch_union_bounds.py (Scene::Ray::lower(t) beside eval(t) for
+# each bounded kind) built by nvcc with the kernels' flags for sm_90a.
+BOUNDS_CARD_SHIM = r"""
+#include <cuda_runtime.h>
+#include "render_kernel.cuh"
+{includes}
+
+template <class S>
+__global__ void bounds_kernel(const float* rays, const float* prm, int P, int n, float* value, float* lower) {{
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* r = rays + 7 * i;
+  typename S::Ray ray;
+  ray.setup(r[0], r[1], r[2], r[3], r[4], r[5], prm + static_cast<long>(i) * P);
+  value[i] = ray.eval(r[6]);
+  lower[i] = ray.lower(r[6]);
+}}
+
+extern "C" int sdf3d_bounds_card(int k, const float* rays, const float* prm, int P, int n, float* value,
+                                 float* lower) {{
+  const int blocks = (n + 255) / 256;
+  switch (k) {{
+{cases}
+    default: return 1;
+  }}
+  return cudaDeviceSynchronize() == cudaSuccess ? 0 : 2;
+}}
+"""
+
+
+def test_union_bounds_hold_as_the_card_computes_them(dev, tmp_path):
+    """``lower(t) <= eval(t)`` wherever ``eval(t)`` is not NaN, for every
+    bounded kind of ``tests/test_torch_union_bounds.py`` at that test's
+    seeded rays and parameters (10⁵ a kind), both computed on the card by an
+    nvcc build with the kernels' flags (``ops/_build.py::NVCC_FLAGS``: nvcc
+    contracts products into FMAs where it chooses, as in K1, which the g++
+    builds cannot show)."""
+    import test_torch_union_bounds as ub
+
+    index, headers, includes, cases = {}, {}, [], []
+    for kind in ub.KINDS:
+        header = cuda_scene_source(ub.KINDS[kind][0](), tt.REFERENCE_CONFIG, KernelConfig())
+        if header not in headers:
+            k = headers[header] = len(headers)
+            (tmp_path / f"scene{k}.cuh").write_text(header)
+            includes.append(f'namespace s{k} {{\n#include "scene{k}.cuh"\n}}')
+            cases.append(f"    case {k}: bounds_kernel<s{k}::Scene><<<blocks, 256>>>(rays, prm, P, n, value, lower);"
+                         " break;")
+        index[kind] = headers[header]
+    (tmp_path / "shim.cu").write_text(BOUNDS_CARD_SHIM.format(includes="\n".join(includes), cases="\n".join(cases)))
+    lib = tmp_path / "libbounds_card.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(ub.CSRC), "-I",
+                           str(tmp_path), str(tmp_path / "shim.cu"), "-o", str(lib)],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    handle = ctypes.CDLL(str(lib))
+    handle.sdf3d_bounds_card.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    for kind in sorted(ub.KINDS):
+        rng = np.random.default_rng(sorted(ub.KINDS).index(kind) + 2000)
+        prm, centre, size, tight = ub.KINDS[kind][1](rng, ub.N)
+        rays = ub._rays(rng, centre, size, tight)
+        rays_d = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).to(dev)
+        prm_d = torch.from_numpy(np.ascontiguousarray(prm, np.float32)).to(dev)
+        value, lower = (torch.empty(ub.N, dtype=torch.float32, device=dev) for _ in range(2))
+        assert handle.sdf3d_bounds_card(index[kind], rays_d.data_ptr(), prm_d.data_ptr(), prm.shape[1], ub.N,
+                                        value.data_ptr(), lower.data_ptr()) == 0
+        value, lower = value.cpu().numpy(), lower.cpu().numpy()
+        bad = ~(lower <= value) & ~np.isnan(value)
+        assert not bad.any(), f"{kind}: {int(bad.sum())} samples with lower > value on the card, e.g. " \
+                              f"{rays[bad][:3]}, {prm[bad][:3]}, {lower[bad][:3]}, {value[bad][:3]}"
+        assert np.isfinite(lower).mean() > 0.99
+        gap = (value - lower)[np.isfinite(value - lower)]
+        print(f"\n[measured] {kind} on the card: {ub.N} samples, value - lower min {float(gap.min()):.3g}, "
+              f"median {float(np.median(gap)):.3g}")

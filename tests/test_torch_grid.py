@@ -19,7 +19,17 @@ Bars, each beside the error measured here:
   largest, within the relative term), and end to end, each side marching
   its own primal, 1e-4 relative plus 1e-3 of the largest (measured 3.2e-5);
 - three Adam steps of the kernel engine's grid fit against JAX's pallas
-  engine: losses 1e-4 relative.
+  engine: losses 1e-4 relative;
+- the grid tagged with a material of its own (``Shaded``) on the same
+  route: every leaf's gradient (the samples, the plane, the tag's material
+  channels), the light's and the global material's against ``jax.vjp``
+  through ``render_pallas`` at the grid's end-to-end bar (measured 7.5e-5 of
+  the largest, within the relative term), the image at ``NEURAL_BAR``
+  (measured at most 1.2e-4), the backward alone on JAX's planes against
+  ``_planar_shade`` at the grid's bar (measured 7.5e-5 of the largest,
+  within the relative term); tagged with the global material, the untagged
+  image and grid gradient bit for bit; three Adam steps of its material
+  against JAX's fit, losses 1e-4 relative (measured 1e-6).
 """
 
 import copy
@@ -256,3 +266,125 @@ def test_grid_fits_on_both_engines():
     for res in runs.values():
         assert res.steps_run == 3 and res.losses[-1] < res.losses[0]
         assert not torch.equal(res.scene.b.values, scene0.b.values)
+
+
+def _jax_shaded_grid(res=12, mat=None):
+    """:func:`_jax_grid` with the grid tagged by a material of its own (a
+    non-default one unless ``mat`` is given)."""
+    base = _jax_grid(res)
+    if mat is None:
+        mat = s.lighting.material(ambient=(0.3, 0.1, 0.05), diffuse=(0.9, 0.3, 0.1), specular=(0.2, 0.6, 0.4),
+                                  shininess=20.0)
+    return s.sdf.union(base.a, s.sdf.shaded(base.b, mat))
+
+
+def test_render_kernel_diff_of_a_shaded_grid_matches_jax():
+    """``Union(plane, Shaded(grid))`` on the banded route: the forward resolves
+    the tag's material at each hit, the backward's re-trace
+    (``render_bwd_kernel.SceneDistance.materials``) hands the gradient to the
+    Shaded node's four material leaves and, where the plane is hit, to the
+    global material's uniforms; every leaf, the light and the global material
+    against ``jax.vjp`` through JAX's ``render_pallas``."""
+    jscene, jcam = _jax_shaded_grid(), s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0)
+    jlight, jmat = s.reference_light(), s.reference_material()
+    scene, cam, light, mat = (convert.from_jax(o) for o in (jscene, jcam, jlight, jmat))
+    assert type(scene.b).__name__ == "Shaded" and type(scene.b.child).__name__ == "VoxelGrid"
+    np.testing.assert_array_equal(scene_param_vector(scene).numpy(),
+                                  np.asarray(jax.flatten_util.ravel_pytree(jscene)[0]))
+    g = np.random.default_rng(3).normal(size=(H, W, 3)).astype(np.float32)
+    light.position.requires_grad_(True)
+    mat_fields = [f.name for f in dataclasses.fields(mat)]
+    for f in mat_fields:
+        getattr(mat, f).requires_grad_(True)
+    img = render_kernel_diff(CFG, KernelConfig(), scene, cam, light, mat)
+    (img * torch.from_numpy(g)).sum().backward()
+    got = torch.cat([*(x.grad.reshape(-1) for x in leaves(scene)), light.position.grad,
+                     *(getattr(mat, f).grad.reshape(-1) for f in mat_fields)]).numpy()
+    out, pull = jax.vjp(lambda sc, l, m: render_pallas(JCFG, PC, sc, jcam, l, m), jscene, jlight, jmat)
+    jg = pull(jnp.asarray(g))
+    want = np.concatenate([np.asarray(jax.flatten_util.ravel_pytree(jg[0])[0]), np.asarray(jg[1].position),
+                           np.asarray(jax.flatten_util.ravel_pytree(jg[2])[0])])
+    shaded_slots = slice(-13 - 10, -13)  # the Shaded node's material, then the light and the global material
+    assert np.abs(got[shaded_slots]).min() > 0 and np.abs(got[-10:]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3 * np.abs(want).max())
+    print("[measured] shaded grid end to end, of the largest:", float(np.abs(got - want).max() / np.abs(want).max()))
+
+    want_img = torch.from_numpy(np.array(out))
+    st = check_pixel_budget(img.detach().double(), want_img.double(), "shaded grid image, port vs JAX",
+                            channel_axis=-1, **NEURAL_BAR)
+    print("[measured] shaded grid image, port vs JAX:", st)
+
+    # The backward alone on JAX's planes, the global material included.
+    rgb_j, t_j, sh_j, ao_j = jax_render_aux_banded(jscene, jcam, jlight, jmat, JCFG)
+    gp = np.ascontiguousarray(np.transpose(g, (2, 0, 1)))
+    _, pull = jax.vjp(lambda sc, m: _planar_shade(JCFG, sc, jcam, jlight, m, t_j, sh_j, ao_j), jscene, jmat)
+    jg_p = pull(jnp.asarray(gp))
+    want_p = np.concatenate([np.asarray(jax.flatten_util.ravel_pytree(x)[0]) for x in jg_p])
+    uni = pack_uniforms(cam, light, mat, CFG.ray_mode).detach()
+    uni[27] = CFG.shadow.k
+    planes = [torch.from_numpy(np.array(x)) for x in (t_j, sh_j, ao_j)]
+    g_prm, g_uni = planar_vjp(scene_distance(scene), scene_param_vector(scene), uni, torch.from_numpy(gp), *planes,
+                              CFG)
+    got_p = torch.cat([g_prm, g_uni[17:27]]).numpy()
+    np.testing.assert_allclose(got_p, want_p, rtol=1e-4, atol=1e-5 * np.abs(want_p).max())
+    print("[measured] shaded grid backward on JAX's planes, of the largest:",
+          float(np.abs(got_p - want_p).max() / np.abs(want_p).max()))
+
+
+def test_shaded_grid_with_the_global_material_is_the_untagged_grid():
+    """A ``Shaded`` node whose material is the global one renders the
+    untagged scene's image bit for bit and gives its grid the same gradient;
+    the gradient the untagged grid's hits hand the global material goes to
+    the tag's leaves instead."""
+    jmat = s.reference_material()
+    cam, light, mat = (convert.from_jax(o) for o in (s.Camera.orbit(azimuth_deg=30.0, elevation_deg=15.0),
+                                                      s.reference_light(), jmat))
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=(H, W, 3)).astype(np.float32))
+    runs = {}
+    for name, jscene in (("untagged", _jax_grid()), ("tagged", _jax_shaded_grid(mat=jmat))):
+        scene = convert.from_jax(jscene)
+        m = copy.deepcopy(mat)
+        for f in dataclasses.fields(m):
+            getattr(m, f.name).requires_grad_(True)
+        img = render_kernel_diff(CFG, KernelConfig(), scene, cam, light, m)
+        (img * g).sum().backward()
+        grid = scene.b if name == "untagged" else scene.b.child
+        runs[name] = (img.detach(), grid.values.grad, scene, m)
+    assert torch.equal(runs["tagged"][0], runs["untagged"][0])
+    assert torch.equal(runs["tagged"][1], runs["untagged"][1]) and float(runs["tagged"][1].abs().max()) > 0
+    tag, m_tagged, m_untagged = runs["tagged"][2].b, runs["tagged"][3], runs["untagged"][3]
+    for f in ("ambient", "diffuse", "specular", "shininess"):
+        total = getattr(tag, f).grad + getattr(m_tagged, f).grad
+        torch.testing.assert_close(total, getattr(m_untagged, f).grad, rtol=1e-5, atol=1e-5)
+
+
+def test_shaded_grid_fit_trains_its_material_as_jax():
+    """Three Adam steps of the kernel engine's fit of the shaded grid's
+    material against JAX's pallas engine: losses 1e-4 relative, as the
+    untagged grid's fit (measured 1e-6); the Shaded node's material moves as
+    JAX's.  The samples stay frozen: trained with the material, the two
+    packages' samples after two steps differ by float32 rounding (4.8e-7)
+    and the third loss by 2.1e-4 relative, while each package renders
+    JAX's two-step scene to the same loss within 4e-6 (a march that flips
+    at a pixel between two nearby parameter sets, not a difference of the
+    renders)."""
+    jscene0 = _jax_shaded_grid(8)
+    jtarget = s.sdf.union(s.sdf.ground_plane(), s.sdf.shaded(s.sdf.sphere(center=(0.0, 0.42, 0.0), radius=0.28),
+                                                             s.lighting.material(diffuse=(0.8, 0.4, 0.1))))
+    jcam, jlight, jmat = s.Camera.reference(), s.reference_light(), s.reference_material()
+    target = np.asarray(s.render(jtarget, jcam, jlight, jmat, JCFG))
+    mask = (False, False, False, False, False, True, True, True, True)
+    flags = iter(mask)
+    jmask = jax.tree_util.tree_map(lambda _: next(flags), jscene0)
+    jfc = JaxFitConfig(steps=3, learning_rate=3e-3, log_every=1, engine="pallas", pallas_interpret=True,
+                       pallas_tile=(8, 128))
+    want = jax_fit_scene(target, jscene0, jcam, jlight, jmat, JCFG, jfc, trainable=jmask)
+    view = tuple(convert.from_jax(o) for o in (jcam, jlight, jmat))
+    scene0 = convert.from_jax(jscene0)
+    got = fit_scene(target, scene0, *view, CFG, convert.from_jax(jfc), trainable=mask, device="cpu")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
+    assert got.steps_run == 3 and got.losses[-1] < got.losses[0]
+    assert not torch.equal(got.scene.b.diffuse, scene0.b.diffuse)
+    np.testing.assert_allclose(got.scene.b.diffuse.detach().numpy(), np.asarray(want.scene.b.material.diffuse),
+                               rtol=1e-4, atol=1e-6)
+    print("[measured] shaded grid fit losses, port / JAX:", got.losses, want.losses)

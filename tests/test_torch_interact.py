@@ -1,7 +1,8 @@
 """The port's interactive runtime (``sdf3d_tpu_torch/interact``) held to the
 JAX package's: the native navigation controllers of both packages bit for
 bit on the same event scripts (one source, one compiler, the same flags),
-the port's Python controller against its native one, the JAX cases of
+the loader's order (a prebuilt library from ``$SDF3D_NATIVE_DIR`` first, as
+the JAX package's), the port's Python controller against its native one, the JAX cases of
 ``tests/test_interact.py`` and ``tests/test_devices.py`` on both packages,
 and one headless session through both, each on its own plain render."""
 
@@ -10,6 +11,7 @@ import importlib
 import io
 import pathlib
 import struct
+import subprocess
 
 import numpy as np
 import pytest
@@ -128,6 +130,49 @@ def test_loader_builds_into_the_ports_build_directory(tmp_path):
     other = pathlib.Path(_build.load_native(src, tmp_path / "build")._name)
     assert other.parent == tmp_path / "build" / "native" and other.name != lib.name
     assert _build.NATIVE_FLAGS == ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+@needs_native
+@pytest.mark.parametrize("where", ["prebuilt", "unset", "empty_dir"])
+def test_loader_takes_the_prebuilt_library_from_sdf3d_native_dir(where, tmp_path, monkeypatch):
+    """``$SDF3D_NATIVE_DIR/libsdf3d_navigation.so`` (the CMake tree's name)
+    comes first, as in the JAX package's loader: with it and no C++
+    compiler the controller is native, loaded from that file, and its poses
+    are JAX's native controller's bit for bit.  With the variable unset or
+    naming a directory without the file, the build path is taken as
+    before."""
+    from sdf3d_tpu_torch.interact import controller
+    from sdf3d_tpu_torch.ops import _build
+
+    if where == "prebuilt":
+        prebuilt = tmp_path / "libsdf3d_navigation.so"
+        subprocess.run([_build.find_cxx(), *_build.NATIVE_FLAGS, str(controller._SRC), "-o", str(prebuilt)],
+                       check=True, capture_output=True)
+        monkeypatch.setenv("SDF3D_NATIVE_DIR", str(tmp_path))
+
+        def no_compiler():
+            raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
+
+        monkeypatch.setattr(_build, "find_cxx", no_compiler)
+    elif where == "unset":
+        monkeypatch.delenv("SDF3D_NATIVE_DIR", raising=False)
+    else:
+        (tmp_path / "empty").mkdir()
+        monkeypatch.setenv("SDF3D_NATIVE_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(controller, "_LIB", None)
+    monkeypatch.setattr(controller, "_BUILD_ERROR", None)
+    nav = NavigationController()
+    assert nav.is_native, controller.navigation_error()
+    loaded = pathlib.Path(controller._LIB._name)
+    if where == "prebuilt":
+        assert loaded == prebuilt
+    else:
+        assert loaded.parent == _build.BUILD_DIR / "native" and loaded.name.startswith("navigation_")
+    got, want = replay(nav, SCRIPTS["pan_scroll"]), replay(JaxNav(), SCRIPTS["pan_scroll"])
+    assert len(got) == len(want) > 0
+    for (pg, vg), (pw, vw) in zip(got, want):
+        np.testing.assert_array_equal(pg, pw)
+        np.testing.assert_array_equal(vg, vw)
 
 
 # ---- tests/test_interact.py's controller and session cases, on both packages ----

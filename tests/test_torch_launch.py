@@ -33,6 +33,7 @@ from sdf3d_tpu_torch import convert
 from sdf3d_tpu_torch.camera import camera_rays, camera_rays_for_rows
 from sdf3d_tpu_torch.fit import FitConfig, fit_scene
 from sdf3d_tpu_torch.ops import KernelConfig, cuda_scene_source, pack_uniforms, render_kernel_forward_plain
+from sdf3d_tpu_torch.ops.render_kernel import library_job
 from sdf3d_tpu_torch.ops import _build
 from sdf3d_tpu_torch.ops.scene_program import scene_param_vector
 from sdf3d_tpu_torch.parallel import launch, make_mesh
@@ -296,3 +297,42 @@ def test_two_processes_build_one_key(tmp_path):
     want = render_kernel_forward_plain(scene, prm, uni, cfg)
     got = np.split(a, [3 * 24 * 32, 4 * 24 * 32, 5 * 24 * 32])
     check_planes([got[0].reshape(3, 24, 32)] + [g.reshape(24, 32) for g in got[1:]], want, cfg.march.max_distance)
+
+
+def test_prefetch_builds_ahead_and_a_load_waits_for_it(tmp_path):
+    """``KernelLibraries.prefetch`` builds a queue of libraries on background
+    threads (the host forms here): a ``load`` of a key still in the queue
+    waits for that build instead of starting its own, so this process's
+    ``builds`` stays 0 and the queue's builds count in ``prefetched``; the
+    loaded library renders the plain version's planes."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    cfg = dataclasses.replace(CFG, width=32, height=24)
+    libs = _build.KernelLibraries(tmp_path / "build", host=True)
+    scenes = [tt.reference_scene(), tt.sdf.union(tt.sdf.ground_plane(), tt.sdf.box(half_extents=(0.2, 0.3, 0.2)))]
+    jobs = [library_job(sc, cfg, KernelConfig()) for sc in scenes]
+    queue = libs.prefetch(jobs + jobs[:1], workers=2)
+    lib = libs.load_for(*jobs[1])  # most likely still building: waits for it
+    assert queue.result(timeout=600) == 2
+    assert (libs.builds, libs.prefetched, libs.loaded) == (0, 2, 1) and libs.prefetch_seconds > 0
+    assert libs.load_for(*jobs[0]) is not lib and (libs.builds, libs.loaded) == (0, 2)
+    # A key still waiting its turn (one worker, busy with the first) is
+    # taken out of the queue and built by the load that needs it.
+    later = [library_job(tt.sdf.union(tt.sdf.ground_plane(), shape), cfg, KernelConfig())
+             for shape in (tt.sdf.torus(), tt.sdf.capsule((-0.2, 0.3, 0.0), (0.2, 0.3, 0.0), 0.1),
+                           tt.sdf.cylinder(radius=0.2, half_height=0.3))]
+    queue = libs.prefetch(later, workers=1)
+    libs.load_for(*later[2])
+    assert queue.result(timeout=600) + libs.builds == 3 and libs.builds >= 1
+    scene = scenes[1]
+    uni = pack_uniforms(tt.Camera.reference(), tt.reference_light(), tt.reference_material(), cfg.ray_mode)
+    uni[27] = cfg.shadow.k
+    prm = scene_param_vector(scene)
+    out = [np.empty((3, 24, 32), np.float32)] + [np.empty((24, 32), np.float32) for _ in range(3)]
+    uni_np, prm_np = uni.numpy(), prm.numpy()
+    assert lib.sdf3d_render_fwd_host(uni_np.ctypes.data, prm_np.ctypes.data, *(o.ctypes.data for o in out), 24,
+                                     32) == 0
+    check_planes([torch.from_numpy(o) for o in out], render_kernel_forward_plain(scene, prm, uni, cfg),
+                 cfg.march.max_distance)
